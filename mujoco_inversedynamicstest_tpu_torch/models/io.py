@@ -1,0 +1,312 @@
+"""Host-side model pipeline of the PyTorch port.
+
+Counterpart of ``mujoco_inversedynamicstest_tpu/models/io.py``.  MJCF is
+compiled by the ``mujoco`` package (imported only inside ``load_model``);
+``put_model`` converts either a ``mujoco.MjModel`` or a *model snapshot* —
+an ``.npz`` of exactly the MjModel fields ``put_model`` reads, written by
+``save_model_snapshot`` — into the port's ``Model``.  The snapshot lets the
+port run where ``mujoco`` is not installed.
+
+``validate_model`` refuses, at load time, every feature the port has not
+ported yet, the way the JAX package's ``validate_model`` refuses what the
+JAX engine cannot simulate.
+"""
+
+from __future__ import annotations
+
+import os
+from collections.abc import Mapping
+from pathlib import Path
+
+import numpy as np
+import torch
+
+from mujoco_inversedynamicstest_tpu_torch.models.types import (
+    BiasType,
+    ConeType,
+    Data,
+    DynType,
+    EnableBit,
+    GainType,
+    IntegratorType,
+    JointType,
+    Model,
+    Option,
+    SolverType,
+    TreeLayout,
+    TrnType,
+)
+
+# MjModel array fields read by put_model / validate_model
+_ARRAY_FIELDS = (
+    "body_pos", "body_quat", "body_ipos", "body_iquat", "body_mass",
+    "body_inertia", "body_gravcomp", "body_invweight0", "body_parentid",
+    "body_rootid", "body_weldid", "body_jntadr", "body_jntnum",
+    "body_dofadr", "body_dofnum",
+    "jnt_pos", "jnt_axis", "jnt_stiffness", "jnt_range", "jnt_margin",
+    "jnt_solref", "jnt_solimp", "jnt_type", "jnt_qposadr", "jnt_dofadr",
+    "jnt_limited", "jnt_actfrclimited", "jnt_actgravcomp",
+    "dof_armature", "dof_damping", "dof_invweight0", "dof_frictionloss",
+    "dof_bodyid", "dof_jntid", "dof_parentid",
+    "geom_pos", "geom_quat", "geom_size", "geom_friction", "geom_margin",
+    "geom_gap", "geom_solref", "geom_solimp", "geom_solmix", "geom_type",
+    "geom_bodyid", "geom_contype", "geom_conaffinity", "geom_condim",
+    "geom_priority", "exclude_signature",
+    "actuator_gear", "actuator_ctrlrange", "actuator_forcerange",
+    "actuator_gainprm", "actuator_trnid", "actuator_trntype",
+    "actuator_dyntype", "actuator_gaintype", "actuator_biastype",
+    "actuator_ctrllimited", "actuator_forcelimited",
+    "qpos0", "qpos_spring",
+)
+_SIZE_FIELDS = (
+    "nq", "nv", "nu", "na", "nbody", "njnt", "ngeom", "nmocap", "neq",
+    "ntendon", "nsensor", "nflex", "npair", "nplugin",
+)
+_OPT_FIELDS = (
+    "timestep", "gravity", "wind", "density", "viscosity", "impratio",
+    "tolerance", "ls_tolerance", "integrator", "cone", "solver", "iterations",
+    "ls_iterations", "noslip_iterations", "disableflags", "enableflags",
+)
+# MJX-convention <numeric> customs (contact budgets)
+_BUDGET_NUMERICS = ("max_contact_points", "max_geom_pairs")
+
+
+def _numeric_custom(mjm, name: str) -> int:
+  """Value of a ``<numeric>`` custom by name, -1 when absent."""
+  names = bytes(mjm.names)
+  for i in range(mjm.nnumeric):
+    adr = int(mjm.name_numericadr[i])
+    if names[adr:names.index(b"\0", adr)].decode() == name:
+      return int(mjm.numeric_data[mjm.numeric_adr[i]])
+  return -1
+
+
+def _snapshot_arrays(mjm) -> dict[str, np.ndarray]:
+  """The MjModel fields put_model reads, as numpy arrays."""
+  out = {f: np.array(getattr(mjm, f)) for f in _ARRAY_FIELDS}
+  out.update({f: np.array(int(getattr(mjm, f))) for f in _SIZE_FIELDS})
+  out.update({f"opt_{f}": np.array(getattr(mjm.opt, f)) for f in _OPT_FIELDS})
+  out["stat_meaninertia"] = np.array(mjm.stat.meaninertia)
+  out.update({f: np.array(_numeric_custom(mjm, f)) for f in _BUDGET_NUMERICS})
+  return out
+
+
+def save_model_snapshot(mjm, path) -> None:
+  """Writes the MjModel fields ``put_model`` reads to an ``.npz``."""
+  np.savez(path, **_snapshot_arrays(mjm))
+
+
+def _source_arrays(src) -> dict[str, np.ndarray]:
+  if isinstance(src, (str, os.PathLike)):
+    with np.load(src, allow_pickle=False) as z:
+      return {k: z[k] for k in z.files}
+  if isinstance(src, Mapping):
+    return {k: np.asarray(v) for k, v in src.items()}
+  return _snapshot_arrays(src)
+
+
+def validate_model(f: Mapping) -> None:
+  """Raises NotImplementedError for every feature the port has not ported.
+
+  ``f``: the snapshot arrays of a model (see ``save_model_snapshot``).
+  """
+
+  def bad(msg):
+    raise NotImplementedError(f"unsupported by the PyTorch port: {msg}")
+
+  for jt in f["jnt_type"]:
+    JointType(int(jt))
+  for name in ("nmocap", "neq", "ntendon", "nsensor", "nflex", "npair",
+               "nplugin", "na"):
+    if int(f[name]):
+      bad(f"{name} = {int(f[name])}")
+  for name in _BUDGET_NUMERICS:
+    if int(f[name]) > 0:
+      bad(f"contact budget <numeric> {name}")
+  if int(f["opt_integrator"]) != IntegratorType.EULER:
+    bad(f"integrator {IntegratorType(int(f['opt_integrator'])).name}")
+  if int(f["opt_solver"]) != SolverType.NEWTON:
+    bad(f"solver {SolverType(int(f['opt_solver'])).name}")
+  if int(f["opt_cone"]) != ConeType.PYRAMIDAL:
+    bad("elliptic friction cone")
+  if int(f["opt_noslip_iterations"]):
+    bad("noslip solver")
+  enable = int(f["opt_enableflags"]) & ~int(EnableBit.INVDISCRETE)
+  if enable:
+    bad(f"enable flags {enable:#x}")
+  if (float(f["opt_density"]) > 0 or float(f["opt_viscosity"]) > 0
+      or np.any(f["opt_wind"] != 0)):
+    bad("fluid forces")
+  if np.any(f["dof_frictionloss"] > 0):
+    bad("dof frictionloss")
+  limited = f["jnt_limited"].astype(bool)
+  if np.any(limited & (f["jnt_type"] == JointType.BALL)):
+    bad("ball joint limits")
+  if np.any(f["jnt_actfrclimited"]) or np.any(f["jnt_actgravcomp"]):
+    bad("joint-level actuator force limits / actuator gravcomp")
+  jtype_of = f["jnt_type"][np.maximum(f["actuator_trnid"][:, 0], 0)]
+  for i in range(int(f["nu"])):
+    if int(f["actuator_trntype"][i]) != TrnType.JOINT or int(jtype_of[i]) not in (
+        JointType.HINGE, JointType.SLIDE):
+      bad("actuator transmission other than JOINT on a hinge or slide")
+    if int(f["actuator_dyntype"][i]) != DynType.NONE:
+      bad("actuator activation dynamics")
+    if int(f["actuator_gaintype"][i]) != GainType.FIXED:
+      bad("actuator gain other than FIXED")
+    if int(f["actuator_biastype"][i]) != BiasType.NONE:
+      bad("actuator bias")
+
+
+def build_tree_layout(body_parentid, body_jntnum, dof_parentid, body_dofadr,
+                      body_dofnum) -> TreeLayout:
+  """Level-wise tree tables (see the JAX ``build_tree_layout``)."""
+  nbody, nv = len(body_parentid), len(dof_parentid)
+  depth = np.zeros(nbody, dtype=np.int32)
+  for i in range(1, nbody):
+    depth[i] = depth[body_parentid[i]] + 1
+  body_levels = tuple(
+      np.nonzero(depth == lvl)[0].astype(np.int32)
+      for lvl in range(1, int(depth.max(initial=0)) + 1))
+  level_max_jnts = tuple(
+      int(body_jntnum[b].max()) if len(b) else 0 for b in body_levels)
+
+  ancestor_mask = np.zeros((nv, nv), dtype=bool)
+  for i in range(nv):
+    j = i
+    while j != -1:
+      ancestor_mask[i, j] = True
+      j = dof_parentid[j]
+
+  body_dof_mask = np.zeros((nbody, nv), dtype=bool)
+  for b in range(nbody):
+    a = b
+    while a != 0:
+      body_dof_mask[b, body_dofadr[a]:body_dofadr[a] + body_dofnum[a]] = True
+      a = body_parentid[a]
+  return TreeLayout(body_levels=body_levels, level_max_jnts=level_max_jnts,
+                    ancestor_mask=ancestor_mask, body_dof_mask=body_dof_mask)
+
+
+def put_model(src, device="cpu", dtype=torch.float64) -> Model:
+  """Builds the port's ``Model`` from a ``mujoco.MjModel``, a snapshot
+  ``.npz`` path, or a mapping of snapshot arrays."""
+  f = _source_arrays(src)
+  validate_model(f)
+  t = lambda name: torch.as_tensor(np.asarray(f[name], np.float64),
+                                   dtype=dtype, device=device)
+  i = lambda name: np.asarray(f[name]).astype(np.int64)
+  opt = Option(
+      timestep=float(f["opt_timestep"]),
+      gravity=t("opt_gravity"),
+      impratio=float(f["opt_impratio"]),
+      tolerance=float(f["opt_tolerance"]),
+      ls_tolerance=float(f["opt_ls_tolerance"]),
+      integrator=int(f["opt_integrator"]),
+      cone=int(f["opt_cone"]),
+      solver=int(f["opt_solver"]),
+      iterations=int(f["opt_iterations"]),
+      ls_iterations=int(f["opt_ls_iterations"]),
+      disableflags=int(f["opt_disableflags"]),
+      enableflags=int(f["opt_enableflags"]),
+  )
+  tree = build_tree_layout(i("body_parentid"), i("body_jntnum"),
+                           i("dof_parentid"), i("body_dofadr"),
+                           i("body_dofnum"))
+  float_fields = (
+      "body_pos", "body_quat", "body_ipos", "body_iquat", "body_mass",
+      "body_inertia", "body_gravcomp", "body_invweight0",
+      "jnt_pos", "jnt_axis", "jnt_stiffness", "jnt_range", "jnt_margin",
+      "jnt_solref", "jnt_solimp",
+      "dof_armature", "dof_damping", "dof_invweight0",
+      "geom_pos", "geom_quat", "geom_size", "geom_friction", "geom_margin",
+      "geom_gap", "geom_solref", "geom_solimp", "geom_solmix",
+      "actuator_gear", "actuator_ctrlrange", "actuator_forcerange",
+      "actuator_gainprm", "qpos0", "qpos_spring",
+  )
+  int_fields = (
+      "body_parentid", "body_rootid", "body_weldid", "body_jntadr",
+      "body_jntnum", "body_dofadr", "body_dofnum",
+      "jnt_type", "jnt_qposadr", "jnt_dofadr", "jnt_limited",
+      "dof_bodyid", "dof_jntid", "dof_parentid",
+      "geom_type", "geom_bodyid", "geom_contype", "geom_conaffinity",
+      "geom_condim", "geom_priority", "exclude_signature",
+      "actuator_trnid", "actuator_ctrllimited", "actuator_forcelimited",
+  )
+  m = Model(
+      nq=int(f["nq"]), nv=int(f["nv"]), nu=int(f["nu"]),
+      nbody=int(f["nbody"]), njnt=int(f["njnt"]), ngeom=int(f["ngeom"]),
+      opt=opt, tree=tree,
+      stat_meaninertia=float(f["stat_meaninertia"]),
+      has_dof_damping=bool(np.any(f["dof_damping"] > 0)),
+      has_gravcomp=bool(np.any(f["body_gravcomp"] != 0)),
+      **{k: t(k) for k in float_fields},
+      **{k: i(k) for k in int_fields},
+  )
+  # unsupported geom pairs must fail at load, not at the first step
+  from mujoco_inversedynamicstest_tpu_torch.ops.collision import contact_layout
+
+  contact_layout(m)
+  return m
+
+
+def load_model(path_or_xml: str, device="cpu", dtype=torch.float64) -> Model:
+  """Compiles an MJCF file or XML string with ``mujoco`` and converts it."""
+  import mujoco
+
+  if path_or_xml.lstrip().startswith("<"):
+    mjm = mujoco.MjModel.from_xml_string(path_or_xml)
+  else:
+    mjm = mujoco.MjModel.from_xml_path(str(path_or_xml))
+  return put_model(mjm, device=device, dtype=dtype)
+
+
+def asset_path(name: str) -> Path:
+  """Path of a file in the package's ``assets/`` directory."""
+  return Path(__file__).resolve().parent.parent / "assets" / name
+
+
+def make_data(m: Model, batch: int, device=None, dtype=None) -> Data:
+  """A fleet of ``batch`` lanes in the reset state (``mj_resetData``):
+  qpos = qpos0, every other input zero.  Derived fields are filled by
+  ``forward`` / ``inverse``."""
+  device = m.device if device is None else device
+  dtype = m.dtype if dtype is None else dtype
+  z = lambda *s: torch.zeros((batch,) + s, dtype=dtype, device=device)
+  return Data(
+      time=z(),
+      qpos=m.qpos0.to(device=device, dtype=dtype).expand(batch, m.nq).clone(),
+      qvel=z(m.nv),
+      ctrl=z(m.nu),
+      qfrc_applied=z(m.nv),
+      xfrc_applied=z(m.nbody, 6),
+      qacc_warmstart=z(m.nv),
+      qacc=z(m.nv),
+      warning=torch.zeros((batch, 2), dtype=torch.int32, device=device),
+  )
+
+
+def put_data(m: Model, mjd) -> Data:
+  """A fleet of one lane holding the input state of a ``mujoco.MjData``."""
+  return from_jax_arrays(m, {
+      "time": np.array([mjd.time]),
+      **{k: np.array(getattr(mjd, k))[None] for k in (
+          "qpos", "qvel", "ctrl", "qfrc_applied", "xfrc_applied",
+          "qacc_warmstart", "qacc")},
+  })
+
+
+def from_jax_arrays(m: Model, fields: Mapping[str, np.ndarray]) -> Data:
+  """Builds a fleet ``Data`` from numpy arrays of the JAX package's ``Data``
+  leaves, keyed by field name, each with a leading fleet dimension (stack
+  unbatched leaves with ``x[None]``).  Only input fields are taken: every
+  other field is computed by the port from them."""
+  batch = len(next(iter(fields.values())))
+  d = make_data(m, batch)
+  updates = {}
+  for name, value in fields.items():
+    cur = getattr(d, name, None)
+    if cur is None:
+      raise KeyError(f"{name} is not an input field of Data")
+    updates[name] = torch.as_tensor(np.array(value), dtype=cur.dtype,
+                                    device=cur.device).reshape(cur.shape)
+  return d.replace(**updates)

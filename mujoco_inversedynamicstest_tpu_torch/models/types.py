@@ -1,0 +1,350 @@
+"""Model / Data dataclasses of the PyTorch port.
+
+Counterpart of ``mujoco_inversedynamicstest_tpu/models/types.py``.  The JAX
+package's pytrees become plain dataclasses:
+
+* ``Model`` holds the float parameters the ported slice reads as tensors on
+  the model's device (no batch dimension), and the integer layout tables as
+  host numpy attributes, exactly the split the JAX package makes between
+  pytree leaves and static fields.
+* ``Data`` holds every per-lane quantity as a tensor with an explicit
+  leading fleet dimension ``B`` (``vmap`` written out).
+
+The enums are re-declared here because the JAX module imports jax.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+from typing import Tuple
+
+import numpy as np
+import torch
+
+
+class JointType(enum.IntEnum):
+  """mjtJoint."""
+  FREE = 0
+  BALL = 1
+  SLIDE = 2
+  HINGE = 3
+
+
+class IntegratorType(enum.IntEnum):
+  """mjtIntegrator."""
+  EULER = 0
+  RK4 = 1
+  IMPLICIT = 2
+  IMPLICITFAST = 3
+
+
+class ConeType(enum.IntEnum):
+  """mjtCone."""
+  PYRAMIDAL = 0
+  ELLIPTIC = 1
+
+
+class SolverType(enum.IntEnum):
+  """mjtSolver."""
+  PGS = 0
+  CG = 1
+  NEWTON = 2
+
+
+class GeomType(enum.IntEnum):
+  """mjtGeom."""
+  PLANE = 0
+  HFIELD = 1
+  SPHERE = 2
+  CAPSULE = 3
+  ELLIPSOID = 4
+  CYLINDER = 5
+  BOX = 6
+  MESH = 7
+  SDF = 8
+
+
+class TrnType(enum.IntEnum):
+  """mjtTrn."""
+  JOINT = 0
+  JOINTINPARENT = 1
+  SLIDERCRANK = 2
+  TENDON = 3
+  SITE = 4
+  BODY = 5
+
+
+class DynType(enum.IntEnum):
+  """mjtDyn."""
+  NONE = 0
+
+
+class GainType(enum.IntEnum):
+  """mjtGain."""
+  FIXED = 0
+
+
+class BiasType(enum.IntEnum):
+  """mjtBias."""
+  NONE = 0
+
+
+class DisableBit(enum.IntFlag):
+  """mjtDisableBit (installed-mujoco layout)."""
+  CONSTRAINT = 1 << 0
+  EQUALITY = 1 << 1
+  FRICTIONLOSS = 1 << 2
+  LIMIT = 1 << 3
+  CONTACT = 1 << 4
+  SPRING = 1 << 5
+  DAMPER = 1 << 6
+  GRAVITY = 1 << 7
+  CLAMPCTRL = 1 << 8
+  WARMSTART = 1 << 9
+  FILTERPARENT = 1 << 10
+  ACTUATION = 1 << 11
+  REFSAFE = 1 << 12
+  SENSOR = 1 << 13
+  MIDPHASE = 1 << 14
+  EULERDAMP = 1 << 15
+  AUTORESET = 1 << 16
+  NATIVECCD = 1 << 17
+  ISLAND = 1 << 18
+
+
+class EnableBit(enum.IntFlag):
+  """mjtEnableBit (installed-mujoco layout)."""
+  OVERRIDE = 1 << 0
+  ENERGY = 1 << 1
+  FWDINV = 1 << 2
+  INVDISCRETE = 1 << 3
+  SLEEP = 1 << 4
+  DIAGEXACT = 1 << 5
+
+
+@dataclasses.dataclass(frozen=True)
+class Option:
+  """Physics options (analog of ``mjOption``); scalars are Python floats."""
+  timestep: float
+  gravity: torch.Tensor       # (3,)
+  impratio: float
+  tolerance: float
+  ls_tolerance: float
+  integrator: int
+  cone: int
+  solver: int
+  iterations: int
+  ls_iterations: int
+  disableflags: int
+  enableflags: int
+
+
+@dataclasses.dataclass(frozen=True)
+class TreeLayout:
+  """Host-side kinematic-tree tables (see the JAX ``TreeLayout``)."""
+  body_levels: Tuple[np.ndarray, ...]
+  level_max_jnts: Tuple[int, ...]
+  ancestor_mask: np.ndarray    # (nv, nv) bool: j ancestor-or-self of i
+  body_dof_mask: np.ndarray    # (nbody, nv) bool: dof j moves body b
+
+
+@dataclasses.dataclass(frozen=True)
+class Model:
+  """Compiled model of the ported slice (analog of ``mjModel``)."""
+  nq: int
+  nv: int
+  nu: int
+  nbody: int
+  njnt: int
+  ngeom: int
+  opt: Option
+  tree: TreeLayout
+
+  body_pos: torch.Tensor           # (nbody, 3)
+  body_quat: torch.Tensor          # (nbody, 4)
+  body_ipos: torch.Tensor          # (nbody, 3)
+  body_iquat: torch.Tensor         # (nbody, 4)
+  body_mass: torch.Tensor          # (nbody,)
+  body_inertia: torch.Tensor       # (nbody, 3)
+  body_gravcomp: torch.Tensor      # (nbody,)
+  body_invweight0: torch.Tensor    # (nbody, 2)
+  body_parentid: np.ndarray
+  body_rootid: np.ndarray
+  body_weldid: np.ndarray
+  body_jntadr: np.ndarray
+  body_jntnum: np.ndarray
+  body_dofadr: np.ndarray
+  body_dofnum: np.ndarray
+
+  jnt_pos: torch.Tensor            # (njnt, 3)
+  jnt_axis: torch.Tensor           # (njnt, 3)
+  jnt_stiffness: torch.Tensor      # (njnt,)
+  jnt_range: torch.Tensor          # (njnt, 2)
+  jnt_margin: torch.Tensor         # (njnt,)
+  jnt_solref: torch.Tensor         # (njnt, 2)
+  jnt_solimp: torch.Tensor         # (njnt, 5)
+  jnt_type: np.ndarray
+  jnt_qposadr: np.ndarray
+  jnt_dofadr: np.ndarray
+  jnt_limited: np.ndarray
+
+  dof_armature: torch.Tensor       # (nv,)
+  dof_damping: torch.Tensor        # (nv,)
+  dof_invweight0: torch.Tensor     # (nv,)
+  dof_bodyid: np.ndarray
+  dof_jntid: np.ndarray
+  dof_parentid: np.ndarray
+
+  geom_pos: torch.Tensor           # (ngeom, 3)
+  geom_quat: torch.Tensor          # (ngeom, 4)
+  geom_size: torch.Tensor          # (ngeom, 3)
+  geom_friction: torch.Tensor      # (ngeom, 3)
+  geom_margin: torch.Tensor        # (ngeom,)
+  geom_gap: torch.Tensor           # (ngeom,)
+  geom_solref: torch.Tensor        # (ngeom, 2)
+  geom_solimp: torch.Tensor        # (ngeom, 5)
+  geom_solmix: torch.Tensor        # (ngeom,)
+  geom_type: np.ndarray
+  geom_bodyid: np.ndarray
+  geom_contype: np.ndarray
+  geom_conaffinity: np.ndarray
+  geom_condim: np.ndarray
+  geom_priority: np.ndarray
+  exclude_signature: np.ndarray
+
+  actuator_gear: torch.Tensor      # (nu, 6)
+  actuator_ctrlrange: torch.Tensor  # (nu, 2)
+  actuator_forcerange: torch.Tensor  # (nu, 2)
+  actuator_gainprm: torch.Tensor   # (nu, 10)
+  actuator_trnid: np.ndarray
+  actuator_ctrllimited: np.ndarray
+  actuator_forcelimited: np.ndarray
+
+  qpos0: torch.Tensor              # (nq,)
+  qpos_spring: torch.Tensor        # (nq,)
+  stat_meaninertia: float
+  has_dof_damping: bool
+  has_gravcomp: bool
+
+  # derived host tables and device constants, computed once per model
+  _memo: dict = dataclasses.field(default_factory=dict, repr=False,
+                                  compare=False)
+
+  @property
+  def dtype(self) -> torch.dtype:
+    return self.qpos0.dtype
+
+  @property
+  def device(self) -> torch.device:
+    return self.qpos0.device
+
+  def memo(self, key, fn):
+    """``fn()``, computed on first use and kept for the model's lifetime."""
+    if key not in self._memo:
+      self._memo[key] = fn()
+    return self._memo[key]
+
+  def const(self, a) -> torch.Tensor:
+    """Device copy of a host numpy constant (an index table, a mask, a
+    coefficient array), made once.  Indexing a CUDA tensor with a host
+    array would copy it to the card, and wait for the card, on every use."""
+    a = np.asarray(a)
+    if a.dtype.kind in "iu":
+      a = a.astype(np.int64)
+    dtype = self.dtype if a.dtype.kind == "f" else None
+    return self.memo(("const", a.dtype.str, a.shape, a.tobytes()),
+                     lambda: torch.as_tensor(a, dtype=dtype,
+                                             device=self.device))
+
+
+@dataclasses.dataclass
+class Contact:
+  """Static-shape contact set, batched (analog of ``mjContact``).
+
+  Every slot exists every step; ``dist >= includemargin`` marks it inactive.
+  """
+  dist: torch.Tensor           # (B, ncon)
+  pos: torch.Tensor            # (B, ncon, 3)
+  frame: torch.Tensor          # (B, ncon, 3, 3) rows = [normal, tan1, tan2]
+  includemargin: torch.Tensor  # (ncon,)
+  friction: torch.Tensor       # (ncon, 5)
+  solref: torch.Tensor         # (ncon, 2)
+  solimp: torch.Tensor         # (ncon, 5)
+  geom1: np.ndarray            # (ncon,)
+  geom2: np.ndarray            # (ncon,)
+
+
+@dataclasses.dataclass
+class Data:
+  """Per-lane state + workspace (analog of ``mjData``), batch-first.
+
+  Functions of the port return a new ``Data`` (``dataclasses.replace``) and
+  never write into the tensors of the one they were given.
+  """
+  time: torch.Tensor            # (B,)
+  qpos: torch.Tensor            # (B, nq)
+  qvel: torch.Tensor            # (B, nv)
+  ctrl: torch.Tensor            # (B, nu)
+  qfrc_applied: torch.Tensor    # (B, nv)
+  xfrc_applied: torch.Tensor    # (B, nbody, 6)
+  qacc_warmstart: torch.Tensor  # (B, nv)
+  qacc: torch.Tensor            # (B, nv)
+  warning: torch.Tensor         # (B, 2) int32: bad qpos / bad qvel resets
+
+  # position stage
+  xpos: torch.Tensor = None        # (B, nbody, 3)
+  xquat: torch.Tensor = None       # (B, nbody, 4)
+  xmat: torch.Tensor = None        # (B, nbody, 3, 3)
+  xipos: torch.Tensor = None       # (B, nbody, 3)
+  ximat: torch.Tensor = None       # (B, nbody, 3, 3)
+  xanchor: torch.Tensor = None     # (B, njnt, 3)
+  xaxis: torch.Tensor = None       # (B, njnt, 3)
+  geom_xpos: torch.Tensor = None   # (B, ngeom, 3)
+  geom_xmat: torch.Tensor = None   # (B, ngeom, 3, 3)
+  subtree_com: torch.Tensor = None  # (B, nbody, 3)
+  cinert: torch.Tensor = None      # (B, nbody, 10)
+  cdof: torch.Tensor = None        # (B, nv, 6)
+  crb: torch.Tensor = None         # (B, nbody, 10)
+  qM: torch.Tensor = None          # (B, nv, nv)
+  qLD: torch.Tensor = None         # (B, nv, nv) lower Cholesky factor of qM
+  actuator_length: torch.Tensor = None  # (B, nu)
+  actuator_moment: torch.Tensor = None  # (B, nu, nv)
+  contact: Contact = None
+  efc_J: torch.Tensor = None       # (B, nefc, nv)
+  efc_pos: torch.Tensor = None     # (B, nefc)
+  efc_margin: torch.Tensor = None  # (B, nefc)
+  efc_D: torch.Tensor = None       # (B, nefc)
+  efc_R: torch.Tensor = None       # (B, nefc)
+  efc_KBIP: torch.Tensor = None    # (B, nefc, 4)
+  efc_active: torch.Tensor = None  # (B, nefc) bool
+
+  # velocity stage
+  cvel: torch.Tensor = None        # (B, nbody, 6)
+  cdof_dot: torch.Tensor = None    # (B, nv, 6)
+  actuator_velocity: torch.Tensor = None  # (B, nu)
+  qfrc_spring: torch.Tensor = None  # (B, nv)
+  qfrc_damper: torch.Tensor = None  # (B, nv)
+  qfrc_gravcomp: torch.Tensor = None  # (B, nv)
+  qfrc_passive: torch.Tensor = None  # (B, nv)
+  qfrc_bias: torch.Tensor = None   # (B, nv)
+  efc_aref: torch.Tensor = None    # (B, nefc)
+
+  # actuation / acceleration / constraint
+  actuator_force: torch.Tensor = None  # (B, nu)
+  qfrc_actuator: torch.Tensor = None   # (B, nv)
+  qfrc_smooth: torch.Tensor = None     # (B, nv)
+  qacc_smooth: torch.Tensor = None     # (B, nv)
+  efc_force: torch.Tensor = None       # (B, nefc)
+  qfrc_constraint: torch.Tensor = None  # (B, nv)
+  qfrc_inverse: torch.Tensor = None    # (B, nv)
+  solver_niter: torch.Tensor = None    # (B,) int32
+  solver_stat: torch.Tensor = None     # (B, stat_cap, 3)
+  solver_fwdinv: torch.Tensor = None   # (B, 2)
+
+  @property
+  def batch(self) -> int:
+    return self.qpos.shape[0]
+
+  def replace(self, **kw) -> "Data":
+    return dataclasses.replace(self, **kw)

@@ -1,0 +1,332 @@
+"""Smooth dynamics: kinematics, CoM frames, CRB, mass-matrix factor, RNE.
+
+Port of ``mujoco_inversedynamicstest_tpu/ops/smooth.py``.  The JAX package's
+level-wise masked vectorization carries over unchanged: bodies at equal tree
+depth are updated together, joint-type variation is handled by selects on
+static masks, and the mass matrix is one dense ``(nv, 6) @ (6, nv)`` product
+masked by the ancestor pattern.  Every ``Data`` tensor has a leading fleet
+dimension ``B``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from mujoco_inversedynamicstest_tpu_torch.models.types import (
+    Data,
+    DisableBit,
+    JointType,
+    Model,
+)
+from mujoco_inversedynamicstest_tpu_torch.ops import linalg, math
+
+
+def _quat_adr(m: Model) -> np.ndarray:
+  """qpos addresses of the quaternion segments (ball and free joints)."""
+  jt = m.jnt_type
+  return np.concatenate([m.jnt_qposadr[jt == JointType.BALL],
+                         m.jnt_qposadr[jt == JointType.FREE] + 3])
+
+
+def kinematics(m: Model, d: Data) -> Data:
+  """Forward kinematics (``mj_kinematics``): body, joint, geom frames.
+
+  Normalizes the quaternion segments of qpos like the reference.
+  """
+  qpos = d.qpos.clone()
+  quat_adr = _quat_adr(m)
+  if quat_adr.size:
+    idx = m.const(quat_adr[:, None] + np.arange(4)[None, :])
+    qpos[:, idx] = math.normalize_quat(qpos[:, idx])
+
+  bsz, nb = qpos.shape[0], m.nbody
+  xpos = qpos.new_zeros((bsz, nb, 3))
+  xquat = qpos.new_zeros((bsz, nb, 4))
+  xquat[..., 0] = 1.0
+  xanchor = qpos.new_zeros((bsz, m.njnt, 3))
+  xaxis = qpos.new_zeros((bsz, m.njnt, 3))
+  up = qpos.new_zeros(3)
+  up[2] = 1.0
+
+  for lvl, bodies in enumerate(m.tree.body_levels):
+    par = m.const(m.body_parentid[bodies])
+    b = m.const(bodies)
+    pos = xpos[:, par] + math.rotate(m.body_pos[b], xquat[:, par])
+    quat = math.quat_mul(xquat[:, par], m.body_quat[b])
+
+    for k in range(m.tree.level_max_jnts[lvl]):
+      valid_np = k < m.body_jntnum[bodies]
+      jids = np.where(valid_np, m.body_jntadr[bodies] + k, 0)
+      jtype = m.jnt_type[jids]
+      win = np.clip(m.jnt_qposadr[jids][:, None] + np.arange(7)[None, :], 0,
+                    m.nq - 1)
+      qwin = qpos[:, m.const(win)]                  # (B, L, 7)
+      q0win = m.qpos0[m.const(win)]                 # (L, 7)
+      jpos = m.jnt_pos[m.const(jids)]
+      jaxis = m.jnt_axis[m.const(jids)]
+
+      anchor_world = math.rotate(jpos, quat) + pos
+      axis_world = math.rotate(jaxis, quat)
+
+      is_free = m.const((jtype == JointType.FREE)[:, None])
+      is_ball = m.const((jtype == JointType.BALL)[:, None])
+      is_hinge = m.const((jtype == JointType.HINGE)[:, None])
+
+      free_pos = qwin[..., 0:3]
+      free_quat = math.normalize_quat(qwin[..., 3:7])
+      ball_quat = math.quat_mul(quat, math.normalize_quat(qwin[..., 0:4]))
+      ball_pos = anchor_world - math.rotate(jpos, ball_quat)
+      angle = qwin[..., 0] - q0win[:, 0]
+      hinge_quat = math.quat_mul(quat, math.axis_angle_quat(jaxis, angle))
+      hinge_pos = anchor_world - math.rotate(jpos, hinge_quat)
+      slide_pos = pos + axis_world * angle[..., None]
+
+      new_pos = torch.where(is_free, free_pos, torch.where(
+          is_ball, ball_pos, torch.where(is_hinge, hinge_pos, slide_pos)))
+      new_quat = torch.where(is_free, free_quat, torch.where(
+          is_ball, ball_quat, torch.where(is_hinge, hinge_quat, quat)))
+      anchor = torch.where(is_free, free_pos, anchor_world)
+      axis = torch.where(is_free, up, axis_world)
+
+      vmask = m.const(valid_np[:, None])
+      pos = torch.where(vmask, new_pos, pos)
+      quat = torch.where(vmask, new_quat, quat)
+      sel = np.nonzero(valid_np)[0]
+      xanchor[:, m.const(jids[sel])] = anchor[:, m.const(sel)]
+      xaxis[:, m.const(jids[sel])] = axis[:, m.const(sel)]
+
+    xpos[:, b] = pos
+    xquat[:, b] = quat
+
+  xmat = math.quat_to_mat(xquat)
+  xipos, ximat = math.local_to_global(xpos, xquat, m.body_ipos, m.body_iquat)
+  gb = m.const(m.geom_bodyid)
+  geom_xpos, geom_xmat = math.local_to_global(
+      xpos[:, gb], xquat[:, gb], m.geom_pos, m.geom_quat)
+  return d.replace(qpos=qpos, xpos=xpos, xquat=xquat, xmat=xmat,
+                   xanchor=xanchor, xaxis=xaxis, xipos=xipos, ximat=ximat,
+                   geom_xpos=geom_xpos, geom_xmat=geom_xmat)
+
+
+def tree_sum_up(m: Model, x: torch.Tensor) -> torch.Tensor:
+  """Subtree sums of per-body quantities ``x`` (B, nbody, ...): deepest
+  level first, children add into their parents."""
+  x = x.clone()
+  for bodies in reversed(m.tree.body_levels):
+    x.index_add_(1, m.const(m.body_parentid[bodies]), x[:, m.const(bodies)])
+  return x
+
+
+def com_pos(m: Model, d: Data) -> Data:
+  """Subtree CoM, CoM-frame inertias and dof axes (``mj_comPos``)."""
+  mass = m.body_mass
+  mass_pos = tree_sum_up(m, d.xipos * mass[:, None])
+  mass_sum = tree_sum_up(m, mass.expand(d.batch, m.nbody))
+  com = mass_pos / torch.clamp(mass_sum, min=math.MINVAL)[..., None]
+  subtree_com = torch.where((mass_sum < math.MINVAL)[..., None], d.xipos, com)
+
+  # cinert: body inertia rotated to world, parallel-axis shift to the root
+  # subtree CoM, packed as [triu(I), m * off, m]
+  off = d.xipos - subtree_com[:, m.const(m.body_rootid)]
+  rot = d.ximat
+  i_world = (rot * m.body_inertia[:, None, :]) @ rot.transpose(-1, -2)
+  off2 = torch.sum(off * off, dim=-1)
+  eye = torch.eye(3, dtype=off.dtype, device=off.device)
+  shift = (off2[..., None, None] * eye - off[..., :, None] * off[..., None, :]
+           ) * mass[:, None, None]
+  i_tot = i_world + shift
+  r_idx = m.const(np.array([0, 1, 2, 0, 0, 1]))
+  c_idx = m.const(np.array([0, 1, 2, 1, 2, 2]))
+  cinert = torch.cat([i_tot[..., r_idx, c_idx], off * mass[:, None],
+                      mass[:, None].expand(d.batch, m.nbody, 1)], dim=-1)
+
+  # cdof: all nv dofs at once, by dof category
+  nv = m.nv
+  dof_jnt = m.dof_jntid
+  jtype = m.jnt_type[dof_jnt]
+  dof_off = np.arange(nv) - m.jnt_dofadr[dof_jnt]
+  anchor = d.xanchor[:, m.const(dof_jnt)]
+  offset = subtree_com[:, m.const(m.body_rootid[m.dof_bodyid])] - anchor
+  xaxis = d.xaxis[:, m.const(dof_jnt)]
+  col = np.clip(np.where(jtype == JointType.FREE, dof_off - 3, dof_off), 0, 2)
+  # column `col` of the body rotation = row `col` of its transpose
+  xmat_t = d.xmat[:, m.const(m.dof_bodyid)].transpose(-1, -2)
+  rot_axis = xmat_t[:, m.const(np.arange(nv)), m.const(col)]
+
+  is_free_trans = (jtype == JointType.FREE) & (dof_off < 3)
+  is_rot = ((jtype == JointType.FREE) & (dof_off >= 3)) | (
+      jtype == JointType.BALL)
+  is_hinge = jtype == JointType.HINGE
+  is_slide = jtype == JointType.SLIDE
+  e_trans = m.const(np.eye(3)[np.clip(dof_off, 0, 2)])
+
+  rot_m = m.const(is_rot[:, None])
+  ang = torch.where(rot_m, rot_axis,
+                    torch.where(m.const(is_hinge[:, None]), xaxis, 0.0))
+  lin_axis = torch.where(rot_m, rot_axis, xaxis)
+  lin = torch.where(
+      m.const(is_free_trans[:, None]), e_trans,
+      torch.where(m.const(is_slide[:, None]), xaxis,
+                  torch.where(m.const((is_rot | is_hinge)[:, None]),
+                              math.cross(lin_axis, offset), 0.0)))
+  cdof = torch.cat([ang, lin], dim=-1)
+  return d.replace(subtree_com=subtree_com, cinert=cinert, cdof=cdof)
+
+
+def crb(m: Model, d: Data) -> Data:
+  """Composite-rigid-body mass matrix, dense (``mj_crb``)."""
+  crb_body = tree_sum_up(m, d.cinert)
+  crb_body[:, 0] = 0.0
+  buf = math.inert_mul(crb_body[:, m.const(m.dof_bodyid)], d.cdof)
+  full = buf @ d.cdof.transpose(1, 2)
+  lower = torch.where(m.const(m.tree.ancestor_mask), full, 0.0)
+  qm = lower + lower.transpose(1, 2) - torch.diag_embed(
+      torch.diagonal(lower, dim1=1, dim2=2))
+  return d.replace(crb=crb_body, qM=qm + torch.diag(m.dof_armature))
+
+
+def _dof_blocks(m: Model):
+  """Independent dof blocks (root subtrees of the dof forest) grouped by
+  size, ``{size: (nblk,) starts}``; None for a single mechanism."""
+  nv = m.nv
+  if nv < 2:
+    return None
+  par = m.dof_parentid
+  root = np.arange(nv)
+  for k in range(nv):
+    root[k] = root[par[k]] if par[k] >= 0 else k
+  starts = np.nonzero(np.concatenate([[True], root[1:] != root[:-1]]))[0]
+  if len(starts) < 2:
+    return None
+  sizes = np.diff(np.concatenate([starts, [nv]]))
+  for s, sz in zip(starts, sizes):
+    if not np.all(root[s:s + sz] == root[s]):
+      return None
+  groups = {}
+  for s, sz in zip(starts, sizes):
+    groups.setdefault(int(sz), []).append(int(s))
+  return {sz: np.asarray(ss) for sz, ss in groups.items()}
+
+
+def factor_m(m: Model, d: Data) -> Data:
+  """Cholesky factor of qM (``mj_factorM``), through ``linalg.chol_factor``.
+
+  Scenes with several independent mechanisms factor each same-size group of
+  diagonal blocks as one batch of small matrices.
+  """
+  blocks = m.memo("dof_blocks", lambda: _dof_blocks(m))
+  if blocks is None:
+    return d.replace(qLD=linalg.chol_factor(d.qM))
+  bsz = d.batch
+  qld = torch.zeros_like(d.qM)
+  for sz, starts in sorted(blocks.items()):
+    idx = starts[:, None] + np.arange(sz)[None]               # (nblk, sz)
+    rows, cols = m.const(idx[:, :, None]), m.const(idx[:, None, :])
+    sub = d.qM[:, rows, cols].reshape(-1, sz, sz)
+    qld[:, rows, cols] = linalg.chol_factor(sub).reshape(bsz, -1, sz, sz)
+  return d.replace(qLD=qld)
+
+
+def solve_m(m: Model, d: Data, x: torch.Tensor) -> torch.Tensor:
+  """Solves M y = x with the factor in ``d.qLD``; x is (B, nv[, k])."""
+  blocks = m.memo("dof_blocks", lambda: _dof_blocks(m))
+  if blocks is None:
+    return linalg.chol_solve(d.qLD, x)
+  bsz = d.batch
+  y = torch.zeros_like(x)
+  for sz, starts in sorted(blocks.items()):
+    idx = starts[:, None] + np.arange(sz)[None]
+    rows, cols = m.const(idx[:, :, None]), m.const(idx[:, None, :])
+    lsub = d.qLD[:, rows, cols].reshape(-1, sz, sz)
+    xi = m.const(idx)
+    rhs = x[:, xi].reshape((-1, sz) + x.shape[2:])
+    y[:, xi] = linalg.chol_solve(lsub, rhs).reshape(
+        (bsz, -1, sz) + x.shape[2:])
+  return y
+
+
+def mul_m(m: Model, d: Data, x: torch.Tensor) -> torch.Tensor:
+  """M @ x for x of shape (B, nv) (``mj_mulM``)."""
+  return math.matvec(d.qM, x)
+
+
+def com_vel(m: Model, d: Data) -> Data:
+  """Body CoM-frame velocities and dof-axis rates (``mj_comVel``).
+
+  Within a body, joints apply in slot order with the reference's update
+  rules: hinge/slide/ball dofs see the velocity before the joint; free
+  joints apply translation first, and their rotation dofs see the velocity
+  after it.
+  """
+  bsz, nb, nv = d.batch, m.nbody, m.nv
+  cvel = d.qvel.new_zeros((bsz, nb, 6))
+  cdof_dot = d.qvel.new_zeros((bsz, nv, 6))
+  slot6 = np.arange(6)[None, :]
+
+  for lvl, bodies in enumerate(m.tree.body_levels):
+    vel = cvel[:, m.const(m.body_parentid[bodies])]
+    for k in range(m.tree.level_max_jnts[lvl]):
+      valid_np = k < m.body_jntnum[bodies]
+      jids = np.where(valid_np, m.body_jntadr[bodies] + k, 0)
+      jtype = m.jnt_type[jids]
+      width = np.array([6, 3, 1, 1])[jtype]
+      win = np.clip(m.jnt_dofadr[jids][:, None] + slot6, 0, nv - 1)
+      wmask = (slot6 < width[:, None]) & valid_np[:, None]
+      is_free = (jtype == JointType.FREE)[:, None]
+
+      cd = d.cdof[:, m.const(win)]                          # (B, L, 6, 6)
+      qv = d.qvel[:, m.const(win)] * m.const(wmask.astype(float))
+      trans_sel = m.const((is_free & (slot6 < 3)).astype(float))
+      vel_mid = vel + torch.einsum("blw,blwc->blc", qv * trans_sel, cd)
+
+      cdd_pre = math.motion_cross(vel[:, :, None, :], cd)
+      cdd_mid = math.motion_cross(vel_mid[:, :, None, :], cd)
+      cdd = torch.where(m.const((is_free & (slot6 >= 3))[..., None]),
+                        cdd_mid, cdd_pre)
+      cdd = torch.where(m.const((is_free & (slot6 < 3))[..., None]), 0.0, cdd)
+
+      rows, cols = np.nonzero(wmask)
+      cdof_dot[:, m.const(win[rows, cols])] = cdd[:, m.const(rows),
+                                                  m.const(cols)]
+      vel = vel + torch.einsum("blw,blwc->blc", qv, cd)
+    cvel[:, m.const(bodies)] = vel
+
+  return d.replace(cvel=cvel, cdof_dot=cdof_dot)
+
+
+def transmission(m: Model, d: Data) -> Data:
+  """Actuator lengths and dense (nu, nv) moments (``mj_transmission``) for
+  joint transmissions on hinges and slides, the kinds ``put_model``
+  accepts."""
+  if not m.nu:
+    return d
+  jid = m.actuator_trnid[:, 0]
+  g0 = m.actuator_gear[:, 0]
+  length = d.qpos[:, m.const(m.jnt_qposadr[jid])] * g0
+  moment = d.qpos.new_zeros((d.batch, m.nu, m.nv))
+  moment[:, m.const(np.arange(m.nu)), m.const(m.jnt_dofadr[jid])] = g0
+  return d.replace(actuator_length=length, actuator_moment=moment)
+
+
+def rne(m: Model, d: Data, flg_acc: bool = False) -> torch.Tensor:
+  """Recursive Newton-Euler: C(qpos, qvel) [+ M qacc] -> (B, nv)."""
+  bsz, nb = d.batch, m.nbody
+  dof_body = m.const(m.dof_bodyid)
+  contrib = d.cdof_dot * d.qvel[..., None]
+  if flg_acc:
+    contrib = contrib + d.cdof * d.qacc[..., None]
+  body_contrib = contrib.new_zeros((bsz, nb, 6)).index_add_(1, dof_body,
+                                                            contrib)
+  cacc = contrib.new_zeros((bsz, nb, 6))
+  if not m.opt.disableflags & DisableBit.GRAVITY:
+    cacc[:, 0, 3:] = -m.opt.gravity
+  for bodies in m.tree.body_levels:
+    b = m.const(bodies)
+    cacc[:, b] = cacc[:, m.const(m.body_parentid[bodies])] + body_contrib[:, b]
+
+  cfrc = math.inert_mul(d.cinert, cacc) + math.force_cross(
+      d.cvel, math.inert_mul(d.cinert, d.cvel))
+  cfrc[:, 0] = 0.0
+  cfrc = tree_sum_up(m, cfrc)
+  return torch.sum(d.cdof * cfrc[:, dof_body], dim=-1)

@@ -1,0 +1,255 @@
+"""Constraint solver: primal Newton with an exact line search.
+
+Port of the Newton path of ``mujoco_inversedynamicstest_tpu/ops/solver.py``
+(``mj_solNewton``).  The solve minimizes, per lane,
+
+    cost(qacc) = 0.5 (qacc - qacc_smooth)' M (qacc - qacc_smooth)
+                 + sum_i s_i(J_i qacc - aref_i)
+
+The JAX package runs the Newton iterations and the line search as
+``lax.while_loop``s under ``vmap``: every lane keeps iterating until its own
+condition fails, then stays frozen while the others go on.  Here each loop
+runs over the whole fleet with a per-lane ``live`` mask that freezes a lane
+exactly where the vmapped loop would, and the loop ends when no lane is
+live.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from mujoco_inversedynamicstest_tpu_torch.models.types import (
+    Data,
+    DisableBit,
+    Model,
+)
+from mujoco_inversedynamicstest_tpu_torch.ops import constraint, linalg, math
+from mujoco_inversedynamicstest_tpu_torch.ops import smooth
+
+
+def stat_cap(m: Model) -> int:
+  """Length of the per-iteration solver-stat trace."""
+  return max(1, min(int(m.opt.iterations), 32))
+
+
+@dataclasses.dataclass
+class _State:
+  """Solver iterate; every field has the fleet dimension first."""
+  qacc: torch.Tensor
+  Ma: torch.Tensor
+  jaref: torch.Tensor
+  efc_force: torch.Tensor
+  qfrc_constraint: torch.Tensor
+  quad_mask: torch.Tensor
+  cost: torch.Tensor
+  prev_cost: torch.Tensor
+  grad: torch.Tensor
+  mgrad: torch.Tensor
+  search: torch.Tensor
+  niter: torch.Tensor
+  lineslope: torch.Tensor
+  stats: torch.Tensor
+
+
+def _select(live: torch.Tensor, new, old):
+  """Per-lane choice between two states (the batched while-loop carry)."""
+  pick = lambda a, b: torch.where(live.reshape((-1,) + (1,) * (a.ndim - 1)),
+                                  a, b)
+  return type(old)(**{f.name: pick(getattr(new, f.name), getattr(old, f.name))
+                      for f in dataclasses.fields(old)})
+
+
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  return torch.sum(a * b, dim=-1)
+
+
+def _gauss_cost(d: Data, qacc, ma):
+  return 0.5 * _dot(ma - d.qfrc_smooth, qacc - d.qacc_smooth)
+
+
+def _eval_state(m: Model, d: Data, qacc, with_grad: bool) -> _State:
+  ma = smooth.mul_m(m, d, qacc)
+  jaref = math.matvec(d.efc_J, qacc) - d.efc_aref
+  force, ccost, quad = constraint.forces_cost(d, jaref)
+  zero = torch.zeros_like(qacc)
+  st = _State(
+      qacc=qacc, Ma=ma, jaref=jaref, efc_force=force,
+      qfrc_constraint=math.matvec(d.efc_J.transpose(1, 2), force),
+      quad_mask=quad, cost=ccost + _gauss_cost(d, qacc, ma),
+      prev_cost=torch.full_like(ccost, float("inf")),
+      grad=zero, mgrad=zero, search=zero,
+      niter=torch.zeros(d.batch, dtype=torch.int32, device=qacc.device),
+      lineslope=torch.zeros_like(ccost),
+      stats=qacc.new_zeros((d.batch, stat_cap(m), 3)),
+  )
+  if with_grad:
+    st = _refresh_gradient(m, d, st)
+    st.search = -st.mgrad
+  return st
+
+
+def _refresh_gradient(m: Model, d: Data, st: _State) -> _State:
+  """grad = M qacc - qfrc_smooth - qfrc_constraint, preconditioned by the
+  exact Hessian ``M + Jᵀ diag(D · quad) J`` through the Cholesky kernels."""
+  grad = st.Ma - d.qfrc_smooth - st.qfrc_constraint
+  dd = d.efc_D * st.quad_mask
+  # a plain fp32/fp64 matmul: TF32 stays off (see chip_smoke.py)
+  hess = d.qM + torch.matmul(d.efc_J.transpose(1, 2) * dd[:, None, :],
+                             d.efc_J)
+  hess = 0.5 * (hess + hess.transpose(1, 2))
+  mgrad = linalg.chol_solve(linalg.chol_factor(hess), grad)
+  return dataclasses.replace(st, grad=grad, mgrad=mgrad)
+
+
+def _linesearch(m: Model, d: Data, st: _State) -> _State:
+  """Exact line search along ``st.search`` (``CGsearch``): phi(alpha) is
+  piecewise quadratic; a bracket [lo, hi] on phi' shrinks by safeguarded
+  Newton steps for at most ``ls_iterations`` rounds per lane.
+
+  A line-search point is a (B, 4) tensor: alpha, cost, phi', phi''.
+  """
+  mv = smooth.mul_m(m, d, st.search)
+  jv = math.matvec(d.efc_J, st.search)
+  quad_gauss = torch.stack([
+      _gauss_cost(d, st.qacc, st.Ma),
+      _dot(st.search, st.Ma - d.qfrc_smooth),
+      0.5 * _dot(st.search, mv),
+  ], dim=-1)                                              # (B, 3)
+  quad_rows = torch.stack([
+      0.5 * d.efc_D * st.jaref * st.jaref,
+      d.efc_D * jv * st.jaref,
+      0.5 * d.efc_D * jv * jv,
+  ], dim=-1)                                              # (B, nefc, 3)
+
+  def phi(alpha):
+    x = st.jaref + alpha[:, None] * jv
+    rows = torch.where((x < 0)[..., None], quad_rows, 0.0)
+    total = quad_gauss + torch.sum(rows, dim=1)
+    cost = total[:, 0] + alpha * total[:, 1] + alpha * alpha * total[:, 2]
+    d0 = total[:, 1] + 2 * alpha * total[:, 2]
+    d1 = 2 * total[:, 2]
+    d1 = d1 + (d1 == 0) * math.MINVAL
+    return torch.stack([alpha, cost, d0, d1], dim=-1)
+
+  def newton(p):
+    return p[:, 0] - p[:, 2] / p[:, 3]
+
+  def pick(mask, new, old):
+    return torch.where(mask[:, None], new, old)
+
+  smag = math.norm_safe(st.search) * m.stat_meaninertia * max(1, m.nv)
+  gtol = m.opt.tolerance * m.opt.ls_tolerance * smag
+
+  p0 = phi(torch.zeros_like(smag))
+  pn = phi(newton(p0))
+  pick_pn = pn[:, 2] < p0[:, 2]
+  lo = pick(pick_pn, pn, p0)
+  hi = pick(pick_pn, p0, pn)
+
+  def shrinks(cur, new):
+    # the candidate tightens the bracket if its slope lies between the
+    # endpoint's slope and zero.  A slope of exactly zero (the minimum of a
+    # quadratic piece) joins the lower end, which then counts as converged.
+    # The JAX package's strict test rejects it on both ends and keeps
+    # bisecting, which leaves some contact states off C MuJoCo's qacc by
+    # ~1e-7 (ROADMAP queue 3; tests/test_torch_step.py).
+    return ((cur < new) & (new <= 0)) | ((cur > new) & (new > 0))
+
+  live = torch.ones_like(pick_pn)
+  for _ in range(m.opt.ls_iterations):
+    if not bool(live.any()):
+      break
+    cand_lo = phi(newton(lo))
+    cand_hi = phi(newton(hi))
+    cand_mid = phi(0.5 * (lo[:, 0] + hi[:, 0]))
+    moved = torch.zeros_like(live)
+    new_lo, new_hi = lo, hi
+    for cand in (cand_lo, cand_mid, cand_hi):
+      take = shrinks(new_lo[:, 2], cand[:, 2])
+      new_lo = pick(take, cand, new_lo)
+      moved = moved | take
+    for cand in (cand_hi, cand_mid, cand_lo):
+      take = shrinks(new_hi[:, 2], cand[:, 2])
+      new_hi = pick(take, cand, new_hi)
+      moved = moved | take
+    done = ~moved
+    done |= (new_lo[:, 2] <= 0) & (new_lo[:, 2] > -gtol)
+    done |= (new_hi[:, 2] > 0) & (new_hi[:, 2] < gtol)
+    lo = pick(live, new_lo, lo)
+    hi = pick(live, new_hi, hi)
+    live = live & ~done
+
+  improved = (lo[:, 1] < p0[:, 1]) | (hi[:, 1] < p0[:, 1])
+  lo_best = lo[:, 1] < hi[:, 1]
+  alpha = torch.where(lo_best, lo[:, 0], hi[:, 0]) * improved
+  return dataclasses.replace(
+      st,
+      qacc=st.qacc + alpha[:, None] * st.search,
+      Ma=st.Ma + alpha[:, None] * mv,
+      jaref=st.jaref + alpha[:, None] * jv,
+      lineslope=torch.where(lo_best, lo[:, 2], hi[:, 2]) * improved,
+  )
+
+
+def solve(m: Model, d: Data) -> Data:
+  """Newton solver loop (``mj_solNewton``)."""
+  if not m.opt.disableflags & DisableBit.WARMSTART:
+    warm = _eval_state(m, d, d.qacc_warmstart, with_grad=False)
+    smth = _eval_state(m, d, d.qacc_smooth, with_grad=False)
+    qacc0 = torch.where((warm.cost < smth.cost)[:, None], d.qacc_warmstart,
+                        d.qacc_smooth)
+  else:
+    qacc0 = d.qacc_smooth
+  st = _eval_state(m, d, qacc0, with_grad=True)
+
+  # below ~10 ulp the cost comparison is float noise
+  tol = max(m.opt.tolerance, 10 * torch.finfo(qacc0.dtype).eps)
+  scale = m.stat_meaninertia * max(1, m.nv)
+
+  def live(st):
+    improvement = (st.prev_cost - st.cost) / scale
+    gradient = math.norm_safe(st.grad) / scale
+    return ~((st.niter >= m.opt.iterations) | (improvement < tol)
+             | (gradient < tol))
+
+  def iterate(st: _State) -> _State:
+    st = _linesearch(m, d, st)
+    force, ccost, quad = constraint.forces_cost(d, st.jaref)
+    st = dataclasses.replace(
+        st, efc_force=force,
+        qfrc_constraint=math.matvec(d.efc_J.transpose(1, 2), force),
+        quad_mask=quad, cost=ccost + _gauss_cost(d, st.qacc, st.Ma),
+        prev_cost=st.cost)
+    st = _refresh_gradient(m, d, st)
+    row = torch.stack([(st.prev_cost - st.cost) / scale,
+                       math.norm_safe(st.grad) / scale,
+                       st.lineslope / scale], dim=-1)
+    # past the trace capacity the write is a no-op
+    slot = torch.arange(st.stats.shape[1], device=row.device)
+    at = (slot[None, :] == st.niter[:, None])[..., None]
+    return dataclasses.replace(
+        st, search=-st.mgrad, niter=st.niter + 1,
+        stats=torch.where(at, row[:, None, :], st.stats))
+
+  if m.opt.iterations == 1:
+    st = iterate(st)
+  else:
+    alive = live(st)
+    while bool(alive.any()):
+      st = _select(alive, iterate(st), st)
+      alive = live(st)
+
+  return d.replace(qacc=st.qacc, qacc_warmstart=st.qacc,
+                   qfrc_constraint=st.qfrc_constraint, efc_force=st.efc_force,
+                   solver_niter=st.niter, solver_stat=st.stats)
+
+
+def fwd_constraint(m: Model, d: Data) -> Data:
+  """Constraint forces and final qacc (``mj_fwdConstraint``)."""
+  if constraint.row_layout(m).nefc == 0:
+    return d.replace(qacc=d.qacc_smooth,
+                     qfrc_constraint=torch.zeros_like(d.qacc_smooth),
+                     qacc_warmstart=d.qacc_smooth)
+  return solve(m, d)
