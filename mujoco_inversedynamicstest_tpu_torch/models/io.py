@@ -187,9 +187,10 @@ def build_tree_layout(body_parentid, body_jntnum, dof_parentid, body_dofadr,
                     ancestor_mask=ancestor_mask, body_dof_mask=body_dof_mask)
 
 
-def put_model(src, device="cpu", dtype=torch.float64) -> Model:
+def put_model(src, device="cuda", dtype=torch.float64) -> Model:
   """Builds the port's ``Model`` from a ``mujoco.MjModel``, a snapshot
-  ``.npz`` path, or a mapping of snapshot arrays."""
+  ``.npz`` path, or a mapping of snapshot arrays, on the card unless
+  ``device`` says otherwise (``device="cpu"`` runs the plain versions)."""
   f = _source_arrays(src)
   validate_model(f)
   t = lambda name: torch.as_tensor(np.asarray(f[name], np.float64),
@@ -249,8 +250,10 @@ def put_model(src, device="cpu", dtype=torch.float64) -> Model:
   return m
 
 
-def load_model(path_or_xml: str, device="cpu", dtype=torch.float64) -> Model:
-  """Compiles an MJCF file or XML string with ``mujoco`` and converts it."""
+def load_model(path_or_xml: str, device="cuda",
+               dtype=torch.float64) -> Model:
+  """Compiles an MJCF file or XML string with ``mujoco`` and converts it
+  with ``put_model`` (on the card by default)."""
   import mujoco
 
   if path_or_xml.lstrip().startswith("<"):

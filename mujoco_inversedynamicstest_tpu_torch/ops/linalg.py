@@ -13,7 +13,9 @@ other device raises.  ``chol_factor.launches`` / ``chol_solve.launches``
 count kernel launches.
 
 The kernels are built with ``nvcc`` from the sources in the checkout, at
-first use, into ``build/torch_kernels/`` and bound through ``ctypes``.
+first use, into ``build/torch_kernels/`` and bound through ``ctypes``.  They
+read and write PyTorch's own (B, n, n) layout, one warp per matrix; the
+launch shape comes from ``launch_geometry``.
 """
 
 from __future__ import annotations
@@ -32,6 +34,10 @@ import torch
 # mjMINVAL: the pivot clamp of C MuJoCo's mju_cholFactor
 MINVAL = 1e-15
 N_MAX = 128
+# shared memory one block may use on Hopper, and the matrices (one warp
+# each) a block takes at most
+SMEM_MAX = 232_448
+MATS_PER_BLOCK = 4
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "cholesky.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -117,17 +123,36 @@ def build_kernels() -> tuple[Path, str]:
 
 
 @functools.lru_cache(maxsize=None)
-def _library() -> ctypes.CDLL:
-  lib = ctypes.CDLL(str(build_kernels()[0]))
+def _entry(name: str, dtype: torch.dtype):
+  """The C entry point ``mi_{name}_{f32|f64}``, built and bound at first
+  use."""
+  sfx = _suffix(dtype)
+  fn = getattr(_library(), f"mi_{name}_{sfx}")
   p, i = ctypes.c_void_p, ctypes.c_int
-  for dt in ("f32", "f64"):
-    fn = getattr(lib, f"mi_chol_factor_{dt}")
-    fn.argtypes = [p, p, i, i, p]
-    fn.restype = i
-    fn = getattr(lib, f"mi_chol_solve_{dt}")
-    fn.argtypes = [p, p, p, i, i, i, p]
-    fn.restype = i
-  return lib
+  fn.argtypes = ([p, p, i, i, i, i, i, p] if name == "chol_factor" else
+                 [p, p, p, i, i, i, i, i, i, p])
+  fn.restype = i
+  return fn
+
+
+@functools.lru_cache(maxsize=None)
+def _library() -> ctypes.CDLL:
+  return ctypes.CDLL(str(build_kernels()[0]))
+
+
+@functools.lru_cache(maxsize=None)
+def launch_geometry(n: int, dtype: torch.dtype) -> tuple[int, int, int]:
+  """Launch shape of both kernels for n x n matrices of ``dtype``.
+
+  Returns (row stride of a matrix's shared-memory tile, matrices per block,
+  dynamic shared memory bytes per block).  One warp works on one matrix.
+  The stride is odd so that 32 lanes on 32 rows of one column hit 32
+  banks; a block takes up to ``MATS_PER_BLOCK`` tiles within ``SMEM_MAX``.
+  """
+  ld = n | 1
+  tile = n * ld * dtype.itemsize
+  per_block = max(1, min(MATS_PER_BLOCK, SMEM_MAX // tile))
+  return ld, per_block, per_block * tile
 
 
 def _suffix(dtype: torch.dtype) -> str:
@@ -136,6 +161,11 @@ def _suffix(dtype: torch.dtype) -> str:
   if dtype == torch.float64:
     return "f64"
   raise TypeError(f"Cholesky kernels take float32 or float64, not {dtype}")
+
+
+def _stream(t: torch.Tensor) -> int:
+  """PyTorch's current stream on ``t``'s device, as a raw handle."""
+  return torch.cuda.current_stream(t.device.index).cuda_stream
 
 
 def _check_launch(err: int, name: str) -> None:
@@ -158,6 +188,16 @@ def _check_factor_shape(h: torch.Tensor) -> int:
   return n
 
 
+def _check_solve_shapes(l: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
+  """Returns (n, number of right-hand-side columns)."""
+  n = _check_factor_shape(l)
+  if b.device != l.device or b.dtype != l.dtype:
+    raise ValueError("factor and right-hand side differ in device or dtype")
+  if b.ndim not in (2, 3) or b.shape[:2] != l.shape[:2]:
+    raise ValueError(f"rhs {tuple(b.shape)} does not match {tuple(l.shape)}")
+  return n, b.shape[2] if b.ndim == 3 else 1
+
+
 # ---------------------------------------------------------------------------
 # public wrappers
 # ---------------------------------------------------------------------------
@@ -166,25 +206,24 @@ def _check_factor_shape(h: torch.Tensor) -> int:
 def chol_factor(h: torch.Tensor) -> torch.Tensor:
   """(B, n, n) -> lower Cholesky factor (upper triangle zero).
 
-  CPU tensors take ``chol_factor_ref``; CUDA tensors launch the kernel.
+  CPU tensors take ``chol_factor_ref``; CUDA tensors launch the kernel,
+  which reads ``h`` in place (a copy only if it is not contiguous).
   """
   if _device_kind(h) == "cpu":
     return chol_factor_ref(h)
   n = _check_factor_shape(h)
-  sfx = _suffix(h.dtype)
+  fn = _entry("chol_factor", h.dtype)
+  h = h.contiguous()
+  l = torch.empty_like(h)  # contiguous, like h
   bsz = h.shape[0]
   if bsz == 0:
-    return torch.empty_like(h)
-  # true column-major relayout, batch contiguous: (col * n + row, b)
-  h_cm = h.transpose(1, 2).reshape(bsz, n * n).T.contiguous()
-  l_cm = torch.empty_like(h_cm)
+    return l
+  ld, per_block, smem = launch_geometry(n, h.dtype)
   with torch.cuda.device(h.device):
-    stream = torch.cuda.current_stream(h.device).cuda_stream
-    fn = getattr(_library(), f"mi_chol_factor_{sfx}")
-    _check_launch(fn(h_cm.data_ptr(), l_cm.data_ptr(), n, bsz, stream),
-                  "chol_factor")
+    _check_launch(fn(h.data_ptr(), l.data_ptr(), n, ld, bsz, per_block, smem,
+                     _stream(h)), "chol_factor")
   chol_factor.launches += 1
-  return l_cm.T.reshape(bsz, n, n).transpose(1, 2).contiguous()
+  return l
 
 
 chol_factor.launches = 0
@@ -193,32 +232,24 @@ chol_factor.launches = 0
 def chol_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   """Solves L Lᵀ x = b; ``l`` (B, n, n) lower factor, ``b`` (B, n[, k]).
 
-  CPU tensors take ``chol_solve_ref``; CUDA tensors launch the kernel.
+  CPU tensors take ``chol_solve_ref``; CUDA tensors launch the kernel,
+  which reads ``l`` and ``b`` in place and writes x in ``b``'s shape.
   """
   if _device_kind(l) == "cpu" and b.device.type == "cpu":
     return chol_solve_ref(l, b)
-  n = _check_factor_shape(l)
-  if b.device != l.device or b.dtype != l.dtype:
-    raise ValueError("factor and right-hand side differ in device or dtype")
-  if b.ndim not in (2, 3) or b.shape[:2] != l.shape[:2]:
-    raise ValueError(f"rhs {tuple(b.shape)} does not match {tuple(l.shape)}")
-  sfx = _suffix(l.dtype)
+  n, k = _check_solve_shapes(l, b)
+  fn = _entry("chol_solve", l.dtype)
+  l, b = l.contiguous(), b.contiguous()
+  x = torch.empty_like(b)  # contiguous, like b
   bsz = l.shape[0]
-  k = b.shape[2] if b.ndim == 3 else 1
   if bsz == 0 or k == 0:
-    return torch.empty_like(b)
-  l_cm = l.transpose(1, 2).reshape(bsz, n * n).T.contiguous()
-  # rhs as (row, b * k + column)
-  rhs = b.reshape(bsz, n, k).permute(1, 0, 2).reshape(n, bsz * k).contiguous()
-  x = torch.empty_like(rhs)
+    return x
+  ld, per_block, smem = launch_geometry(n, l.dtype)
   with torch.cuda.device(l.device):
-    stream = torch.cuda.current_stream(l.device).cuda_stream
-    fn = getattr(_library(), f"mi_chol_solve_{sfx}")
-    _check_launch(
-        fn(l_cm.data_ptr(), rhs.data_ptr(), x.data_ptr(), n, bsz, k, stream),
-        "chol_solve")
+    _check_launch(fn(l.data_ptr(), b.data_ptr(), x.data_ptr(), n, ld, bsz, k,
+                     per_block, smem, _stream(l)), "chol_solve")
   chol_solve.launches += 1
-  return x.reshape(n, bsz, k).permute(1, 0, 2).reshape(b.shape).contiguous()
+  return x
 
 
 chol_solve.launches = 0

@@ -50,7 +50,7 @@ def test_inverse_matches_jax_and_c(seed, discrete):
   mj = mi.put_model(mjm)
   dj = mi.put_data(mj, mjd).replace(qacc=jnp.asarray(mjd.qacc))
   outj = jax.jit(mi.inverse)(mj, dj)
-  mp = mt.put_model(mjm)
+  mp = mt.put_model(mjm, device="cpu")
   outp = mt.inverse(mp, mt.put_data(mp, mjd))
 
   assert int((outp.contact.dist < outp.contact.includemargin).sum()) > 0
@@ -65,7 +65,7 @@ def test_compare_fwd_inv_within_fork_tolerance():
   """solver_fwdinv of a fleet with random applied forces and controls, per
   lane, stays within the fork's 1e-6 and matches the JAX diagnostic."""
   mjm = _humanoid()
-  mp = mt.put_model(mjm)
+  mp = mt.put_model(mjm, device="cpu")
   mj = mi.put_model(mjm)
   batch = 4
   rng = np.random.RandomState(7)

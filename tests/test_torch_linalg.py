@@ -154,6 +154,63 @@ def test_port_imports_without_jax():
                  timeout=120)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_launch_geometry_fits_hopper(dtype):
+  """Every n the kernels take gets at least one whole matrix per block, an
+  odd tile stride (the 32 rows of a column in 32 banks), and no more
+  shared memory than a Hopper block may use."""
+  for n in range(1, linalg.N_MAX + 1):
+    ld, per_block, smem = linalg.launch_geometry(n, dtype)
+    assert ld % 2 == 1 and n <= ld <= n + 1
+    assert len({r * ld % 32 for r in range(32)}) == 32
+    assert 1 <= per_block <= linalg.MATS_PER_BLOCK
+    assert smem == per_block * n * ld * dtype.itemsize <= 232_448
+  # n = 128 in fp64: one 132 kB tile, above the 48 kB default
+  assert linalg.launch_geometry(128, torch.float64) == (129, 1, 132_096)
+  assert linalg.launch_geometry(27, torch.float32) == (27, 4, 4 * 2916)
+
+
+@pytest.mark.parametrize("shape, match", [
+    ((2, 3, 4), "expected"),
+    ((3, 3), "expected"),
+    ((2, 0, 0), "kernel takes"),
+    ((2, 129, 129), "kernel takes"),
+])
+def test_factor_shape_checks_raise(shape, match):
+  with pytest.raises(ValueError, match=match):
+    linalg._check_factor_shape(torch.zeros(shape))
+
+
+@pytest.mark.parametrize("rhs, match", [
+    (torch.zeros(2, 5, dtype=torch.float32), "dtype"),
+    (torch.zeros(2, 5, dtype=torch.float64, device="meta"), "device"),
+    (torch.zeros(2, 4, dtype=torch.float64), "does not match"),
+    (torch.zeros(3, 5, dtype=torch.float64), "does not match"),
+    (torch.zeros(2, 5, 1, 1, dtype=torch.float64), "does not match"),
+])
+def test_solve_shape_checks_raise(rhs, match):
+  l = torch.zeros(2, 5, 5, dtype=torch.float64)
+  with pytest.raises(ValueError, match=match):
+    linalg._check_solve_shapes(l, rhs)
+  if rhs.device.type != "cpu":
+    with pytest.raises(ValueError, match=match):
+      linalg.chol_solve(l, rhs)
+
+
+def test_solve_shapes_count_rhs_columns():
+  l = torch.zeros(2, 5, 5)
+  assert linalg._check_solve_shapes(l, torch.zeros(2, 5)) == (5, 1)
+  assert linalg._check_solve_shapes(l, torch.zeros(2, 5, 3)) == (5, 3)
+
+
+def test_kernels_take_float32_and_float64_only():
+  assert (linalg._suffix(torch.float32), linalg._suffix(torch.float64)) == (
+      "f32", "f64")
+  for dtype in (torch.float16, torch.bfloat16, torch.int32):
+    with pytest.raises(TypeError, match="float32 or float64"):
+      linalg._suffix(dtype)
+
+
 @pytest.fixture
 def cuda():
   if not torch.cuda.is_available():
@@ -161,17 +218,41 @@ def cuda():
   return torch.device("cuda")
 
 
+def _launches():
+  return linalg.chol_factor.launches, linalg.chol_solve.launches
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_kernels_match_plain_versions_on_card(cuda, dtype):
+@pytest.mark.parametrize("n", [1, 27, 32, 33, 128])
+@pytest.mark.parametrize("b", [1, 4096])
+def test_kernels_match_plain_versions_on_card(cuda, dtype, n, b):
+  """Bit-equal to the plain versions, one launch per call; n = 32 and 33
+  bound one row per lane, n = 128 fills four rows per lane and needs more
+  than 48 kB of shared memory in fp64."""
   rng = np.random.RandomState(5)
-  h = torch.as_tensor(_spd(rng, 300, 27), device=cuda, dtype=dtype)
-  rhs = torch.as_tensor(rng.randn(300, 27, 2), device=cuda, dtype=dtype)
-  before = (linalg.chol_factor.launches, linalg.chol_solve.launches)
+  g = torch.as_tensor(rng.randn(b, n, n), device=cuda, dtype=dtype)
+  h = g @ g.transpose(1, 2) + n * torch.eye(n, device=cuda, dtype=dtype)
+  before = _launches()
   l = linalg.chol_factor(h)
-  x = linalg.chol_solve(l, rhs)
-  assert (linalg.chol_factor.launches, linalg.chol_solve.launches) == (
-      before[0] + 1, before[1] + 1)
+  assert _launches() == (before[0] + 1, before[1])
   torch.testing.assert_close(l, linalg.chol_factor_ref(h), rtol=0, atol=0)
-  torch.testing.assert_close(x, linalg.chol_solve_ref(l, rhs), rtol=0,
-                             atol=0)
+  for k in (1, 3):
+    rhs = torch.as_tensor(rng.randn(b, n, k), device=cuda, dtype=dtype)
+    if k == 1:
+      rhs = rhs[..., 0]
+    before = _launches()
+    x = linalg.chol_solve(l, rhs)
+    assert _launches() == (before[0], before[1] + 1)
+    assert x.shape == rhs.shape
+    torch.testing.assert_close(x, linalg.chol_solve_ref(l, rhs), rtol=0,
+                               atol=0)
+
+  # non-contiguous inputs: a transposed stack and a transposed rhs
+  h_t = h.transpose(1, 2)
+  torch.testing.assert_close(linalg.chol_factor(h_t),
+                             linalg.chol_factor_ref(h_t), rtol=0, atol=0)
+  rhs_t = torch.as_tensor(rng.randn(b, 3, n), device=cuda,
+                          dtype=dtype).transpose(1, 2)
+  torch.testing.assert_close(linalg.chol_solve(l, rhs_t),
+                             linalg.chol_solve_ref(l, rhs_t), rtol=0, atol=0)

@@ -6,6 +6,8 @@ fields must agree to 1e-10.  Models: those of ``tests/models.py::ALL_SMOOTH``
 that the port's ``put_model`` accepts, and the vendored humanoid.
 """
 
+import inspect
+
 import jax
 import mujoco
 import numpy as np
@@ -62,7 +64,7 @@ def test_smooth_stages_match_jax(name, seed):
   dj = mi.put_data(mj, mjd)
   outj, biasj = jax.jit(_jax_smooth)(mj, dj)
 
-  mp = mt.put_model(mjm)
+  mp = mt.put_model(mjm, device="cpu")
   dp = mt.from_jax_arrays(
       mp, {k: np.asarray(getattr(dj, k))[None] for k in INPUTS})
   outp, biasp = _port_smooth(mp, dp)
@@ -85,7 +87,7 @@ def test_model_fields_match_jax_put_model(name):
   """Every Model field of the port equals the JAX package's field of the
   same name, from the same MjModel."""
   mjm = mujoco.MjModel.from_xml_string(MODELS[name])
-  mj, mp = mi.put_model(mjm), mt.put_model(mjm)
+  mj, mp = mi.put_model(mjm), mt.put_model(mjm, device="cpu")
   checked = 0
   for field in mp.__dataclass_fields__:
     ours = getattr(mp, field)
@@ -114,12 +116,20 @@ def test_snapshot_matches_vendored_xml(name, tmp_path):
     assert sorted(committed.files) == sorted(written.files)
     for k in written.files:
       np.testing.assert_array_equal(committed[k], written[k], err_msg=k)
-  from_snapshot = mt.put_model(mt.asset_path(f"{name}.npz"))
-  from_mjmodel = mt.put_model(mjm)
+  from_snapshot = mt.put_model(mt.asset_path(f"{name}.npz"), device="cpu")
+  from_mjmodel = mt.put_model(mjm, device="cpu")
   for field in from_mjmodel.__dataclass_fields__:
     a, b = getattr(from_snapshot, field), getattr(from_mjmodel, field)
     if isinstance(a, torch.Tensor):
       assert torch.equal(a, b), field
+
+
+def test_model_entry_points_default_to_the_card():
+  for fn in (mt.put_model, mt.load_model):
+    assert inspect.signature(fn).parameters["device"].default == "cuda"
+  m = mt.put_model(mt.asset_path("humanoid.npz"), device="cpu")
+  assert m.qpos0.device.type == "cpu" and m.body_mass.device.type == "cpu"
+  assert mt.make_data(m, 2).qpos.device.type == "cpu"
 
 
 @pytest.mark.parametrize("xml, what", [
@@ -135,7 +145,7 @@ def test_snapshot_matches_vendored_xml(name, tmp_path):
 ])
 def test_put_model_refuses_unported_features(xml, what):
   with pytest.raises(NotImplementedError, match=what):
-    mt.put_model(mujoco.MjModel.from_xml_string(xml))
+    mt.put_model(mujoco.MjModel.from_xml_string(xml), device="cpu")
 
 
 def test_blocked_factor_matches_jax():
@@ -165,7 +175,7 @@ def test_blocked_factor_matches_jax():
   fn = lambda m, d: mi.solve_m(m, _jax_smooth(m, d)[0], x)
   yj = np.asarray(jax.jit(fn)(mj, dj))
 
-  mp = mt.put_model(mjm)
+  mp = mt.put_model(mjm, device="cpu")
   dp = mt.from_jax_arrays(
       mp, {k: np.asarray(getattr(dj, k))[None] for k in INPUTS})
   outp, _ = _port_smooth(mp, dp)
@@ -182,7 +192,7 @@ def test_smooth_models_step_like_jax_and_c(name):
   mjd.qacc[:] = 0.0
   mj = mi.put_model(mjm)
   dj = mi.put_data(mj, mjd)
-  mp = mt.put_model(mjm)
+  mp = mt.put_model(mjm, device="cpu")
   dp = mt.from_jax_arrays(
       mp, {k: np.asarray(getattr(dj, k))[None] for k in INPUTS})
   step = jax.jit(mi.step)

@@ -39,7 +39,7 @@ def test_forward_matches_jax_and_c(seed):
   mj = mi.put_model(mjm)
   dj = mi.put_data(mj, mjd)
   outj = jax.jit(mi.forward)(mj, dj)
-  mp = mt.put_model(mjm)
+  mp = mt.put_model(mjm, device="cpu")
   outp = mt.forward(mp, mt.put_data(mp, mjd))
 
   ncon = int((outp.contact.dist < outp.contact.includemargin).sum())
@@ -74,7 +74,7 @@ def test_line_search_exact_minimum_follows_c():
                 ctrl=0.2 * rng.randn(batch, mjm.nu),
                 qfrc_applied=0.3 * rng.randn(batch, mjm.nv),
                 xfrc_applied=0.3 * rng.randn(batch, mjm.nbody, 6))
-  mp = mt.put_model(mjm)
+  mp = mt.put_model(mjm, device="cpu")
   out = mt.forward(mp, mt.from_jax_arrays(mp, fields))
   for i in range(batch):
     mjd = mujoco.MjData(mjm)
@@ -95,7 +95,7 @@ def test_line_search_exact_minimum_follows_c():
 ])
 def test_fleet_steps_match_vmapped_jax(name, drop):
   mjm = _humanoid(name)
-  mj, mp = mi.put_model(mjm), mt.put_model(mjm)
+  mj, mp = mi.put_model(mjm), mt.put_model(mjm, device="cpu")
   batch = 4
   rng = np.random.RandomState(3)
   dq = 0.02 * rng.randn(batch, mjm.nq)
@@ -125,7 +125,7 @@ def test_fleet_steps_match_vmapped_jax(name, drop):
 def test_check_reset_is_per_lane():
   """A diverged lane returns to qpos0 with zero velocity and counts a
   warning; the other lanes step on (``mj_checkPos``/``mj_checkVel``)."""
-  mp = mt.put_model(mt.asset_path("humanoid_mjx.npz"))
+  mp = mt.put_model(mt.asset_path("humanoid_mjx.npz"), device="cpu")
   d = mt.make_data(mp, 3)
   qvel = d.qvel.clone()
   qvel[1, 4] = float("nan")
