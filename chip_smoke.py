@@ -21,15 +21,61 @@ non-zero:
    the kernels against 5 steps with the plain versions.
 7. slice: inverse dynamics -- forward then compare_fwd_inv on 64 lanes
    (fp64, Newton with 100 iterations); solver_fwdinv <= 1e-6 on every lane.
+8. kernel: chol_factor_jvp / chol_solve_jvp -- the forward-mode kernels
+   against their plain versions over the grid of phases 3-4, plus clamped
+   pivots, an asymmetric tangent and non-contiguous inputs; bit-equal.
+9. kernel: main-path shapes, and timing: JVP kernels -- all four kernels
+   against their plain versions, bit-equal, at every (B, dtype) at which
+   phases 6-14 launch them (n = 27); then, at the linearization chunks'
+   B (F lin_batch 75 of phases 12 and 13, and 76,800 of the bench: F =
+   512, lin_batch = 2), the JVP kernels timed against the plain versions
+   and against torch.func.jvp of torch.linalg.cholesky /
+   torch.cholesky_solve (one call each, never called by the port).
+10. slice: transition -- transition_ad on 8 lanes (fp64) of the Newton-100
+   humanoid and of humanoid_mjx, with the kernels against the plain
+   versions (<= 1e-9) and against transition_fd (centered, eps 1e-6;
+   within 1e-4 of max|A|); JVP kernel launches > 0.
+11. slice: linearization chunk -- one dual step of 76,800 lanes (1024
+   humanoid_mjx lanes x 75 tangent copies, fp32): time, peak memory, the
+   JVP kernels' device time per launch (torch.profiler), and the spread of
+   the primal next state across the 75 copies of a lane, which must be 0.
+12. slice: MPC fleet -- northstar.measure_solves_per_sec on humanoid_mjx,
+   fp32, H = 100, 2 iLQR iterations, 8 alphas, F = 64, lin_batch = 20
+   (96,000 lanes a linearization chunk), n_apply = 100 (the whole plan is
+   executed); solves/s, first-run seconds, finite lanes (>= 0.9), mean
+   iterations, the plan cost's mean and median, peak memory, launches of
+   all four kernels.  humanoid_mjx diverges from these states in C too
+   (tests/test_torch_opt.py), so its plan costs measure the divergence.
+13. slice: MPC on the Newton-100 humanoid -- the same solve on the model
+   that does not diverge, F = 16, lin_batch = 50 (60,000 lanes a chunk),
+   one replan: one solve timed by iLQR stage with the kernels, then the
+   same fleet with the plain versions; every plan cost finite and below
+   1e5, and the two runs' plan costs and controls equal to the bit.
+14. slice: MPC torque consistency -- the executed controls of 4 lanes of
+   phase 12 replayed for 100 steps in fp64 on the Newton-100 humanoid;
+   forward + compare_fwd_inv at every visited state, solver_fwdinv <= 1e-6.
 
 Then one JSON line of the kernel report, the nvidia-smi line, and the
 result line.  There is no CPU path: without CUDA the script fails.  It
 imports neither jax nor mujoco: the humanoid comes from the model snapshots
 in the package's assets/.
+
+    python3 chip_smoke.py --bench
+
+runs only the build and phase 12 at the bench configuration (``bench.py``'s
+north-star cell: F = 512, H = 100, lin_batch = 2, one replan, n_apply = 1),
+then one more solve of that fleet timed by iLQR stage, and the same two
+for the Newton-100 humanoid.
+
+    python3 chip_smoke.py --fleet
+
+runs only the build and phase 6, to compare the fleet step of two
+checkouts: run this file from each, in turns.
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import json
 import os
@@ -42,10 +88,19 @@ import torch
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 SOURCE = "mujoco_inversedynamicstest_tpu_torch/csrc/cholesky.cu"
+# the JVP kernels replace what pallas_call's JVP rule derives from the same
+# kernel bodies
 REPLACES = {
     "chol_factor": "mujoco_inversedynamicstest_tpu/ops/linalg.py:63",
     "chol_solve": "mujoco_inversedynamicstest_tpu/ops/linalg.py:86",
+    "chol_factor_jvp": "mujoco_inversedynamicstest_tpu/ops/linalg.py:63",
+    "chol_solve_jvp": "mujoco_inversedynamicstest_tpu/ops/linalg.py:86",
 }
+KERNELS = tuple(REPLACES)
+# (fleet, lin_batch, n_apply) of the MPC phases 12 and 13, and of --bench
+MPC_HORIZON = 100
+MPC_RUN, MPC_REF_RUN, MPC_BENCH = (64, 20, 100), (16, 50, 1), (512, 2, 1)
+BENCH_CHUNK_LANES = 1024  # x 75 tangent copies = 512 x 2 x 75 = 76,800
 FLEET, FLEET_STEPS = 4096, 100
 GRID_N, GRID_B = (1, 2, 6, 27, 32, 33, 64, 128), (1, 127, 4096)
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}  # of max|reference|
@@ -93,17 +148,24 @@ def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
   return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+PLAIN = {"_factor": "chol_factor_ref", "_solve": "chol_solve_ref",
+         "chol_factor_jvp": "chol_factor_jvp_ref",
+         "chol_solve_jvp": "chol_solve_jvp_ref"}
+
+
 @contextlib.contextmanager
 def plain_cholesky(linalg):
-  """Routes the slice's factor/solve calls to the plain versions, so the
-  same run can be repeated without the kernels on the card."""
-  saved = linalg.chol_factor, linalg.chol_solve
-  linalg.chol_factor, linalg.chol_solve = (linalg.chol_factor_ref,
-                                           linalg.chol_solve_ref)
+  """Puts the plain versions in the kernels' place behind chol_factor /
+  chol_solve and their forward-mode rules, so the same run can be
+  repeated without the kernels on the card."""
+  saved = {k: getattr(linalg, k) for k in PLAIN}
+  for k, plain in PLAIN.items():
+    setattr(linalg, k, getattr(linalg, plain))
   try:
     yield
   finally:
-    linalg.chol_factor, linalg.chol_solve = saved
+    for k, fn in saved.items():
+      setattr(linalg, k, fn)
 
 
 def check_kernel(name: str, got: torch.Tensor, ref: torch.Tensor,
@@ -187,6 +249,90 @@ def check_kernels(linalg, dev) -> dict:
   return slice_err
 
 
+def sym(rng: np.random.Generator, shape, dev) -> torch.Tensor:
+  """Symmetric random matrices: a tangent of a symmetric matrix."""
+  g = torch.as_tensor(rng.standard_normal(shape), device=dev)
+  return g + g.transpose(-1, -2)
+
+
+def check_jvp_kernels(linalg, dev) -> dict:
+  """Phase 8; returns the max abs error at (4096, 27) fp32."""
+  rng = np.random.default_rng(3)
+  worst = {"chol_factor_jvp": 0.0, "chol_solve_jvp": 0.0}
+  slice_err = {}
+  ncase = {"chol_factor_jvp": 0, "chol_solve_jvp": 0}
+
+  def check(name, got, ref, case):
+    worst[name] = max(worst[name], check_kernel(name, got, ref, case))
+    ncase[name] += 1
+    return float((got - ref).abs().max())
+
+  for n in GRID_N:
+    for b in GRID_B:
+      h64, dh64 = spd(rng, b, n, dev), sym(rng, (b, n, n), dev)
+      x64, db64 = (torch.as_tensor(rng.standard_normal((b, n, 3)),
+                                   device=dev) for _ in range(2))
+      for dt in (torch.float32, torch.float64):
+        h, dh, x, db = (t.to(dt) for t in (h64, dh64, x64, db64))
+        l = linalg.chol_factor_ref(h)
+        case = f"n={n} B={b} {dt}"
+        dl = linalg.chol_factor_jvp_ref(l, dh)
+        e_f = check("chol_factor_jvp", linalg.chol_factor_jvp(l, dh), dl,
+                    case)
+        for xr, dbr in ((x[..., 0], db[..., 0]), (x, db)):
+          e_s = check("chol_solve_jvp", linalg.chol_solve_jvp(l, dl, xr, dbr),
+                      linalg.chol_solve_jvp_ref(l, dl, xr, dbr),
+                      f"{case} rhs{tuple(xr.shape)}")
+        if n == 27 and b == FLEET and dt == torch.float32:
+          slice_err = {"chol_factor_jvp": e_f, "chol_solve_jvp": e_s}
+
+  # clamped pivots pass no tangent: a negative pivot mid-way, on a dof
+  # coupled to no other (so the factor stays finite), and at the end
+  for dt in (torch.float32, torch.float64):
+    hn = spd(rng, 127, 27, dev).to(dt)
+    hn[:, 13, :] = 0.0
+    hn[:, :, 13] = 0.0
+    hn[:, 13, 13] = -1.0
+    hn[:, -1, -1] -= 1e3 * hn[:, -1, -1]
+    l = linalg.chol_factor_ref(hn)
+    dh = sym(rng, (127, 27, 27), dev).to(dt)
+    got = linalg.chol_factor_jvp(l, dh)
+    check("chol_factor_jvp", got, linalg.chol_factor_jvp_ref(l, dh),
+          f"clamped pivots {dt}")
+    if not (bool((got[:, 13, 13] == 0).all())
+            and bool((got[:, -1, -1] == 0).all())):
+      raise AssertionError("a clamped pivot got a tangent")
+
+  # asymmetric tangent: only its lower triangle is read
+  l = linalg.chol_factor_ref(spd(rng, 128, 27, dev))
+  dh = torch.as_tensor(rng.standard_normal((128, 27, 27)), device=dev)
+  dh_lower = torch.tril(dh) + torch.tril(dh, -1).transpose(1, 2)
+  check("chol_factor_jvp", linalg.chol_factor_jvp(l, dh),
+        linalg.chol_factor_jvp_ref(l, dh_lower), "asymmetric tangent")
+
+  # non-contiguous inputs: transposed views
+  l = linalg.chol_factor_ref(spd(rng, 127, 27, dev).float())
+  dh_t = sym(rng, (127, 27, 27), dev).float().transpose(1, 2)
+  dl = linalg.chol_factor_jvp_ref(l, dh_t)
+  check("chol_factor_jvp", linalg.chol_factor_jvp(l, dh_t), dl,
+        "non-contiguous input")
+  x_t, db_t = (torch.as_tensor(rng.standard_normal((127, 3, 27)),
+                               device=dev).float().transpose(1, 2)
+               for _ in range(2))
+  dl_t = dl.transpose(1, 2).contiguous().transpose(1, 2)  # dl, strided
+  check("chol_solve_jvp", linalg.chol_solve_jvp(l, dl_t, x_t, db_t),
+        linalg.chol_solve_jvp_ref(l, dl, x_t, db_t), "non-contiguous input")
+
+  for name in worst:
+    log(f"kernel: {name}",
+        f"{ncase[name]} cases (grid n={GRID_N} B={GRID_B} fp32/fp64"
+        + (", rhs (B,n) and (B,n,3)" if name == "chol_solve_jvp" else
+           " + clamped pivots + asymmetric tangent")
+        + " + non-contiguous): all bit-equal to the plain version; max rel "
+        f"err {worst[name]:.3e} (tol fp32 1e-4, fp64 1e-12)")
+  return slice_err
+
+
 def time_ms(fn, reps: int = 20) -> float:
   start = torch.cuda.Event(enable_timing=True)
   stop = torch.cuda.Event(enable_timing=True)
@@ -238,6 +384,96 @@ def time_kernels(linalg, dev) -> dict:
           f" / {v['bound_ms']:.4f} ({v['bound_by']}; kernel at "
           f"{v['bound_ms'] / v['ms']:.1%} of it)" for k, v in out.items()))
   return out
+
+
+def jvp_work(n: int, b: int, size: int) -> dict:
+  """What each JVP function must move and compute for b (n, n) matrices:
+  the factor's JVP reads the lower triangles of L and dH and writes the
+  dense dL, and does 3 (n-k-1) + 2 (n-k-1) (n-k) operations at pivot k
+  (column, then the two products and two differences of the trailing
+  update); the solve's JVP reads both triangles, x and db, writes dx, and
+  sweeps five triangles (y, t, u, v, dx), 5 n (n + 1) operations."""
+  tri = n * (n + 1) // 2
+  ops = sum(3 * (n - k - 1) + 2 * (n - k - 1) * (n - k) for k in range(n))
+  return {"chol_factor_jvp": ((2 * tri + n * n) * b * size, b * ops),
+          "chol_solve_jvp": ((2 * tri + 3 * n) * b * size,
+                             5 * n * (n + 1) * b)}
+
+
+def path_shapes() -> list:
+  """(B, dtype) of every launch of the kernels in phases 6-14 and in
+  --bench, all at n = 27: the fleet step, the fp64 steps and inverse
+  dynamics of 64 lanes, the transitions of 8 lanes (a forward, the dual
+  step of 8 x 75 copies, the centered FD's 8 x 151), the linearization
+  chunk, each MPC run's fleet, forward pass (F x 8 alphas), chunk
+  forward (F lin_batch) and dual step (F lin_batch 75), and the torque
+  replay (4 lanes stepped, 400 states)."""
+  f32 = {FLEET, BENCH_CHUNK_LANES, 75 * BENCH_CHUNK_LANES}
+  for f, lin_batch, _ in (MPC_RUN, MPC_REF_RUN, MPC_BENCH):
+    f32 |= {f, 8 * f, lin_batch * f, 75 * lin_batch * f}
+  f64 = {64, 8, 75 * 8, 151 * 8, 4, 4 * MPC_HORIZON}
+  return ([(b, torch.float32) for b in sorted(f32)]
+          + [(b, torch.float64) for b in sorted(f64)])
+
+
+def check_path_kernels(linalg, dev) -> dict:
+  """Phase 9: all four kernels against their plain versions, bit-equal, at
+  each (B, dtype) of ``path_shapes``; at the linearization chunks' B of
+  phase 12 and of the bench, then the JVP kernels (wrapper included),
+  their plain versions and the one-call yardsticks
+  torch.func.jvp(torch.linalg.cholesky) and
+  torch.func.jvp(torch.cholesky_solve), timed in turns plain, kernel,
+  library, library, kernel, plain (medians of the pairs).  Returns the
+  numbers at phase 12's B."""
+  rng = np.random.default_rng(4)
+  f, lin_batch, _ = MPC_RUN
+  timed = (75 * lin_batch * f, 75 * BENCH_CHUNK_LANES)
+  out = {}
+  for b, dt in path_shapes():
+    h = spd(rng, b, 27, dev).to(dt)
+    dh = sym(rng, (b, 27, 27), dev).to(dt)
+    l = linalg.chol_factor_ref(h)
+    dl = linalg.chol_factor_jvp_ref(l, dh)
+    x, db = (torch.as_tensor(rng.standard_normal((b, 27)),
+                             device=dev).to(dt) for _ in range(2))
+    case = f"main-path shape n=27 B={b} {dt}"
+    check_kernel("chol_factor", linalg.chol_factor(h), l, case)
+    check_kernel("chol_solve", linalg.chol_solve(l, x),
+                 linalg.chol_solve_ref(l, x), case)
+    check_kernel("chol_factor_jvp", linalg.chol_factor_jvp(l, dh), dl, case)
+    check_kernel("chol_solve_jvp", linalg.chol_solve_jvp(l, dl, x, db),
+                 linalg.chol_solve_jvp_ref(l, dl, x, db), case)
+    if dt != torch.float32 or b not in timed:
+      continue
+    work = jvp_work(27, b, h.element_size())
+    res = {}
+    for name, kern, plain, library in (
+        ("chol_factor_jvp", lambda: linalg.chol_factor_jvp(l, dh),
+         lambda: linalg.chol_factor_jvp_ref(l, dh),
+         lambda: torch.func.jvp(torch.linalg.cholesky, (h,), (dh,))),
+        ("chol_solve_jvp", lambda: linalg.chol_solve_jvp(l, dl, x, db),
+         lambda: linalg.chol_solve_jvp_ref(l, dl, x, db),
+         lambda: torch.func.jvp(lambda a, r: torch.cholesky_solve(r, a),
+                                (l, x[..., None]), (dl, db[..., None])))):
+      p1, k1, y1, y2, k2, p2 = (time_ms(f, reps=10) for f in (
+          plain, kern, library, library, kern, plain))
+      bound, bound_by = bound_ms(*work[name])
+      res[name] = {"ms": float(np.median([k1, k2])),
+                   "plain_ms": float(np.median([p1, p2])),
+                   "bound_ms": bound, "bound_by": bound_by,
+                   "library_ms": float(np.median([y1, y2]))}
+    log("timing: JVP kernels", f"({b}, 27) fp32, ms kernel / plain / "
+        "torch.func.jvp yardstick / bound: " + ", ".join(
+            f"{k} {v['ms']:.4f} / {v['plain_ms']:.4f} / "
+            f"{v['library_ms']:.4f} / {v['bound_ms']:.4f} ({v['bound_by']}; "
+            f"kernel at {v['bound_ms'] / v['ms']:.1%} of it)"
+            for k, v in res.items()))
+    out[b] = res
+  shapes = path_shapes()
+  log("kernel: main-path shapes",
+      "all four kernels bit-equal to their plain versions at n=27 and B = "
+      + ", ".join(f"{b} {str(dt)[6:]}" for b, dt in shapes))
+  return out[timed[0]]
 
 
 def fleet_data(mt, m, batch: int, seed: int, drop: float = 0.0):
@@ -375,7 +611,312 @@ def inverse_dynamics(mt, linalg, dev) -> None:
       f"{ncon} active contacts; launches {launches}")
 
 
+def reset_launches(linalg) -> None:
+  for k in KERNELS:
+    getattr(linalg, k).launches = 0
+
+
+def read_launches(linalg) -> dict:
+  return {k: getattr(linalg, k).launches for k in KERNELS}
+
+
+def transition(mt, linalg, dev, asset: str) -> None:
+  """Phase 10: transition_ad on 8 lanes of the humanoid ``asset`` (fp64,
+  feet on the floor) with the kernels, against the plain versions and
+  against transition_fd, held to 1e-4 of max|A|.  On the Newton-100
+  humanoid the FD's solves stop at the solver's tolerance, so its error is
+  about that tolerance over 2 eps; on humanoid_mjx (one Newton iteration)
+  it is the FD's truncation error, which falls 100x when eps falls 10x
+  (the CPU tests hold transition_ad to C's mjd_transitionFD on both)."""
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  m = mt.put_model(mt.asset_path(asset), device=dev, dtype=torch.float64)
+  d = fleet_data(mt, m, 8, seed=1, drop=0.22)
+  rng = np.random.RandomState(4)
+  d = mt.forward(m, d.replace(
+      qvel=torch.as_tensor(0.1 * rng.randn(8, m.nv), device=dev)))
+  reset_launches(linalg)
+  t0 = time.perf_counter()
+  ad = derivative.transition_ad(m, d)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = read_launches(linalg)
+  if not all(launches.values()):
+    raise AssertionError(f"a kernel was not launched: {launches}")
+  with plain_cholesky(linalg):
+    plain = derivative.transition_ad(m, d)
+  fd = derivative.transition_fd(m, d, eps=1e-6, flg_centered=True)
+  err_plain = max(float((ad.A - plain.A).abs().max()),
+                  float((ad.B - plain.B).abs().max()))
+  err_fd = max(float((ad.A - fd.A).abs().max()),
+               float((ad.B - fd.B).abs().max()))
+  scale = float(fd.A.abs().max())
+  if not err_plain <= 1e-9:
+    raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
+  if not err_fd <= 1e-4 * scale:
+    raise AssertionError(f"transition_ad vs transition_fd: {err_fd:.3e}")
+  ncon = int((d.contact.dist < d.contact.includemargin).sum())
+  log("slice: transition",
+      f"{asset} 8 lanes fp64, {ncon} active contacts: transition_ad "
+      f"{seconds:.3f} s; kernels vs plain max |dA|,|dB| {err_plain:.3e} "
+      f"(tol 1e-9); vs transition_fd (centered, eps 1e-6) {err_fd:.3e} "
+      f"(tol 1e-4 of max|A| = {1e-4 * scale:.3e}); launches {launches}")
+
+
+def linearization_chunk(mt, linalg, dev) -> dict:
+  """Phase 11: one dual step of the bench's linearization chunk, 1024
+  humanoid_mjx lanes x 75 tangent copies (fp32), as transition_ad runs it:
+  time (the second of two runs), peak memory, the JVP kernels' device time
+  per launch from a profiled third run, and the largest spread of the
+  primal next state across the copies of a lane.  The copies must agree to
+  the bit: a copy that took another branch would feed a Jacobian column
+  from another point (ops/smooth.py: rank_groups)."""
+  import torch.autograd.forward_ad as fwAD
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  m = mt.put_model(mt.asset_path("humanoid_mjx.npz"), device=dev,
+                   dtype=torch.float32)
+  nf, nx = BENCH_CHUNK_LANES, derivative.state_dim(m)
+  nz = nx + m.nu
+  d = mt.forward(m, fleet_data(mt, m, nf, seed=5, drop=0.2))
+  rep = derivative.repeat_lanes(d, nz)
+  eye = torch.eye(nz, dtype=m.dtype, device=dev).repeat(nf, 1)
+
+  def dual_step():
+    with fwAD.dual_level():
+      z = fwAD.make_dual(torch.zeros_like(eye), eye)
+      dn = mt.step(m, derivative.apply_tangent(m, rep, z[:, :nx], z[:, nx:]))
+      return (fwAD.unpack_dual(dn.qpos).primal,
+              fwAD.unpack_dual(dn.qvel).primal)
+
+  dual_step()
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  reset_launches(linalg)
+  t0 = time.perf_counter()
+  qpos, qvel = dual_step()
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = read_launches(linalg)
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  spread = max(float((x.reshape(nf, nz, -1) - x[::nz, None]).abs().max())
+               for x in (qpos, qvel))
+  if spread != 0.0:
+    raise AssertionError(f"tangent copies of a lane differ by {spread:.3e}")
+
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    dual_step()
+    torch.cuda.synchronize()
+  kernels = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+  device_ms = sum(e.device_time_total for e in kernels) / 1e3
+  per_launch = {}
+  for name in KERNELS:
+    us = sum(e.device_time_total for e in kernels if f"{name}_kernel" in e.key)
+    count = sum(e.count for e in kernels if f"{name}_kernel" in e.key)
+    per_launch[name] = (us / max(count, 1), count)
+  log("slice: linearization chunk",
+      f"humanoid_mjx {nf} lanes x {nz} copies = {nf * nz} lanes fp32: dual "
+      f"step {seconds:.3f} s, peak {peak:.2f} GiB, launches {launches}; "
+      f"profiled: device {device_ms:.3f} ms over "
+      f"{sum(e.count for e in kernels)} launches; per launch "
+      + ", ".join(f"{k} {us:.2f} us ({c})" for k, (us, c) in
+                  per_launch.items())
+      + f"; spread of the primal across copies {spread:.1e}")
+  return per_launch
+
+
+def mpc_config(northstar, fleet: int, lin_batch: int, n_apply: int):
+  """fp32 humanoid MPC at H = 100, 2 iLQR iterations, 8 alphas, one
+  replan, from qpos0 with 0.01 noise on qpos and qvel (bench.py:289-299)."""
+  return northstar.NorthStarConfig(
+      horizon=MPC_HORIZON, fleet=fleet, n_replan=1, ilqr_iterations=2,
+      n_alpha=8, lin_batch=lin_batch, qpos_noise=0.01, qvel_noise=0.01,
+      n_apply=n_apply)
+
+
+def plan_costs(costs: torch.Tensor) -> str:
+  """Mean (the JAX package's quality signal), median and max over finite
+  lanes, and the count above 1e6: a humanoid_mjx lane whose rollouts
+  diverge reaches 1e20 and more and sets the mean alone."""
+  finite = costs[torch.isfinite(costs)]
+  return (f"plan cost over finite lanes mean {float(finite.mean()):.6e}, "
+          f"median {float(finite.median()):.6e}, max "
+          f"{float(finite.max()):.6e}, {int((finite > 1e6).sum())} of "
+          f"{costs.numel()} lanes above 1e6")
+
+
+def mpc_fleet(mt, linalg, dev, asset: str, run: tuple,
+              profile_run: bool = False) -> tuple[dict, object, object]:
+  """Phase 12: the north-star fleet MPC on ``asset`` with ``run`` = (F,
+  lin_batch, n_apply) through northstar.measure_solves_per_sec (a cold
+  run, then the timed warm run).  With ``profile_run``, one more solve of
+  the fleet timed by iLQR stage (profile_mpc).  Returns the launch counts
+  of the measured runs, the result and the config."""
+  from mujoco_inversedynamicstest_tpu_torch.opt import northstar
+
+  m = mt.put_model(mt.asset_path(asset), device=dev, dtype=torch.float32)
+  fleet, lin_batch, n_apply = run
+  cfg = mpc_config(northstar, *run)
+  torch.cuda.synchronize()
+  torch.cuda.reset_peak_memory_stats()
+  reset_launches(linalg)
+  res = northstar.measure_solves_per_sec(m, northstar.balance_cost(m),
+                                         mt.make_data(m, 1), cfg)
+  launches = read_launches(linalg)
+  peak = torch.cuda.max_memory_allocated() / 2**30
+  if not all(launches.values()):
+    raise AssertionError(f"a kernel was not launched: {launches}")
+  if not res.finite_lane_fraction >= 0.9:
+    raise AssertionError(f"finite lanes {res.finite_lane_fraction:.3f}")
+  us = res.run.us
+  if us.shape != (fleet, n_apply, m.nu):
+    raise AssertionError(f"applied controls {tuple(us.shape)}")
+  log("slice: MPC fleet",
+      f"{asset} fp32 F={fleet} H={MPC_HORIZON} iterations=2 alphas=8 "
+      f"lin_batch={lin_batch} ({fleet * lin_batch * 75} lanes a "
+      f"linearization chunk) n_apply={n_apply}: {res.solves_per_sec:.4f} "
+      f"solves/s ({res.wall_time_s:.3f} s warm run); first run "
+      f"{res.compile_time_s:.3f} s; finite lanes "
+      f"{res.finite_lane_fraction:.4f}; mean iterations "
+      f"{res.mean_iterations:.3f}; {plan_costs(res.run.plan_costs[:, 0])}; "
+      f"peak {peak:.2f} GiB; launches (both runs) {launches}")
+  if profile_run:
+    profile_mpc(m, northstar, cfg, northstar.make_fleet(
+        m, mt.make_data(m, 1), cfg), asset)
+  return launches, res, cfg
+
+
+ILQR_STAGES = ("rollout_open_loop", "_linearize", "_quadratize_all",
+               "_backward", "_forward_pass")
+
+
+def profile_mpc(m, northstar, cfg, fleet_d, asset: str):
+  """One fleet solve with the seconds of each iLQR stage: for this run
+  only, the stage functions of opt/ilqr.py are wrapped in timers that
+  synchronize the card before and after.  The solve waits on the card at
+  every loop test anyway, so the timers cost little; torch.profiler would
+  keep every operator of a solve in host memory.  Returns the MPCRun."""
+  ilqr = sys.modules["mujoco_inversedynamicstest_tpu_torch.opt.ilqr"]
+  spent = {s: [0.0, 0] for s in ILQR_STAGES}
+  saved = {s: getattr(ilqr, s) for s in ILQR_STAGES}
+
+  def timed(name, fn):
+    def run(*args):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      out = fn(*args)
+      torch.cuda.synchronize()
+      spent[name][0] += time.perf_counter() - t0
+      spent[name][1] += 1
+      return out
+    return run
+
+  run = northstar.fleet_mpc_fn(m, northstar.balance_cost(m), cfg)
+  for s in ILQR_STAGES:
+    setattr(ilqr, s, timed(s, saved[s]))
+  try:
+    t0 = time.perf_counter()
+    out = run(fleet_d)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+  finally:
+    for s in ILQR_STAGES:
+      setattr(ilqr, s, saved[s])
+  rest = wall - sum(sec for sec, _ in spent.values())
+  log("profile: MPC fleet",
+      f"{asset} F={cfg.fleet} lin_batch={cfg.lin_batch}, one solve timed by "
+      f"stage, {wall:.3f} s: " + "; ".join(
+          f"{s.lstrip('_')} {sec:.3f} s ({sec / wall:.1%}, {calls} calls)"
+          for s, (sec, calls) in spent.items())
+      + f"; the rest {rest:.3f} s ({rest / wall:.1%})")
+  return out
+
+
+def mpc_reference(mt, linalg, dev) -> dict:
+  """Phase 13: the MPC of phase 12 on the Newton-100 humanoid, whose
+  rollouts from these states do not diverge (in C neither:
+  tests/test_torch_opt.py), so its plan costs mean something.  One solve
+  timed by iLQR stage with the kernels, then the same fleet with the plain
+  versions in their place (plain_cholesky): every plan cost finite and
+  below 1e5, and the two runs' plan costs and applied controls equal to
+  the bit, since every kernel equals its plain version to the bit and the
+  step's sums run in a fixed order.  Returns the launch counts of the
+  kernels' run."""
+  from mujoco_inversedynamicstest_tpu_torch.opt import northstar
+
+  asset = "humanoid.npz"
+  m = mt.put_model(mt.asset_path(asset), device=dev, dtype=torch.float32)
+  cfg = mpc_config(northstar, *MPC_REF_RUN)
+  fleet = northstar.make_fleet(m, mt.make_data(m, 1), cfg)
+  reset_launches(linalg)
+  run_k = profile_mpc(m, northstar, cfg, fleet, asset)
+  launches = read_launches(linalg)
+  with plain_cholesky(linalg):
+    run_p = northstar.fleet_mpc_fn(m, northstar.balance_cost(m), cfg)(fleet)
+  costs, plain = run_k.plan_costs[:, 0], run_p.plan_costs[:, 0]
+  if not all(launches.values()):
+    raise AssertionError(f"a kernel was not launched: {launches}")
+  if not (bool(torch.isfinite(costs).all()) and bool((costs < 1e5).all())):
+    raise AssertionError(f"plan costs {costs.tolist()}")
+  if not (torch.equal(costs, plain) and torch.equal(run_k.us, run_p.us)):
+    raise AssertionError(
+        f"kernels vs plain: plan costs differ by "
+        f"{float((costs - plain).abs().max()):.3e}, controls by "
+        f"{float((run_k.us - run_p.us).abs().max()):.3e}")
+  log("slice: MPC on the Newton-100 humanoid",
+      f"{asset} fp32 F={cfg.fleet} H={MPC_HORIZON} iterations=2 alphas=8 "
+      f"lin_batch={cfg.lin_batch} ({cfg.fleet * cfg.lin_batch * 75} lanes a "
+      f"linearization chunk): {plan_costs(costs)}; mean iterations "
+      f"{float(run_k.niters.double().mean()):.3f}; plan costs and applied "
+      f"controls equal to the bit with the plain versions; launches "
+      f"{launches}")
+  return launches
+
+
+def mpc_torques(mt, linalg, dev, res, cfg, lanes: int = 4) -> None:
+  """Phase 14: the fork's inverse_test check along MPC trajectories: the
+  executed controls of ``lanes`` lanes replayed from the same initial
+  states in fp64 on the Newton-100 humanoid; forward + compare_fwd_inv at
+  every visited state, solver_fwdinv <= 1e-6."""
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative, northstar
+
+  m = mt.put_model(mt.asset_path("humanoid.npz"), device=dev,
+                   dtype=torch.float64)
+  d = derivative.select_lanes(
+      northstar.make_fleet(m, mt.make_data(m, 1), cfg), slice(0, lanes))
+  us = res.run.us[:lanes].to(torch.float64)
+  visited = []
+  for t in range(us.shape[1]):
+    d = d.replace(ctrl=us[:, t])
+    visited.append(d)
+    d = mt.step(m, d)
+  states = derivative.cat_lanes(visited)
+  fwdinv = mt.compare_fwd_inv(m, mt.forward(m, states)).solver_fwdinv
+  if not (bool(torch.isfinite(fwdinv).all())
+          and bool((fwdinv <= 1e-6).all())):
+    raise AssertionError(f"solver_fwdinv above 1e-6: {fwdinv.amax(0)}")
+  log("slice: MPC torque consistency",
+      f"humanoid fp64, {lanes} lanes x {us.shape[1]} executed controls "
+      f"replayed: max solver_fwdinv [{float(fwdinv[:, 0].max()):.3e}, "
+      f"{float(fwdinv[:, 1].max()):.3e}] over {fwdinv.shape[0]} visited "
+      f"states (tol 1e-6); final root height min "
+      f"{float(d.qpos[:, 2].min()):.3f}")
+
+
 def main() -> None:
+  parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+  mode = parser.add_mutually_exclusive_group()
+  mode.add_argument("--bench", action="store_true",
+                    help="only the MPC fleet at the bench configuration, "
+                    "each humanoid, with a solve timed by iLQR stage")
+  mode.add_argument("--fleet", action="store_true",
+                    help="only the fleet step, to compare two checkouts")
+  args = parser.parse_args()
   if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
   sys.path.insert(0, REPO)
@@ -397,15 +938,32 @@ def main() -> None:
   log("build", f"nvcc sm_90a {SOURCE} -> {os.path.relpath(path, REPO)} in "
       f"{build_s:.2f} s; ptxas: {' | '.join(regs)}")
 
-  slice_err = check_kernels(linalg, dev)
-  times = time_kernels(linalg, dev)
-  launches = fleet_step(mt, linalg, dev, smi)
-  inverse_dynamics(mt, linalg, dev)
+  if args.bench:
+    for asset in ("humanoid_mjx.npz", "humanoid.npz"):
+      mpc_fleet(mt, linalg, dev, asset, MPC_BENCH, profile_run=True)
+  elif args.fleet:
+    fleet_step(mt, linalg, dev, smi)
+  else:
+    slice_err = check_kernels(linalg, dev)
+    slice_err.update(check_jvp_kernels(linalg, dev))
+    times = time_kernels(linalg, dev)
+    times.update(check_path_kernels(linalg, dev))
+    launches = fleet_step(mt, linalg, dev, smi)
+    inverse_dynamics(mt, linalg, dev)
+    for asset in ("humanoid.npz", "humanoid_mjx.npz"):
+      transition(mt, linalg, dev, asset)
+    linearization_chunk(mt, linalg, dev)
+    mpc_launches, res, cfg = mpc_fleet(mt, linalg, dev, "humanoid_mjx.npz",
+                                       MPC_RUN)
+    launches.update({k: mpc_launches[k] for k in KERNELS
+                     if k.endswith("_jvp")})
+    mpc_reference(mt, linalg, dev)
+    mpc_torques(mt, linalg, dev, res, cfg)
 
-  print(json.dumps({"kernels": [
-      {"name": k, "route": "cuda", "source": SOURCE, "replaces": REPLACES[k],
-       "launches": launches[k], "max_abs_err": slice_err[k], **times[k]}
-      for k in ("chol_factor", "chol_solve")]}))
+    print(json.dumps({"kernels": [
+        {"name": k, "route": "cuda", "source": SOURCE,
+         "replaces": REPLACES[k], "launches": launches[k],
+         "max_abs_err": slice_err[k], **times[k]} for k in KERNELS]}))
   print(smi)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

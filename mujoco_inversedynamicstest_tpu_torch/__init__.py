@@ -3,11 +3,14 @@
 The layout mirrors ``mujoco_inversedynamicstest_tpu`` (``models/``, ``ops/``),
 so each module's counterpart is found by path.  ``Model``/``Data`` are
 dataclasses of tensors; every ``Data`` tensor has a leading fleet dimension.
-The two Pallas TPU kernels of the JAX package are hand-written CUDA kernels
-here (``csrc/cholesky.cu``, bound in ``ops/linalg.py``).
+The two Pallas TPU kernels of the JAX package, and their forward-mode
+JVPs, are hand-written CUDA kernels here (``csrc/cholesky.cu``, bound in
+``ops/linalg.py``).  ``opt/`` holds the MPC path: transition derivatives,
+box QP, iLQR, MPC and the north-star harness (``mt.opt``).
 
 This package never imports jax; it imports ``mujoco`` only inside
-``load_model``, to compile MJCF.
+``load_model`` (to compile MJCF) and ``opt.torque_parity_vs_host`` (the C
+``mj_inverse`` oracle).
 """
 
 from mujoco_inversedynamicstest_tpu_torch.models.io import (
@@ -26,3 +29,8 @@ from mujoco_inversedynamicstest_tpu_torch.ops.inverse import (
     inverse,
 )
 from mujoco_inversedynamicstest_tpu_torch.ops.smooth import factor_m, solve_m
+from mujoco_inversedynamicstest_tpu_torch.ops.support import (
+    differentiate_pos,
+    integrate_pos,
+)
+from mujoco_inversedynamicstest_tpu_torch import opt

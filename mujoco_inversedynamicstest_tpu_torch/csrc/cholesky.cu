@@ -214,6 +214,206 @@ __global__ void chol_solve_kernel(const T* __restrict__ l,
   }
 }
 
+// ---------------------------------------------------------------------------
+// Forward mode (JVP) of both kernels.
+//
+// Replaces the JVP that pallas_call's JVP rule derives from each Pallas
+// kernel body (_chol_kernel, _solve_kernel) when jax.jacfwd differentiates
+// the TPU step through them, as the MPC linearization does
+// (opt/derivative.py: transition_ad).
+//
+//   mi_chol_factor_jvp_*  (L, dH) -> dL, the forward mode of the
+//     right-looking recurrence written with the finished factor L:
+//       dL[k][k] = 0.5 p' / d (0 where the pivot was clamped, d <= sqrt(1e-15))
+//       dL[r][k] = (a'[r][k] - L[r][k] dL[k][k]) / d,   r > k
+//       a'[r][j] -= dL[r][k] L[j][k] + L[r][k] dL[j][k],  k < j <= r
+//   mi_chol_solve_jvp_*   (L, dL, x, db) -> dx,
+//       dx = L^-T (L^-1 (db - dL (L^T x)) - dL^T x)
+//     in five sweeps: y = L^T x and t = dL^T x, u = db - dL y, v = L^-1 u,
+//     w = v - t, dx = L^-T w.
+//
+// What bounds them.  At n = 27 in fp32 the factor's JVP reads the lower
+// triangles of L and dH (2 n (n + 1) / 2 elements) and writes the dense dL
+// (n^2): 4.4 kB a matrix for about n^3 / 3 = 6.6k multiply-adds, under two
+// operations per byte, so the memory rate bounds it (3.35 TB/s).  The
+// solve's JVP reads both triangles and x and db, and writes dx: 3.2 kB for
+// about 4 n^2 operations.  As for the primal kernels, what stands between
+// them and that bound is the chain of dependent steps a matrix.
+//
+// Design: as the primal kernels, one warp a matrix and the matrix's data
+// in shared memory, copied once with coalesced cp.async loads, but two
+// tiles a matrix (L and the tangent), each the packed lower triangle: row
+// r starts at r (r + 1) / 2.  The triangular numbers of 32 consecutive
+// rows are 32 different banks, so a column read by 32 lanes on 32 rows
+// has no conflict, and the two packed tiles of n = 128 in fp64 (132 kB)
+// fit in a block where two square ones would not.  The solve keeps its
+// vectors (x, y, t, u) in registers, lane l holding rows l, l + 32, ...
+//
+// The plain versions (ops/linalg.py: chol_factor_jvp_ref,
+// chol_solve_jvp_ref) do, for every element, the same operations in the
+// same order; built with -fmad=false, kernel and plain version agree to
+// the last bit.
+// ---------------------------------------------------------------------------
+
+// Start of packed row r: the triangular number r (r + 1) / 2.
+__device__ __forceinline__ int tri(int r) { return r * (r + 1) / 2; }
+
+// This warp's two packed tiles in the block's dynamic shared memory.
+template <typename T>
+__device__ T* warp_tiles(int n) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  return reinterpret_cast<T*>(smem) +
+         static_cast<size_t>(threadIdx.x / kWarp) * 2 * tri(n);
+}
+
+// Issues cp.async copies of the lower triangle of the matrix at src into
+// the packed tile a; the caller commits and waits.
+template <typename T>
+__device__ void load_packed(const T* __restrict__ src, T* a, int n,
+                            int lane) {
+  for_each_element(n, lane, [&](int e, int r, int c) {
+    if (c <= r) __pipeline_memcpy_async(a + tri(r) + c, src + e, sizeof(T));
+  });
+}
+
+// Copies the lower triangles of the matrices at s0 and s1 into the packed
+// tiles t0 and t1, all loads in flight at once, and waits for the warp's
+// copies.
+template <typename T>
+__device__ void load_packed_pair(const T* __restrict__ s0,
+                                 const T* __restrict__ s1, T* t0, T* t1,
+                                 int n, int lane) {
+  load_packed(s0, t0, n, lane);
+  load_packed(s1, t1, n, lane);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncwarp();
+}
+
+template <typename T>
+__global__ void chol_factor_jvp_kernel(const T* __restrict__ l,
+                                       const T* __restrict__ dh,
+                                       T* __restrict__ dl, int n, int batch,
+                                       T minval) {
+  const int lane = threadIdx.x % kWarp;
+  const int b = blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
+  if (b >= batch) return;
+  const size_t off = static_cast<size_t>(b) * n * n;
+  T* a = warp_tiles<T>(n);  // L
+  T* t = a + tri(n);        // the running tangent, then dL
+  load_packed_pair(l + off, dh + off, a, t, n, lane);
+  const T dmin = sqrt(minval);
+
+  for (int k = 0; k < n; ++k) {
+    const T d = a[tri(k) + k];
+    const T dd = d <= dmin ? T(0) : T(0.5) * t[tri(k) + k] / d;
+    for (int r = lane; r < n; r += kWarp) {
+      if (r > k) t[tri(r) + k] = (t[tri(r) + k] - a[tri(r) + k] * dd) / d;
+    }
+    __syncwarp();  // tangent column k done; every lane has read t[k][k]
+    for (int r = lane; r < n; r += kWarp) {
+      if (r == k) t[tri(k) + k] = dd;
+      if (r <= k) continue;
+      const T* lrow = a + tri(r);
+      T* row = t + tri(r);
+      const T lrk = lrow[k], drk = row[k];
+      for (int j = k + 1; j <= r; ++j) {
+        const int jk = tri(j) + k;
+        row[j] -= drk * a[jk] + lrk * t[jk];
+      }
+    }
+    __syncwarp();  // the trailing tangent is up to date
+  }
+
+  T* dst = dl + off;
+  for_each_element(n, lane, [&](int e, int r, int c) {
+    dst[e] = c <= r ? t[tri(r) + c] : T(0);
+  });
+}
+
+template <typename T, int R>
+__global__ void chol_solve_jvp_kernel(
+    const T* __restrict__ l, const T* __restrict__ dl,
+    const T* __restrict__ x, const T* __restrict__ db, T* __restrict__ dx,
+    int n, int batch, int k) {
+  const int lane = threadIdx.x % kWarp;
+  const int b = blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
+  if (b >= batch) return;
+  const size_t off = static_cast<size_t>(b) * n * n;
+  T* a = warp_tiles<T>(n);  // L
+  T* t = a + tri(n);        // dL
+  load_packed_pair(l + off, dl + off, a, t, n, lane);
+
+  const size_t xoff = static_cast<size_t>(b) * n * k;
+  for (int q = 0; q < k; ++q) {
+    T xr[R], yr[R], tr[R], ur[R];
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = lane + i * kWarp;
+      const size_t at = xoff + static_cast<size_t>(r) * k + q;
+      xr[i] = r < n ? x[at] : T(0);
+      ur[i] = r < n ? db[at] : T(0);
+      yr[i] = T(0);
+      tr[i] = T(0);
+    }
+    // y = L^T x, t = dL^T x: row c of L and dL times x[c], c ascending
+    for (int c = 0; c < n; ++c) {
+      const T xc = row_of(xr, c);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = lane + i * kWarp;
+        if (r <= c) {
+          yr[i] += a[tri(c) + r] * xc;
+          tr[i] += t[tri(c) + r] * xc;
+        }
+      }
+    }
+    // u = db - dL y: column c of dL times y[c], c ascending
+    for (int c = 0; c < n; ++c) {
+      const T yc = row_of(yr, c);
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = lane + i * kWarp;
+        if (r >= c && r < n) ur[i] -= t[tri(r) + c] * yc;
+      }
+    }
+    // L v = u
+    for (int c = 0; c < n; ++c) {
+      const T vc = row_of(ur, c) / a[tri(c) + c];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = lane + i * kWarp;
+        if (r == c) {
+          ur[i] = vc;
+        } else if (r > c && r < n) {
+          ur[i] -= a[tri(r) + c] * vc;
+        }
+      }
+    }
+    // w = v - t
+#pragma unroll
+    for (int i = 0; i < R; ++i) ur[i] = ur[i] - tr[i];
+    // L^T dx = w
+    for (int c = n - 1; c >= 0; --c) {
+      const T wc = row_of(ur, c) / a[tri(c) + c];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = lane + i * kWarp;
+        if (r == c) {
+          ur[i] = wc;
+        } else if (r < c) {
+          ur[i] -= a[tri(c) + r] * wc;
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < R; ++i) {
+      const int r = lane + i * kWarp;
+      if (r < n) dx[xoff + static_cast<size_t>(r) * k + q] = ur[i];
+    }
+  }
+}
+
 // Raises the kernel's dynamic shared memory limit where the launch needs
 // more than the default, then launches it; returns the first error.
 template <typename Kernel, typename... Args>
@@ -251,6 +451,29 @@ int solve(const T* l, const T* rhs, T* x, int n, int ld, int batch, int k,
                 rhs, x, n, ld, batch, k);
 }
 
+template <typename T>
+int factor_jvp(const T* l, const T* dh, T* dl, int n, int batch,
+               int per_block, int smem, cudaStream_t stream) {
+  return launch(chol_factor_jvp_kernel<T>, batch, per_block, smem, stream, l,
+                dh, dl, n, batch, T(1e-15));
+}
+
+template <typename T>
+int solve_jvp(const T* l, const T* dl, const T* x, const T* db, T* dx, int n,
+              int batch, int k, int per_block, int smem,
+              cudaStream_t stream) {
+  if (n <= kWarp) {
+    return launch(chol_solve_jvp_kernel<T, 1>, batch, per_block, smem, stream,
+                  l, dl, x, db, dx, n, batch, k);
+  }
+  if (n <= 2 * kWarp) {
+    return launch(chol_solve_jvp_kernel<T, 2>, batch, per_block, smem, stream,
+                  l, dl, x, db, dx, n, batch, k);
+  }
+  return launch(chol_solve_jvp_kernel<T, 4>, batch, per_block, smem, stream,
+                l, dl, x, db, dx, n, batch, k);
+}
+
 }  // namespace
 
 extern "C" {
@@ -275,6 +498,31 @@ int mi_chol_solve_f64(const double* l, const double* rhs, double* x, int n,
                       int ld, int batch, int k, int per_block, int smem,
                       cudaStream_t stream) {
   return solve(l, rhs, x, n, ld, batch, k, per_block, smem, stream);
+}
+
+int mi_chol_factor_jvp_f32(const float* l, const float* dh, float* dl, int n,
+                           int batch, int per_block, int smem,
+                           cudaStream_t stream) {
+  return factor_jvp(l, dh, dl, n, batch, per_block, smem, stream);
+}
+
+int mi_chol_factor_jvp_f64(const double* l, const double* dh, double* dl,
+                           int n, int batch, int per_block, int smem,
+                           cudaStream_t stream) {
+  return factor_jvp(l, dh, dl, n, batch, per_block, smem, stream);
+}
+
+int mi_chol_solve_jvp_f32(const float* l, const float* dl, const float* x,
+                          const float* db, float* dx, int n, int batch, int k,
+                          int per_block, int smem, cudaStream_t stream) {
+  return solve_jvp(l, dl, x, db, dx, n, batch, k, per_block, smem, stream);
+}
+
+int mi_chol_solve_jvp_f64(const double* l, const double* dl, const double* x,
+                          const double* db, double* dx, int n, int batch,
+                          int k, int per_block, int smem,
+                          cudaStream_t stream) {
+  return solve_jvp(l, dl, x, db, dx, n, batch, k, per_block, smem, stream);
 }
 
 }  // extern "C"

@@ -109,12 +109,44 @@ def kinematics(m: Model, d: Data) -> Data:
                    geom_xpos=geom_xpos, geom_xmat=geom_xmat)
 
 
+def rank_groups(index: np.ndarray) -> tuple[np.ndarray, ...]:
+  """Positions of ``index`` split into groups in which no value repeats:
+  group k holds every value's k-th occurrence, in order.
+
+  ``index_add_`` with repeated indices adds with atomics on the card, in an
+  order that changes from run to run and from lane to lane; one
+  ``index_add_`` a group makes the sums deterministic, in the order the CPU
+  takes (one add after the other, by position).  Lanes that hold the same
+  state then step to the same bits, which the column copies of
+  ``opt.derivative.transition_ad`` need.
+  """
+  seen: dict[int, int] = {}
+  rank = np.empty(len(index), dtype=np.int64)
+  for i, v in enumerate(np.asarray(index).tolist()):
+    rank[i] = seen.get(v, 0)
+    seen[v] = rank[i] + 1
+  return tuple(np.nonzero(rank == k)[0]
+               for k in range(int(rank.max(initial=-1)) + 1))
+
+
+def ordered_index_add(m: Model, out: torch.Tensor, index: np.ndarray,
+                      src: torch.Tensor, key) -> torch.Tensor:
+  """``out.index_add_(1, index, src)`` with a fixed order of the adds into
+  each slot (see ``rank_groups``); ``key`` names the index for the model's
+  memo."""
+  for grp in m.memo(("rank_groups", key), lambda: rank_groups(index)):
+    out.index_add_(1, m.const(index[grp]), src[:, m.const(grp)])
+  return out
+
+
 def tree_sum_up(m: Model, x: torch.Tensor) -> torch.Tensor:
   """Subtree sums of per-body quantities ``x`` (B, nbody, ...): deepest
-  level first, children add into their parents."""
+  level first, children add into their parents, siblings in body order."""
   x = x.clone()
-  for bodies in reversed(m.tree.body_levels):
-    x.index_add_(1, m.const(m.body_parentid[bodies]), x[:, m.const(bodies)])
+  for lvl in range(len(m.tree.body_levels) - 1, -1, -1):
+    bodies = m.tree.body_levels[lvl]
+    ordered_index_add(m, x, m.body_parentid[bodies],
+                      x[:, m.const(bodies)], ("tree_sum_up", lvl))
   return x
 
 
@@ -316,8 +348,8 @@ def rne(m: Model, d: Data, flg_acc: bool = False) -> torch.Tensor:
   contrib = d.cdof_dot * d.qvel[..., None]
   if flg_acc:
     contrib = contrib + d.cdof * d.qacc[..., None]
-  body_contrib = contrib.new_zeros((bsz, nb, 6)).index_add_(1, dof_body,
-                                                            contrib)
+  body_contrib = ordered_index_add(m, contrib.new_zeros((bsz, nb, 6)),
+                                   m.dof_bodyid, contrib, "dof_bodyid")
   cacc = contrib.new_zeros((bsz, nb, 6))
   if not m.opt.disableflags & DisableBit.GRAVITY:
     cacc[:, 0, 3:] = -m.opt.gravity

@@ -19,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.autograd.forward_ad as fwAD
 
 from mujoco_inversedynamicstest_tpu_torch.models.types import (
     Data,
@@ -148,14 +149,23 @@ def _linesearch(m: Model, d: Data, st: _State) -> _State:
   lo = pick(pick_pn, pn, p0)
   hi = pick(pick_pn, p0, pn)
 
-  def shrinks(cur, new):
-    # the candidate tightens the bracket if its slope lies between the
-    # endpoint's slope and zero.  A slope of exactly zero (the minimum of a
+  def joins_lo(cur, new):
+    # the lower end holds a slope <= 0, the upper end a slope > 0.  A
+    # candidate on an end's side replaces it if its slope lies nearer zero,
+    # or if the end is on the wrong side (both starting points can have a
+    # slope of one sign).  A slope of exactly zero (the minimum of a
     # quadratic piece) joins the lower end, which then counts as converged.
-    # The JAX package's strict test rejects it on both ends and keeps
-    # bisecting, which leaves some contact states off C MuJoCo's qacc by
-    # ~1e-7 (ROADMAP queue 3; tests/test_torch_step.py).
-    return ((cur < new) & (new <= 0)) | ((cur > new) & (new > 0))
+    # The JAX package's test is strict and has no wrong-side rule: it
+    # rejects an exact minimum, keeps bisecting, and leaves some contact
+    # states off C MuJoCo's qacc by ~1e-7; and where the minimum's slope
+    # rounds to a positive value while both ends' slopes are negative, it
+    # keeps the Newton point of alpha = 0, so the step jumps with the last
+    # bit of its inputs where C's does not (ROADMAP queue 3;
+    # tests/test_torch_step.py, tests/test_torch_opt.py).
+    return (new <= 0) & ((cur < new) | (cur > 0))
+
+  def joins_hi(cur, new):
+    return (new > 0) & ((cur > new) | (cur <= 0))
 
   live = torch.ones_like(pick_pn)
   for _ in range(m.opt.ls_iterations):
@@ -167,11 +177,11 @@ def _linesearch(m: Model, d: Data, st: _State) -> _State:
     moved = torch.zeros_like(live)
     new_lo, new_hi = lo, hi
     for cand in (cand_lo, cand_mid, cand_hi):
-      take = shrinks(new_lo[:, 2], cand[:, 2])
+      take = joins_lo(new_lo[:, 2], cand[:, 2])
       new_lo = pick(take, cand, new_lo)
       moved = moved | take
     for cand in (cand_hi, cand_mid, cand_lo):
-      take = shrinks(new_hi[:, 2], cand[:, 2])
+      take = joins_hi(new_hi[:, 2], cand[:, 2])
       new_hi = pick(take, cand, new_hi)
       moved = moved | take
     done = ~moved
@@ -193,6 +203,48 @@ def _linesearch(m: Model, d: Data, st: _State) -> _State:
   )
 
 
+def _newton_tangent(d: Data, st: _State, met: torch.Tensor) -> _State:
+  """Under forward-mode AD, gives qacc of the lanes ``met`` (B,), those
+  whose solve met its tolerance, the tangent of one full Newton step from
+  the final iterate, and the constraint forces the matching tangent; the
+  primal values stay as they are, to the bit.  The other lanes stopped at
+  the iteration limit, and keep the tangent of their iterations: the
+  derivative of the map the solve computes, as the JAX package's
+  ``jacfwd`` takes it.
+
+  The iterate's own tangent is lost where the solve starts from a
+  converged warm start (``forward`` leaves one, and ``transition_ad`` steps
+  from it): the Newton loop then takes no step or a line-search step of
+  length 0, and qacc keeps the warm start's tangent, zero.  (The JAX
+  package's ``jacfwd`` is far from C there: ROADMAP queue 3.)  With g the
+  gradient and H the exact Hessian at the final qacc, T its tangent, the
+  step qacc - H⁻¹ g has the tangent T - d(H⁻¹ g) = -H⁻¹ (∂g/∂p) dp -
+  d(H⁻¹) g, the implicit-function derivative of the minimizer when g = 0
+  (to first order in g otherwise), whatever T was.  Without a dual level
+  the state is returned unchanged.
+  """
+  qacc, t_qacc = fwAD.unpack_dual(st.qacc)
+  t_search = fwAD.unpack_dual(st.search).tangent
+  if t_qacc is None and t_search is None:
+    return st
+  tangent = sum(t for t in (t_qacc, t_search) if t is not None)
+  newton = fwAD.make_dual(qacc, tangent)
+  jaref = math.matvec(d.efc_J, newton) - d.efc_aref
+  force = constraint.forces_cost(d, jaref)[0]
+  qfrc = math.matvec(d.efc_J.transpose(1, 2), force)
+
+  def retangent(own, dual):
+    lane = met.reshape((-1,) + (1,) * (own.ndim - 1))
+    return torch.where(lane, fwAD.make_dual(fwAD.unpack_dual(own).primal,
+                                            fwAD.unpack_dual(dual).tangent),
+                       own)
+
+  return dataclasses.replace(st, qacc=retangent(st.qacc, newton),
+                             efc_force=retangent(st.efc_force, force),
+                             qfrc_constraint=retangent(st.qfrc_constraint,
+                                                       qfrc))
+
+
 def solve(m: Model, d: Data) -> Data:
   """Newton solver loop (``mj_solNewton``)."""
   if not m.opt.disableflags & DisableBit.WARMSTART:
@@ -208,11 +260,13 @@ def solve(m: Model, d: Data) -> Data:
   tol = max(m.opt.tolerance, 10 * torch.finfo(qacc0.dtype).eps)
   scale = m.stat_meaninertia * max(1, m.nv)
 
-  def live(st):
+  def met(st):
     improvement = (st.prev_cost - st.cost) / scale
     gradient = math.norm_safe(st.grad) / scale
-    return ~((st.niter >= m.opt.iterations) | (improvement < tol)
-             | (gradient < tol))
+    return (improvement < tol) | (gradient < tol)
+
+  def live(st):
+    return ~((st.niter >= m.opt.iterations) | met(st))
 
   def iterate(st: _State) -> _State:
     st = _linesearch(m, d, st)
@@ -240,6 +294,7 @@ def solve(m: Model, d: Data) -> Data:
     while bool(alive.any()):
       st = _select(alive, iterate(st), st)
       alive = live(st)
+  st = _newton_tangent(d, st, met(st))
 
   return d.replace(qacc=st.qacc, qacc_warmstart=st.qacc,
                    qfrc_constraint=st.qfrc_constraint, efc_force=st.efc_force,

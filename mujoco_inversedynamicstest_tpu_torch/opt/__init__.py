@@ -1,0 +1,45 @@
+"""Trajectory optimization / MPC layer of the PyTorch port (derivatives,
+box QP, iLQR, MPC, the north-star harness)."""
+
+from mujoco_inversedynamicstest_tpu_torch.opt.derivative import (
+    InverseJac,
+    Transition,
+    apply_tangent,
+    get_state,
+    inverse_ad,
+    inverse_fd,
+    measure_tangent,
+    set_state,
+    state_dim,
+    transition_ad,
+    transition_fd,
+)
+from mujoco_inversedynamicstest_tpu_torch.opt.ilqr import (
+    ILQRConfig,
+    ILQRResult,
+    State,
+    ilqr,
+    rollout_open_loop,
+)
+from mujoco_inversedynamicstest_tpu_torch.opt.mpc import (
+    MPCCarry,
+    MPCConfig,
+    MPCRun,
+    MPCStepResult,
+    inverse_torques,
+    make_warm_start,
+    mpc_step,
+    run_mpc,
+)
+from mujoco_inversedynamicstest_tpu_torch.opt.northstar import (
+    NorthStarConfig,
+    NorthStarResult,
+    balance_cost,
+    executed_trajectory,
+    fleet_mpc_fn,
+    inverse_torques_along,
+    make_fleet,
+    measure_solves_per_sec,
+    torque_parity_vs_host,
+)
+from mujoco_inversedynamicstest_tpu_torch.opt.qp import BoxQPResult, box_qp

@@ -256,3 +256,178 @@ def test_kernels_match_plain_versions_on_card(cuda, dtype, n, b):
                           dtype=dtype).transpose(1, 2)
   torch.testing.assert_close(linalg.chol_solve(l, rhs_t),
                              linalg.chol_solve_ref(l, rhs_t), rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# forward mode: the JVPs of the factor and the solve
+# ---------------------------------------------------------------------------
+
+
+def _sym(rng, b, n):
+  g = rng.randn(b, n, n)
+  return g + g.transpose(0, 2, 1)
+
+
+@pytest.mark.parametrize("n", [1, 4, 27])
+def test_factor_jvp_plain_matches_torch_and_jax(n):
+  """chol_factor_jvp_ref against torch's forward mode through
+  chol_factor_ref and against jax.jvp of the JAX package's chol_factor
+  (LAPACK on the CPU), f64, 1e-10."""
+  rng = np.random.RandomState(10 + n)
+  h, dh = _spd(rng, 8, n), _sym(rng, 8, n)
+  ht, dht = torch.as_tensor(h), torch.as_tensor(dh)
+  got = linalg.chol_factor_jvp_ref(linalg.chol_factor_ref(ht), dht)
+  _, ref = torch.func.jvp(linalg.chol_factor_ref, (ht,), (dht,))
+  _, ref_jax = jax.jvp(jlinalg.chol_factor, (jnp.asarray(h),),
+                       (jnp.asarray(dh),))
+  np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-10)
+  np.testing.assert_allclose(got.numpy(), np.asarray(ref_jax), rtol=0,
+                             atol=1e-10)
+  assert np.all(np.triu(got.numpy(), 1) == 0)
+
+
+@pytest.mark.parametrize("k", [None, 3])
+def test_solve_jvp_plain_matches_torch_and_jax(k):
+  """chol_solve_jvp_ref against torch's forward mode through
+  chol_solve_ref and against jax.jvp of the JAX package's chol_solve, with
+  tangents of both the factor and the right-hand side, f64, 1e-10."""
+  rng = np.random.RandomState(20)
+  n, b = 27, 8
+  l = np.linalg.cholesky(_spd(rng, b, n))
+  dl = np.tril(rng.randn(b, n, n))
+  shape = (b, n) if k is None else (b, n, k)
+  rhs, drhs = rng.randn(*shape), rng.randn(*shape)
+  lt, dlt, bt, dbt = (torch.as_tensor(a) for a in (l, dl, rhs, drhs))
+  x = linalg.chol_solve_ref(lt, bt)
+  got = linalg.chol_solve_jvp_ref(lt, dlt, x, dbt)
+  _, ref = torch.func.jvp(linalg.chol_solve_ref, (lt, bt), (dlt, dbt))
+  _, ref_jax = jax.jvp(jax.vmap(jlinalg.chol_solve), (l, rhs), (dl, drhs))
+  assert got.shape == bt.shape
+  np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-10)
+  np.testing.assert_allclose(got.numpy(), np.asarray(ref_jax), rtol=0,
+                             atol=1e-10)
+
+
+def test_factor_jvp_at_clamped_pivots():
+  """A clamped pivot passes no tangent: dL[k][k] = 0, and the column below
+  it is the running tangent over sqrt(1e-15).  torch's clamp has the same
+  derivative below the bound, so its forward mode agrees."""
+  rng = np.random.RandomState(11)
+  n = 9
+  h = _spd(rng, 4, n)
+  h[:, 4, 4] -= 50.0            # a negative pivot mid-way
+  h[:, -1, -1] = -1.0           # and at the end
+  dh = _sym(rng, 4, n)
+  ht, dht = torch.as_tensor(h), torch.as_tensor(dh)
+  l = linalg.chol_factor_ref(ht)
+  assert torch.all(l[:, 4, 4] == np.sqrt(1e-15))
+  got = linalg.chol_factor_jvp_ref(l, dht)
+  assert torch.all(got[:, 4, 4] == 0) and torch.all(got[:, -1, -1] == 0)
+  _, ref = torch.func.jvp(linalg.chol_factor_ref, (ht,), (dht,))
+  torch.testing.assert_close(got, ref, rtol=1e-10, atol=1e-10)
+
+
+def test_dual_inputs_give_dual_outputs():
+  """chol_factor / chol_solve carry forward-mode tangents: a dual input
+  gives a dual output whose tangent is the JVP (a missing tangent counts as
+  zero), and no dual input is ever dropped."""
+  import torch.autograd.forward_ad as fwAD
+
+  rng = np.random.RandomState(12)
+  n, b = 6, 5
+  h, dh = torch.as_tensor(_spd(rng, b, n)), torch.as_tensor(_sym(rng, b, n))
+  rhs, drhs = (torch.as_tensor(rng.randn(b, n)) for _ in range(2))
+  l = linalg.chol_factor_ref(h)
+  dl = linalg.chol_factor_jvp_ref(l, dh)
+  x = linalg.chol_solve_ref(l, rhs)
+  with fwAD.dual_level():
+    ld = linalg.chol_factor(fwAD.make_dual(h, dh))
+    primal, tangent = fwAD.unpack_dual(ld)
+    assert torch.equal(primal, l) and torch.equal(tangent, dl)
+    for l_in, b_in, dl_in, db_in in (
+        (ld, fwAD.make_dual(rhs, drhs), dl, drhs),
+        (ld, rhs, dl, torch.zeros_like(rhs)),
+        (l, fwAD.make_dual(rhs, drhs), torch.zeros_like(l), drhs)):
+      primal, tangent = fwAD.unpack_dual(linalg.chol_solve(l_in, b_in))
+      assert torch.equal(primal, x)
+      assert torch.equal(tangent, linalg.chol_solve_jvp_ref(l, dl_in, x,
+                                                            db_in))
+    assert fwAD.unpack_dual(linalg.chol_solve(l, rhs)).tangent is None
+
+
+def test_cpu_jvp_wrappers_take_the_plain_versions():
+  rng = np.random.RandomState(13)
+  h, dh = torch.as_tensor(_spd(rng, 3, 5)), torch.as_tensor(_sym(rng, 3, 5))
+  l = linalg.chol_factor_ref(h)
+  x, db = (torch.as_tensor(rng.randn(3, 5)) for _ in range(2))
+  before = (linalg.chol_factor_jvp.launches, linalg.chol_solve_jvp.launches)
+  dl = linalg.chol_factor_jvp(l, dh)
+  assert torch.equal(dl, linalg.chol_factor_jvp_ref(l, dh))
+  assert torch.equal(linalg.chol_solve_jvp(l, dl, x, db),
+                     linalg.chol_solve_jvp_ref(l, dl, x, db))
+  assert (linalg.chol_factor_jvp.launches,
+          linalg.chol_solve_jvp.launches) == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_jvp_launch_geometry_fits_hopper(dtype):
+  """Two packed lower-triangle tiles a matrix fit a Hopper block for every
+  n the kernels take, n = 128 in fp64 included; the packed rows of 32
+  consecutive rows start in 32 different banks."""
+  for n in range(1, linalg.N_MAX + 1):
+    per_block, smem = linalg.jvp_launch_geometry(n, dtype)
+    assert 1 <= per_block <= linalg.MATS_PER_BLOCK
+    assert smem == per_block * n * (n + 1) * dtype.itemsize <= 232_448
+  for r0 in (0, 32, 96):
+    assert len({(r * (r + 1) // 2) % 32 for r in range(r0, r0 + 32)}) == 32
+  assert linalg.jvp_launch_geometry(128, torch.float64) == (1, 132_096)
+  assert linalg.jvp_launch_geometry(27, torch.float32) == (4, 4 * 3024)
+
+
+@pytest.mark.parametrize("args, match", [
+    ((torch.zeros(2, 5, 5), torch.zeros(2, 5, 4)), "tangent of the matrix"),
+    ((torch.zeros(2, 5, 5), torch.zeros(2, 5, 5, dtype=torch.float64)),
+     "tangent of the matrix"),
+])
+def test_jvp_shape_checks_raise(args, match):
+  with pytest.raises(ValueError, match=match):
+    linalg._check_same(args[0], args[1], match)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [1, 27, 32, 33, 128])
+@pytest.mark.parametrize("b", [1, 4096])
+def test_jvp_kernels_match_plain_versions_on_card(cuda, dtype, n, b):
+  """The JVP kernels are bit-equal to their plain versions, one launch a
+  call, rhs (B, n) and (B, n, 3), asymmetric tangents and transposed
+  (non-contiguous) inputs."""
+  rng = np.random.RandomState(6)
+  g = torch.as_tensor(rng.randn(b, n, n), device=cuda, dtype=dtype)
+  h = g @ g.transpose(1, 2) + n * torch.eye(n, device=cuda, dtype=dtype)
+  dh = torch.as_tensor(rng.randn(b, n, n), device=cuda, dtype=dtype)
+  l = linalg.chol_factor_ref(h)
+  before = linalg.chol_factor_jvp.launches
+  dl = linalg.chol_factor_jvp(l, dh)
+  assert linalg.chol_factor_jvp.launches == before + 1
+  torch.testing.assert_close(dl, linalg.chol_factor_jvp_ref(l, dh), rtol=0,
+                             atol=0)
+  torch.testing.assert_close(linalg.chol_factor_jvp(l, dh.transpose(1, 2)),
+                             linalg.chol_factor_jvp_ref(l, dh.transpose(1, 2)),
+                             rtol=0, atol=0)
+  for k in (1, 3):
+    x, db = (torch.as_tensor(rng.randn(b, n, k), device=cuda, dtype=dtype)
+             for _ in range(2))
+    if k == 1:
+      x, db = x[..., 0], db[..., 0]
+    before = linalg.chol_solve_jvp.launches
+    dx = linalg.chol_solve_jvp(l, dl, x, db)
+    assert linalg.chol_solve_jvp.launches == before + 1
+    assert dx.shape == x.shape
+    torch.testing.assert_close(dx, linalg.chol_solve_jvp_ref(l, dl, x, db),
+                               rtol=0, atol=0)
+  x_t = torch.as_tensor(rng.randn(b, 3, n), device=cuda,
+                        dtype=dtype).transpose(1, 2)
+  torch.testing.assert_close(linalg.chol_solve_jvp(l, dl, x_t, x_t),
+                             linalg.chol_solve_jvp_ref(l, dl, x_t, x_t),
+                             rtol=0, atol=0)
