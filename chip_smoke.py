@@ -21,44 +21,57 @@ non-zero:
    the kernels against 5 steps with the plain versions.
 7. slice: inverse dynamics -- forward then compare_fwd_inv on 64 lanes
    (fp64, Newton with 100 iterations); solver_fwdinv <= 1e-6 on every lane.
-8. kernel: chol_factor_jvp / chol_solve_jvp -- the forward-mode kernels
-   against their plain versions over the grid of phases 3-4, plus clamped
-   pivots, an asymmetric tangent and non-contiguous inputs; bit-equal.
+8. kernel: chol_factor_jvp / chol_solve_jvp -- the forward-mode kernels,
+   many tangents a lane, against their plain versions over n of the grid
+   of phases 3-4 and (B, T) = every B of it with one tangent, and 1 and
+   127 lanes with 3 and 75: tangent-major and lane-major operands,
+   operands the same for all tangents (stride 0), absent dL and db,
+   single-tangent calls; plus clamped pivots, asymmetric tangents,
+   transposed inputs and the bench chunk (1024 lanes, 75 tangents);
+   bit-equal.
 9. kernel: main-path shapes, and timing: JVP kernels -- all four kernels
-   against their plain versions, bit-equal, at every (B, dtype) at which
-   phases 6-14 launch them (n = 27); then, at the linearization chunks'
-   B (F lin_batch 75 of phases 12 and 13, and 76,800 of the bench: F =
-   512, lin_batch = 2), the JVP kernels timed against the plain versions
-   and against torch.func.jvp of torch.linalg.cholesky /
-   torch.cholesky_solve (one call each, never called by the port).
+   against their plain versions, bit-equal, at every shape at which
+   phases 6-14 launch them (n = 27; the JVP kernels at (lanes, tangents)
+   (8, 75) fp64, (1280, 75), (800, 75), (1024, 75) and the folded
+   (76,800, 1), in both layouts); then at the bench's chunk (1024 lanes,
+   75 tangents) the JVP kernels timed against the plain versions, their
+   bounds (L read once a lane) and torch.func.vmap over torch.func.jvp of
+   torch.linalg.cholesky / torch.cholesky_solve (one call each, never
+   called by the port).
 10. slice: transition -- transition_ad on 8 lanes (fp64) of the Newton-100
    humanoid and of humanoid_mjx, with the kernels against the plain
    versions (<= 1e-9) and against transition_fd (centered, eps 1e-6;
-   within 1e-4 of max|A|); JVP kernel launches > 0.
-11. slice: linearization chunk -- one dual step of 76,800 lanes (1024
-   humanoid_mjx lanes x 75 tangent copies, fp32): time, peak memory, the
-   JVP kernels' device time per launch (torch.profiler), and the spread of
-   the primal next state across the 75 copies of a lane, which must be 0.
+   within 1e-4 of max|A|); JVP kernel launches > 0, at 75 tangents a lane.
+11. slice: linearization chunk -- the dual step of the bench's chunk, 1024
+   humanoid_mjx lanes x 75 tangents (fp32), by the folded route (76,800
+   lane copies, one tangent each) and by transition_ad's vmap over jvp
+   (one primal a lane), in one call: seconds, peak memory, launches,
+   device time and launches and each kernel's µs a launch
+   (torch.profiler); the folded copies must agree to the bit, and the
+   vmap route's primal next state must equal step's to the bit.
 12. slice: MPC fleet -- northstar.measure_solves_per_sec on humanoid_mjx,
    fp32, H = 100, 2 iLQR iterations, 8 alphas, F = 64, lin_batch = 20
-   (96,000 lanes a linearization chunk), n_apply = 100 (the whole plan is
-   executed); solves/s, first-run seconds, finite lanes (>= 0.9), mean
-   iterations, the plan cost's mean and median, peak memory, launches of
-   all four kernels.  humanoid_mjx diverges from these states in C too
-   (tests/test_torch_opt.py), so its plan costs measure the divergence.
+   (a linearization chunk of 1280 lanes x 75 tangents), n_apply = 100
+   (the whole plan is executed); solves/s, first-run seconds, finite
+   lanes (>= 0.9), mean iterations, the plan cost's mean and median, peak
+   memory, launches of all four kernels.  humanoid_mjx diverges from
+   these states in C too (tests/test_torch_opt.py), so its plan costs
+   measure the divergence.
 13. slice: MPC on the Newton-100 humanoid -- the same solve on the model
-   that does not diverge, F = 16, lin_batch = 50 (60,000 lanes a chunk),
-   one replan: one solve timed by iLQR stage with the kernels, then the
-   same fleet with the plain versions; every plan cost finite and below
+   that does not diverge, F = 16, lin_batch = 50 (800 lanes x 75 tangents
+   a chunk), one replan: one solve timed by iLQR stage with the kernels,
+   then the same fleet with the plain versions; every plan cost finite and below
    1e5, and the two runs' plan costs and controls equal to the bit.
 14. slice: MPC torque consistency -- the executed controls of 4 lanes of
    phase 12 replayed for 100 steps in fp64 on the Newton-100 humanoid;
    forward + compare_fwd_inv at every visited state, solver_fwdinv <= 1e-6.
 
-Then one JSON line of the kernel report, the nvidia-smi line, and the
-result line.  There is no CPU path: without CUDA the script fails.  It
-imports neither jax nor mujoco: the humanoid comes from the model snapshots
-in the package's assets/.
+Every JVP launch of phases 10-14 must be at a (lanes, tangents) that
+phase 9 checked.  Then one JSON line of the kernel report (the JVP
+kernels with the tangent counts of their phase 12 launches), the
+nvidia-smi line, and the result line.  There is no CPU path: without
+CUDA the script fails.  It imports neither jax nor mujoco: the humanoid
+comes from the model snapshots in the package's assets/.
 
     python3 chip_smoke.py --bench
 
@@ -100,7 +113,7 @@ KERNELS = tuple(REPLACES)
 # (fleet, lin_batch, n_apply) of the MPC phases 12 and 13, and of --bench
 MPC_HORIZON = 100
 MPC_RUN, MPC_REF_RUN, MPC_BENCH = (64, 20, 100), (16, 50, 1), (512, 2, 1)
-BENCH_CHUNK_LANES = 1024  # x 75 tangent copies = 512 x 2 x 75 = 76,800
+BENCH_CHUNK_LANES = 1024  # 512 x 2: the bench chunk, 75 tangents a lane
 FLEET, FLEET_STEPS = 4096, 100
 GRID_N, GRID_B = (1, 2, 6, 27, 32, 33, 64, 128), (1, 127, 4096)
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}  # of max|reference|
@@ -255,11 +268,48 @@ def sym(rng: np.random.Generator, shape, dev) -> torch.Tensor:
   return g + g.transpose(-1, -2)
 
 
+def lane_major(t: torch.Tensor) -> torch.Tensor:
+  """(T, B, ...) with the lanes in front in memory: the other layout vmap
+  can hand over."""
+  return t.transpose(0, 1).contiguous().transpose(0, 1)
+
+
+def factor_jvp_cases(linalg, l, dh):
+  """(case, kernel output, plain output) of chol_factor_jvp for a lane
+  stack l (B, n, n) and T tangents dh (T, B, n, n): tangent-major and
+  lane-major, one tangent for all (a tangent stride of 0), and the
+  single-tangent call (no T)."""
+  return [(name, linalg.chol_factor_jvp(l, d), linalg.chol_factor_jvp_ref(
+      l, d)) for name, d in (("tangent-major", dh),
+                             ("lane-major", lane_major(dh)),
+                             ("stride-0", dh[:1].expand(dh.shape)),
+                             ("single", dh[0]))]
+
+
+def solve_jvp_cases(linalg, l, dl, x, db):
+  """The same for chol_solve_jvp, x (B, n[, k]) and T tangents dl, db:
+  both layouts, either tangent the same for all or absent, and the
+  single-tangent call."""
+  cases = (("tangent-major", dl, db),
+           ("lane-major", lane_major(dl), lane_major(db)),
+           ("dL stride-0", dl[0], db), ("db stride-0", dl, db[0]),
+           ("dL absent", None, db), ("db absent", dl, None),
+           ("single", dl[0], db[0]))
+  return [(name, linalg.chol_solve_jvp(l, a, x, b),
+           linalg.chol_solve_jvp_ref(l, a, x, b)) for name, a, b in cases]
+
+
+# (B, T) of the phase 8 grid: every B of the primal grid with one tangent,
+# and a few lanes with 3 and 75 tangents a lane
+JVP_GRID = tuple((b, 1) for b in GRID_B) + ((1, 3), (127, 3), (1, 75),
+                                            (127, 75))
+
+
 def check_jvp_kernels(linalg, dev) -> dict:
-  """Phase 8; returns the max abs error at (4096, 27) fp32."""
+  """Phase 8; returns the max abs error at (1024 lanes, 75 tangents, 27)
+  fp32, the bench's linearization chunk."""
   rng = np.random.default_rng(3)
   worst = {"chol_factor_jvp": 0.0, "chol_solve_jvp": 0.0}
-  slice_err = {}
   ncase = {"chol_factor_jvp": 0, "chol_solve_jvp": 0}
 
   def check(name, got, ref, case):
@@ -268,23 +318,21 @@ def check_jvp_kernels(linalg, dev) -> dict:
     return float((got - ref).abs().max())
 
   for n in GRID_N:
-    for b in GRID_B:
-      h64, dh64 = spd(rng, b, n, dev), sym(rng, (b, n, n), dev)
-      x64, db64 = (torch.as_tensor(rng.standard_normal((b, n, 3)),
-                                   device=dev) for _ in range(2))
+    for b, t in JVP_GRID:
+      h64, dh64 = spd(rng, b, n, dev), sym(rng, (t, b, n, n), dev)
+      x64 = torch.as_tensor(rng.standard_normal((b, n, 3)), device=dev)
+      db64 = torch.as_tensor(rng.standard_normal((t, b, n, 3)), device=dev)
       for dt in (torch.float32, torch.float64):
-        h, dh, x, db = (t.to(dt) for t in (h64, dh64, x64, db64))
+        h, dh, x, db = (v.to(dt) for v in (h64, dh64, x64, db64))
         l = linalg.chol_factor_ref(h)
-        case = f"n={n} B={b} {dt}"
+        case = f"n={n} B={b} T={t} {dt}"
+        for name, got, ref in factor_jvp_cases(linalg, l, dh):
+          check("chol_factor_jvp", got, ref, f"{case} {name}")
         dl = linalg.chol_factor_jvp_ref(l, dh)
-        e_f = check("chol_factor_jvp", linalg.chol_factor_jvp(l, dh), dl,
-                    case)
         for xr, dbr in ((x[..., 0], db[..., 0]), (x, db)):
-          e_s = check("chol_solve_jvp", linalg.chol_solve_jvp(l, dl, xr, dbr),
-                      linalg.chol_solve_jvp_ref(l, dl, xr, dbr),
-                      f"{case} rhs{tuple(xr.shape)}")
-        if n == 27 and b == FLEET and dt == torch.float32:
-          slice_err = {"chol_factor_jvp": e_f, "chol_solve_jvp": e_s}
+          for name, got, ref in solve_jvp_cases(linalg, l, dl, xr, dbr):
+            check("chol_solve_jvp", got, ref,
+                  f"{case} {name} rhs{tuple(xr.shape)}")
 
   # clamped pivots pass no tangent: a negative pivot mid-way, on a dof
   # coupled to no other (so the factor stays finite), and at the end
@@ -295,41 +343,59 @@ def check_jvp_kernels(linalg, dev) -> dict:
     hn[:, 13, 13] = -1.0
     hn[:, -1, -1] -= 1e3 * hn[:, -1, -1]
     l = linalg.chol_factor_ref(hn)
-    dh = sym(rng, (127, 27, 27), dev).to(dt)
+    dh = sym(rng, (3, 127, 27, 27), dev).to(dt)
     got = linalg.chol_factor_jvp(l, dh)
     check("chol_factor_jvp", got, linalg.chol_factor_jvp_ref(l, dh),
           f"clamped pivots {dt}")
-    if not (bool((got[:, 13, 13] == 0).all())
-            and bool((got[:, -1, -1] == 0).all())):
+    if not (bool((got[..., 13, 13] == 0).all())
+            and bool((got[..., -1, -1] == 0).all())):
       raise AssertionError("a clamped pivot got a tangent")
 
-  # asymmetric tangent: only its lower triangle is read
+  # asymmetric tangents: only their lower triangles are read
   l = linalg.chol_factor_ref(spd(rng, 128, 27, dev))
-  dh = torch.as_tensor(rng.standard_normal((128, 27, 27)), device=dev)
-  dh_lower = torch.tril(dh) + torch.tril(dh, -1).transpose(1, 2)
+  dh = torch.as_tensor(rng.standard_normal((3, 128, 27, 27)), device=dev)
+  dh_lower = torch.tril(dh) + torch.tril(dh, -1).transpose(-1, -2)
   check("chol_factor_jvp", linalg.chol_factor_jvp(l, dh),
         linalg.chol_factor_jvp_ref(l, dh_lower), "asymmetric tangent")
 
-  # non-contiguous inputs: transposed views
+  # transposed (non-contiguous) matrices and right-hand sides
   l = linalg.chol_factor_ref(spd(rng, 127, 27, dev).float())
-  dh_t = sym(rng, (127, 27, 27), dev).float().transpose(1, 2)
+  dh_t = sym(rng, (3, 127, 27, 27), dev).float().transpose(-1, -2)
   dl = linalg.chol_factor_jvp_ref(l, dh_t)
   check("chol_factor_jvp", linalg.chol_factor_jvp(l, dh_t), dl,
-        "non-contiguous input")
-  x_t, db_t = (torch.as_tensor(rng.standard_normal((127, 3, 27)),
-                               device=dev).float().transpose(1, 2)
-               for _ in range(2))
-  dl_t = dl.transpose(1, 2).contiguous().transpose(1, 2)  # dl, strided
+        "transposed tangents")
+  x_t = torch.as_tensor(rng.standard_normal((127, 3, 27)),
+                        device=dev).float().transpose(1, 2)
+  db_t = torch.as_tensor(rng.standard_normal((3, 127, 3, 27)),
+                         device=dev).float().transpose(-1, -2)
+  dl_t = dl.transpose(-1, -2).contiguous().transpose(-1, -2)
   check("chol_solve_jvp", linalg.chol_solve_jvp(l, dl_t, x_t, db_t),
-        linalg.chol_solve_jvp_ref(l, dl, x_t, db_t), "non-contiguous input")
+        linalg.chol_solve_jvp_ref(l, dl, x_t, db_t), "transposed inputs")
+
+  # the bench's chunk, 1024 lanes x 75 tangents, fp32
+  b, t = BENCH_CHUNK_LANES, 75
+  l = linalg.chol_factor_ref(spd(rng, b, 27, dev).float())
+  dh = sym(rng, (t, b, 27, 27), dev).float()
+  x = torch.as_tensor(rng.standard_normal((b, 27)), device=dev).float()
+  db = torch.as_tensor(rng.standard_normal((t, b, 27)), device=dev).float()
+  dl = linalg.chol_factor_jvp_ref(l, dh)
+  slice_err = {
+      "chol_factor_jvp": check("chol_factor_jvp", linalg.chol_factor_jvp(
+          l, dh), dl, "bench chunk"),
+      "chol_solve_jvp": check("chol_solve_jvp", linalg.chol_solve_jvp(
+          l, dl, x, db), linalg.chol_solve_jvp_ref(l, dl, x, db),
+                              "bench chunk")}
 
   for name in worst:
     log(f"kernel: {name}",
-        f"{ncase[name]} cases (grid n={GRID_N} B={GRID_B} fp32/fp64"
-        + (", rhs (B,n) and (B,n,3)" if name == "chol_solve_jvp" else
-           " + clamped pivots + asymmetric tangent")
-        + " + non-contiguous): all bit-equal to the plain version; max rel "
-        f"err {worst[name]:.3e} (tol fp32 1e-4, fp64 1e-12)")
+        f"{ncase[name]} cases (n={GRID_N} x (B, T)={JVP_GRID} x fp32/fp64: "
+        "tangent-major, lane-major, stride-0 and single-tangent operands"
+        + (", absent dL and db, rhs (B,n) and (B,n,3)"
+           if name == "chol_solve_jvp" else
+           " + clamped pivots + asymmetric tangents")
+        + " + transposed inputs + the bench chunk (1024, 75)): all "
+        f"bit-equal to the plain version; max rel err {worst[name]:.3e} "
+        "(tol fp32 1e-4, fp64 1e-12)")
   return slice_err
 
 
@@ -386,94 +452,111 @@ def time_kernels(linalg, dev) -> dict:
   return out
 
 
-def jvp_work(n: int, b: int, size: int) -> dict:
-  """What each JVP function must move and compute for b (n, n) matrices:
-  the factor's JVP reads the lower triangles of L and dH and writes the
-  dense dL, and does 3 (n-k-1) + 2 (n-k-1) (n-k) operations at pivot k
-  (column, then the two products and two differences of the trailing
-  update); the solve's JVP reads both triangles, x and db, writes dx, and
-  sweeps five triangles (y, t, u, v, dx), 5 n (n + 1) operations."""
+def jvp_work(n: int, b: int, t: int, size: int) -> dict:
+  """What each JVP function must move and compute for b lanes of t
+  tangents each: L is read once a lane (its lower triangle), each
+  tangent's dH triangle read and its dense dL written; the factor's JVP
+  does 3 (n-k-1) + 2 (n-k-1) (n-k) operations a tangent at pivot k.  The
+  solve's JVP reads L and x once a lane and each tangent's dL triangle and
+  db, writes dx, and sweeps y = Lᵀx once a lane and four triangles a
+  tangent (t, u, v, dx), n (n + 1) operations a sweep."""
   tri = n * (n + 1) // 2
   ops = sum(3 * (n - k - 1) + 2 * (n - k - 1) * (n - k) for k in range(n))
-  return {"chol_factor_jvp": ((2 * tri + n * n) * b * size, b * ops),
-          "chol_solve_jvp": ((2 * tri + 3 * n) * b * size,
-                             5 * n * (n + 1) * b)}
+  sweep = n * (n + 1)
+  return {"chol_factor_jvp": ((b * tri + b * t * (tri + n * n)) * size,
+                              b * t * ops),
+          "chol_solve_jvp": ((b * (tri + n) + b * t * (tri + 2 * n)) * size,
+                             b * sweep + 4 * b * t * sweep)}
 
 
-def path_shapes() -> list:
-  """(B, dtype) of every launch of the kernels in phases 6-14 and in
-  --bench, all at n = 27: the fleet step, the fp64 steps and inverse
-  dynamics of 64 lanes, the transitions of 8 lanes (a forward, the dual
-  step of 8 x 75 copies, the centered FD's 8 x 151), the linearization
-  chunk, each MPC run's fleet, forward pass (F x 8 alphas), chunk
-  forward (F lin_batch) and dual step (F lin_batch 75), and the torque
-  replay (4 lanes stepped, 400 states)."""
+def path_shapes() -> tuple[list, list]:
+  """The launches of phases 6-14 and of --bench, all at n = 27: (B, dtype)
+  of the primal kernels and (B, T, dtype) of the JVP kernels.  Primal:
+  the fleet step, the fp64 steps and inverse dynamics of 64 lanes, the
+  transitions of 8 lanes (a forward, the dual step's primal, the centered
+  FD's 8 x 151 copies), the linearization chunk (1024 lanes; 1024 x 75 in
+  its folded comparison), each MPC run's fleet, forward pass (F x 8
+  alphas) and chunk (F lin_batch: its forward and its dual step's
+  primal), and the torque replay (4 lanes stepped, 400 states).  JVP: 75
+  tangents a lane (nx + nu of the humanoid) at every dual step's lanes,
+  and one a lane in the folded comparison."""
   f32 = {FLEET, BENCH_CHUNK_LANES, 75 * BENCH_CHUNK_LANES}
+  jvp = {(8, 75, torch.float64), (BENCH_CHUNK_LANES, 75, torch.float32),
+         (75 * BENCH_CHUNK_LANES, 1, torch.float32)}
   for f, lin_batch, _ in (MPC_RUN, MPC_REF_RUN, MPC_BENCH):
-    f32 |= {f, 8 * f, lin_batch * f, 75 * lin_batch * f}
-  f64 = {64, 8, 75 * 8, 151 * 8, 4, 4 * MPC_HORIZON}
-  return ([(b, torch.float32) for b in sorted(f32)]
-          + [(b, torch.float64) for b in sorted(f64)])
+    f32 |= {f, 8 * f, lin_batch * f}
+    jvp.add((lin_batch * f, 75, torch.float32))
+  f64 = {64, 8, 151 * 8, 4, 4 * MPC_HORIZON}
+  primal = ([(b, torch.float32) for b in sorted(f32)]
+            + [(b, torch.float64) for b in sorted(f64)])
+  return primal, sorted(jvp, key=lambda s: (str(s[2]), s[0], s[1]))
 
 
 def check_path_kernels(linalg, dev) -> dict:
   """Phase 9: all four kernels against their plain versions, bit-equal, at
-  each (B, dtype) of ``path_shapes``; at the linearization chunks' B of
-  phase 12 and of the bench, then the JVP kernels (wrapper included),
-  their plain versions and the one-call yardsticks
-  torch.func.jvp(torch.linalg.cholesky) and
-  torch.func.jvp(torch.cholesky_solve), timed in turns plain, kernel,
-  library, library, kernel, plain (medians of the pairs).  Returns the
-  numbers at phase 12's B."""
+  each shape of ``path_shapes`` (the JVP kernels in both layouts); then,
+  at the bench's chunk (1024 lanes, 75 tangents), the JVP kernels
+  (wrapper included), their plain versions and the one-call yardsticks
+  torch.func.vmap over torch.func.jvp of torch.linalg.cholesky and of
+  torch.cholesky_solve, timed in turns plain, kernel, library, library,
+  kernel, plain (medians of the pairs).  Returns those numbers."""
   rng = np.random.default_rng(4)
-  f, lin_batch, _ = MPC_RUN
-  timed = (75 * lin_batch * f, 75 * BENCH_CHUNK_LANES)
-  out = {}
-  for b, dt in path_shapes():
+  primal, jvp = path_shapes()
+  for b, dt in primal:
     h = spd(rng, b, 27, dev).to(dt)
-    dh = sym(rng, (b, 27, 27), dev).to(dt)
     l = linalg.chol_factor_ref(h)
-    dl = linalg.chol_factor_jvp_ref(l, dh)
-    x, db = (torch.as_tensor(rng.standard_normal((b, 27)),
-                             device=dev).to(dt) for _ in range(2))
+    x = torch.as_tensor(rng.standard_normal((b, 27)), device=dev).to(dt)
     case = f"main-path shape n=27 B={b} {dt}"
     check_kernel("chol_factor", linalg.chol_factor(h), l, case)
     check_kernel("chol_solve", linalg.chol_solve(l, x),
                  linalg.chol_solve_ref(l, x), case)
-    check_kernel("chol_factor_jvp", linalg.chol_factor_jvp(l, dh), dl, case)
-    check_kernel("chol_solve_jvp", linalg.chol_solve_jvp(l, dl, x, db),
-                 linalg.chol_solve_jvp_ref(l, dl, x, db), case)
-    if dt != torch.float32 or b not in timed:
+  out = {}
+  for b, t, dt in jvp:
+    h = spd(rng, b, 27, dev).to(dt)
+    dh = sym(rng, (t, b, 27, 27), dev).to(dt)
+    l = linalg.chol_factor_ref(h)
+    dl = linalg.chol_factor_jvp_ref(l, dh)
+    x = torch.as_tensor(rng.standard_normal((b, 27)), device=dev).to(dt)
+    db = torch.as_tensor(rng.standard_normal((t, b, 27)), device=dev).to(dt)
+    case = f"main-path shape n=27 B={b} T={t} {dt}"
+    for d in (dh, lane_major(dh)):
+      check_kernel("chol_factor_jvp", linalg.chol_factor_jvp(l, d), dl, case)
+    for a, c in ((dl, db), (lane_major(dl), lane_major(db))):
+      check_kernel("chol_solve_jvp", linalg.chol_solve_jvp(l, a, x, c),
+                   linalg.chol_solve_jvp_ref(l, dl, x, db), case)
+    if (b, t, dt) != (BENCH_CHUNK_LANES, 75, torch.float32):
       continue
-    work = jvp_work(27, b, h.element_size())
-    res = {}
+    work = jvp_work(27, b, t, h.element_size())
+    vj = lambda f, p, tg: torch.func.vmap(
+        lambda *u: torch.func.jvp(f, p, u)[1])(*tg)
     for name, kern, plain, library in (
         ("chol_factor_jvp", lambda: linalg.chol_factor_jvp(l, dh),
          lambda: linalg.chol_factor_jvp_ref(l, dh),
-         lambda: torch.func.jvp(torch.linalg.cholesky, (h,), (dh,))),
+         lambda: vj(torch.linalg.cholesky, (h,), (dh,))),
         ("chol_solve_jvp", lambda: linalg.chol_solve_jvp(l, dl, x, db),
          lambda: linalg.chol_solve_jvp_ref(l, dl, x, db),
-         lambda: torch.func.jvp(lambda a, r: torch.cholesky_solve(r, a),
-                                (l, x[..., None]), (dl, db[..., None])))):
+         lambda: vj(lambda a, r: torch.cholesky_solve(r, a),
+                    (l, x[..., None]), (dl, db[..., None])))):
       p1, k1, y1, y2, k2, p2 = (time_ms(f, reps=10) for f in (
           plain, kern, library, library, kern, plain))
       bound, bound_by = bound_ms(*work[name])
-      res[name] = {"ms": float(np.median([k1, k2])),
+      out[name] = {"ms": float(np.median([k1, k2])),
                    "plain_ms": float(np.median([p1, p2])),
                    "bound_ms": bound, "bound_by": bound_by,
                    "library_ms": float(np.median([y1, y2]))}
-    log("timing: JVP kernels", f"({b}, 27) fp32, ms kernel / plain / "
-        "torch.func.jvp yardstick / bound: " + ", ".join(
+    log("timing: JVP kernels", f"({b} lanes, {t} tangents, 27) fp32, ms "
+        "kernel / plain / vmap-of-jvp yardstick / bound: " + ", ".join(
             f"{k} {v['ms']:.4f} / {v['plain_ms']:.4f} / "
-            f"{v['library_ms']:.4f} / {v['bound_ms']:.4f} ({v['bound_by']}; "
-            f"kernel at {v['bound_ms'] / v['ms']:.1%} of it)"
-            for k, v in res.items()))
-    out[b] = res
-  shapes = path_shapes()
+            f"{v['library_ms']:.4f} / {v['bound_ms']:.4f} ({v['bound_by']}"
+            f", {work[k][0] / 1e6:.1f} MB; kernel at "
+            f"{v['bound_ms'] / v['ms']:.1%} of it)" for k, v in out.items()))
   log("kernel: main-path shapes",
-      "all four kernels bit-equal to their plain versions at n=27 and B = "
-      + ", ".join(f"{b} {str(dt)[6:]}" for b, dt in shapes))
-  return out[timed[0]]
+      "all four kernels bit-equal to their plain versions at n=27: primal B "
+      "= " + ", ".join(f"{b} {str(dt)[6:]}" for b, dt in primal)
+      + "; JVP (B, T) = " + ", ".join(f"({b}, {t}) {str(dt)[6:]}"
+                                      for b, t, dt in jvp)
+      + " in both layouts")
+  return out
 
 
 def fleet_data(mt, m, batch: int, seed: int, drop: float = 0.0):
@@ -611,13 +694,38 @@ def inverse_dynamics(mt, linalg, dev) -> None:
       f"{ncon} active contacts; launches {launches}")
 
 
+# (lanes, tangents a lane) of every JVP launch since the counts were last
+# read by main_path_jvp_shapes
+SEEN_JVP_SHAPES = set()
+
+
 def reset_launches(linalg) -> None:
   for k in KERNELS:
-    getattr(linalg, k).launches = 0
+    fn = getattr(linalg, k)
+    fn.launches = 0
+    if k.endswith("_jvp"):
+      SEEN_JVP_SHAPES.update(fn.shapes)
+      fn.shapes.clear()
 
 
 def read_launches(linalg) -> dict:
   return {k: getattr(linalg, k).launches for k in KERNELS}
+
+
+def read_tangents(linalg) -> dict:
+  """The tangent counts a lane of each JVP kernel's launches since the
+  counts were reset."""
+  return {k: sorted({t for _, t in getattr(linalg, k).shapes})
+          for k in KERNELS if k.endswith("_jvp")}
+
+
+def main_path_jvp_shapes(linalg) -> set:
+  """Every (lanes, tangents) at which a JVP kernel launched since the last
+  call."""
+  reset_launches(linalg)
+  seen = set(SEEN_JVP_SHAPES)
+  SEEN_JVP_SHAPES.clear()
+  return seen
 
 
 def transition(mt, linalg, dev, asset: str) -> None:
@@ -660,20 +768,48 @@ def transition(mt, linalg, dev, asset: str) -> None:
       f"{asset} 8 lanes fp64, {ncon} active contacts: transition_ad "
       f"{seconds:.3f} s; kernels vs plain max |dA|,|dB| {err_plain:.3e} "
       f"(tol 1e-9); vs transition_fd (centered, eps 1e-6) {err_fd:.3e} "
-      f"(tol 1e-4 of max|A| = {1e-4 * scale:.3e}); launches {launches}")
+      f"(tol 1e-4 of max|A| = {1e-4 * scale:.3e}); launches {launches}, "
+      f"tangents a lane {read_tangents(linalg)}")
+
+
+def device_profile(fn) -> tuple[float, int, dict]:
+  """One run of ``fn`` under torch.profiler: device ms, device launches,
+  and (µs a launch, launches) of each Cholesky kernel."""
+  from torch.autograd import DeviceType
+  from torch.profiler import ProfilerActivity, profile
+
+  with profile(activities=[ProfilerActivity.CPU,
+                           ProfilerActivity.CUDA]) as prof:
+    fn()
+    torch.cuda.synchronize()
+  kernels = [e for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA]
+  if not kernels:
+    raise AssertionError("the profiler recorded no device time")
+  per_launch = {}
+  for name in KERNELS:
+    hit = [e for e in kernels if f"{name}_kernel" in e.key]
+    us = sum(e.device_time_total for e in hit)
+    count = sum(e.count for e in hit)
+    per_launch[name] = (us / max(count, 1), count)
+  return (sum(e.device_time_total for e in kernels) / 1e3,
+          sum(e.count for e in kernels), per_launch)
 
 
 def linearization_chunk(mt, linalg, dev) -> dict:
-  """Phase 11: one dual step of the bench's linearization chunk, 1024
-  humanoid_mjx lanes x 75 tangent copies (fp32), as transition_ad runs it:
-  time (the second of two runs), peak memory, the JVP kernels' device time
-  per launch from a profiled third run, and the largest spread of the
-  primal next state across the copies of a lane.  The copies must agree to
-  the bit: a copy that took another branch would feed a Jacobian column
-  from another point (ops/smooth.py: rank_groups)."""
+  """Phase 11: the dual step of the bench's linearization chunk, 1024
+  humanoid_mjx lanes with nx + nu = 75 tangents each (fp32), by two
+  routes in one call: the folded one (each lane repeated 75 times, one
+  unit tangent a copy, one torch.autograd.forward_ad step of 76,800
+  lanes, the JVP kernels at one tangent a lane) and transition_ad's
+  (torch.func.vmap over torch.func.jvp of one step of the 1024 lanes, the
+  JVP kernels at 75 tangents a lane).  For each: seconds (the second of
+  two runs), peak memory, launches of the four kernels, and from a
+  profiled third run the device time, device launches and each kernel's
+  µs a launch.  The folded copies of a lane must step to the same bits
+  (spread 0), and the new route's primal next state must equal step's of
+  the same lanes to the bit.  Returns the new route's per-launch µs."""
   import torch.autograd.forward_ad as fwAD
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
 
   from mujoco_inversedynamicstest_tpu_torch.opt import derivative
 
@@ -685,49 +821,57 @@ def linearization_chunk(mt, linalg, dev) -> dict:
   rep = derivative.repeat_lanes(d, nz)
   eye = torch.eye(nz, dtype=m.dtype, device=dev).repeat(nf, 1)
 
-  def dual_step():
+  def folded():
     with fwAD.dual_level():
       z = fwAD.make_dual(torch.zeros_like(eye), eye)
       dn = mt.step(m, derivative.apply_tangent(m, rep, z[:, :nx], z[:, nx:]))
       return (fwAD.unpack_dual(dn.qpos).primal,
               fwAD.unpack_dual(dn.qvel).primal)
 
-  dual_step()
-  torch.cuda.synchronize()
-  torch.cuda.reset_peak_memory_stats()
-  reset_launches(linalg)
-  t0 = time.perf_counter()
-  qpos, qvel = dual_step()
-  torch.cuda.synchronize()
-  seconds = time.perf_counter() - t0
-  launches = read_launches(linalg)
-  peak = torch.cuda.max_memory_allocated() / 2**30
+  def vmapped():
+    return derivative.transition_jacobian(m, d)
+
+  routes = {"folded": folded, "vmap": vmapped}
+  res = {}
+  for name, fn in routes.items():
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(linalg)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    res[name] = {"s": time.perf_counter() - t0,
+                 "peak": torch.cuda.max_memory_allocated() / 2**30,
+                 "launches": read_launches(linalg), "out": out}
+  qpos, qvel = res["folded"]["out"]
   spread = max(float((x.reshape(nf, nz, -1) - x[::nz, None]).abs().max())
                for x in (qpos, qvel))
   if spread != 0.0:
     raise AssertionError(f"tangent copies of a lane differ by {spread:.3e}")
-
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    dual_step()
-    torch.cuda.synchronize()
-  kernels = [e for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA]
-  device_ms = sum(e.device_time_total for e in kernels) / 1e3
-  per_launch = {}
-  for name in KERNELS:
-    us = sum(e.device_time_total for e in kernels if f"{name}_kernel" in e.key)
-    count = sum(e.count for e in kernels if f"{name}_kernel" in e.key)
-    per_launch[name] = (us / max(count, 1), count)
-  log("slice: linearization chunk",
-      f"humanoid_mjx {nf} lanes x {nz} copies = {nf * nz} lanes fp32: dual "
-      f"step {seconds:.3f} s, peak {peak:.2f} GiB, launches {launches}; "
-      f"profiled: device {device_ms:.3f} ms over "
-      f"{sum(e.count for e in kernels)} launches; per launch "
-      + ", ".join(f"{k} {us:.2f} us ({c})" for k, (us, c) in
-                  per_launch.items())
-      + f"; spread of the primal across copies {spread:.1e}")
-  return per_launch
+  qpos, qvel, jac = res["vmap"]["out"]
+  nxt = mt.step(m, d)
+  if not (torch.equal(qpos, nxt.qpos) and torch.equal(qvel, nxt.qvel)):
+    raise AssertionError("the vmap route's primal next state is not step's")
+  if jac.shape != (nf, nx, nz) or not bool(torch.isfinite(jac).all()):
+    raise AssertionError(f"Jacobian {tuple(jac.shape)}, or not finite")
+  for name, fn in routes.items():
+    res[name]["device"] = device_profile(fn)
+  for name in routes:
+    r = res[name]
+    device_ms, device_launches, per_launch = r["device"]
+    log("slice: linearization chunk",
+        f"humanoid_mjx {nf} lanes x {nz} tangents fp32, {name} route"
+        + (f" ({nf * nz} lane copies)" if name == "folded" else
+           f" (one primal a lane)")
+        + f": dual step {r['s']:.3f} s, peak {r['peak']:.2f} GiB, launches "
+        f"{r['launches']}; profiled: device {device_ms:.3f} ms over "
+        f"{device_launches} launches; per launch " + ", ".join(
+            f"{k} {us:.2f} us ({c})" for k, (us, c) in per_launch.items())
+        + (f"; spread of the primal across copies {spread:.1e}"
+           if name == "folded" else
+           "; primal next state equal to step's to the bit"))
+  return res["vmap"]["device"][2]
 
 
 def mpc_config(northstar, fleet: int, lin_batch: int, n_apply: int):
@@ -768,6 +912,7 @@ def mpc_fleet(mt, linalg, dev, asset: str, run: tuple,
   res = northstar.measure_solves_per_sec(m, northstar.balance_cost(m),
                                          mt.make_data(m, 1), cfg)
   launches = read_launches(linalg)
+  tangents = read_tangents(linalg)
   peak = torch.cuda.max_memory_allocated() / 2**30
   if not all(launches.values()):
     raise AssertionError(f"a kernel was not launched: {launches}")
@@ -778,13 +923,14 @@ def mpc_fleet(mt, linalg, dev, asset: str, run: tuple,
     raise AssertionError(f"applied controls {tuple(us.shape)}")
   log("slice: MPC fleet",
       f"{asset} fp32 F={fleet} H={MPC_HORIZON} iterations=2 alphas=8 "
-      f"lin_batch={lin_batch} ({fleet * lin_batch * 75} lanes a "
+      f"lin_batch={lin_batch} ({fleet * lin_batch} lanes x 75 tangents a "
       f"linearization chunk) n_apply={n_apply}: {res.solves_per_sec:.4f} "
       f"solves/s ({res.wall_time_s:.3f} s warm run); first run "
       f"{res.compile_time_s:.3f} s; finite lanes "
       f"{res.finite_lane_fraction:.4f}; mean iterations "
       f"{res.mean_iterations:.3f}; {plan_costs(res.run.plan_costs[:, 0])}; "
-      f"peak {peak:.2f} GiB; launches (both runs) {launches}")
+      f"peak {peak:.2f} GiB; launches (both runs) {launches}, tangents a "
+      f"lane {tangents}")
   if profile_run:
     profile_mpc(m, northstar, cfg, northstar.make_fleet(
         m, mt.make_data(m, 1), cfg), asset)
@@ -870,8 +1016,8 @@ def mpc_reference(mt, linalg, dev) -> dict:
         f"{float((run_k.us - run_p.us).abs().max()):.3e}")
   log("slice: MPC on the Newton-100 humanoid",
       f"{asset} fp32 F={cfg.fleet} H={MPC_HORIZON} iterations=2 alphas=8 "
-      f"lin_batch={cfg.lin_batch} ({cfg.fleet * cfg.lin_batch * 75} lanes a "
-      f"linearization chunk): {plan_costs(costs)}; mean iterations "
+      f"lin_batch={cfg.lin_batch} ({cfg.fleet * cfg.lin_batch} lanes x 75 "
+      f"tangents a linearization chunk): {plan_costs(costs)}; mean iterations "
       f"{float(run_k.niters.double().mean()):.3f}; plan costs and applied "
       f"controls equal to the bit with the plain versions; launches "
       f"{launches}")
@@ -948,6 +1094,7 @@ def main() -> None:
     slice_err.update(check_jvp_kernels(linalg, dev))
     times = time_kernels(linalg, dev)
     times.update(check_path_kernels(linalg, dev))
+    main_path_jvp_shapes(linalg)
     launches = fleet_step(mt, linalg, dev, smi)
     inverse_dynamics(mt, linalg, dev)
     for asset in ("humanoid.npz", "humanoid_mjx.npz"):
@@ -957,13 +1104,20 @@ def main() -> None:
                                        MPC_RUN)
     launches.update({k: mpc_launches[k] for k in KERNELS
                      if k.endswith("_jvp")})
+    tangents = read_tangents(linalg)
     mpc_reference(mt, linalg, dev)
     mpc_torques(mt, linalg, dev, res, cfg)
+    checked = {(b, t) for b, t, _ in path_shapes()[1]}
+    unchecked = main_path_jvp_shapes(linalg) - checked
+    if unchecked:
+      raise AssertionError(f"JVP launches at (lanes, tangents) {unchecked} "
+                           "that phase 9 did not hold to the plain versions")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k], "launches": launches[k],
-         "max_abs_err": slice_err[k], **times[k]} for k in KERNELS]}))
+         "tangents": tangents.get(k), "max_abs_err": slice_err[k],
+         **times[k]} for k in KERNELS]}))
   print(smi)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -215,12 +215,15 @@ __global__ void chol_solve_kernel(const T* __restrict__ l,
 }
 
 // ---------------------------------------------------------------------------
-// Forward mode (JVP) of both kernels.
+// Forward mode (JVP) of both kernels, many tangents a lane.
 //
 // Replaces the JVP that pallas_call's JVP rule derives from each Pallas
 // kernel body (_chol_kernel, _solve_kernel) when jax.jacfwd differentiates
 // the TPU step through them, as the MPC linearization does
-// (opt/derivative.py: transition_ad).
+// (opt/derivative.py: transition_ad).  jacfwd is vmap over jvp: one primal
+// a lane, and the nx + nu tangents batched.  The port's transition_ad is
+// the same (torch.func.vmap over torch.func.jvp), so each launch gets, for
+// each of B lanes, one factor L (and one x) and T tangents:
 //
 //   mi_chol_factor_jvp_*  (L, dH) -> dL, the forward mode of the
 //     right-looking recurrence written with the finished factor L:
@@ -230,194 +233,321 @@ __global__ void chol_solve_kernel(const T* __restrict__ l,
 //   mi_chol_solve_jvp_*   (L, dL, x, db) -> dx,
 //       dx = L^-T (L^-1 (db - dL (L^T x)) - dL^T x)
 //     in five sweeps: y = L^T x and t = dL^T x, u = db - dL y, v = L^-1 u,
-//     w = v - t, dx = L^-T w.
+//     w = v - t, dx = L^-T w.  y depends on the lane alone and is computed
+//     once a lane; the other four sweeps run a tangent.  dL or db may be
+//     absent (a null pointer: a zero tangent), and their sweeps are left
+//     out.
 //
-// What bounds them.  At n = 27 in fp32 the factor's JVP reads the lower
-// triangles of L and dH (2 n (n + 1) / 2 elements) and writes the dense dL
-// (n^2): 4.4 kB a matrix for about n^3 / 3 = 6.6k multiply-adds, under two
-// operations per byte, so the memory rate bounds it (3.35 TB/s).  The
-// solve's JVP reads both triangles and x and db, and writes dx: 3.2 kB for
-// about 4 n^2 operations.  As for the primal kernels, what stands between
-// them and that bound is the chain of dependent steps a matrix.
+// Layout.  Every operand comes with its element strides (tangent, lane,
+// row, column), so the kernels read the layout that vmap hands over,
+// tangent-major or lane-major, transposed or not, with no relayout copy; a
+// tangent stride of 0 repeats one operand for all tangents.  The outputs
+// are written through strides the same way.
 //
-// Design: as the primal kernels, one warp a matrix and the matrix's data
-// in shared memory, copied once with coalesced cp.async loads, but two
-// tiles a matrix (L and the tangent), each the packed lower triangle: row
-// r starts at r (r + 1) / 2.  The triangular numbers of 32 consecutive
-// rows are 32 different banks, so a column read by 32 lanes on 32 rows
-// has no conflict, and the two packed tiles of n = 128 in fp64 (132 kB)
-// fit in a block where two square ones would not.  The solve keeps its
-// vectors (x, y, t, u) in registers, lane l holding rows l, l + 32, ...
+// What bounds them.  At n = 27 in fp32 a tangent of the factor's JVP is
+// about n^3 / 3 = 6.6k operations against its dH triangle read and dL
+// written (4.4 kB), under two operations per byte; the solve's JVP is about
+// 4 n^2 operations a tangent against its dL triangle and two vectors.  So
+// the memory rate bounds both (3.35 TB/s), and reading L once a lane rather
+// than once a tangent is what this design buys: 1024 lanes x 75 tangents
+// move 341.6 MB (factor) and 134.4 MB (solve), 0.102 ms and 0.040 ms.
+// What stands between a kernel and that bound is the chain of dependent
+// steps of a tangent: n pivots, or 4 n substitution steps.
+//
+// Design: a block takes a few lanes (T small) or one lane (T large).
+//   * Its threads copy the packed lower triangle of each lane's L into
+//     shared memory once, with coalesced cp.async loads (row r starts at
+//     r (r + 1) / 2: the triangular numbers of 32 consecutive rows fall in
+//     32 different banks, so 32 lanes on 32 rows of a column do not
+//     conflict).  The solve also copies x, and computes y = L^T x.
+//   * Its warps take the block's (lane, tangent) items in turn, warp w the
+//     items w, w + W, ...  Each warp has one packed tangent tile, or two:
+//     then the next item's tile is copied in with cp.async while the
+//     current one runs its pivot chain, and many warps in flight on the SM
+//     hide the rest of it.  All warps of a block share L.
+//   * Within an item the arithmetic is that of the single-tangent kernel
+//     (one warp a matrix, lane l owning rows l, l + 32, ...); the solve
+//     keeps its vectors in registers.  (Spreading the factor's trailing
+//     update over the lanes element by element, so that no lane waits for
+//     the longest row, was slower on the card: scripts/jvp_kernel_probe.py
+//     spread, and PERF.md.)
 //
 // The plain versions (ops/linalg.py: chol_factor_jvp_ref,
-// chol_solve_jvp_ref) do, for every element, the same operations in the
-// same order; built with -fmad=false, kernel and plain version agree to
-// the last bit.
+// chol_solve_jvp_ref) do, for every element of every tangent, the same
+// operations in the same order; built with -fmad=false, kernel and plain
+// version agree to the last bit.
 // ---------------------------------------------------------------------------
+
+// Element strides of an operand: tangent, lane, row, column.
+struct View {
+  long long tan, lane, row, col;
+};
 
 // Start of packed row r: the triangular number r (r + 1) / 2.
 __device__ __forceinline__ int tri(int r) { return r * (r + 1) / 2; }
 
-// This warp's two packed tiles in the block's dynamic shared memory.
-template <typename T>
-__device__ T* warp_tiles(int n) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  return reinterpret_cast<T*>(smem) +
-         static_cast<size_t>(threadIdx.x / kWarp) * 2 * tri(n);
+// Calls f(e, r, c) for the elements e = first, first + step, ... of the
+// packed lower triangle of an n x n matrix, element e being (row r,
+// column c), e = r (r + 1) / 2 + c.
+template <typename F>
+__device__ void for_each_lower(int n, int first, int step, F f) {
+  int r = 0, c = first;
+  while (c > r) c -= ++r;
+  for (int e = first; e < tri(n); e += step) {
+    f(e, r, c);
+    for (c += step; c > r;) c -= ++r;
+  }
 }
 
-// Issues cp.async copies of the lower triangle of the matrix at src into
-// the packed tile a; the caller commits and waits.
+// Issues cp.async copies of the lower triangle of the matrix at src (row
+// and column strides of v) into the packed tile a, elements first,
+// first + step, ...; the caller commits and waits.
 template <typename T>
-__device__ void load_packed(const T* __restrict__ src, T* a, int n,
-                            int lane) {
-  for_each_element(n, lane, [&](int e, int r, int c) {
-    if (c <= r) __pipeline_memcpy_async(a + tri(r) + c, src + e, sizeof(T));
+__device__ void load_packed(const T* __restrict__ src, const View& v, T* a,
+                            int n, int first, int step) {
+  for_each_lower(n, first, step, [&](int e, int r, int c) {
+    __pipeline_memcpy_async(a + e, src + r * v.row + c * v.col, sizeof(T));
   });
 }
 
-// Copies the lower triangles of the matrices at s0 and s1 into the packed
-// tiles t0 and t1, all loads in flight at once, and waits for the warp's
-// copies.
+// The block's dynamic shared memory.
 template <typename T>
-__device__ void load_packed_pair(const T* __restrict__ s0,
-                                 const T* __restrict__ s1, T* t0, T* t1,
-                                 int n, int lane) {
-  load_packed(s0, t0, n, lane);
-  load_packed(s1, t1, n, lane);
+__device__ T* block_smem() {
+  extern __shared__ __align__(16) unsigned char smem[];
+  return reinterpret_cast<T*>(smem);
+}
+
+template <typename T>
+__global__ void chol_factor_jvp_kernel(
+    const T* __restrict__ l, View sl, const T* __restrict__ dh, View sdh,
+    T* __restrict__ dl, View sdl, int n, int lanes, int tangents,
+    int lanes_per_block, int buffers, T minval) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int warps = blockDim.x / kWarp;
+  const int first = blockIdx.x * lanes_per_block;
+  const int nl = min(lanes_per_block, lanes - first);
+  const int tn = tri(n);
+  T* ls = block_smem<T>();  // the block's factors, one packed tile each
+  T* buf = ls + lanes_per_block * tn + warp * buffers * tn;
+  for (int p = 0; p < nl; ++p) {
+    load_packed(l + (first + p) * sl.lane, sl, ls + p * tn, n, threadIdx.x,
+                blockDim.x);
+  }
+  // item i: tangent i % T of the block's lane i / T
+  auto src = [&](int i) {
+    return dh + (first + i / tangents) * sdh.lane + (i % tangents) * sdh.tan;
+  };
+  const int items = nl * tangents;
+  int i = warp;
+  if (i < items) load_packed(src(i), sdh, buf, n, lane, kWarp);
   __pipeline_commit();
   __pipeline_wait_prior(0);
-  __syncwarp();
-}
-
-template <typename T>
-__global__ void chol_factor_jvp_kernel(const T* __restrict__ l,
-                                       const T* __restrict__ dh,
-                                       T* __restrict__ dl, int n, int batch,
-                                       T minval) {
-  const int lane = threadIdx.x % kWarp;
-  const int b = blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
-  if (b >= batch) return;
-  const size_t off = static_cast<size_t>(b) * n * n;
-  T* a = warp_tiles<T>(n);  // L
-  T* t = a + tri(n);        // the running tangent, then dL
-  load_packed_pair(l + off, dh + off, a, t, n, lane);
+  __syncthreads();  // every factor, and each warp's first tangent, in place
   const T dmin = sqrt(minval);
 
-  for (int k = 0; k < n; ++k) {
-    const T d = a[tri(k) + k];
-    const T dd = d <= dmin ? T(0) : T(0.5) * t[tri(k) + k] / d;
-    for (int r = lane; r < n; r += kWarp) {
-      if (r > k) t[tri(r) + k] = (t[tri(r) + k] - a[tri(r) + k] * dd) / d;
+  for (int cur = 0; i < items; i += warps, cur ^= buffers == 2) {
+    const int next = i + warps;
+    if (buffers == 2 && next < items) {
+      load_packed(src(next), sdh, buf + (cur ^ 1) * tn, n, lane, kWarp);
+      __pipeline_commit();
     }
-    __syncwarp();  // tangent column k done; every lane has read t[k][k]
-    for (int r = lane; r < n; r += kWarp) {
-      if (r == k) t[tri(k) + k] = dd;
-      if (r <= k) continue;
-      const T* lrow = a + tri(r);
-      T* row = t + tri(r);
-      const T lrk = lrow[k], drk = row[k];
-      for (int j = k + 1; j <= r; ++j) {
-        const int jk = tri(j) + k;
-        row[j] -= drk * a[jk] + lrk * t[jk];
+    const T* a = ls + (i / tangents) * tn;  // L
+    T* t = buf + cur * tn;                  // the running tangent, then dL
+    for (int k = 0; k < n; ++k) {
+      const T d = a[tri(k) + k];
+      const T dd = d <= dmin ? T(0) : T(0.5) * t[tri(k) + k] / d;
+      for (int r = lane; r < n; r += kWarp) {
+        if (r > k) t[tri(r) + k] = (t[tri(r) + k] - a[tri(r) + k] * dd) / d;
       }
+      __syncwarp();  // tangent column k done; every lane has read t[k][k]
+      for (int r = lane; r < n; r += kWarp) {
+        if (r == k) t[tri(k) + k] = dd;
+        if (r <= k) continue;
+        const T* lrow = a + tri(r);
+        T* row = t + tri(r);
+        const T lrk = lrow[k], drk = row[k];
+        for (int j = k + 1; j <= r; ++j) {
+          const int jk = tri(j) + k;
+          row[j] -= drk * a[jk] + lrk * t[jk];
+        }
+      }
+      __syncwarp();  // the trailing tangent is up to date
     }
-    __syncwarp();  // the trailing tangent is up to date
-  }
 
-  T* dst = dl + off;
-  for_each_element(n, lane, [&](int e, int r, int c) {
-    dst[e] = c <= r ? t[tri(r) + c] : T(0);
-  });
+    T* dst = dl + (first + i / tangents) * sdl.lane + (i % tangents) * sdl.tan;
+    for_each_element(n, lane, [&](int, int r, int c) {
+      dst[r * sdl.row + c * sdl.col] = c <= r ? t[tri(r) + c] : T(0);
+    });
+    if (next < items) {
+      if (buffers == 1) {
+        __syncwarp();  // every lane has written its part of t
+        load_packed(src(next), sdh, buf, n, lane, kWarp);
+        __pipeline_commit();
+      }
+      __pipeline_wait_prior(0);
+    }
+    __syncwarp();  // the next tile is in place; t is free again
+  }
 }
 
+// R registers a lane: rows lane, lane + 32, ..., lane + 32 (R - 1), n <= 32 R.
 template <typename T, int R>
 __global__ void chol_solve_jvp_kernel(
-    const T* __restrict__ l, const T* __restrict__ dl,
-    const T* __restrict__ x, const T* __restrict__ db, T* __restrict__ dx,
-    int n, int batch, int k) {
-  const int lane = threadIdx.x % kWarp;
-  const int b = blockIdx.x * (blockDim.x / kWarp) + threadIdx.x / kWarp;
-  if (b >= batch) return;
-  const size_t off = static_cast<size_t>(b) * n * n;
-  T* a = warp_tiles<T>(n);  // L
-  T* t = a + tri(n);        // dL
-  load_packed_pair(l + off, dl + off, a, t, n, lane);
+    const T* __restrict__ l, View sl, const T* __restrict__ dl, View sdl,
+    const T* __restrict__ x, View sx, const T* __restrict__ db, View sdb,
+    T* __restrict__ dx, View sdx, int n, int lanes, int tangents, int k,
+    int lanes_per_block, int buffers) {
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int warps = blockDim.x / kWarp;
+  const int first = blockIdx.x * lanes_per_block;
+  const int nl = min(lanes_per_block, lanes - first);
+  const int tn = tri(n), nk = n * k;
+  T* ls = block_smem<T>();              // factors, one packed tile a lane
+  T* xs = ls + lanes_per_block * tn;    // x of each lane, column by column
+  T* ys = xs + lanes_per_block * nk;    // y = L^T x, the same way
+  T* buf = ys + lanes_per_block * nk + warp * buffers * tn;
+  for (int p = 0; p < nl; ++p) {
+    load_packed(l + (first + p) * sl.lane, sl, ls + p * tn, n, threadIdx.x,
+                blockDim.x);
+    const T* xp = x + (first + p) * sx.lane;
+    for (int e = threadIdx.x; e < nk; e += blockDim.x) {
+      __pipeline_memcpy_async(xs + p * nk + e,
+                              xp + (e % n) * sx.row + (e / n) * sx.col,
+                              sizeof(T));
+    }
+  }
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();
 
-  const size_t xoff = static_cast<size_t>(b) * n * k;
-  for (int q = 0; q < k; ++q) {
-    T xr[R], yr[R], tr[R], ur[R];
+  // y = L^T x once a lane and column: row c of L times x[c], c ascending
+  for (int j = warp; j < nl * k; j += warps) {
+    const T* a = ls + (j / k) * tn;
+    const T* xv = xs + j * n;
+    T yr[R];
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = lane + i * kWarp;
-      const size_t at = xoff + static_cast<size_t>(r) * k + q;
-      xr[i] = r < n ? x[at] : T(0);
-      ur[i] = r < n ? db[at] : T(0);
-      yr[i] = T(0);
-      tr[i] = T(0);
-    }
-    // y = L^T x, t = dL^T x: row c of L and dL times x[c], c ascending
+    for (int q = 0; q < R; ++q) yr[q] = T(0);
     for (int c = 0; c < n; ++c) {
-      const T xc = row_of(xr, c);
+      const T xc = xv[c];
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int r = lane + i * kWarp;
-        if (r <= c) {
-          yr[i] += a[tri(c) + r] * xc;
-          tr[i] += t[tri(c) + r] * xc;
+      for (int q = 0; q < R; ++q) {
+        const int r = lane + q * kWarp;
+        if (r <= c) yr[q] += a[tri(c) + r] * xc;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const int r = lane + q * kWarp;
+      if (r < n) ys[j * n + r] = yr[q];
+    }
+  }
+
+  auto src = [&](int i) {
+    return dl + (first + i / tangents) * sdl.lane + (i % tangents) * sdl.tan;
+  };
+  const int items = nl * tangents;
+  int i = warp;
+  if (dl != nullptr && i < items) load_packed(src(i), sdl, buf, n, lane, kWarp);
+  __pipeline_commit();
+  __pipeline_wait_prior(0);
+  __syncthreads();  // y of every lane, and each warp's first dL, in place
+
+  for (int cur = 0; i < items; i += warps, cur ^= buffers == 2) {
+    const int next = i + warps;
+    if (dl != nullptr && buffers == 2 && next < items) {
+      load_packed(src(next), sdl, buf + (cur ^ 1) * tn, n, lane, kWarp);
+      __pipeline_commit();
+    }
+    const int p = i / tangents, tg = i % tangents;
+    const T* a = ls + p * tn;    // L
+    const T* t = buf + cur * tn;  // dL
+    for (int col = 0; col < k; ++col) {
+      const T* xv = xs + (p * k + col) * n;
+      const T* yv = ys + (p * k + col) * n;
+      const T* dbv = db + (first + p) * sdb.lane + tg * sdb.tan +
+                     col * sdb.col;
+      T tr[R], ur[R];
+#pragma unroll
+      for (int q = 0; q < R; ++q) {
+        const int r = lane + q * kWarp;
+        ur[q] = db != nullptr && r < n ? dbv[r * sdb.row] : T(0);
+        tr[q] = T(0);
+      }
+      if (dl != nullptr) {
+        // t = dL^T x: row c of dL times x[c], c ascending
+        for (int c = 0; c < n; ++c) {
+          const T xc = xv[c];
+#pragma unroll
+          for (int q = 0; q < R; ++q) {
+            const int r = lane + q * kWarp;
+            if (r <= c) tr[q] += t[tri(c) + r] * xc;
+          }
+        }
+        // u = db - dL y: column c of dL times y[c], c ascending
+        for (int c = 0; c < n; ++c) {
+          const T yc = yv[c];
+#pragma unroll
+          for (int q = 0; q < R; ++q) {
+            const int r = lane + q * kWarp;
+            if (r >= c && r < n) ur[q] -= t[tri(r) + c] * yc;
+          }
         }
       }
-    }
-    // u = db - dL y: column c of dL times y[c], c ascending
-    for (int c = 0; c < n; ++c) {
-      const T yc = row_of(yr, c);
+      // L v = u
+      for (int c = 0; c < n; ++c) {
+        const T vc = row_of(ur, c) / a[tri(c) + c];
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int r = lane + i * kWarp;
-        if (r >= c && r < n) ur[i] -= t[tri(r) + c] * yc;
-      }
-    }
-    // L v = u
-    for (int c = 0; c < n; ++c) {
-      const T vc = row_of(ur, c) / a[tri(c) + c];
-#pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int r = lane + i * kWarp;
-        if (r == c) {
-          ur[i] = vc;
-        } else if (r > c && r < n) {
-          ur[i] -= a[tri(r) + c] * vc;
+        for (int q = 0; q < R; ++q) {
+          const int r = lane + q * kWarp;
+          if (r == c) {
+            ur[q] = vc;
+          } else if (r > c && r < n) {
+            ur[q] -= a[tri(r) + c] * vc;
+          }
         }
       }
-    }
-    // w = v - t
+      // w = v - t
+      if (dl != nullptr) {
 #pragma unroll
-    for (int i = 0; i < R; ++i) ur[i] = ur[i] - tr[i];
-    // L^T dx = w
-    for (int c = n - 1; c >= 0; --c) {
-      const T wc = row_of(ur, c) / a[tri(c) + c];
+        for (int q = 0; q < R; ++q) ur[q] = ur[q] - tr[q];
+      }
+      // L^T dx = w
+      for (int c = n - 1; c >= 0; --c) {
+        const T wc = row_of(ur, c) / a[tri(c) + c];
 #pragma unroll
-      for (int i = 0; i < R; ++i) {
-        const int r = lane + i * kWarp;
-        if (r == c) {
-          ur[i] = wc;
-        } else if (r < c) {
-          ur[i] -= a[tri(c) + r] * wc;
+        for (int q = 0; q < R; ++q) {
+          const int r = lane + q * kWarp;
+          if (r == c) {
+            ur[q] = wc;
+          } else if (r < c) {
+            ur[q] -= a[tri(c) + r] * wc;
+          }
         }
       }
-    }
+      T* dxv = dx + (first + p) * sdx.lane + tg * sdx.tan + col * sdx.col;
 #pragma unroll
-    for (int i = 0; i < R; ++i) {
-      const int r = lane + i * kWarp;
-      if (r < n) dx[xoff + static_cast<size_t>(r) * k + q] = ur[i];
+      for (int q = 0; q < R; ++q) {
+        const int r = lane + q * kWarp;
+        if (r < n) dxv[r * sdx.row] = ur[q];
+      }
     }
+    if (dl != nullptr && next < items) {
+      if (buffers == 1) {
+        __syncwarp();  // every lane is done with t
+        load_packed(src(next), sdl, buf, n, lane, kWarp);
+        __pipeline_commit();
+      }
+      __pipeline_wait_prior(0);
+    }
+    __syncwarp();
   }
 }
 
 // Raises the kernel's dynamic shared memory limit where the launch needs
-// more than the default, then launches it; returns the first error.
+// more than the default, then launches it, one block of ``threads`` for
+// every ``per_block`` of ``batch``; returns the first error.
 template <typename Kernel, typename... Args>
-int launch(Kernel kernel, int batch, int per_block, int smem,
+int launch(Kernel kernel, int batch, int per_block, int threads, int smem,
            cudaStream_t stream, Args... args) {
   if (smem > kDefaultSharedLimit) {
     const cudaError_t err = cudaFuncSetAttribute(
@@ -425,53 +555,75 @@ int launch(Kernel kernel, int batch, int per_block, int smem,
     if (err != cudaSuccess) return static_cast<int>(err);
   }
   const int blocks = (batch + per_block - 1) / per_block;
-  kernel<<<blocks, per_block * kWarp, smem, stream>>>(args...);
+  kernel<<<blocks, threads, smem, stream>>>(args...);
   return static_cast<int>(cudaGetLastError());
 }
 
 template <typename T>
 int factor(const T* h, T* l, int n, int ld, int batch, int per_block,
            int smem, cudaStream_t stream) {
-  return launch(chol_factor_kernel<T>, batch, per_block, smem, stream, h, l,
-                n, ld, batch, T(1e-15));
+  return launch(chol_factor_kernel<T>, batch, per_block, per_block * kWarp,
+                smem, stream, h, l, n, ld, batch, T(1e-15));
 }
 
 template <typename T>
 int solve(const T* l, const T* rhs, T* x, int n, int ld, int batch, int k,
           int per_block, int smem, cudaStream_t stream) {
+  const int threads = per_block * kWarp;
   if (n <= kWarp) {
-    return launch(chol_solve_kernel<T, 1>, batch, per_block, smem, stream, l,
-                  rhs, x, n, ld, batch, k);
+    return launch(chol_solve_kernel<T, 1>, batch, per_block, threads, smem,
+                  stream, l, rhs, x, n, ld, batch, k);
   }
   if (n <= 2 * kWarp) {
-    return launch(chol_solve_kernel<T, 2>, batch, per_block, smem, stream, l,
-                  rhs, x, n, ld, batch, k);
+    return launch(chol_solve_kernel<T, 2>, batch, per_block, threads, smem,
+                  stream, l, rhs, x, n, ld, batch, k);
   }
-  return launch(chol_solve_kernel<T, 4>, batch, per_block, smem, stream, l,
-                rhs, x, n, ld, batch, k);
+  return launch(chol_solve_kernel<T, 4>, batch, per_block, threads, smem,
+                stream, l, rhs, x, n, ld, batch, k);
+}
+
+// The strides the wrapper passes, operand after operand: L (lane, row,
+// column), then (tangent, lane, row, column) of each other operand.
+View matrix_view(const long long* s) { return View{0, s[0], s[1], s[2]}; }
+View tangent_view(const long long* s) { return View{s[0], s[1], s[2], s[3]}; }
+
+template <typename T>
+int factor_jvp(const T* l, const T* dh, T* dl, const long long* strides,
+               int n, int lanes, int tangents, int lanes_per_block,
+               int warps, int buffers, int smem, cudaStream_t stream) {
+  return launch(chol_factor_jvp_kernel<T>, lanes, lanes_per_block,
+                warps * kWarp, smem, stream, l, matrix_view(strides), dh,
+                tangent_view(strides + 3), dl, tangent_view(strides + 7), n,
+                lanes, tangents, lanes_per_block, buffers, T(1e-15));
+}
+
+template <typename T, int R>
+int solve_jvp_r(const T* l, const T* dl, const T* x, const T* db, T* dx,
+                const long long* s, int n, int lanes, int tangents, int k,
+                int lanes_per_block, int warps, int buffers, int smem,
+                cudaStream_t stream) {
+  return launch(chol_solve_jvp_kernel<T, R>, lanes, lanes_per_block,
+                warps * kWarp, smem, stream, l, matrix_view(s), dl,
+                tangent_view(s + 3), x, matrix_view(s + 7), db,
+                tangent_view(s + 10), dx, tangent_view(s + 14), n, lanes,
+                tangents, k, lanes_per_block, buffers);
 }
 
 template <typename T>
-int factor_jvp(const T* l, const T* dh, T* dl, int n, int batch,
-               int per_block, int smem, cudaStream_t stream) {
-  return launch(chol_factor_jvp_kernel<T>, batch, per_block, smem, stream, l,
-                dh, dl, n, batch, T(1e-15));
-}
-
-template <typename T>
-int solve_jvp(const T* l, const T* dl, const T* x, const T* db, T* dx, int n,
-              int batch, int k, int per_block, int smem,
+int solve_jvp(const T* l, const T* dl, const T* x, const T* db, T* dx,
+              const long long* s, int n, int lanes, int tangents, int k,
+              int lanes_per_block, int warps, int buffers, int smem,
               cudaStream_t stream) {
   if (n <= kWarp) {
-    return launch(chol_solve_jvp_kernel<T, 1>, batch, per_block, smem, stream,
-                  l, dl, x, db, dx, n, batch, k);
+    return solve_jvp_r<T, 1>(l, dl, x, db, dx, s, n, lanes, tangents, k,
+                             lanes_per_block, warps, buffers, smem, stream);
   }
   if (n <= 2 * kWarp) {
-    return launch(chol_solve_jvp_kernel<T, 2>, batch, per_block, smem, stream,
-                  l, dl, x, db, dx, n, batch, k);
+    return solve_jvp_r<T, 2>(l, dl, x, db, dx, s, n, lanes, tangents, k,
+                             lanes_per_block, warps, buffers, smem, stream);
   }
-  return launch(chol_solve_jvp_kernel<T, 4>, batch, per_block, smem, stream,
-                l, dl, x, db, dx, n, batch, k);
+  return solve_jvp_r<T, 4>(l, dl, x, db, dx, s, n, lanes, tangents, k,
+                           lanes_per_block, warps, buffers, smem, stream);
 }
 
 }  // namespace
@@ -500,29 +652,40 @@ int mi_chol_solve_f64(const double* l, const double* rhs, double* x, int n,
   return solve(l, rhs, x, n, ld, batch, k, per_block, smem, stream);
 }
 
-int mi_chol_factor_jvp_f32(const float* l, const float* dh, float* dl, int n,
-                           int batch, int per_block, int smem,
-                           cudaStream_t stream) {
-  return factor_jvp(l, dh, dl, n, batch, per_block, smem, stream);
+int mi_chol_factor_jvp_f32(const float* l, const float* dh, float* dl,
+                           const long long* strides, int n, int lanes,
+                           int tangents, int lanes_per_block, int warps,
+                           int buffers, int smem, cudaStream_t stream) {
+  return factor_jvp(l, dh, dl, strides, n, lanes, tangents, lanes_per_block,
+                    warps, buffers, smem, stream);
 }
 
 int mi_chol_factor_jvp_f64(const double* l, const double* dh, double* dl,
-                           int n, int batch, int per_block, int smem,
-                           cudaStream_t stream) {
-  return factor_jvp(l, dh, dl, n, batch, per_block, smem, stream);
+                           const long long* strides, int n, int lanes,
+                           int tangents, int lanes_per_block, int warps,
+                           int buffers, int smem, cudaStream_t stream) {
+  return factor_jvp(l, dh, dl, strides, n, lanes, tangents, lanes_per_block,
+                    warps, buffers, smem, stream);
 }
 
 int mi_chol_solve_jvp_f32(const float* l, const float* dl, const float* x,
-                          const float* db, float* dx, int n, int batch, int k,
-                          int per_block, int smem, cudaStream_t stream) {
-  return solve_jvp(l, dl, x, db, dx, n, batch, k, per_block, smem, stream);
+                          const float* db, float* dx,
+                          const long long* strides, int n, int lanes,
+                          int tangents, int k, int lanes_per_block,
+                          int warps, int buffers, int smem,
+                          cudaStream_t stream) {
+  return solve_jvp(l, dl, x, db, dx, strides, n, lanes, tangents, k,
+                   lanes_per_block, warps, buffers, smem, stream);
 }
 
-int mi_chol_solve_jvp_f64(const double* l, const double* dl, const double* x,
-                          const double* db, double* dx, int n, int batch,
-                          int k, int per_block, int smem,
+int mi_chol_solve_jvp_f64(const double* l, const double* dl,
+                          const double* x, const double* db, double* dx,
+                          const long long* strides, int n, int lanes,
+                          int tangents, int k, int lanes_per_block,
+                          int warps, int buffers, int smem,
                           cudaStream_t stream) {
-  return solve_jvp(l, dl, x, db, dx, n, batch, k, per_block, smem, stream);
+  return solve_jvp(l, dl, x, db, dx, strides, n, lanes, tangents, k,
+                   lanes_per_block, warps, buffers, smem, stream);
 }
 
 }  // extern "C"

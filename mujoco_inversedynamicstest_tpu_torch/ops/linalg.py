@@ -29,6 +29,7 @@ launch shape comes from ``launch_geometry`` (and ``jvp_launch_geometry``).
 
 from __future__ import annotations
 
+import collections
 import ctypes
 import functools
 import hashlib
@@ -37,6 +38,7 @@ import shutil
 import subprocess
 import tempfile
 from pathlib import Path
+from typing import NamedTuple
 
 import torch
 
@@ -47,6 +49,8 @@ N_MAX = 128
 # each) a block takes at most
 SMEM_MAX = 232_448
 MATS_PER_BLOCK = 4
+# the most warps a JVP block runs, each on its own (lane, tangent) items
+JVP_WARPS = 8
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "cholesky.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -95,13 +99,24 @@ def chol_solve_ref(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   return x.reshape(b.shape)
 
 
+def _like_both(a: torch.Tensor, b: torch.Tensor, keep: bool) -> torch.Tensor:
+  """A new buffer of the broadcast shape of ``a[..., :1]`` and ``b``,
+  batched (under ``vmap``) wherever either is, holding ``b``'s bits
+  (``keep``) or zeros, so that in-place updates by values derived from
+  both land in a buffer that can hold them."""
+  return torch.where(torch.full_like(a[..., :1], keep, dtype=torch.bool), b,
+                     0.0)
+
+
 def chol_factor_jvp_ref(l: torch.Tensor, dh: torch.Tensor) -> torch.Tensor:
   """Tangent dL of ``chol_factor`` at h, from L = chol_factor(h) and dh.
 
-  The forward mode of ``chol_factor_ref``'s right-looking recurrence,
-  written with the finished factor L, so that only the running tangent of
-  the trailing block is carried.  At pivot k, with d = L[k][k] and p' the
-  running tangent of the pivot:
+  ``l`` is (B, n, n); ``dh`` is (B, n, n), or (T, B, n, n) for T tangents
+  a lane, in any strides; dL takes dh's shape.  The forward mode of
+  ``chol_factor_ref``'s right-looking recurrence, written with the
+  finished factor L, so that only the running tangent of the trailing
+  block is carried.  At pivot k, with d = L[k][k] and p' the running
+  tangent of the pivot:
 
       dL[k][k] = 0.5 p' / d, and 0 where the pivot was clamped
       dL[r][k] = (a'[r][k] - L[r][k] dL[k][k]) / d                 r > k
@@ -111,52 +126,68 @@ def chol_factor_jvp_ref(l: torch.Tensor, dh: torch.Tensor) -> torch.Tensor:
   clamped where d <= sqrt(1e-15) in the working type, which is p <= 1e-15
   and, at the tie, also a p within one rounding above it (the derivative
   of ``max`` taken as 0 there).  Reads only the lower triangles of ``l``
-  and ``dh``; the strict upper triangle of the result is zero.
+  and ``dh``; the strict upper triangle of the result is zero.  Every
+  tangent is its own computation, element for element the single-tangent
+  one.
   """
   n = l.shape[-1]
   dmin = torch.sqrt(torch.tensor(MINVAL, dtype=l.dtype, device=l.device))
-  t = torch.tril(dh)
+  # dh's lower triangle, in a new buffer shaped (and batched) like both
+  t = torch.where(torch.ones_like(l, dtype=torch.bool).tril(), dh, 0.0)
   for k in range(n):
-    d = l[:, k, k]
-    dd = torch.where(d <= dmin, 0.0, 0.5 * t[:, k, k] / d)
-    t[:, k, k] = dd
-    col = l[:, k + 1:, k]
-    dcol = (t[:, k + 1:, k] - col * dd[:, None]) / d[:, None]
-    t[:, k + 1:, k] = dcol
-    t[:, k + 1:, k + 1:] -= (dcol[:, :, None] * col[:, None, :]
-                             + col[:, :, None] * dcol[:, None, :])
+    d = l[..., k, k]
+    dd = torch.where(d <= dmin, 0.0, 0.5 * t[..., k, k] / d)
+    t[..., k, k] = dd
+    col = l[..., k + 1:, k]
+    dcol = (t[..., k + 1:, k] - col * dd[..., None]) / d[..., None]
+    t[..., k + 1:, k] = dcol
+    t[..., k + 1:, k + 1:] -= (dcol[..., :, None] * col[..., None, :]
+                               + col[..., :, None] * dcol[..., None, :])
   return torch.tril(t)
 
 
-def chol_solve_jvp_ref(l: torch.Tensor, dl: torch.Tensor, x: torch.Tensor,
-                       db: torch.Tensor) -> torch.Tensor:
+def chol_solve_jvp_ref(l: torch.Tensor, dl: torch.Tensor | None,
+                       x: torch.Tensor,
+                       db: torch.Tensor | None) -> torch.Tensor:
   """Tangent dx of ``chol_solve`` at (L, b), from x = chol_solve(L, b).
 
   dx = L⁻ᵀ (L⁻¹ (db − dL (Lᵀ x)) − dLᵀ x), in five sweeps over the columns:
   y = Lᵀ x and t = dLᵀ x (sums in ascending column order), u = db − dL y,
   v = L⁻¹ u, w = v − t, dx = L⁻ᵀ w (the substitutions of
   ``chol_solve_ref``).  Reads only the lower triangles of ``l`` and
-  ``dl``; ``x`` and ``db`` are (B, n) or (B, n, k), and dx takes their
-  shape.
+  ``dl``.  ``l`` is (B, n, n) and ``x`` (B, n) or (B, n, k), one a lane;
+  ``dl`` and ``db`` take their shapes, or carry T tangents a lane in front
+  ((T, B, n, n), (T, B, n[, k])).  Either may be None, a zero tangent:
+  its sweeps are left out, which gives the same bits as zeros would.  dx
+  is x's shape, with T in front where a tangent has it.
   """
   n = l.shape[-1]
   xs = x.reshape(x.shape[0], n, -1)
-  y = torch.zeros_like(xs)
-  t = torch.zeros_like(xs)
+  if dl is None and db is None:
+    return x.new_zeros(x.shape)
+  lead = torch.broadcast_shapes(*(t.shape[:t.ndim - nd] for t, nd in (
+      (dl, 3), (db, x.ndim)) if t is not None))
+  y = _like_both(l, xs, False)
   for c in range(n):
-    y[:, :c + 1] += l[:, c, :c + 1, None] * xs[:, c, None]
-    t[:, :c + 1] += dl[:, c, :c + 1, None] * xs[:, c, None]
-  u = db.reshape(xs.shape).clone()
+    y[..., :c + 1, :] += l[..., c, :c + 1, None] * xs[..., c, None, :]
+  u = _like_both(y, xs, False) if db is None else _like_both(
+      y, db.reshape(*db.shape[:db.ndim - x.ndim], *xs.shape), True)
+  if dl is not None:
+    t = _like_both(dl, xs, False)
+    for c in range(n):
+      t[..., :c + 1, :] += dl[..., c, :c + 1, None] * xs[..., c, None, :]
+    u = _like_both(dl, u, True)
+    for c in range(n):
+      u[..., c:, :] -= dl[..., c:, c, None] * y[..., c, None, :]
   for c in range(n):
-    u[:, c:] -= dl[:, c:, c, None] * y[:, c, None]
-  for c in range(n):
-    u[:, c] = u[:, c] / l[:, c, c, None]
-    u[:, c + 1:] -= l[:, c + 1:, c, None] * u[:, c, None]
-  u = u - t
+    u[..., c, :] = u[..., c, :] / l[..., c, c, None]
+    u[..., c + 1:, :] -= l[..., c + 1:, c, None] * u[..., c, None, :]
+  if dl is not None:
+    u = u - t
   for c in range(n - 1, -1, -1):
-    u[:, c] = u[:, c] / l[:, c, c, None]
-    u[:, :c] -= l[:, c, :c, None] * u[:, c, None]
-  return u.reshape(x.shape)
+    u[..., c, :] = u[..., c, :] / l[..., c, c, None]
+    u[..., :c, :] -= l[..., c, :c, None] * u[..., c, None, :]
+  return u.reshape(*lead, *x.shape)
 
 
 # ---------------------------------------------------------------------------
@@ -202,11 +233,12 @@ def _entry(name: str, dtype: torch.dtype):
   sfx = _suffix(dtype)
   fn = getattr(_library(), f"mi_{name}_{sfx}")
   p, i = ctypes.c_void_p, ctypes.c_int
+  s = ctypes.POINTER(ctypes.c_longlong)
   fn.argtypes = {
       "chol_factor": [p, p, i, i, i, i, i, p],
       "chol_solve": [p, p, p, i, i, i, i, i, i, p],
-      "chol_factor_jvp": [p, p, p, i, i, i, i, p],
-      "chol_solve_jvp": [p, p, p, p, p, i, i, i, i, i, p],
+      "chol_factor_jvp": [p, p, p, s, i, i, i, i, i, i, i, p],
+      "chol_solve_jvp": [p, p, p, p, p, s, i, i, i, i, i, i, i, i, p],
   }[name]
   fn.restype = i
   return fn
@@ -232,20 +264,57 @@ def launch_geometry(n: int, dtype: torch.dtype) -> tuple[int, int, int]:
   return ld, per_block, per_block * tile
 
 
-@functools.lru_cache(maxsize=None)
-def jvp_launch_geometry(n: int, dtype: torch.dtype) -> tuple[int, int]:
-  """Launch shape of both JVP kernels: (matrices per block, dynamic shared
-  memory bytes per block).
+class JvpGeometry(NamedTuple):
+  """Launch shape of a JVP kernel: lanes (factors) a block, warps a block,
+  tangent buffers a warp, dynamic shared memory bytes a block."""
+  lanes: int
+  warps: int
+  buffers: int
+  smem: int
 
-  A JVP kernel keeps two tiles a matrix (the factor and a tangent), each
-  the packed lower triangle, n (n + 1) / 2 elements: row r starts at
-  r (r + 1) / 2, and the triangular numbers of 32 consecutive rows fall in
-  32 different banks.  Packed, the two tiles of n = 128 in fp64 (132 kB)
-  fit in one block where two square tiles would not.
+
+@functools.lru_cache(maxsize=None)
+def jvp_launch_geometry(n: int, dtype: torch.dtype, tangents: int,
+                        cols: int = 0, tangent_tiles: bool = True
+                        ) -> JvpGeometry:
+  """Launch shape of both JVP kernels for T = ``tangents`` tangents a lane.
+
+  A block holds the packed lower triangle of each of its lanes' factors
+  L, n (n + 1) / 2 elements (row r starts at r (r + 1) / 2; the starts of
+  32 consecutive rows fall in 32 different banks), read once, and, for
+  the solve, each lane's x and y = Lᵀ x (``cols`` columns of n).  Its
+  warps take the block's (lane, tangent) items in turn; each warp has
+  ``buffers`` packed tangent tiles (dH or dL; none without
+  ``tangent_tiles``), two when it takes more than one item, so that the
+  next item's tile is copied in while the current one runs.  A block takes
+  ``MATS_PER_BLOCK`` items when T is small (T = 1: four lanes, one warp
+  each, the single-tangent launch) and one lane with up to ``JVP_WARPS``
+  warps when T is large; warps, then lanes, then buffers give way until
+  the block fits ``SMEM_MAX`` (n = 128 in fp64: one lane, one warp).
+  Returns (lanes, warps, buffers, shared memory bytes) of a block.
   """
-  tile = 2 * (n * (n + 1) // 2) * dtype.itemsize
-  per_block = max(1, min(MATS_PER_BLOCK, SMEM_MAX // tile))
-  return per_block, per_block * tile
+  size = dtype.itemsize
+  tile = n * (n + 1) // 2 * size
+  per_lane = tile + 2 * n * cols * size
+  lanes = max(1, -(-MATS_PER_BLOCK // max(tangents, 1)))
+  most_warps, two = JVP_WARPS, True
+  while True:
+    items = lanes * tangents
+    warps = max(1, min(most_warps, items))
+    buffers = (2 if two and items > warps else 1) if tangent_tiles else 0
+    smem = lanes * per_lane + warps * buffers * tile
+    if smem <= SMEM_MAX:
+      return JvpGeometry(lanes, warps, buffers, smem)
+    if lanes > 1:
+      lanes -= 1
+    elif warps > 1:
+      most_warps = warps - 1
+    elif buffers > 1:
+      two = False
+    else:
+      raise ValueError(f"a JVP block for n={n} {dtype} with {cols} "
+                       f"right-hand-side columns does not fit {SMEM_MAX} "
+                       "bytes")
 
 
 def _suffix(dtype: torch.dtype) -> str:
@@ -289,13 +358,6 @@ def _check_solve_shapes(l: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
   if b.ndim not in (2, 3) or b.shape[:2] != l.shape[:2]:
     raise ValueError(f"rhs {tuple(b.shape)} does not match {tuple(l.shape)}")
   return n, b.shape[2] if b.ndim == 3 else 1
-
-
-def _check_same(a: torch.Tensor, b: torch.Tensor, what: str) -> None:
-  if a.shape != b.shape or a.device != b.device or a.dtype != b.dtype:
-    raise ValueError(f"{what}: {tuple(b.shape)} {b.dtype} on {b.device} "
-                     f"does not match {tuple(a.shape)} {a.dtype} on "
-                     f"{a.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -345,61 +407,205 @@ def _solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   return x
 
 
+def _strides(*ts: torch.Tensor | None) -> ctypes.Array:
+  """The element strides of ``ts``, one after the other, as a C array; an
+  absent (tangent) operand gives four strides of 0."""
+  flat = [st for t in ts for st in (t.stride() if t is not None else
+                                    (0, 0, 0, 0))]
+  return (ctypes.c_longlong * len(flat))(*flat)
+
+
+def _count(fn, lanes: int, tangents: int) -> None:
+  """One launch of ``fn``'s kernel over ``lanes`` lanes of ``tangents``
+  tangents each."""
+  fn.launches += 1
+  fn.shapes[lanes, tangents] += 1
+
+
+def _check_tangent(ref: torch.Tensor, t: torch.Tensor, what: str) -> int:
+  """``t`` has ``ref``'s shape, or (T,) in front of it; returns T, 0 for
+  none."""
+  if t.device != ref.device or t.dtype != ref.dtype or (
+      t.shape[t.ndim - ref.ndim:] != ref.shape) or t.ndim > ref.ndim + 1:
+    raise ValueError(f"{what}: {tuple(t.shape)} {t.dtype} on {t.device} "
+                     f"does not match {tuple(ref.shape)} {ref.dtype} on "
+                     f"{ref.device}, with or without T tangents in front")
+  return t.shape[0] if t.ndim > ref.ndim else 0
+
+
 def chol_factor_jvp(l: torch.Tensor, dh: torch.Tensor) -> torch.Tensor:
   """Tangent of the factor (see ``chol_factor_jvp_ref``): CPU tensors take
-  the plain version, CUDA tensors launch the kernel."""
+  the plain version, CUDA tensors launch the kernel.
+
+  ``l`` (B, n, n); ``dh`` (B, n, n) or (T, B, n, n), T tangents a lane, in
+  any strides: the kernel reads each operand through its element strides
+  (a stride of 0 repeats it), with no copy, and reads each lane's L once
+  for all its tangents.  dL is a new contiguous tensor of dh's shape.
+  """
   if _device_kind(l) == "cpu" and dh.device.type == "cpu":
     return chol_factor_jvp_ref(l, dh)
   n = _check_factor_shape(l)
-  _check_same(l, dh, "tangent of the matrix")
+  tangents = _check_tangent(l, dh, "tangent of the matrix")
   fn = _entry("chol_factor_jvp", l.dtype)
-  l, dh = l.contiguous(), dh.contiguous()
-  dl = torch.empty_like(l)
-  bsz = l.shape[0]
-  if bsz == 0:
-    return dl
-  per_block, smem = jvp_launch_geometry(n, l.dtype)
-  with torch.cuda.device(l.device):
-    _check_launch(fn(l.data_ptr(), dh.data_ptr(), dl.data_ptr(), n, bsz,
-                     per_block, smem, _stream(l)), "chol_factor_jvp")
-  chol_factor_jvp.launches += 1
-  return dl
+  dh4 = dh if tangents else dh[None]
+  dl = torch.empty(dh4.shape, dtype=l.dtype, device=l.device)
+  lanes, nt = l.shape[0], dh4.shape[0]
+  if lanes and nt:
+    g = jvp_launch_geometry(n, l.dtype, nt)
+    with torch.cuda.device(l.device):
+      _check_launch(fn(l.data_ptr(), dh4.data_ptr(), dl.data_ptr(),
+                       _strides(l, dh4, dl), n, lanes, nt, g.lanes, g.warps,
+                       g.buffers, g.smem, _stream(l)), "chol_factor_jvp")
+    _count(chol_factor_jvp, lanes, nt)
+  return dl if tangents else dl[0]
 
 
-chol_factor_jvp.launches = 0
-
-
-def chol_solve_jvp(l: torch.Tensor, dl: torch.Tensor, x: torch.Tensor,
-                   db: torch.Tensor) -> torch.Tensor:
+def chol_solve_jvp(l: torch.Tensor, dl: torch.Tensor | None, x: torch.Tensor,
+                   db: torch.Tensor | None) -> torch.Tensor:
   """Tangent of the solve (see ``chol_solve_jvp_ref``): CPU tensors take
-  the plain version, CUDA tensors launch the kernel."""
-  if all(t.device.type == "cpu" for t in (l, dl, x, db)):
+  the plain version, CUDA tensors launch the kernel.
+
+  ``l`` (B, n, n) and ``x`` (B, n[, k]) one a lane; ``dl`` and ``db`` of
+  their shapes or with T tangents a lane in front, in any strides, or None
+  (a zero tangent: the kernel is told so and reads nothing for it).  The
+  kernel reads L and x once a lane, computes y = Lᵀ x once a lane, and
+  takes the lane's tangents past them; an operand without T is read with
+  a tangent stride of 0.  dx is a new contiguous tensor of x's shape, with
+  T in front where a tangent has it.
+  """
+  given = [t for t in (dl, db) if t is not None]
+  if all(t.device.type == "cpu" for t in (l, x, *given)):
     return chol_solve_jvp_ref(l, dl, x, db)
   _device_kind(l)
   n, k = _check_solve_shapes(l, x)
-  _check_same(l, dl, "tangent of the factor")
-  _check_same(x, db, "tangent of the right-hand side")
+  tl = 0 if dl is None else _check_tangent(l, dl, "tangent of the factor")
+  tb = 0 if db is None else _check_tangent(x, db,
+                                           "tangent of the right-hand side")
+  if tl and tb and tl != tb:
+    raise ValueError(f"{tl} tangents of the factor, {tb} of the rhs")
+  tangents = max(tl, tb)
+  nt = max(tangents, 1)
+  new = torch.empty if given else torch.zeros
+  dx = new((nt, *x.shape), dtype=x.dtype, device=x.device)
+  lanes = l.shape[0]
+  if not given or lanes == 0 or k == 0:
+    return dx if tangents else dx[0]
   fn = _entry("chol_solve_jvp", l.dtype)
-  l, dl, x, db = (t.contiguous() for t in (l, dl, x, db))
-  dx = torch.empty_like(x)
-  bsz = l.shape[0]
-  if bsz == 0 or k == 0:
-    return dx
-  per_block, smem = jvp_launch_geometry(n, l.dtype)
+
+  # (T, B, n, k) views; an operand without T repeats by a stride of 0
+  col = (lambda t: t) if x.ndim == 3 else (lambda t: t[..., None])
+  x3, dx4 = col(x), col(dx)
+  dl4 = None if dl is None else (dl if tl else dl[None]).expand(nt, *l.shape)
+  db4 = None if db is None else col(db if tb else db[None]).expand(
+      nt, *x3.shape)
+  g = jvp_launch_geometry(n, l.dtype, nt, k, dl is not None)
   with torch.cuda.device(l.device):
-    _check_launch(fn(l.data_ptr(), dl.data_ptr(), x.data_ptr(), db.data_ptr(),
-                     dx.data_ptr(), n, bsz, k, per_block, smem, _stream(l)),
-                  "chol_solve_jvp")
-  chol_solve_jvp.launches += 1
-  return dx
+    # an absent operand: a null pointer
+    _check_launch(fn(
+        l.data_ptr(), None if dl4 is None else dl4.data_ptr(), x3.data_ptr(),
+        None if db4 is None else db4.data_ptr(), dx4.data_ptr(),
+        _strides(l, dl4, x3, db4, dx4), n, lanes, nt, k, g.lanes, g.warps,
+        g.buffers, g.smem, _stream(l)), "chol_solve_jvp")
+  _count(chol_solve_jvp, lanes, nt)
+  return dx if tangents else dx[0]
 
 
-chol_solve_jvp.launches = 0
+for _fn in (chol_factor_jvp, chol_solve_jvp):
+  _fn.launches = 0
+  # launches by (lanes, tangents a lane)
+  _fn.shapes = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
-# public functions, with their forward-mode rules
+# public functions, with their forward-mode and vmap rules
 # ---------------------------------------------------------------------------
+
+
+def _fold(t: torch.Tensor | None, bdim: int | None, size: int,
+          lane_dim: int) -> torch.Tensor | None:
+  """Folds the vmapped dimension of ``t`` (at ``bdim``; None: t is the same
+  for all ``size`` entries) into its lane dimension ``lane_dim`` (counted
+  without the vmapped one): (..., V·B, ...), entry v's lanes in a row."""
+  if t is None:
+    return None
+  t = t.unsqueeze(0).expand(size, *t.shape) if bdim is None else (
+      t.movedim(bdim, 0))
+  return t.movedim(0, lane_dim).flatten(lane_dim, lane_dim + 1)
+
+
+def _unfold(t: torch.Tensor, size: int, lane_dim: int) -> torch.Tensor:
+  """The inverse of ``_fold``: the vmapped dimension back in front."""
+  return t.unflatten(lane_dim, (size, -1)).movedim(lane_dim, 0)
+
+
+def _tangents(t: torch.Tensor | None, bdim: int | None, ndim: int
+              ) -> torch.Tensor | None:
+  """A tangent operand whose vmapped dimension (at ``bdim``) is a
+  dimension of tangents: moved in front (a view), and merged with the
+  tangents ``t`` already has (its logical ndim > ``ndim``)."""
+  if t is None or bdim is None:
+    return t
+  t = t.movedim(bdim, 0)
+  return t.flatten(0, 1) if t.ndim > ndim + 1 else t
+
+
+class _CholFactorJvp(torch.autograd.Function):
+  """``chol_factor_jvp`` as an operation ``vmap`` can batch: the tangents'
+  vmapped dimension becomes the kernel's tangent dimension, read in place
+  through its stride; a vmapped factor folds into the lanes."""
+
+  @staticmethod
+  def forward(l, dh):
+    return chol_factor_jvp(l, dh)
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    pass
+
+  @staticmethod
+  def vmap(info, in_dims, l, dh):
+    ld, hd = in_dims
+    if ld is None:
+      out = _CholFactorJvp.apply(l, _tangents(dh, hd, 3))
+      tangents = dh.ndim > 4
+      return (out.unflatten(0, (info.batch_size, -1)) if tangents else
+              out), 0
+    lane = dh.ndim - 3 - (hd is not None)
+    out = _CholFactorJvp.apply(_fold(l, ld, info.batch_size, 0),
+                               _fold(dh, hd, info.batch_size, lane))
+    return _unfold(out, info.batch_size, lane), 0
+
+
+class _CholSolveJvp(torch.autograd.Function):
+  """``chol_solve_jvp`` as an operation ``vmap`` can batch, as
+  ``_CholFactorJvp``; absent tangents stay absent."""
+
+  @staticmethod
+  def forward(l, dl, x, db):
+    return chol_solve_jvp(l, dl, x, db)
+
+  @staticmethod
+  def setup_context(ctx, inputs, output):
+    pass
+
+  @staticmethod
+  def vmap(info, in_dims, l, dl, x, db):
+    ld, dld, xd, dbd = in_dims
+    size = info.batch_size
+    xnd = x.ndim - (xd is not None)
+    if ld is None and xd is None:
+      out = _CholSolveJvp.apply(l, _tangents(dl, dld, 3), x,
+                                _tangents(db, dbd, xnd))
+      # the tangents a tangent operand had before vmap, if any
+      had = (dl is not None and dl.ndim - (dld is not None) > 3) or (
+          db is not None and db.ndim - (dbd is not None) > xnd)
+      return (out.unflatten(0, (size, -1)) if had else out), 0
+    tl = dl is not None and dl.ndim - (dld is not None) > 3
+    tb = db is not None and db.ndim - (dbd is not None) > xnd
+    out = _CholSolveJvp.apply(
+        _fold(l, ld, size, 0), _fold(dl, dld, size, int(tl)),
+        _fold(x, xd, size, 0), _fold(db, dbd, size, int(tb)))
+    return _unfold(out, size, int(tl or tb)), 0
 
 
 class _CholFactor(torch.autograd.Function):
@@ -415,7 +621,14 @@ class _CholFactor(torch.autograd.Function):
   @staticmethod
   def jvp(ctx, dh):
     (l,) = ctx.saved_tensors
-    return chol_factor_jvp(l, dh)
+    return _CholFactorJvp.apply(l, dh)
+
+  @staticmethod
+  def vmap(info, in_dims, h):
+    # a vmapped matrix: its stack folds into the kernel's batch
+    (hd,) = in_dims
+    return _unfold(chol_factor(_fold(h, hd, info.batch_size, 0)),
+                   info.batch_size, 0), 0
 
 
 class _CholSolve(torch.autograd.Function):
@@ -431,15 +644,23 @@ class _CholSolve(torch.autograd.Function):
   @staticmethod
   def jvp(ctx, dl, db):
     l, x = ctx.saved_tensors
-    return chol_solve_jvp(l, torch.zeros_like(l) if dl is None else dl, x,
-                          torch.zeros_like(x) if db is None else db)
+    return _CholSolveJvp.apply(l, dl, x, db)
+
+  @staticmethod
+  def vmap(info, in_dims, l, b):
+    ld, bd = in_dims
+    size = info.batch_size
+    return _unfold(chol_solve(_fold(l, ld, size, 0), _fold(b, bd, size, 0)),
+                   size, 0), 0
 
 
 def chol_factor(h: torch.Tensor) -> torch.Tensor:
   """(B, n, n) -> lower Cholesky factor (upper triangle zero).
 
   CPU tensors take ``chol_factor_ref``; CUDA tensors launch the kernel.  A
-  dual ``h`` gives a dual factor, its tangent from ``chol_factor_jvp``.
+  dual ``h`` gives a dual factor, its tangent from ``chol_factor_jvp``;
+  under ``torch.func.vmap`` over ``torch.func.jvp`` the factor is computed
+  once and all the tangents go through one ``chol_factor_jvp`` launch.
   """
   return _CholFactor.apply(h)
 
@@ -451,7 +672,8 @@ def chol_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   """Solves L Lᵀ x = b; ``l`` (B, n, n) lower factor, ``b`` (B, n[, k]).
 
   CPU tensors take ``chol_solve_ref``; CUDA tensors launch the kernel.  A
-  dual ``l`` or ``b`` gives a dual x, its tangent from ``chol_solve_jvp``.
+  dual ``l`` or ``b`` gives a dual x, its tangent from ``chol_solve_jvp``
+  (one launch for all tangents under ``vmap`` over ``jvp``).
   """
   return _CholSolve.apply(l, b)
 

@@ -5,20 +5,19 @@ every function takes a ``Data`` of B lanes and returns one Jacobian a lane.
 
 * ``transition_ad`` / ``transition_fd`` -- analogs of ``mjd_transitionFD``:
   A, B of ``step`` in the tangent space x = [dq; qvel] (dim 2 nv; the port
-  has no activations).  The JAX package takes ``jax.jacfwd`` (or ``vmap``
-  over perturbed columns) one lane at a time.  Here the columns are folded
-  into the batch: each lane's Data is repeated once a column, every copy
-  gets its own unit tangent (AD) or perturbation (FD), and one ``step``
-  runs all B (nx + nu) lanes.  The AD variant runs that step on
-  ``torch.autograd.forward_ad`` dual tensors and reads A, B from the
-  tangent of the measured next state.  ``torch.func.vmap`` over the
-  tangents is not an option: the Newton and line-search loops of
-  ``ops/solver.py`` end on ``bool(live.any())``, which vmap cannot trace.
-  The dual step's Cholesky factor and solve carry their tangents through
-  ``chol_factor_jvp`` / ``chol_solve_jvp`` (``ops/linalg.py``).
+  has no activations).  The AD variant is ``torch.func.vmap`` over
+  ``torch.func.jvp`` of one ``step`` of the B lanes, as the JAX package's
+  ``jax.jacfwd``: the primal runs once a lane and the nx + nu unit
+  tangents are the vmapped dimension.  The Newton and line-search loops
+  of ``ops/solver.py`` end on ``bool(live.any())``, which depends on
+  primals alone and so stays unbatched under a ``vmap`` over tangents.
+  The step's Cholesky factor and solve carry all the tangents through one
+  ``chol_factor_jvp`` / ``chol_solve_jvp`` launch each (``ops/linalg.py``).
+  The FD variant folds its perturbations into the batch: each lane's Data
+  is repeated once a perturbation, and one ``step`` runs them all.
 * ``inverse_ad`` / ``inverse_fd`` -- analogs of ``mjd_inverseFD``:
-  Jacobians of ``qfrc_inverse`` w.r.t. (qpos, qvel, qacc), folded the same
-  way.
+  Jacobians of ``qfrc_inverse`` w.r.t. (qpos, qvel, qacc), the same two
+  ways.
 
 Sensor Jacobians (C, D) are always None: the port has no sensors.
 ``smooth_vel_deriv`` (``mjd_smooth_vel``) is not ported yet: it belongs to
@@ -30,7 +29,7 @@ from __future__ import annotations
 from typing import NamedTuple, Optional
 
 import torch
-import torch.autograd.forward_ad as fwAD
+from torch import func
 
 from mujoco_inversedynamicstest_tpu_torch.models.types import Data, Model
 from mujoco_inversedynamicstest_tpu_torch.ops import forward as forward_mod
@@ -116,34 +115,54 @@ def _split(m: Model, jac: torch.Tensor) -> Transition:
   return Transition(A=jac[..., :nx], B=jac[..., nx:], C=None, D=None)
 
 
-def _primal_state(d: Data) -> Data:
-  """The primal (qpos, qvel) of a dual Data, as a reference to measure
-  from."""
-  return d.replace(qpos=fwAD.unpack_dual(d.qpos).primal,
-                   qvel=fwAD.unpack_dual(d.qvel).primal)
+def _unit_tangents(d: Data, nz: int) -> torch.Tensor:
+  """(nz, B, nz): tangent i is the unit vector e_i in every lane (a view of
+  an identity, repeated over the lanes by a stride of 0)."""
+  eye = torch.eye(nz, dtype=d.qpos.dtype, device=d.qpos.device)
+  return eye[:, None, :].expand(nz, d.batch, nz)
 
 
-def transition_ad(m: Model, d: Data) -> Transition:
-  """Exact transition Jacobians by forward-mode AD, columns in the batch.
+def transition_jacobian(m: Model, d: Data
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+  """One ``step`` of the B lanes of ``d`` with all the tangent columns:
+  (qpos, qvel) of the next state, and the (B, nx, nx + nu) Jacobian of its
+  tangent coordinates by z = [dx; du].
 
-  ``d`` holds B lanes after a completed forward pass (as the reference
-  requires: its ``qacc_warmstart`` starts the solver).  One dual ``step``
-  runs B (nx + nu) lanes: copy i of lane b carries the unit tangent e_i of
-  z = [dx; du], and row i of the tangent of its measured next state is
-  column i of [A B].  The next state is measured from the copy's own
-  primal, the state ``step(d)`` reaches.
+  ``torch.func.vmap`` over ``torch.func.jvp``, as the JAX package's
+  ``jacfwd``: the step's primal runs once a lane and stays unbatched, and
+  the nx + nu unit tangents are the vmapped dimension, carried by every
+  operation at once (the Cholesky JVPs as one multi-tangent launch).  The
+  next state's tangent coordinates are measured from its own primal.
   """
   nx = state_dim(m)
   nz = nx + m.nu
-  rep = repeat_lanes(d, nz)
-  eye = torch.eye(nz, dtype=d.qpos.dtype, device=d.qpos.device)
-  with fwAD.dual_level():
-    z = fwAD.make_dual(torch.zeros_like(eye).repeat(d.batch, 1),
-                       eye.repeat(d.batch, 1))
-    dn = forward_mod.step(m, apply_tangent(m, rep, z[:, :nx], z[:, nx:]))
-    y = measure_tangent(m, _primal_state(dn), dn)
-    jac = fwAD.unpack_dual(y).tangent
-  return _split(m, jac.reshape(d.batch, nz, -1).transpose(1, 2))
+  ins = select_lanes(d, slice(None))
+  z0 = d.qpos.new_zeros(d.batch, nz)
+
+  def next_state(z):
+    dn = forward_mod.step(m, apply_tangent(m, ins, z[:, :nx], z[:, nx:]))
+    return dn.qpos, dn.qvel
+
+  def column(e):
+    (qpos, qvel), tangent = func.jvp(next_state, (z0,), (e,))
+    ref = ins.replace(qpos=qpos, qvel=qvel)
+    _, dy = func.jvp(
+        lambda q, v: measure_tangent(m, ref, ref.replace(qpos=q, qvel=v)),
+        (qpos, qvel), tangent)
+    return dy, qpos, qvel
+
+  jac, qpos, qvel = func.vmap(column, out_dims=(0, None, None))(
+      _unit_tangents(d, nz))
+  return qpos, qvel, jac.permute(1, 2, 0)
+
+
+def transition_ad(m: Model, d: Data) -> Transition:
+  """Exact transition Jacobians by forward-mode AD (``transition_jacobian``).
+
+  ``d`` holds B lanes after a completed forward pass (as the reference
+  requires: its ``qacc_warmstart`` starts the solver).
+  """
+  return _split(m, transition_jacobian(m, d)[2])
 
 
 def _perturbations(nz: int, eps: float, centered: bool,
@@ -212,15 +231,14 @@ def _inverse_jac(m: Model, jac: torch.Tensor) -> InverseJac:
 
 def inverse_ad(m: Model, d: Data) -> InverseJac:
   """Exact inverse-dynamics Jacobians by forward-mode AD (replacement for
-  ``mjd_inverseFD``), the 3 nv columns folded into the batch."""
+  ``mjd_inverseFD``): ``vmap`` over ``jvp`` of one ``inverse`` of the B
+  lanes, the 3 nv unit tangents the vmapped dimension."""
   nz = 3 * m.nv
-  rep = repeat_lanes(d, nz)
-  eye = torch.eye(nz, dtype=d.qpos.dtype, device=d.qpos.device)
-  with fwAD.dual_level():
-    z = fwAD.make_dual(torch.zeros_like(eye).repeat(d.batch, 1),
-                       eye.repeat(d.batch, 1))
-    jac = fwAD.unpack_dual(_inverse_f(m, rep, z)).tangent
-  return _inverse_jac(m, jac.reshape(d.batch, nz, -1).transpose(1, 2))
+  ins = select_lanes(d, slice(None))
+  z0 = d.qpos.new_zeros(d.batch, nz)
+  jac = func.vmap(lambda e: func.jvp(lambda z: _inverse_f(m, ins, z), (z0,),
+                                     (e,))[1])(_unit_tangents(d, nz))
+  return _inverse_jac(m, jac.permute(1, 2, 0))
 
 
 def inverse_fd(m: Model, d: Data, eps: float = 1e-6,

@@ -7,8 +7,9 @@ leading dimension of everything:
 * ``_forward_pass`` rolls out all F n_alpha (problem, step size) lanes in
   one ``step`` a timestep, as the JAX package's vmap-in-vmap does;
 * ``_linearize`` runs chunks of ``lin_batch`` timesteps x F problems, each
-  a ``forward`` and one dual ``step`` of lin_batch F (nx + nu) lanes
-  (``derivative.transition_ad``); ``lin_batch=None`` takes all T at once;
+  a ``forward`` and one dual ``step`` of those lin_batch F lanes with nx +
+  nu tangents each (``derivative.transition_ad``); ``lin_batch=None``
+  takes all T at once;
 * the iteration and regularization ``while_loop``s become loops under
   per-lane masks (a lane that is done freezes, as the vmapped loop
   selects), and the backward ``scan`` a Python loop over T;
@@ -57,8 +58,8 @@ class ILQRConfig(NamedTuple):
   # use control limits from actuator_ctrlrange via boxQP backward pass
   limits: bool = True
   # linearization chunking: None = all T timesteps in one dual step; an int
-  # c = chunks of c timesteps (c F (nx + nu) lanes a dual step: memory
-  # bounded for big MPC fleets)
+  # c = chunks of c timesteps (c F lanes of nx + nu tangents a dual step:
+  # memory bounded for big MPC fleets)
   lin_batch: Optional[int] = None
   # recompute feedback gains for the returned trajectory (an extra
   # linearization pass; only needed when the caller consumes gains_K/k)
@@ -151,7 +152,8 @@ def _linearize(m: Model, d_template: Data, xs: State, us: torch.Tensor,
                lin_batch: Optional[int] = None):
   """(A, B) for every timestep of every problem: (F, T, nx, nx), (F, T, nx,
   nu).  A chunk of c timesteps is one ``forward`` of F c lanes, whose
-  solution warm-starts one dual step of F c (nx + nu) lanes."""
+  solution warm-starts one dual step of the same lanes, nx + nu tangents
+  each."""
   nf, T, _ = us.shape
   chunk = min(lin_batch or T, T)
   As, Bs = [], []

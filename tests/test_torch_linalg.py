@@ -371,27 +371,53 @@ def test_cpu_jvp_wrappers_take_the_plain_versions():
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_jvp_launch_geometry_fits_hopper(dtype):
-  """Two packed lower-triangle tiles a matrix fit a Hopper block for every
-  n the kernels take, n = 128 in fp64 included; the packed rows of 32
-  consecutive rows start in 32 different banks."""
+  """A JVP block (each lane's packed factor, for the solve its x and y,
+  and one or two packed tangent tiles a warp) fits a Hopper block for
+  every n the kernels take and every tangent count, n = 128 in fp64
+  included; the packed rows of 32 consecutive rows start in 32 different
+  banks."""
+  size = dtype.itemsize
   for n in range(1, linalg.N_MAX + 1):
-    per_block, smem = linalg.jvp_launch_geometry(n, dtype)
-    assert 1 <= per_block <= linalg.MATS_PER_BLOCK
-    assert smem == per_block * n * (n + 1) * dtype.itemsize <= 232_448
+    tile = n * (n + 1) // 2 * size
+    for tangents in (1, 3, 75):
+      for cols, tiles in ((0, True), (1, True), (3, True), (1, False)):
+        g = linalg.jvp_launch_geometry(n, dtype, tangents, cols, tiles)
+        assert 1 <= g.lanes <= linalg.MATS_PER_BLOCK
+        assert 1 <= g.warps <= min(linalg.JVP_WARPS, g.lanes * tangents)
+        assert g.buffers == (0 if not tiles else
+                             2 if g.lanes * tangents > g.warps and g.buffers
+                             == 2 else 1)
+        assert g.smem == (g.lanes * (tile + 2 * n * cols * size)
+                          + g.warps * g.buffers * tile) <= 232_448
   for r0 in (0, 32, 96):
     assert len({(r * (r + 1) // 2) % 32 for r in range(r0, r0 + 32)}) == 32
-  assert linalg.jvp_launch_geometry(128, torch.float64) == (1, 132_096)
-  assert linalg.jvp_launch_geometry(27, torch.float32) == (4, 4 * 3024)
+  # the single-tangent launch: four lanes a block, a warp each
+  assert linalg.jvp_launch_geometry(27, torch.float32, 1) == (4, 4, 1, 12_096)
+  if dtype == torch.float64:
+    # n = 128: one lane, one warp; two tangent buffers when it has work
+    assert linalg.jvp_launch_geometry(128, dtype, 1) == (1, 1, 1, 132_096)
+    assert linalg.jvp_launch_geometry(128, dtype, 75) == (1, 1, 2, 198_144)
+    # a right-hand side too wide for shared memory is refused
+    with pytest.raises(ValueError, match="does not fit"):
+      linalg.jvp_launch_geometry(128, dtype, 1, 64)
+  else:
+    # the bench chunk: 1.5 kB of L and 2 x 1.5 kB a warp, 8 warps
+    assert linalg.jvp_launch_geometry(27, dtype, 75) == (1, 8, 2, 25_704)
 
 
 @pytest.mark.parametrize("args, match", [
     ((torch.zeros(2, 5, 5), torch.zeros(2, 5, 4)), "tangent of the matrix"),
     ((torch.zeros(2, 5, 5), torch.zeros(2, 5, 5, dtype=torch.float64)),
      "tangent of the matrix"),
+    ((torch.zeros(2, 5, 5), torch.zeros(1, 3, 2, 5, 5)),
+     "tangent of the matrix"),
 ])
 def test_jvp_shape_checks_raise(args, match):
   with pytest.raises(ValueError, match=match):
-    linalg._check_same(args[0], args[1], match)
+    linalg._check_tangent(args[0], args[1], match)
+  assert linalg._check_tangent(args[0], args[0], match) == 0
+  assert linalg._check_tangent(args[0], args[0].expand(3, 2, 5, 5),
+                               match) == 3
 
 
 @pytest.mark.gpu
@@ -431,3 +457,253 @@ def test_jvp_kernels_match_plain_versions_on_card(cuda, dtype, n, b):
   torch.testing.assert_close(linalg.chol_solve_jvp(l, dl, x_t, x_t),
                              linalg.chol_solve_jvp_ref(l, dl, x_t, x_t),
                              rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# many tangents a lane: the layout of vmap over jvp
+# ---------------------------------------------------------------------------
+
+
+def _factor_jvp_one(l, dh):
+  """The single-tangent plain factor JVP as it stood before the tangent
+  dimension: the formula every tangent must follow to the bit."""
+  n = l.shape[-1]
+  dmin = torch.sqrt(torch.tensor(linalg.MINVAL, dtype=l.dtype))
+  t = torch.tril(dh)
+  for k in range(n):
+    d = l[:, k, k]
+    dd = torch.where(d <= dmin, 0.0, 0.5 * t[:, k, k] / d)
+    t[:, k, k] = dd
+    col = l[:, k + 1:, k]
+    dcol = (t[:, k + 1:, k] - col * dd[:, None]) / d[:, None]
+    t[:, k + 1:, k] = dcol
+    t[:, k + 1:, k + 1:] -= (dcol[:, :, None] * col[:, None, :]
+                             + col[:, :, None] * dcol[:, None, :])
+  return torch.tril(t)
+
+
+def _solve_jvp_one(l, dl, x, db):
+  """The single-tangent plain solve JVP as it stood before the tangent
+  dimension (zeros for an absent tangent)."""
+  n = l.shape[-1]
+  xs = x.reshape(x.shape[0], n, -1)
+  y = torch.zeros_like(xs)
+  t = torch.zeros_like(xs)
+  for c in range(n):
+    y[:, :c + 1] += l[:, c, :c + 1, None] * xs[:, c, None]
+    t[:, :c + 1] += dl[:, c, :c + 1, None] * xs[:, c, None]
+  u = db.reshape(xs.shape).clone()
+  for c in range(n):
+    u[:, c:] -= dl[:, c:, c, None] * y[:, c, None]
+  for c in range(n):
+    u[:, c] = u[:, c] / l[:, c, c, None]
+    u[:, c + 1:] -= l[:, c + 1:, c, None] * u[:, c, None]
+  u = u - t
+  for c in range(n - 1, -1, -1):
+    u[:, c] = u[:, c] / l[:, c, c, None]
+    u[:, :c] -= l[:, c, :c, None] * u[:, c, None]
+  return u.reshape(x.shape)
+
+
+def _tangent_layout(t, layout):
+  """(T, B, ...) with the tangents in front in memory, or the lanes."""
+  if layout == "tangent-major":
+    return t
+  return t.transpose(0, 1).contiguous().transpose(0, 1)
+
+
+@pytest.mark.parametrize("layout", ["tangent-major", "lane-major"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("tangents", [1, 3, 75])
+@pytest.mark.parametrize("n", [1, 2, 5, 27])
+def test_multi_tangent_plain_versions_equal_a_loop(n, tangents, dtype,
+                                                   layout):
+  """chol_factor_jvp_ref / chol_solve_jvp_ref with T tangents a lane equal
+  the single-tangent formula applied to each tangent, to the bit, in
+  either layout; an absent dL or db equals a zero one."""
+  rng = np.random.RandomState(30 + n)
+  b = 3
+  l = linalg.chol_factor_ref(torch.as_tensor(_spd(rng, b, n))).to(dtype)
+  dh = _tangent_layout(torch.as_tensor(
+      rng.randn(tangents, b, n, n)).to(dtype), layout)
+  dl = linalg.chol_factor_jvp_ref(l, dh)
+  assert dl.shape == dh.shape
+  assert torch.equal(dl, torch.stack([_factor_jvp_one(l, d) for d in dh]))
+  for shape in ((b, n), (b, n, 2)):
+    x = torch.as_tensor(rng.randn(*shape)).to(dtype)
+    db = _tangent_layout(torch.as_tensor(
+        rng.randn(tangents, *shape)).to(dtype), layout)
+    zl, zb = torch.zeros_like(l), torch.zeros_like(x)
+    for dl_in, db_in, one in (
+        (dl, db, lambda i: _solve_jvp_one(l, dl[i], x, db[i])),
+        (None, db, lambda i: _solve_jvp_one(l, zl, x, db[i])),
+        (dl, None, lambda i: _solve_jvp_one(l, dl[i], x, zb)),
+        (dl[0], db, lambda i: _solve_jvp_one(l, dl[0], x, db[i]))):
+      got = linalg.chol_solve_jvp_ref(l, dl_in, x, db_in)
+      assert got.shape == (tangents, *shape)
+      assert torch.equal(got, torch.stack([one(i) for i in range(tangents)]))
+  assert torch.equal(linalg.chol_solve_jvp_ref(l, dl[0], x, db[0]),
+                     _solve_jvp_one(l, dl[0], x, db[0]))
+
+
+def _columns(f, primals, tangents):
+  """torch.func.vmap over torch.func.jvp, and the same jvp one tangent at
+  a time: (vmapped, looped) tangent outputs."""
+  batched = torch.func.vmap(lambda *t: torch.func.jvp(f, primals, t)[1])(
+      *tangents)
+  looped = torch.stack([torch.func.jvp(f, primals, tuple(t[i] for t in
+                                                         tangents))[1]
+                        for i in range(tangents[0].shape[0])])
+  return batched, looped
+
+
+@pytest.mark.parametrize("case", ["both", "matrix only", "rhs only",
+                                  "rhs tangent unbatched", "lane-major",
+                                  "rhs columns"])
+def test_vmap_of_jvp_equals_per_column_jvp(case):
+  """torch.func.vmap over torch.func.jvp of chol_factor / chol_solve (the
+  explicit vmap rules and the multi-tangent JVPs) equals the per-column
+  jvp to the bit, with a tangent absent or the same for all columns; the
+  primal factor is computed once, at the lanes' batch."""
+  rng = np.random.RandomState(31)
+  b, n, tangents = 4, 6, 5
+  h = torch.as_tensor(_spd(rng, b, n))
+  dh = torch.as_tensor(_sym(rng, tangents * b, n)).reshape(tangents, b, n, n)
+  shape = (b, n, 3) if case == "rhs columns" else (b, n)
+  rhs = torch.as_tensor(rng.randn(*shape))
+  drhs = torch.as_tensor(rng.randn(tangents, *shape))
+
+  def both(hh, bb):
+    return linalg.chol_solve(linalg.chol_factor(hh), bb)
+
+  factor_calls = []
+  saved = linalg._factor
+  linalg._factor = lambda x: (factor_calls.append(x.shape[0]), saved(x))[1]
+  try:
+    if case in ("both", "rhs columns"):
+      got, ref = _columns(both, (h, rhs), (dh, drhs))
+    elif case == "matrix only":
+      got, ref = _columns(lambda hh: both(hh, rhs), (h,), (dh,))
+    elif case == "rhs only":
+      got, ref = _columns(lambda bb: both(h, bb), (rhs,), (drhs,))
+    elif case == "rhs tangent unbatched":
+      got = torch.func.vmap(lambda t: torch.func.jvp(
+          both, (h, rhs), (t, drhs[0]))[1])(dh)
+      ref = torch.stack([torch.func.jvp(both, (h, rhs), (t, drhs[0]))[1]
+                         for t in dh])
+    else:
+      got = torch.func.vmap(lambda t: torch.func.jvp(
+          linalg.chol_factor, (h,), (t,))[1], in_dims=1)(
+              dh.transpose(0, 1).contiguous())
+      ref = torch.stack([torch.func.jvp(linalg.chol_factor, (h,), (t,))[1]
+                         for t in dh])
+  finally:
+    linalg._factor = saved
+  assert got.shape == ref.shape and torch.equal(got, ref)
+  assert set(factor_calls) == {b}
+
+
+def test_vmap_over_lanes_folds_into_the_batch():
+  """A vmapped primal (a caller vmapping over lanes) folds into the
+  kernel's batch: vmap of chol_factor / chol_solve, and of their jvp,
+  equal the unbatched calls lane by lane, to the bit."""
+  rng = np.random.RandomState(32)
+  v, b, n = 3, 2, 5
+  h = torch.as_tensor(_spd(rng, v * b, n)).reshape(v, b, n, n)
+  dh = torch.as_tensor(_sym(rng, v * b, n)).reshape(v, b, n, n)
+  rhs, drhs = (torch.as_tensor(rng.randn(v, b, n)) for _ in range(2))
+
+  def both(hh, bb):
+    return linalg.chol_solve(linalg.chol_factor(hh), bb)
+
+  x = torch.func.vmap(both)(h, rhs)
+  dx = torch.func.vmap(lambda *a: torch.func.jvp(both, a[:2], a[2:])[1])(
+      h, rhs, dh, drhs)
+  dx_shared = torch.func.vmap(lambda hh: torch.func.jvp(
+      both, (hh, rhs[0]), (dh[0], drhs[0]))[1])(h)
+  for i in range(v):
+    assert torch.equal(x[i], both(h[i], rhs[i]))
+    assert torch.equal(dx[i], torch.func.jvp(both, (h[i], rhs[i]),
+                                             (dh[i], drhs[i]))[1])
+    assert torch.equal(dx_shared[i], torch.func.jvp(
+        both, (h[i], rhs[0]), (dh[0], drhs[0]))[1])
+
+
+@pytest.mark.parametrize("n", [4, 11])
+def test_multi_tangent_jvps_match_torch_and_jax(n):
+  """The multi-tangent plain JVPs against torch.func.vmap over
+  torch.func.jvp of torch.linalg.cholesky / torch.cholesky_solve and
+  against jax.jvp of the JAX package's Pallas kernels in interpret mode
+  (pallas_call's own JVP rule), f64, 1e-10.  The JAX side takes one
+  tangent at a time: jax.vmap over jax.jvp of the interpreted pallas_call
+  gives other tangents (0.87 off at n = 4, where one jax.jvp at a time is
+  within 1e-15 of the plain version)."""
+  rng = np.random.RandomState(33 + n)
+  b, tangents = 128, 3
+  h, rhs = _spd(rng, b, n), rng.randn(b, n)
+  dh = _sym(rng, tangents * b, n).reshape(tangents, b, n, n)
+  drhs = rng.randn(tangents, b, n)
+  ht, rt, dht, drt = (torch.as_tensor(a) for a in (h, rhs, dh, drhs))
+  l = linalg.chol_factor_ref(ht)
+  dl = linalg.chol_factor_jvp_ref(l, dht)
+  x = linalg.chol_solve_ref(l, rt)
+  dx = linalg.chol_solve_jvp_ref(l, dl, x, drt)
+
+  dl_torch = torch.func.vmap(lambda t: torch.func.jvp(
+      torch.linalg.cholesky, (ht,), (t,))[1])(dht)
+  dx_torch = torch.func.vmap(lambda a, c: torch.func.jvp(
+      lambda hh, bb: torch.cholesky_solve(bb[..., None],
+                                          torch.linalg.cholesky(hh))[..., 0],
+      (ht, rt), (a, c))[1])(dht, drt)
+  dl_jax = np.stack([jax.jvp(_pallas_chol_interpret, (jnp.asarray(h),),
+                             (jnp.asarray(t),))[1] for t in dh])
+
+  def solve(hh, bb):
+    return _pallas_solve_interpret(jnp.tril(_pallas_chol_interpret(hh)), bb)
+
+  dx_jax = np.stack([jax.jvp(solve, (jnp.asarray(h), jnp.asarray(rhs)),
+                             (jnp.asarray(a), jnp.asarray(c)))[1]
+                     for a, c in zip(dh, drhs)])
+  for got, ref in ((dl, dl_torch), (dx, dx_torch)):
+    np.testing.assert_allclose(got.numpy(), ref.numpy(), rtol=0, atol=1e-10)
+  np.testing.assert_allclose(dl.numpy(), np.tril(np.asarray(dl_jax)),
+                             rtol=0, atol=1e-10)
+  np.testing.assert_allclose(dx.numpy(), np.asarray(dx_jax), rtol=0,
+                             atol=1e-10)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["tangent-major", "lane-major"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, lanes, tangents", [
+    (1, 33, 3), (27, 1, 1), (27, 8, 75), (27, 1024, 75), (33, 5, 75),
+    (128, 2, 3)])
+def test_multi_tangent_jvp_kernels_match_plain_versions_on_card(
+    cuda, n, lanes, tangents, dtype, layout):
+  """The multi-tangent JVP kernels are bit-equal to their plain versions,
+  one launch a call, in either layout, with tangent strides of 0 and
+  absent tangents."""
+  rng = np.random.RandomState(7)
+  g = torch.as_tensor(rng.randn(lanes, n, n), device=cuda, dtype=dtype)
+  l = linalg.chol_factor_ref(g @ g.transpose(1, 2) + n * torch.eye(
+      n, device=cuda, dtype=dtype))
+  dh = _tangent_layout(torch.as_tensor(rng.randn(tangents, lanes, n, n),
+                                       device=cuda, dtype=dtype), layout)
+  for dh_in in (dh, dh[:1].expand(tangents, lanes, n, n)):
+    before = linalg.chol_factor_jvp.launches
+    got = linalg.chol_factor_jvp(l, dh_in)
+    assert linalg.chol_factor_jvp.launches == before + 1
+    torch.testing.assert_close(got, linalg.chol_factor_jvp_ref(l, dh_in),
+                               rtol=0, atol=0)
+  dl = linalg.chol_factor_jvp_ref(l, dh)
+  x = torch.as_tensor(rng.randn(lanes, n), device=cuda, dtype=dtype)
+  db = _tangent_layout(torch.as_tensor(rng.randn(tangents, lanes, n),
+                                       device=cuda, dtype=dtype), layout)
+  for dl_in, db_in in ((dl, db), (None, db), (dl, None), (dl[0], db),
+                       (dl, db[0])):
+    before = linalg.chol_solve_jvp.launches
+    got = linalg.chol_solve_jvp(l, dl_in, x, db_in)
+    assert linalg.chol_solve_jvp.launches == before + 1
+    torch.testing.assert_close(got, linalg.chol_solve_jvp_ref(l, dl_in, x,
+                                                              db_in),
+                               rtol=0, atol=0)

@@ -5,7 +5,10 @@ Transition and inverse Jacobians against C MuJoCo's ``mjd_transitionFD`` /
 ``tests/test_opt.py``; ``box_qp`` and the ARM fleet MPC against the JAX
 package; the humanoid north-star path against C ``mj_inverse``.  The port
 solves a fleet at once where the JAX package ``vmap``s one problem, so the
-JAX side is vmapped over the same numpy inputs.
+JAX side is vmapped over the same numpy inputs.  ``transition_ad`` and
+``inverse_ad`` (``vmap`` over ``jvp``, one primal a lane) are also held to
+a folded forward-AD reference built here, and their dual step to primal
+Cholesky calls at the lanes' batch with no functorch fallback.
 
 On contact states the port differs from the JAX package on purpose
 (ROADMAP queue 3): its line search follows C, and its solver gives qacc the
@@ -13,6 +16,8 @@ tangent of a Newton step, where the JAX package's ``jacfwd`` differentiates
 the solver's iterations from a converged warm start and lands far from C.
 The humanoid's Jacobians are therefore held to C, not to the JAX package.
 """
+
+import warnings
 
 import jax
 import mujoco
@@ -26,6 +31,8 @@ from mujoco_inversedynamicstest_tpu.ops import support as jsupport
 from mujoco_inversedynamicstest_tpu.opt import northstar as jnorthstar
 from mujoco_inversedynamicstest_tpu.opt import qp as jqp
 import mujoco_inversedynamicstest_tpu_torch as mt
+from mujoco_inversedynamicstest_tpu_torch.ops import forward as forward_mod
+from mujoco_inversedynamicstest_tpu_torch.ops import linalg
 from mujoco_inversedynamicstest_tpu_torch.opt import derivative, northstar
 from mujoco_inversedynamicstest_tpu_torch.opt import qp
 
@@ -334,3 +341,152 @@ def test_humanoid_northstar_torque_parity():
       mjm, m, northstar.make_fleet(m, d0, cfg), res.run.us[0])
   assert errs.shape == (10,)
   assert err <= 1e-7, err
+
+
+# ---------------------------------------------------------------------------
+# the Jacobians as vmap over jvp: one primal a lane, the tangents batched
+# ---------------------------------------------------------------------------
+
+
+def _folded_transition(m, d):
+  """The transition Jacobian with the tangent columns folded into the
+  batch: each lane repeated nx + nu times, one unit tangent a copy, one
+  torch.autograd.forward_ad dual step, measured from each copy's own
+  primal next state.  (B, nx, nx + nu)."""
+  import torch.autograd.forward_ad as fwAD
+
+  nx = derivative.state_dim(m)
+  nz = nx + m.nu
+  rep = derivative.repeat_lanes(d, nz)
+  eye = torch.eye(nz, dtype=d.qpos.dtype)
+  with fwAD.dual_level():
+    z = fwAD.make_dual(torch.zeros_like(eye).repeat(d.batch, 1),
+                       eye.repeat(d.batch, 1))
+    dn = forward_mod.step(m, derivative.apply_tangent(m, rep, z[:, :nx],
+                                                      z[:, nx:]))
+    ref = dn.replace(qpos=fwAD.unpack_dual(dn.qpos).primal,
+                     qvel=fwAD.unpack_dual(dn.qvel).primal)
+    jac = fwAD.unpack_dual(derivative.measure_tangent(m, ref, dn)).tangent
+  return jac.reshape(d.batch, nz, -1).transpose(1, 2)
+
+
+def _folded_inverse(m, d):
+  """The inverse-dynamics Jacobian, folded the same way: (B, nv, 3 nv)."""
+  import torch.autograd.forward_ad as fwAD
+
+  nz = 3 * m.nv
+  rep = derivative.repeat_lanes(d, nz)
+  eye = torch.eye(nz, dtype=d.qpos.dtype)
+  with fwAD.dual_level():
+    z = fwAD.make_dual(torch.zeros_like(eye).repeat(d.batch, 1),
+                       eye.repeat(d.batch, 1))
+    jac = fwAD.unpack_dual(derivative._inverse_f(m, rep, z)).tangent
+  return jac.reshape(d.batch, nz, -1).transpose(1, 2)
+
+
+def _route_state(name):
+  """Two lanes of a seeded state of ``name`` after the port's forward:
+  the ARM at two states, or the Newton-100 humanoid in the air or with
+  its feet on the floor (tests/test_torch_opt.py::_humanoid_state)."""
+  if name == "arm":
+    _, _, _, (mp, d0) = _setup(ARM, seed=0)
+    _, _, _, (_, d1) = _setup(ARM, seed=1)
+  else:
+    drop = 0.22 if name == "humanoid feet-on-floor" else 0.0
+    mjm, mjd0 = _humanoid_state(drop, seed=0)
+    _, mjd1 = _humanoid_state(drop, seed=1)
+    mp = mt.put_model(mjm, device="cpu")
+    d0, d1 = mt.put_data(mp, mjd0), mt.put_data(mp, mjd1)
+  d = derivative.cat_lanes([derivative.select_lanes(d0, slice(None)),
+                            derivative.select_lanes(d1, slice(None))])
+  return mp, mt.forward(mp, d)
+
+
+ROUTE_STATES = ["arm", "humanoid airborne", "humanoid feet-on-floor"]
+
+
+@pytest.mark.parametrize("name", ROUTE_STATES)
+def test_jacobians_match_folded_forward_ad(name):
+  """transition_ad and inverse_ad (vmap over jvp) against the folded
+  forward-AD reference built here, 1e-9 in f64, on two lanes; the next
+  state of transition_jacobian's primal equals step's to the bit."""
+  mp, d = _route_state(name)
+  qpos, qvel, jac = derivative.transition_jacobian(mp, d)
+  ad = derivative.transition_ad(mp, d)
+  ref = _folded_transition(mp, d)
+  nx = derivative.state_dim(mp)
+  assert jac.shape == ref.shape == (2, nx, nx + mp.nu)
+  np.testing.assert_allclose(jac.numpy(), ref.numpy(), rtol=0, atol=1e-9)
+  assert torch.equal(ad.A, jac[..., :nx]) and torch.equal(ad.B, jac[..., nx:])
+  nxt = mt.step(mp, d)
+  assert torch.equal(qpos, nxt.qpos) and torch.equal(qvel, nxt.qvel)
+  inv = derivative.inverse_ad(mp, d)
+  np.testing.assert_allclose(torch.cat(inv, dim=-1).numpy(),
+                             _folded_inverse(mp, d).numpy(), rtol=0,
+                             atol=1e-9)
+
+
+@pytest.mark.parametrize("name", ["humanoid feet-on-floor"])
+def test_dual_step_primal_cholesky_sees_the_lanes(name):
+  """Every primal chol_factor / chol_solve call of transition_ad's dual
+  step sees the B lanes (the batches of one plain step of the same lanes,
+  in the same order), never B (nx + nu); every JVP call gets nx + nu
+  tangents of those lanes."""
+  mp, d = _route_state(name)
+  nz = derivative.state_dim(mp) + mp.nu
+  calls = {"_factor": [], "_solve": [], "chol_factor_jvp": [],
+           "chol_solve_jvp": []}
+  saved = {k: getattr(linalg, k) for k in calls}
+
+  def spy(key):
+    def run(*args):
+      calls[key].append(tuple(a.shape[:-2] if a is not None and a.ndim > 3
+                              else a.shape[:1] if a is not None else ()
+                              for a in args[:2]))
+      return saved[key](*args)
+    return run
+
+  def batches():
+    return {k: [c[0] for c in v] for k, v in calls.items()}
+
+  for k in calls:
+    setattr(linalg, k, spy(k))
+  try:
+    mt.step(mp, d)
+    plain = batches()
+    for v in calls.values():
+      v.clear()
+    derivative.transition_ad(mp, d)
+  finally:
+    for k, fn in saved.items():
+      setattr(linalg, k, fn)
+  route = batches()
+  assert plain["_factor"] and plain["_solve"]
+  assert route["_factor"] == plain["_factor"]
+  assert route["_solve"] == plain["_solve"]
+  assert set(route["_factor"]) == {(d.batch,)}
+  assert len(route["chol_factor_jvp"]) == len(route["_factor"])
+  assert len(route["chol_solve_jvp"]) == len(route["_solve"])
+  # the factor's tangent argument, and the solve's tangent of L: (T, B)
+  assert {c[1] for c in calls["chol_factor_jvp"]} == {(nz, d.batch)}
+  assert {c[1] for c in calls["chol_solve_jvp"]} == {(nz, d.batch)}
+
+
+def test_route_takes_no_vmap_fallback():
+  """With functorch's vmap-fallback warning on and made an error, the
+  route runs through: no operation of the dual step or of inverse falls
+  back to a loop over the tangents.  The same setting catches an op that
+  does fall back."""
+  mp, d = _route_state("humanoid feet-on-floor")
+  mp_arm, d_arm = _route_state("arm")
+  torch._C._functorch._set_vmap_fallback_warning_enabled(True)
+  try:
+    with warnings.catch_warnings():
+      warnings.filterwarnings("error", message=".*performance drop.*")
+      derivative.transition_ad(mp, d)
+      derivative.inverse_ad(mp, d)
+      derivative.inverse_ad(mp_arm, d_arm)
+      with pytest.raises(UserWarning, match="performance drop"):
+        torch.func.vmap(lambda x: torch.histc(x, bins=4))(torch.ones(2, 3))
+  finally:
+    torch._C._functorch._set_vmap_fallback_warning_enabled(False)
