@@ -32,7 +32,7 @@ non-zero:
 9. kernel: main-path shapes, and timing: JVP kernels -- all four kernels
    against their plain versions, bit-equal, at every shape at which
    phases 6-14 launch them (n = 27; the JVP kernels at (lanes, tangents)
-   (8, 75) fp64, (1280, 75), (800, 75), (1024, 75) and the folded
+   (8, 75) fp64, (640, 75), (800, 75), (1024, 75) and the folded
    (76,800, 1), in both layouts); then at the bench's chunk (1024 lanes,
    75 tangents) the JVP kernels timed against the plain versions, their
    bounds (L read once a lane) and torch.func.vmap over torch.func.jvp of
@@ -50,8 +50,8 @@ non-zero:
    (torch.profiler); the folded copies must agree to the bit, and the
    vmap route's primal next state must equal step's to the bit.
 12. slice: MPC fleet -- northstar.measure_solves_per_sec on humanoid_mjx,
-   fp32, H = 100, 2 iLQR iterations, 8 alphas, F = 64, lin_batch = 20
-   (a linearization chunk of 1280 lanes x 75 tangents), n_apply = 100
+   fp32, H = 100, 2 iLQR iterations, 8 alphas, F = 32, lin_batch = 20
+   (a linearization chunk of 640 lanes x 75 tangents), n_apply = 100
    (the whole plan is executed); solves/s, first-run seconds, finite
    lanes (>= 0.9), mean iterations, the plan cost's mean and median, peak
    memory, launches of all four kernels.  humanoid_mjx diverges from
@@ -65,11 +65,31 @@ non-zero:
 14. slice: MPC torque consistency -- the executed controls of 4 lanes of
    phase 12 replayed for 100 steps in fp64 on the Newton-100 humanoid;
    forward + compare_fwd_inv at every visited state, solver_fwdinv <= 1e-6.
+15. slice: integrators fleet -- phase 6's fleet (humanoid_mjx, B = 4096,
+   fp32) stepped 20 times (step_n, after a warm-up step) under each of
+   EULER, RK4, IMPLICIT and IMPLICITFAST, the integrator picked in the
+   model snapshot's Mapping: steps/s, each kernel's launches a step, finite
+   lanes, auto-resets; device time and busy share of 3 profiled RK4 steps;
+   then 5 steps of 64 Newton-100 lanes (fp64, feet on the floor) under each
+   new integrator with the kernels against 5 with the plain versions (<=
+   1e-9).
+16. slice: inverse_test -- the reference fork's src/inverse/inverse_test.cpp
+   on the Newton-100 humanoid under RK4, 64 lanes fp64, 100 steps (the
+   fork's 200 cut to half for time): fresh qfrc_applied, xfrc_applied and
+   ctrl a step from a seeded torch.Generator at phase 7's scales, then
+   forward + compare_fwd_inv (solver_fwdinv <= 1e-6 on every lane at every
+   step), then the RK4 step.  Then the discrete inverse under IMPLICIT and
+   IMPLICITFAST (INVDISCRETE): 20 steps of 64 lanes, each step's (qvel' -
+   qvel) / h through inverse at the state stepped from gives back qfrc_applied
+   + qfrc_actuator + Jᵀ xfrc_applied within 1e-6.
 
-Every JVP launch of phases 10-14 must be at a (lanes, tangents) that
-phase 9 checked.  Then one JSON line of the kernel report (the JVP
-kernels with the tangent counts of their phase 12 launches), the
-nvidia-smi line, and the result line.  There is no CPU path: without
+Phase 10 also runs transition_ad of the Newton-100 humanoid under RK4 and
+IMPLICIT (the qDeriv Jacobian nested in the dual step).  Every JVP launch
+of phases 10-16 must be at a (lanes, tangents) that phase 9 checked.  Then
+one JSON line of the kernel report (launches: the sum over the main paths,
+phases 6, 12, 15 and 16, each read with the counts reset before it; by
+path beside it; the JVP kernels with the tangent counts of their phase 12
+launches), the nvidia-smi line, and the result line.  There is no CPU path: without
 CUDA the script fails.  It imports neither jax nor mujoco: the humanoid
 comes from the model snapshots in the package's assets/.
 
@@ -112,9 +132,14 @@ REPLACES = {
 KERNELS = tuple(REPLACES)
 # (fleet, lin_batch, n_apply) of the MPC phases 12 and 13, and of --bench
 MPC_HORIZON = 100
-MPC_RUN, MPC_REF_RUN, MPC_BENCH = (64, 20, 100), (16, 50, 1), (512, 2, 1)
+# phase 12: F cut from 64 (PRs 3 and 4) to 32 to keep the script in its time
+MPC_RUN, MPC_REF_RUN, MPC_BENCH = (32, 20, 100), (16, 50, 1), (512, 2, 1)
 BENCH_CHUNK_LANES = 1024  # 512 x 2: the bench chunk, 75 tangents a lane
 FLEET, FLEET_STEPS = 4096, 100
+INTEGRATORS, INTEGRATOR_STEPS = ("EULER", "RK4", "IMPLICIT",
+                                 "IMPLICITFAST"), 20
+# the fork's inverse_test steps 1 s at 0.005 s; half of it, for time
+INVERSE_TEST_STEPS, RECOVERY_STEPS = 100, 20
 GRID_N, GRID_B = (1, 2, 6, 27, 32, 33, 64, 128), (1, 127, 4096)
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}  # of max|reference|
 # NVIDIA's H100 SXM data sheet: memory rate, and fp32 outside tensor cores
@@ -573,6 +598,25 @@ def fleet_data(mt, m, batch: int, seed: int, drop: float = 0.0):
                            device=m.device))
 
 
+def humanoid(mt, asset: str, dev, dtype, integrator: str = "EULER",
+             invdiscrete: bool = False):
+  """put_model of the snapshot ``asset`` with its integrator (and the
+  INVDISCRETE flag) set in the snapshot's Mapping: how a user picks them
+  where there is no mujoco."""
+  from mujoco_inversedynamicstest_tpu_torch.models.types import (
+      EnableBit,
+      IntegratorType,
+  )
+
+  with np.load(mt.asset_path(asset)) as z:
+    snap = {k: z[k] for k in z.files}
+  snap["opt_integrator"] = np.array(int(IntegratorType[integrator]))
+  if invdiscrete:
+    snap["opt_enableflags"] = np.array(
+        int(snap["opt_enableflags"]) | int(EnableBit.INVDISCRETE))
+  return mt.put_model(snap, device=dev, dtype=dtype)
+
+
 def fleet_step(mt, linalg, dev, card: str) -> dict:
   """Phase 6."""
   m = mt.put_model(mt.asset_path("humanoid_mjx.npz"), device=dev,
@@ -728,17 +772,19 @@ def main_path_jvp_shapes(linalg) -> set:
   return seen
 
 
-def transition(mt, linalg, dev, asset: str) -> None:
+def transition(mt, linalg, dev, asset: str,
+               integrator: str = "EULER") -> None:
   """Phase 10: transition_ad on 8 lanes of the humanoid ``asset`` (fp64,
-  feet on the floor) with the kernels, against the plain versions and
-  against transition_fd, held to 1e-4 of max|A|.  On the Newton-100
-  humanoid the FD's solves stop at the solver's tolerance, so its error is
-  about that tolerance over 2 eps; on humanoid_mjx (one Newton iteration)
-  it is the FD's truncation error, which falls 100x when eps falls 10x
-  (the CPU tests hold transition_ad to C's mjd_transitionFD on both)."""
+  feet on the floor) under ``integrator`` with the kernels, against the
+  plain versions and against transition_fd, held to 1e-4 of max|A|.  On
+  the Newton-100 humanoid the FD's solves stop at the solver's tolerance,
+  so its error is about that tolerance over 2 eps; on humanoid_mjx (one
+  Newton iteration) it is the FD's truncation error, which falls 100x when
+  eps falls 10x (the CPU tests hold transition_ad to C's finite
+  differences on both, and under RK4 and IMPLICIT)."""
   from mujoco_inversedynamicstest_tpu_torch.opt import derivative
 
-  m = mt.put_model(mt.asset_path(asset), device=dev, dtype=torch.float64)
+  m = humanoid(mt, asset, dev, torch.float64, integrator)
   d = fleet_data(mt, m, 8, seed=1, drop=0.22)
   rng = np.random.RandomState(4)
   d = mt.forward(m, d.replace(
@@ -765,7 +811,8 @@ def transition(mt, linalg, dev, asset: str) -> None:
     raise AssertionError(f"transition_ad vs transition_fd: {err_fd:.3e}")
   ncon = int((d.contact.dist < d.contact.includemargin).sum())
   log("slice: transition",
-      f"{asset} 8 lanes fp64, {ncon} active contacts: transition_ad "
+      f"{asset} {integrator} 8 lanes fp64, {ncon} active contacts: "
+      "transition_ad "
       f"{seconds:.3f} s; kernels vs plain max |dA|,|dB| {err_plain:.3e} "
       f"(tol 1e-9); vs transition_fd (centered, eps 1e-6) {err_fd:.3e} "
       f"(tol 1e-4 of max|A| = {1e-4 * scale:.3e}); launches {launches}, "
@@ -1054,6 +1101,157 @@ def mpc_torques(mt, linalg, dev, res, cfg, lanes: int = 4) -> None:
       f"{float(d.qpos[:, 2].min()):.3f}")
 
 
+def integrators_fleet(mt, linalg, dev, card: str) -> dict:
+  """Phase 15: phase 6's fleet stepped INTEGRATOR_STEPS times under each
+  integrator (after one warm-up step), with 3 profiled RK4 steps; then each
+  new integrator's fp64 steps with the kernels against the plain versions.
+  Returns the primal kernels' launches summed over the integrators'
+  timed runs."""
+  t_phase = time.perf_counter()
+  total = {"chol_factor": 0, "chol_solve": 0}
+  for name in INTEGRATORS:
+    m = humanoid(mt, "humanoid_mjx.npz", dev, torch.float32, name)
+    d = mt.step(m, fleet_data(mt, m, FLEET, seed=0))  # warm-up step
+    torch.cuda.synchronize()
+    reset_launches(linalg)
+    t0 = time.perf_counter()
+    d = mt.step_n(m, d, INTEGRATOR_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(linalg)
+    for k in total:
+      if not launches[k]:
+        raise AssertionError(f"{k} was not launched under {name}")
+      total[k] += launches[k]
+    if not bool(torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()):
+      raise AssertionError(f"non-finite lanes after the {name} fleet run")
+    log("slice: integrators fleet",
+        f"humanoid_mjx B={FLEET} fp32 {name}: {INTEGRATOR_STEPS} steps in "
+        f"{seconds:.3f} s = {FLEET * INTEGRATOR_STEPS / seconds:.1f} steps/s "
+        f"on {card}; launches a step " + ", ".join(
+            f"{k} {v / INTEGRATOR_STEPS:g}" for k, v in launches.items())
+        + f"; all lanes finite; auto-resets {int(d.warning.sum())}")
+    if name == "RK4":
+      profile_steps(mt, m, d, 1e3 * seconds / INTEGRATOR_STEPS)
+
+  # kernels against plain versions, fp64, 64 Newton-100 lanes on the floor
+  for name in INTEGRATORS[1:]:
+    m64 = humanoid(mt, "humanoid.npz", dev, torch.float64, name)
+    d_k = d_p = fleet_data(mt, m64, 64, seed=1, drop=0.22)
+    d_k = mt.step_n(m64, d_k, 5)
+    with plain_cholesky(linalg):
+      d_p = mt.step_n(m64, d_p, 5)
+    err = max(float((d_k.qpos - d_p.qpos).abs().max()),
+              float((d_k.qvel - d_p.qvel).abs().max()))
+    if not err <= 1e-9:
+      raise AssertionError(f"{name} fp64 kernel vs plain steps differ by "
+                           f"{err:.3e}")
+    ncon = int((d_k.contact.dist < d_k.contact.includemargin).sum())
+    log("slice: integrators fleet",
+        f"humanoid {name} {d_k.batch} lanes fp64, 5 steps, kernels vs plain: "
+        "max "
+        f"|dqpos|,|dqvel| {err:.3e} (tol 1e-9); {ncon} active contacts at "
+        "the end")
+  time_implicit_solve(linalg, dev)
+  log("slice: integrators fleet",
+      f"phase 15 in {time.perf_counter() - t_phase:.1f} s")
+  return total
+
+
+def time_implicit_solve(linalg, dev) -> None:
+  """IMPLICIT's dense LU solve (torch.linalg.solve, a library call: the
+  JAX package's jnp.linalg.solve is outside any Pallas kernel) against
+  IMPLICITFAST's factor and solve by the kernels, at (4096, 27) fp32, in
+  turns LU, kernels, kernels, LU (medians of the pairs)."""
+  rng = np.random.default_rng(6)
+  h = spd(rng, FLEET, 27, dev).float()
+  rhs = torch.as_tensor(rng.standard_normal((FLEET, 27)), device=dev).float()
+  lu = lambda: torch.linalg.solve(h, rhs)
+  chol = lambda: linalg.chol_solve(linalg.chol_factor(h), rhs)
+  lu1, ch1, ch2, lu2 = (time_ms(f) for f in (lu, chol, chol, lu))
+  log("timing: implicit solve",
+      f"({FLEET}, 27) fp32, ms: torch.linalg.solve (IMPLICIT) "
+      f"{float(np.median([lu1, lu2])):.4f}; chol_factor + chol_solve "
+      f"kernels (IMPLICITFAST) {float(np.median([ch1, ch2])):.4f}")
+
+
+def inverse_test(mt, linalg, dev) -> dict:
+  """Phase 16: the fork's inverse_test under RK4, then the discrete
+  inverse's recovery of the applied forces under IMPLICIT and
+  IMPLICITFAST.  Returns the primal kernels' launches of the RK4 run."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import support
+
+  t_phase = time.perf_counter()
+  b = 64
+  gen = torch.Generator(device=dev).manual_seed(16)
+
+  def forces(m, d):
+    """Fresh applied forces and controls at phase 7's scales."""
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                       dtype=m.dtype)
+    return d.replace(qfrc_applied=0.3 * randn(d.batch, m.nv),
+                     xfrc_applied=0.3 * randn(d.batch, m.nbody, 6),
+                     ctrl=0.2 * randn(d.batch, m.nu))
+
+  m = humanoid(mt, "humanoid.npz", dev, torch.float64, "RK4")
+  d = fleet_data(mt, m, b, seed=3, drop=0.22)
+  worst = torch.zeros(2, dtype=m.dtype, device=dev)
+  ok = torch.ones((), dtype=torch.bool, device=dev)
+  ncon = niter = 0
+  reset_launches(linalg)
+  t0 = time.perf_counter()
+  for _ in range(INVERSE_TEST_STEPS):
+    d = forces(m, d)
+    fwd = mt.compare_fwd_inv(m, mt.forward(m, d))
+    ok &= (fwd.solver_fwdinv <= 1e-6).all()
+    worst = torch.maximum(worst, fwd.solver_fwdinv.amax(0))
+    ncon = max(ncon, int((fwd.contact.dist < fwd.contact.includemargin).sum()))
+    niter = max(niter, int(fwd.solver_niter.max()))
+    d = mt.step(m, d)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = {k: v for k, v in read_launches(linalg).items()
+              if not k.endswith("_jvp")}
+  if not all(launches.values()):
+    raise AssertionError(f"a kernel was not launched: {launches}")
+  if not bool(ok):
+    raise AssertionError(f"solver_fwdinv above 1e-6: max {worst.tolist()}")
+  log("slice: inverse_test",
+      f"humanoid RK4 {b} lanes fp64, {INVERSE_TEST_STEPS} steps "
+      f"({INVERSE_TEST_STEPS * m.opt.timestep:g} s of the fork's 1 s) in "
+      f"{seconds:.3f} s, fresh forces and controls a "
+      f"step: max solver_fwdinv [{float(worst[0]):.3e}, "
+      f"{float(worst[1]):.3e}] over every lane and step (tol 1e-6); up to "
+      f"{ncon} active contacts, {niter} Newton iterations; launches "
+      f"{launches}")
+
+  for name in ("IMPLICIT", "IMPLICITFAST"):
+    m = humanoid(mt, "humanoid.npz", dev, torch.float64, name,
+                 invdiscrete=True)
+    d = fleet_data(mt, m, b, seed=4, drop=0.22)
+    err = torch.zeros((), dtype=m.dtype, device=dev)
+    for _ in range(RECOVERY_STEPS):
+      d = forces(m, d)
+      nxt = mt.step(m, d)
+      inv = mt.inverse(m, d.replace(qacc=(nxt.qvel - d.qvel)
+                                    / m.opt.timestep))
+      applied = (inv.qfrc_applied + mt.fwd_actuation(m, inv).qfrc_actuator
+                 + support.xfrc_accumulate(m, inv))
+      # NaN-safe: a non-finite residual fails the check below
+      err = torch.maximum(err, torch.nan_to_num(
+          (inv.qfrc_inverse - applied).abs(), nan=float("inf")).max())
+      d = nxt
+    if not float(err) <= 1e-6:
+      raise AssertionError(f"{name} discrete inverse residual {float(err)}")
+    log("slice: inverse_test",
+        f"humanoid {name} INVDISCRETE {b} lanes fp64, {RECOVERY_STEPS} "
+        f"steps: (qvel' - qvel) / h through inverse gives back the applied "
+        f"forces within {float(err):.3e} (tol 1e-6)")
+  log("slice: inverse_test",
+      f"phase 16 in {time.perf_counter() - t_phase:.1f} s")
+  return launches
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   mode = parser.add_mutually_exclusive_group()
@@ -1095,18 +1293,23 @@ def main() -> None:
     times = time_kernels(linalg, dev)
     times.update(check_path_kernels(linalg, dev))
     main_path_jvp_shapes(linalg)
-    launches = fleet_step(mt, linalg, dev, smi)
+    by_path = {"fleet_step": fleet_step(mt, linalg, dev, smi)}
     inverse_dynamics(mt, linalg, dev)
     for asset in ("humanoid.npz", "humanoid_mjx.npz"):
       transition(mt, linalg, dev, asset)
+    for integrator in ("RK4", "IMPLICIT"):
+      transition(mt, linalg, dev, "humanoid.npz", integrator)
     linearization_chunk(mt, linalg, dev)
     mpc_launches, res, cfg = mpc_fleet(mt, linalg, dev, "humanoid_mjx.npz",
                                        MPC_RUN)
-    launches.update({k: mpc_launches[k] for k in KERNELS
-                     if k.endswith("_jvp")})
+    by_path["mpc_fleet"] = mpc_launches
     tangents = read_tangents(linalg)
     mpc_reference(mt, linalg, dev)
     mpc_torques(mt, linalg, dev, res, cfg)
+    by_path["integrators_fleet"] = integrators_fleet(mt, linalg, dev, smi)
+    by_path["inverse_test"] = inverse_test(mt, linalg, dev)
+    launches = {k: sum(p.get(k, 0) for p in by_path.values())
+                for k in KERNELS}
     checked = {(b, t) for b, t, _ in path_shapes()[1]}
     unchecked = main_path_jvp_shapes(linalg) - checked
     if unchecked:
@@ -1116,6 +1319,7 @@ def main() -> None:
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k], "launches": launches[k],
+         "launches_by_path": {p: c[k] for p, c in by_path.items() if k in c},
          "tangents": tangents.get(k), "max_abs_err": slice_err[k],
          **times[k]} for k in KERNELS]}))
   print(smi)

@@ -5,8 +5,10 @@ so each module's counterpart is found by path.  ``Model``/``Data`` are
 dataclasses of tensors; every ``Data`` tensor has a leading fleet dimension.
 The two Pallas TPU kernels of the JAX package, and their forward-mode
 JVPs, are hand-written CUDA kernels here (``csrc/cholesky.cu``, bound in
-``ops/linalg.py``).  ``opt/`` holds the MPC path: transition derivatives,
-box QP, iLQR, MPC and the north-star harness (``mt.opt``).
+``ops/linalg.py``).  ``step`` integrates by the model's ``opt.integrator``
+(Euler, RK4, implicit, implicitfast).  ``opt/`` holds the MPC path:
+transition derivatives, qDeriv (``smooth_vel_deriv``), box QP, iLQR, MPC
+and the north-star harness (``mt.opt``).
 
 This package never imports jax; it imports ``mujoco`` only inside
 ``load_model`` (to compile MJCF) and ``opt.torque_parity_vs_host`` (the C
@@ -23,7 +25,17 @@ from mujoco_inversedynamicstest_tpu_torch.models.io import (
     save_model_snapshot,
 )
 from mujoco_inversedynamicstest_tpu_torch.models.types import Data, Model
-from mujoco_inversedynamicstest_tpu_torch.ops.forward import forward, step
+from mujoco_inversedynamicstest_tpu_torch.ops.forward import (
+    euler,
+    forward,
+    fwd_acceleration,
+    fwd_actuation,
+    fwd_position,
+    fwd_velocity,
+    rungekutta4,
+    step,
+    step_n,
+)
 from mujoco_inversedynamicstest_tpu_torch.ops.inverse import (
     compare_fwd_inv,
     inverse,

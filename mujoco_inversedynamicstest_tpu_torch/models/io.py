@@ -123,8 +123,7 @@ def validate_model(f: Mapping) -> None:
   for name in _BUDGET_NUMERICS:
     if int(f[name]) > 0:
       bad(f"contact budget <numeric> {name}")
-  if int(f["opt_integrator"]) != IntegratorType.EULER:
-    bad(f"integrator {IntegratorType(int(f['opt_integrator'])).name}")
+  IntegratorType(int(f["opt_integrator"]))
   if int(f["opt_solver"]) != SolverType.NEWTON:
     bad(f"solver {SolverType(int(f['opt_solver'])).name}")
   if int(f["opt_cone"]) != ConeType.PYRAMIDAL:

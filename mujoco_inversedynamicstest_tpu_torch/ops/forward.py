@@ -1,18 +1,22 @@
-"""Forward dynamics pipeline and the Euler integrator.
+"""Forward dynamics pipeline and the integrators.
 
 Port of ``mujoco_inversedynamicstest_tpu/ops/forward.py`` (``mj_fwdPosition``,
 ``mj_fwdVelocity``, ``mj_fwdActuation``, ``mj_fwdAcceleration``,
-``mj_forward``, ``mj_Euler``, ``mj_step``) for a fleet: every ``Data``
-tensor carries the leading fleet dimension.
+``mj_forward``, ``mj_Euler``, ``mj_RungeKutta``, ``mj_implicit``,
+``mjd_smooth_vel``, ``mj_step``) for a fleet: every ``Data`` tensor carries
+the leading fleet dimension.  The port has no activations (``put_model``
+refuses ``na > 0``) and no in-step control callback.
 """
 
 from __future__ import annotations
 
 import torch
+from torch import func
 
 from mujoco_inversedynamicstest_tpu_torch.models.types import (
     Data,
     DisableBit,
+    IntegratorType,
     Model,
 )
 from mujoco_inversedynamicstest_tpu_torch.ops import collision, constraint
@@ -87,6 +91,17 @@ def forward(m: Model, d: Data) -> Data:
   return solver.fwd_constraint(m, d)
 
 
+def _advance(m: Model, d: Data, qacc: torch.Tensor,
+             qvel_for_pos: torch.Tensor | None = None) -> Data:
+  """State advance (``mj_advance``): qvel += h qacc, then qpos by the new
+  qvel, or by ``qvel_for_pos`` where given (RK4's weighted velocity)."""
+  h = m.opt.timestep
+  qvel = d.qvel + qacc * h
+  qpos = support.integrate_pos(
+      m, d.qpos, qvel if qvel_for_pos is None else qvel_for_pos, h)
+  return d.replace(qvel=qvel, qpos=qpos, time=d.time + h)
+
+
 def euler(m: Model, d: Data) -> Data:
   """Semi-implicit Euler with implicit joint damping (``mj_Euler``):
   solves (M + h diag(damping)) qacc = qfrc_smooth + qfrc_constraint."""
@@ -95,10 +110,87 @@ def euler(m: Model, d: Data) -> Data:
     mh = d.qM + torch.diag(m.opt.timestep * m.dof_damping)
     qacc = linalg.chol_solve(linalg.chol_factor(mh),
                              d.qfrc_smooth + d.qfrc_constraint)
+  return _advance(m, d, qacc)
+
+
+# the fixed RK4 tableau of mj_RungeKutta: A's rows and B
+_RK4_A = ((0.5,), (0.0, 0.5), (0.0, 0.0, 1.0))
+_RK4_B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
+
+
+def rungekutta4(m: Model, d: Data) -> Data:
+  """Explicit RK4 (``mj_RungeKutta(m, d, 4)``) of every lane.
+
+  ``d`` holds a completed forward pass (stage 1).  Stages 2-4 are
+  ``forward``s of the fleet, and each solve starts from
+  ``d.qacc_warmstart``: C's stage forwards all start from the warm start
+  the step began with, since its ``mj_forward`` does not write one (``step``
+  hands that one over).  The result holds the last stage's forward fields,
+  as C leaves mjData: its qacc, qacc_warmstart (= that qacc), solver
+  counts, contacts and constraint forces, with qpos, qvel and time
+  advanced by the tableau's weights.  (The JAX package keeps the first
+  stage's fields, and warm-starts the stages from its qacc.)
+  """
   h = m.opt.timestep
-  qvel = d.qvel + qacc * h
-  return d.replace(qvel=qvel, qpos=support.integrate_pos(m, d.qpos, qvel, h),
-                   time=d.time + h)
+  qpos0, qvel0, warm = d.qpos, d.qvel, d.qacc_warmstart
+  vels, accs = [qvel0], [d.qacc]
+  for a in _RK4_A:
+    dqvel = sum(w * v for w, v in zip(a, vels))
+    dqacc = sum(w * v for w, v in zip(a, accs))
+    qvel = qvel0 + dqacc * h
+    d = forward(m, d.replace(qpos=support.integrate_pos(m, qpos0, dqvel, h),
+                             qvel=qvel, qacc_warmstart=warm))
+    vels.append(qvel)
+    accs.append(d.qacc)
+  dqvel = sum(w * v for w, v in zip(_RK4_B, vels))
+  dqacc = sum(w * v for w, v in zip(_RK4_B, accs))
+  return _advance(m, d.replace(qpos=qpos0, qvel=qvel0), dqacc,
+                  qvel_for_pos=dqvel)
+
+
+def smooth_vel_deriv(m: Model, d: Data, flg_bias: bool = True,
+                     flg_actuation: bool = True) -> torch.Tensor:
+  """qDeriv = d(qfrc_passive - qfrc_bias + qfrc_actuator)/dqvel, (B, nv,
+  nv): one Jacobian a lane (``mjd_smooth_vel``).
+
+  ``torch.func.vmap`` over ``torch.func.jvp`` of ``fwd_velocity`` (and
+  ``fwd_actuation``) of the B lanes, the nv unit tangents the vmapped
+  dimension: the JAX package's ``jax.jacfwd``.  ``flg_bias=False`` drops
+  the RNE (Coriolis) term, IMPLICITFAST's approximation.  ``d`` must hold a
+  completed position stage.
+  """
+
+  def f(qvel):
+    dd = fwd_velocity(m, d.replace(qvel=qvel))
+    out = dd.qfrc_passive
+    if flg_bias:
+      out = out - dd.qfrc_bias
+    if flg_actuation:
+      out = out + fwd_actuation(m, dd).qfrc_actuator
+    return out
+
+  eye = torch.eye(m.nv, dtype=d.qvel.dtype, device=d.qvel.device)
+  cols = func.vmap(lambda e: func.jvp(f, (d.qvel,), (e,))[1])(
+      eye[:, None, :].expand(m.nv, d.batch, m.nv))
+  return cols.permute(1, 2, 0)
+
+
+def implicit(m: Model, d: Data) -> Data:
+  """Implicit-in-velocity integrators (``mj_implicit``): solves (M -
+  h qDeriv) qacc = qfrc_smooth + qfrc_constraint.  IMPLICIT takes the full
+  qDeriv and a dense LU solve (``torch.linalg.solve``, the JAX package's
+  ``jnp.linalg.solve``); IMPLICITFAST drops the Coriolis term and
+  symmetrizes, so the Cholesky kernels factor and solve it."""
+  full = m.opt.integrator == IntegratorType.IMPLICIT
+  qderiv = smooth_vel_deriv(m, d, flg_bias=full)
+  mh = d.qM - m.opt.timestep * qderiv
+  qfrc = d.qfrc_smooth + d.qfrc_constraint
+  if full:
+    qacc = torch.linalg.solve(mh, qfrc)
+  else:
+    mh = 0.5 * (mh + mh.transpose(1, 2))
+    qacc = linalg.chol_solve(linalg.chol_factor(mh), qfrc)
+  return _advance(m, d, qacc)
 
 
 def _check_reset(m: Model, d: Data) -> Data:
@@ -129,6 +221,21 @@ def _check_reset(m: Model, d: Data) -> Data:
 
 
 def step(m: Model, d: Data) -> Data:
-  """One simulation step of every lane (``mj_step``, Euler)."""
+  """One simulation step of every lane (``mj_step``), by the model's
+  integrator."""
   d = _check_reset(m, d)
-  return euler(m, forward(m, d))
+  warm = d.qacc_warmstart
+  d = forward(m, d)
+  integrator = IntegratorType(m.opt.integrator)
+  if integrator == IntegratorType.EULER:
+    return euler(m, d)
+  if integrator == IntegratorType.RK4:
+    return rungekutta4(m, d.replace(qacc_warmstart=warm))
+  return implicit(m, d)
+
+
+def step_n(m: Model, d: Data, n: int) -> Data:
+  """``n`` steps of every lane: what ``n`` calls of ``step`` return."""
+  for _ in range(n):
+    d = step(m, d)
+  return d

@@ -5,7 +5,8 @@ Given (qpos, qvel, qacc) per lane, computes the generalized force
     qfrc_inverse = RNE(qpos, qvel, qacc) + armature * qacc
                    - qfrc_passive - qfrc_constraint
 
-(``mj_inverse``) and the forward/inverse consistency diagnostic
+(``mj_inverse``), with INVDISCRETE's map from the integrator's discrete
+qacc to the continuous one, and the forward/inverse consistency diagnostic
 (``mj_compareFwdInv``).
 """
 
@@ -17,6 +18,7 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
     Data,
     DisableBit,
     EnableBit,
+    IntegratorType,
     Model,
 )
 from mujoco_inversedynamicstest_tpu_torch.ops import constraint, math, smooth
@@ -24,16 +26,32 @@ from mujoco_inversedynamicstest_tpu_torch.ops import support
 from mujoco_inversedynamicstest_tpu_torch.ops.forward import (
     fwd_position,
     fwd_velocity,
+    smooth_vel_deriv,
 )
 
 
 def discrete_acc(m: Model, d: Data) -> torch.Tensor:
-  """Continuous-time qacc for INVDISCRETE mode, Euler branch
-  (``mj_discreteAcc``): solves M qacc' = (M + h diag(damping)) qacc."""
-  if not m.has_dof_damping or m.opt.disableflags & DisableBit.EULERDAMP:
-    return d.qacc
-  qfrc = smooth.mul_m(m, d, d.qacc) + m.opt.timestep * m.dof_damping * d.qacc
-  return smooth.solve_m(m, d, qfrc)
+  """Continuous-time qacc for INVDISCRETE mode (``mj_discreteAcc``).
+
+  EULER solves M qacc' = (M + h diag(damping)) qacc; IMPLICIT and
+  IMPLICITFAST solve M qacc' = (M - h qDeriv) qacc, with qDeriv from
+  ``smooth_vel_deriv`` (without the Coriolis term, and symmetrized, for
+  IMPLICITFAST).  RK4 has no discrete inverse: ValueError, as C refuses it.
+  """
+  integrator = IntegratorType(m.opt.integrator)
+  if integrator == IntegratorType.RK4:
+    raise ValueError("discrete inverse dynamics is unsupported for RK4")
+  if integrator == IntegratorType.EULER:
+    if not m.has_dof_damping or m.opt.disableflags & DisableBit.EULERDAMP:
+      return d.qacc
+    qfrc = (smooth.mul_m(m, d, d.qacc)
+            + m.opt.timestep * m.dof_damping * d.qacc)
+    return smooth.solve_m(m, d, qfrc)
+  full = integrator == IntegratorType.IMPLICIT
+  mh = d.qM - m.opt.timestep * smooth_vel_deriv(m, d, flg_bias=full)
+  if not full:
+    mh = 0.5 * (mh + mh.transpose(1, 2))
+  return smooth.solve_m(m, d, math.matvec(mh, d.qacc))
 
 
 def inv_constraint(m: Model, d: Data) -> Data:

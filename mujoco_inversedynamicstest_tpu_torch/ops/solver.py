@@ -212,11 +212,13 @@ def _newton_tangent(d: Data, st: _State, met: torch.Tensor) -> _State:
   derivative of the map the solve computes, as the JAX package's
   ``jacfwd`` takes it.
 
-  The iterate's own tangent is lost where the solve starts from a
-  converged warm start (``forward`` leaves one, and ``transition_ad`` steps
-  from it): the Newton loop then takes no step or a line-search step of
-  length 0, and qacc keeps the warm start's tangent, zero.  (The JAX
-  package's ``jacfwd`` is far from C there: ROADMAP queue 3.)  With g the
+  The iterate's own tangent is not the minimizer's where the solve starts
+  from a converged warm start (``forward`` leaves one, and
+  ``transition_ad`` steps from it): the loop's one iteration moves qacc by
+  a line-search step along a search direction of round-off size, so qacc
+  keeps the warm start's tangent, zero, plus that step's.  (The JAX
+  package's ``jacfwd``, whose loop takes no step there, is far from C:
+  ROADMAP queue 3.)  With g the
   gradient and H the exact Hessian at the final qacc, T its tangent, the
   step qacc - H⁻¹ g has the tangent T - d(H⁻¹ g) = -H⁻¹ (∂g/∂p) dp -
   d(H⁻¹) g, the implicit-function derivative of the minimizer when g = 0
@@ -287,18 +289,24 @@ def solve(m: Model, d: Data) -> Data:
         st, search=-st.mgrad, niter=st.niter + 1,
         stats=torch.where(at, row[:, None, :], st.stats))
 
-  if m.opt.iterations == 1:
-    st = iterate(st)
-  else:
-    alive = live(st)
+  # as C's mj_solNewton: one iteration before the first convergence test,
+  # and none on a lane with no constraint row (C's nefc = 0), whose qacc is
+  # qacc_smooth (its constraint force is zero already: every row inactive)
+  rows = d.efc_active.any(dim=-1)
+  st = iterate(st)
+  if m.opt.iterations > 1:
+    alive = live(st) & rows
     while bool(alive.any()):
       st = _select(alive, iterate(st), st)
-      alive = live(st)
+      alive = live(st) & rows
   st = _newton_tangent(d, st, met(st))
 
-  return d.replace(qacc=st.qacc, qacc_warmstart=st.qacc,
+  lane = rows[:, None]
+  qacc = torch.where(lane, st.qacc, d.qacc_smooth)
+  return d.replace(qacc=qacc, qacc_warmstart=qacc,
                    qfrc_constraint=st.qfrc_constraint, efc_force=st.efc_force,
-                   solver_niter=st.niter, solver_stat=st.stats)
+                   solver_niter=torch.where(rows, st.niter, 0),
+                   solver_stat=torch.where(lane[..., None], st.stats, 0.0))
 
 
 def fwd_constraint(m: Model, d: Data) -> Data:
@@ -306,5 +314,7 @@ def fwd_constraint(m: Model, d: Data) -> Data:
   if constraint.row_layout(m).nefc == 0:
     return d.replace(qacc=d.qacc_smooth,
                      qfrc_constraint=torch.zeros_like(d.qacc_smooth),
-                     qacc_warmstart=d.qacc_smooth)
+                     qacc_warmstart=d.qacc_smooth,
+                     solver_niter=torch.zeros(d.batch, dtype=torch.int32,
+                                              device=d.qacc_smooth.device))
   return solve(m, d)

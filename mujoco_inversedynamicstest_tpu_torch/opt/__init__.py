@@ -10,6 +10,7 @@ from mujoco_inversedynamicstest_tpu_torch.opt.derivative import (
     inverse_fd,
     measure_tangent,
     set_state,
+    smooth_vel_deriv,
     state_dim,
     transition_ad,
     transition_fd,

@@ -19,9 +19,14 @@ every function takes a ``Data`` of B lanes and returns one Jacobian a lane.
   Jacobians of ``qfrc_inverse`` w.r.t. (qpos, qvel, qacc), the same two
   ways.
 
+* ``smooth_vel_deriv`` -- analog of ``mjd_smooth_vel``: qDeriv, the
+  Jacobian of qfrc_passive - qfrc_bias + qfrc_actuator by qvel, a lane
+  each, by ``vmap`` over ``jvp`` (``ops/forward.py``).  The implicit
+  integrators and their discrete inverse use it; under IMPLICIT or
+  IMPLICITFAST ``transition_ad`` nests it inside its own ``vmap`` over
+  ``jvp``.
+
 Sensor Jacobians (C, D) are always None: the port has no sensors.
-``smooth_vel_deriv`` (``mjd_smooth_vel``) is not ported yet: it belongs to
-the implicit integrators, which the port does not have (ROADMAP P6.2).
 """
 
 from __future__ import annotations
@@ -35,6 +40,8 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import Data, Model
 from mujoco_inversedynamicstest_tpu_torch.ops import forward as forward_mod
 from mujoco_inversedynamicstest_tpu_torch.ops import inverse as inverse_mod
 from mujoco_inversedynamicstest_tpu_torch.ops import support
+
+smooth_vel_deriv = forward_mod.smooth_vel_deriv
 
 # the fields step and inverse read; every other field is computed from them
 INPUTS = ("time", "qpos", "qvel", "ctrl", "qfrc_applied", "xfrc_applied",

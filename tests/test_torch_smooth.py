@@ -134,7 +134,9 @@ def test_model_entry_points_default_to_the_card():
 
 @pytest.mark.parametrize("xml, what", [
     (ALL_SMOOTH["pendulum"].replace(
-        "<option ", "<option integrator=\"RK4\" "), "integrator RK4"),
+        "<joint ", "<joint name=\"j\" ").replace(
+            "</mujoco>", "<actuator><general joint=\"j\" dyntype=\"filter\" "
+            "dynprm=\"0.05\"/></actuator></mujoco>"), "na = 1"),
     (ALL_SMOOTH["pendulum"].replace(
         "<option ", "<option solver=\"CG\" "), "solver CG"),
     (HUMANOID.replace("<option ", "<option cone=\"elliptic\" "),

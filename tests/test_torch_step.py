@@ -48,10 +48,11 @@ def test_forward_matches_jax_and_c(seed):
     np.testing.assert_allclose(getattr(outp, field)[0].numpy(),
                                np.asarray(getattr(outj, field)), rtol=0,
                                atol=1e-9, err_msg=field)
-  np.testing.assert_array_equal(outp.solver_niter[0].numpy(),
-                                np.asarray(outj.solver_niter))
-
   mujoco.mj_forward(mjm, mjd)
+  # the JAX package's count, or C's where the two differ (ROADMAP queue 3)
+  niter = int(outp.solver_niter[0])
+  if niter != int(outj.solver_niter):
+    assert niter == mjd.solver_niter[0]
   assert ncon == mjd.ncon
   np.testing.assert_allclose(outp.qacc[0].numpy(), mjd.qacc, rtol=0, atol=1e-6)
   np.testing.assert_allclose(outp.qfrc_constraint[0].numpy(),
@@ -108,16 +109,30 @@ def test_fleet_steps_match_vmapped_jax(name, drop):
   dp = mt.from_jax_arrays(mp, {"qpos": qpos, "ctrl": ctrl})
   assert dp.qpos.shape == (batch, mjm.nq)
 
+  mjds = [mujoco.MjData(mjm) for _ in range(batch)]
+  for mjd, q, c in zip(mjds, qpos, ctrl):
+    mjd.qpos[:], mjd.ctrl[:] = q, c
+
   vstep = jax.jit(jax.vmap(mi.step, in_axes=(None, 0)))
   for _ in range(20):
     dj = vstep(mj, dj)
     dp = mt.step(mp, dp)
+    for mjd in mjds:
+      mujoco.mj_step(mjm, mjd)
     np.testing.assert_allclose(dp.qpos.numpy(), np.asarray(dj.qpos),
                                rtol=0, atol=1e-8)
-  np.testing.assert_array_equal(dp.solver_niter.numpy(),
-                                np.asarray(dj.solver_niter))
-  np.testing.assert_allclose(dp.solver_stat.numpy(),
-                             np.asarray(dj.solver_stat), rtol=0, atol=1e-8)
+  # the port counts Newton iterations as C does (one before the first
+  # convergence test, none without a constraint row); the JAX package does
+  # not (ROADMAP queue 3).  Where the two counts differ, the port's is C's,
+  # and a lane without iterations keeps no solver statistics.
+  niter, niter_j = dp.solver_niter.numpy(), np.asarray(dj.solver_niter)
+  same = niter == niter_j
+  np.testing.assert_array_equal(
+      niter[~same], [mjd.solver_niter[0] for mjd in np.array(mjds)[~same]])
+  np.testing.assert_allclose(dp.solver_stat.numpy()[same],
+                             np.asarray(dj.solver_stat)[same], rtol=0,
+                             atol=1e-8)
+  assert not dp.solver_stat.numpy()[niter == 0].any()
   if drop:
     assert bool((dp.contact.dist < dp.contact.includemargin).any())
 
