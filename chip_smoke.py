@@ -82,12 +82,26 @@ non-zero:
    IMPLICITFAST (INVDISCRETE): 20 steps of 64 lanes, each step's (qvel' -
    qvel) / h through inverse at the state stepped from gives back qfrc_applied
    + qfrc_actuator + Jᵀ xfrc_applied within 1e-6.
+17. slice: sensors -- dm_control's humanoid with its 34 sensors
+   (humanoid_sensors, Newton-100, nsensordata = 66) and the humanoid
+   without them, B = 4096 fp32, feet on the floor, the same seeded states:
+   20 steps (step_n, after a warm-up step) of each in one call, in turns
+   sensors, plain, plain, sensors: steps/s of each, each kernel's launches
+   a step, finite sensordata, touch sensors reading > 0; device launches
+   and ms a step of 2 profiled steps of each, and of each part of the
+   sensor stage profiled alone.  Then 5 steps of 64 lanes
+   (fp64) with the kernels against 5 with the plain versions (sensordata,
+   qpos, qvel within 1e-9); then transition_ad(flg_sensor=True) of 8 lanes
+   (fp64, Euler): C (8, 66, 54) and D (8, 66, 21) with the kernels against
+   the plain versions (<= 1e-9) and against transition_fd (centered, eps
+   1e-6, from a zero warm start, as C's mjd_transitionFD after mj_forward)
+   within 1e-4 of max|C| and max|D|.
 
 Phase 10 also runs transition_ad of the Newton-100 humanoid under RK4 and
 IMPLICIT (the qDeriv Jacobian nested in the dual step).  Every JVP launch
-of phases 10-16 must be at a (lanes, tangents) that phase 9 checked.  Then
+of phases 10-17 must be at a (lanes, tangents) that phase 9 checked.  Then
 one JSON line of the kernel report (launches: the sum over the main paths,
-phases 6, 12, 15 and 16, each read with the counts reset before it; by
+phases 6, 12, 15, 16 and 17, each read with the counts reset before it; by
 path beside it; the JVP kernels with the tangent counts of their phase 12
 launches), the nvidia-smi line, and the result line.  There is no CPU path: without
 CUDA the script fails.  It imports neither jax nor mujoco: the humanoid
@@ -140,6 +154,7 @@ INTEGRATORS, INTEGRATOR_STEPS = ("EULER", "RK4", "IMPLICIT",
                                  "IMPLICITFAST"), 20
 # the fork's inverse_test steps 1 s at 0.005 s; half of it, for time
 INVERSE_TEST_STEPS, RECOVERY_STEPS = 100, 20
+SENSOR_STEPS = 20
 GRID_N, GRID_B = (1, 2, 6, 27, 32, 33, 64, 128), (1, 127, 4096)
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}  # of max|reference|
 # NVIDIA's H100 SXM data sheet: memory rate, and fp32 outside tensor cores
@@ -1252,6 +1267,173 @@ def inverse_test(mt, linalg, dev) -> dict:
   return launches
 
 
+def profile_sensor_stage(mt, m, d) -> None:
+  """Device ms and launches of the sensor stage's parts, each profiled
+  alone after a forward of the fleet: the velocity stage (subtree_vel,
+  the root site's velocities), rne_postconstraint, the touch sensors (the
+  ray tests of every (lane, touch sensor, contact slot) pair) and the
+  whole acceleration stage."""
+  from mujoco_inversedynamicstest_tpu_torch.models.types import SensorType
+  from mujoco_inversedynamicstest_tpu_torch.ops import sensor, smooth
+
+  d = mt.forward(m, d)
+  touch = m.sensor_objid[m.sensor_type == SensorType.TOUCH]
+  parts = {"sensor_vel": lambda: sensor.sensor_vel(m, d),
+           "rne_postconstraint": lambda: smooth.rne_postconstraint(m, d),
+           "touch": lambda: sensor._touch(m, d, touch),
+           "sensor_acc": lambda: sensor.sensor_acc(m, d)}
+  out = []
+  for name, fn in parts.items():
+    fn()
+    device_ms, launches, _ = device_profile(fn)
+    out.append(f"{name} {device_ms:.3f} ms / {launches} launches")
+  log("profile: sensor stage", f"B={d.batch} fp32, device time and launches "
+      "of each part: " + "; ".join(out))
+
+
+def sensors(mt, linalg, dev, card: str) -> dict:
+  """Phase 17: the fleet step with and without the sensor stage, in turns;
+  the sensor stage with the kernels against the plain versions in fp64;
+  the sensor Jacobians C, D by transition_ad against the plain versions
+  and transition_fd.  Returns the kernels' launches of the sensor fleet's
+  timed runs and of transition_ad, each read with the counts reset before
+  it."""
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  t_phase = time.perf_counter()
+  names = ("humanoid_sensors", "humanoid")
+  models, starts = {}, {}
+  for name in names:
+    m = mt.put_model(mt.asset_path(f"{name}.npz"), device=dev,
+                     dtype=torch.float32)
+    models[name] = m
+    starts[name] = mt.step(m, fleet_data(mt, m, FLEET, seed=0, drop=0.22))
+  torch.cuda.synchronize()
+  total = dict.fromkeys(KERNELS, 0)
+  rates = {name: [] for name in names}
+  for name in names + names[::-1]:
+    m = models[name]
+    reset_launches(linalg)
+    t0 = time.perf_counter()
+    d = mt.step_n(m, starts[name], SENSOR_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(linalg)
+    rates[name].append(FLEET * SENSOR_STEPS / seconds)
+    if not bool(torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()):
+      raise AssertionError(f"non-finite lanes after the {name} fleet run")
+    for k in ("chol_factor", "chol_solve"):
+      if not launches[k]:
+        raise AssertionError(f"{k} was not launched on {name}")
+    if name == "humanoid_sensors":
+      for k in KERNELS:
+        total[k] += launches[k]
+      if d.sensordata.shape != (FLEET, 66):
+        raise AssertionError(f"sensordata {tuple(d.sensordata.shape)}")
+      if not bool(torch.isfinite(d.sensordata).all()):
+        raise AssertionError("non-finite sensordata")
+      touching = d.sensordata[:, 48:] > 0
+      if not bool(touching.any()):
+        raise AssertionError("no touch sensor reads a force")
+      log("slice: sensors",
+          f"{name} B={FLEET} fp32: {SENSOR_STEPS} steps in {seconds:.3f} s "
+          f"= {rates[name][-1]:.1f} steps/s on {card}; launches a step "
+          + ", ".join(f"{k} {v / SENSOR_STEPS:g}" for k, v in
+                      launches.items() if not k.endswith("_jvp"))
+          + f"; sensordata finite; touch sensors reading > 0: "
+          f"{int(touching.sum())} of {touching.numel()} (lanes with one: "
+          f"{int(touching.any(1).sum())}); auto-resets "
+          f"{int(d.warning.sum())}")
+    else:
+      log("slice: sensors",
+          f"{name} B={FLEET} fp32: {SENSOR_STEPS} steps in {seconds:.3f} s "
+          f"= {rates[name][-1]:.1f} steps/s on {card}; launches a step "
+          + ", ".join(f"{k} {v / SENSOR_STEPS:g}" for k, v in
+                      launches.items() if not k.endswith("_jvp")))
+  profiled = {}
+  for name in names:
+    m, d = models[name], starts[name]
+    device_ms, device_launches, _ = device_profile(lambda: mt.step_n(m, d, 2))
+    profiled[name] = (device_ms / 2, device_launches / 2)
+  profile_sensor_stage(mt, models["humanoid_sensors"],
+                       starts["humanoid_sensors"])
+  med = {name: float(np.median(r)) for name, r in rates.items()}
+  stage = profiled["humanoid_sensors"][1] - profiled["humanoid"][1]
+  log("slice: sensors",
+      f"steps/s medians: with sensors {med['humanoid_sensors']:.1f}, without "
+      f"{med['humanoid']:.1f} ({med['humanoid_sensors'] / med['humanoid']:.3f}"
+      "x); 2 profiled steps: " + ", ".join(
+          f"{n} device {ms:.3f} ms / {nl:.0f} launches a step"
+          for n, (ms, nl) in profiled.items())
+      + f"; the sensor stage {stage:.0f} launches a step")
+
+  # kernels against plain versions, fp64, 64 lanes, 5 steps on the floor
+  m64 = mt.put_model(mt.asset_path("humanoid_sensors.npz"), device=dev,
+                     dtype=torch.float64)
+  d_k = d_p = fleet_data(mt, m64, 64, seed=1, drop=0.22)
+  err = 0.0
+  for _ in range(5):
+    d_k = mt.step(m64, d_k)
+    with plain_cholesky(linalg):
+      d_p = mt.step(m64, d_p)
+    err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)).abs().max())
+                     for f in ("sensordata", "qpos", "qvel")))
+  if not err <= 1e-9:
+    raise AssertionError(f"fp64 sensor steps, kernels vs plain: {err:.3e}")
+  log("slice: sensors",
+      f"humanoid_sensors 64 lanes fp64, 5 steps, kernels vs plain: max "
+      f"|dsensordata|,|dqpos|,|dqvel| {err:.3e} (tol 1e-9); max "
+      f"|sensordata| {float(d_k.sensordata.abs().max()):.3e}; touch > 0 "
+      f"{int((d_k.sensordata[:, 48:] > 0).sum())}")
+
+  # C, D: 8 lanes fp64, Euler, feet on the floor
+  d = fleet_data(mt, m64, 8, seed=1, drop=0.22)
+  rng = np.random.RandomState(4)
+  d = mt.forward(m64, d.replace(
+      qvel=torch.as_tensor(0.1 * rng.randn(8, m64.nv), device=dev)))
+  reset_launches(linalg)
+  t0 = time.perf_counter()
+  ad = derivative.transition_ad(m64, d, flg_sensor=True)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = read_launches(linalg)
+  if not all(launches.values()):
+    raise AssertionError(f"a kernel was not launched: {launches}")
+  for k in KERNELS:
+    total[k] += launches[k]
+  if ad.C.shape != (8, 66, 54) or ad.D.shape != (8, 66, m64.nu):
+    raise AssertionError(f"C {tuple(ad.C.shape)}, D {tuple(ad.D.shape)}")
+  with plain_cholesky(linalg):
+    plain = derivative.transition_ad(m64, d, flg_sensor=True)
+  # from a zero warm start the perturbed solves iterate to their minimum;
+  # from the forward's converged one they stop after one iteration within
+  # the solver's tolerance, which 2 eps magnifies in the force rows
+  fd = derivative.transition_fd(
+      m64, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
+      eps=1e-6, flg_centered=True, flg_sensor=True)
+  err_plain = max(float((getattr(ad, f) - getattr(plain, f)).abs().max())
+                  for f in "ABCD")
+  err_fd = {f: float((getattr(ad, f) - getattr(fd, f)).abs().max())
+            for f in "CD"}
+  scale = {f: float(getattr(fd, f).abs().max()) for f in "CD"}
+  if not err_plain <= 1e-9:
+    raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
+  for f in "CD":
+    if not err_fd[f] <= 1e-4 * scale[f]:
+      raise AssertionError(f"{f} vs transition_fd: {err_fd[f]:.3e}")
+  ncon = int((d.contact.dist < d.contact.includemargin).sum())
+  log("slice: sensors",
+      f"humanoid_sensors 8 lanes fp64 EULER, {ncon} active contacts: "
+      f"transition_ad(flg_sensor=True) {seconds:.3f} s, C "
+      f"{tuple(ad.C.shape)}, D {tuple(ad.D.shape)}; kernels vs plain max "
+      f"|dA|,|dB|,|dC|,|dD| {err_plain:.3e} (tol 1e-9); vs transition_fd "
+      + ", ".join(f"{f} {err_fd[f]:.3e} (tol 1e-4 of max|{f}| = "
+                  f"{1e-4 * scale[f]:.3e})" for f in "CD")
+      + f"; launches {launches}, tangents a lane {read_tangents(linalg)}")
+  log("slice: sensors", f"phase 17 in {time.perf_counter() - t_phase:.1f} s")
+  return total
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   mode = parser.add_mutually_exclusive_group()
@@ -1308,6 +1490,7 @@ def main() -> None:
     mpc_torques(mt, linalg, dev, res, cfg)
     by_path["integrators_fleet"] = integrators_fleet(mt, linalg, dev, smi)
     by_path["inverse_test"] = inverse_test(mt, linalg, dev)
+    by_path["sensors"] = sensors(mt, linalg, dev, smi)
     launches = {k: sum(p.get(k, 0) for p in by_path.values())
                 for k in KERNELS}
     checked = {(b, t) for b, t, _ in path_shapes()[1]}

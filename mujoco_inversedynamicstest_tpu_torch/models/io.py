@@ -27,11 +27,16 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
     Data,
     DynType,
     EnableBit,
+    FRAME_OBJECTS,
+    FRAME_SENSORS,
     GainType,
     IntegratorType,
     JointType,
     Model,
+    ObjType,
     Option,
+    PORTED_SENSORS,
+    SensorType,
     SolverType,
     TreeLayout,
     TrnType,
@@ -42,7 +47,7 @@ _ARRAY_FIELDS = (
     "body_pos", "body_quat", "body_ipos", "body_iquat", "body_mass",
     "body_inertia", "body_gravcomp", "body_invweight0", "body_parentid",
     "body_rootid", "body_weldid", "body_jntadr", "body_jntnum",
-    "body_dofadr", "body_dofnum",
+    "body_dofadr", "body_dofnum", "body_subtreemass",
     "jnt_pos", "jnt_axis", "jnt_stiffness", "jnt_range", "jnt_margin",
     "jnt_solref", "jnt_solimp", "jnt_type", "jnt_qposadr", "jnt_dofadr",
     "jnt_limited", "jnt_actfrclimited", "jnt_actgravcomp",
@@ -52,6 +57,11 @@ _ARRAY_FIELDS = (
     "geom_gap", "geom_solref", "geom_solimp", "geom_solmix", "geom_type",
     "geom_bodyid", "geom_contype", "geom_conaffinity", "geom_condim",
     "geom_priority", "exclude_signature",
+    "site_pos", "site_quat", "site_size", "site_type", "site_bodyid",
+    "sensor_type", "sensor_datatype", "sensor_needstage", "sensor_objtype",
+    "sensor_objid", "sensor_reftype", "sensor_refid", "sensor_adr",
+    "sensor_dim", "sensor_cutoff", "sensor_history", "sensor_delay",
+    "sensor_interval",
     "actuator_gear", "actuator_ctrlrange", "actuator_forcerange",
     "actuator_gainprm", "actuator_trnid", "actuator_trntype",
     "actuator_dyntype", "actuator_gaintype", "actuator_biastype",
@@ -59,8 +69,8 @@ _ARRAY_FIELDS = (
     "qpos0", "qpos_spring",
 )
 _SIZE_FIELDS = (
-    "nq", "nv", "nu", "na", "nbody", "njnt", "ngeom", "nmocap", "neq",
-    "ntendon", "nsensor", "nflex", "npair", "nplugin",
+    "nq", "nv", "nu", "na", "nbody", "njnt", "ngeom", "nsite", "nmocap",
+    "neq", "ntendon", "nsensor", "nsensordata", "nflex", "npair", "nplugin",
 )
 _OPT_FIELDS = (
     "timestep", "gravity", "wind", "density", "viscosity", "impratio",
@@ -99,10 +109,36 @@ def save_model_snapshot(mjm, path) -> None:
 def _source_arrays(src) -> dict[str, np.ndarray]:
   if isinstance(src, (str, os.PathLike)):
     with np.load(src, allow_pickle=False) as z:
-      return {k: z[k] for k in z.files}
-  if isinstance(src, Mapping):
-    return {k: np.asarray(v) for k, v in src.items()}
-  return _snapshot_arrays(src)
+      f = {k: z[k] for k in z.files}
+  elif isinstance(src, Mapping):
+    f = {k: np.asarray(v) for k, v in src.items()}
+  else:
+    return _snapshot_arrays(src)
+  missing = sorted(set(_ARRAY_FIELDS + _SIZE_FIELDS) - set(f))
+  if missing:
+    raise ValueError(f"model snapshot lacks the fields {missing}: rewrite it "
+                     "from the MjModel with save_model_snapshot")
+  return f
+
+
+def _validate_sensors(f: Mapping, bad) -> None:
+  """Refuses every sensor the port does not compute, by name: its type,
+  an object or reference type it cannot read, a delay or history."""
+  for i in range(int(f["nsensor"])):
+    t = SensorType(int(f["sensor_type"][i]))
+    if t not in PORTED_SENSORS:
+      bad(f"sensor type {t.name}")
+    objs = [int(f["sensor_objtype"][i])]
+    if int(f["sensor_refid"][i]) >= 0:
+      objs.append(int(f["sensor_reftype"][i]))
+    for ot in objs:
+      if ot == ObjType.CAMERA:
+        bad(f"sensor object type CAMERA ({t.name})")
+      if t in FRAME_SENSORS and ot not in FRAME_OBJECTS:
+        bad(f"sensor object type {ot} ({t.name})")
+    if (np.any(f["sensor_history"][i] != 0) or float(f["sensor_delay"][i])
+        or np.any(f["sensor_interval"][i] != 0)):
+      bad(f"sensor delay, interval or history ({t.name})")
 
 
 def validate_model(f: Mapping) -> None:
@@ -116,8 +152,11 @@ def validate_model(f: Mapping) -> None:
 
   for jt in f["jnt_type"]:
     JointType(int(jt))
-  for name in ("nmocap", "neq", "ntendon", "nsensor", "nflex", "npair",
-               "nplugin", "na"):
+  # before the size refusals, so that a tendon or plugin sensor is refused
+  # by its own name
+  _validate_sensors(f, bad)
+  for name in ("nmocap", "neq", "ntendon", "nflex", "npair", "nplugin",
+               "na"):
     if int(f[name]):
       bad(f"{name} = {int(f[name])}")
   for name in _BUDGET_NUMERICS:
@@ -214,12 +253,13 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
                            i("body_dofnum"))
   float_fields = (
       "body_pos", "body_quat", "body_ipos", "body_iquat", "body_mass",
-      "body_inertia", "body_gravcomp", "body_invweight0",
+      "body_inertia", "body_gravcomp", "body_invweight0", "body_subtreemass",
       "jnt_pos", "jnt_axis", "jnt_stiffness", "jnt_range", "jnt_margin",
       "jnt_solref", "jnt_solimp",
       "dof_armature", "dof_damping", "dof_invweight0",
       "geom_pos", "geom_quat", "geom_size", "geom_friction", "geom_margin",
       "geom_gap", "geom_solref", "geom_solimp", "geom_solmix",
+      "site_pos", "site_quat", "site_size", "sensor_cutoff",
       "actuator_gear", "actuator_ctrlrange", "actuator_forcerange",
       "actuator_gainprm", "qpos0", "qpos_spring",
   )
@@ -230,12 +270,17 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       "dof_bodyid", "dof_jntid", "dof_parentid",
       "geom_type", "geom_bodyid", "geom_contype", "geom_conaffinity",
       "geom_condim", "geom_priority", "exclude_signature",
+      "site_type", "site_bodyid",
+      "sensor_type", "sensor_datatype", "sensor_needstage", "sensor_objtype",
+      "sensor_objid", "sensor_reftype", "sensor_refid", "sensor_adr",
+      "sensor_dim",
       "actuator_trnid", "actuator_ctrllimited", "actuator_forcelimited",
   )
   m = Model(
       nq=int(f["nq"]), nv=int(f["nv"]), nu=int(f["nu"]),
       nbody=int(f["nbody"]), njnt=int(f["njnt"]), ngeom=int(f["ngeom"]),
-      opt=opt, tree=tree,
+      nsite=int(f["nsite"]), nsensor=int(f["nsensor"]),
+      nsensordata=int(f["nsensordata"]), opt=opt, tree=tree,
       stat_meaninertia=float(f["stat_meaninertia"]),
       has_dof_damping=bool(np.any(f["dof_damping"] > 0)),
       has_gravcomp=bool(np.any(f["body_gravcomp"] != 0)),
@@ -269,8 +314,8 @@ def asset_path(name: str) -> Path:
 
 def make_data(m: Model, batch: int, device=None, dtype=None) -> Data:
   """A fleet of ``batch`` lanes in the reset state (``mj_resetData``):
-  qpos = qpos0, every other input zero.  Derived fields are filled by
-  ``forward`` / ``inverse``."""
+  qpos = qpos0, every other input zero, and ``sensordata`` zero.  Derived
+  fields are filled by ``forward`` / ``inverse``."""
   device = m.device if device is None else device
   dtype = m.dtype if dtype is None else dtype
   z = lambda *s: torch.zeros((batch,) + s, dtype=dtype, device=device)
@@ -284,6 +329,7 @@ def make_data(m: Model, batch: int, device=None, dtype=None) -> Data:
       qacc_warmstart=z(m.nv),
       qacc=z(m.nv),
       warning=torch.zeros((batch, 2), dtype=torch.int32, device=device),
+      sensordata=z(m.nsensordata),
   )
 
 

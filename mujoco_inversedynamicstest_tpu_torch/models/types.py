@@ -90,6 +90,104 @@ class BiasType(enum.IntEnum):
   NONE = 0
 
 
+class SensorType(enum.IntEnum):
+  """mjtSensor (installed-mujoco values)."""
+  TOUCH = 0
+  ACCELEROMETER = 1
+  VELOCIMETER = 2
+  GYRO = 3
+  FORCE = 4
+  TORQUE = 5
+  MAGNETOMETER = 6
+  RANGEFINDER = 7
+  CAMPROJECTION = 8
+  JOINTPOS = 9
+  JOINTVEL = 10
+  TENDONPOS = 11
+  TENDONVEL = 12
+  ACTUATORPOS = 13
+  ACTUATORVEL = 14
+  ACTUATORFRC = 15
+  JOINTACTFRC = 16
+  TENDONACTFRC = 17
+  BALLQUAT = 18
+  BALLANGVEL = 19
+  JOINTLIMITPOS = 20
+  JOINTLIMITVEL = 21
+  JOINTLIMITFRC = 22
+  TENDONLIMITPOS = 23
+  TENDONLIMITVEL = 24
+  TENDONLIMITFRC = 25
+  FRAMEPOS = 26
+  FRAMEQUAT = 27
+  FRAMEXAXIS = 28
+  FRAMEYAXIS = 29
+  FRAMEZAXIS = 30
+  FRAMELINVEL = 31
+  FRAMEANGVEL = 32
+  FRAMELINACC = 33
+  FRAMEANGACC = 34
+  SUBTREECOM = 35
+  SUBTREELINVEL = 36
+  SUBTREEANGMOM = 37
+  INSIDESITE = 38
+  GEOMDIST = 39
+  GEOMNORMAL = 40
+  GEOMFROMTO = 41
+  CONTACT = 42
+  E_POTENTIAL = 43
+  E_KINETIC = 44
+  CLOCK = 45
+  TACTILE = 46
+  PLUGIN = 47
+  USER = 48
+
+
+class ObjType(enum.IntEnum):
+  """mjtObj (the object types the sensor stage reads or refuses)."""
+  UNKNOWN = 0
+  BODY = 1
+  XBODY = 2
+  JOINT = 3
+  GEOM = 5
+  SITE = 6
+  CAMERA = 7
+
+
+# the sensor types the port computes (ops/sensor.py); validate_model
+# refuses every other type by its name
+PORTED_SENSORS = frozenset(SensorType[n] for n in (
+    "TOUCH", "ACCELEROMETER", "VELOCIMETER", "GYRO", "FORCE", "TORQUE",
+    "JOINTPOS", "JOINTVEL", "ACTUATORPOS", "ACTUATORVEL", "ACTUATORFRC",
+    "JOINTACTFRC", "BALLQUAT", "BALLANGVEL", "FRAMEPOS", "FRAMEQUAT",
+    "FRAMEXAXIS", "FRAMEYAXIS", "FRAMEZAXIS", "FRAMELINVEL", "FRAMEANGVEL",
+    "FRAMELINACC", "FRAMEANGACC", "SUBTREECOM", "SUBTREELINVEL",
+    "SUBTREEANGMOM", "CLOCK"))
+# the sensors that read the frame of an object (and of a reference object)
+# of one of FRAME_OBJECTS
+FRAME_SENSORS = frozenset(SensorType[n] for n in (
+    "FRAMEPOS", "FRAMEQUAT", "FRAMEXAXIS", "FRAMEYAXIS", "FRAMEZAXIS",
+    "FRAMELINVEL", "FRAMEANGVEL", "FRAMELINACC", "FRAMEANGACC"))
+FRAME_OBJECTS = frozenset({ObjType.XBODY, ObjType.BODY, ObjType.GEOM,
+                           ObjType.SITE})
+
+
+class Stage(enum.IntEnum):
+  """mjtStage: the stage whose results a sensor needs."""
+  NONE = 0
+  POS = 1
+  VEL = 2
+  ACC = 3
+
+
+class DataType(enum.IntEnum):
+  """mjtDataType: how a sensor's cutoff applies."""
+  REAL = 0
+  POSITIVE = 1
+  AXIS = 2
+  QUATERNION = 3
+
+
 class DisableBit(enum.IntFlag):
   """mjtDisableBit (installed-mujoco layout)."""
   CONSTRAINT = 1 << 0
@@ -158,6 +256,9 @@ class Model:
   nbody: int
   njnt: int
   ngeom: int
+  nsite: int
+  nsensor: int
+  nsensordata: int
   opt: Option
   tree: TreeLayout
 
@@ -169,6 +270,7 @@ class Model:
   body_inertia: torch.Tensor       # (nbody, 3)
   body_gravcomp: torch.Tensor      # (nbody,)
   body_invweight0: torch.Tensor    # (nbody, 2)
+  body_subtreemass: torch.Tensor   # (nbody,)
   body_parentid: np.ndarray
   body_rootid: np.ndarray
   body_weldid: np.ndarray
@@ -212,6 +314,23 @@ class Model:
   geom_condim: np.ndarray
   geom_priority: np.ndarray
   exclude_signature: np.ndarray
+
+  site_pos: torch.Tensor           # (nsite, 3)
+  site_quat: torch.Tensor          # (nsite, 4)
+  site_size: torch.Tensor          # (nsite, 3)
+  site_type: np.ndarray
+  site_bodyid: np.ndarray
+
+  sensor_cutoff: torch.Tensor      # (nsensor,)
+  sensor_type: np.ndarray
+  sensor_datatype: np.ndarray
+  sensor_needstage: np.ndarray
+  sensor_objtype: np.ndarray
+  sensor_objid: np.ndarray
+  sensor_reftype: np.ndarray
+  sensor_refid: np.ndarray
+  sensor_adr: np.ndarray
+  sensor_dim: np.ndarray
 
   actuator_gear: torch.Tensor      # (nu, 6)
   actuator_ctrlrange: torch.Tensor  # (nu, 2)
@@ -302,6 +421,8 @@ class Data:
   xaxis: torch.Tensor = None       # (B, njnt, 3)
   geom_xpos: torch.Tensor = None   # (B, ngeom, 3)
   geom_xmat: torch.Tensor = None   # (B, ngeom, 3, 3)
+  site_xpos: torch.Tensor = None   # (B, nsite, 3)
+  site_xmat: torch.Tensor = None   # (B, nsite, 3, 3)
   subtree_com: torch.Tensor = None  # (B, nbody, 3)
   cinert: torch.Tensor = None      # (B, nbody, 10)
   cdof: torch.Tensor = None        # (B, nv, 6)
@@ -341,6 +462,12 @@ class Data:
   solver_niter: torch.Tensor = None    # (B,) int32
   solver_stat: torch.Tensor = None     # (B, stat_cap, 3)
   solver_fwdinv: torch.Tensor = None   # (B, 2)
+
+  # sensors and the post-constraint RNE they read
+  sensordata: torch.Tensor = None      # (B, nsensordata)
+  cacc: torch.Tensor = None            # (B, nbody, 6)
+  cfrc_int: torch.Tensor = None        # (B, nbody, 6)
+  cfrc_ext: torch.Tensor = None        # (B, nbody, 6)
 
   @property
   def batch(self) -> int:

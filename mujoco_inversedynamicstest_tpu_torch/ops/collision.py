@@ -236,13 +236,18 @@ def _pair_params(m: Model, grp: PairGroup):
   return margin - gap, friction5, solref, solimp
 
 
-def _contact_constants(m: Model):
-  """Per-slot mixed parameters; lane-independent, computed once."""
-  lay = contact_layout(m)
-  parts = [_pair_params(m, g) for g in lay.groups]
-  rep = lambda x, g: torch.repeat_interleave(x, g.nslot, dim=0)
-  return tuple(torch.cat([rep(p[i], g) for p, g in zip(parts, lay.groups)])
-               for i in range(4))
+def contact_constants(m: Model):
+  """Per-slot mixed parameters (includemargin, friction5, solref,
+  solimp); lane-independent, computed once."""
+
+  def build():
+    lay = contact_layout(m)
+    parts = [_pair_params(m, g) for g in lay.groups]
+    rep = lambda x, g: torch.repeat_interleave(x, g.nslot, dim=0)
+    return tuple(torch.cat([rep(p[i], g) for p, g in zip(parts, lay.groups)])
+                 for i in range(4))
+
+  return m.memo("contact_constants", build)
 
 
 def collision(m: Model, d: Data) -> Data:
@@ -262,8 +267,7 @@ def collision(m: Model, d: Data) -> Data:
     dists.append(dist.reshape(bsz, -1))
     poss.append(pos.reshape(bsz, -1, 3))
     frames.append(make_frame(nrm, yhint).reshape(bsz, -1, 3, 3))
-  includemargin, friction, solref, solimp = m.memo(
-      "contact_constants", lambda: _contact_constants(m))
+  includemargin, friction, solref, solimp = contact_constants(m)
   return d.replace(contact=Contact(
       dist=torch.cat(dists, 1), pos=torch.cat(poss, 1),
       frame=torch.cat(frames, 1), includemargin=includemargin,

@@ -245,3 +245,34 @@ def constraint_update(d: Data, jar: torch.Tensor) -> Data:
   force, _, _ = forces_cost(d, jar)
   qfrc = math.matvec(d.efc_J.transpose(1, 2), force)
   return d.replace(efc_force=force, qfrc_constraint=qfrc)
+
+
+def _contact_force_map(m: Model) -> torch.Tensor:
+  """(ncon_rows, 6 ncon): each contact row's share of its slot's force in
+  the contact frame (``mju_decodePyramid``): 1 into the normal for every
+  row, ±mu_k into friction component k for the pair of rows of axis k."""
+  clay = collision.contact_layout(m)
+  slot_idx, k_idx, sign = _contact_row_map(clay)
+  friction = collision.contact_constants(m)[1]             # (ncon, 5)
+  rows = np.arange(len(slot_idx))
+  out = torch.zeros((len(slot_idx), clay.ncon, 6), dtype=m.dtype,
+                    device=m.device)
+  out[m.const(rows), m.const(slot_idx), 0] = 1.0
+  fric = np.nonzero(k_idx >= 1)[0]
+  mu = friction[m.const(slot_idx[fric]), m.const(k_idx[fric] - 1)]
+  out[m.const(rows[fric]), m.const(slot_idx[fric]),
+      m.const(k_idx[fric])] = m.const(sign[fric]) * mu
+  return out.reshape(len(slot_idx), clay.ncon * 6)
+
+
+def contact_forces_frame(m: Model, d: Data) -> torch.Tensor:
+  """Each contact slot's force and torque in its contact frame, (B, ncon,
+  6) (``mj_contactForce``): for pyramidal rows the normal force is the sum
+  of the slot's rows and friction component k is mu_k times the difference
+  of axis k's pair of rows; a frictionless slot's one row is its normal
+  force.  Inactive slots read zero."""
+  lay = row_layout(m)
+  ncon = collision.contact_layout(m).ncon
+  f_rows = d.efc_force[:, lay.nl:]
+  return (f_rows @ m.memo("contact_force_map", lambda: _contact_force_map(m))
+          ).reshape(d.batch, ncon, 6)

@@ -3,9 +3,10 @@
 Port of ``mujoco_inversedynamicstest_tpu/ops/forward.py`` (``mj_fwdPosition``,
 ``mj_fwdVelocity``, ``mj_fwdActuation``, ``mj_fwdAcceleration``,
 ``mj_forward``, ``mj_Euler``, ``mj_RungeKutta``, ``mj_implicit``,
-``mjd_smooth_vel``, ``mj_step``) for a fleet: every ``Data`` tensor carries
-the leading fleet dimension.  The port has no activations (``put_model``
-refuses ``na > 0``) and no in-step control callback.
+``mjd_smooth_vel``, ``mj_step``) for a fleet, with the sensor stages of
+``ops/sensor.py``: every ``Data`` tensor carries the leading fleet
+dimension.  The port has no activations (``put_model`` refuses ``na > 0``)
+and no in-step control callback.
 """
 
 from __future__ import annotations
@@ -21,7 +22,8 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
 )
 from mujoco_inversedynamicstest_tpu_torch.ops import collision, constraint
 from mujoco_inversedynamicstest_tpu_torch.ops import linalg, math, passive
-from mujoco_inversedynamicstest_tpu_torch.ops import smooth, solver, support
+from mujoco_inversedynamicstest_tpu_torch.ops import sensor, smooth, solver
+from mujoco_inversedynamicstest_tpu_torch.ops import support
 
 # mjMAXVAL: state-validity bound
 _MAXVAL = 1e10
@@ -82,13 +84,22 @@ def fwd_acceleration(m: Model, d: Data) -> Data:
   return d.replace(qfrc_smooth=qfrc, qacc_smooth=smooth.solve_m(m, d, qfrc))
 
 
-def forward(m: Model, d: Data) -> Data:
-  """Full forward dynamics (``mj_forward``, without sensors)."""
+def forward(m: Model, d: Data, skip_sensor: bool = False) -> Data:
+  """Full forward dynamics (``mj_forward``), with each sensor stage after
+  the stage it reads unless ``skip_sensor`` (``mj_forwardSkip``'s
+  skipsensor)."""
   d = fwd_position(m, d)
+  if not skip_sensor:
+    d = sensor.sensor_pos(m, d)
   d = fwd_velocity(m, d)
+  if not skip_sensor:
+    d = sensor.sensor_vel(m, d)
   d = fwd_actuation(m, d)
   d = fwd_acceleration(m, d)
-  return solver.fwd_constraint(m, d)
+  d = solver.fwd_constraint(m, d)
+  if not skip_sensor:
+    d = sensor.sensor_acc(m, d)
+  return d
 
 
 def _advance(m: Model, d: Data, qacc: torch.Tensor,
@@ -122,7 +133,9 @@ def rungekutta4(m: Model, d: Data) -> Data:
   """Explicit RK4 (``mj_RungeKutta(m, d, 4)``) of every lane.
 
   ``d`` holds a completed forward pass (stage 1).  Stages 2-4 are
-  ``forward``s of the fleet, and each solve starts from
+  ``forward``s of the fleet without sensors (C's ``mj_forwardSkip(...,
+  skipsensor=1)``), so sensordata, cacc and cfrc_* stay stage 1's; each
+  solve starts from
   ``d.qacc_warmstart``: C's stage forwards all start from the warm start
   the step began with, since its ``mj_forward`` does not write one (``step``
   hands that one over).  The result holds the last stage's forward fields,
@@ -139,7 +152,8 @@ def rungekutta4(m: Model, d: Data) -> Data:
     dqacc = sum(w * v for w, v in zip(a, accs))
     qvel = qvel0 + dqacc * h
     d = forward(m, d.replace(qpos=support.integrate_pos(m, qpos0, dqvel, h),
-                             qvel=qvel, qacc_warmstart=warm))
+                             qvel=qvel, qacc_warmstart=warm),
+                skip_sensor=True)
     vels.append(qvel)
     accs.append(d.qacc)
   dqvel = sum(w * v for w, v in zip(_RK4_B, vels))

@@ -21,8 +21,8 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
     IntegratorType,
     Model,
 )
-from mujoco_inversedynamicstest_tpu_torch.ops import constraint, math, smooth
-from mujoco_inversedynamicstest_tpu_torch.ops import support
+from mujoco_inversedynamicstest_tpu_torch.ops import constraint, math, sensor
+from mujoco_inversedynamicstest_tpu_torch.ops import smooth, support
 from mujoco_inversedynamicstest_tpu_torch.ops.forward import (
     fwd_position,
     fwd_velocity,
@@ -67,15 +67,26 @@ def _inverse_force(m: Model, d: Data) -> torch.Tensor:
           - d.qfrc_passive - d.qfrc_constraint)
 
 
-def inverse(m: Model, d: Data) -> Data:
+def inverse(m: Model, d: Data, skip_sensor: bool = True) -> Data:
   """Full inverse dynamics (``mj_inverse``): reads qpos, qvel and qacc,
-  writes ``qfrc_inverse`` and the intermediate stages."""
-  d = fwd_velocity(m, fwd_position(m, d))
+  writes ``qfrc_inverse`` and the intermediate stages.  Unless
+  ``skip_sensor``, each sensor stage runs after the stage it reads, the
+  acceleration stage at the continuous qacc and the inverse's constraint
+  forces (``mj_inverseSkip``)."""
+  d = fwd_position(m, d)
+  if not skip_sensor:
+    d = sensor.sensor_pos(m, d)
+  d = fwd_velocity(m, d)
+  if not skip_sensor:
+    d = sensor.sensor_vel(m, d)
   qacc = d.qacc
   if m.opt.enableflags & EnableBit.INVDISCRETE:
     d = d.replace(qacc=discrete_acc(m, d))
   d = inv_constraint(m, d)
-  return d.replace(qfrc_inverse=_inverse_force(m, d), qacc=qacc)
+  d = d.replace(qfrc_inverse=_inverse_force(m, d))
+  if not skip_sensor:
+    d = sensor.sensor_acc(m, d)
+  return d.replace(qacc=qacc)
 
 
 def compare_fwd_inv(m: Model, d: Data) -> Data:

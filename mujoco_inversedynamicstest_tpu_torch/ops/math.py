@@ -150,6 +150,33 @@ def inert_mul(ci: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
   return torch.cat([iw + cross(h, u), m * u - cross(h, w)], dim=-1)
 
 
+def transform_motion(v: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+  """A motion vector moved to a new origin, old origin + ``offset``
+  (``mju_transformSpatial``, flg_force = 0): [w, u - offset x w]."""
+  w, u = v[..., :3], v[..., 3:]
+  return torch.cat([w, u - cross(offset, w)], dim=-1)
+
+
+def transform_force(f: torch.Tensor, offset: torch.Tensor) -> torch.Tensor:
+  """A force vector [torque, force] moved to a new origin, old origin +
+  ``offset`` (``mju_transformSpatial``, flg_force = 1): [t - offset x f,
+  f]."""
+  t, frc = f[..., :3], f[..., 3:]
+  return torch.cat([t - cross(offset, frc), frc], dim=-1)
+
+
+def mat_t_vec(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  """matᵀ v for (..., 3, 3) and (..., 3) by products and sums: on the card
+  a batched matmul of many 3 x 3 matrices runs as a slow cuBLAS gemv."""
+  return (v[..., None] * mat).sum(-2)
+
+
+def rotate_spatial_t(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  """Both 3-vector halves of a spatial vector ``v`` (..., 6) expressed in
+  the frame ``mat`` (..., 3, 3): [matᵀ v[:3], matᵀ v[3:]]."""
+  return mat_t_vec(mat[..., None, :, :], v.unflatten(-1, (2, 3))).flatten(-2)
+
+
 def local_to_global(parent_pos, parent_quat, pos, quat):
   """Composes a local frame into its parent frame -> (world pos, mat)."""
   wpos = parent_pos + rotate(pos, parent_quat)

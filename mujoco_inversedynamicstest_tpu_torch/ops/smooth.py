@@ -19,6 +19,7 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
     JointType,
     Model,
 )
+from mujoco_inversedynamicstest_tpu_torch.ops import collision, constraint
 from mujoco_inversedynamicstest_tpu_torch.ops import linalg, math
 
 
@@ -30,7 +31,8 @@ def _quat_adr(m: Model) -> np.ndarray:
 
 
 def kinematics(m: Model, d: Data) -> Data:
-  """Forward kinematics (``mj_kinematics``): body, joint, geom frames.
+  """Forward kinematics (``mj_kinematics``): body, joint, geom and site
+  frames.
 
   Normalizes the quaternion segments of qpos like the reference.
   """
@@ -101,12 +103,17 @@ def kinematics(m: Model, d: Data) -> Data:
 
   xmat = math.quat_to_mat(xquat)
   xipos, ximat = math.local_to_global(xpos, xquat, m.body_ipos, m.body_iquat)
-  gb = m.const(m.geom_bodyid)
-  geom_xpos, geom_xmat = math.local_to_global(
-      xpos[:, gb], xquat[:, gb], m.geom_pos, m.geom_quat)
+  # geom and site frames in one local_to_global: the sites add no launch
+  body, pos, quat = m.memo("geom_site_frames", lambda: (
+      m.const(np.concatenate([m.geom_bodyid, m.site_bodyid])),
+      torch.cat([m.geom_pos, m.site_pos]), torch.cat([m.geom_quat,
+                                                      m.site_quat])))
+  fpos, fmat = math.local_to_global(xpos[:, body], xquat[:, body], pos, quat)
+  ng = m.ngeom
   return d.replace(qpos=qpos, xpos=xpos, xquat=xquat, xmat=xmat,
                    xanchor=xanchor, xaxis=xaxis, xipos=xipos, ximat=ximat,
-                   geom_xpos=geom_xpos, geom_xmat=geom_xmat)
+                   geom_xpos=fpos[:, :ng], geom_xmat=fmat[:, :ng],
+                   site_xpos=fpos[:, ng:], site_xmat=fmat[:, ng:])
 
 
 def rank_groups(index: np.ndarray) -> tuple[np.ndarray, ...]:
@@ -362,3 +369,88 @@ def rne(m: Model, d: Data, flg_acc: bool = False) -> torch.Tensor:
   cfrc[:, 0] = 0.0
   cfrc = tree_sum_up(m, cfrc)
   return torch.sum(d.cdof * cfrc[:, dof_body], dim=-1)
+
+
+def _nonworld(m: Model) -> torch.Tensor:
+  """(nbody, 1): 0 for the world body, 1 for every other."""
+  return m.const((np.arange(m.nbody) > 0)[:, None].astype(float))
+
+
+def subtree_vel(m: Model, d: Data) -> tuple[torch.Tensor, torch.Tensor]:
+  """Subtree linear velocity and angular momentum (``mj_subtreeVel``),
+  each (B, nbody, 3), about each subtree's CoM, from a completed velocity
+  stage."""
+  mass = m.body_mass[:, None]
+  smass = m.body_subtreemass[:, None]
+  off = d.xipos - d.subtree_com[:, m.const(m.body_rootid)]
+  ang = d.cvel[..., :3]
+  lin = d.cvel[..., 3:] + math.cross(ang, off)
+  linvel = tree_sum_up(m, lin * mass) / torch.clamp(smass, min=math.MINVAL)
+
+  # each body's angular momentum about its CoM, then about its subtree's
+  # CoM; a subtree's total adds each child's total about the child's
+  # subtree CoM and the child subtree's momentum about the parent's
+  rot = d.ximat
+  own = math.matvec((rot * m.body_inertia[:, None, :]) @ rot.transpose(-1, -2),
+                    ang)
+  own = own + math.cross(d.xipos - d.subtree_com,
+                         (lin - linvel) * mass) * _nonworld(m)
+  par = m.const(m.body_parentid)
+  shift = math.cross(d.subtree_com - d.subtree_com[:, par],
+                     (linvel - linvel[:, par]) * smass)
+  # tree_sum_up adds each child's total (own + shift) into its parent
+  angmom = tree_sum_up(m, own + shift) - shift
+  return linvel, angmom
+
+
+def rne_postconstraint(m: Model, d: Data) -> Data:
+  """Body accelerations and forces of the complete dynamics
+  (``mj_rnePostConstraint``): ``cacc`` with qacc, ``cfrc_ext`` (the
+  applied wrenches and the active contacts' wrenches, at the subtree CoM)
+  and ``cfrc_int``, the force each body takes from its parent, summed up
+  the tree (world's row: the force the world takes, as C leaves it)."""
+  nonworld = _nonworld(m)
+  xfrc = d.xfrc_applied
+  off = d.subtree_com[:, m.const(m.body_rootid)] - d.xipos
+  cfrc_ext = torch.cat([xfrc[..., 3:] - math.cross(off, xfrc[..., :3]),
+                        xfrc[..., :3]], dim=-1) * nonworld
+  clay = collision.contact_layout(m)
+  if clay.ncon:
+    con = d.contact
+    force = constraint.contact_forces_frame(m, d)
+    f_world = math.mat_t_vec(con.frame, force[..., :3])
+    t_world = math.mat_t_vec(con.frame, force[..., 3:])
+    b1, b2 = m.geom_bodyid[clay.geom1], m.geom_bodyid[clay.geom2]
+
+    def wrench(bodies):
+      com = d.subtree_com[:, m.const(m.body_rootid[bodies])]
+      return torch.cat([t_world - math.cross(com - con.pos, f_world),
+                        f_world], dim=-1)
+
+    # body 1 takes -wrench, body 2 +wrench, the world nothing: one product
+    # with a fixed (nbody, 2 ncon) table of signs, in a fixed order
+    def signs():
+      s = np.zeros((m.nbody, 2 * clay.ncon))
+      s[b1, np.arange(clay.ncon)] -= 1.0
+      s[b2, clay.ncon + np.arange(clay.ncon)] += 1.0
+      s[0] = 0.0
+      return m.const(s)
+
+    cfrc_ext = cfrc_ext + m.memo("contact_wrench_signs", signs) @ torch.cat(
+        [wrench(b1), wrench(b2)], dim=1)
+
+  contrib = d.cdof_dot * d.qvel[..., None] + d.cdof * d.qacc[..., None]
+  body_contrib = ordered_index_add(m, contrib.new_zeros((d.batch, m.nbody, 6)),
+                                   m.dof_bodyid, contrib, "dof_bodyid")
+  cacc = contrib.new_zeros((d.batch, m.nbody, 6))
+  if not m.opt.disableflags & DisableBit.GRAVITY:
+    cacc[:, 0, 3:] = -m.opt.gravity
+  for bodies in m.tree.body_levels:
+    b = m.const(bodies)
+    cacc[:, b] = cacc[:, m.const(m.body_parentid[bodies])] + body_contrib[:, b]
+
+  cfrc = (math.inert_mul(d.cinert, cacc)
+          + math.force_cross(d.cvel, math.inert_mul(d.cinert, d.cvel))
+          - cfrc_ext)
+  cfrc_int = tree_sum_up(m, cfrc * nonworld)
+  return d.replace(cacc=cacc, cfrc_int=cfrc_int, cfrc_ext=cfrc_ext)

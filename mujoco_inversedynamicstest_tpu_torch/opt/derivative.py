@@ -26,7 +26,10 @@ every function takes a ``Data`` of B lanes and returns one Jacobian a lane.
   IMPLICITFAST ``transition_ad`` nests it inside its own ``vmap`` over
   ``jvp``.
 
-Sensor Jacobians (C, D) are always None: the port has no sensors.
+With ``flg_sensor``, ``transition_ad`` and ``transition_fd`` also give the
+sensor Jacobians C = d sensordata / dx and D = d sensordata / du, a lane
+each: sensordata of the step's own forward, at the perturbed pre-step state
+(what ``mjd_transitionFD`` reads), from the same pass as A and B.
 """
 
 from __future__ import annotations
@@ -109,17 +112,21 @@ def cat_lanes(ds) -> Data:
 
 
 class Transition(NamedTuple):
-  """State-space linearization of step, a lane each: dx' = A dx + B du."""
+  """State-space linearization of step, a lane each: dx' = A dx + B du,
+  and with sensors ds = C dx + D du."""
   A: torch.Tensor              # (B, nx, nx)
   B: torch.Tensor              # (B, nx, nu)
-  C: Optional[torch.Tensor]    # None: the port has no sensors
-  D: Optional[torch.Tensor]
+  C: Optional[torch.Tensor]    # (B, nsensordata, nx); None without flg_sensor
+  D: Optional[torch.Tensor]    # (B, nsensordata, nu)
 
 
-def _split(m: Model, jac: torch.Tensor) -> Transition:
-  """(B, nx, nx + nu) -> Transition."""
+def _split(m: Model, jac: torch.Tensor,
+           sjac: Optional[torch.Tensor] = None) -> Transition:
+  """(B, nx, nx + nu) and (B, nsensordata, nx + nu) -> Transition."""
   nx = state_dim(m)
-  return Transition(A=jac[..., :nx], B=jac[..., nx:], C=None, D=None)
+  return Transition(A=jac[..., :nx], B=jac[..., nx:],
+                    C=None if sjac is None else sjac[..., :nx],
+                    D=None if sjac is None else sjac[..., nx:])
 
 
 def _unit_tangents(d: Data, nz: int) -> torch.Tensor:
@@ -129,11 +136,19 @@ def _unit_tangents(d: Data, nz: int) -> torch.Tensor:
   return eye[:, None, :].expand(nz, d.batch, nz)
 
 
-def transition_jacobian(m: Model, d: Data
-                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def _sensordata(m: Model, d: Data) -> torch.Tensor:
+  """``d.sensordata``; zeros where no sensor stage wrote it (sensors
+  disabled, or none), which C's finite differences of it read as zero."""
+  if d.sensordata is None:
+    return d.qpos.new_zeros((d.batch, m.nsensordata))
+  return d.sensordata
+
+
+def transition_jacobian(m: Model, d: Data, flg_sensor: bool = False):
   """One ``step`` of the B lanes of ``d`` with all the tangent columns:
   (qpos, qvel) of the next state, and the (B, nx, nx + nu) Jacobian of its
-  tangent coordinates by z = [dx; du].
+  tangent coordinates by z = [dx; du]; with ``flg_sensor`` also the step's
+  sensordata and its (B, nsensordata, nx + nu) Jacobian.
 
   ``torch.func.vmap`` over ``torch.func.jvp``, as the JAX package's
   ``jacfwd``: the step's primal runs once a lane and stays unbatched, and
@@ -148,28 +163,33 @@ def transition_jacobian(m: Model, d: Data
 
   def next_state(z):
     dn = forward_mod.step(m, apply_tangent(m, ins, z[:, :nx], z[:, nx:]))
-    return dn.qpos, dn.qvel
+    return (dn.qpos, dn.qvel) + ((_sensordata(m, dn),) if flg_sensor else ())
 
   def column(e):
-    (qpos, qvel), tangent = func.jvp(next_state, (z0,), (e,))
+    primal, tangent = func.jvp(next_state, (z0,), (e,))
+    qpos, qvel = primal[:2]
     ref = ins.replace(qpos=qpos, qvel=qvel)
     _, dy = func.jvp(
         lambda q, v: measure_tangent(m, ref, ref.replace(qpos=q, qvel=v)),
-        (qpos, qvel), tangent)
-    return dy, qpos, qvel
+        (qpos, qvel), tangent[:2])
+    return (dy,) + tangent[2:], primal
 
-  jac, qpos, qvel = func.vmap(column, out_dims=(0, None, None))(
-      _unit_tangents(d, nz))
-  return qpos, qvel, jac.permute(1, 2, 0)
+  jac, primal = func.vmap(column, out_dims=(0, None))(_unit_tangents(d, nz))
+  jac = tuple(j.permute(1, 2, 0) for j in jac)
+  if flg_sensor:
+    return primal[0], primal[1], jac[0], primal[2], jac[1]
+  return primal[0], primal[1], jac[0]
 
 
-def transition_ad(m: Model, d: Data) -> Transition:
-  """Exact transition Jacobians by forward-mode AD (``transition_jacobian``).
+def transition_ad(m: Model, d: Data, flg_sensor: bool = False) -> Transition:
+  """Exact transition Jacobians by forward-mode AD (``transition_jacobian``);
+  with ``flg_sensor`` also C and D, from the same pass.
 
   ``d`` holds B lanes after a completed forward pass (as the reference
   requires: its ``qacc_warmstart`` starts the solver).
   """
-  return _split(m, transition_jacobian(m, d)[2])
+  out = transition_jacobian(m, d, flg_sensor)
+  return _split(m, out[2], out[4] if flg_sensor else None)
 
 
 def _perturbations(nz: int, eps: float, centered: bool,
@@ -184,8 +204,10 @@ def _perturbations(nz: int, eps: float, centered: bool,
 
 
 def transition_fd(m: Model, d: Data, eps: float = 1e-6,
-                  flg_centered: bool = False) -> Transition:
-  """Finite-difference transition Jacobians (ref ``mjd_transitionFD``).
+                  flg_centered: bool = False,
+                  flg_sensor: bool = False) -> Transition:
+  """Finite-difference transition Jacobians (ref ``mjd_transitionFD``),
+  with C and D where ``flg_sensor``.
 
   All perturbed steps of all lanes run as one ``step``: lane b's copies
   are the unperturbed state (the reference), then +eps e_i and, when
@@ -198,12 +220,17 @@ def transition_fd(m: Model, d: Data, eps: float = 1e-6,
                                          z[:, nx:]))
   ref = dn.replace(qpos=dn.qpos[::k].repeat_interleave(k, 0),
                    qvel=dn.qvel[::k].repeat_interleave(k, 0))
-  y = measure_tangent(m, ref, dn).reshape(d.batch, k, -1)
-  if flg_centered:
-    jac = (y[:, 1:nz + 1] - y[:, nz + 1:]) / (2 * eps)
-  else:
-    jac = (y[:, 1:] - y[:, :1]) / eps
-  return _split(m, jac.transpose(1, 2))
+
+  def differences(y):
+    y = y.reshape(d.batch, k, -1)
+    if flg_centered:
+      jac = (y[:, 1:nz + 1] - y[:, nz + 1:]) / (2 * eps)
+    else:
+      jac = (y[:, 1:] - y[:, :1]) / eps
+    return jac.transpose(1, 2)
+
+  return _split(m, differences(measure_tangent(m, ref, dn)),
+                differences(_sensordata(m, dn)) if flg_sensor else None)
 
 
 # ---------------------------------------------------------------------------

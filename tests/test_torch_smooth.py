@@ -104,7 +104,8 @@ def test_model_fields_match_jax_put_model(name):
   np.testing.assert_array_equal(mp.tree.body_dof_mask, mj.tree.body_dof_mask)
 
 
-@pytest.mark.parametrize("name", ["humanoid", "humanoid_mjx"])
+@pytest.mark.parametrize("name", ["humanoid", "humanoid_mjx",
+                                  "humanoid_sensors"])
 def test_snapshot_matches_vendored_xml(name, tmp_path):
   """The committed snapshot is what save_model_snapshot writes from the
   vendored XML, and put_model gives the same Model from either."""
