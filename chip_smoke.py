@@ -31,13 +31,14 @@ non-zero:
    bit-equal.
 9. kernel: main-path shapes, and timing: JVP kernels -- all four kernels
    against their plain versions, bit-equal, at every shape at which
-   phases 6-14 launch them (n = 27; the JVP kernels at (lanes, tangents)
-   (8, 75) fp64, (640, 75), (800, 75), (1024, 75) and the folded
-   (76,800, 1), in both layouts); then at the bench's chunk (1024 lanes,
-   75 tangents) the JVP kernels timed against the plain versions, their
-   bounds (L read once a lane) and torch.func.vmap over torch.func.jvp of
-   torch.linalg.cholesky / torch.cholesky_solve (one call each, never
-   called by the port).
+   phases 6-18 launch them (n = 27 for the humanoid, the JVP kernels at
+   (lanes, tangents) (8, 75) fp64, (640, 75), (800, 75), (1024, 75) and
+   the folded (76,800, 1), in both layouts; n = 1-6 for phase 18's models,
+   each dof block and nv, and the JVPs at (8, 7) fp64); then at the
+   bench's chunk (1024 lanes, 75 tangents) the JVP kernels timed against
+   the plain versions, their bounds (L read once a lane) and
+   torch.func.vmap over torch.func.jvp of torch.linalg.cholesky /
+   torch.cholesky_solve (one call each, never called by the port).
 10. slice: transition -- transition_ad on 8 lanes (fp64) of the Newton-100
    humanoid and of humanoid_mjx, with the kernels against the plain
    versions (<= 1e-9) and against transition_fd (centered, eps 1e-6;
@@ -96,16 +97,34 @@ non-zero:
    the plain versions (<= 1e-9) and against transition_fd (centered, eps
    1e-6, from a zero warm start, as C's mjd_transitionFD after mj_forward)
    within 1e-4 of max|C| and max|D|.
+18. slice: constraint rows -- equality (connect, weld, joint), dof
+   friction-loss and ball-limit rows, with mocap, on the six models of
+   assets/ (the BASELINE rung-1 slider crank, eq_joint, weld, limited,
+   frictionloss, mocap_weld): each at B = 4096 fp32, 20 steps (step_n,
+   after a warm-up step): steps/s, finite lanes, each kernel's launches a
+   step; the primal kernels timed at (4096, 3) and (4096, 5) fp32 against
+   the plain versions, the library calls and the bound.  Then the fork's
+   inverse_test on the slider crank under RK4, 64 lanes fp64, 250 steps
+   of 0.002 s (the fork's 1 s cut to half for time): fresh qfrc_applied,
+   xfrc_applied and ctrl a step from a seeded torch.Generator at phase
+   16's scales, forward +
+   compare_fwd_inv (both solver_fwdinv entries <= 1e-6 on every lane at
+   every step), the RK4 step.  Then each model's 5 steps of 64 lanes fp64
+   with the kernels against 5 with the plain versions (qpos, qvel,
+   efc_force within 1e-9), and transition_ad of 8 slider-crank lanes
+   (fp64) against the plain versions (<= 1e-9) and transition_fd
+   (centered, eps 1e-6, zero warm start; within 1e-4 of max|A|).
 
 Phase 10 also runs transition_ad of the Newton-100 humanoid under RK4 and
-IMPLICIT (the qDeriv Jacobian nested in the dual step).  Every JVP launch
-of phases 10-17 must be at a (lanes, tangents) that phase 9 checked.  Then
+IMPLICIT (the qDeriv Jacobian nested in the dual step).  Every kernel
+launch of phases 6-18 must be at a shape (n, lanes[, tangents], dtype) that
+phase 9 checked.  Then
 one JSON line of the kernel report (launches: the sum over the main paths,
-phases 6, 12, 15, 16 and 17, each read with the counts reset before it; by
-path beside it; the JVP kernels with the tangent counts of their phase 12
+phases 6, 12, 15, 16, 17 and 18, each read with the counts reset before it;
+by path beside it; the JVP kernels with the tangent counts of their phase 12
 launches), the nvidia-smi line, and the result line.  There is no CPU path: without
-CUDA the script fails.  It imports neither jax nor mujoco: the humanoid
-comes from the model snapshots in the package's assets/.
+CUDA the script fails.  It imports neither jax nor mujoco: the models
+come from the model snapshots in the package's assets/.
 
     python3 chip_smoke.py --bench
 
@@ -155,6 +174,12 @@ INTEGRATORS, INTEGRATOR_STEPS = ("EULER", "RK4", "IMPLICIT",
 # the fork's inverse_test steps 1 s at 0.005 s; half of it, for time
 INVERSE_TEST_STEPS, RECOVERY_STEPS = 100, 20
 SENSOR_STEPS = 20
+# phase 18: the models of the constraint rows, their fleet steps, and the
+# fork's inverse_test on the slider crank: the fork steps 1 s at 0.002 s,
+# 500 steps, over a minute on an H100; half of it, for time
+CONSTRAINT_MODELS = ("slider_crank", "eq_joint", "weld", "limited",
+                     "frictionloss", "mocap_weld")
+CONSTRAINT_STEPS, CRANK_INVERSE_STEPS = 20, 250
 GRID_N, GRID_B = (1, 2, 6, 27, 32, 33, 64, 128), (1, 127, 4096)
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}  # of max|reference|
 # NVIDIA's H100 SXM data sheet: memory rate, and fp32 outside tensor cores
@@ -452,18 +477,19 @@ def time_ms(fn, reps: int = 20) -> float:
   return start.elapsed_time(stop) / reps
 
 
-def time_kernels(linalg, dev) -> dict:
+def time_kernels(linalg, dev, n: int = 27) -> dict:
   """Phase 5: kernel (wrapper included), plain version and library call at
-  (4096, 27, 27) fp32, timed in turns plain, kernel, library, library,
-  kernel, plain; the median of each pair.  The bound counts what each
-  function must move once: both read only the lower triangle of their
-  (B, n, n) input, n (n + 1) / 2 elements a matrix.  So the factor moves
-  B (n (n + 1) / 2 + n^2) elements (the dense factor is written) and does
-  B n^3 / 3 operations; the solve moves B (n (n + 1) / 2 + 2 n) elements
-  (rhs read, x written) and does 2 B n^2 operations."""
+  (4096, n, n) fp32 (n = 27; phase 18 at 3 and 5), timed in turns plain,
+  kernel, library, library, kernel, plain; the median of each pair.  The
+  bound counts what each function must move once: both read only the
+  lower triangle of their (B, n, n) input, n (n + 1) / 2 elements a
+  matrix.  So the factor moves B (n (n + 1) / 2 + n^2) elements (the
+  dense factor is written) and does B n^3 / 3 operations; the solve moves
+  B (n (n + 1) / 2 + 2 n) elements (rhs read, x written) and does 2 B n^2
+  operations."""
   rng = np.random.default_rng(1)
-  h = spd(rng, FLEET, 27, dev).float()
-  rhs = torch.as_tensor(rng.standard_normal((FLEET, 27)), device=dev).float()
+  h = spd(rng, FLEET, n, dev).float()
+  rhs = torch.as_tensor(rng.standard_normal((FLEET, n)), device=dev).float()
   l = linalg.chol_factor_ref(h)
   b, n, size = h.shape[0], h.shape[-1], h.element_size()
   tri = b * n * (n + 1) // 2  # lower-triangle elements of a (B, n, n) stack
@@ -484,7 +510,7 @@ def time_kernels(linalg, dev) -> dict:
                  "plain_ms": float(np.median([p1, p2])),
                  "bound_ms": bound, "bound_by": bound_by,
                  "library_ms": float(np.median([y1, y2]))}
-  log("timing", "(4096, 27) fp32, ms kernel / plain / library / bound: "
+  log("timing", f"({FLEET}, {n}) fp32, ms kernel / plain / library / bound: "
       + ", ".join(
           f"{k} {v['ms']:.4f} / {v['plain_ms']:.4f} / {v['library_ms']:.4f}"
           f" / {v['bound_ms']:.4f} ({v['bound_by']}; kernel at "
@@ -509,9 +535,40 @@ def jvp_work(n: int, b: int, t: int, size: int) -> dict:
                              b * sweep + 4 * b * t * sweep)}
 
 
-def path_shapes() -> tuple[list, list]:
-  """The launches of phases 6-14 and of --bench, all at n = 27: (B, dtype)
-  of the primal kernels and (B, T, dtype) of the JVP kernels.  Primal:
+def constraint_model(mt, name: str, dev, dtype, integrator: str = "EULER"):
+  """put_model of phase 18's model ``name`` from its snapshot."""
+  return humanoid(mt, f"{name}.npz", dev, dtype, integrator)
+
+
+def constraint_shapes(mt) -> tuple[set, set]:
+  """Phase 18's launches: (n, B, dtype) of the primal kernels and (n, B,
+  T, dtype) of the JVP kernels.  factor_m factors each size of dof block
+  as one batch of (lanes x blocks of that size), the Newton Hessian and
+  Euler's M + h diag(damping) are nv x nv: for each model, at the fleet
+  (4096 fp32) and the kernel-vs-plain and inverse_test lanes (64 fp64);
+  on the slider crank also transition_ad's 8 lanes (its JVPs at 2 nv + nu
+  tangents) and transition_fd's 8 x (2 (2 nv + nu) + 1) copies."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import smooth
+
+  primal, jvp = set(), set()
+  for name in CONSTRAINT_MODELS:
+    m = constraint_model(mt, name, "cpu", torch.float64)
+    blocks = smooth._dof_blocks(m)
+    sizes = {(m.nv, 1)} | ({(sz, len(st)) for sz, st in blocks.items()}
+                           if blocks else set())
+    runs = [(FLEET, torch.float32), (64, torch.float64)]
+    if name == "slider_crank":
+      nz = 2 * m.nv + m.nu
+      runs += [(8, torch.float64), (8 * (2 * nz + 1), torch.float64)]
+      jvp |= {(sz, 8 * k, nz, torch.float64) for sz, k in sizes}
+    primal |= {(sz, b * k, dt) for sz, k in sizes for b, dt in runs}
+  return primal, jvp
+
+
+def path_shapes(mt) -> tuple[list, list]:
+  """The launches of phases 6-18 and of --bench: (n, B, dtype) of the
+  primal kernels and (n, B, T, dtype) of the JVP kernels.  Phases 6-17 and
+  --bench at n = 27.  Primal:
   the fleet step, the fp64 steps and inverse dynamics of 64 lanes, the
   transitions of 8 lanes (a forward, the dual step's primal, the centered
   FD's 8 x 151 copies), the linearization chunk (1024 lanes; 1024 x 75 in
@@ -519,7 +576,8 @@ def path_shapes() -> tuple[list, list]:
   alphas) and chunk (F lin_batch: its forward and its dual step's
   primal), and the torque replay (4 lanes stepped, 400 states).  JVP: 75
   tangents a lane (nx + nu of the humanoid) at every dual step's lanes,
-  and one a lane in the folded comparison."""
+  and one a lane in the folded comparison.  Phase 18's from
+  ``constraint_shapes``."""
   f32 = {FLEET, BENCH_CHUNK_LANES, 75 * BENCH_CHUNK_LANES}
   jvp = {(8, 75, torch.float64), (BENCH_CHUNK_LANES, 75, torch.float32),
          (75 * BENCH_CHUNK_LANES, 1, torch.float32)}
@@ -527,12 +585,16 @@ def path_shapes() -> tuple[list, list]:
     f32 |= {f, 8 * f, lin_batch * f}
     jvp.add((lin_batch * f, 75, torch.float32))
   f64 = {64, 8, 151 * 8, 4, 4 * MPC_HORIZON}
-  primal = ([(b, torch.float32) for b in sorted(f32)]
-            + [(b, torch.float64) for b in sorted(f64)])
-  return primal, sorted(jvp, key=lambda s: (str(s[2]), s[0], s[1]))
+  primal = ({(27, b, torch.float32) for b in f32}
+            | {(27, b, torch.float64) for b in f64})
+  jvp = {(27,) + s for s in jvp}
+  more_primal, more_jvp = constraint_shapes(mt)
+  key = lambda s: (str(s[-1]),) + s[:-1]
+  return (sorted(primal | more_primal, key=key),
+          sorted(jvp | more_jvp, key=key))
 
 
-def check_path_kernels(linalg, dev) -> dict:
+def check_path_kernels(mt, linalg, dev) -> dict:
   """Phase 9: all four kernels against their plain versions, bit-equal, at
   each shape of ``path_shapes`` (the JVP kernels in both layouts); then,
   at the bench's chunk (1024 lanes, 75 tangents), the JVP kernels
@@ -541,30 +603,30 @@ def check_path_kernels(linalg, dev) -> dict:
   torch.cholesky_solve, timed in turns plain, kernel, library, library,
   kernel, plain (medians of the pairs).  Returns those numbers."""
   rng = np.random.default_rng(4)
-  primal, jvp = path_shapes()
-  for b, dt in primal:
-    h = spd(rng, b, 27, dev).to(dt)
+  primal, jvp = path_shapes(mt)
+  for n, b, dt in primal:
+    h = spd(rng, b, n, dev).to(dt)
     l = linalg.chol_factor_ref(h)
-    x = torch.as_tensor(rng.standard_normal((b, 27)), device=dev).to(dt)
-    case = f"main-path shape n=27 B={b} {dt}"
+    x = torch.as_tensor(rng.standard_normal((b, n)), device=dev).to(dt)
+    case = f"main-path shape n={n} B={b} {dt}"
     check_kernel("chol_factor", linalg.chol_factor(h), l, case)
     check_kernel("chol_solve", linalg.chol_solve(l, x),
                  linalg.chol_solve_ref(l, x), case)
   out = {}
-  for b, t, dt in jvp:
-    h = spd(rng, b, 27, dev).to(dt)
-    dh = sym(rng, (t, b, 27, 27), dev).to(dt)
+  for n, b, t, dt in jvp:
+    h = spd(rng, b, n, dev).to(dt)
+    dh = sym(rng, (t, b, n, n), dev).to(dt)
     l = linalg.chol_factor_ref(h)
     dl = linalg.chol_factor_jvp_ref(l, dh)
-    x = torch.as_tensor(rng.standard_normal((b, 27)), device=dev).to(dt)
-    db = torch.as_tensor(rng.standard_normal((t, b, 27)), device=dev).to(dt)
-    case = f"main-path shape n=27 B={b} T={t} {dt}"
+    x = torch.as_tensor(rng.standard_normal((b, n)), device=dev).to(dt)
+    db = torch.as_tensor(rng.standard_normal((t, b, n)), device=dev).to(dt)
+    case = f"main-path shape n={n} B={b} T={t} {dt}"
     for d in (dh, lane_major(dh)):
       check_kernel("chol_factor_jvp", linalg.chol_factor_jvp(l, d), dl, case)
     for a, c in ((dl, db), (lane_major(dl), lane_major(db))):
       check_kernel("chol_solve_jvp", linalg.chol_solve_jvp(l, a, x, c),
                    linalg.chol_solve_jvp_ref(l, dl, x, db), case)
-    if (b, t, dt) != (BENCH_CHUNK_LANES, 75, torch.float32):
+    if (n, b, t, dt) != (27, BENCH_CHUNK_LANES, 75, torch.float32):
       continue
     work = jvp_work(27, b, t, h.element_size())
     vj = lambda f, p, tg: torch.func.vmap(
@@ -591,10 +653,10 @@ def check_path_kernels(linalg, dev) -> dict:
             f", {work[k][0] / 1e6:.1f} MB; kernel at "
             f"{v['bound_ms'] / v['ms']:.1%} of it)" for k, v in out.items()))
   log("kernel: main-path shapes",
-      "all four kernels bit-equal to their plain versions at n=27: primal B "
-      "= " + ", ".join(f"{b} {str(dt)[6:]}" for b, dt in primal)
-      + "; JVP (B, T) = " + ", ".join(f"({b}, {t}) {str(dt)[6:]}"
-                                      for b, t, dt in jvp)
+      "all four kernels bit-equal to their plain versions: primal (n, B) = "
+      + ", ".join(f"({n}, {b}) {str(dt)[6:]}" for n, b, dt in primal)
+      + "; JVP (n, B, T) = " + ", ".join(f"({n}, {b}, {t}) {str(dt)[6:]}"
+                                         for n, b, t, dt in jvp)
       + " in both layouts")
   return out
 
@@ -753,18 +815,17 @@ def inverse_dynamics(mt, linalg, dev) -> None:
       f"{ncon} active contacts; launches {launches}")
 
 
-# (lanes, tangents a lane) of every JVP launch since the counts were last
-# read by main_path_jvp_shapes
-SEEN_JVP_SHAPES = set()
+# the shapes of every kernel launch since the counts were last read by
+# main_path_shapes
+SEEN_SHAPES = set()
 
 
 def reset_launches(linalg) -> None:
   for k in KERNELS:
     fn = getattr(linalg, k)
     fn.launches = 0
-    if k.endswith("_jvp"):
-      SEEN_JVP_SHAPES.update(fn.shapes)
-      fn.shapes.clear()
+    SEEN_SHAPES.update(fn.shapes)
+    fn.shapes.clear()
 
 
 def read_launches(linalg) -> dict:
@@ -774,16 +835,16 @@ def read_launches(linalg) -> dict:
 def read_tangents(linalg) -> dict:
   """The tangent counts a lane of each JVP kernel's launches since the
   counts were reset."""
-  return {k: sorted({t for _, t in getattr(linalg, k).shapes})
+  return {k: sorted({s[2] for s in getattr(linalg, k).shapes})
           for k in KERNELS if k.endswith("_jvp")}
 
 
-def main_path_jvp_shapes(linalg) -> set:
-  """Every (lanes, tangents) at which a JVP kernel launched since the last
-  call."""
+def main_path_shapes(linalg) -> set:
+  """Every shape (n, lanes[, tangents], dtype) at which a kernel launched
+  since the last call."""
   reset_launches(linalg)
-  seen = set(SEEN_JVP_SHAPES)
-  SEEN_JVP_SHAPES.clear()
+  seen = set(SEEN_SHAPES)
+  SEEN_SHAPES.clear()
   return seen
 
 
@@ -1434,6 +1495,161 @@ def sensors(mt, linalg, dev, card: str) -> dict:
   return total
 
 
+def constraint_data(mt, m, batch: int, seed: int):
+  """qpos0 moved by 0.1 randn in each dof's tangent direction, qvel 0.3
+  randn and ctrl 0.2 randn, from a seeded numpy generator."""
+  rng = np.random.RandomState(seed)
+  t = lambda *shape: torch.as_tensor(rng.randn(batch, *shape), dtype=m.dtype,
+                                     device=m.device)
+  d = mt.make_data(m, batch)
+  return d.replace(qpos=mt.integrate_pos(m, d.qpos, 0.1 * t(m.nv), 1.0),
+                   qvel=0.3 * t(m.nv), ctrl=0.2 * t(m.nu))
+
+
+def constraint_rows(mt, linalg, dev, card: str) -> tuple[dict, dict]:
+  """Phase 18: the six constraint-row models' fleets, the primal kernels
+  timed at n = 3 and 5, the fork's inverse_test on the slider crank, the
+  kernels against the plain versions, and transition_ad.  Returns the
+  kernels' launches of the kernel runs (fleets, inverse_test,
+  transition_ad), each read with the counts reset before it, and the
+  kernel timings at n = 3 and 5 for the kernels line."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import constraint
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  t_phase = time.perf_counter()
+  total = dict.fromkeys(KERNELS, 0)
+
+  def add(launches):
+    for k in KERNELS:
+      total[k] += launches[k]
+
+  for name in CONSTRAINT_MODELS:
+    m = constraint_model(mt, name, dev, torch.float32)
+    d = mt.step(m, constraint_data(mt, m, FLEET, seed=18))  # warm-up step
+    torch.cuda.synchronize()
+    reset_launches(linalg)
+    t0 = time.perf_counter()
+    d = mt.step_n(m, d, CONSTRAINT_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(linalg)
+    add(launches)
+    for k in ("chol_factor", "chol_solve"):
+      if not launches[k]:
+        raise AssertionError(f"{k} was not launched on {name}")
+    finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
+    if not bool(finite.all()):
+      raise AssertionError(f"{name}: {int((~finite).sum())} non-finite lanes")
+    lay = constraint.row_layout(m)
+    log("slice: constraint rows",
+        f"{name} (nv {m.nv}; rows: {lay.ne} equality, {lay.nf} friction, "
+        f"{lay.nl} limit) B={FLEET} fp32: {CONSTRAINT_STEPS} steps in "
+        f"{seconds:.3f} s = {FLEET * CONSTRAINT_STEPS / seconds:.1f} steps/s "
+        f"on {card}; launches a step " + ", ".join(
+            f"{k} {v / CONSTRAINT_STEPS:g}" for k, v in launches.items()
+            if not k.endswith("_jvp"))
+        + f"; finite lanes {int(finite.sum())} of {FLEET}; auto-resets "
+        f"{int(d.warning.sum())}; active rows a lane "
+        f"{float(d.efc_active.sum(1).float().mean()):.2f}")
+
+  small = {}
+  for n in (3, 5):
+    for k, v in time_kernels(linalg, dev, n).items():
+      small.setdefault(k, {"by_n": {}})["by_n"][str(n)] = v
+
+  # the fork's inverse_test: RK4, fresh forces and controls every step
+  b = 64
+  gen = torch.Generator(device=dev).manual_seed(18)
+  m = constraint_model(mt, "slider_crank", dev, torch.float64, "RK4")
+  randn = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                     dtype=m.dtype)
+  d = constraint_data(mt, m, b, seed=19)
+  worst = torch.zeros(2, dtype=m.dtype, device=dev)
+  ok = torch.ones((), dtype=torch.bool, device=dev)
+  reset_launches(linalg)
+  t0 = time.perf_counter()
+  for _ in range(CRANK_INVERSE_STEPS):
+    d = d.replace(qfrc_applied=0.3 * randn(b, m.nv),
+                  xfrc_applied=0.3 * randn(b, m.nbody, 6),
+                  ctrl=0.2 * randn(b, m.nu))
+    fwd = mt.compare_fwd_inv(m, mt.forward(m, d))
+    ok &= (fwd.solver_fwdinv <= 1e-6).all() & fwd.efc_active.all()
+    worst = torch.maximum(worst, fwd.solver_fwdinv.amax(0))
+    d = mt.step(m, d)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = read_launches(linalg)
+  add(launches)
+  if not launches["chol_factor"] or not launches["chol_solve"]:
+    raise AssertionError(f"a kernel was not launched: {launches}")
+  if not bool(ok):
+    raise AssertionError("solver_fwdinv above 1e-6 or an inactive connect "
+                         f"row: max {worst.tolist()}")
+  log("slice: constraint rows",
+      f"inverse_test slider_crank RK4 {b} lanes fp64, {CRANK_INVERSE_STEPS} "
+      f"steps ({CRANK_INVERSE_STEPS * m.opt.timestep:g} s of the fork's 1 s, "
+      f"cut for time) in {seconds:.3f} s, fresh forces and controls a step: "
+      "max "
+      f"solver_fwdinv [{float(worst[0]):.3e}, {float(worst[1]):.3e}] over "
+      f"every lane and step (tol 1e-6); launches a step " + ", ".join(
+          f"{k} {v / CRANK_INVERSE_STEPS:g}" for k, v in launches.items()
+          if not k.endswith("_jvp")))
+
+  # kernels against plain versions, fp64, 64 lanes, 5 steps
+  errs = []
+  for name in CONSTRAINT_MODELS:
+    m = constraint_model(mt, name, dev, torch.float64)
+    d_k = d_p = constraint_data(mt, m, 64, seed=20)
+    err = 0.0
+    for _ in range(5):
+      d_k = mt.step(m, d_k)
+      with plain_cholesky(linalg):
+        d_p = mt.step(m, d_p)
+      err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)).abs().max())
+                       for f in ("qpos", "qvel", "efc_force")))
+    if not err <= 1e-9:
+      raise AssertionError(f"{name} fp64 steps, kernels vs plain: {err:.3e}")
+    errs.append(f"{name} {err:.3e}")
+  log("slice: constraint rows", "64 lanes fp64, 5 steps, kernels vs plain, "
+      "max |dqpos|,|dqvel|,|defc_force| (tol 1e-9): " + ", ".join(errs))
+
+  # transition_ad of 8 slider-crank lanes
+  m = constraint_model(mt, "slider_crank", dev, torch.float64)
+  d = mt.forward(m, constraint_data(mt, m, 8, seed=21))
+  reset_launches(linalg)
+  t0 = time.perf_counter()
+  ad = derivative.transition_ad(m, d)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = read_launches(linalg)
+  if not all(launches.values()):
+    raise AssertionError(f"a kernel was not launched: {launches}")
+  add(launches)
+  with plain_cholesky(linalg):
+    plain = derivative.transition_ad(m, d)
+  fd = derivative.transition_fd(
+      m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
+      eps=1e-6, flg_centered=True)
+  err_plain = max(float((ad.A - plain.A).abs().max()),
+                  float((ad.B - plain.B).abs().max()))
+  err_fd = max(float((ad.A - fd.A).abs().max()),
+               float((ad.B - fd.B).abs().max()))
+  scale = float(fd.A.abs().max())
+  if not err_plain <= 1e-9:
+    raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
+  if not err_fd <= 1e-4 * scale:
+    raise AssertionError(f"transition_ad vs transition_fd: {err_fd:.3e}")
+  log("slice: constraint rows",
+      f"slider_crank 8 lanes fp64 EULER: transition_ad {seconds:.3f} s, A "
+      f"{tuple(ad.A.shape)}; kernels vs plain max |dA|,|dB| {err_plain:.3e} "
+      f"(tol 1e-9); vs transition_fd (centered, eps 1e-6) {err_fd:.3e} (tol "
+      f"1e-4 of max|A| = {1e-4 * scale:.3e}); launches {launches}, tangents "
+      f"a lane {read_tangents(linalg)}")
+  log("slice: constraint rows",
+      f"phase 18 in {time.perf_counter() - t_phase:.1f} s")
+  return total, small
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   mode = parser.add_mutually_exclusive_group()
@@ -1473,8 +1689,8 @@ def main() -> None:
     slice_err = check_kernels(linalg, dev)
     slice_err.update(check_jvp_kernels(linalg, dev))
     times = time_kernels(linalg, dev)
-    times.update(check_path_kernels(linalg, dev))
-    main_path_jvp_shapes(linalg)
+    times.update(check_path_kernels(mt, linalg, dev))
+    main_path_shapes(linalg)
     by_path = {"fleet_step": fleet_step(mt, linalg, dev, smi)}
     inverse_dynamics(mt, linalg, dev)
     for asset in ("humanoid.npz", "humanoid_mjx.npz"):
@@ -1491,20 +1707,22 @@ def main() -> None:
     by_path["integrators_fleet"] = integrators_fleet(mt, linalg, dev, smi)
     by_path["inverse_test"] = inverse_test(mt, linalg, dev)
     by_path["sensors"] = sensors(mt, linalg, dev, smi)
+    by_path["constraint_rows"], times_small = constraint_rows(
+        mt, linalg, dev, smi)
     launches = {k: sum(p.get(k, 0) for p in by_path.values())
                 for k in KERNELS}
-    checked = {(b, t) for b, t, _ in path_shapes()[1]}
-    unchecked = main_path_jvp_shapes(linalg) - checked
+    checked = set().union(*path_shapes(mt))
+    unchecked = main_path_shapes(linalg) - checked
     if unchecked:
-      raise AssertionError(f"JVP launches at (lanes, tangents) {unchecked} "
-                           "that phase 9 did not hold to the plain versions")
+      raise AssertionError(f"launches at shapes {sorted(map(str, unchecked))}"
+                           " that phase 9 did not hold to the plain versions")
 
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k], "launches": launches[k],
          "launches_by_path": {p: c[k] for p, c in by_path.items() if k in c},
          "tangents": tangents.get(k), "max_abs_err": slice_err[k],
-         **times[k]} for k in KERNELS]}))
+         **times[k], **times_small.get(k, {})} for k in KERNELS]}))
   print(smi)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),

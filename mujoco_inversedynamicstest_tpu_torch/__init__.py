@@ -6,7 +6,10 @@ dataclasses of tensors; every ``Data`` tensor has a leading fleet dimension.
 The two Pallas TPU kernels of the JAX package, and their forward-mode
 JVPs, are hand-written CUDA kernels here (``csrc/cholesky.cu``, bound in
 ``ops/linalg.py``).  ``step`` integrates by the model's ``opt.integrator``
-(Euler, RK4, implicit, implicitfast).  ``forward`` fills ``sensordata``
+(Euler, RK4, implicit, implicitfast).  The constraint rows are C's:
+equality (connect, weld, joint; per-lane ``eq_active``, mocap bodies), dof
+friction loss, limits on hinges, slides and balls, and pyramidal contacts
+(``ops/constraint.py``).  ``forward`` fills ``sensordata``
 with the sensor types of ``models.types.PORTED_SENSORS`` (``ops/sensor.py``;
 ``sensor_pos``, ``sensor_vel``, ``sensor_acc``), among them dm_control's
 humanoid's 34 (``assets/humanoid_sensors.npz``).  ``opt/`` holds the MPC

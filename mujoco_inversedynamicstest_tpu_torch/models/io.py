@@ -27,6 +27,7 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
     Data,
     DynType,
     EnableBit,
+    EqType,
     FRAME_OBJECTS,
     FRAME_SENSORS,
     GainType,
@@ -35,6 +36,7 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
     Model,
     ObjType,
     Option,
+    PORTED_EQUALITIES,
     PORTED_SENSORS,
     SensorType,
     SolverType,
@@ -47,12 +49,14 @@ _ARRAY_FIELDS = (
     "body_pos", "body_quat", "body_ipos", "body_iquat", "body_mass",
     "body_inertia", "body_gravcomp", "body_invweight0", "body_parentid",
     "body_rootid", "body_weldid", "body_jntadr", "body_jntnum",
-    "body_dofadr", "body_dofnum", "body_subtreemass",
+    "body_dofadr", "body_dofnum", "body_subtreemass", "body_mocapid",
     "jnt_pos", "jnt_axis", "jnt_stiffness", "jnt_range", "jnt_margin",
     "jnt_solref", "jnt_solimp", "jnt_type", "jnt_qposadr", "jnt_dofadr",
     "jnt_limited", "jnt_actfrclimited", "jnt_actgravcomp",
     "dof_armature", "dof_damping", "dof_invweight0", "dof_frictionloss",
-    "dof_bodyid", "dof_jntid", "dof_parentid",
+    "dof_bodyid", "dof_jntid", "dof_parentid", "dof_solref", "dof_solimp",
+    "eq_type", "eq_obj1id", "eq_obj2id", "eq_objtype", "eq_data",
+    "eq_solref", "eq_solimp", "eq_active0", "tendon_frictionloss",
     "geom_pos", "geom_quat", "geom_size", "geom_friction", "geom_margin",
     "geom_gap", "geom_solref", "geom_solimp", "geom_solmix", "geom_type",
     "geom_bodyid", "geom_contype", "geom_conaffinity", "geom_condim",
@@ -141,6 +145,17 @@ def _validate_sensors(f: Mapping, bad) -> None:
       bad(f"sensor delay, interval or history ({t.name})")
 
 
+def _validate_equalities(f: Mapping, bad) -> None:
+  """Refuses every equality the port does not build rows for, by its type's
+  name."""
+  for i, t in enumerate(EqType(int(t)) for t in f["eq_type"]):
+    if t not in PORTED_EQUALITIES:
+      bad(f"{t.name} equality")
+    if t in (EqType.CONNECT, EqType.WELD) and int(f["eq_objtype"][i]) not in (
+        ObjType.BODY, ObjType.SITE):
+      bad(f"{t.name} equality on object type {int(f['eq_objtype'][i])}")
+
+
 def validate_model(f: Mapping) -> None:
   """Raises NotImplementedError for every feature the port has not ported.
 
@@ -155,8 +170,12 @@ def validate_model(f: Mapping) -> None:
   # before the size refusals, so that a tendon or plugin sensor is refused
   # by its own name
   _validate_sensors(f, bad)
-  for name in ("nmocap", "neq", "ntendon", "nflex", "npair", "nplugin",
-               "na"):
+  # before the size refusals too: a tendon equality or tendon friction loss
+  # is refused by its own name
+  _validate_equalities(f, bad)
+  if np.any(f["tendon_frictionloss"] > 0):
+    bad("tendon frictionloss")
+  for name in ("ntendon", "nflex", "npair", "nplugin", "na"):
     if int(f[name]):
       bad(f"{name} = {int(f[name])}")
   for name in _BUDGET_NUMERICS:
@@ -175,11 +194,6 @@ def validate_model(f: Mapping) -> None:
   if (float(f["opt_density"]) > 0 or float(f["opt_viscosity"]) > 0
       or np.any(f["opt_wind"] != 0)):
     bad("fluid forces")
-  if np.any(f["dof_frictionloss"] > 0):
-    bad("dof frictionloss")
-  limited = f["jnt_limited"].astype(bool)
-  if np.any(limited & (f["jnt_type"] == JointType.BALL)):
-    bad("ball joint limits")
   if np.any(f["jnt_actfrclimited"]) or np.any(f["jnt_actgravcomp"]):
     bad("joint-level actuator force limits / actuator gravcomp")
   jtype_of = f["jnt_type"][np.maximum(f["actuator_trnid"][:, 0], 0)]
@@ -256,7 +270,8 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       "body_inertia", "body_gravcomp", "body_invweight0", "body_subtreemass",
       "jnt_pos", "jnt_axis", "jnt_stiffness", "jnt_range", "jnt_margin",
       "jnt_solref", "jnt_solimp",
-      "dof_armature", "dof_damping", "dof_invweight0",
+      "dof_armature", "dof_damping", "dof_invweight0", "dof_frictionloss",
+      "dof_solref", "dof_solimp", "eq_data", "eq_solref", "eq_solimp",
       "geom_pos", "geom_quat", "geom_size", "geom_friction", "geom_margin",
       "geom_gap", "geom_solref", "geom_solimp", "geom_solmix",
       "site_pos", "site_quat", "site_size", "sensor_cutoff",
@@ -265,9 +280,10 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
   )
   int_fields = (
       "body_parentid", "body_rootid", "body_weldid", "body_jntadr",
-      "body_jntnum", "body_dofadr", "body_dofnum",
+      "body_jntnum", "body_dofadr", "body_dofnum", "body_mocapid",
       "jnt_type", "jnt_qposadr", "jnt_dofadr", "jnt_limited",
       "dof_bodyid", "dof_jntid", "dof_parentid",
+      "eq_type", "eq_obj1id", "eq_obj2id", "eq_objtype", "eq_active0",
       "geom_type", "geom_bodyid", "geom_contype", "geom_conaffinity",
       "geom_condim", "geom_priority", "exclude_signature",
       "site_type", "site_bodyid",
@@ -280,10 +296,12 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       nq=int(f["nq"]), nv=int(f["nv"]), nu=int(f["nu"]),
       nbody=int(f["nbody"]), njnt=int(f["njnt"]), ngeom=int(f["ngeom"]),
       nsite=int(f["nsite"]), nsensor=int(f["nsensor"]),
-      nsensordata=int(f["nsensordata"]), opt=opt, tree=tree,
+      nsensordata=int(f["nsensordata"]), neq=int(f["neq"]),
+      nmocap=int(f["nmocap"]), opt=opt, tree=tree,
       stat_meaninertia=float(f["stat_meaninertia"]),
       has_dof_damping=bool(np.any(f["dof_damping"] > 0)),
       has_gravcomp=bool(np.any(f["body_gravcomp"] != 0)),
+      dof_frictionloss_nz=np.asarray(f["dof_frictionloss"]) > 0,
       **{k: t(k) for k in float_fields},
       **{k: i(k) for k in int_fields},
   )
@@ -312,13 +330,25 @@ def asset_path(name: str) -> Path:
   return Path(__file__).resolve().parent.parent / "assets" / name
 
 
+def mocap_bodies(m: Model) -> np.ndarray:
+  """The mocap bodies, in the order of their mocap ids."""
+  bodies = np.nonzero(m.body_mocapid >= 0)[0]
+  return bodies[np.argsort(m.body_mocapid[bodies])]
+
+
 def make_data(m: Model, batch: int, device=None, dtype=None) -> Data:
   """A fleet of ``batch`` lanes in the reset state (``mj_resetData``):
-  qpos = qpos0, every other input zero, and ``sensordata`` zero.  Derived
-  fields are filled by ``forward`` / ``inverse``."""
+  qpos = qpos0, eq_active = eq_active0, each mocap body's pose its
+  body_pos and body_quat, every other input zero, and ``sensordata`` zero.
+  (The JAX package's ``make_data`` puts the mocap bodies at the origin with
+  the identity quaternion.)  Derived fields are filled by ``forward`` /
+  ``inverse``."""
   device = m.device if device is None else device
   dtype = m.dtype if dtype is None else dtype
   z = lambda *s: torch.zeros((batch,) + s, dtype=dtype, device=device)
+  mocap = m.const(mocap_bodies(m))
+  pose = lambda x: x[mocap].to(device=device, dtype=dtype).expand(
+      batch, m.nmocap, x.shape[-1]).clone()
   return Data(
       time=z(),
       qpos=m.qpos0.to(device=device, dtype=dtype).expand(batch, m.nq).clone(),
@@ -329,6 +359,10 @@ def make_data(m: Model, batch: int, device=None, dtype=None) -> Data:
       qacc_warmstart=z(m.nv),
       qacc=z(m.nv),
       warning=torch.zeros((batch, 2), dtype=torch.int32, device=device),
+      eq_active=torch.as_tensor(m.eq_active0.astype(bool), device=device
+                                ).expand(batch, m.neq).clone(),
+      mocap_pos=pose(m.body_pos),
+      mocap_quat=pose(m.body_quat),
       sensordata=z(m.nsensordata),
   )
 
@@ -339,7 +373,7 @@ def put_data(m: Model, mjd) -> Data:
       "time": np.array([mjd.time]),
       **{k: np.array(getattr(mjd, k))[None] for k in (
           "qpos", "qvel", "ctrl", "qfrc_applied", "xfrc_applied",
-          "qacc_warmstart", "qacc")},
+          "qacc_warmstart", "qacc", "eq_active", "mocap_pos", "mocap_quat")},
   })
 
 

@@ -39,6 +39,23 @@ class IntegratorType(enum.IntEnum):
   IMPLICITFAST = 3
 
 
+class EqType(enum.IntEnum):
+  """mjtEq (installed-mujoco values)."""
+  CONNECT = 0
+  WELD = 1
+  JOINT = 2
+  TENDON = 3
+  FLEX = 4
+  FLEXVERT = 5
+  FLEXSTRAIN = 6
+  DISTANCE = 7
+
+
+# the equality types the port builds rows for (ops/constraint.py);
+# validate_model refuses every other type by its name
+PORTED_EQUALITIES = frozenset({EqType.CONNECT, EqType.WELD, EqType.JOINT})
+
+
 class ConeType(enum.IntEnum):
   """mjtCone."""
   PYRAMIDAL = 0
@@ -259,6 +276,8 @@ class Model:
   nsite: int
   nsensor: int
   nsensordata: int
+  neq: int
+  nmocap: int
   opt: Option
   tree: TreeLayout
 
@@ -278,6 +297,7 @@ class Model:
   body_jntnum: np.ndarray
   body_dofadr: np.ndarray
   body_dofnum: np.ndarray
+  body_mocapid: np.ndarray
 
   jnt_pos: torch.Tensor            # (njnt, 3)
   jnt_axis: torch.Tensor           # (njnt, 3)
@@ -294,9 +314,13 @@ class Model:
   dof_armature: torch.Tensor       # (nv,)
   dof_damping: torch.Tensor        # (nv,)
   dof_invweight0: torch.Tensor     # (nv,)
+  dof_frictionloss: torch.Tensor   # (nv,)
+  dof_solref: torch.Tensor         # (nv, 2)
+  dof_solimp: torch.Tensor         # (nv, 5)
   dof_bodyid: np.ndarray
   dof_jntid: np.ndarray
   dof_parentid: np.ndarray
+  dof_frictionloss_nz: np.ndarray  # (nv,) bool: dof_frictionloss > 0
 
   geom_pos: torch.Tensor           # (ngeom, 3)
   geom_quat: torch.Tensor          # (ngeom, 4)
@@ -320,6 +344,15 @@ class Model:
   site_size: torch.Tensor          # (nsite, 3)
   site_type: np.ndarray
   site_bodyid: np.ndarray
+
+  eq_data: torch.Tensor            # (neq, 11)
+  eq_solref: torch.Tensor          # (neq, 2)
+  eq_solimp: torch.Tensor          # (neq, 5)
+  eq_type: np.ndarray
+  eq_obj1id: np.ndarray
+  eq_obj2id: np.ndarray
+  eq_objtype: np.ndarray
+  eq_active0: np.ndarray
 
   sensor_cutoff: torch.Tensor      # (nsensor,)
   sensor_type: np.ndarray
@@ -410,6 +443,9 @@ class Data:
   qacc_warmstart: torch.Tensor  # (B, nv)
   qacc: torch.Tensor            # (B, nv)
   warning: torch.Tensor         # (B, 2) int32: bad qpos / bad qvel resets
+  eq_active: torch.Tensor       # (B, neq) bool
+  mocap_pos: torch.Tensor       # (B, nmocap, 3)
+  mocap_quat: torch.Tensor      # (B, nmocap, 4)
 
   # position stage
   xpos: torch.Tensor = None        # (B, nbody, 3)
@@ -439,6 +475,7 @@ class Data:
   efc_R: torch.Tensor = None       # (B, nefc)
   efc_KBIP: torch.Tensor = None    # (B, nefc, 4)
   efc_active: torch.Tensor = None  # (B, nefc) bool
+  efc_frictionloss: torch.Tensor = None  # (B, nefc)
 
   # velocity stage
   cvel: torch.Tensor = None        # (B, nbody, 6)

@@ -1,10 +1,17 @@
 """Constraint rows with static shapes and activity masks.
 
 Port of ``mujoco_inversedynamicstest_tpu/ops/constraint.py`` for the rows the
-slice reaches: joint limits on hinges and slides, and pyramidal or
-frictionless contacts.  Every potential row exists every step; an inactive
-row has a zero Jacobian and D = 0, which makes it a no-op downstream.  Row
-order follows the reference: limits, then contacts.
+port builds: equality rows of type connect, weld (on bodies or sites) and
+joint; dof friction loss; joint limits on hinges, slides and balls; and
+pyramidal or frictionless contacts.  Every potential row exists every step;
+an inactive row (an equality element switched off in its lane by
+``eq_active``, a limit or contact out of reach) has a zero Jacobian and
+D = 0, which makes it a no-op downstream, as C's packing leaves it out.
+Row order follows C: equality, friction, limits, contacts.
+
+The equality elements are grouped by kind (connect or weld, on bodies or
+on sites, and joint) and each group is built in one batch over its
+elements; a static permutation puts the rows back in element order.
 """
 
 from __future__ import annotations
@@ -17,33 +24,91 @@ import torch
 from mujoco_inversedynamicstest_tpu_torch.models.types import (
     Data,
     DisableBit,
+    EqType,
+    JointType,
     Model,
+    ObjType,
 )
-from mujoco_inversedynamicstest_tpu_torch.ops import collision, math
+from mujoco_inversedynamicstest_tpu_torch.ops import collision, math, support
 
 # mjMINIMP / mjMAXIMP
 _MINIMP = 0.0001
 _MAXIMP = 0.9999
 
+_EQ_ROWS = {EqType.CONNECT: 3, EqType.WELD: 6, EqType.JOINT: 1}
+
+
+class EqGroup(NamedTuple):
+  """Equality elements of one kind, built as one batch."""
+  kind: EqType
+  site: bool              # connect/weld between sites (else bodies)
+  ids: np.ndarray         # the elements, in id order
+
 
 class RowLayout(NamedTuple):
   """Static efc row layout of a model."""
+  ne: int
+  nf: int
   nl: int
   ncon_rows: int
   nefc: int
+  eq_groups: tuple        # EqGroup, ...
+  eq_perm: np.ndarray | None  # grouped rows -> element order; None: same
+  friction_dof: np.ndarray  # dofs with friction loss, one row each
   limit_jnt: np.ndarray   # limited hinge/slide joints, one per row pair
+  ball_jnt: np.ndarray    # limited ball joints, one row each
+  limit_perm: np.ndarray | None  # limit rows -> joint order; None: same
+
+  @property
+  def ncon_start(self) -> int:
+    """The first contact row."""
+    return self.ne + self.nf + self.nl
 
 
 def _build_row_layout(m: Model) -> RowLayout:
   # frictionless contacts take one row, pyramidal 2 (condim - 1)
   dim = collision.contact_layout(m).dim
   ncon_rows = int(np.sum(np.where(dim == 1, 1, 2 * (dim - 1))))
-  limit_jnt = np.zeros(0, np.int64)
-  if not m.opt.disableflags & (DisableBit.CONSTRAINT | DisableBit.LIMIT):
-    limit_jnt = np.nonzero(m.jnt_limited)[0]
-  nl = 2 * len(limit_jnt)
-  return RowLayout(nl=nl, ncon_rows=ncon_rows, nefc=nl + ncon_rows,
-                   limit_jnt=limit_jnt)
+  flags = m.opt.disableflags
+  on = lambda bit: not flags & (DisableBit.CONSTRAINT | bit)
+  empty = np.zeros(0, np.int64)
+
+  groups, keys = [], []
+  if on(DisableBit.EQUALITY) and m.neq:
+    site = m.eq_objtype == ObjType.SITE
+    for kind in (EqType.CONNECT, EqType.WELD, EqType.JOINT):
+      for on_site in ((False, True) if kind != EqType.JOINT else (False,)):
+        ids = np.nonzero((m.eq_type == kind) & (site == on_site))[0]
+        if ids.size:
+          groups.append(EqGroup(kind, on_site, ids))
+          keys.append(np.repeat(ids, _EQ_ROWS[kind]))
+  ne = sum(len(k) for k in keys)
+  eq_perm = None
+  if len(groups) > 1:
+    eq_perm = np.argsort(np.concatenate(keys), kind="stable")
+
+  friction_dof = empty
+  if on(DisableBit.FRICTIONLOSS):
+    friction_dof = np.nonzero(m.dof_frictionloss_nz)[0]
+
+  limit_jnt = ball_jnt = empty
+  limit_perm = None
+  if on(DisableBit.LIMIT):
+    limited = np.nonzero(m.jnt_limited)[0]
+    jt = m.jnt_type[limited]
+    limit_jnt = limited[(jt == JointType.HINGE) | (jt == JointType.SLIDE)]
+    ball_jnt = limited[jt == JointType.BALL]
+    if limit_jnt.size and ball_jnt.size:
+      # C's order: joint by joint, two rows a hinge or slide, one a ball
+      limit_perm = np.argsort(np.concatenate(
+          [np.repeat(limit_jnt, 2), ball_jnt]), kind="stable")
+  nf = len(friction_dof)
+  nl = 2 * len(limit_jnt) + len(ball_jnt)
+  return RowLayout(ne=ne, nf=nf, nl=nl, ncon_rows=ncon_rows,
+                   nefc=ne + nf + nl + ncon_rows, eq_groups=tuple(groups),
+                   eq_perm=eq_perm, friction_dof=friction_dof,
+                   limit_jnt=limit_jnt, ball_jnt=ball_jnt,
+                   limit_perm=limit_perm)
 
 
 def row_layout(m: Model) -> RowLayout:
@@ -83,9 +148,11 @@ def _impedance(solimp: torch.Tensor, pos: torch.Tensor, margin: torch.Tensor):
           torch.where(flat, 0.0, impp))
 
 
-def _kbip(m: Model, solref, solimp, imp, impp) -> torch.Tensor:
+def _kbip(m: Model, solref, solimp, imp, impp,
+          friction: bool = False) -> torch.Tensor:
   """Stiffness, damping, impedance, impedance' per row
-  (``mj_makeImpedance``); solref/solimp are lane-independent."""
+  (``mj_makeImpedance``); solref/solimp are lane-independent.  Friction
+  rows have no stiffness."""
   ref0, ref1 = solref[:, 0], solref[:, 1]
   if not m.opt.disableflags & DisableBit.REFSAFE:
     ref0 = torch.where(ref0 > 0,
@@ -95,12 +162,40 @@ def _kbip(m: Model, solref, solimp, imp, impp) -> torch.Tensor:
       ref0 > 0,
       1.0 / torch.clamp(dmax**2 * ref0**2 * ref1**2, min=math.MINVAL),
       -ref0 / torch.clamp(dmax**2, min=math.MINVAL))
+  if friction:
+    k = torch.zeros_like(k)
   b = torch.where(ref1 > 0, 2.0 / torch.clamp(dmax * ref0, min=math.MINVAL),
                   -ref1 / torch.clamp(dmax, min=math.MINVAL))
   return torch.stack([k.expand_as(imp), b.expand_as(imp), imp, impp], dim=-1)
 
 
-def _limit_rows(m: Model, d: Data, jnts: np.ndarray):
+class _Rows(NamedTuple):
+  """A block of r rows before impedance: per lane, the (B, r, nv)
+  Jacobian and the (B, r) position, impedance position and activity; per
+  row, the (r,) margin, (r, 2) solref, (r, 5) solimp and (r,) diagonal."""
+  jac: torch.Tensor
+  pos: torch.Tensor
+  imp_pos: torch.Tensor
+  active: torch.Tensor
+  margin: torch.Tensor
+  solref: torch.Tensor
+  solimp: torch.Tensor
+  diag: torch.Tensor
+
+
+def _cat_rows(blocks, perm) -> _Rows:
+  """The blocks' rows one after the other, reordered by ``perm``."""
+  if len(blocks) == 1:
+    return blocks[0]
+  fields = []
+  for i, f in enumerate(zip(*blocks)):
+    dim = 1 if i < 4 else 0   # the per-lane fields lead with the lanes
+    x = torch.cat(f, dim=dim)
+    fields.append(x if perm is None else x.index_select(dim, perm))
+  return _Rows(*fields)
+
+
+def _limit_rows(m: Model, d: Data, jnts: np.ndarray) -> _Rows:
   """Two rows (lower, upper) per limited hinge/slide joint
   (``mj_instantiateLimit``)."""
   bsz, ns = d.batch, len(jnts)
@@ -116,10 +211,210 @@ def _limit_rows(m: Model, d: Data, jnts: np.ndarray):
   jac[:, m.const(np.arange(ns)[:, None]), m.const(np.arange(2)[None]),
       m.const(m.jnt_dofadr[jnts][:, None])] = signs * act
   rep2 = lambda x: torch.repeat_interleave(x, 2, dim=0)
-  return (jac.reshape(bsz, 2 * ns, m.nv), dist.reshape(bsz, -1),
-          rep2(margin), act.reshape(bsz, -1), rep2(m.jnt_solref[jj]),
-          rep2(m.jnt_solimp[jj]),
-          rep2(m.dof_invweight0[m.const(m.jnt_dofadr[jnts])]))
+  dist = dist.reshape(bsz, -1)
+  return _Rows(jac.reshape(bsz, 2 * ns, m.nv), dist, dist,
+               act.reshape(bsz, -1), rep2(margin), rep2(m.jnt_solref[jj]),
+               rep2(m.jnt_solimp[jj]),
+               rep2(m.dof_invweight0[m.const(m.jnt_dofadr[jnts])]))
+
+
+def _ball_limit_rows(m: Model, d: Data, jnts: np.ndarray) -> _Rows:
+  """One row per limited ball joint (``mj_instantiateLimit``): the
+  rotation angle of its quaternion against the larger range bound, the
+  Jacobian minus the rotation axis.  The axis of a zero rotation is 0, not
+  0/0, so an inactive row at the identity stays exactly zero."""
+  nb = len(jnts)
+  jj = m.const(jnts)
+  quat = math.normalize_quat(
+      d.qpos[:, m.const(m.jnt_qposadr[jnts][:, None] + np.arange(4))])
+  aa = math.quat_sub(quat, m.const(np.array([1.0, 0.0, 0.0, 0.0])))
+  angle = math.norm_safe(aa)
+  axis = torch.where((angle > math.MINVAL)[..., None],
+                     aa / angle[..., None], 0.0)
+  margin = m.jnt_margin[jj]
+  dist = torch.max(m.jnt_range[jj], dim=-1).values - angle
+  act = dist < margin
+  # out of place, so that torch.func transforms can batch it: dof v of
+  # joint i's row reads component v - dofadr_i of the axis
+  col = np.arange(m.nv)[None] - m.jnt_dofadr[jnts][:, None]   # (nb, nv)
+  own = m.const((col >= 0) & (col < 3))
+  row = torch.where(act[..., None], -axis, 0.0)
+  jac = torch.where(own, torch.gather(
+      row, 2, m.const(np.clip(col, 0, 2)).expand(d.batch, nb, m.nv)), 0.0)
+  return _Rows(jac, dist, dist, act, margin, m.jnt_solref[jj],
+               m.jnt_solimp[jj],
+               m.dof_invweight0[m.const(m.jnt_dofadr[jnts])])
+
+
+def _friction_rows(m: Model, d: Data, dofs: np.ndarray) -> _Rows:
+  """One row per dof with friction loss (``mj_instantiateFriction``): a
+  unit Jacobian, position 0, always active."""
+  nf = len(dofs)
+  eye = m.const(np.eye(m.nv)[dofs])
+  dd = m.const(dofs)
+  zero = eye.new_zeros((d.batch, nf))
+  return _Rows(eye.expand(d.batch, nf, m.nv), zero, zero,
+               torch.ones((d.batch, nf), dtype=torch.bool, device=eye.device),
+               eye.new_zeros(nf), m.dof_solref[dd], m.dof_solimp[dd],
+               m.dof_invweight0[dd])
+
+
+def _eq_anchors(m: Model, d: Data, g: EqGroup):
+  """World anchor points (B, K, 3) and bodies (K,) of both sides of a
+  connect or weld group.  On bodies, the anchors are body-frame points of
+  eq_data: connect (data[0:3], data[3:6]), weld (data[3:6], data[0:3])."""
+  o1, o2 = m.eq_obj1id[g.ids], m.eq_obj2id[g.ids]
+  if g.site:
+    return ((d.site_xpos[:, m.const(o1)], m.site_bodyid[o1]),
+            (d.site_xpos[:, m.const(o2)], m.site_bodyid[o2]))
+  data = m.eq_data[m.const(g.ids)]
+  first = (0, 3) if g.kind == EqType.CONNECT else (3, 0)
+  return tuple(
+      (math.matvec(d.xmat[:, m.const(o)], data[:, s:s + 3])
+       + d.xpos[:, m.const(o)], o) for o, s in zip((o1, o2), first))
+
+
+def _weld_frames(m: Model, d: Data, g: EqGroup, b1, b2):
+  """(B, K, 4) orientations of a weld group's two sides: body 1's frame
+  times relpose (data[6:10]) and body 2's frame; on sites, each site's
+  frame."""
+  q1, q2 = d.xquat[:, m.const(b1)], d.xquat[:, m.const(b2)]
+  if g.site:
+    return (math.quat_mul(q1, m.site_quat[m.const(m.eq_obj1id[g.ids])]),
+            math.quat_mul(q2, m.site_quat[m.const(m.eq_obj2id[g.ids])]))
+  return math.quat_mul(q1, m.eq_data[m.const(g.ids)][:, 6:10]), q2
+
+
+def _pure(w: torch.Tensor) -> torch.Tensor:
+  """The quaternion (0, w) of a 3-vector."""
+  return torch.cat([torch.zeros_like(w[..., :1]), w], dim=-1)
+
+
+def _eq_rows(m: Model, d: Data, g: EqGroup) -> _Rows:
+  """The rows of one group of equality elements (``mj_instantiateEquality``,
+  with the diagonal of ``mj_diagApprox`` and the impedance position of
+  ``getposdim``: the norm of a connect's or weld's residual)."""
+  bsz, k, nv = d.batch, len(g.ids), m.nv
+  ids = m.const(g.ids)
+  r = _EQ_ROWS[g.kind]
+  rep = lambda x: torch.repeat_interleave(x, r, dim=0)
+  active = torch.repeat_interleave(d.eq_active[:, ids], r, dim=1)
+  solref, solimp = rep(m.eq_solref[ids]), rep(m.eq_solimp[ids])
+  if g.kind == EqType.JOINT:
+    # joint 1's position minus the quartic of joint 2's (data[0:5]); a
+    # single joint reads joint 2 as absent (its terms times 0)
+    o1, o2 = m.eq_obj1id[g.ids], m.eq_obj2id[g.ids]
+    two = m.const((o2 >= 0).astype(float))
+    o2 = np.where(o2 >= 0, o2, o1)
+    data = m.eq_data[ids]
+    qa = lambda o: (d.qpos[:, m.const(m.jnt_qposadr[o])]
+                    - m.qpos0[m.const(m.jnt_qposadr[o])])
+    dif = qa(o2) * two
+    powers = torch.stack([torch.ones_like(dif), dif, dif**2, dif**3,
+                          dif**4], dim=-1)
+    pos = qa(o1) - torch.sum(data[:, :5] * powers, dim=-1)
+    deriv = (data[:, 1] + 2 * data[:, 2] * dif + 3 * data[:, 3] * dif**2
+             + 4 * data[:, 4] * dif**3) * two
+    eye = m.const(np.eye(nv))
+    dof1, dof2 = m.const(m.jnt_dofadr[o1]), m.const(m.jnt_dofadr[o2])
+    jac = eye[dof1] - deriv[..., None] * eye[dof2]
+    diag = m.dof_invweight0[dof1] + two * m.dof_invweight0[dof2]
+    return _Rows(jac, pos, pos, active, solref.new_zeros(k), solref, solimp,
+                 diag)
+
+  (p1, b1), (p2, b2) = _eq_anchors(m, d, g)
+  jacp1, jacr1 = support.jac(m, d, p1, b1)
+  jacp2, jacr2 = support.jac(m, d, p2, b2)
+  jac = (jacp1 - jacp2).transpose(-1, -2)                 # (B, K, 3, nv)
+  pos = p1 - p2                                           # (B, K, 3)
+  invw = m.body_invweight0
+  tran = invw[m.const(b1), 0] + invw[m.const(b2), 0]
+  diag = tran[:, None].expand(k, 3)
+  if g.kind == EqType.WELD:
+    ts = m.eq_data[ids][:, 10, None]
+    quat, q2 = _weld_frames(m, d, g, b1, b2)
+    q2c = math.quat_conj(q2)
+    crot = math.quat_mul(q2c, quat)[..., 1:] * ts
+    # 0.5 ts vec(conj(q2) (0, w) quat) for each dof's w = jacr1 - jacr2
+    jrot = math.quat_mul(math.quat_mul(q2c[:, :, None],
+                                       _pure(jacr1 - jacr2)),
+                         quat[:, :, None])[..., 1:]
+    jac = torch.cat([jac, (0.5 * ts[:, None]) * jrot.transpose(-1, -2)],
+                    dim=2)
+    pos = torch.cat([pos, crot], dim=-1)
+    rot = invw[m.const(b1), 1] + invw[m.const(b2), 1]
+    diag = torch.cat([diag, rot[:, None].expand(k, 3)], dim=1)
+  imp_pos = math.norm_safe(pos)[..., None].expand(bsz, k, r)
+  return _Rows(jac.reshape(bsz, k * r, nv), pos.reshape(bsz, k * r),
+               imp_pos.reshape(bsz, k * r), active, solref.new_zeros(k * r),
+               solref, solimp, diag.reshape(-1))
+
+
+def equality_wrenches(m: Model, d: Data):
+  """The forces of the connect and weld rows as body wrenches, as
+  ``mj_rnePostConstraint`` adds them to cfrc_ext: body 1 takes the
+  translational force f at its anchor and a weld's rotational row forces
+  as a torque, body 2 the opposite at its own anchor.  Returns (B, W, 6)
+  wrenches [torque about the body's root subtree CoM; force] and the (W,)
+  bodies; None without connect or weld rows."""
+  lay = row_layout(m)
+  # where each group's rows went in element order
+  at = (np.arange(lay.ne) if lay.eq_perm is None
+        else np.argsort(lay.eq_perm))
+  start, out, bodies = 0, [], []
+  for g in lay.eq_groups:
+    r, k = _EQ_ROWS[g.kind], len(g.ids)
+    rows = at[start:start + k * r]
+    start += k * r
+    if g.kind == EqType.JOINT:
+      continue
+    f = d.efc_force[:, m.const(rows)].reshape(d.batch, k, r)
+    torque = f[..., 3:] if r == 6 else torch.zeros_like(f)
+    for (p, b), sign in zip(_eq_anchors(m, d, g), (1.0, -1.0)):
+      com = d.subtree_com[:, m.const(m.body_rootid[b])]
+      out.append(sign * torch.cat([math.cross(p - com, f[..., :3]) + torque,
+                                   f[..., :3]], dim=-1))
+      bodies.append(b)
+  if not out:
+    return None
+  return torch.cat(out, dim=1), np.concatenate(bodies)
+
+
+def _eq_acc_bias(m: Model, d: Data) -> torch.Tensor:
+  """(B, ne): what C subtracts from the reference acceleration of each
+  equality row (``mj_referenceConstraint``): at the anchors of a connect
+  or weld, J-dot qvel (``mj_jacDot``), and for a weld's rotation rows the
+  time derivative of its rotation Jacobian, by the product rule over
+  ts vec(conj(q2) (0, w) quat), contracted with qvel; zero on joint rows."""
+  lay = row_layout(m)
+  out = []
+  for g in lay.eq_groups:
+    if g.kind == EqType.JOINT:
+      out.append(d.qvel.new_zeros((d.batch, len(g.ids))))
+      continue
+    (p1, b1), (p2, b2) = _eq_anchors(m, d, g)
+    jp1, jr1 = support.jac_dot(m, d, p1, b1)
+    jp2, jr2 = support.jac_dot(m, d, p2, b2)
+    qv = d.qvel[:, None, :, None]
+    bias = torch.sum((jp1 - jp2) * qv, dim=2)             # (B, K, 3)
+    if g.kind == EqType.WELD:
+      ts = m.eq_data[m.const(g.ids)][:, 10, None]
+      quat, q2 = _weld_frames(m, d, g, b1, b2)
+      q2c = math.quat_conj(q2)
+      jacr1 = support.jac(m, d, p1, b1)[1]
+      jacr2 = support.jac(m, d, p2, b2)[1]
+      wd = _pure(torch.sum((jacr1 - jacr2) * qv, dim=2))
+      wd_dot = _pure(torch.sum((jr1 - jr2) * qv, dim=2))
+      w1 = _pure(d.cvel[:, m.const(b1), :3])
+      w2 = _pure(-d.cvel[:, m.const(b2), :3])
+      qm = math.quat_mul
+      term = 0.5 * (0.5 * qm(qm(qm(q2c, w2), wd), quat)
+                    + qm(qm(q2c, wd_dot), quat)
+                    + 0.5 * qm(qm(qm(q2c, wd), w1), quat))
+      bias = torch.cat([bias, ts * term[..., 1:]], dim=-1)
+    out.append(bias.flatten(1))
+  bias = torch.cat(out, dim=1) if len(out) > 1 else out[0]
+  return bias if lay.eq_perm is None else bias[:, m.const(lay.eq_perm)]
 
 
 def _contact_row_map(clay):
@@ -195,54 +490,127 @@ def _contact_rows(m: Model, d: Data):
           kbip[:, si], rows_r, rows_d)
 
 
+def _finish(m: Model, rows: _Rows, friction: bool = False):
+  """Impedance, KBIP, R and D of a block of rows (``mj_makeImpedance``,
+  with the block's ``mj_diagApprox`` diagonal)."""
+  imp, impp = _impedance(rows.solimp, rows.imp_pos, rows.margin)
+  r = torch.clamp((1 - imp) * rows.diag / imp, min=math.MINVAL)
+  return (rows.jac, rows.pos, rows.margin.expand(rows.pos.shape[0], -1),
+          rows.active, _kbip(m, rows.solref, rows.solimp, imp, impp,
+                             friction), r,
+          torch.where(rows.active, 1.0 / r, 0.0))
+
+
+def _frictionloss(m: Model) -> torch.Tensor:
+  """(nefc,): each row's friction loss, zero outside the friction rows."""
+  lay = row_layout(m)
+  out = torch.zeros(lay.nefc, dtype=m.dtype, device=m.device)
+  out[lay.ne:lay.ne + lay.nf] = m.dof_frictionloss[m.const(lay.friction_dof)]
+  return out
+
+
 def make_constraint(m: Model, d: Data) -> Data:
   """Builds every constraint row (``mj_makeConstraint``)."""
   lay = row_layout(m)
-  bsz = d.batch
   parts = []
+  if lay.ne:
+    perm = None if lay.eq_perm is None else m.const(lay.eq_perm)
+    parts.append(_finish(m, _cat_rows(
+        [_eq_rows(m, d, g) for g in lay.eq_groups], perm)))
+  if lay.nf:
+    parts.append(_finish(m, _friction_rows(m, d, lay.friction_dof),
+                         friction=True))
   if lay.nl:
-    jac, pos, margin, active, solref, solimp, diag = _limit_rows(
-        m, d, lay.limit_jnt)
-    imp, impp = _impedance(solimp, pos, margin)
-    r = torch.clamp((1 - imp) * diag / imp, min=math.MINVAL)
-    parts.append((jac, pos, margin.expand(bsz, -1), active,
-                  _kbip(m, solref, solimp, imp, impp), r,
-                  torch.where(active, 1.0 / r, 0.0)))
+    blocks = []
+    if lay.limit_jnt.size:
+      blocks.append(_limit_rows(m, d, lay.limit_jnt))
+    if lay.ball_jnt.size:
+      blocks.append(_ball_limit_rows(m, d, lay.ball_jnt))
+    perm = None if lay.limit_perm is None else m.const(lay.limit_perm)
+    parts.append(_finish(m, _cat_rows(blocks, perm)))
   if lay.ncon_rows:
     parts.append(_contact_rows(m, d))
   if not parts:
     return d.replace(efc_J=None)
   jac, pos, margin, active, kbip, r, dvec = (
-      torch.cat(p, dim=1) for p in zip(*parts))
+      torch.cat(p, dim=1) if len(parts) > 1 else p[0] for p in zip(*parts))
+  floss = m.memo("efc_frictionloss", lambda: _frictionloss(m))
   return d.replace(efc_J=jac * active[..., None], efc_pos=pos,
                    efc_margin=margin, efc_D=dvec, efc_R=r, efc_KBIP=kbip,
-                   efc_active=active)
+                   efc_active=active,
+                   efc_frictionloss=floss.expand(d.batch, -1))
 
 
 def reference_constraint(m: Model, d: Data) -> Data:
-  """aref = -B vel - K imp (pos - margin) (``mj_referenceConstraint``)."""
-  if row_layout(m).nefc == 0:
+  """aref = -B vel - K imp (pos - margin) - bias
+  (``mj_referenceConstraint``), with the equality rows' bias of
+  ``_eq_acc_bias``."""
+  lay = row_layout(m)
+  if lay.nefc == 0:
     return d
   vel = math.matvec(d.efc_J, d.qvel)
   k, b, imp = d.efc_KBIP[..., 0], d.efc_KBIP[..., 1], d.efc_KBIP[..., 2]
   aref = -b * vel - k * imp * (d.efc_pos - d.efc_margin)
+  if lay.ne:
+    aref = torch.cat([aref[:, :lay.ne] - _eq_acc_bias(m, d),
+                      aref[:, lay.ne:]], dim=1)
   return d.replace(efc_aref=aref * d.efc_active)
 
 
-def forces_cost(d: Data, jar: torch.Tensor):
-  """Constraint force, cost and quadratic-zone mask at ``jar = J qacc -
-  aref`` (``mj_constraintUpdate``).  Every row of the slice is an
-  inequality (limits, pyramidal and frictionless contacts): it is in its
-  quadratic zone exactly when ``jar < 0``."""
+def row_kinds(m: Model) -> tuple[torch.Tensor, torch.Tensor]:
+  """(nefc,) masks of the equality rows and of the friction rows."""
+
+  def kinds():
+    lay = row_layout(m)
+    idx = np.arange(lay.nefc)
+    return (m.const(idx < lay.ne),
+            m.const((idx >= lay.ne) & (idx < lay.ne + lay.nf)))
+
+  return m.memo("row_kinds", kinds)
+
+
+def zones(m: Model, d: Data, jar: torch.Tensor):
+  """The zones of ``mj_constraintUpdate`` (pyramidal cones) at ``jar``:
+  (quadratic, linear negative, linear positive) masks, the last two None
+  without equality and friction rows.  Equality rows are always
+  quadratic; a friction row is linear below -R floss (force +floss) and
+  above R floss (force -floss), quadratic between; every other row
+  (limits, contacts) is an inequality, quadratic exactly when jar < 0."""
+  lay = row_layout(m)
   quad = jar < 0
-  force = torch.where(quad, -d.efc_D * jar, 0.0) * d.efc_active
-  cost = 0.5 * torch.sum(torch.where(quad, d.efc_D * jar * jar, 0.0), dim=-1)
-  return force, cost, quad
+  if not lay.ne and not lay.nf:
+    return quad, None, None
+  is_eq, is_fri = row_kinds(m)
+  rf = d.efc_R * d.efc_frictionloss
+  lin_neg = is_fri & (jar <= -rf)
+  lin_pos = is_fri & (jar >= rf)
+  return (torch.where(is_eq | is_fri, ~lin_neg & ~lin_pos, quad), lin_neg,
+          lin_pos)
 
 
-def constraint_update(d: Data, jar: torch.Tensor) -> Data:
+def forces_cost(m: Model, d: Data, jar: torch.Tensor):
+  """Constraint force, cost and quadratic-zone mask at ``jar = J qacc -
+  aref`` (``mj_constraintUpdate``), by the zones of ``zones``."""
+  quad, lin_neg, lin_pos = zones(m, d, jar)
+  if lin_neg is None:
+    force = torch.where(quad, -d.efc_D * jar, 0.0) * d.efc_active
+    cost = 0.5 * torch.sum(torch.where(quad, d.efc_D * jar * jar, 0.0),
+                           dim=-1)
+    return force, cost, quad
+  floss = d.efc_frictionloss
+  force = torch.where(quad, -d.efc_D * jar, 0.0)
+  force = torch.where(lin_neg, floss, torch.where(lin_pos, -floss, force))
+  half = 0.5 * d.efc_R * floss * floss
+  cost = torch.sum(torch.where(
+      quad, 0.5 * d.efc_D * jar * jar, torch.where(
+          lin_neg, -half - floss * jar, torch.where(
+              lin_pos, -half + floss * jar, 0.0))), dim=-1)
+  return force * d.efc_active, cost, quad
+
+
+def constraint_update(m: Model, d: Data, jar: torch.Tensor) -> Data:
   """efc_force and qfrc_constraint at ``jar``."""
-  force, _, _ = forces_cost(d, jar)
+  force, _, _ = forces_cost(m, d, jar)
   qfrc = math.matvec(d.efc_J.transpose(1, 2), force)
   return d.replace(efc_force=force, qfrc_constraint=qfrc)
 
@@ -273,6 +641,6 @@ def contact_forces_frame(m: Model, d: Data) -> torch.Tensor:
   force.  Inactive slots read zero."""
   lay = row_layout(m)
   ncon = collision.contact_layout(m).ncon
-  f_rows = d.efc_force[:, lay.nl:]
+  f_rows = d.efc_force[:, lay.ncon_start:]
   return (f_rows @ m.memo("contact_force_map", lambda: _contact_force_map(m))
           ).reshape(d.batch, ncon, 6)

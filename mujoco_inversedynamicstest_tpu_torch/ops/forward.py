@@ -14,6 +14,7 @@ from __future__ import annotations
 import torch
 from torch import func
 
+from mujoco_inversedynamicstest_tpu_torch.models.io import mocap_bodies
 from mujoco_inversedynamicstest_tpu_torch.models.types import (
     Data,
     DisableBit,
@@ -210,7 +211,8 @@ def implicit(m: Model, d: Data) -> Data:
 def _check_reset(m: Model, d: Data) -> Data:
   """Per-lane reset of diverged states (``mj_checkPos``/``mj_checkVel``):
   a lane with a non-finite or huge qpos/qvel returns to qpos0 with zero
-  velocity, controls and applied forces; the other lanes are untouched."""
+  velocity, controls and applied forces, eq_active0 and the mocap bodies'
+  model poses (``mj_resetData``); the other lanes are untouched."""
   if m.opt.disableflags & DisableBit.AUTORESET:
     return d
   bad_pos = ~torch.all(torch.isfinite(d.qpos), dim=-1) | torch.any(
@@ -222,6 +224,13 @@ def _check_reset(m: Model, d: Data) -> Data:
   def rst(x, v):
     return torch.where(bad.reshape((-1,) + (1,) * (x.ndim - 1)), v, x)
 
+  reset = {}
+  if m.neq:
+    reset["eq_active"] = rst(d.eq_active, m.const(m.eq_active0 != 0))
+  if m.nmocap:
+    mocap = m.const(mocap_bodies(m))
+    reset["mocap_pos"] = rst(d.mocap_pos, m.body_pos[mocap])
+    reset["mocap_quat"] = rst(d.mocap_quat, m.body_quat[mocap])
   return d.replace(
       qpos=rst(d.qpos, m.qpos0),
       qvel=rst(d.qvel, 0.0),
@@ -231,6 +240,7 @@ def _check_reset(m: Model, d: Data) -> Data:
       xfrc_applied=rst(d.xfrc_applied, 0.0),
       warning=d.warning + torch.stack([bad_pos, bad_vel], -1).to(
           d.warning.dtype),
+      **reset,
   )
 
 

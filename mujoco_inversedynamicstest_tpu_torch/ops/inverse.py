@@ -59,7 +59,7 @@ def inv_constraint(m: Model, d: Data) -> Data:
   if constraint.row_layout(m).nefc == 0:
     return d.replace(qfrc_constraint=torch.zeros_like(d.qacc))
   jar = math.matvec(d.efc_J, d.qacc) - d.efc_aref
-  return constraint.constraint_update(d, jar)
+  return constraint.constraint_update(m, d, jar)
 
 
 def _inverse_force(m: Model, d: Data) -> torch.Tensor:

@@ -19,7 +19,7 @@ Dispatch is by the device of the tensor and nothing else: a CPU tensor takes
 the plain version, a CUDA tensor launches the kernel (or raises), and any
 other device raises.  ``chol_factor.launches``, ``chol_solve.launches``,
 ``chol_factor_jvp.launches`` and ``chol_solve_jvp.launches`` count kernel
-launches.
+launches, and each one's ``shapes`` counts them by shape.
 
 The kernels are built with ``nvcc`` from the sources in the checkout, at
 first use, into ``build/torch_kernels/`` and bound through ``ctypes``.  They
@@ -382,7 +382,7 @@ def _factor(h: torch.Tensor) -> torch.Tensor:
   with torch.cuda.device(h.device):
     _check_launch(fn(h.data_ptr(), l.data_ptr(), n, ld, bsz, per_block, smem,
                      _stream(h)), "chol_factor")
-  chol_factor.launches += 1
+  _count(chol_factor, n, bsz, h.dtype)
   return l
 
 
@@ -403,7 +403,7 @@ def _solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   with torch.cuda.device(l.device):
     _check_launch(fn(l.data_ptr(), b.data_ptr(), x.data_ptr(), n, ld, bsz, k,
                      per_block, smem, _stream(l)), "chol_solve")
-  chol_solve.launches += 1
+  _count(chol_solve, n, bsz, l.dtype)
   return x
 
 
@@ -415,11 +415,11 @@ def _strides(*ts: torch.Tensor | None) -> ctypes.Array:
   return (ctypes.c_longlong * len(flat))(*flat)
 
 
-def _count(fn, lanes: int, tangents: int) -> None:
-  """One launch of ``fn``'s kernel over ``lanes`` lanes of ``tangents``
-  tangents each."""
+def _count(fn, *shape) -> None:
+  """One launch of ``fn``'s kernel at ``shape``: (n, lanes, dtype) of a
+  primal kernel, (n, lanes, tangents a lane, dtype) of a JVP kernel."""
   fn.launches += 1
-  fn.shapes[lanes, tangents] += 1
+  fn.shapes[shape] += 1
 
 
 def _check_tangent(ref: torch.Tensor, t: torch.Tensor, what: str) -> int:
@@ -456,7 +456,7 @@ def chol_factor_jvp(l: torch.Tensor, dh: torch.Tensor) -> torch.Tensor:
       _check_launch(fn(l.data_ptr(), dh4.data_ptr(), dl.data_ptr(),
                        _strides(l, dh4, dl), n, lanes, nt, g.lanes, g.warps,
                        g.buffers, g.smem, _stream(l)), "chol_factor_jvp")
-    _count(chol_factor_jvp, lanes, nt)
+    _count(chol_factor_jvp, n, lanes, nt, l.dtype)
   return dl if tangents else dl[0]
 
 
@@ -506,14 +506,10 @@ def chol_solve_jvp(l: torch.Tensor, dl: torch.Tensor | None, x: torch.Tensor,
         None if db4 is None else db4.data_ptr(), dx4.data_ptr(),
         _strides(l, dl4, x3, db4, dx4), n, lanes, nt, k, g.lanes, g.warps,
         g.buffers, g.smem, _stream(l)), "chol_solve_jvp")
-  _count(chol_solve_jvp, lanes, nt)
+  _count(chol_solve_jvp, n, lanes, nt, l.dtype)
   return dx if tangents else dx[0]
 
 
-for _fn in (chol_factor_jvp, chol_solve_jvp):
-  _fn.launches = 0
-  # launches by (lanes, tangents a lane)
-  _fn.shapes = collections.Counter()
 
 
 # ---------------------------------------------------------------------------
@@ -665,8 +661,6 @@ def chol_factor(h: torch.Tensor) -> torch.Tensor:
   return _CholFactor.apply(h)
 
 
-chol_factor.launches = 0
-
 
 def chol_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   """Solves L Lᵀ x = b; ``l`` (B, n, n) lower factor, ``b`` (B, n[, k]).
@@ -678,4 +672,7 @@ def chol_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   return _CholSolve.apply(l, b)
 
 
-chol_solve.launches = 0
+# launches, and launches by shape (see _count)
+for _fn in (chol_factor, chol_solve, chol_factor_jvp, chol_solve_jvp):
+  _fn.launches = 0
+  _fn.shapes = collections.Counter()

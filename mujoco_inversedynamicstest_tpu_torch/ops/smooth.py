@@ -32,9 +32,11 @@ def _quat_adr(m: Model) -> np.ndarray:
 
 def kinematics(m: Model, d: Data) -> Data:
   """Forward kinematics (``mj_kinematics``): body, joint, geom and site
-  frames.
+  frames, with the mocap bodies at their lane's mocap pose.
 
-  Normalizes the quaternion segments of qpos like the reference.
+  Normalizes the quaternion segments of qpos like the reference.  (The JAX
+  package sets the mocap bodies' poses after the tree pass, so a child of
+  a mocap body does not follow it there.)
   """
   qpos = d.qpos.clone()
   quat_adr = _quat_adr(m)
@@ -97,6 +99,17 @@ def kinematics(m: Model, d: Data) -> Data:
       sel = np.nonzero(valid_np)[0]
       xanchor[:, m.const(jids[sel])] = anchor[:, m.const(sel)]
       xaxis[:, m.const(jids[sel])] = axis[:, m.const(sel)]
+
+    # mocap bodies (children of the world, without joints) take their pose
+    # from the lane's mocap_pos and normalized mocap_quat, and their
+    # children move with them
+    mocapid = m.body_mocapid[bodies]
+    if np.any(mocapid >= 0):
+      is_mocap = m.const((mocapid >= 0)[:, None])
+      mid = m.const(np.maximum(mocapid, 0))
+      pos = torch.where(is_mocap, d.mocap_pos[:, mid], pos)
+      quat = torch.where(is_mocap, math.normalize_quat(d.mocap_quat[:, mid]),
+                         quat)
 
     xpos[:, b] = pos
     xquat[:, b] = quat
@@ -406,9 +419,10 @@ def subtree_vel(m: Model, d: Data) -> tuple[torch.Tensor, torch.Tensor]:
 def rne_postconstraint(m: Model, d: Data) -> Data:
   """Body accelerations and forces of the complete dynamics
   (``mj_rnePostConstraint``): ``cacc`` with qacc, ``cfrc_ext`` (the
-  applied wrenches and the active contacts' wrenches, at the subtree CoM)
-  and ``cfrc_int``, the force each body takes from its parent, summed up
-  the tree (world's row: the force the world takes, as C leaves it)."""
+  applied wrenches, the active contacts' and the connect and weld
+  constraints' wrenches, at the subtree CoM) and ``cfrc_int``, the force
+  each body takes from its parent, summed up the tree (world's row: the
+  force the world takes, as C leaves it)."""
   nonworld = _nonworld(m)
   xfrc = d.xfrc_applied
   off = d.subtree_com[:, m.const(m.body_rootid)] - d.xipos
@@ -438,6 +452,19 @@ def rne_postconstraint(m: Model, d: Data) -> Data:
 
     cfrc_ext = cfrc_ext + m.memo("contact_wrench_signs", signs) @ torch.cat(
         [wrench(b1), wrench(b2)], dim=1)
+
+  eq = constraint.equality_wrenches(m, d) if constraint.row_layout(
+      m).ne else None
+  if eq is not None:
+    wrench, bodies = eq
+
+    def eq_table():
+      s = np.zeros((m.nbody, len(bodies)))
+      s[bodies, np.arange(len(bodies))] = 1.0
+      s[0] = 0.0
+      return m.const(s)
+
+    cfrc_ext = cfrc_ext + m.memo("equality_wrench_table", eq_table) @ wrench
 
   contrib = d.cdof_dot * d.qvel[..., None] + d.cdof * d.qacc[..., None]
   body_contrib = ordered_index_add(m, contrib.new_zeros((d.batch, m.nbody, 6)),

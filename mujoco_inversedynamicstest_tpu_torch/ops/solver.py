@@ -73,7 +73,7 @@ def _gauss_cost(d: Data, qacc, ma):
 def _eval_state(m: Model, d: Data, qacc, with_grad: bool) -> _State:
   ma = smooth.mul_m(m, d, qacc)
   jaref = math.matvec(d.efc_J, qacc) - d.efc_aref
-  force, ccost, quad = constraint.forces_cost(d, jaref)
+  force, ccost, quad = constraint.forces_cost(m, d, jaref)
   zero = torch.zeros_like(qacc)
   st = _State(
       qacc=qacc, Ma=ma, jaref=jaref, efc_force=force,
@@ -104,13 +104,10 @@ def _refresh_gradient(m: Model, d: Data, st: _State) -> _State:
   return dataclasses.replace(st, grad=grad, mgrad=mgrad)
 
 
-def _linesearch(m: Model, d: Data, st: _State) -> _State:
-  """Exact line search along ``st.search`` (``CGsearch``): phi(alpha) is
-  piecewise quadratic; a bracket [lo, hi] on phi' shrinks by safeguarded
-  Newton steps for at most ``ls_iterations`` rounds per lane.
-
-  A line-search point is a (B, 4) tensor: alpha, cost, phi', phi''.
-  """
+def line_phi(m: Model, d: Data, st: _State):
+  """The total cost along ``st.search``, phi(alpha), piecewise quadratic
+  in alpha (B,): returns (phi, M search, J search), where phi(alpha) is the
+  (B, 4) line-search point alpha, cost, phi', phi''."""
   mv = smooth.mul_m(m, d, st.search)
   jv = math.matvec(d.efc_J, st.search)
   quad_gauss = torch.stack([
@@ -124,15 +121,47 @@ def _linesearch(m: Model, d: Data, st: _State) -> _State:
       0.5 * d.efc_D * jv * jv,
   ], dim=-1)                                              # (B, nefc, 3)
 
+  # a friction row in a linear zone costs -R floss^2 / 2 ∓ floss x at
+  # x = jaref + alpha jv, a polynomial in alpha
+  lin_rows = None
+  if constraint.row_layout(m).nf:
+    floss = d.efc_frictionloss
+    zero = torch.zeros_like(jv)
+    half = -0.5 * d.efc_R * floss * floss
+    lin_rows = (torch.stack([half - floss * st.jaref, -floss * jv, zero],
+                            dim=-1),
+                torch.stack([half + floss * st.jaref, floss * jv, zero],
+                            dim=-1))
+
+  def row_terms(x):
+    quad, lin_neg, lin_pos = constraint.zones(m, d, x)
+    rows = torch.where(quad[..., None], quad_rows, 0.0)
+    if lin_rows is not None:
+      rows = torch.where(lin_neg[..., None], lin_rows[0], torch.where(
+          lin_pos[..., None], lin_rows[1], rows))
+    return rows
+
   def phi(alpha):
     x = st.jaref + alpha[:, None] * jv
-    rows = torch.where((x < 0)[..., None], quad_rows, 0.0)
-    total = quad_gauss + torch.sum(rows, dim=1)
+    total = quad_gauss + torch.sum(row_terms(x), dim=1)
     cost = total[:, 0] + alpha * total[:, 1] + alpha * alpha * total[:, 2]
     d0 = total[:, 1] + 2 * alpha * total[:, 2]
     d1 = 2 * total[:, 2]
     d1 = d1 + (d1 == 0) * math.MINVAL
     return torch.stack([alpha, cost, d0, d1], dim=-1)
+
+  return phi, mv, jv
+
+
+def _linesearch(m: Model, d: Data, st: _State) -> _State:
+  """Exact line search along ``st.search`` (``CGsearch``): phi(alpha) of
+  ``line_phi`` is piecewise quadratic; a bracket [lo, hi] on phi' shrinks
+  by safeguarded Newton steps for at most ``ls_iterations`` rounds per
+  lane.
+
+  A line-search point is a (B, 4) tensor: alpha, cost, phi', phi''.
+  """
+  phi, mv, jv = line_phi(m, d, st)
 
   def newton(p):
     return p[:, 0] - p[:, 2] / p[:, 3]
@@ -203,7 +232,8 @@ def _linesearch(m: Model, d: Data, st: _State) -> _State:
   )
 
 
-def _newton_tangent(d: Data, st: _State, met: torch.Tensor) -> _State:
+def _newton_tangent(m: Model, d: Data, st: _State,
+                    met: torch.Tensor) -> _State:
   """Under forward-mode AD, gives qacc of the lanes ``met`` (B,), those
   whose solve met its tolerance, the tangent of one full Newton step from
   the final iterate, and the constraint forces the matching tangent; the
@@ -232,7 +262,7 @@ def _newton_tangent(d: Data, st: _State, met: torch.Tensor) -> _State:
   tangent = sum(t for t in (t_qacc, t_search) if t is not None)
   newton = fwAD.make_dual(qacc, tangent)
   jaref = math.matvec(d.efc_J, newton) - d.efc_aref
-  force = constraint.forces_cost(d, jaref)[0]
+  force = constraint.forces_cost(m, d, jaref)[0]
   qfrc = math.matvec(d.efc_J.transpose(1, 2), force)
 
   def retangent(own, dual):
@@ -272,7 +302,7 @@ def solve(m: Model, d: Data) -> Data:
 
   def iterate(st: _State) -> _State:
     st = _linesearch(m, d, st)
-    force, ccost, quad = constraint.forces_cost(d, st.jaref)
+    force, ccost, quad = constraint.forces_cost(m, d, st.jaref)
     st = dataclasses.replace(
         st, efc_force=force,
         qfrc_constraint=math.matvec(d.efc_J.transpose(1, 2), force),
@@ -299,7 +329,7 @@ def solve(m: Model, d: Data) -> Data:
     while bool(alive.any()):
       st = _select(alive, iterate(st), st)
       alive = live(st) & rows
-  st = _newton_tangent(d, st, met(st))
+  st = _newton_tangent(m, d, st, met(st))
 
   lane = rows[:, None]
   qacc = torch.where(lane, st.qacc, d.qacc_smooth)

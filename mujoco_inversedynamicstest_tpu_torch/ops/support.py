@@ -1,8 +1,10 @@
-"""Support operations: Jacobian-transpose products and qpos integration.
+"""Support operations: point Jacobians, their products and qpos integration.
 
 Port of the parts of ``mujoco_inversedynamicstest_tpu/ops/support.py`` the
-slice reaches (``jac``/``jac_all_bodies`` as used by ``xfrc_accumulate`` and
-gravity compensation, ``integrate_pos`` and ``differentiate_pos``).
+slice reaches (``jac`` and ``jac_dot`` for the equality rows, the
+Jacobian-transpose product of ``jac_all_bodies`` as used by
+``xfrc_accumulate`` and gravity compensation, ``integrate_pos`` and
+``differentiate_pos``).
 """
 
 from __future__ import annotations
@@ -16,6 +18,48 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
     Model,
 )
 from mujoco_inversedynamicstest_tpu_torch.ops import math
+
+
+def jac(m: Model, d: Data, point: torch.Tensor, body: np.ndarray):
+  """Point Jacobians (``mj_jac``) of K world points, each attached to a
+  body: ``point`` (B, K, 3), ``body`` (K,) host ids.  Returns ``(jacp,
+  jacr)``, each (B, K, nv, 3): on the dofs that move the body, ``jacp_i =
+  cdof_lin_i + cdof_ang_i x (point - subtree_com_root)`` and ``jacr_i =
+  cdof_ang_i``; zero elsewhere."""
+  mask = m.const(m.tree.body_dof_mask[body])[..., None]    # (K, nv, 1)
+  offset = point - d.subtree_com[:, m.const(m.body_rootid[body])]
+  ang = d.cdof[:, None, :, :3]
+  jacp = d.cdof[:, None, :, 3:] + math.cross(ang, offset[:, :, None])
+  return (torch.where(mask, jacp, 0.0),
+          torch.where(mask, ang.expand_as(jacp), 0.0))
+
+
+def _quat_dofs(m: Model) -> np.ndarray:
+  """(nv,) the rotational dofs of ball and free joints."""
+  jt = m.jnt_type[m.dof_jntid]
+  off = np.arange(m.nv) - m.jnt_dofadr[m.dof_jntid]
+  return (jt == JointType.BALL) | ((jt == JointType.FREE) & (off >= 3))
+
+
+def jac_dot(m: Model, d: Data, point: torch.Tensor, body: np.ndarray):
+  """Time derivatives of the point Jacobians of ``jac`` for body-fixed
+  points (``mj_jacDot``), from a completed velocity stage: each dof's
+  ``cdof_dot``, except the rotational dofs of ball and free joints, which
+  take ``cvel x_m cdof`` with their body's whole velocity; plus, in the
+  translational rows, ``cdof_ang x`` the point's velocity.  Same shapes as
+  ``jac``."""
+  mask = m.const(m.tree.body_dof_mask[body])[..., None]
+  offset = point - d.subtree_com[:, m.const(m.body_rootid[body])]
+  cdd = torch.where(m.const(_quat_dofs(m)[:, None]),
+                    math.motion_cross(d.cvel[:, m.const(m.dof_bodyid)],
+                                      d.cdof), d.cdof_dot)
+  ang = cdd[:, None, :, :3]
+  cv = d.cvel[:, m.const(body)]
+  v_point = cv[..., 3:] + math.cross(cv[..., :3], offset)
+  jacp = (cdd[:, None, :, 3:] + math.cross(ang, offset[:, :, None])
+          + math.cross(d.cdof[:, None, :, :3], v_point[:, :, None]))
+  return (torch.where(mask, jacp, 0.0),
+          torch.where(mask, ang.expand_as(jacp), 0.0))
 
 
 def jac_transpose(m: Model, d: Data, points: torch.Tensor,

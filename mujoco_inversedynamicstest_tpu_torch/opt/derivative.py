@@ -48,7 +48,8 @@ smooth_vel_deriv = forward_mod.smooth_vel_deriv
 
 # the fields step and inverse read; every other field is computed from them
 INPUTS = ("time", "qpos", "qvel", "ctrl", "qfrc_applied", "xfrc_applied",
-           "qacc_warmstart", "qacc", "warning")
+           "qacc_warmstart", "qacc", "warning", "eq_active", "mocap_pos",
+           "mocap_quat")
 
 
 # ---------------------------------------------------------------------------

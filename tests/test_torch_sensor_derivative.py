@@ -162,8 +162,8 @@ def test_constraint_force_tangent_reaches_the_sensors(contact, monkeypatch):
   mjm, mjds, mp, d, _ = contact
   keep = solver._newton_tangent
 
-  def qacc_only(dd, st, met):
-    return dataclasses.replace(keep(dd, st, met), efc_force=st.efc_force)
+  def qacc_only(m, dd, st, met):
+    return dataclasses.replace(keep(m, dd, st, met), efc_force=st.efc_force)
 
   monkeypatch.setattr(solver, "_newton_tangent", qacc_only)
   tr = derivative.transition_ad(mp, d, flg_sensor=True)
