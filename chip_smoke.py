@@ -31,10 +31,12 @@ non-zero:
    bit-equal.
 9. kernel: main-path shapes, and timing: JVP kernels -- all four kernels
    against their plain versions, bit-equal, at every shape at which
-   phases 6-18 launch them (n = 27 for the humanoid, the JVP kernels at
+   phases 6-19 launch them (n = 27 for the humanoid, the JVP kernels at
    (lanes, tangents) (8, 75) fp64, (640, 75), (800, 75), (1024, 75) and
-   the folded (76,800, 1), in both layouts; n = 1-6 for phase 18's models,
-   each dof block and nv, and the JVPs at (8, 7) fp64); then at the
+   the folded (76,800, 1), in both layouts; n = 1-6 for phase 18's and
+   phase 19's models, each dof block and nv, the JVPs at (8, 7) fp64 and,
+   on the tendon arm (n = 2), at 16 tangents a lane: (8) fp64 and the
+   reach iLQR's linearization, (12,800) fp32 and (200) fp64); then at the
    bench's chunk (1024 lanes, 75 tangents) the JVP kernels timed against
    the plain versions, their bounds (L read once a lane) and
    torch.func.vmap over torch.func.jvp of torch.linalg.cholesky /
@@ -114,13 +116,35 @@ non-zero:
    efc_force within 1e-9), and transition_ad of 8 slider-crank lanes
    (fp64) against the plain versions (<= 1e-9) and transition_fd
    (centered, eps 1e-6, zero warm start; within 1e-4 of max|A|).
+19. slice: tendons -- activation dynamics, muscles and tendons on the three
+   models of assets/ (tendon_arm, BASELINE rung 2's muscle arm on arm26's
+   pattern; actuated; tendon_rows): each at B = 4096 fp32, 20 steps
+   (step_n, after a warm-up step), random controls within ctrlrange, the
+   tendon arm under EULER, RK4, IMPLICIT and IMPLICITFAST: steps/s, finite
+   lanes, each primal kernel's launches a step; the primal kernels timed
+   at (4096, 2) fp32.  Then the fork's inverse_test on the tendon arm under
+   RK4, 64 lanes fp64, 60 steps (0.3 s, cut for time) of fresh
+   qfrc_applied, xfrc_applied and ctrl from a seeded torch.Generator (both
+   solver_fwdinv entries <= 1e-6 on every lane at every step).  Then
+   BASELINE rung 2: iLQR reach on the tendon arm, F = 256 fp32 problems,
+   H = 50, ILQRConfig(iterations=2) (10 took 272 s: cut for time),
+   a seeded reachable target per lane, cost |hand - target|^2 + 1e-3 |u|^2
+   (the hand from the arm's closed-form planar kinematics): solves/s,
+   finite lanes, the median hand-target distance at the start and at the
+   plan's end (it must fall); then 4 lanes fp64, 1 iteration, with the
+   kernels against the plain versions (plan costs within 1e-9 relative).
+   Then each model's 5 steps of 64 lanes fp64 with the kernels against 5
+   with the plain versions (qpos, qvel, act, efc_force within 1e-9), and
+   transition_ad of 8 tendon-arm lanes (fp64; A 10 x 10, B 10 x 6) against
+   the plain versions (<= 1e-9) and transition_fd (centered, eps 1e-6,
+   zero warm start; within 1e-4 of max|A| and of max|B|).
 
 Phase 10 also runs transition_ad of the Newton-100 humanoid under RK4 and
 IMPLICIT (the qDeriv Jacobian nested in the dual step).  Every kernel
-launch of phases 6-18 must be at a shape (n, lanes[, tangents], dtype) that
+launch of phases 6-19 must be at a shape (n, lanes[, tangents], dtype) that
 phase 9 checked.  Then
 one JSON line of the kernel report (launches: the sum over the main paths,
-phases 6, 12, 15, 16, 17 and 18, each read with the counts reset before it;
+phases 6, 12, 15, 16, 17, 18 and 19, each read with the counts reset before it;
 by path beside it; the JVP kernels with the tangent counts of their phase 12
 launches), the nvidia-smi line, and the result line.  There is no CPU path: without
 CUDA the script fails.  It imports neither jax nor mujoco: the models
@@ -180,6 +204,15 @@ SENSOR_STEPS = 20
 CONSTRAINT_MODELS = ("slider_crank", "eq_joint", "weld", "limited",
                      "frictionloss", "mocap_weld")
 CONSTRAINT_STEPS, CRANK_INVERSE_STEPS = 20, 250
+# phase 19: the tendon slice's models, the fork's inverse_test on the tendon
+# arm, and BASELINE rung 2 (iLQR reach, F problems at horizon H)
+TENDON_MODELS = ("tendon_arm", "actuated", "tendon_rows")
+# the arm's inverse_test steps 0.3 s of 0.005 s, and the reach iLQR takes
+# 2 iterations (10 took 272 s, 27-47 s each on an H100 by its host):
+# cut for time
+TENDON_STEPS, ARM_INVERSE_STEPS = 20, 60
+REACH_F, REACH_H, REACH_ITERATIONS, REACH_ALPHAS = 256, 50, 2, 8
+REACH_CHECK_LANES, REACH_CHECK_ITERATIONS = 4, 1
 GRID_N, GRID_B = (1, 2, 6, 27, 32, 33, 64, 128), (1, 127, 4096)
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}  # of max|reference|
 # NVIDIA's H100 SXM data sheet: memory rate, and fp32 outside tensor cores
@@ -565,6 +598,36 @@ def constraint_shapes(mt) -> tuple[set, set]:
   return primal, jvp
 
 
+def tendon_shapes(mt) -> tuple[set, set]:
+  """Phase 19's launches, as ``constraint_shapes`` counts them: each
+  model's nv and dof blocks at the fleet (4096 fp32) and the 64-lane fp64
+  runs; on the tendon arm also transition_ad's 8 lanes (JVPs at 2 nv + na
+  + nu tangents) and transition_fd's 8 x (2 (2 nv + na + nu) + 1) copies,
+  and the reach iLQR's rollout (F), forward pass (F x alphas) and
+  linearization (F H lanes: a forward and the dual step), at F = 256 fp32
+  and F = 4 fp64."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import smooth
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  primal, jvp = set(), set()
+  for name in TENDON_MODELS:
+    m = constraint_model(mt, name, "cpu", torch.float64)
+    blocks = smooth._dof_blocks(m)
+    sizes = {(m.nv, 1)} | ({(sz, len(st)) for sz, st in blocks.items()}
+                           if blocks else set())
+    runs = [(FLEET, torch.float32), (64, torch.float64)]
+    if name == "tendon_arm":
+      nz = derivative.state_dim(m) + m.nu
+      runs += [(8, torch.float64), (8 * (2 * nz + 1), torch.float64)]
+      jvp |= {(sz, 8 * k, nz, torch.float64) for sz, k in sizes}
+      for f, dt in ((REACH_F, torch.float32),
+                    (REACH_CHECK_LANES, torch.float64)):
+        runs += [(f, dt), (f * REACH_ALPHAS, dt), (f * REACH_H, dt)]
+        jvp |= {(sz, f * REACH_H * k, nz, dt) for sz, k in sizes}
+    primal |= {(sz, b * k, dt) for sz, k in sizes for b, dt in runs}
+  return primal, jvp
+
+
 def path_shapes(mt) -> tuple[list, list]:
   """The launches of phases 6-18 and of --bench: (n, B, dtype) of the
   primal kernels and (n, B, T, dtype) of the JVP kernels.  Phases 6-17 and
@@ -589,9 +652,10 @@ def path_shapes(mt) -> tuple[list, list]:
             | {(27, b, torch.float64) for b in f64})
   jvp = {(27,) + s for s in jvp}
   more_primal, more_jvp = constraint_shapes(mt)
+  tendon_primal, tendon_jvp = tendon_shapes(mt)
   key = lambda s: (str(s[-1]),) + s[:-1]
-  return (sorted(primal | more_primal, key=key),
-          sorted(jvp | more_jvp, key=key))
+  return (sorted(primal | more_primal | tendon_primal, key=key),
+          sorted(jvp | more_jvp | tendon_jvp, key=key))
 
 
 def check_path_kernels(mt, linalg, dev) -> dict:
@@ -1650,6 +1714,254 @@ def constraint_rows(mt, linalg, dev, card: str) -> tuple[dict, dict]:
   return total, small
 
 
+def tendon_data(mt, m, batch: int, seed: int):
+  """qpos0 moved by 0.1 randn in each dof's tangent direction, qvel 0.3
+  randn, activations uniform in [0, 0.5] and controls uniform in each
+  limited actuator's ctrlrange (0.2 randn elsewhere), from a seeded numpy
+  generator."""
+  rng = np.random.RandomState(seed)
+  t = lambda x: torch.as_tensor(x, dtype=m.dtype, device=m.device)
+  rng_c = m.actuator_ctrlrange.cpu().numpy()
+  ctrl = np.where(m.actuator_ctrllimited.astype(bool),
+                  rng.uniform(rng_c[:, 0], rng_c[:, 1], (batch, m.nu)),
+                  0.2 * rng.randn(batch, m.nu))
+  d = mt.make_data(m, batch)
+  return d.replace(
+      qpos=mt.integrate_pos(m, d.qpos, t(0.1 * rng.randn(batch, m.nv)), 1.0),
+      qvel=t(0.3 * rng.randn(batch, m.nv)),
+      act=t(rng.uniform(0, 0.5, (batch, m.na))), ctrl=t(ctrl))
+
+
+def arm_hand(qpos: torch.Tensor) -> torch.Tensor:
+  """The tendon arm's hand site in its x-z plane: the closed-form planar
+  kinematics of two 0.5 m links turning about -y from the origin;
+  (..., 2) -> (..., 2)."""
+  t1, t2 = qpos[..., 0], qpos[..., 0] + qpos[..., 1]
+  return 0.5 * torch.stack([torch.cos(t1) + torch.cos(t2),
+                            torch.sin(t1) + torch.sin(t2)], dim=-1)
+
+
+def reach_cost(m, s, u, t, target):
+  """BASELINE rung 2's cost of one sample: |hand - target|^2 + 1e-3 |u|^2
+  (written like opt/northstar.py's balance_cost)."""
+  del m, t
+  dif = arm_hand(s.qpos) - target
+  return dif @ dif + 1e-3 * u @ u
+
+
+def reach_problems(mt, m, f: int, seed: int):
+  """F reach problems from a seeded generator: the arm at rest at a pose
+  inside its joint ranges, and a target that the hand reaches at another
+  such pose; controls start at 0.1."""
+  gen = torch.Generator(device="cpu").manual_seed(seed)
+  pose = lambda lo, hi: lo + (hi - lo) * torch.rand((f, 2), generator=gen,
+                                                    dtype=torch.float64)
+  lo, hi = torch.tensor([-0.3, 0.2]), torch.tensor([0.9, 1.5])
+  start = pose(lo, hi)
+  target = arm_hand(pose(lo - 0.2, hi + 0.4))
+  d = mt.make_data(m, f).replace(qpos=start.to(m.device, m.dtype))
+  us = torch.full((f, REACH_H, m.nu), 0.1, dtype=m.dtype, device=m.device)
+  return mt.forward(m, d), us, target.to(m.device, m.dtype)
+
+
+def tendon_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
+  """Phase 19: the tendon slice's three models' fleets (the tendon arm
+  under each integrator), the primal kernels timed at n = 2, the fork's
+  inverse_test on the tendon arm, BASELINE rung 2 (iLQR reach), the
+  kernels against the plain versions, and transition_ad.  Returns the
+  kernels' launches of the kernel runs, each read with the counts reset
+  before it, and the kernel timings at n = 2."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import constraint
+  from mujoco_inversedynamicstest_tpu_torch.opt import (
+      ILQRConfig,
+      derivative,
+      ilqr,
+  )
+
+  t_phase = time.perf_counter()
+  total = dict.fromkeys(KERNELS, 0)
+
+  def add(launches):
+    for k in KERNELS:
+      total[k] += launches[k]
+
+  runs = [("tendon_arm", i) for i in INTEGRATORS] + [
+      ("actuated", "EULER"), ("tendon_rows", "EULER")]
+  for name, integrator in runs:
+    m = constraint_model(mt, name, dev, torch.float32, integrator)
+    d = mt.step(m, tendon_data(mt, m, FLEET, seed=19))  # warm-up step
+    torch.cuda.synchronize()
+    reset_launches(linalg)
+    t0 = time.perf_counter()
+    d = mt.step_n(m, d, TENDON_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(linalg)
+    add(launches)
+    for k in ("chol_factor", "chol_solve"):
+      if not launches[k]:
+        raise AssertionError(f"{k} was not launched on {name} {integrator}")
+    finite = (torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
+              & torch.isfinite(d.act).all(1))
+    if not bool(finite.all()):
+      raise AssertionError(f"{name} {integrator}: {int((~finite).sum())} "
+                           "non-finite lanes")
+    lay = constraint.row_layout(m)
+    log("slice: tendons",
+        f"{name} {integrator} (nv {m.nv}, na {m.na}, {m.ntendon} tendons; "
+        f"rows: {lay.ne} equality, {lay.nf} friction, {lay.nl} limit) "
+        f"B={FLEET} fp32: {TENDON_STEPS} steps in {seconds:.3f} s = "
+        f"{FLEET * TENDON_STEPS / seconds:.1f} steps/s on {card}; launches a "
+        "step " + ", ".join(f"{k} {v / TENDON_STEPS:g}"
+                            for k, v in launches.items()
+                            if not k.endswith("_jvp"))
+        + f"; finite lanes {int(finite.sum())} of {FLEET}; auto-resets "
+        f"{int(d.warning.sum())}")
+
+  small = {k: {"by_n": {"2": v}} for k, v in time_kernels(linalg, dev,
+                                                           2).items()}
+
+  # the fork's inverse_test on the tendon arm: RK4, fresh forces a step
+  b = 64
+  gen = torch.Generator(device=dev).manual_seed(19)
+  m = constraint_model(mt, "tendon_arm", dev, torch.float64, "RK4")
+  randn = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                     dtype=m.dtype)
+  d = tendon_data(mt, m, b, seed=20)
+  worst = torch.zeros(2, dtype=m.dtype, device=dev)
+  ok = torch.ones((), dtype=torch.bool, device=dev)
+  reset_launches(linalg)
+  t0 = time.perf_counter()
+  for _ in range(ARM_INVERSE_STEPS):
+    d = d.replace(qfrc_applied=0.3 * randn(b, m.nv),
+                  xfrc_applied=0.3 * randn(b, m.nbody, 6),
+                  ctrl=torch.rand((b, m.nu), generator=gen, device=dev,
+                                  dtype=m.dtype))
+    fwd = mt.compare_fwd_inv(m, mt.forward(m, d))
+    ok &= (fwd.solver_fwdinv <= 1e-6).all()
+    worst = torch.maximum(worst, fwd.solver_fwdinv.amax(0))
+    d = mt.step(m, d)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = read_launches(linalg)
+  add(launches)
+  if not launches["chol_factor"] or not launches["chol_solve"]:
+    raise AssertionError(f"a kernel was not launched: {launches}")
+  if not bool(ok) or not bool(torch.isfinite(d.qpos).all()):
+    raise AssertionError(f"solver_fwdinv above 1e-6: max {worst.tolist()}")
+  log("slice: tendons",
+      f"inverse_test tendon_arm RK4 {b} lanes fp64, {ARM_INVERSE_STEPS} "
+      f"steps of {m.opt.timestep:g} s in {seconds:.3f} s, fresh forces and "
+      f"controls a step: max solver_fwdinv [{float(worst[0]):.3e}, "
+      f"{float(worst[1]):.3e}] over every lane and step (tol 1e-6); "
+      "launches a step " + ", ".join(
+          f"{k} {v / ARM_INVERSE_STEPS:g}" for k, v in launches.items()
+          if not k.endswith("_jvp")))
+
+  # BASELINE rung 2: iLQR reach on the tendon arm
+  m = constraint_model(mt, "tendon_arm", dev, torch.float32)
+  d0, us, target = reach_problems(mt, m, REACH_F, seed=21)
+  cfg = ILQRConfig(iterations=REACH_ITERATIONS, n_alpha=REACH_ALPHAS)
+  torch.cuda.synchronize()
+  reset_launches(linalg)
+  t0 = time.perf_counter()
+  res = ilqr(m, reach_cost, d0, us, cfg, cost_args=(target,))
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = read_launches(linalg)
+  add(launches)
+  if not all(launches.values()):
+    raise AssertionError(f"a kernel was not launched: {launches}")
+  finite = torch.isfinite(res.cost) & torch.isfinite(res.us).flatten(1).all(1)
+  dist = lambda q: (arm_hand(q) - target).norm(dim=-1)
+  start = float(dist(res.xs.qpos[:, 0]).median())
+  end = float(dist(res.xs.qpos[:, -1]).median())
+  if not bool(finite.all()) or not end < start:
+    raise AssertionError(f"reach iLQR: {int((~finite).sum())} non-finite "
+                         f"lanes, median distance {start:.4f} -> {end:.4f}")
+  log("slice: tendons",
+      f"BASELINE rung 2: iLQR reach on tendon_arm, F={REACH_F} fp32, "
+      f"H={REACH_H}, {REACH_ITERATIONS} iterations, {REACH_ALPHAS} alphas: "
+      f"{seconds:.3f} s = {REACH_F / seconds:.2f} solves/s on {card}; finite "
+      f"lanes {int(finite.sum())} of {REACH_F}; mean iterations "
+      f"{float(res.niter.float().mean()):.2f}; median hand-target distance "
+      f"{start:.4f} m at the start, {end:.4f} m at the plan's end; plan cost "
+      f"median {float(res.cost.median()):.4f}; launches {launches}")
+
+  m = constraint_model(mt, "tendon_arm", dev, torch.float64)
+  d0, us, target = reach_problems(mt, m, REACH_CHECK_LANES, seed=22)
+  cfg = ILQRConfig(iterations=REACH_CHECK_ITERATIONS, n_alpha=REACH_ALPHAS)
+  reset_launches(linalg)
+  kern = ilqr(m, reach_cost, d0, us, cfg, cost_args=(target,))
+  add(read_launches(linalg))
+  with plain_cholesky(linalg):
+    plain = ilqr(m, reach_cost, d0, us, cfg, cost_args=(target,))
+  rel = float(((kern.cost - plain.cost).abs() / plain.cost.abs()).max())
+  if not rel <= 1e-9:
+    raise AssertionError(f"reach iLQR kernels vs plain: {rel:.3e}")
+  log("slice: tendons",
+      f"reach iLQR {REACH_CHECK_LANES} lanes fp64, "
+      f"{REACH_CHECK_ITERATIONS} iterations, kernels vs plain: plan costs "
+      f"max relative difference {rel:.3e} (tol 1e-9)")
+
+  # kernels against plain versions, fp64, 64 lanes, 5 steps
+  errs = []
+  for name in TENDON_MODELS:
+    m = constraint_model(mt, name, dev, torch.float64)
+    d_k = d_p = tendon_data(mt, m, 64, seed=23)
+    err = 0.0
+    for _ in range(5):
+      d_k = mt.step(m, d_k)
+      with plain_cholesky(linalg):
+        d_p = mt.step(m, d_p)
+      fields = ["qpos", "qvel", "act"] + (
+          ["efc_force"] if d_k.efc_force is not None else [])
+      err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)).abs().max())
+                       for f in fields))
+    if not err <= 1e-9:
+      raise AssertionError(f"{name} fp64 steps, kernels vs plain: {err:.3e}")
+    errs.append(f"{name} {err:.3e}")
+  log("slice: tendons", "64 lanes fp64, 5 steps, kernels vs plain, max "
+      "|dqpos|,|dqvel|,|dact|,|defc_force| (tol 1e-9): " + ", ".join(errs))
+
+  # transition_ad of 8 tendon-arm lanes
+  m = constraint_model(mt, "tendon_arm", dev, torch.float64)
+  d = mt.forward(m, tendon_data(mt, m, 8, seed=24))
+  reset_launches(linalg)
+  t0 = time.perf_counter()
+  ad = derivative.transition_ad(m, d)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = read_launches(linalg)
+  if not all(launches.values()):
+    raise AssertionError(f"a kernel was not launched: {launches}")
+  add(launches)
+  with plain_cholesky(linalg):
+    plain = derivative.transition_ad(m, d)
+  fd = derivative.transition_fd(
+      m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
+      eps=1e-6, flg_centered=True)
+  err_plain = max(float((ad.A - plain.A).abs().max()),
+                  float((ad.B - plain.B).abs().max()))
+  err_a = float((ad.A - fd.A).abs().max())
+  err_b = float((ad.B - fd.B).abs().max())
+  scale_a, scale_b = float(fd.A.abs().max()), float(fd.B.abs().max())
+  if not err_plain <= 1e-9:
+    raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
+  if not (err_a <= 1e-4 * scale_a and err_b <= 1e-4 * scale_b):
+    raise AssertionError(f"transition_ad vs transition_fd: A {err_a:.3e}, "
+                         f"B {err_b:.3e}")
+  log("slice: tendons",
+      f"tendon_arm 8 lanes fp64 EULER: transition_ad {seconds:.3f} s, A "
+      f"{tuple(ad.A.shape)}, B {tuple(ad.B.shape)}; kernels vs plain max "
+      f"|dA|,|dB| {err_plain:.3e} (tol 1e-9); vs transition_fd (centered, "
+      f"eps 1e-6) |dA| {err_a:.3e}, |dB| {err_b:.3e} (tol 1e-4 of max|A| = "
+      f"{1e-4 * scale_a:.3e}, of max|B| = {1e-4 * scale_b:.3e}); launches "
+      f"{launches}, tangents a lane {read_tangents(linalg)}")
+  log("slice: tendons", f"phase 19 in {time.perf_counter() - t_phase:.1f} s")
+  return total, small
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   mode = parser.add_mutually_exclusive_group()
@@ -1709,6 +2021,9 @@ def main() -> None:
     by_path["sensors"] = sensors(mt, linalg, dev, smi)
     by_path["constraint_rows"], times_small = constraint_rows(
         mt, linalg, dev, smi)
+    by_path["tendons"], times_n2 = tendon_slice(mt, linalg, dev, smi)
+    for k, v in times_n2.items():
+      times_small.setdefault(k, {"by_n": {}})["by_n"].update(v["by_n"])
     launches = {k: sum(p.get(k, 0) for p in by_path.values())
                 for k in KERNELS}
     checked = set().union(*path_shapes(mt))

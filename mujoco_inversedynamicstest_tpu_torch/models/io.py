@@ -36,12 +36,16 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
     Model,
     ObjType,
     Option,
+    PORTED_BIASES,
+    PORTED_DYNAMICS,
     PORTED_EQUALITIES,
+    PORTED_GAINS,
     PORTED_SENSORS,
     SensorType,
     SolverType,
     TreeLayout,
     TrnType,
+    WrapType,
 )
 
 # MjModel array fields read by put_model / validate_model
@@ -52,11 +56,18 @@ _ARRAY_FIELDS = (
     "body_dofadr", "body_dofnum", "body_subtreemass", "body_mocapid",
     "jnt_pos", "jnt_axis", "jnt_stiffness", "jnt_range", "jnt_margin",
     "jnt_solref", "jnt_solimp", "jnt_type", "jnt_qposadr", "jnt_dofadr",
-    "jnt_limited", "jnt_actfrclimited", "jnt_actgravcomp",
+    "jnt_limited", "jnt_actfrclimited", "jnt_actfrcrange", "jnt_actgravcomp",
     "dof_armature", "dof_damping", "dof_invweight0", "dof_frictionloss",
     "dof_bodyid", "dof_jntid", "dof_parentid", "dof_solref", "dof_solimp",
     "eq_type", "eq_obj1id", "eq_obj2id", "eq_objtype", "eq_data",
-    "eq_solref", "eq_solimp", "eq_active0", "tendon_frictionloss",
+    "eq_solref", "eq_solimp", "eq_active0",
+    "tendon_adr", "tendon_num", "tendon_limited", "tendon_stiffness",
+    "tendon_damping", "tendon_frictionloss", "tendon_lengthspring",
+    "tendon_length0", "tendon_invweight0", "tendon_range", "tendon_margin",
+    "tendon_solref_lim", "tendon_solimp_lim", "tendon_solref_fri",
+    "tendon_solimp_fri", "tendon_armature", "tendon_actfrclimited",
+    "tendon_stiffnesspoly", "tendon_dampingpoly",
+    "wrap_type", "wrap_objid", "wrap_prm",
     "geom_pos", "geom_quat", "geom_size", "geom_friction", "geom_margin",
     "geom_gap", "geom_solref", "geom_solimp", "geom_solmix", "geom_type",
     "geom_bodyid", "geom_contype", "geom_conaffinity", "geom_condim",
@@ -67,14 +78,19 @@ _ARRAY_FIELDS = (
     "sensor_dim", "sensor_cutoff", "sensor_history", "sensor_delay",
     "sensor_interval",
     "actuator_gear", "actuator_ctrlrange", "actuator_forcerange",
-    "actuator_gainprm", "actuator_trnid", "actuator_trntype",
-    "actuator_dyntype", "actuator_gaintype", "actuator_biastype",
-    "actuator_ctrllimited", "actuator_forcelimited",
+    "actuator_gainprm", "actuator_biasprm", "actuator_dynprm",
+    "actuator_trnid", "actuator_trntype", "actuator_dyntype",
+    "actuator_gaintype", "actuator_biastype", "actuator_actadr",
+    "actuator_actnum", "actuator_actlimited", "actuator_actrange",
+    "actuator_actearly", "actuator_lengthrange", "actuator_acc0",
+    "actuator_ctrllimited", "actuator_forcelimited", "actuator_plugin",
+    "actuator_armature", "actuator_damping", "actuator_dampingpoly",
+    "actuator_delay",
     "qpos0", "qpos_spring",
 )
 _SIZE_FIELDS = (
     "nq", "nv", "nu", "na", "nbody", "njnt", "ngeom", "nsite", "nmocap",
-    "neq", "ntendon", "nsensor", "nsensordata", "nflex", "npair", "nplugin",
+    "neq", "ntendon", "nwrap", "nsensor", "nsensordata", "nflex", "npair", "nplugin",
 )
 _OPT_FIELDS = (
     "timestep", "gravity", "wind", "density", "viscosity", "impratio",
@@ -170,12 +186,9 @@ def validate_model(f: Mapping) -> None:
   # before the size refusals, so that a tendon or plugin sensor is refused
   # by its own name
   _validate_sensors(f, bad)
-  # before the size refusals too: a tendon equality or tendon friction loss
-  # is refused by its own name
+  # before the size refusals too: an equality is refused by its own name
   _validate_equalities(f, bad)
-  if np.any(f["tendon_frictionloss"] > 0):
-    bad("tendon frictionloss")
-  for name in ("ntendon", "nflex", "npair", "nplugin", "na"):
+  for name in ("nflex", "npair", "nplugin"):
     if int(f[name]):
       bad(f"{name} = {int(f[name])}")
   for name in _BUDGET_NUMERICS:
@@ -194,19 +207,59 @@ def validate_model(f: Mapping) -> None:
   if (float(f["opt_density"]) > 0 or float(f["opt_viscosity"]) > 0
       or np.any(f["opt_wind"] != 0)):
     bad("fluid forces")
-  if np.any(f["jnt_actfrclimited"]) or np.any(f["jnt_actgravcomp"]):
-    bad("joint-level actuator force limits / actuator gravcomp")
-  jtype_of = f["jnt_type"][np.maximum(f["actuator_trnid"][:, 0], 0)]
-  for i in range(int(f["nu"])):
-    if int(f["actuator_trntype"][i]) != TrnType.JOINT or int(jtype_of[i]) not in (
-        JointType.HINGE, JointType.SLIDE):
-      bad("actuator transmission other than JOINT on a hinge or slide")
-    if int(f["actuator_dyntype"][i]) != DynType.NONE:
-      bad("actuator activation dynamics")
-    if int(f["actuator_gaintype"][i]) != GainType.FIXED:
-      bad("actuator gain other than FIXED")
-    if int(f["actuator_biastype"][i]) != BiasType.NONE:
-      bad("actuator bias")
+  _validate_tendons(f, bad)
+  _validate_actuators(f, bad)
+
+
+def _validate_tendons(f: Mapping, bad) -> None:
+  """Refuses the tendon features the port does not compute, by name."""
+  if int(f["ntendon"]) == 0:
+    return
+  for t in np.unique(f["wrap_type"]):
+    if WrapType(int(t)) == WrapType.NONE:
+      bad("tendon path object NONE")
+  for name, what in (("tendon_armature", "tendon armature"),
+                     ("tendon_actfrclimited", "tendon actuator force limits"),
+                     ("tendon_stiffnesspoly", "tendon polynomial stiffness"),
+                     ("tendon_dampingpoly", "tendon polynomial damping")):
+    if np.any(f[name] != 0):
+      bad(what)
+
+
+def _validate_actuators(f: Mapping, bad) -> None:
+  """Refuses the actuators the port does not compute, by the name of their
+  transmission, dynamics, gain or bias type; muscles need the compiler's
+  lengthrange and acc0 in the snapshot."""
+  nu = int(f["nu"])
+  for i in range(nu):
+    trn = TrnType(int(f["actuator_trntype"][i]))
+    if trn not in (TrnType.JOINT, TrnType.JOINTINPARENT, TrnType.TENDON):
+      bad(f"actuator transmission {trn.name}")
+    dyn = DynType(int(f["actuator_dyntype"][i]))
+    if dyn not in PORTED_DYNAMICS:
+      bad(f"actuator dynamics {dyn.name}")
+    gain = GainType(int(f["actuator_gaintype"][i]))
+    if gain not in PORTED_GAINS:
+      bad(f"actuator gain {gain.name}")
+    bias = BiasType(int(f["actuator_biastype"][i]))
+    if bias not in PORTED_BIASES:
+      bad(f"actuator bias {bias.name}")
+    if int(f["actuator_actnum"][i]) > 1:
+      bad("actuator with more than one activation")
+    muscle = (dyn == DynType.MUSCLE or gain == GainType.MUSCLE
+              or bias == BiasType.MUSCLE)
+    lr = f["actuator_lengthrange"][i]
+    if muscle and not (np.all(np.isfinite(lr)) and lr[1] > lr[0]
+                       and float(f["actuator_acc0"][i]) > 0):
+      bad("muscle without the compiler's lengthrange and acc0")
+  if nu and np.any(f["actuator_plugin"] >= 0):
+    bad("actuator plugins")
+  for name, what in (("actuator_armature", "actuator armature"),
+                     ("actuator_damping", "actuator damping"),
+                     ("actuator_dampingpoly", "actuator polynomial damping"),
+                     ("actuator_delay", "actuator delay")):
+    if np.any(f[name] != 0):
+      bad(what)
 
 
 def build_tree_layout(body_parentid, body_jntnum, dof_parentid, body_dofadr,
@@ -269,19 +322,26 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       "body_pos", "body_quat", "body_ipos", "body_iquat", "body_mass",
       "body_inertia", "body_gravcomp", "body_invweight0", "body_subtreemass",
       "jnt_pos", "jnt_axis", "jnt_stiffness", "jnt_range", "jnt_margin",
-      "jnt_solref", "jnt_solimp",
+      "jnt_solref", "jnt_solimp", "jnt_actfrcrange",
       "dof_armature", "dof_damping", "dof_invweight0", "dof_frictionloss",
       "dof_solref", "dof_solimp", "eq_data", "eq_solref", "eq_solimp",
       "geom_pos", "geom_quat", "geom_size", "geom_friction", "geom_margin",
       "geom_gap", "geom_solref", "geom_solimp", "geom_solmix",
       "site_pos", "site_quat", "site_size", "sensor_cutoff",
       "actuator_gear", "actuator_ctrlrange", "actuator_forcerange",
-      "actuator_gainprm", "qpos0", "qpos_spring",
+      "actuator_gainprm", "actuator_biasprm", "actuator_dynprm",
+      "actuator_actrange", "actuator_lengthrange", "actuator_acc0",
+      "tendon_stiffness", "tendon_damping", "tendon_frictionloss",
+      "tendon_lengthspring", "tendon_length0", "tendon_invweight0",
+      "tendon_range", "tendon_margin", "tendon_solref_lim",
+      "tendon_solimp_lim", "tendon_solref_fri", "tendon_solimp_fri",
+      "qpos0", "qpos_spring",
   )
   int_fields = (
       "body_parentid", "body_rootid", "body_weldid", "body_jntadr",
       "body_jntnum", "body_dofadr", "body_dofnum", "body_mocapid",
       "jnt_type", "jnt_qposadr", "jnt_dofadr", "jnt_limited",
+      "jnt_actfrclimited", "jnt_actgravcomp",
       "dof_bodyid", "dof_jntid", "dof_parentid",
       "eq_type", "eq_obj1id", "eq_obj2id", "eq_objtype", "eq_active0",
       "geom_type", "geom_bodyid", "geom_contype", "geom_conaffinity",
@@ -290,18 +350,25 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       "sensor_type", "sensor_datatype", "sensor_needstage", "sensor_objtype",
       "sensor_objid", "sensor_reftype", "sensor_refid", "sensor_adr",
       "sensor_dim",
-      "actuator_trnid", "actuator_ctrllimited", "actuator_forcelimited",
+      "actuator_trnid", "actuator_trntype", "actuator_dyntype",
+      "actuator_gaintype", "actuator_biastype", "actuator_actadr",
+      "actuator_actnum", "actuator_ctrllimited", "actuator_forcelimited",
+      "actuator_actlimited", "actuator_actearly",
+      "tendon_adr", "tendon_num", "tendon_limited", "wrap_type", "wrap_objid",
   )
   m = Model(
       nq=int(f["nq"]), nv=int(f["nv"]), nu=int(f["nu"]),
       nbody=int(f["nbody"]), njnt=int(f["njnt"]), ngeom=int(f["ngeom"]),
       nsite=int(f["nsite"]), nsensor=int(f["nsensor"]),
       nsensordata=int(f["nsensordata"]), neq=int(f["neq"]),
-      nmocap=int(f["nmocap"]), opt=opt, tree=tree,
+      nmocap=int(f["nmocap"]), na=int(f["na"]), ntendon=int(f["ntendon"]),
+      nwrap=int(f["nwrap"]), opt=opt, tree=tree,
       stat_meaninertia=float(f["stat_meaninertia"]),
       has_dof_damping=bool(np.any(f["dof_damping"] > 0)),
       has_gravcomp=bool(np.any(f["body_gravcomp"] != 0)),
       dof_frictionloss_nz=np.asarray(f["dof_frictionloss"]) > 0,
+      tendon_frictionloss_nz=np.asarray(f["tendon_frictionloss"]) > 0,
+      wrap_prm=np.asarray(f["wrap_prm"], np.float64),
       **{k: t(k) for k in float_fields},
       **{k: i(k) for k in int_fields},
   )
@@ -339,7 +406,7 @@ def mocap_bodies(m: Model) -> np.ndarray:
 def make_data(m: Model, batch: int, device=None, dtype=None) -> Data:
   """A fleet of ``batch`` lanes in the reset state (``mj_resetData``):
   qpos = qpos0, eq_active = eq_active0, each mocap body's pose its
-  body_pos and body_quat, every other input zero, and ``sensordata`` zero.
+  body_pos and body_quat, every other input zero (``act`` too), and ``sensordata`` zero.
   (The JAX package's ``make_data`` puts the mocap bodies at the origin with
   the identity quaternion.)  Derived fields are filled by ``forward`` /
   ``inverse``."""
@@ -363,6 +430,7 @@ def make_data(m: Model, batch: int, device=None, dtype=None) -> Data:
                                 ).expand(batch, m.neq).clone(),
       mocap_pos=pose(m.body_pos),
       mocap_quat=pose(m.body_quat),
+      act=z(m.na),
       sensordata=z(m.nsensordata),
   )
 
@@ -373,7 +441,8 @@ def put_data(m: Model, mjd) -> Data:
       "time": np.array([mjd.time]),
       **{k: np.array(getattr(mjd, k))[None] for k in (
           "qpos", "qvel", "ctrl", "qfrc_applied", "xfrc_applied",
-          "qacc_warmstart", "qacc", "eq_active", "mocap_pos", "mocap_quat")},
+          "qacc_warmstart", "qacc", "eq_active", "mocap_pos", "mocap_quat",
+          "act")},
   })
 
 

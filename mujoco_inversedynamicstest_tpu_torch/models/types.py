@@ -53,7 +53,8 @@ class EqType(enum.IntEnum):
 
 # the equality types the port builds rows for (ops/constraint.py);
 # validate_model refuses every other type by its name
-PORTED_EQUALITIES = frozenset({EqType.CONNECT, EqType.WELD, EqType.JOINT})
+PORTED_EQUALITIES = frozenset({EqType.CONNECT, EqType.WELD, EqType.JOINT,
+                               EqType.TENDON})
 
 
 class ConeType(enum.IntEnum):
@@ -93,18 +94,50 @@ class TrnType(enum.IntEnum):
 
 
 class DynType(enum.IntEnum):
-  """mjtDyn."""
+  """mjtDyn (activation dynamics)."""
   NONE = 0
+  INTEGRATOR = 1
+  FILTER = 2
+  FILTEREXACT = 3
+  MUSCLE = 4
+  DCMOTOR = 5
+  USER = 6
 
 
 class GainType(enum.IntEnum):
   """mjtGain."""
   FIXED = 0
+  AFFINE = 1
+  MUSCLE = 2
+  DCMOTOR = 3
+  USER = 4
 
 
 class BiasType(enum.IntEnum):
   """mjtBias."""
   NONE = 0
+  AFFINE = 1
+  MUSCLE = 2
+  DCMOTOR = 3
+  USER = 4
+
+
+class WrapType(enum.IntEnum):
+  """mjtWrap (tendon path objects)."""
+  NONE = 0
+  JOINT = 1
+  PULLEY = 2
+  SITE = 3
+  SPHERE = 4
+  CYLINDER = 5
+
+
+# what the port computes (ops/forward.py, ops/smooth.py); validate_model
+# refuses every other type by its name
+PORTED_DYNAMICS = frozenset({DynType.NONE, DynType.INTEGRATOR, DynType.FILTER,
+                             DynType.FILTEREXACT, DynType.MUSCLE})
+PORTED_GAINS = frozenset({GainType.FIXED, GainType.AFFINE, GainType.MUSCLE})
+PORTED_BIASES = frozenset({BiasType.NONE, BiasType.AFFINE, BiasType.MUSCLE})
 
 
 class SensorType(enum.IntEnum):
@@ -175,7 +208,7 @@ class ObjType(enum.IntEnum):
 # refuses every other type by its name
 PORTED_SENSORS = frozenset(SensorType[n] for n in (
     "TOUCH", "ACCELEROMETER", "VELOCIMETER", "GYRO", "FORCE", "TORQUE",
-    "JOINTPOS", "JOINTVEL", "ACTUATORPOS", "ACTUATORVEL", "ACTUATORFRC",
+    "JOINTPOS", "JOINTVEL", "TENDONPOS", "TENDONVEL", "ACTUATORPOS", "ACTUATORVEL", "ACTUATORFRC",
     "JOINTACTFRC", "BALLQUAT", "BALLANGVEL", "FRAMEPOS", "FRAMEQUAT",
     "FRAMEXAXIS", "FRAMEYAXIS", "FRAMEZAXIS", "FRAMELINVEL", "FRAMEANGVEL",
     "FRAMELINACC", "FRAMEANGACC", "SUBTREECOM", "SUBTREELINVEL",
@@ -278,6 +311,9 @@ class Model:
   nsensordata: int
   neq: int
   nmocap: int
+  na: int
+  ntendon: int
+  nwrap: int
   opt: Option
   tree: TreeLayout
 
@@ -310,6 +346,9 @@ class Model:
   jnt_qposadr: np.ndarray
   jnt_dofadr: np.ndarray
   jnt_limited: np.ndarray
+  jnt_actfrcrange: torch.Tensor    # (njnt, 2)
+  jnt_actfrclimited: np.ndarray
+  jnt_actgravcomp: np.ndarray
 
   dof_armature: torch.Tensor       # (nv,)
   dof_damping: torch.Tensor        # (nv,)
@@ -369,9 +408,42 @@ class Model:
   actuator_ctrlrange: torch.Tensor  # (nu, 2)
   actuator_forcerange: torch.Tensor  # (nu, 2)
   actuator_gainprm: torch.Tensor   # (nu, 10)
+  actuator_biasprm: torch.Tensor   # (nu, 10)
+  actuator_dynprm: torch.Tensor    # (nu, 10)
+  actuator_actrange: torch.Tensor  # (nu, 2)
+  actuator_lengthrange: torch.Tensor  # (nu, 2)
+  actuator_acc0: torch.Tensor      # (nu,)
   actuator_trnid: np.ndarray
+  actuator_trntype: np.ndarray
+  actuator_dyntype: np.ndarray
+  actuator_gaintype: np.ndarray
+  actuator_biastype: np.ndarray
+  actuator_actadr: np.ndarray
+  actuator_actnum: np.ndarray
   actuator_ctrllimited: np.ndarray
   actuator_forcelimited: np.ndarray
+  actuator_actlimited: np.ndarray
+  actuator_actearly: np.ndarray
+
+  tendon_stiffness: torch.Tensor   # (ntendon,)
+  tendon_damping: torch.Tensor     # (ntendon,)
+  tendon_frictionloss: torch.Tensor  # (ntendon,)
+  tendon_lengthspring: torch.Tensor  # (ntendon, 2)
+  tendon_length0: torch.Tensor     # (ntendon,)
+  tendon_invweight0: torch.Tensor  # (ntendon,)
+  tendon_range: torch.Tensor       # (ntendon, 2)
+  tendon_margin: torch.Tensor      # (ntendon,)
+  tendon_solref_lim: torch.Tensor  # (ntendon, 2)
+  tendon_solimp_lim: torch.Tensor  # (ntendon, 5)
+  tendon_solref_fri: torch.Tensor  # (ntendon, 2)
+  tendon_solimp_fri: torch.Tensor  # (ntendon, 5)
+  tendon_adr: np.ndarray
+  tendon_num: np.ndarray
+  tendon_limited: np.ndarray
+  tendon_frictionloss_nz: np.ndarray  # (ntendon,) bool
+  wrap_prm: np.ndarray             # (nwrap,) divisor, side site or coefficient
+  wrap_type: np.ndarray
+  wrap_objid: np.ndarray
 
   qpos0: torch.Tensor              # (nq,)
   qpos_spring: torch.Tensor        # (nq,)
@@ -446,6 +518,7 @@ class Data:
   eq_active: torch.Tensor       # (B, neq) bool
   mocap_pos: torch.Tensor       # (B, nmocap, 3)
   mocap_quat: torch.Tensor      # (B, nmocap, 4)
+  act: torch.Tensor             # (B, na) actuator activations
 
   # position stage
   xpos: torch.Tensor = None        # (B, nbody, 3)
@@ -465,6 +538,8 @@ class Data:
   crb: torch.Tensor = None         # (B, nbody, 10)
   qM: torch.Tensor = None          # (B, nv, nv)
   qLD: torch.Tensor = None         # (B, nv, nv) lower Cholesky factor of qM
+  ten_length: torch.Tensor = None  # (B, ntendon)
+  ten_J: torch.Tensor = None       # (B, ntendon, nv)
   actuator_length: torch.Tensor = None  # (B, nu)
   actuator_moment: torch.Tensor = None  # (B, nu, nv)
   contact: Contact = None
@@ -480,6 +555,7 @@ class Data:
   # velocity stage
   cvel: torch.Tensor = None        # (B, nbody, 6)
   cdof_dot: torch.Tensor = None    # (B, nv, 6)
+  ten_velocity: torch.Tensor = None  # (B, ntendon)
   actuator_velocity: torch.Tensor = None  # (B, nu)
   qfrc_spring: torch.Tensor = None  # (B, nv)
   qfrc_damper: torch.Tensor = None  # (B, nv)
@@ -489,6 +565,7 @@ class Data:
   efc_aref: torch.Tensor = None    # (B, nefc)
 
   # actuation / acceleration / constraint
+  act_dot: torch.Tensor = None         # (B, na)
   actuator_force: torch.Tensor = None  # (B, nu)
   qfrc_actuator: torch.Tensor = None   # (B, nv)
   qfrc_smooth: torch.Tensor = None     # (B, nv)

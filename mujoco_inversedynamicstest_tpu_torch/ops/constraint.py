@@ -1,16 +1,18 @@
 """Constraint rows with static shapes and activity masks.
 
 Port of ``mujoco_inversedynamicstest_tpu/ops/constraint.py`` for the rows the
-port builds: equality rows of type connect, weld (on bodies or sites) and
-joint; dof friction loss; joint limits on hinges, slides and balls; and
-pyramidal or frictionless contacts.  Every potential row exists every step;
+port builds: equality rows of type connect, weld (on bodies or sites),
+joint and tendon; dof and tendon friction loss; joint limits on hinges,
+slides and balls, and tendon limits; and pyramidal or frictionless
+contacts.  Every potential row exists every step;
 an inactive row (an equality element switched off in its lane by
 ``eq_active``, a limit or contact out of reach) has a zero Jacobian and
 D = 0, which makes it a no-op downstream, as C's packing leaves it out.
-Row order follows C: equality, friction, limits, contacts.
+Row order follows C: equality, friction (dofs, then tendons), limits
+(joints, then tendons), contacts.
 
 The equality elements are grouped by kind (connect or weld, on bodies or
-on sites, and joint) and each group is built in one batch over its
+on sites, joint, and tendon) and each group is built in one batch over its
 elements; a static permutation puts the rows back in element order.
 """
 
@@ -35,7 +37,10 @@ from mujoco_inversedynamicstest_tpu_torch.ops import collision, math, support
 _MINIMP = 0.0001
 _MAXIMP = 0.9999
 
-_EQ_ROWS = {EqType.CONNECT: 3, EqType.WELD: 6, EqType.JOINT: 1}
+_EQ_ROWS = {EqType.CONNECT: 3, EqType.WELD: 6, EqType.JOINT: 1,
+            EqType.TENDON: 1}
+# the equality kinds whose one row couples two scalar positions
+_SCALAR_EQ = (EqType.JOINT, EqType.TENDON)
 
 
 class EqGroup(NamedTuple):
@@ -55,9 +60,11 @@ class RowLayout(NamedTuple):
   eq_groups: tuple        # EqGroup, ...
   eq_perm: np.ndarray | None  # grouped rows -> element order; None: same
   friction_dof: np.ndarray  # dofs with friction loss, one row each
+  friction_ten: np.ndarray  # tendons with friction loss, one row each
   limit_jnt: np.ndarray   # limited hinge/slide joints, one per row pair
   ball_jnt: np.ndarray    # limited ball joints, one row each
   limit_perm: np.ndarray | None  # limit rows -> joint order; None: same
+  limit_ten: np.ndarray   # limited tendons, one per row pair, after joints
 
   @property
   def ncon_start(self) -> int:
@@ -76,8 +83,8 @@ def _build_row_layout(m: Model) -> RowLayout:
   groups, keys = [], []
   if on(DisableBit.EQUALITY) and m.neq:
     site = m.eq_objtype == ObjType.SITE
-    for kind in (EqType.CONNECT, EqType.WELD, EqType.JOINT):
-      for on_site in ((False, True) if kind != EqType.JOINT else (False,)):
+    for kind in (EqType.CONNECT, EqType.WELD) + _SCALAR_EQ:
+      for on_site in ((False,) if kind in _SCALAR_EQ else (False, True)):
         ids = np.nonzero((m.eq_type == kind) & (site == on_site))[0]
         if ids.size:
           groups.append(EqGroup(kind, on_site, ids))
@@ -87,11 +94,12 @@ def _build_row_layout(m: Model) -> RowLayout:
   if len(groups) > 1:
     eq_perm = np.argsort(np.concatenate(keys), kind="stable")
 
-  friction_dof = empty
+  friction_dof = friction_ten = empty
   if on(DisableBit.FRICTIONLOSS):
     friction_dof = np.nonzero(m.dof_frictionloss_nz)[0]
+    friction_ten = np.nonzero(m.tendon_frictionloss_nz)[0]
 
-  limit_jnt = ball_jnt = empty
+  limit_jnt = ball_jnt = limit_ten = empty
   limit_perm = None
   if on(DisableBit.LIMIT):
     limited = np.nonzero(m.jnt_limited)[0]
@@ -102,13 +110,15 @@ def _build_row_layout(m: Model) -> RowLayout:
       # C's order: joint by joint, two rows a hinge or slide, one a ball
       limit_perm = np.argsort(np.concatenate(
           [np.repeat(limit_jnt, 2), ball_jnt]), kind="stable")
-  nf = len(friction_dof)
-  nl = 2 * len(limit_jnt) + len(ball_jnt)
+    limit_ten = np.nonzero(m.tendon_limited)[0]
+  nf = len(friction_dof) + len(friction_ten)
+  nl = 2 * len(limit_jnt) + len(ball_jnt) + 2 * len(limit_ten)
   return RowLayout(ne=ne, nf=nf, nl=nl, ncon_rows=ncon_rows,
                    nefc=ne + nf + nl + ncon_rows, eq_groups=tuple(groups),
                    eq_perm=eq_perm, friction_dof=friction_dof,
-                   limit_jnt=limit_jnt, ball_jnt=ball_jnt,
-                   limit_perm=limit_perm)
+                   friction_ten=friction_ten, limit_jnt=limit_jnt,
+                   ball_jnt=ball_jnt, limit_perm=limit_perm,
+                   limit_ten=limit_ten)
 
 
 def row_layout(m: Model) -> RowLayout:
@@ -218,6 +228,25 @@ def _limit_rows(m: Model, d: Data, jnts: np.ndarray) -> _Rows:
                rep2(m.dof_invweight0[m.const(m.jnt_dofadr[jnts])]))
 
 
+def _tendon_limit_rows(m: Model, d: Data, tens: np.ndarray) -> _Rows:
+  """Two rows (lower, upper) per limited tendon (``mj_instantiateLimit``):
+  the tendon length against its range, the Jacobian ± ten_J."""
+  bsz, nt = d.batch, len(tens)
+  tt = m.const(tens)
+  value = d.ten_length[:, tt]
+  rng = m.tendon_range[tt]
+  margin = m.tendon_margin[tt]
+  dist = torch.stack([value - rng[:, 0], rng[:, 1] - value], dim=-1)
+  act = dist < margin[:, None]
+  signs = m.const(np.array([1.0, -1.0]))
+  jac = d.ten_J[:, tt, None, :] * (signs[:, None] * act[..., None])
+  rep2 = lambda x: torch.repeat_interleave(x, 2, dim=0)
+  dist = dist.reshape(bsz, -1)
+  return _Rows(jac.reshape(bsz, 2 * nt, m.nv), dist, dist,
+               act.reshape(bsz, -1), rep2(margin), rep2(m.tendon_solref_lim[tt]),
+               rep2(m.tendon_solimp_lim[tt]), rep2(m.tendon_invweight0[tt]))
+
+
 def _ball_limit_rows(m: Model, d: Data, jnts: np.ndarray) -> _Rows:
   """One row per limited ball joint (``mj_instantiateLimit``): the
   rotation angle of its quaternion against the larger range bound, the
@@ -246,17 +275,23 @@ def _ball_limit_rows(m: Model, d: Data, jnts: np.ndarray) -> _Rows:
                m.dof_invweight0[m.const(m.jnt_dofadr[jnts])])
 
 
-def _friction_rows(m: Model, d: Data, dofs: np.ndarray) -> _Rows:
-  """One row per dof with friction loss (``mj_instantiateFriction``): a
-  unit Jacobian, position 0, always active."""
-  nf = len(dofs)
-  eye = m.const(np.eye(m.nv)[dofs])
-  dd = m.const(dofs)
-  zero = eye.new_zeros((d.batch, nf))
-  return _Rows(eye.expand(d.batch, nf, m.nv), zero, zero,
-               torch.ones((d.batch, nf), dtype=torch.bool, device=eye.device),
-               eye.new_zeros(nf), m.dof_solref[dd], m.dof_solimp[dd],
-               m.dof_invweight0[dd])
+def _friction_rows(m: Model, d: Data, dofs: np.ndarray,
+                   tens: np.ndarray) -> _Rows:
+  """One row per dof, then per tendon, with friction loss
+  (``mj_instantiateFriction``): a unit Jacobian or the tendon's, position
+  0, always active."""
+  nf = len(dofs) + len(tens)
+  dd, tt = m.const(dofs), m.const(tens)
+  jac = m.const(np.eye(m.nv)[dofs]).expand(d.batch, len(dofs), m.nv)
+  if tens.size:
+    jac = torch.cat([jac, d.ten_J[:, tt]], dim=1)
+  cat = lambda a, b: torch.cat([a[dd], b[tt]])
+  zero = jac.new_zeros((d.batch, nf))
+  return _Rows(jac, zero, zero,
+               torch.ones((d.batch, nf), dtype=torch.bool, device=jac.device),
+               jac.new_zeros(nf), cat(m.dof_solref, m.tendon_solref_fri),
+               cat(m.dof_solimp, m.tendon_solimp_fri),
+               cat(m.dof_invweight0, m.tendon_invweight0))
 
 
 def _eq_anchors(m: Model, d: Data, g: EqGroup):
@@ -300,25 +335,32 @@ def _eq_rows(m: Model, d: Data, g: EqGroup) -> _Rows:
   rep = lambda x: torch.repeat_interleave(x, r, dim=0)
   active = torch.repeat_interleave(d.eq_active[:, ids], r, dim=1)
   solref, solimp = rep(m.eq_solref[ids]), rep(m.eq_solimp[ids])
-  if g.kind == EqType.JOINT:
-    # joint 1's position minus the quartic of joint 2's (data[0:5]); a
-    # single joint reads joint 2 as absent (its terms times 0)
+  if g.kind in _SCALAR_EQ:
+    # object 1's position minus the quartic of object 2's (data[0:5]); a
+    # single object reads object 2 as absent (its terms times 0).  A
+    # joint's position is qpos - qpos0 with a unit Jacobian, a tendon's
+    # ten_length - tendon_length0 with ten_J
     o1, o2 = m.eq_obj1id[g.ids], m.eq_obj2id[g.ids]
     two = m.const((o2 >= 0).astype(float))
     o2 = np.where(o2 >= 0, o2, o1)
     data = m.eq_data[ids]
-    qa = lambda o: (d.qpos[:, m.const(m.jnt_qposadr[o])]
-                    - m.qpos0[m.const(m.jnt_qposadr[o])])
+    if g.kind == EqType.JOINT:
+      qa = lambda o: (d.qpos[:, m.const(m.jnt_qposadr[o])]
+                      - m.qpos0[m.const(m.jnt_qposadr[o])])
+      row = lambda o: m.const(np.eye(nv)[m.jnt_dofadr[o]])
+      invw = lambda o: m.dof_invweight0[m.const(m.jnt_dofadr[o])]
+    else:
+      qa = lambda o: d.ten_length[:, m.const(o)] - m.tendon_length0[m.const(o)]
+      row = lambda o: d.ten_J[:, m.const(o)]
+      invw = lambda o: m.tendon_invweight0[m.const(o)]
     dif = qa(o2) * two
     powers = torch.stack([torch.ones_like(dif), dif, dif**2, dif**3,
                           dif**4], dim=-1)
     pos = qa(o1) - torch.sum(data[:, :5] * powers, dim=-1)
     deriv = (data[:, 1] + 2 * data[:, 2] * dif + 3 * data[:, 3] * dif**2
              + 4 * data[:, 4] * dif**3) * two
-    eye = m.const(np.eye(nv))
-    dof1, dof2 = m.const(m.jnt_dofadr[o1]), m.const(m.jnt_dofadr[o2])
-    jac = eye[dof1] - deriv[..., None] * eye[dof2]
-    diag = m.dof_invweight0[dof1] + two * m.dof_invweight0[dof2]
+    jac = row(o1) - deriv[..., None] * row(o2)
+    diag = invw(o1) + two * invw(o2)
     return _Rows(jac, pos, pos, active, solref.new_zeros(k), solref, solimp,
                  diag)
 
@@ -366,7 +408,7 @@ def equality_wrenches(m: Model, d: Data):
     r, k = _EQ_ROWS[g.kind], len(g.ids)
     rows = at[start:start + k * r]
     start += k * r
-    if g.kind == EqType.JOINT:
+    if g.kind in _SCALAR_EQ:
       continue
     f = d.efc_force[:, m.const(rows)].reshape(d.batch, k, r)
     torque = f[..., 3:] if r == 6 else torch.zeros_like(f)
@@ -389,7 +431,7 @@ def _eq_acc_bias(m: Model, d: Data) -> torch.Tensor:
   lay = row_layout(m)
   out = []
   for g in lay.eq_groups:
-    if g.kind == EqType.JOINT:
+    if g.kind in _SCALAR_EQ:
       out.append(d.qvel.new_zeros((d.batch, len(g.ids))))
       continue
     (p1, b1), (p2, b2) = _eq_anchors(m, d, g)
@@ -505,7 +547,9 @@ def _frictionloss(m: Model) -> torch.Tensor:
   """(nefc,): each row's friction loss, zero outside the friction rows."""
   lay = row_layout(m)
   out = torch.zeros(lay.nefc, dtype=m.dtype, device=m.device)
-  out[lay.ne:lay.ne + lay.nf] = m.dof_frictionloss[m.const(lay.friction_dof)]
+  out[lay.ne:lay.ne + lay.nf] = torch.cat([
+      m.dof_frictionloss[m.const(lay.friction_dof)],
+      m.tendon_frictionloss[m.const(lay.friction_ten)]])
   return out
 
 
@@ -518,8 +562,8 @@ def make_constraint(m: Model, d: Data) -> Data:
     parts.append(_finish(m, _cat_rows(
         [_eq_rows(m, d, g) for g in lay.eq_groups], perm)))
   if lay.nf:
-    parts.append(_finish(m, _friction_rows(m, d, lay.friction_dof),
-                         friction=True))
+    parts.append(_finish(m, _friction_rows(m, d, lay.friction_dof,
+                                           lay.friction_ten), friction=True))
   if lay.nl:
     blocks = []
     if lay.limit_jnt.size:
@@ -527,7 +571,10 @@ def make_constraint(m: Model, d: Data) -> Data:
     if lay.ball_jnt.size:
       blocks.append(_ball_limit_rows(m, d, lay.ball_jnt))
     perm = None if lay.limit_perm is None else m.const(lay.limit_perm)
-    parts.append(_finish(m, _cat_rows(blocks, perm)))
+    blocks = [_cat_rows(blocks, perm)] if blocks else []
+    if lay.limit_ten.size:
+      blocks.append(_tendon_limit_rows(m, d, lay.limit_ten))
+    parts.append(_finish(m, _cat_rows(blocks, None)))
   if lay.ncon_rows:
     parts.append(_contact_rows(m, d))
   if not parts:

@@ -39,6 +39,7 @@ S = SensorType
 # "frameaxis" the rows of the object frame's transpose, [x; y; z].
 _KIND = {
     S.JOINTPOS: ("jointpos", 0), S.JOINTVEL: ("jointvel", 0),
+    S.TENDONPOS: ("tendonpos", 0), S.TENDONVEL: ("tendonvel", 0),
     S.ACTUATORPOS: ("actuatorpos", 0), S.ACTUATORVEL: ("actuatorvel", 0),
     S.ACTUATORFRC: ("actuatorfrc", 0), S.JOINTACTFRC: ("jointactfrc", 0),
     S.BALLQUAT: ("ballquat", 0), S.BALLANGVEL: ("ballangvel", 0),
@@ -297,8 +298,10 @@ def _values(m: Model, d: Data, g: _Group, cache: dict) -> torch.Tensor:
     return d.qvel[:, m.const(m.jnt_dofadr[g.objid])][..., None]
   if k == "jointactfrc":
     return d.qfrc_actuator[:, m.const(m.jnt_dofadr[g.objid])][..., None]
-  if k in ("actuatorpos", "actuatorvel", "actuatorfrc"):
-    field = {"actuatorpos": d.actuator_length,
+  if k in ("tendonpos", "tendonvel", "actuatorpos", "actuatorvel",
+           "actuatorfrc"):
+    field = {"tendonpos": d.ten_length, "tendonvel": d.ten_velocity,
+             "actuatorpos": d.actuator_length,
              "actuatorvel": d.actuator_velocity,
              "actuatorfrc": d.actuator_force}[k]
     return field[:, oid][..., None]

@@ -10,6 +10,8 @@ dimension ``B``.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
 import torch
 
@@ -18,9 +20,12 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
     DisableBit,
     JointType,
     Model,
+    TrnType,
+    WrapType,
 )
 from mujoco_inversedynamicstest_tpu_torch.ops import collision, constraint
-from mujoco_inversedynamicstest_tpu_torch.ops import linalg, math
+from mujoco_inversedynamicstest_tpu_torch.ops import linalg, math, support
+from mujoco_inversedynamicstest_tpu_torch.ops import wrap
 
 
 def _quat_adr(m: Model) -> np.ndarray:
@@ -347,18 +352,194 @@ def com_vel(m: Model, d: Data) -> Data:
   return d.replace(cvel=cvel, cdof_dot=cdof_dot)
 
 
+class _TendonLayout(NamedTuple):
+  """Host tables of the tendons: the fixed tendons as linear maps of qpos
+  and qvel, and every spatial tendon's path cut into segments, a straight
+  one from site to site or a wrap from site around a geom to site, each
+  weighted by 1 / its branch's pulley divisor."""
+  len_map: np.ndarray     # (ntendon, nq) fixed tendons' coefficients
+  jac_map: np.ndarray     # (ntendon, nv)
+  straight: tuple         # (site0 (S,), site1 (S,), weight (ntendon, S))
+  wraps: tuple            # per (is_sphere, ...): see _build_tendon_layout
+
+
+def _build_tendon_layout(m: Model) -> _TendonLayout:
+  len_map = np.zeros((m.ntendon, m.nq))
+  jac_map = np.zeros((m.ntendon, m.nv))
+  straight = ([], [], [], [])          # site0, site1, tendon, weight
+  wraps = {True: ([], [], [], [], [], [], []),
+           False: ([], [], [], [], [], [], [])}
+  for t in range(m.ntendon):
+    adr, num = int(m.tendon_adr[t]), int(m.tendon_num[t])
+    types = m.wrap_type[adr:adr + num]
+    if np.all(types == WrapType.JOINT):
+      for w in range(adr, adr + num):
+        j = int(m.wrap_objid[w])
+        len_map[t, m.jnt_qposadr[j]] += m.wrap_prm[w]
+        jac_map[t, m.jnt_dofadr[j]] += m.wrap_prm[w]
+      continue
+    divisor, j = 1.0, adr
+    while j < adr + num - 1:
+      t0, t1 = types[j - adr], types[j + 1 - adr]
+      if t0 == WrapType.PULLEY or t1 == WrapType.PULLEY:
+        if t0 == WrapType.PULLEY:
+          divisor = float(m.wrap_prm[j])
+        j += 1
+        continue
+      s0 = int(m.wrap_objid[j])
+      if t1 == WrapType.SITE:
+        for lst, v in zip(straight, (s0, int(m.wrap_objid[j + 1]), t,
+                                     1.0 / divisor)):
+          lst.append(v)
+        j += 1
+        continue
+      is_sphere = bool(t1 == WrapType.SPHERE)
+      side = int(round(float(m.wrap_prm[j + 1])))
+      for lst, v in zip(wraps[is_sphere], (
+          s0, int(m.wrap_objid[j + 1]), int(m.wrap_objid[j + 2]),
+          max(side, 0), side >= 0, t, 1.0 / divisor)):
+        lst.append(v)
+      j += 2
+
+  def weight(tendons, weights):
+    w = np.zeros((m.ntendon, len(tendons)))
+    w[tendons, np.arange(len(tendons))] = weights
+    return w
+
+  s0, s1, ts = (np.asarray(x, dtype=np.int64) for x in straight[:3])
+  straight = (s0, s1, weight(ts, np.asarray(straight[3], dtype=float)))
+  groups = []
+  for is_sphere, (s0, geom, s1, side, has_side, ts, ws) in wraps.items():
+    if ts:
+      ints = lambda x: np.asarray(x, dtype=np.int64)
+      groups.append((is_sphere, ints(s0), ints(geom), ints(s1), ints(side),
+                     np.asarray(has_side, dtype=bool),
+                     weight(ints(ts), np.asarray(ws, dtype=float))))
+  return _TendonLayout(len_map, jac_map, straight, tuple(groups))
+
+
+def _segments(m: Model, d: Data, p0, b0: np.ndarray, p1, b1: np.ndarray):
+  """Lengths (B, K) and length Jacobians (B, K, nv) of K straight
+  segments from p0 on bodies b0 to p1 on bodies b1 (``mj_tendon``'s
+  segment: the unit direction times the difference of the end points'
+  Jacobians, zero where both ends are on one body)."""
+  dif = p1 - p0
+  length = torch.sqrt(torch.sum(dif * dif, dim=-1))
+  unit = torch.where((length < math.MINVAL)[..., None],
+                     m.const(np.array([1.0, 0.0, 0.0])),
+                     dif / torch.clamp(length, min=math.MINVAL)[..., None])
+  jac = support.jac(m, d, p1, b1)[0] - support.jac(m, d, p0, b0)[0]
+  jac = torch.sum(jac * unit[:, :, None, :], dim=-1)
+  return length, jac * m.const((b0 != b1).astype(float))[:, None]
+
+
+def tendon(m: Model, d: Data) -> Data:
+  """Tendon lengths and Jacobians (``mj_tendon``).  Fixed tendons are
+  static linear maps of qpos.  Spatial tendons are cut on the host into
+  straight and wrap segments (``_build_tendon_layout``), each kind
+  evaluated in one batch over the fleet and all its segments, and summed
+  into the tendons by static weight matrices, out of place."""
+  if not m.ntendon:
+    return d
+  lay = m.memo("tendon_layout", lambda: _build_tendon_layout(m))
+  length = d.qpos @ m.const(lay.len_map).T
+  jac = m.const(lay.jac_map).expand(d.batch, m.ntendon, m.nv)
+  s0, s1, w = lay.straight
+  if s0.size:
+    ln, jr = _segments(m, d, d.site_xpos[:, m.const(s0)], m.site_bodyid[s0],
+                       d.site_xpos[:, m.const(s1)], m.site_bodyid[s1])
+    length = length + ln @ m.const(w).T
+    jac = jac + torch.einsum("ts,bsv->btv", m.const(w), jr)
+  for is_sphere, s0, geom, s1, side, has_side, w in lay.wraps:
+    p0, p1 = d.site_xpos[:, m.const(s0)], d.site_xpos[:, m.const(s1)]
+    b0, b1, bg = m.site_bodyid[s0], m.site_bodyid[s1], m.geom_bodyid[geom]
+    gg = m.const(geom)
+    shape = p0.shape[:-1]
+    wlen, w0, w1 = wrap.wrap(
+        p0, p1, d.geom_xpos[:, gg], d.geom_xmat[:, gg],
+        m.geom_size[gg, 0].expand(shape), d.site_xpos[:, m.const(side)],
+        m.const(has_side).expand(shape), is_sphere)
+    l_ss, j_ss = _segments(m, d, p0, b0, p1, b1)
+    l_sg, j_sg = _segments(m, d, p0, b0, w0, bg)
+    l_gs, j_gs = _segments(m, d, w1, bg, p1, b1)
+    no_wrap = wlen < 0
+    ln = torch.where(no_wrap, l_ss, l_sg + torch.clamp(wlen, min=0.0) + l_gs)
+    jr = torch.where(no_wrap[..., None], j_ss, j_sg + j_gs)
+    length = length + ln @ m.const(w).T
+    jac = jac + torch.einsum("ts,bsv->btv", m.const(w), jr)
+  return d.replace(ten_length=length, ten_J=jac)
+
+
+def _transmission_pieces(m: Model):
+  """Host tables of ``transmission``: the actuators by kind (hinge or
+  slide joint, ball, free, tendon)."""
+  trn, jid = m.actuator_trntype, m.actuator_trnid[:, 0]
+  joint = (trn == TrnType.JOINT) | (trn == TrnType.JOINTINPARENT)
+  jt = np.where(joint, m.jnt_type[np.where(joint, jid, 0)], -1)
+  return tuple(np.nonzero(sel)[0] for sel in (
+      joint & ((jt == JointType.HINGE) | (jt == JointType.SLIDE)),
+      jt == JointType.BALL, jt == JointType.FREE, trn == TrnType.TENDON))
+
+
 def transmission(m: Model, d: Data) -> Data:
   """Actuator lengths and dense (nu, nv) moments (``mj_transmission``) for
-  joint transmissions on hinges and slides, the kinds ``put_model``
-  accepts."""
+  joint transmissions (on any joint; JOINTINPARENT rotates a ball's or a
+  free joint's rotational gear into the joint's frame) and tendon
+  transmissions; built out of place, so that ``torch.func`` transforms
+  can batch it."""
   if not m.nu:
     return d
-  jid = m.actuator_trnid[:, 0]
-  g0 = m.actuator_gear[:, 0]
-  length = d.qpos[:, m.const(m.jnt_qposadr[jid])] * g0
-  moment = d.qpos.new_zeros((d.batch, m.nu, m.nv))
-  moment[:, m.const(np.arange(m.nu)), m.const(m.jnt_dofadr[jid])] = g0
-  return d.replace(actuator_length=length, actuator_moment=moment)
+  scalar, ball, free, ten = m.memo("transmission", lambda: _transmission_pieces(
+      m))
+  jid, gear = m.actuator_trnid[:, 0], m.actuator_gear
+  inparent = m.actuator_trntype == TrnType.JOINTINPARENT
+  lengths, moments = [], []
+  if scalar.size:
+    adr = m.const(m.jnt_qposadr[jid[scalar]])
+
+    def scalar_constants():
+      g0 = gear[m.const(scalar), 0]
+      mom = np.zeros((len(scalar), m.nv))
+      mom[np.arange(len(scalar)), m.jnt_dofadr[jid[scalar]]] = 1.0
+      return g0, m.const(mom) * g0[:, None]
+
+    g0, mom = m.memo("scalar_transmission", scalar_constants)
+    lengths.append((scalar, d.qpos[:, adr] * g0))
+    moments.append((scalar, mom))
+  for sel, off in ((ball, 0), (free, 3)):
+    if not sel.size:
+      continue
+    quat = math.normalize_quat(d.qpos[:, m.const(
+        m.jnt_qposadr[jid[sel]][:, None] + off + np.arange(4))])
+    g = gear[m.const(sel), off:off + 3].expand(quat.shape[:-1] + (3,))
+    g = torch.where(m.const(inparent[sel][:, None]),
+                    math.rotate(g, math.quat_conj(quat)), g)
+    if off == 0:
+      axis = math.quat_sub(quat, m.const(np.array([1.0, 0.0, 0.0, 0.0])))
+      lengths.append((sel, torch.sum(axis * g, dim=-1)))
+      vals = g
+    else:
+      lengths.append((sel, quat.new_zeros(quat.shape[:-1])))
+      vals = torch.cat([gear[m.const(sel), :3].expand_as(g), g], dim=-1)
+    width = vals.shape[-1]
+    place = np.zeros((len(sel), width, m.nv))
+    for k, j in enumerate(jid[sel]):
+      place[k, np.arange(width), m.jnt_dofadr[j] + np.arange(width)] = 1.0
+    moments.append((sel, torch.einsum("bkc,kcv->bkv", vals, m.const(place))))
+  if ten.size:
+    tid = m.const(jid[ten])
+    g0 = gear[m.const(ten), 0]
+    lengths.append((ten, d.ten_length[:, tid] * g0))
+    moments.append((ten, d.ten_J[:, tid] * g0[:, None]))
+  if len(lengths) == 1:
+    # one kind, in actuator order
+    return d.replace(actuator_length=lengths[0][1],
+                     actuator_moment=moments[0][1].expand(d.batch, m.nu, m.nv))
+  length = support.assemble(m, "actuator_length", lengths)
+  moment = support.assemble(m, "actuator_moment", [
+      (idx, v.transpose(-1, -2)) for idx, v in moments]).transpose(-1, -2)
+  return d.replace(actuator_length=length,
+                   actuator_moment=moment.expand(d.batch, m.nu, m.nv))
 
 
 def rne(m: Model, d: Data, flg_acc: bool = False) -> torch.Tensor:

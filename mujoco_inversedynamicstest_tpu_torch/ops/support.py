@@ -99,7 +99,7 @@ def joint_groups(m: Model) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
   return m.memo("joint_groups", groups)
 
 
-def _assemble(m: Model, key: str, pieces) -> torch.Tensor:
+def assemble(m: Model, key: str, pieces) -> torch.Tensor:
   """Builds a (..., n) tensor out of place from ``pieces``, pairs of a host
   index array and the values (..., len) or (..., rows, cols) that go there;
   together the index arrays cover 0..n-1 once.  Out of place, so that
@@ -139,7 +139,7 @@ def integrate_pos(m: Model, qpos: torch.Tensor, qvel: torch.Tensor,
     vidx = dofadr[free][:, None] + np.arange(3)[None]
     pieces.append((pidx, qpos[..., m.const(pidx)]
                    + dt * qvel[..., m.const(vidx)]))
-  return _assemble(m, "qpos", pieces)
+  return assemble(m, "qpos", pieces)
 
 
 def differentiate_pos(m: Model, qpos1: torch.Tensor, qpos2: torch.Tensor,
@@ -169,4 +169,4 @@ def differentiate_pos(m: Model, qpos1: torch.Tensor, qpos2: torch.Tensor,
     pidx = m.const(qposadr[free][:, None] + np.arange(3)[None])
     vidx = dofadr[free][:, None] + np.arange(3)[None]
     pieces.append((vidx, (qpos2[..., pidx] - qpos1[..., pidx]) / dt))
-  return _assemble(m, "qvel", pieces)
+  return assemble(m, "qvel", pieces)

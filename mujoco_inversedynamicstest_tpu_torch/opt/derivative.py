@@ -4,8 +4,8 @@ Port of ``mujoco_inversedynamicstest_tpu/opt/derivative.py`` for a fleet:
 every function takes a ``Data`` of B lanes and returns one Jacobian a lane.
 
 * ``transition_ad`` / ``transition_fd`` -- analogs of ``mjd_transitionFD``:
-  A, B of ``step`` in the tangent space x = [dq; qvel] (dim 2 nv; the port
-  has no activations).  The AD variant is ``torch.func.vmap`` over
+  A, B of ``step`` in the tangent space x = [dq; qvel; act] (dim 2 nv +
+  na).  The AD variant is ``torch.func.vmap`` over
   ``torch.func.jvp`` of one ``step`` of the B lanes, as the JAX package's
   ``jax.jacfwd``: the primal runs once a lane and the nx + nu unit
   tangents are the vmapped dimension.  The Newton and line-search loops
@@ -47,9 +47,9 @@ from mujoco_inversedynamicstest_tpu_torch.ops import support
 smooth_vel_deriv = forward_mod.smooth_vel_deriv
 
 # the fields step and inverse read; every other field is computed from them
-INPUTS = ("time", "qpos", "qvel", "ctrl", "qfrc_applied", "xfrc_applied",
-           "qacc_warmstart", "qacc", "warning", "eq_active", "mocap_pos",
-           "mocap_quat")
+INPUTS = ("time", "qpos", "qvel", "act", "ctrl", "qfrc_applied",
+          "xfrc_applied", "qacc_warmstart", "qacc", "warning", "eq_active",
+          "mocap_pos", "mocap_quat")
 
 
 # ---------------------------------------------------------------------------
@@ -58,35 +58,39 @@ INPUTS = ("time", "qpos", "qvel", "ctrl", "qfrc_applied", "xfrc_applied",
 
 
 def state_dim(m: Model) -> int:
-  """Tangent state dimension 2 nv (mjd_transitionFD's layout; na = 0)."""
-  return 2 * m.nv
+  """Tangent state dimension 2 nv + na (mjd_transitionFD's layout)."""
+  return 2 * m.nv + m.na
 
 
 def apply_tangent(m: Model, d: Data, dx: torch.Tensor,
                   du: Optional[torch.Tensor] = None) -> Data:
-  """Perturbs every lane of ``d`` by its tangent state dx = [dq; dv]
+  """Perturbs every lane of ``d`` by its tangent state dx = [dq; dv; da]
   (B, nx), and its controls by du (B, nu)."""
   nv = m.nv
   qpos = support.integrate_pos(m, d.qpos, dx[:, :nv], 1.0)
   ctrl = d.ctrl + du if du is not None else d.ctrl
-  return d.replace(qpos=qpos, qvel=d.qvel + dx[:, nv:2 * nv], ctrl=ctrl)
+  return d.replace(qpos=qpos, qvel=d.qvel + dx[:, nv:2 * nv],
+                   act=d.act + dx[:, 2 * nv:], ctrl=ctrl)
 
 
 def measure_tangent(m: Model, d_ref: Data, d: Data) -> torch.Tensor:
   """Tangent coordinates (B, nx) of ``d``'s state relative to ``d_ref``'s."""
   dq = support.differentiate_pos(m, d_ref.qpos, d.qpos, 1.0)
-  return torch.cat([dq, d.qvel - d_ref.qvel], dim=-1)
+  return torch.cat([dq, d.qvel - d_ref.qvel, d.act - d_ref.act], dim=-1)
 
 
 def get_state(m: Model, d: Data) -> torch.Tensor:
-  """Physics state vectors [qpos; qvel] (B, nq + nv) (cf. mjSTATE_PHYSICS)."""
+  """Physics state vectors [qpos; qvel; act] (B, nq + nv + na) (cf.
+  mjSTATE_PHYSICS)."""
   del m
-  return torch.cat([d.qpos, d.qvel], dim=-1)
+  return torch.cat([d.qpos, d.qvel, d.act], dim=-1)
 
 
 def set_state(m: Model, d: Data, x: torch.Tensor) -> Data:
-  """Writes [qpos; qvel] state vectors (B, nq + nv) into ``d``."""
-  return d.replace(qpos=x[:, :m.nq], qvel=x[:, m.nq:m.nq + m.nv])
+  """Writes [qpos; qvel; act] state vectors (B, nq + nv + na) into ``d``."""
+  nq, nv = m.nq, m.nv
+  return d.replace(qpos=x[:, :nq], qvel=x[:, nq:nq + nv],
+                   act=x[:, nq + nv:nq + nv + m.na])
 
 
 def repeat_lanes(d: Data, k: int) -> Data:
@@ -147,7 +151,7 @@ def _sensordata(m: Model, d: Data) -> torch.Tensor:
 
 def transition_jacobian(m: Model, d: Data, flg_sensor: bool = False):
   """One ``step`` of the B lanes of ``d`` with all the tangent columns:
-  (qpos, qvel) of the next state, and the (B, nx, nx + nu) Jacobian of its
+  (qpos, qvel, act) of the next state, and the (B, nx, nx + nu) Jacobian of its
   tangent coordinates by z = [dx; du]; with ``flg_sensor`` also the step's
   sensordata and its (B, nsensordata, nx + nu) Jacobian.
 
@@ -164,21 +168,23 @@ def transition_jacobian(m: Model, d: Data, flg_sensor: bool = False):
 
   def next_state(z):
     dn = forward_mod.step(m, apply_tangent(m, ins, z[:, :nx], z[:, nx:]))
-    return (dn.qpos, dn.qvel) + ((_sensordata(m, dn),) if flg_sensor else ())
+    return (dn.qpos, dn.qvel, dn.act) + ((_sensordata(m, dn),) if flg_sensor
+                                          else ())
 
   def column(e):
     primal, tangent = func.jvp(next_state, (z0,), (e,))
-    qpos, qvel = primal[:2]
-    ref = ins.replace(qpos=qpos, qvel=qvel)
+    qpos, qvel, act = primal[:3]
+    ref = ins.replace(qpos=qpos, qvel=qvel, act=act)
     _, dy = func.jvp(
-        lambda q, v: measure_tangent(m, ref, ref.replace(qpos=q, qvel=v)),
-        (qpos, qvel), tangent[:2])
-    return (dy,) + tangent[2:], primal
+        lambda q, v, a: measure_tangent(m, ref, ref.replace(qpos=q, qvel=v,
+                                                            act=a)),
+        (qpos, qvel, act), tangent[:3])
+    return (dy,) + tangent[3:], primal
 
   jac, primal = func.vmap(column, out_dims=(0, None))(_unit_tangents(d, nz))
   jac = tuple(j.permute(1, 2, 0) for j in jac)
   if flg_sensor:
-    return primal[0], primal[1], jac[0], primal[2], jac[1]
+    return primal[0], primal[1], jac[0], primal[3], jac[1]
   return primal[0], primal[1], jac[0]
 
 
@@ -220,7 +226,8 @@ def transition_fd(m: Model, d: Data, eps: float = 1e-6,
   dn = forward_mod.step(m, apply_tangent(m, repeat_lanes(d, k), z[:, :nx],
                                          z[:, nx:]))
   ref = dn.replace(qpos=dn.qpos[::k].repeat_interleave(k, 0),
-                   qvel=dn.qvel[::k].repeat_interleave(k, 0))
+                   qvel=dn.qvel[::k].repeat_interleave(k, 0),
+                   act=dn.act[::k].repeat_interleave(k, 0))
 
   def differences(y):
     y = y.reshape(d.batch, k, -1)

@@ -34,14 +34,15 @@ from mujoco_inversedynamicstest_tpu_torch.opt import derivative, qp
 
 class State(NamedTuple):
   """Trajectory state samples (the mjSTATE_PHYSICS triple); ``act`` has
-  width 0, since the port has no activations."""
+  width na."""
   qpos: torch.Tensor
   qvel: torch.Tensor
   act: torch.Tensor
 
 
-# cost(m, state, u, t) -> scalar for ONE sample (qpos (nq,), qvel (nv,),
-# u (nu,), t a 0-d tensor); the terminal cost gets u = zeros(nu), t = T.
+# cost(m, state, u, t, *args) -> scalar for ONE sample (qpos (nq,), qvel
+# (nv,), act (na,), u (nu,), t a 0-d tensor, and the sample's problem's row
+# of each of ilqr's cost_args); the terminal cost gets u = zeros(nu), t = T.
 CostFn = Callable[[Model, State, torch.Tensor, torch.Tensor], torch.Tensor]
 
 
@@ -77,7 +78,7 @@ class ILQRResult(NamedTuple):
 
 
 def _state_of(d: Data) -> State:
-  return State(qpos=d.qpos, qvel=d.qvel, act=d.qvel[:, :0])
+  return State(qpos=d.qpos, qvel=d.qvel, act=d.act)
 
 
 def _stack(states) -> State:
@@ -113,37 +114,40 @@ def _terminal(xs: State) -> State:
   return State(*(a[:, -1] for a in xs))
 
 
-def _total_cost(m: Model, cost: CostFn, xs: State, us: torch.Tensor):
-  """(F,) sum over t of cost(x_t, u_t, t), plus cost(x_T, 0, T)."""
+def _total_cost(m: Model, cost: CostFn, xs: State, us: torch.Tensor,
+                args: tuple = ()):
+  """(F,) sum over t of cost(x_t, u_t, t), plus cost(x_T, 0, T); ``args``
+  are (F, ...) rows of each problem's cost arguments."""
   nf, T, nu = us.shape
   ts = torch.arange(T, dtype=us.dtype, device=us.device).repeat(nf)
-  run = func.vmap(lambda s, u, t: cost(m, s, u, t))(
-      _samples(xs, T), us.reshape(nf * T, nu), ts)
+  one = lambda s, u, t, *a: cost(m, s, u, t, *a)
+  run = func.vmap(one)(_samples(xs, T), us.reshape(nf * T, nu), ts,
+                       *(a.repeat_interleave(T, 0) for a in args))
   u_nil = us.new_zeros((nf, nu))
   t_end = us.new_full((nf,), float(T))
-  terminal = func.vmap(lambda s, u, t: cost(m, s, u, t))(
-      _terminal(xs), u_nil, t_end)
+  terminal = func.vmap(one)(_terminal(xs), u_nil, t_end, *args)
   return run.reshape(nf, T).sum(-1) + terminal
 
 
 def _quadratize_cost(m: Model, cost: CostFn, x: State, u: torch.Tensor,
-                     t: torch.Tensor):
+                     t: torch.Tensor, args: tuple = ()):
   """Gradient + Hessian of the cost in tangent coords z = [dx; du] for a
-  batch of samples: x's fields and u are (N, ...), t (N,)."""
+  batch of samples: x's fields, u and the cost arguments are (N, ...), t
+  (N,)."""
   nv, nu = m.nv, m.nu
-  nx = 2 * nv
+  nx = derivative.state_dim(m)
 
-  def one(qpos, qvel, act, uu, tt):
+  def one(qpos, qvel, act, uu, tt, *a):
     def c(z):
       dx, du = z[:nx], z[nx:]
       state = State(support.integrate_pos(m, qpos, dx[:nv], 1.0),
-                    qvel + dx[nv:], act)
-      return cost(m, state, uu + du, tt)
+                    qvel + dx[nv:2 * nv], act + dx[2 * nv:])
+      return cost(m, state, uu + du, tt, *a)
 
     z0 = uu.new_zeros(nx + nu)
     return func.grad(c)(z0), func.hessian(c)(z0)
 
-  g, h = func.vmap(one)(x.qpos, x.qvel, x.act, u, t)
+  g, h = func.vmap(one)(x.qpos, x.qvel, x.act, u, t, *args)
   return (g[:, :nx], g[:, nx:], h[:, :nx, :nx], h[:, nx:, nx:],
           h[:, nx:, :nx])
 
@@ -163,6 +167,7 @@ def _linearize(m: Model, d_template: Data, xs: State, us: torch.Tensor,
     d = derivative.repeat_lanes(d_template, c).replace(
         qpos=xs.qpos[:, t0:t1].flatten(0, 1),
         qvel=xs.qvel[:, t0:t1].flatten(0, 1),
+        act=xs.act[:, t0:t1].flatten(0, 1),
         ctrl=us[:, t0:t1].flatten(0, 1))
     tr = derivative.transition_ad(m, forward_mod.forward(m, d))
     As.append(tr.A.unflatten(0, (nf, c)))
@@ -226,7 +231,8 @@ def _backward(m: Model, cfg: ILQRConfig, As, Bs, lx, lu, lxx, luu, lux,
 
 
 def _forward_pass(m: Model, cfg: ILQRConfig, cost: CostFn, d0: Data,
-                  xs: State, us: torch.Tensor, ks, Ks, u_lo, u_hi):
+                  xs: State, us: torch.Tensor, ks, Ks, u_lo, u_hi,
+                  args: tuple = ()):
   """Feedback rollouts of all F n_alpha (problem, step size) lanes in one
   batch; picks each problem's best."""
   nf, T, nu = us.shape
@@ -240,7 +246,7 @@ def _forward_pass(m: Model, cfg: ILQRConfig, cost: CostFn, d0: Data,
   for t in range(T):
     x_qpos, x_qvel = rep(xs.qpos[:, t]), rep(xs.qvel[:, t])
     dx = torch.cat([support.differentiate_pos(m, x_qpos, d.qpos, 1.0),
-                    d.qvel - x_qvel], dim=-1)
+                    d.qvel - x_qvel, d.act - rep(xs.act[:, t])], dim=-1)
     u = rep(us[:, t]) + alpha * rep(ks[:, t]) + _mv(rep(Ks[:, t]), dx)
     if cfg.limits:
       u = torch.clamp(u, u_lo, u_hi)
@@ -249,7 +255,8 @@ def _forward_pass(m: Model, cfg: ILQRConfig, cost: CostFn, d0: Data,
     controls.append(u)
   xs_all = _stack(states)                                 # (F na, T+1, ...)
   us_all = torch.stack(controls, dim=1)                   # (F na, T, nu)
-  costs = _total_cost(m, cost, xs_all, us_all).reshape(nf, na)
+  costs = _total_cost(m, cost, xs_all, us_all,
+                      tuple(rep(a) for a in args)).reshape(nf, na)
   best = torch.argmin(torch.where(torch.isfinite(costs), costs, torch.inf),
                       dim=1)
   pick = torch.arange(nf, device=us.device) * na + best
@@ -267,35 +274,40 @@ def _control_limits(m: Model, cfg: ILQRConfig, dtype):
           torch.where(limited, rng[:, 1], 1e10))
 
 
-def _quadratize_all(m: Model, cost: CostFn, xs: State, us: torch.Tensor):
+def _quadratize_all(m: Model, cost: CostFn, xs: State, us: torch.Tensor,
+                    args: tuple = ()):
   """Cost derivatives along a trajectory: (lx, lu, lxx, luu, lux) (F, T,
   ...) and the terminal (gT, hT) (F, nx), (F, nx, nx)."""
   nf, T, nu = us.shape
   ts = torch.arange(T, dtype=us.dtype, device=us.device).repeat(nf)
-  parts = _quadratize_cost(m, cost, _samples(xs, T), us.flatten(0, 1), ts)
+  parts = _quadratize_cost(m, cost, _samples(xs, T), us.flatten(0, 1), ts,
+                           tuple(a.repeat_interleave(T, 0) for a in args))
   gT, _, hT, _, _ = _quadratize_cost(m, cost, _terminal(xs),
                                      us.new_zeros((nf, nu)),
-                                     us.new_full((nf,), float(T)))
+                                     us.new_full((nf,), float(T)), args)
   return tuple(p.unflatten(0, (nf, T)) for p in parts), gT, hT
 
 
 def ilqr(m: Model, cost: CostFn, d0: Data, us_init: torch.Tensor,
-         config: Optional[ILQRConfig] = None) -> ILQRResult:
+         config: Optional[ILQRConfig] = None,
+         cost_args: tuple = ()) -> ILQRResult:
   """Iterative LQR for each of the F problems of a fleet:
   min_U sum_t cost(x_t, u_t, t) + cost(x_T, 0, T).
 
-  ``d0`` holds the F initial states (qpos, qvel and the solver's warm
-  start); ``us_init`` is (F, T, nu).
+  ``d0`` holds the F initial states (qpos, qvel, act and the solver's
+  warm start); ``us_init`` is (F, T, nu); ``cost_args`` are (F, ...)
+  tensors, each problem's row passed to its cost (a reach target, say):
+  what the JAX package gets by vmapping ilqr over a closure.
   """
   cfg = config or ILQRConfig()
   nf, T, nu = us_init.shape
-  nx = 2 * m.nv
+  nx = derivative.state_dim(m)
   dtype, dev = us_init.dtype, us_init.device
   u_lo, u_hi = _control_limits(m, cfg, dtype)
   us = torch.clamp(us_init, u_lo, u_hi) if cfg.limits else us_init
 
   xs, _ = rollout_open_loop(m, d0, us)
-  c_prev = _total_cost(m, cost, xs, us)
+  c_prev = _total_cost(m, cost, xs, us, cost_args)
   reg = torch.full((nf,), cfg.reg_init, dtype=dtype, device=dev)
   it = torch.zeros(nf, dtype=torch.int32, device=dev)
   done = torch.zeros(nf, dtype=torch.bool, device=dev)
@@ -305,7 +317,8 @@ def ilqr(m: Model, cost: CostFn, d0: Data, us_init: torch.Tensor,
     if not bool(live.any()):
       break
     As, Bs = _linearize(m, d0, xs, us, cfg.lin_batch)
-    (lx, lu, lxx, luu, lux), gT, hT = _quadratize_all(m, cost, xs, us)
+    (lx, lu, lxx, luu, lux), gT, hT = _quadratize_all(m, cost, xs, us,
+                                                      cost_args)
 
     def bw(reg_in):
       return _backward(m, cfg, As, Bs, lx, lu, lxx, luu, lux, gT, hT,
@@ -325,7 +338,7 @@ def ilqr(m: Model, cost: CostFn, d0: Data, us_init: torch.Tensor,
       escalate = bad & (reg_used < cfg.reg_max)
 
     xs_new, us_new, c_new = _forward_pass(m, cfg, cost, d0, xs, us, ks, Ks,
-                                          u_lo, u_hi)
+                                          u_lo, u_hi, cost_args)
 
     # non-finite guard: a NaN/Inf c_new never replaces the incumbent, and a
     # non-finite incumbent is replaced by any finite plan
@@ -345,7 +358,8 @@ def ilqr(m: Model, cost: CostFn, d0: Data, us_init: torch.Tensor,
 
   if cfg.final_gains:
     As, Bs = _linearize(m, d0, xs, us, cfg.lin_batch)
-    (lx, lu, lxx, luu, lux), gT, hT = _quadratize_all(m, cost, xs, us)
+    (lx, lu, lxx, luu, lux), gT, hT = _quadratize_all(m, cost, xs, us,
+                                                      cost_args)
     ks, Ks, _, _ = _backward(
         m, ILQRConfig(limits=cfg.limits), As, Bs, lx, lu, lxx, luu, lux, gT,
         hT, torch.full((nf,), cfg.reg_min, dtype=dtype, device=dev), u_lo,

@@ -222,14 +222,6 @@ def _snapshot(name, **change):
   return snap
 
 
-TENDON_EQ = MODELS["eq_joint"].replace(
-    '<joint joint1="b" joint2="a" polycoef="0.1 0.5 0.2 0 0"/>',
-    '<tendon tendon1="t"/>').replace(
-        "<equality>", '<tendon><fixed name="t"><joint joint="a" coef="1"/>'
-        '<joint joint="b" coef="-1"/></fixed></tendon><equality>')
-TENDON_FRICTION = MODELS["eq_joint"].replace(
-    "<equality>", '<tendon><fixed name="t" frictionloss="0.3"><joint '
-    'joint="a" coef="1"/></fixed></tendon><equality>')
 # force and torque sensors on a body that a connect or a weld holds
 SENSORS = {
     "slider_crank": MODELS["slider_crank"].replace(
@@ -244,11 +236,11 @@ SENSORS = {
 
 
 @pytest.mark.parametrize("src, what", [
-    (TENDON_EQ, "TENDON equality"),
-    (TENDON_FRICTION, "tendon frictionloss"),
+    (_snapshot("slider_crank", eq_type=[5]), "FLEXVERT equality"),
+    (_snapshot("slider_crank", eq_type=[6]), "FLEXSTRAIN equality"),
     (_snapshot("slider_crank", eq_type=[4]), "FLEX equality"),
     (_snapshot("slider_crank", eq_type=[7]), "DISTANCE equality"),
-], ids=["tendon-equality", "tendon-friction", "flex", "distance"])
+], ids=["flexvert", "flexstrain", "flex", "distance"])
 def test_put_model_refuses_unported_equalities(src, what):
   if isinstance(src, str):
     src = mujoco.MjModel.from_xml_string(src)
@@ -320,7 +312,7 @@ def test_force_torque_sensors_see_equality_forces(name):
     assert np.abs(np.asarray(dj.sensordata) - mjd.sensordata).max() > 1e-2
 
 
-@pytest.mark.parametrize("integrator", ["EULER", "RK4"])
+@pytest.mark.parametrize("integrator", ["EULER", "RK4", "IMPLICITFAST"])
 def test_integrators_carry_eq_active_and_mocap(integrator):
   """The advance and RK4's stages keep each lane's eq_active and mocap
   pose: 10 steps of the mocap weld, its second lane's weld off, against C

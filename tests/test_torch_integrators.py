@@ -138,7 +138,8 @@ def test_newton_counts_no_iteration_without_constraint_rows():
 def test_put_model_takes_the_integrator_from_a_snapshot_mapping():
   """A snapshot Mapping with ``opt_integrator`` set gives the model that the
   MjModel with that integrator gives (how the card, which has no mujoco,
-  picks an integrator); activation dynamics stay refused."""
+  picks an integrator); a model with activation dynamics loads from its
+  snapshot Mapping under each integrator too, and steps as C does."""
   mjm = _humanoid()
   snap = dict(np.load(mt.asset_path("humanoid.npz")))
   for integrator in ("RK4", "IMPLICIT", "IMPLICITFAST"):
@@ -155,8 +156,23 @@ def test_put_model_takes_the_integrator_from_a_snapshot_mapping():
     a = mt.step(from_snap, mt.from_jax_arrays(from_snap, fields))
     b = mt.step(from_mjm, mt.from_jax_arrays(from_mjm, fields))
     torch.testing.assert_close(a.qpos, b.qpos, rtol=0, atol=0)
-  with pytest.raises(NotImplementedError, match="na = "):
-    mt.put_model(mujoco.MjModel.from_xml_string(ACTUATED), device="cpu")
+  mjm = mujoco.MjModel.from_xml_string(ACTUATED)
+  snap = dict(np.load(mt.asset_path("actuated.npz")))
+  for integrator in ("EULER", "RK4", "IMPLICIT", "IMPLICITFAST"):
+    value = int(getattr(mujoco.mjtIntegrator, f"mjINT_{integrator}"))
+    snap["opt_integrator"] = np.array(value)
+    mjm.opt.integrator = value
+    mp = mt.put_model(snap, device="cpu")
+    mjd = mujoco.MjData(mjm)
+    mjd.qvel[:] = np.linspace(-1, 1, mjm.nv)
+    mjd.ctrl[:] = np.linspace(-0.8, 0.8, mjm.nu)
+    d = mt.put_data(mp, mjd)
+    for _ in range(5):
+      mujoco.mj_step(mjm, mjd)
+      d = mt.step(mp, d)
+    for f in ("qpos", "qvel", "act"):
+      np.testing.assert_allclose(getattr(d, f)[0].numpy(), getattr(mjd, f),
+                                 rtol=0, atol=1e-10, err_msg=integrator)
 
 
 @pytest.mark.parametrize("integrator", ["EULER", "RK4", "IMPLICITFAST"])

@@ -226,9 +226,9 @@ def test_ray_geom_matches_jax_and_c(shape):
     assert hits[24:40].all()                     # a closed shape's inside
 
 
-# the ported types the humanoid lacks, on a model without tendons
-# (tests/test_sensor.py's SENSOR_RICH, cut to what the port loads), with
-# cutoffs of both data types and touch sites of four more shapes
+# the ported types the humanoid lacks (tests/test_sensor.py's SENSOR_RICH,
+# cut to what the port loads), with cutoffs of both data types and touch
+# sites of four more shapes; a fixed tendon carries the tendon sensors
 SENSOR_SMALL = """
 <mujoco>
   <option timestep="0.002"/>
@@ -252,10 +252,15 @@ SENSOR_SMALL = """
       </body>
     </body>
   </worldbody>
+  <tendon>
+    <fixed name="ft"><joint joint="elbow" coef="0.7"/></fixed>
+  </tendon>
   <actuator>
     <motor name="m0" joint="elbow" gear="1.2"/>
   </actuator>
   <sensor>
+    <tendonpos tendon="ft"/>
+    <tendonvel tendon="ft"/>
     <jointpos joint="elbow"/>
     <jointvel joint="elbow" cutoff="0.3"/>
     <ballquat joint="ball"/>
@@ -426,7 +431,8 @@ TOUCH_GRID = ('<extension><plugin plugin="mujoco.sensor.touch_grid"/>'
 
 
 @pytest.mark.parametrize("extra, element, what", [
-    (TENDON, '<tendonpos tendon="t"/>', "sensor type TENDONPOS"),
+    (TENDON.replace('name="t"', 'name="t" limited="true" range="-1 1"'),
+     '<tendonlimitpos tendon="t"/>', "sensor type TENDONLIMITPOS"),
     ("", '<jointlimitfrc joint="j"/>', "sensor type JOINTLIMITFRC"),
     ("", "<e_potential/>", "sensor type E_POTENTIAL"),
     ("", '<magnetometer site="s"/>', "sensor type MAGNETOMETER"),

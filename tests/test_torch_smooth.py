@@ -136,8 +136,8 @@ def test_model_entry_points_default_to_the_card():
 @pytest.mark.parametrize("xml, what", [
     (ALL_SMOOTH["pendulum"].replace(
         "<joint ", "<joint name=\"j\" ").replace(
-            "</mujoco>", "<actuator><general joint=\"j\" dyntype=\"filter\" "
-            "dynprm=\"0.05\"/></actuator></mujoco>"), "na = 1"),
+            "</mujoco>", "<actuator><general joint=\"j\" dyntype=\"user\" "
+            "/></actuator></mujoco>"), "actuator dynamics USER"),
     (ALL_SMOOTH["pendulum"].replace(
         "<option ", "<option solver=\"CG\" "), "solver CG"),
     (HUMANOID.replace("<option ", "<option cone=\"elliptic\" "),
