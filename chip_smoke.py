@@ -31,12 +31,13 @@ non-zero:
    bit-equal.
 9. kernel: main-path shapes, and timing: JVP kernels -- all four kernels
    against their plain versions, bit-equal, at every shape at which
-   phases 6-19 launch them (n = 27 for the humanoid, the JVP kernels at
+   phases 6-20 launch them (n = 27 for the humanoid, the JVP kernels at
    (lanes, tangents) (8, 75) fp64, (640, 75), (800, 75), (1024, 75) and
    the folded (76,800, 1), in both layouts; n = 1-6 for phase 18's and
    phase 19's models, each dof block and nv, the JVPs at (8, 7) fp64 and,
    on the tendon arm (n = 2), at 16 tangents a lane: (8) fp64 and the
-   reach iLQR's linearization, (12,800) fp32 and (200) fp64); then at the
+   reach iLQR's linearization, (12,800) fp32 and (200) fp64; n = 6, 30
+   and 36 for phase 20's models, the JVPs at (8, 72) fp64); then at the
    bench's chunk (1024 lanes, 75 tangents) the JVP kernels timed against
    the plain versions, their bounds (L read once a lane) and
    torch.func.vmap over torch.func.jvp of torch.linalg.cholesky /
@@ -55,7 +56,8 @@ non-zero:
 12. slice: MPC fleet -- northstar.measure_solves_per_sec on humanoid_mjx,
    fp32, H = 100, 2 iLQR iterations, 8 alphas, F = 32, lin_batch = 20
    (a linearization chunk of 640 lanes x 75 tangents), n_apply = 100
-   (the whole plan is executed); solves/s, first-run seconds, finite
+   (the whole plan is executed), one timed run (its cold run, as long in
+   PyTorch, cut for time); solves/s, finite
    lanes (>= 0.9), mean iterations, the plan cost's mean and median, peak
    memory, launches of all four kernels.  humanoid_mjx diverges from
    these states in C too (tests/test_torch_opt.py), so its plan costs
@@ -138,13 +140,34 @@ non-zero:
    transition_ad of 8 tendon-arm lanes (fp64; A 10 x 10, B 10 x 6) against
    the plain versions (<= 1e-9) and transition_fd (centered, eps 1e-6,
    zero warm start; within 1e-4 of max|A| and of max|B|).
+20. slice: boxes and convex meshes -- box, plane-cylinder and convex-mesh
+   collision (the SAT narrowphase over the hulls put_model builds) on the
+   two models of assets/ (box_stack: three stacked boxes, a sphere, a
+   capsule and a cylinder, nv 36; convex_mesh: a tetrahedron, an
+   icosahedron, a box, a sphere and a capsule, nv 30): each at B = 4096
+   fp32, 20 steps (step_n, after a warm-up step) under EULER from seeded
+   states at rest in contact: steps/s, finite lanes, each primal kernel's
+   launches a step, peak memory, active contacts a lane (mean, max); the
+   collision stage's device ms and launches against those of 2 profiled
+   steps; the primal kernels timed at each nv and dof-block size (4096
+   lanes fp32).  Then each model's 5 steps of 64 lanes fp64 with the
+   kernels against 5 with the plain versions (qpos, qvel, efc_force
+   within 1e-9), and the fp32 contacts of the first and last of those
+   states against the fp64 ones: each (lane, geom pair)'s active contacts
+   the same, their depths within 1e-4.  Then the fork's inverse_test on
+   box_stack under RK4, 64 lanes fp64, 60 steps of fresh qfrc_applied and
+   xfrc_applied (both solver_fwdinv entries <= 1e-6 on every lane at every
+   step), and transition_ad of 8 box-stack lanes (fp64) against the plain
+   versions (<= 1e-9) and transition_fd (centered, eps 1e-6, zero warm
+   start; within 1e-4 of max|A|).
 
 Phase 10 also runs transition_ad of the Newton-100 humanoid under RK4 and
 IMPLICIT (the qDeriv Jacobian nested in the dual step).  Every kernel
-launch of phases 6-19 must be at a shape (n, lanes[, tangents], dtype) that
+launch of phases 6-20 must be at a shape (n, lanes[, tangents], dtype) that
 phase 9 checked.  Then
 one JSON line of the kernel report (launches: the sum over the main paths,
-phases 6, 12, 15, 16, 17, 18 and 19, each read with the counts reset before it;
+phases 6, 12, 15, 16, 17, 18, 19 and 20, each read with the counts reset
+before it;
 by path beside it; the JVP kernels with the tangent counts of their phase 12
 launches), the nvidia-smi line, and the result line.  There is no CPU path: without
 CUDA the script fails.  It imports neither jax nor mujoco: the models
@@ -161,6 +184,10 @@ for the Newton-100 humanoid.
 
 runs only the build and phase 6, to compare the fleet step of two
 checkouts: run this file from each, in turns.
+
+    python3 chip_smoke.py --convex
+
+runs only the build and phase 20.
 """
 
 from __future__ import annotations
@@ -213,6 +240,11 @@ TENDON_MODELS = ("tendon_arm", "actuated", "tendon_rows")
 TENDON_STEPS, ARM_INVERSE_STEPS = 20, 60
 REACH_F, REACH_H, REACH_ITERATIONS, REACH_ALPHAS = 256, 50, 2, 8
 REACH_CHECK_LANES, REACH_CHECK_ITERATIONS = 4, 1
+# phase 20: the convex slice's models (boxes, a cylinder on the plane,
+# convex meshes), their fleets, and the fork's inverse_test on the box stack
+# (60 steps of 0.002 s, as phase 19's arm, for time)
+CONVEX_MODELS = ("box_stack", "convex_mesh")
+CONVEX_STEPS, BOX_INVERSE_STEPS = 20, 60
 GRID_N, GRID_B = (1, 2, 6, 27, 32, 33, 64, 128), (1, 127, 4096)
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}  # of max|reference|
 # NVIDIA's H100 SXM data sheet: memory rate, and fp32 outside tensor cores
@@ -628,6 +660,30 @@ def tendon_shapes(mt) -> tuple[set, set]:
   return primal, jvp
 
 
+def convex_shapes(mt) -> tuple[set, set]:
+  """Phase 20's launches, as ``constraint_shapes`` counts them: each
+  model's nv and dof blocks (six-dof free bodies) at the fleet (4096
+  fp32), the 64-lane fp64 runs and the 64-lane fp32 contacts; on the box
+  stack also transition_ad's 8 lanes (JVPs at 2 nv tangents) and
+  transition_fd's 8 x (4 nv + 1) copies."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import smooth
+
+  primal, jvp = set(), set()
+  for name in CONVEX_MODELS:
+    m = constraint_model(mt, name, "cpu", torch.float64)
+    blocks = smooth._dof_blocks(m)
+    sizes = {(m.nv, 1)} | ({(sz, len(st)) for sz, st in blocks.items()}
+                           if blocks else set())
+    runs = [(FLEET, torch.float32), (64, torch.float64),
+            (64, torch.float32)]
+    if name == "box_stack":
+      nz = 2 * m.nv + m.nu
+      runs += [(8, torch.float64), (8 * (2 * nz + 1), torch.float64)]
+      jvp |= {(sz, 8 * k, nz, torch.float64) for sz, k in sizes}
+    primal |= {(sz, b * k, dt) for sz, k in sizes for b, dt in runs}
+  return primal, jvp
+
+
 def path_shapes(mt) -> tuple[list, list]:
   """The launches of phases 6-18 and of --bench: (n, B, dtype) of the
   primal kernels and (n, B, T, dtype) of the JVP kernels.  Phases 6-17 and
@@ -653,9 +709,11 @@ def path_shapes(mt) -> tuple[list, list]:
   jvp = {(27,) + s for s in jvp}
   more_primal, more_jvp = constraint_shapes(mt)
   tendon_primal, tendon_jvp = tendon_shapes(mt)
+  convex_primal, convex_jvp = convex_shapes(mt)
   key = lambda s: (str(s[-1]),) + s[:-1]
-  return (sorted(primal | more_primal | tendon_primal, key=key),
-          sorted(jvp | more_jvp | tendon_jvp, key=key))
+  return (sorted(primal | more_primal | tendon_primal | convex_primal,
+                 key=key),
+          sorted(jvp | more_jvp | tendon_jvp | convex_jvp, key=key))
 
 
 def check_path_kernels(mt, linalg, dev) -> dict:
@@ -1084,10 +1142,13 @@ def plan_costs(costs: torch.Tensor) -> str:
 def mpc_fleet(mt, linalg, dev, asset: str, run: tuple,
               profile_run: bool = False) -> tuple[dict, object, object]:
   """Phase 12: the north-star fleet MPC on ``asset`` with ``run`` = (F,
-  lin_batch, n_apply) through northstar.measure_solves_per_sec (a cold
-  run, then the timed warm run).  With ``profile_run``, one more solve of
-  the fleet timed by iLQR stage (profile_mpc).  Returns the launch counts
-  of the measured runs, the result and the config."""
+  lin_batch, n_apply) through northstar.measure_solves_per_sec: one timed
+  run, in a process whose kernels are built and warm (its cold run, which
+  costs the same in PyTorch: 155.5 s against the warm 162.9 s on an H100,
+  is cut for time); --bench (``profile_run``) times a cold run, then the
+  warm run, then one more solve of the fleet by iLQR stage
+  (profile_mpc).  Returns the launch counts of the measured runs, the
+  result and the config."""
   from mujoco_inversedynamicstest_tpu_torch.opt import northstar
 
   m = mt.put_model(mt.asset_path(asset), device=dev, dtype=torch.float32)
@@ -1097,7 +1158,8 @@ def mpc_fleet(mt, linalg, dev, asset: str, run: tuple,
   torch.cuda.reset_peak_memory_stats()
   reset_launches(linalg)
   res = northstar.measure_solves_per_sec(m, northstar.balance_cost(m),
-                                         mt.make_data(m, 1), cfg)
+                                         mt.make_data(m, 1), cfg,
+                                         cold_run=profile_run)
   launches = read_launches(linalg)
   tangents = read_tangents(linalg)
   peak = torch.cuda.max_memory_allocated() / 2**30
@@ -1112,11 +1174,11 @@ def mpc_fleet(mt, linalg, dev, asset: str, run: tuple,
       f"{asset} fp32 F={fleet} H={MPC_HORIZON} iterations=2 alphas=8 "
       f"lin_batch={lin_batch} ({fleet * lin_batch} lanes x 75 tangents a "
       f"linearization chunk) n_apply={n_apply}: {res.solves_per_sec:.4f} "
-      f"solves/s ({res.wall_time_s:.3f} s warm run); first run "
+      f"solves/s ({res.wall_time_s:.3f} s timed run); cold run "
       f"{res.compile_time_s:.3f} s; finite lanes "
       f"{res.finite_lane_fraction:.4f}; mean iterations "
       f"{res.mean_iterations:.3f}; {plan_costs(res.run.plan_costs[:, 0])}; "
-      f"peak {peak:.2f} GiB; launches (both runs) {launches}, tangents a "
+      f"peak {peak:.2f} GiB; launches (every run) {launches}, tangents a "
       f"lane {tangents}")
   if profile_run:
     profile_mpc(m, northstar, cfg, northstar.make_fleet(
@@ -1962,6 +2024,228 @@ def tendon_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
   return total, small
 
 
+def convex_data(mt, m, batch: int, seed: int):
+  """qpos0 (the scene at rest in contact) moved by 0.005 randn in each
+  dof's tangent direction, qvel 0.05 randn, from a seeded numpy
+  generator."""
+  rng = np.random.RandomState(seed)
+  t = lambda *shape: torch.as_tensor(rng.randn(batch, *shape), dtype=m.dtype,
+                                     device=m.device)
+  d = mt.make_data(m, batch)
+  return d.replace(qpos=mt.integrate_pos(m, d.qpos, 0.005 * t(m.nv), 1.0),
+                   qvel=0.05 * t(m.nv))
+
+
+def contact_sets(collision, m, d) -> tuple[torch.Tensor, torch.Tensor]:
+  """Each (lane, geom pair)'s active contact depths as a set: (B, pairs,
+  slots) depths sorted ascending, +inf where inactive, and (B, pairs)
+  counts.  Slots of one pair are contiguous in the layout."""
+  lay = collision.contact_layout(m)
+  dist = torch.where(d.contact.dist < d.contact.includemargin,
+                     d.contact.dist.double(), float("inf"))
+  sets = []
+  start = 0
+  for grp in lay.groups:
+    n = len(grp.geom1) * grp.nslot
+    sets.append(dist[:, start:start + n].reshape(d.batch, len(grp.geom1),
+                                                 grp.nslot))
+    start += n
+  width = max(x.shape[-1] for x in sets)
+  pad = lambda x: torch.nn.functional.pad(x, (0, width - x.shape[-1]),
+                                          value=float("inf"))
+  out = torch.sort(torch.cat([pad(x) for x in sets], 1), dim=-1).values
+  return out, torch.isfinite(out).sum(-1)
+
+
+def convex_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
+  """Phase 20: the convex slice's two models' fleets, the collision
+  stage's share of two profiled steps, the kernels against the plain
+  versions, the fp32 contacts against the fp64 ones, the fork's
+  inverse_test on box_stack, and transition_ad.  Returns the kernels'
+  launches of the kernel runs, each read with the counts reset before it,
+  and the primal kernels' timings at each model's nv."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import collision, smooth
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  t_phase = time.perf_counter()
+  total = dict.fromkeys(KERNELS, 0)
+
+  def add(launches):
+    for k in KERNELS:
+      total[k] += launches[k]
+
+  for name in CONVEX_MODELS:
+    m = constraint_model(mt, name, dev, torch.float32)
+    d = mt.step(m, convex_data(mt, m, FLEET, seed=20))  # warm-up step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(linalg)
+    t0 = time.perf_counter()
+    d = mt.step_n(m, d, CONVEX_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    launches = read_launches(linalg)
+    add(launches)
+    for k in ("chol_factor", "chol_solve"):
+      if not launches[k]:
+        raise AssertionError(f"{k} was not launched on {name}")
+    finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
+    if not bool(finite.all()):
+      raise AssertionError(f"{name}: {int((~finite).sum())} non-finite lanes")
+    active = (d.contact.dist < d.contact.includemargin).sum(1).float()
+    lay = collision.contact_layout(m)
+    log("slice: boxes and convex meshes",
+        f"{name} (nv {m.nv}, {lay.ncon} contact slots in {len(lay.groups)} "
+        f"pair groups) B={FLEET} fp32 EULER: {CONVEX_STEPS} steps in "
+        f"{seconds:.3f} s = {FLEET * CONVEX_STEPS / seconds:.1f} steps/s on "
+        f"{card}; launches a step " + ", ".join(
+            f"{k} {v / CONVEX_STEPS:g}" for k, v in launches.items()
+            if not k.endswith("_jvp"))
+        + f"; finite lanes {int(finite.sum())} of {FLEET}; auto-resets "
+        f"{int(d.warning.sum())}; active contacts a lane mean "
+        f"{float(active.mean()):.2f}, max {int(active.max())}; peak "
+        f"{peak:.3f} GiB")
+
+    # the collision stage's share of two profiled steps
+    step_ms, step_launches, per_launch = device_profile(
+        lambda: mt.step_n(m, d, 2))
+    pos = mt.fwd_position(m, d)
+    collide = lambda: collision.collision(m, pos)
+    collide()
+    col_ms, col_launches, _ = device_profile(collide)
+    log("profile: collision",
+        f"{name} B={FLEET} fp32: a step {step_ms / 2:.3f} device ms / "
+        f"{step_launches / 2:.0f} launches; collision {col_ms:.3f} ms / "
+        f"{col_launches} launches = {col_ms / (step_ms / 2):.1%} of the "
+        f"step's device time, {col_launches / (step_launches / 2):.1%} of "
+        "its launches; in the steps " + ", ".join(
+            f"{k} {us:.2f} us/launch ({count})"
+            for k, (us, count) in per_launch.items() if count))
+
+  times = {}
+  for name in CONVEX_MODELS:
+    m = constraint_model(mt, name, "cpu", torch.float64)
+    for n in sorted({m.nv} | set(smooth._dof_blocks(m) or ())):
+      if str(n) not in times.get("chol_factor", {}).get("by_n", {}):
+        for k, v in time_kernels(linalg, dev, n).items():
+          times.setdefault(k, {"by_n": {}})["by_n"][str(n)] = v
+
+  # kernels against plain versions, fp64, 64 lanes, 5 steps; then the fp32
+  # contacts of the same 64 states against the fp64 ones
+  errs, sets = [], []
+  for name in CONVEX_MODELS:
+    m = constraint_model(mt, name, dev, torch.float64)
+    d0 = convex_data(mt, m, 64, seed=21)
+    d_k = d_p = d0
+    err = 0.0
+    for _ in range(5):
+      d_k = mt.step(m, d_k)
+      with plain_cholesky(linalg):
+        d_p = mt.step(m, d_p)
+      err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)).abs().max())
+                       for f in ("qpos", "qvel", "efc_force")))
+    if not err <= 1e-9:
+      raise AssertionError(f"{name} fp64 steps, kernels vs plain: {err:.3e}")
+    errs.append(f"{name} {err:.3e}")
+
+    m32 = constraint_model(mt, name, dev, torch.float32)
+    reset_launches(linalg)
+    for d64 in (d0, d_k):
+      c64 = mt.fwd_position(m, d64)
+      c32 = mt.fwd_position(m32, mt.make_data(m32, 64).replace(
+          qpos=d64.qpos.float(), qvel=d64.qvel.float()))
+      s64, n64 = contact_sets(collision, m, c64)
+      s32, n32 = contact_sets(collision, m32, c32)
+      if not torch.equal(n64, n32):
+        raise AssertionError(f"{name}: fp32 and fp64 active contacts differ "
+                             f"on {int((n64 != n32).sum())} (lane, pair)s")
+      both = torch.isfinite(s64)
+      derr = float((s64 - s32)[both].abs().max())
+      if not derr <= 1e-4:
+        raise AssertionError(f"{name}: fp32 vs fp64 contact depth {derr:.3e}")
+      sets.append(f"{name} {int(n64.sum())} active, max |ddist| {derr:.3e}")
+    add(read_launches(linalg))
+  log("slice: boxes and convex meshes",
+      "64 lanes fp64, 5 steps, kernels vs plain, max |dqpos|,|dqvel|,"
+      "|defc_force| (tol 1e-9): " + ", ".join(errs) + "; the fp32 contacts "
+      "of the first and last of those states against the fp64 ones, each "
+      "(lane, geom pair)'s set: the same active contacts, depths (tol "
+      "1e-4): " + ", ".join(sets))
+
+  # the fork's inverse_test on box_stack: RK4, fresh forces every step
+  b = 64
+  gen = torch.Generator(device=dev).manual_seed(20)
+  m = constraint_model(mt, "box_stack", dev, torch.float64, "RK4")
+  randn = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                     dtype=m.dtype)
+  d = convex_data(mt, m, b, seed=22)
+  worst = torch.zeros(2, dtype=m.dtype, device=dev)
+  ok = torch.ones((), dtype=torch.bool, device=dev)
+  active = torch.zeros((), dtype=torch.long, device=dev)
+  reset_launches(linalg)
+  t0 = time.perf_counter()
+  for _ in range(BOX_INVERSE_STEPS):
+    d = d.replace(qfrc_applied=0.3 * randn(b, m.nv),
+                  xfrc_applied=0.3 * randn(b, m.nbody, 6))
+    fwd = mt.compare_fwd_inv(m, mt.forward(m, d))
+    ok &= (fwd.solver_fwdinv <= 1e-6).all()
+    worst = torch.maximum(worst, fwd.solver_fwdinv.amax(0))
+    active += (fwd.contact.dist < fwd.contact.includemargin).sum()
+    d = mt.step(m, d)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = read_launches(linalg)
+  add(launches)
+  if not launches["chol_factor"] or not launches["chol_solve"]:
+    raise AssertionError(f"a kernel was not launched: {launches}")
+  if not bool(ok) or not bool(torch.isfinite(d.qpos).all()):
+    raise AssertionError(f"solver_fwdinv above 1e-6: max {worst.tolist()}")
+  log("slice: boxes and convex meshes",
+      f"inverse_test box_stack RK4 {b} lanes fp64, {BOX_INVERSE_STEPS} steps "
+      f"of {m.opt.timestep:g} s in {seconds:.3f} s, fresh forces a step: max "
+      f"solver_fwdinv [{float(worst[0]):.3e}, {float(worst[1]):.3e}] over "
+      f"every lane and step (tol 1e-6); active contacts a lane "
+      f"{float(active) / b / BOX_INVERSE_STEPS:.2f}; launches a step "
+      + ", ".join(f"{k} {v / BOX_INVERSE_STEPS:g}"
+                  for k, v in launches.items() if not k.endswith("_jvp")))
+
+  # transition_ad of 8 box-stack lanes at rest in contact
+  m = constraint_model(mt, "box_stack", dev, torch.float64)
+  d = mt.forward(m, convex_data(mt, m, 8, seed=23))
+  reset_launches(linalg)
+  t0 = time.perf_counter()
+  ad = derivative.transition_ad(m, d)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = read_launches(linalg)
+  if not all(launches.values()):
+    raise AssertionError(f"a kernel was not launched: {launches}")
+  add(launches)
+  with plain_cholesky(linalg):
+    plain = derivative.transition_ad(m, d)
+  fd = derivative.transition_fd(
+      m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
+      eps=1e-6, flg_centered=True)
+  err_plain = float((ad.A - plain.A).abs().max())
+  err_fd = float((ad.A - fd.A).abs().max())
+  scale = float(fd.A.abs().max())
+  if not err_plain <= 1e-9:
+    raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
+  if not err_fd <= 1e-4 * scale:
+    raise AssertionError(f"transition_ad vs transition_fd: {err_fd:.3e}")
+  ncon = int((d.contact.dist < d.contact.includemargin).sum())
+  log("slice: boxes and convex meshes",
+      f"box_stack 8 lanes fp64 EULER, {ncon} active contacts: transition_ad "
+      f"{seconds:.3f} s, A {tuple(ad.A.shape)}; kernels vs plain max |dA| "
+      f"{err_plain:.3e} (tol 1e-9); vs transition_fd (centered, eps 1e-6) "
+      f"{err_fd:.3e} (tol 1e-4 of max|A| = {1e-4 * scale:.3e}); launches "
+      f"{launches}, tangents a lane {read_tangents(linalg)}")
+  log("slice: boxes and convex meshes",
+      f"phase 20 in {time.perf_counter() - t_phase:.1f} s")
+  return total, times
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   mode = parser.add_mutually_exclusive_group()
@@ -1970,6 +2254,8 @@ def main() -> None:
                     "each humanoid, with a solve timed by iLQR stage")
   mode.add_argument("--fleet", action="store_true",
                     help="only the fleet step, to compare two checkouts")
+  mode.add_argument("--convex", action="store_true",
+                    help="only phase 20, the boxes and convex meshes")
   args = parser.parse_args()
   if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -1997,6 +2283,8 @@ def main() -> None:
       mpc_fleet(mt, linalg, dev, asset, MPC_BENCH, profile_run=True)
   elif args.fleet:
     fleet_step(mt, linalg, dev, smi)
+  elif args.convex:
+    convex_slice(mt, linalg, dev, smi)
   else:
     slice_err = check_kernels(linalg, dev)
     slice_err.update(check_jvp_kernels(linalg, dev))
@@ -2022,8 +2310,10 @@ def main() -> None:
     by_path["constraint_rows"], times_small = constraint_rows(
         mt, linalg, dev, smi)
     by_path["tendons"], times_n2 = tendon_slice(mt, linalg, dev, smi)
-    for k, v in times_n2.items():
-      times_small.setdefault(k, {"by_n": {}})["by_n"].update(v["by_n"])
+    by_path["convex"], times_convex = convex_slice(mt, linalg, dev, smi)
+    for more in (times_n2, times_convex):
+      for k, v in more.items():
+        times_small.setdefault(k, {"by_n": {}})["by_n"].update(v["by_n"])
     launches = {k: sum(p.get(k, 0) for p in by_path.values())
                 for k in KERNELS}
     checked = set().union(*path_shapes(mt))

@@ -31,6 +31,7 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
     FRAME_OBJECTS,
     FRAME_SENSORS,
     GainType,
+    GeomType,
     IntegratorType,
     JointType,
     Model,
@@ -71,7 +72,8 @@ _ARRAY_FIELDS = (
     "geom_pos", "geom_quat", "geom_size", "geom_friction", "geom_margin",
     "geom_gap", "geom_solref", "geom_solimp", "geom_solmix", "geom_type",
     "geom_bodyid", "geom_contype", "geom_conaffinity", "geom_condim",
-    "geom_priority", "exclude_signature",
+    "geom_priority", "geom_dataid", "exclude_signature",
+    "mesh_vert", "mesh_vertadr", "mesh_vertnum",
     "site_pos", "site_quat", "site_size", "site_type", "site_bodyid",
     "sensor_type", "sensor_datatype", "sensor_needstage", "sensor_objtype",
     "sensor_objid", "sensor_reftype", "sensor_refid", "sensor_adr",
@@ -90,7 +92,8 @@ _ARRAY_FIELDS = (
 )
 _SIZE_FIELDS = (
     "nq", "nv", "nu", "na", "nbody", "njnt", "ngeom", "nsite", "nmocap",
-    "neq", "ntendon", "nwrap", "nsensor", "nsensordata", "nflex", "npair", "nplugin",
+    "neq", "ntendon", "nwrap", "nsensor", "nsensordata", "nflex", "npair",
+    "nplugin", "nmesh",
 )
 _OPT_FIELDS = (
     "timestep", "gravity", "wind", "density", "viscosity", "impratio",
@@ -292,6 +295,19 @@ def build_tree_layout(body_parentid, body_jntnum, dof_parentid, body_dofadr,
                     ancestor_mask=ancestor_mask, body_dof_mask=body_dof_mask)
 
 
+def _mesh_hulls(f: Mapping) -> tuple:
+  """Each mesh's convex hull topology (``ops/hull.py``), built on the host
+  only when a mesh geom can collide; ``()`` otherwise."""
+  mesh = np.asarray(f["geom_type"]) == GeomType.MESH
+  if not np.any(mesh & ((np.asarray(f["geom_contype"]) != 0)
+                        | (np.asarray(f["geom_conaffinity"]) != 0))):
+    return ()
+  from mujoco_inversedynamicstest_tpu_torch.ops import hull
+
+  return hull.mesh_hulls(f["mesh_vert"], f["mesh_vertadr"],
+                         f["mesh_vertnum"])
+
+
 def put_model(src, device="cuda", dtype=torch.float64) -> Model:
   """Builds the port's ``Model`` from a ``mujoco.MjModel``, a snapshot
   ``.npz`` path, or a mapping of snapshot arrays, on the card unless
@@ -345,7 +361,7 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       "dof_bodyid", "dof_jntid", "dof_parentid",
       "eq_type", "eq_obj1id", "eq_obj2id", "eq_objtype", "eq_active0",
       "geom_type", "geom_bodyid", "geom_contype", "geom_conaffinity",
-      "geom_condim", "geom_priority", "exclude_signature",
+      "geom_condim", "geom_priority", "geom_dataid", "exclude_signature",
       "site_type", "site_bodyid",
       "sensor_type", "sensor_datatype", "sensor_needstage", "sensor_objtype",
       "sensor_objid", "sensor_reftype", "sensor_refid", "sensor_adr",
@@ -369,6 +385,7 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       dof_frictionloss_nz=np.asarray(f["dof_frictionloss"]) > 0,
       tendon_frictionloss_nz=np.asarray(f["tendon_frictionloss"]) > 0,
       wrap_prm=np.asarray(f["wrap_prm"], np.float64),
+      mesh_hull=_mesh_hulls(f),
       **{k: t(k) for k in float_fields},
       **{k: i(k) for k in int_fields},
   )

@@ -376,6 +376,7 @@ class Model:
   geom_conaffinity: np.ndarray
   geom_condim: np.ndarray
   geom_priority: np.ndarray
+  geom_dataid: np.ndarray          # mesh id of a mesh geom, else -1
   exclude_signature: np.ndarray
 
   site_pos: torch.Tensor           # (nsite, 3)
@@ -450,6 +451,9 @@ class Model:
   stat_meaninertia: float
   has_dof_damping: bool
   has_gravcomp: bool
+  # convex hull topology of each mesh (ops/hull.HullSpec); () when no mesh
+  # geom can collide
+  mesh_hull: tuple
 
   # derived host tables and device constants, computed once per model
   _memo: dict = dataclasses.field(default_factory=dict, repr=False,

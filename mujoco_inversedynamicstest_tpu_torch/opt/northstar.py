@@ -13,6 +13,8 @@ Differences from the JAX package:
   returns a plain function (PyTorch runs eagerly: nothing is compiled);
 * ``compile_time_s`` is the first (cold) run's seconds, which on the card
   include building the CUDA kernels and PyTorch's own first-use costs;
+  ``measure_solves_per_sec(..., cold_run=False)`` times one run only, for
+  a process whose kernels are built and warm already (NaN then);
 * timing synchronizes with ``torch.cuda.synchronize()`` on the card;
 * the fleet runs as one batch: ``max_exec_fleet``, which split fleets into
   dispatches to stay within the deadlines of a remote TPU runtime, has no
@@ -123,7 +125,7 @@ class NorthStarResult(NamedTuple):
   solves_per_sec: float          # one card
   n_solves: int
   wall_time_s: float
-  compile_time_s: float          # the first (cold) run's seconds
+  compile_time_s: float          # the first (cold) run's seconds, or NaN
   plan_cost_mean: float          # over FINITE lanes (the quality signal)
   run: MPCRun            # for downstream parity checks
   finite_lane_fraction: float = float("nan")  # lanes with finite plan cost
@@ -136,9 +138,10 @@ def _sync(device: torch.device) -> None:
     torch.cuda.synchronize(device)
 
 
-def measure_solves_per_sec(m: Model, cost, d0: Data,
-                           cfg: NorthStarConfig) -> NorthStarResult:
-  """Times the fleet solve: a first (cold) run, then one warm run."""
+def measure_solves_per_sec(m: Model, cost, d0: Data, cfg: NorthStarConfig,
+                           cold_run: bool = True) -> NorthStarResult:
+  """Times the fleet solve: a first (cold) run, then one warm run; with
+  ``cold_run`` false, only the timed run."""
   fleet = make_fleet(m, d0, cfg)
   fn = fleet_mpc_fn(m, cost, cfg)
 
@@ -147,9 +150,11 @@ def measure_solves_per_sec(m: Model, cost, d0: Data,
     _sync(m.device)
     return out
 
-  t0 = time.perf_counter()
-  run_all()
-  compile_time = time.perf_counter() - t0
+  compile_time = float("nan")
+  if cold_run:
+    t0 = time.perf_counter()
+    run_all()
+    compile_time = time.perf_counter() - t0
   t0 = time.perf_counter()
   out = run_all()
   dt = time.perf_counter() - t0

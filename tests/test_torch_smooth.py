@@ -143,8 +143,9 @@ def test_model_entry_points_default_to_the_card():
     (HUMANOID.replace("<option ", "<option cone=\"elliptic\" "),
      "elliptic"),
     (ALL_SMOOTH["freebody"].replace(
-        "<worldbody>", "<worldbody><geom type=\"plane\" size=\"5 5 .1\"/>"),
-     "collision pair PLANE-BOX"),
+        "<worldbody>", "<worldbody><geom type=\"plane\" size=\"5 5 .1\"/>"
+    ).replace("type=\"box\"", "type=\"ellipsoid\""),
+     "collision pair PLANE-ELLIPSOID"),
 ])
 def test_put_model_refuses_unported_features(xml, what):
   with pytest.raises(NotImplementedError, match=what):
