@@ -31,9 +31,9 @@ non-zero:
    bit-equal.
 9. kernel: main-path shapes, and timing: JVP kernels -- all four kernels
    against their plain versions, bit-equal, at every shape at which
-   phases 6-20 launch them (n = 27 for the humanoid, the JVP kernels at
-   (lanes, tangents) (8, 75) fp64, (640, 75), (800, 75), (1024, 75) and
-   the folded (76,800, 1), in both layouts; n = 1-6 for phase 18's and
+   phases 6-21 launch them (n = 27 for the humanoid, the JVP kernels at
+   (lanes, tangents) (8, 75) and (1, 75) fp64, (640, 75), (800, 75),
+   (1024, 75) and the folded (76,800, 1), in both layouts; n = 1-6 for phase 18's and
    phase 19's models, each dof block and nv, the JVPs at (8, 7) fp64 and,
    on the tendon arm (n = 2), at 16 tangents a lane: (8) fp64 and the
    reach iLQR's linearization, (12,800) fp32 and (200) fp64; n = 6, 30
@@ -160,14 +160,34 @@ non-zero:
    step), and transition_ad of 8 box-stack lanes (fp64) against the plain
    versions (<= 1e-9) and transition_fd (centered, eps 1e-6, zero warm
    start; within 1e-4 of max|A|).
+21. slice: balance LQR -- BASELINE rung 3, the humanoid's one-leg balance
+   (scripts/balance.py, the recipe of python/LQR.ipynb on the Newton-100
+   humanoid) in fp64 on the card: the pose (right leg lifted, the body
+   leaned over the left foot by Gauss-Newton, the root height of a
+   2001-lane inverse sweep), ctrl0, A and B by transition_ad against
+   transition_fd (centered, eps 1e-6; within 1e-4 of max|A|), the cost,
+   and K, P = lqr_gain at scripts/balance.py's LQR_ITERATIONS (P's last
+   relative change, K's change since half as many, and scipy's DARE on the
+   host, which has no finite solution here); then a fleet of 4096 fp32
+   lanes from the pose with 0.01 hinge and velocity noise, half closed
+   loop (ctrl0 - K dx + smoothed control noise, in ctrl_fn) and half open
+   loop (K = 0), 400 steps through opt.rollout: the share of each half
+   balanced at every step (at least 0.9 closed loop, at most 0.5 open
+   loop), steps/s, finite lanes, each half's auto-resets (none in the
+   closed loop), launches; then 4 fp64 lanes for 25 closed-loop steps and 4 for
+   10 open-loop steps from the inputs of assets/humanoid_balance_c.npz
+   against C's runs in it (scripts/balance_c_reference.py: mjcb_control,
+   mujoco.rollout.rollout; the card's machine has no mujoco), within
+   1e-6, and the closed loop with the kernels against the plain versions
+   (1e-9).
 
 Phase 10 also runs transition_ad of the Newton-100 humanoid under RK4 and
 IMPLICIT (the qDeriv Jacobian nested in the dual step).  Every kernel
-launch of phases 6-20 must be at a shape (n, lanes[, tangents], dtype) that
+launch of phases 6-21 must be at a shape (n, lanes[, tangents], dtype) that
 phase 9 checked.  Then
 one JSON line of the kernel report (launches: the sum over the main paths,
-phases 6, 12, 15, 16, 17, 18, 19 and 20, each read with the counts reset
-before it;
+phases 6, 12, 15, 16, 17, 18, 19, 20 and 21 (its transition_ad and its
+fleet), each read with the counts reset before it;
 by path beside it; the JVP kernels with the tangent counts of their phase 12
 launches), the nvidia-smi line, and the result line.  There is no CPU path: without
 CUDA the script fails.  It imports neither jax nor mujoco: the models
@@ -187,7 +207,11 @@ checkouts: run this file from each, in turns.
 
     python3 chip_smoke.py --convex
 
-runs only the build and phase 20.
+runs only the build and phase 20, and
+
+    python3 chip_smoke.py --lqr
+
+only the build and phase 21.
 """
 
 from __future__ import annotations
@@ -245,6 +269,13 @@ REACH_CHECK_LANES, REACH_CHECK_ITERATIONS = 4, 1
 # (60 steps of 0.002 s, as phase 19's arm, for time)
 CONVEX_MODELS = ("box_stack", "convex_mesh")
 CONVEX_STEPS, BOX_INVERSE_STEPS = 20, 60
+# phase 21: BASELINE rung 3, the humanoid's one-leg balance LQR
+# (scripts/balance.py): the fleet of B lanes, half closed loop and half open
+# loop, for T steps (2 s; the notebook's 5 s run is cut for time); the
+# sweep's lanes; the fp64 C reference's lanes and steps
+BALANCE_FLEET, BALANCE_STEPS, BALANCE_SEED = 4096, 400, 21
+BALANCE_SWEEP, BALANCE_C_LANES = 2001, 4
+BALANCE_REFERENCE = "humanoid_balance_c.npz"
 GRID_N, GRID_B = (1, 2, 6, 27, 32, 33, 64, 128), (1, 127, 4096)
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}  # of max|reference|
 # NVIDIA's H100 SXM data sheet: memory rate, and fp32 outside tensor cores
@@ -684,8 +715,17 @@ def convex_shapes(mt) -> tuple[set, set]:
   return primal, jvp
 
 
+def balance_shapes() -> tuple[set, set]:
+  """Phase 21's launches beyond phase 6's fleet (4096 fp32) and the
+  4-lane fp64 runs: at n = 27 in fp64, the height sweep's inverse (2001
+  lanes), the one-lane forward, inverse and transition_ad (its JVPs at 2 nv
+  + nu = 75 tangents), and transition_fd's 2 x 75 + 1 copies."""
+  primal = {(27, b, torch.float64) for b in (BALANCE_SWEEP, 1, 151)}
+  return primal, {(27, 1, 75, torch.float64)}
+
+
 def path_shapes(mt) -> tuple[list, list]:
-  """The launches of phases 6-18 and of --bench: (n, B, dtype) of the
+  """The launches of phases 6-21 and of --bench: (n, B, dtype) of the
   primal kernels and (n, B, T, dtype) of the JVP kernels.  Phases 6-17 and
   --bench at n = 27.  Primal:
   the fleet step, the fp64 steps and inverse dynamics of 64 lanes, the
@@ -695,8 +735,9 @@ def path_shapes(mt) -> tuple[list, list]:
   alphas) and chunk (F lin_batch: its forward and its dual step's
   primal), and the torque replay (4 lanes stepped, 400 states).  JVP: 75
   tangents a lane (nx + nu of the humanoid) at every dual step's lanes,
-  and one a lane in the folded comparison.  Phase 18's from
-  ``constraint_shapes``."""
+  and one a lane in the folded comparison.  Phases 18-21's from
+  ``constraint_shapes``, ``tendon_shapes``, ``convex_shapes`` and
+  ``balance_shapes``."""
   f32 = {FLEET, BENCH_CHUNK_LANES, 75 * BENCH_CHUNK_LANES}
   jvp = {(8, 75, torch.float64), (BENCH_CHUNK_LANES, 75, torch.float32),
          (75 * BENCH_CHUNK_LANES, 1, torch.float32)}
@@ -710,10 +751,12 @@ def path_shapes(mt) -> tuple[list, list]:
   more_primal, more_jvp = constraint_shapes(mt)
   tendon_primal, tendon_jvp = tendon_shapes(mt)
   convex_primal, convex_jvp = convex_shapes(mt)
+  balance_primal, balance_jvp = balance_shapes()
   key = lambda s: (str(s[-1]),) + s[:-1]
-  return (sorted(primal | more_primal | tendon_primal | convex_primal,
-                 key=key),
-          sorted(jvp | more_jvp | tendon_jvp | convex_jvp, key=key))
+  return (sorted(primal | more_primal | tendon_primal | convex_primal
+                 | balance_primal, key=key),
+          sorted(jvp | more_jvp | tendon_jvp | convex_jvp | balance_jvp,
+                 key=key))
 
 
 def check_path_kernels(mt, linalg, dev) -> dict:
@@ -2246,6 +2289,201 @@ def convex_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
   return total, times
 
 
+def balance_slice(mt, linalg, dev, card: str) -> dict:
+  """Phase 21: BASELINE rung 3 on the card, the recipe of
+  scripts/balance.py (python/LQR.ipynb's, on the Newton-100 humanoid): the
+  pose, ctrl0, A and B by transition_ad (against transition_fd), the cost,
+  the gain by lqr_gain in fp64; the fleet (BALANCE_FLEET fp32 lanes, the first half
+  closed loop, the second open loop) through opt.rollout with the policy
+  in ctrl_fn; then C's fp64 runs of the committed reference against the
+  card's from the same inputs, and the kernels against the plain versions
+  on that closed loop.  Returns the kernels' launches of the main path,
+  transition_ad's and the fleet's, each read with the counts reset before
+  it."""
+  import scipy.linalg
+
+  sys.path.insert(0, os.path.join(REPO, "scripts"))
+  import balance
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+  from mujoco_inversedynamicstest_tpu_torch.models.types import StateFlag
+
+  t_phase = time.perf_counter()
+  m64 = mt.put_model(mt.asset_path("humanoid.npz"), device=dev,
+                     dtype=torch.float64)
+  reset_launches(linalg)
+  t0 = time.perf_counter()
+  pose = balance.balance_pose(m64)
+  ctrl0 = balance.balance_control(m64, pose.qpos)
+  torch.cuda.synchronize()
+  pose_s = time.perf_counter() - t0
+  log("slice: balance LQR",
+      "pose (fp64 on the card): " + ", ".join(
+          f"{k} {v:.6f}" for k, v in pose.angles.items())
+      + f" rad; CoM - left foot CoM horizontal {pose.offset:.3e} m; root "
+      f"lowered to the floor, then {pose.height_offset * 1e3:+.3f} mm by "
+      f"the {BALANCE_SWEEP}-point inverse sweep (|qfrc_inverse[2]| "
+      f"{pose.root_force:.4f} N); ctrl0 in [{float(ctrl0.min()):.4f}, "
+      f"{float(ctrl0.max()):.4f}]; {pose_s:.2f} s; launches "
+      f"{read_launches(linalg)}")
+
+  d = mt.forward(m64, mt.make_data(m64, 1).replace(
+      qpos=pose.qpos[None], ctrl=ctrl0[None]))
+  reset_launches(linalg)
+  t0 = time.perf_counter()
+  tr = derivative.transition_ad(m64, d)
+  torch.cuda.synchronize()
+  ad_s = time.perf_counter() - t0
+  ad_launches = read_launches(linalg)
+  fd = derivative.transition_fd(
+      m64, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
+      eps=1e-6, flg_centered=True)
+  scale = float(fd.A.abs().max())
+  err_fd = max(float((tr.A - fd.A).abs().max()),
+               float((tr.B - fd.B).abs().max()))
+  if not err_fd <= 1e-4 * scale:
+    raise AssertionError(f"transition_ad vs transition_fd: {err_fd:.3e}")
+  a, b = tr.A[0], tr.B[0]
+  q, r = balance.balance_cost(m64, pose.qpos)
+  n_iter = balance.LQR_ITERATIONS
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  gain, p = mt.opt.lqr_gain(a, b, q, r, iterations=n_iter)
+  torch.cuda.synchronize()
+  lqr_s = time.perf_counter() - t0
+  _, p_prev = mt.opt.lqr_gain(a, b, q, r, iterations=n_iter - 1)
+  half, _ = mt.opt.lqr_gain(a, b, q, r, iterations=n_iter // 2)
+  p_change = float(torch.linalg.norm(p - p_prev) / torch.linalg.norm(p))
+  k_change = float(torch.linalg.norm(gain - half) / torch.linalg.norm(gain))
+  host = [x.cpu().numpy() for x in (a, b, q, r)]
+  at_one = int(np.sum(np.abs(np.linalg.eigvals(host[0]) - 1) < 1e-6))
+  try:
+    p_dare = scipy.linalg.solve_discrete_are(*host)
+    dare = (f"|P - P_dare| / |P_dare| "
+            f"{np.linalg.norm(p.cpu().numpy() - p_dare) / np.linalg.norm(p_dare):.3e}")
+  except (ValueError, np.linalg.LinAlgError) as e:
+    dare = f"scipy's DARE has no finite solution ({e})"
+  closed = np.sort(np.abs(np.linalg.eigvals(
+      host[0] - host[1] @ gain.cpu().numpy())))[::-1]
+  log("slice: balance LQR",
+      f"transition_ad A {tuple(a.shape)} B {tuple(b.shape)} in {ad_s:.3f} s "
+      f"(launches {ad_launches}); vs transition_fd (centered, eps 1e-6) "
+      f"{err_fd:.3e} (tol 1e-4 of max|A| = {1e-4 * scale:.3e}); lqr_gain "
+      f"N = {n_iter} fp64 on the card in {lqr_s:.3f} s: |P_N - P_N-1| / "
+      f"|P_N| {p_change:.3e}, |K_N - K_N/2| / |K_N| {k_change:.3e}; A has "
+      f"{at_one} eigenvalues within 1e-6 of 1; {dare}; closed loop |eig| "
+      f"{closed[:4].round(6).tolist()}")
+  if not k_change <= 1e-8:
+    raise AssertionError(f"the gain has not converged: {k_change:.3e}")
+
+  # the fleet: half closed loop, half open loop (K = 0), fp32
+  m32 = mt.put_model(mt.asset_path("humanoid.npz"), device=dev,
+                     dtype=torch.float32)
+  gen = torch.Generator(device=dev).manual_seed(BALANCE_SEED)
+  lanes, half_lanes = BALANCE_FLEET, BALANCE_FLEET // 2
+  pose32 = pose.qpos.float()
+  init = balance.fleet_states(m32, pose32, gen, lanes)
+  noise = balance.smoothed_noise(m32, gen, BALANCE_STEPS, lanes)
+  gains = torch.cat([gain.float().expand(half_lanes, *gain.shape),
+                     torch.zeros((lanes - half_lanes,) + gain.shape,
+                                 device=dev)])
+  policy = balance.lqr_policy(m32, pose32, ctrl0.float(), gains, noise)
+  mt.step(m32, mt.set_state(m32, mt.make_data(m32, lanes), init),
+          ctrl_fn=policy)  # warm-up step
+  torch.cuda.synchronize()
+  reset_launches(linalg)
+  t0 = time.perf_counter()
+  out = mt.opt.rollout(m32, init, nstep=BALANCE_STEPS, ctrl_fn=policy)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = read_launches(linalg)
+  for k in ("chol_factor", "chol_solve"):
+    if launches[k] < BALANCE_STEPS:
+      raise AssertionError(f"{k} launched {launches[k]} times in the fleet")
+  total = {k: launches[k] + ad_launches[k] for k in KERNELS}
+  if not all(total.values()):
+    raise AssertionError(f"a kernel was not launched: {total}")
+  finite = torch.isfinite(out.state).all(-1).all(-1)
+  ok, worst = balance.balanced(m32, out.state[..., 1:1 + m32.nq], pose32)
+  share_k = float(ok[:half_lanes].float().mean())
+  share_0 = float(ok[half_lanes:].float().mean())
+  # a lane that diverged was reset inside the step and reads as finite
+  resets_k = int(out.warning[:half_lanes].sum())
+  resets_0 = int(out.warning[half_lanes:].sum())
+  log("slice: balance LQR",
+      f"fleet B={lanes} fp32 EULER, {BALANCE_STEPS} steps "
+      f"({BALANCE_STEPS * m32.opt.timestep:g} s; the notebook's 5 s cut for "
+      f"time) through opt.rollout with the policy in ctrl_fn: {seconds:.3f} "
+      f"s = {lanes * BALANCE_STEPS / seconds:.1f} steps/s on {card}; "
+      f"balanced at every step (torso >= {balance.MIN_HEIGHT:g} of the "
+      f"pose's height, CoM - foot <= {balance.MAX_OFFSET:g} m): closed loop "
+      f"{share_k:.4f}, open loop (K = 0) {share_0:.4f}; max CoM - foot "
+      f"median closed {float(worst[:half_lanes].median()):.4f} m, open "
+      f"{float(worst[half_lanes:].median()):.4f} m; finite lanes "
+      f"{int(finite.sum())} of {lanes}; auto-resets closed loop "
+      f"{resets_k}, open loop {resets_0}; launches {launches}")
+  if not bool(finite.all()):
+    raise AssertionError(f"{int((~finite).sum())} non-finite lanes")
+  if resets_k:
+    raise AssertionError(f"{resets_k} auto-resets in the closed loop")
+  if not share_k >= 0.9:
+    raise AssertionError(f"closed-loop balanced share {share_k:.4f} < 0.9")
+  # the controller must make the difference: without K the lanes fall
+  if not share_0 <= 0.5:
+    raise AssertionError(f"open-loop balanced share {share_0:.4f} > 0.5")
+
+  # against C: the committed runs of scripts/balance_c_reference.py
+  with np.load(mt.asset_path(BALANCE_REFERENCE)) as z:
+    ref = {k: torch.as_tensor(z[k], device=dev) for k in z.files}
+  rel = lambda x, y: float(torch.linalg.norm(x - y) / torch.linalg.norm(y))
+  inputs_gap = (f"the card's pose, ctrl0, K against the reference's (CPU): "
+                f"max |dqpos| {float((pose.qpos - ref['qpos']).abs().max()):.3e}, "
+                f"|dctrl0| {float((ctrl0 - ref['ctrl0']).abs().max()):.3e}, "
+                f"|dK| / |K| {rel(gain, ref['gain']):.3e}")
+  ref_policy = balance.lqr_policy(m64, ref["qpos"], ref["ctrl0"], ref["gain"],
+                                  ref["noise"])
+
+  def closed_loop():
+    d = mt.set_state(m64, mt.make_data(m64, BALANCE_C_LANES), ref["init"])
+    states = []
+    for _ in range(ref["closed_states"].shape[1]):
+      d = mt.step(m64, d, ctrl_fn=ref_policy)
+      states.append(mt.get_state(m64, d, StateFlag.INTEGRATION))
+    return torch.stack(states, 1)
+
+  got = closed_loop()
+  with plain_cholesky(linalg):
+    plain = closed_loop()
+  err_plain = float((got - plain).abs().max())
+  want = ref["closed_states"]
+  nq, nv = m64.nq, m64.nv
+  # INTEGRATION: time, qpos, qvel, warm start, ctrl, ...
+  segs = {"qpos": slice(1, 1 + nq), "qvel": slice(1 + nq, 1 + nq + nv),
+          "ctrl": slice(1 + nq + 2 * nv, 1 + nq + 2 * nv + m64.nu)}
+  errs = {k: float((got[..., s] - want[..., s]).abs().max())
+          for k, s in segs.items()}
+  err_all = float((got - want).abs().max())
+  open_got = mt.opt.rollout(m64, ref["open_init"], ref["open_control"])
+  err_open = float((open_got.state - ref["open_states"]).abs().max())
+  log("slice: balance LQR",
+      f"{inputs_gap}; {BALANCE_C_LANES} lanes fp64, "
+      f"{want.shape[1]} closed-loop steps from the reference's inputs "
+      f"against C's mjcb_control: max |dqpos| {errs['qpos']:.3e}, |dqvel| "
+      f"{errs['qvel']:.3e}, |dctrl| {errs['ctrl']:.3e}, whole INTEGRATION "
+      f"state {err_all:.3e} (tol 1e-6); kernels vs plain on it "
+      f"{err_plain:.3e} (tol 1e-9); opt.rollout against "
+      f"mujoco.rollout.rollout, {ref['open_states'].shape[0]} open-loop "
+      f"lanes x {ref['open_states'].shape[1]} steps: {err_open:.3e} (tol "
+      "1e-6)")
+  if not (err_all <= 1e-6 and err_open <= 1e-6):
+    raise AssertionError(f"against C: closed {err_all:.3e}, open "
+                         f"{err_open:.3e}")
+  if not err_plain <= 1e-9:
+    raise AssertionError(f"kernels vs plain: {err_plain:.3e}")
+  log("slice: balance LQR",
+      f"phase 21 in {time.perf_counter() - t_phase:.1f} s")
+  return total
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   mode = parser.add_mutually_exclusive_group()
@@ -2256,6 +2494,8 @@ def main() -> None:
                     help="only the fleet step, to compare two checkouts")
   mode.add_argument("--convex", action="store_true",
                     help="only phase 20, the boxes and convex meshes")
+  mode.add_argument("--lqr", action="store_true",
+                    help="only phase 21, the humanoid's balance LQR")
   args = parser.parse_args()
   if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -2285,6 +2525,8 @@ def main() -> None:
     fleet_step(mt, linalg, dev, smi)
   elif args.convex:
     convex_slice(mt, linalg, dev, smi)
+  elif args.lqr:
+    balance_slice(mt, linalg, dev, smi)
   else:
     slice_err = check_kernels(linalg, dev)
     slice_err.update(check_jvp_kernels(linalg, dev))
@@ -2311,6 +2553,7 @@ def main() -> None:
         mt, linalg, dev, smi)
     by_path["tendons"], times_n2 = tendon_slice(mt, linalg, dev, smi)
     by_path["convex"], times_convex = convex_slice(mt, linalg, dev, smi)
+    by_path["lqr_balance"] = balance_slice(mt, linalg, dev, smi)
     for more in (times_n2, times_convex):
       for k, v in more.items():
         times_small.setdefault(k, {"by_n": {}})["by_n"].update(v["by_n"])

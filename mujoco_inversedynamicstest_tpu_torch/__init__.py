@@ -15,8 +15,12 @@ with the sensor types of ``models.types.PORTED_SENSORS`` (``ops/sensor.py``;
 humanoid's 34 (``assets/humanoid_sensors.npz``).  ``opt/`` holds the MPC
 path: transition derivatives (with the sensor Jacobians C, D:
 ``opt.transition_ad(m, d, flg_sensor=True)``), qDeriv
-(``smooth_vel_deriv``), box QP, iLQR, MPC and the north-star harness
-(``mt.opt``).
+(``smooth_vel_deriv``), box QP, iLQR, MPC, the north-star harness,
+batched rollouts (``opt.rollout``, open loop or closed loop through the
+in-step control callback ``ctrl_fn`` of ``forward``/``step``) and
+``lqr_gain`` (``mt.opt``).  The
+state-vector API (``get_state``, ``set_state``, ``state_size``, by
+``StateFlag``) follows the installed mujoco's ``mjtState``.
 
 This package never imports jax; it imports ``mujoco`` only inside
 ``load_model`` (to compile MJCF) and ``opt.torque_parity_vs_host`` (the C
@@ -32,7 +36,11 @@ from mujoco_inversedynamicstest_tpu_torch.models.io import (
     put_model,
     save_model_snapshot,
 )
-from mujoco_inversedynamicstest_tpu_torch.models.types import Data, Model
+from mujoco_inversedynamicstest_tpu_torch.models.types import (
+    Data,
+    Model,
+    StateFlag,
+)
 from mujoco_inversedynamicstest_tpu_torch.ops.forward import (
     euler,
     forward,
@@ -54,8 +62,12 @@ from mujoco_inversedynamicstest_tpu_torch.ops.sensor import (
     sensor_vel,
 )
 from mujoco_inversedynamicstest_tpu_torch.ops.smooth import factor_m, solve_m
+from mujoco_inversedynamicstest_tpu_torch.ops import support
 from mujoco_inversedynamicstest_tpu_torch.ops.support import (
     differentiate_pos,
+    get_state,
     integrate_pos,
+    set_state,
+    state_size,
 )
 from mujoco_inversedynamicstest_tpu_torch import opt

@@ -93,7 +93,7 @@ _ARRAY_FIELDS = (
 _SIZE_FIELDS = (
     "nq", "nv", "nu", "na", "nbody", "njnt", "ngeom", "nsite", "nmocap",
     "neq", "ntendon", "nwrap", "nsensor", "nsensordata", "nflex", "npair",
-    "nplugin", "nmesh",
+    "nplugin", "nmesh", "nuserdata", "nhistory",
 )
 _OPT_FIELDS = (
     "timestep", "gravity", "wind", "density", "viscosity", "impratio",
@@ -191,7 +191,7 @@ def validate_model(f: Mapping) -> None:
   _validate_sensors(f, bad)
   # before the size refusals too: an equality is refused by its own name
   _validate_equalities(f, bad)
-  for name in ("nflex", "npair", "nplugin"):
+  for name in ("nflex", "npair", "nplugin", "nuserdata", "nhistory"):
     if int(f[name]):
       bad(f"{name} = {int(f[name])}")
   for name in _BUDGET_NUMERICS:

@@ -271,6 +271,35 @@ class EnableBit(enum.IntFlag):
   DIAGEXACT = 1 << 5
 
 
+class StateFlag(enum.IntFlag):
+  """mjtState of the installed mujoco (3.10): the components of a state
+  vector, in the order ``mj_getState`` writes them.  (The JAX package's
+  ``StateFlag`` carries 3.3.1's bits, before HISTORY, USERDATA and PLUGIN.)
+  HISTORY, USERDATA and PLUGIN have size 0 on every model the port
+  accepts: ``validate_model`` refuses history buffers, user data and
+  plugins."""
+  TIME = 1 << 0
+  QPOS = 1 << 1
+  QVEL = 1 << 2
+  ACT = 1 << 3
+  HISTORY = 1 << 4
+  WARMSTART = 1 << 5
+  CTRL = 1 << 6
+  QFRC_APPLIED = 1 << 7
+  XFRC_APPLIED = 1 << 8
+  EQ_ACTIVE = 1 << 9
+  MOCAP_POS = 1 << 10
+  MOCAP_QUAT = 1 << 11
+  USERDATA = 1 << 12
+  PLUGIN = 1 << 13
+
+  PHYSICS = QPOS | QVEL | ACT | HISTORY
+  FULLPHYSICS = TIME | PHYSICS | PLUGIN
+  USER = (CTRL | QFRC_APPLIED | XFRC_APPLIED | EQ_ACTIVE | MOCAP_POS
+          | MOCAP_QUAT | USERDATA)
+  INTEGRATION = FULLPHYSICS | USER | WARMSTART
+
+
 @dataclasses.dataclass(frozen=True)
 class Option:
   """Physics options (analog of ``mjOption``); scalars are Python floats."""

@@ -356,8 +356,11 @@ def _build_layout(m: Model) -> ContactLayout:
   w1, w2 = m.body_weldid[b1], m.body_weldid[b2]
   keep = (b1 != b2) & (w1 != w2)
   if len(m.exclude_signature):
-    sig = (w1 << 16) | w2
-    gis = (w2 << 16) | w1
+    # C's exclude_signature holds body ids, (body1 << 16) + body2, and C
+    # tests it against the bodies of the geoms (the JAX package tests weld
+    # ids)
+    sig = (b1 << 16) + b2
+    gis = (b2 << 16) + b1
     keep &= ~np.isin(sig, m.exclude_signature) & ~np.isin(
         gis, m.exclude_signature)
   if not m.opt.disableflags & DisableBit.FILTERPARENT:

@@ -6,8 +6,9 @@ Port of ``mujoco_inversedynamicstest_tpu/ops/forward.py`` (``mj_fwdPosition``,
 ``mjd_smooth_vel``, ``mj_step``) for a fleet, with the sensor stages of
 ``ops/sensor.py``: every ``Data`` tensor carries the leading fleet
 dimension.  Activations (``Data.act``) are part of the state: every
-integrator advances them (``mj_advance``'s ``mj_nextActivation``).  The
-port has no in-step control callback.
+integrator advances them (``mj_advance``'s ``mj_nextActivation``).
+``forward``, ``step`` and ``step_n`` take the in-step control callback
+``ctrl_fn(m, d) -> (B, nu)``, C's ``mjcb_control``.
 """
 
 from __future__ import annotations
@@ -258,16 +259,35 @@ def fwd_acceleration(m: Model, d: Data) -> Data:
   return d.replace(qfrc_smooth=qfrc, qacc_smooth=smooth.solve_m(m, d, qfrc))
 
 
-def forward(m: Model, d: Data, skip_sensor: bool = False) -> Data:
+def _control(m: Model, d: Data, ctrl_fn) -> Data:
+  """``d`` with the controls ``ctrl_fn(m, d)`` (B, nu) writes."""
+  ctrl = ctrl_fn(m, d)
+  if ctrl.shape != d.ctrl.shape:
+    raise ValueError(f"ctrl_fn gave shape {tuple(ctrl.shape)}, the controls "
+                     f"are {tuple(d.ctrl.shape)}")
+  return d.replace(ctrl=ctrl.to(d.ctrl.dtype))
+
+
+def forward(m: Model, d: Data, skip_sensor: bool = False,
+            ctrl_fn=None) -> Data:
   """Full forward dynamics (``mj_forward``), with each sensor stage after
   the stage it reads unless ``skip_sensor`` (``mj_forwardSkip``'s
-  skipsensor)."""
+  skipsensor).
+
+  ``ctrl_fn(m, d) -> (B, nu)``, where given, is the in-step control
+  callback (C's ``mjcb_control``): it fires where ``mj_forwardSkip`` calls
+  it, after the velocity stage and its sensors and before actuation, and
+  its result becomes ``d.ctrl``.  As in C it does not fire when actuation
+  is disabled.
+  """
   d = fwd_position(m, d)
   if not skip_sensor:
     d = sensor.sensor_pos(m, d)
   d = fwd_velocity(m, d)
   if not skip_sensor:
     d = sensor.sensor_vel(m, d)
+  if ctrl_fn is not None and not m.opt.disableflags & DisableBit.ACTUATION:
+    d = _control(m, d, ctrl_fn)
   d = fwd_actuation(m, d)
   d = fwd_acceleration(m, d)
   d = solver.fwd_constraint(m, d)
@@ -309,7 +329,7 @@ _RK4_A = ((0.5,), (0.0, 0.5), (0.0, 0.0, 1.0))
 _RK4_B = (1.0 / 6.0, 1.0 / 3.0, 1.0 / 3.0, 1.0 / 6.0)
 
 
-def rungekutta4(m: Model, d: Data) -> Data:
+def rungekutta4(m: Model, d: Data, ctrl_fn=None) -> Data:
   """Explicit RK4 (``mj_RungeKutta(m, d, 4)``) of every lane.
 
   ``d`` holds a completed forward pass (stage 1).  Stages 2-4 are
@@ -324,10 +344,14 @@ def rungekutta4(m: Model, d: Data) -> Data:
   as C leaves mjData: its qacc, qacc_warmstart (= that qacc), solver
   counts, contacts and constraint forces, with qpos, qvel, act and time
   advanced by the tableau's weights.  (The JAX package keeps the first
-  stage's fields, and warm-starts the stages from its qacc.)
+  stage's fields, and warm-starts the stages from its qacc.)  A stage's
+  time is the step's plus h times its node (1/2, 1/2, 1), as C's; each
+  stage forward fires ``ctrl_fn`` again, as C's re-enters ``mjcb_control``,
+  so the step leaves stage 4's controls in ``ctrl``.
   """
   h = m.opt.timestep
   qpos0, qvel0, act0, warm = d.qpos, d.qvel, d.act, d.qacc_warmstart
+  time0 = d.time
   vels, accs, rates = [qvel0], [d.qacc], [d.act_dot]
   for a in _RK4_A:
     dqvel = sum(w * v for w, v in zip(a, vels))
@@ -336,16 +360,16 @@ def rungekutta4(m: Model, d: Data) -> Data:
     qvel = qvel0 + dqacc * h
     d = forward(m, d.replace(qpos=support.integrate_pos(m, qpos0, dqvel, h),
                              qvel=qvel, act=act0 + dact * h,
-                             qacc_warmstart=warm),
-                skip_sensor=True)
+                             qacc_warmstart=warm, time=time0 + sum(a) * h),
+                skip_sensor=True, ctrl_fn=ctrl_fn)
     vels.append(qvel)
     accs.append(d.qacc)
     rates.append(d.act_dot)
   dqvel = sum(w * v for w, v in zip(_RK4_B, vels))
   dqacc = sum(w * v for w, v in zip(_RK4_B, accs))
   dact = sum(w * v for w, v in zip(_RK4_B, rates))
-  return _advance(m, d.replace(qpos=qpos0, qvel=qvel0, act=act0), dqacc,
-                  dact, qvel_for_pos=dqvel)
+  return _advance(m, d.replace(qpos=qpos0, qvel=qvel0, act=act0, time=time0),
+                  dqacc, dact, qvel_for_pos=dqvel)
 
 
 def smooth_vel_deriv(m: Model, d: Data, flg_bias: bool = True,
@@ -546,22 +570,24 @@ def _check_reset(m: Model, d: Data) -> Data:
   )
 
 
-def step(m: Model, d: Data) -> Data:
+def step(m: Model, d: Data, ctrl_fn=None) -> Data:
   """One simulation step of every lane (``mj_step``), by the model's
-  integrator."""
+  integrator.  ``ctrl_fn`` is the in-step control callback of ``forward``:
+  it fires once under EULER, IMPLICIT and IMPLICITFAST, and once more in
+  each of RK4's three stage forwards."""
   d = _check_reset(m, d)
   warm = d.qacc_warmstart
-  d = forward(m, d)
+  d = forward(m, d, ctrl_fn=ctrl_fn)
   integrator = IntegratorType(m.opt.integrator)
   if integrator == IntegratorType.EULER:
     return euler(m, d)
   if integrator == IntegratorType.RK4:
-    return rungekutta4(m, d.replace(qacc_warmstart=warm))
+    return rungekutta4(m, d.replace(qacc_warmstart=warm), ctrl_fn=ctrl_fn)
   return implicit(m, d)
 
 
-def step_n(m: Model, d: Data, n: int) -> Data:
+def step_n(m: Model, d: Data, n: int, ctrl_fn=None) -> Data:
   """``n`` steps of every lane: what ``n`` calls of ``step`` return."""
   for _ in range(n):
-    d = step(m, d)
+    d = step(m, d, ctrl_fn=ctrl_fn)
   return d

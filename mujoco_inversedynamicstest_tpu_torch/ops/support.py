@@ -1,10 +1,13 @@
-"""Support operations: point Jacobians, their products and qpos integration.
+"""Support operations: point Jacobians, their products, qpos integration,
+and the state-vector API.
 
-Port of the parts of ``mujoco_inversedynamicstest_tpu/ops/support.py`` the
-slice reaches (``jac`` and ``jac_dot`` for the equality rows, the
-Jacobian-transpose product of ``jac_all_bodies`` as used by
-``xfrc_accumulate`` and gravity compensation, ``integrate_pos`` and
-``differentiate_pos``).
+Port of ``mujoco_inversedynamicstest_tpu/ops/support.py``: ``jac`` and
+``jac_dot`` (the equality rows), the Jacobian-transpose product of
+``jac_all_bodies`` as ``xfrc_accumulate`` and gravity compensation use it,
+``apply_ft``, ``integrate_pos``, ``differentiate_pos``, ``full_m``,
+``object_velocity``, and ``state_size``/``get_state``/``set_state``
+(``mj_stateSize``/``mj_getState``/``mj_setState``) in the installed
+mujoco's ``mjtState`` layout.
 """
 
 from __future__ import annotations
@@ -16,6 +19,7 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
     Data,
     JointType,
     Model,
+    StateFlag,
 )
 from mujoco_inversedynamicstest_tpu_torch.ops import math
 
@@ -78,6 +82,16 @@ def jac_transpose(m: Model, d: Data, points: torch.Tensor,
   rows = u @ d.cdof.transpose(1, 2)                       # (B, nbody, nv)
   return torch.sum(torch.where(m.const(m.tree.body_dof_mask), rows, 0.0),
                    dim=1)
+
+
+def apply_ft(m: Model, d: Data, force: torch.Tensor, torque: torch.Tensor,
+             point: torch.Tensor, body: np.ndarray) -> torch.Tensor:
+  """Generalized forces (B, nv) of Cartesian forces and torques at body
+  points (``mj_applyFT``): ``force``, ``torque``, ``point`` (B, K, 3),
+  ``body`` (K,) host ids; the sum over the K of ``jacpᵀ f + jacrᵀ t``."""
+  jacp, jacr = jac(m, d, point, body)
+  return (torch.einsum("bkvc,bkc->bv", jacp, force)
+          + torch.einsum("bkvc,bkc->bv", jacr, torque))
 
 
 def xfrc_accumulate(m: Model, d: Data) -> torch.Tensor:
@@ -170,3 +184,95 @@ def differentiate_pos(m: Model, qpos1: torch.Tensor, qpos2: torch.Tensor,
     vidx = dofadr[free][:, None] + np.arange(3)[None]
     pieces.append((vidx, (qpos2[..., pidx] - qpos1[..., pidx]) / dt))
   return assemble(m, "qvel", pieces)
+
+
+def full_m(m: Model, d: Data) -> torch.Tensor:
+  """The dense mass matrix (``mj_fullM``), (B, nv, nv): ``qM`` is dense
+  already."""
+  del m
+  return d.qM
+
+
+def object_velocity(m: Model, d: Data, body: np.ndarray,
+                    point: torch.Tensor) -> torch.Tensor:
+  """6D velocities [ang, lin] in world coordinates of points fixed to
+  bodies (``mj_objectVelocity`` with ``flg_local = 0``): ``point`` (B, K,
+  3), ``body`` (K,) host ids -> (B, K, 6).  (The JAX version takes a
+  ``flg_local`` it does not read.)"""
+  offset = point - d.subtree_com[:, m.const(m.body_rootid[body])]
+  return math.transform_motion(d.cvel[:, m.const(body)], offset)
+
+
+# ---------------------------------------------------------------------------
+# state vector API
+# ---------------------------------------------------------------------------
+
+# (flag, Data field, size) in mj_getState's order; HISTORY, USERDATA and
+# PLUGIN are empty on every model put_model accepts
+_STATE_FIELDS = (
+    (StateFlag.TIME, "time", lambda m: 1),
+    (StateFlag.QPOS, "qpos", lambda m: m.nq),
+    (StateFlag.QVEL, "qvel", lambda m: m.nv),
+    (StateFlag.ACT, "act", lambda m: m.na),
+    (StateFlag.HISTORY, None, lambda m: 0),
+    (StateFlag.WARMSTART, "qacc_warmstart", lambda m: m.nv),
+    (StateFlag.CTRL, "ctrl", lambda m: m.nu),
+    (StateFlag.QFRC_APPLIED, "qfrc_applied", lambda m: m.nv),
+    (StateFlag.XFRC_APPLIED, "xfrc_applied", lambda m: 6 * m.nbody),
+    (StateFlag.EQ_ACTIVE, "eq_active", lambda m: m.neq),
+    (StateFlag.MOCAP_POS, "mocap_pos", lambda m: 3 * m.nmocap),
+    (StateFlag.MOCAP_QUAT, "mocap_quat", lambda m: 4 * m.nmocap),
+    (StateFlag.USERDATA, None, lambda m: 0),
+    (StateFlag.PLUGIN, None, lambda m: 0),
+)
+
+
+def _check_spec(spec: int) -> None:
+  if spec & ~int(StateFlag.INTEGRATION):
+    raise ValueError(f"invalid state spec {int(spec)}")
+
+
+def state_size(m: Model, spec: int) -> int:
+  """Size of a state vector of the components ``spec`` (``mj_stateSize``);
+  ``spec`` is an ``mjtState`` integer or a ``StateFlag``."""
+  _check_spec(spec)
+  return sum(size(m) for flag, _, size in _STATE_FIELDS if spec & flag)
+
+
+def get_state(m: Model, d: Data,
+              spec: int = StateFlag.FULLPHYSICS) -> torch.Tensor:
+  """The state vectors (B, ``state_size(m, spec)``) of every lane
+  (``mj_getState``), in the dtype of ``qpos``; ``eq_active`` as 0 / 1."""
+  _check_spec(spec)
+  parts = [d.time[:, None].to(d.qpos.dtype) if field == "time"
+           else getattr(d, field).reshape(d.batch, -1).to(d.qpos.dtype)
+           for flag, field, size in _STATE_FIELDS
+           if spec & flag and field and size(m)]
+  return torch.cat(parts, dim=-1) if parts else d.qpos[:, :0]
+
+
+def set_state(m: Model, d: Data, state: torch.Tensor,
+              spec: int = StateFlag.FULLPHYSICS) -> Data:
+  """Writes state vectors (B, ``state_size(m, spec)``) into the lanes of
+  ``d`` (``mj_setState``); each field keeps its dtype, ``eq_active``
+  becomes bool again."""
+  _check_spec(spec)
+  if state.shape != (d.batch, state_size(m, spec)):
+    raise ValueError(f"state of shape {tuple(state.shape)}: {d.batch} lanes "
+                     f"of spec {int(spec)} need ({d.batch}, "
+                     f"{state_size(m, spec)})")
+  updates, adr = {}, 0
+  for flag, field, size in _STATE_FIELDS:
+    n = size(m)
+    if not spec & flag or not field or not n:
+      continue
+    chunk = state[:, adr:adr + n]
+    adr += n
+    cur = getattr(d, field)
+    if field == "time":
+      updates[field] = chunk[:, 0].to(cur.dtype)
+    elif field == "eq_active":
+      updates[field] = chunk > 0.5
+    else:
+      updates[field] = chunk.reshape(cur.shape).to(cur.dtype)
+  return d.replace(**updates)

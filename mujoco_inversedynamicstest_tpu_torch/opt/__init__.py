@@ -1,5 +1,9 @@
 """Trajectory optimization / MPC layer of the PyTorch port (derivatives,
-box QP, iLQR, MPC, the north-star harness)."""
+box QP, iLQR, MPC, the north-star harness, rollouts, LQR).
+
+``get_state``/``set_state`` here are the tangent-state helpers of
+``opt/derivative.py``; the ``mjtState`` vectors are ``ops.support``'s
+(exported at the package root)."""
 
 from mujoco_inversedynamicstest_tpu_torch.opt.derivative import (
     InverseJac,
@@ -20,6 +24,7 @@ from mujoco_inversedynamicstest_tpu_torch.opt.ilqr import (
     ILQRResult,
     State,
     ilqr,
+    lqr_gain,
     rollout_open_loop,
 )
 from mujoco_inversedynamicstest_tpu_torch.opt.mpc import (
@@ -44,3 +49,7 @@ from mujoco_inversedynamicstest_tpu_torch.opt.northstar import (
     torque_parity_vs_host,
 )
 from mujoco_inversedynamicstest_tpu_torch.opt.qp import BoxQPResult, box_qp
+from mujoco_inversedynamicstest_tpu_torch.opt.rollout import (
+    RolloutResult,
+    rollout,
+)

@@ -16,7 +16,8 @@ leading dimension of everything:
 * costs keep the JAX signature ``cost(m, state, u, t)`` for one sample and
   are batched with ``torch.func.vmap``, ``grad`` and ``hessian``.
 
-``lqr_gain`` is not on the MPC path and is not ported yet (ROADMAP queue 1).
+``lqr_gain`` is the infinite-horizon LQR gain of the balance recipe
+(``scripts/balance.py``), by the JAX package's Riccati iteration, one per lane.
 """
 
 from __future__ import annotations
@@ -370,3 +371,26 @@ def ilqr(m: Model, cost: CostFn, d0: Data, us_init: torch.Tensor,
 
   return ILQRResult(us=us, xs=xs, cost=c_prev, gains_K=Ks, gains_k=ks,
                     niter=it, reg=reg)
+
+
+# ---------------------------------------------------------------------------
+# LQR (infinite horizon; the humanoid balance recipe, scripts/balance.py)
+# ---------------------------------------------------------------------------
+
+
+def lqr_gain(a: torch.Tensor, b: torch.Tensor, q: torch.Tensor,
+             r: torch.Tensor, iterations: int = 200):
+  """Discrete-time infinite-horizon LQR gain by ``iterations`` steps of the
+  Riccati iteration from P = Q, as the JAX ``lqr_gain``.  ``a`` (..., nx,
+  nx), ``b`` (..., nx, nu), ``q`` (..., nx, nx), ``r`` (..., nu, nu), any
+  leading dimensions broadcast (one iteration a lane).  Returns ``(K, P)``,
+  with u = -K dx."""
+  at, bt = a.transpose(-1, -2), b.transpose(-1, -2)
+  p = q
+  for _ in range(iterations):
+    btp = bt @ p
+    gain = torch.linalg.solve(r + btp @ b, btp @ a)
+    p = q + at @ p @ (a - b @ gain)
+    p = 0.5 * (p + p.transpose(-1, -2))
+  btp = bt @ p
+  return torch.linalg.solve(r + btp @ b, btp @ a), p
