@@ -31,13 +31,15 @@ non-zero:
    bit-equal.
 9. kernel: main-path shapes, and timing: JVP kernels -- all four kernels
    against their plain versions, bit-equal, at every shape at which
-   phases 6-21 launch them (n = 27 for the humanoid, the JVP kernels at
+   phases 6-22 launch them (n = 27 for the humanoid, the JVP kernels at
    (lanes, tangents) (8, 75) and (1, 75) fp64, (640, 75), (800, 75),
    (1024, 75) and the folded (76,800, 1), in both layouts; n = 1-6 for phase 18's and
    phase 19's models, each dof block and nv, the JVPs at (8, 7) fp64 and,
    on the tendon arm (n = 2), at 16 tangents a lane: (8) fp64 and the
    reach iLQR's linearization, (12,800) fp32 and (200) fp64; n = 6, 30
-   and 36 for phase 20's models, the JVPs at (8, 72) fp64); then at the
+   and 36 for phase 20's models, the JVPs at (8, 72) fp64; phase 22's
+   elliptic_pairs (n = 19 and its dof blocks) and sphere_budget (n = 120
+   and its 6-dof blocks)); then at the
    bench's chunk (1024 lanes, 75 tangents) the JVP kernels timed against
    the plain versions, their bounds (L read once a lane) and
    torch.func.vmap over torch.func.jvp of torch.linalg.cholesky /
@@ -180,14 +182,37 @@ non-zero:
    mujoco.rollout.rollout; the card's machine has no mujoco), within
    1e-6, and the closed loop with the kernels against the plain versions
    (1e-9).
+22. slice: contact models -- elliptic friction cones, explicit <pair>s and
+   MJX's contact budget.  box_stack, convex_mesh, the Newton-100 humanoid
+   (feet on the floor) and elliptic_pairs (condim 1, 3, 4 and 6, a <pair>
+   with solreffriction) with opt_cone set to ELLIPTIC in the snapshot's
+   Mapping: each at B = 4096 fp32, 5 EULER steps (step_n, after a warm-up
+   step; 20 cut for time), and the same fleet under the pyramidal cone, in
+   turns: steps/s
+   and their ratio, rows, factorizations a step, finite lanes,
+   auto-resets (none under the elliptic cone), and the share of active
+   elliptic slots in the cone's middle zone (above 0 over the fleets, or
+   the cone's force never ran).  Then each elliptic model's 5 steps of 64
+   lanes fp64 with the kernels against 5 with the plain versions (qpos,
+   qvel, efc_force within 1e-9); the fork's inverse_test on elliptic
+   box_stack (RK4, 64 lanes fp64, 12 steps of fresh forces (60 cut for
+   time), solver_fwdinv
+   <= 1e-6; its second entry, the forward solve's residual, only where the
+   Newton solve met its gradient test: the others are counted); transition_ad of 8 sliding elliptic box-stack lanes (fp64,
+   middle-zone slots present) against the plain versions (<= 1e-9) and
+   transition_fd (centered, eps 1e-6, zero warm start; within 1e-4 of
+   max|A|).  Last, sphere_budget (20 free spheres, max_geom_pairs 24,
+   max_contact_points 12) against the same scene without the numerics
+   (210 slots), 4096 fp32 lanes x 20 steps each: slots a lane, finite
+   lanes, steps/s.
 
 Phase 10 also runs transition_ad of the Newton-100 humanoid under RK4 and
 IMPLICIT (the qDeriv Jacobian nested in the dual step).  Every kernel
-launch of phases 6-21 must be at a shape (n, lanes[, tangents], dtype) that
+launch of phases 6-22 must be at a shape (n, lanes[, tangents], dtype) that
 phase 9 checked.  Then
 one JSON line of the kernel report (launches: the sum over the main paths,
-phases 6, 12, 15, 16, 17, 18, 19, 20 and 21 (its transition_ad and its
-fleet), each read with the counts reset before it;
+phases 6, 12, 15, 16, 17, 18, 19, 20, 21 (its transition_ad and its
+fleet) and 22, each read with the counts reset before it;
 by path beside it; the JVP kernels with the tangent counts of their phase 12
 launches), the nvidia-smi line, and the result line.  There is no CPU path: without
 CUDA the script fails.  It imports neither jax nor mujoco: the models
@@ -211,7 +236,11 @@ runs only the build and phase 20, and
 
     python3 chip_smoke.py --lqr
 
-only the build and phase 21.
+only the build and phase 21, and
+
+    python3 chip_smoke.py --contact
+
+only the build and phase 22.
 """
 
 from __future__ import annotations
@@ -276,14 +305,28 @@ CONVEX_STEPS, BOX_INVERSE_STEPS = 20, 60
 BALANCE_FLEET, BALANCE_STEPS, BALANCE_SEED = 4096, 400, 21
 BALANCE_SWEEP, BALANCE_C_LANES = 2001, 4
 BALANCE_REFERENCE = "humanoid_balance_c.npz"
+# phase 22: the contact models -- elliptic cones on the convex slice's
+# models, the Newton-100 humanoid and elliptic_pairs (each fleet beside the
+# same under the pyramidal cone), the fork's inverse_test and
+# transition_ad on elliptic box_stack, and MJX's contact budget
+# (sphere_budget against the same scene without its numerics).  With the
+# elliptic fleets' 20 steps and the inverse_test's 60 the phase took 158.7
+# s of its 90 s on an H100, with 10 and 20 119.1 s on a slower host: cut to
+# 5 and 12 for time
+CONTACT_MODELS = ("box_stack", "convex_mesh", "humanoid", "elliptic_pairs")
+CONTACT_STEPS, CONTACT_INVERSE_STEPS, BUDGET_STEPS = 5, 12, 20
 GRID_N, GRID_B = (1, 2, 6, 27, 32, 33, 64, 128), (1, 127, 4096)
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}  # of max|reference|
 # NVIDIA's H100 SXM data sheet: memory rate, and fp32 outside tensor cores
 HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
 
 
+T_START = time.perf_counter()
+
+
 def log(phase: str, msg: str) -> None:
-  print(f"[{phase}] {msg}", flush=True)
+  """One line of the run's log, after the seconds since the script began."""
+  print(f"{time.perf_counter() - T_START:7.1f} s [{phase}] {msg}", flush=True)
 
 
 def nvidia_smi() -> str:
@@ -487,9 +530,10 @@ def check_jvp_kernels(linalg, dev) -> dict:
         h, dh, x, db = (v.to(dt) for v in (h64, dh64, x64, db64))
         l = linalg.chol_factor_ref(h)
         case = f"n={n} B={b} T={t} {dt}"
-        for name, got, ref in factor_jvp_cases(linalg, l, dh):
+        cases = factor_jvp_cases(linalg, l, dh)
+        for name, got, ref in cases:
           check("chol_factor_jvp", got, ref, f"{case} {name}")
-        dl = linalg.chol_factor_jvp_ref(l, dh)
+        dl = cases[0][2]  # the plain JVP of the tangent-major dh
         for xr, dbr in ((x[..., 0], db[..., 0]), (x, db)):
           for name, got, ref in solve_jvp_cases(linalg, l, dl, xr, dbr):
             check("chol_solve_jvp", got, ref,
@@ -715,6 +759,32 @@ def convex_shapes(mt) -> tuple[set, set]:
   return primal, jvp
 
 
+def contact_shapes(mt) -> tuple[set, set]:
+  """Phase 22's launches, as ``constraint_shapes`` counts them: each
+  elliptic model's nv and dof blocks at the fleet (4096 fp32) and the
+  64-lane fp64 runs (box_stack's inverse_test among them), box_stack's
+  transition_ad (8 lanes, JVPs at 2 nv tangents) and transition_fd (8 x
+  (4 nv + 1) copies); sphere_budget and its unbudgeted scene at the fleet.
+  The pyramidal fleets run at the same shapes."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import smooth
+
+  primal, jvp = set(), set()
+  for name in CONTACT_MODELS + ("sphere_budget",):
+    m = contact_model(mt, name, "cpu", torch.float64)
+    blocks = smooth._dof_blocks(m)
+    sizes = {(m.nv, 1)} | ({(sz, len(st)) for sz, st in blocks.items()}
+                           if blocks else set())
+    runs = [(FLEET, torch.float32)]
+    if name != "sphere_budget":
+      runs.append((64, torch.float64))
+    if name == "box_stack":
+      nz = 2 * m.nv + m.nu
+      runs += [(8, torch.float64), (8 * (2 * nz + 1), torch.float64)]
+      jvp |= {(sz, 8 * k, nz, torch.float64) for sz, k in sizes}
+    primal |= {(sz, b * k, dt) for sz, k in sizes for b, dt in runs}
+  return primal, jvp
+
+
 def balance_shapes() -> tuple[set, set]:
   """Phase 21's launches beyond phase 6's fleet (4096 fp32) and the
   4-lane fp64 runs: at n = 27 in fp64, the height sweep's inverse (2001
@@ -725,7 +795,7 @@ def balance_shapes() -> tuple[set, set]:
 
 
 def path_shapes(mt) -> tuple[list, list]:
-  """The launches of phases 6-21 and of --bench: (n, B, dtype) of the
+  """The launches of phases 6-22 and of --bench: (n, B, dtype) of the
   primal kernels and (n, B, T, dtype) of the JVP kernels.  Phases 6-17 and
   --bench at n = 27.  Primal:
   the fleet step, the fp64 steps and inverse dynamics of 64 lanes, the
@@ -736,8 +806,8 @@ def path_shapes(mt) -> tuple[list, list]:
   primal), and the torque replay (4 lanes stepped, 400 states).  JVP: 75
   tangents a lane (nx + nu of the humanoid) at every dual step's lanes,
   and one a lane in the folded comparison.  Phases 18-21's from
-  ``constraint_shapes``, ``tendon_shapes``, ``convex_shapes`` and
-  ``balance_shapes``."""
+  ``constraint_shapes``, ``tendon_shapes``, ``convex_shapes``,
+  ``balance_shapes`` and ``contact_shapes``."""
   f32 = {FLEET, BENCH_CHUNK_LANES, 75 * BENCH_CHUNK_LANES}
   jvp = {(8, 75, torch.float64), (BENCH_CHUNK_LANES, 75, torch.float32),
          (75 * BENCH_CHUNK_LANES, 1, torch.float32)}
@@ -752,11 +822,12 @@ def path_shapes(mt) -> tuple[list, list]:
   tendon_primal, tendon_jvp = tendon_shapes(mt)
   convex_primal, convex_jvp = convex_shapes(mt)
   balance_primal, balance_jvp = balance_shapes()
+  contact_primal, contact_jvp = contact_shapes(mt)
   key = lambda s: (str(s[-1]),) + s[:-1]
   return (sorted(primal | more_primal | tendon_primal | convex_primal
-                 | balance_primal, key=key),
-          sorted(jvp | more_jvp | tendon_jvp | convex_jvp | balance_jvp,
-                 key=key))
+                 | balance_primal | contact_primal, key=key),
+          sorted(jvp | more_jvp | tendon_jvp | convex_jvp | balance_jvp
+                 | contact_jvp, key=key))
 
 
 def check_path_kernels(mt, linalg, dev) -> dict:
@@ -788,9 +859,10 @@ def check_path_kernels(mt, linalg, dev) -> dict:
     case = f"main-path shape n={n} B={b} T={t} {dt}"
     for d in (dh, lane_major(dh)):
       check_kernel("chol_factor_jvp", linalg.chol_factor_jvp(l, d), dl, case)
+    ref = linalg.chol_solve_jvp_ref(l, dl, x, db)
     for a, c in ((dl, db), (lane_major(dl), lane_major(db))):
-      check_kernel("chol_solve_jvp", linalg.chol_solve_jvp(l, a, x, c),
-                   linalg.chol_solve_jvp_ref(l, dl, x, db), case)
+      check_kernel("chol_solve_jvp", linalg.chol_solve_jvp(l, a, x, c), ref,
+                   case)
     if (n, b, t, dt) != (27, BENCH_CHUNK_LANES, 75, torch.float32):
       continue
     work = jvp_work(27, b, t, h.element_size())
@@ -916,18 +988,13 @@ def fleet_step(mt, linalg, dev, card: str) -> dict:
 def profile_steps(mt, m, d, wall_ms: float, steps: int = 3) -> None:
   """Device time by kernel over a few more fleet steps (torch.profiler),
   against the unprofiled wall time of a step."""
-  from torch.autograd import DeviceType
-  from torch.profiler import ProfilerActivity, profile
-
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
+  def run():
+    out = d
     for _ in range(steps):
-      d = mt.step(m, d)
-    torch.cuda.synchronize()
-  kernels = [e for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA]
-  if not kernels:
-    raise AssertionError("the profiler recorded no device time")
+      out = mt.step(m, out)
+    return out
+
+  kernels = device_events(run)
   per_step = lambda us: us / steps / 1e3
   device_ms = per_step(sum(e.device_time_total for e in kernels))
   chol = []
@@ -1060,20 +1127,33 @@ def transition(mt, linalg, dev, asset: str,
       f"tangents a lane {read_tangents(linalg)}")
 
 
-def device_profile(fn) -> tuple[float, int, dict]:
-  """One run of ``fn`` under torch.profiler: device ms, device launches,
-  and (µs a launch, launches) of each Cholesky kernel."""
+def device_events(fn, attempts: int = 3) -> list:
+  """The device events of one run of ``fn`` under torch.profiler.  The
+  phases read only the card's events, so the first run records the card's
+  activity alone: recording every host operator as well cost a profile of
+  3 RK4 fleet steps 31 s.  The card's machine has seen a profile of device
+  work come back with no device event (CUPTI): such a run is profiled
+  again, with the host's activity too, up to ``attempts`` runs in all,
+  before the phase fails."""
   from torch.autograd import DeviceType
   from torch.profiler import ProfilerActivity, profile
 
-  with profile(activities=[ProfilerActivity.CPU,
-                           ProfilerActivity.CUDA]) as prof:
-    fn()
-    torch.cuda.synchronize()
-  kernels = [e for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA]
-  if not kernels:
-    raise AssertionError("the profiler recorded no device time")
+  for attempt in range(attempts):
+    with profile(activities=[ProfilerActivity.CUDA] if attempt == 0 else
+                 [ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+      fn()
+      torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages()
+               if e.device_type == DeviceType.CUDA]
+    if kernels:
+      return kernels
+  raise AssertionError("the profiler recorded no device time")
+
+
+def device_profile(fn) -> tuple[float, int, dict]:
+  """One run of ``fn`` under torch.profiler: device ms, device launches,
+  and (µs a launch, launches) of each Cholesky kernel."""
+  kernels = device_events(fn)
   per_launch = {}
   for name in KERNELS:
     hit = [e for e in kernels if f"{name}_kernel" in e.key]
@@ -1420,6 +1500,18 @@ def time_implicit_solve(linalg, dev) -> None:
       f"kernels (IMPLICITFAST) {float(np.median([ch1, ch2])):.4f}")
 
 
+def fwd_inv_step(mt, m, d):
+  """One step of the fork's inverse_test under RK4: forward and
+  compare_fwd_inv of ``d``, and the RK4 step from that same forward.
+  ``mt.step`` would run that forward again on the same state (its lane
+  reset leaves finite lanes as they are), so the step's bits are
+  ``mt.step``'s; a non-finite lane fails the check either way.  Returns
+  (the forward with solver_fwdinv, the next state)."""
+  fwd = mt.forward(m, d)
+  nxt = mt.rungekutta4(m, fwd.replace(qacc_warmstart=d.qacc_warmstart))
+  return mt.compare_fwd_inv(m, fwd), nxt
+
+
 def inverse_test(mt, linalg, dev) -> dict:
   """Phase 16: the fork's inverse_test under RK4, then the discrete
   inverse's recovery of the applied forces under IMPLICIT and
@@ -1446,13 +1538,11 @@ def inverse_test(mt, linalg, dev) -> dict:
   reset_launches(linalg)
   t0 = time.perf_counter()
   for _ in range(INVERSE_TEST_STEPS):
-    d = forces(m, d)
-    fwd = mt.compare_fwd_inv(m, mt.forward(m, d))
+    fwd, d = fwd_inv_step(mt, m, forces(m, d))
     ok &= (fwd.solver_fwdinv <= 1e-6).all()
     worst = torch.maximum(worst, fwd.solver_fwdinv.amax(0))
     ncon = max(ncon, int((fwd.contact.dist < fwd.contact.includemargin).sum()))
     niter = max(niter, int(fwd.solver_niter.max()))
-    d = mt.step(m, d)
   torch.cuda.synchronize()
   seconds = time.perf_counter() - t0
   launches = {k: v for k, v in read_launches(linalg).items()
@@ -1741,10 +1831,9 @@ def constraint_rows(mt, linalg, dev, card: str) -> tuple[dict, dict]:
     d = d.replace(qfrc_applied=0.3 * randn(b, m.nv),
                   xfrc_applied=0.3 * randn(b, m.nbody, 6),
                   ctrl=0.2 * randn(b, m.nu))
-    fwd = mt.compare_fwd_inv(m, mt.forward(m, d))
+    fwd, d = fwd_inv_step(mt, m, d)
     ok &= (fwd.solver_fwdinv <= 1e-6).all() & fwd.efc_active.all()
     worst = torch.maximum(worst, fwd.solver_fwdinv.amax(0))
-    d = mt.step(m, d)
   torch.cuda.synchronize()
   seconds = time.perf_counter() - t0
   launches = read_launches(linalg)
@@ -1942,10 +2031,9 @@ def tendon_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
                   xfrc_applied=0.3 * randn(b, m.nbody, 6),
                   ctrl=torch.rand((b, m.nu), generator=gen, device=dev,
                                   dtype=m.dtype))
-    fwd = mt.compare_fwd_inv(m, mt.forward(m, d))
+    fwd, d = fwd_inv_step(mt, m, d)
     ok &= (fwd.solver_fwdinv <= 1e-6).all()
     worst = torch.maximum(worst, fwd.solver_fwdinv.amax(0))
-    d = mt.step(m, d)
   torch.cuda.synchronize()
   seconds = time.perf_counter() - t0
   launches = read_launches(linalg)
@@ -2100,6 +2188,71 @@ def contact_sets(collision, m, d) -> tuple[torch.Tensor, torch.Tensor]:
   return out, torch.isfinite(out).sum(-1)
 
 
+def box_inverse_test(mt, linalg, dev, m, phase: str, label: str,
+                     steps: int, seed: int, exact_solves: bool = True) -> dict:
+  """The fork's inverse_test on 64 lanes of box_stack ``m`` (fp64, RK4):
+  from convex_data's states, fresh qfrc_applied and xfrc_applied (0.3
+  randn, a torch.Generator seeded with ``seed``) every step, forward and
+  compare_fwd_inv; both solver_fwdinv entries <= 1e-6 on every lane at
+  every step.  solver_fwdinv[1] is the forward solve's own residual: a
+  pyramidal solve ends on a quadratic piece's minimum, where it is round-off,
+  but an elliptic one (``exact_solves=False``) may end on the Newton
+  solver's improvement test with a residual of the solver's tolerance,
+  and then only solves that met the gradient test are held to 1e-6 (C
+  MuJoCo's own residual on such states reaches 9.0e-5:
+  tests/test_torch_elliptic.py).  Returns the kernels' launches."""
+  b = 64
+  gen = torch.Generator(device=dev).manual_seed(seed)
+  randn = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                     dtype=m.dtype)
+  d = convex_data(mt, m, b, seed=seed + 2)
+  worst = torch.zeros(2, dtype=m.dtype, device=dev)
+  ok = torch.ones((), dtype=torch.bool, device=dev)
+  active = torch.zeros((), dtype=torch.long, device=dev)
+  # lane-steps whose solve ended on the improvement test, and of those the
+  # ones with a residual above 1e-6, and their largest residual
+  loose = torch.zeros(2, dtype=torch.long, device=dev)
+  loose_worst = torch.zeros((), dtype=m.dtype, device=dev)
+  reset_launches(linalg)
+  t0 = time.perf_counter()
+  for _ in range(steps):
+    d = d.replace(qfrc_applied=0.3 * randn(b, m.nv),
+                  xfrc_applied=0.3 * randn(b, m.nbody, 6))
+    fwd, nxt = fwd_inv_step(mt, m, d)
+    within = fwd.solver_fwdinv <= 1e-6
+    if not exact_solves:
+      last = (fwd.solver_niter.clamp(1, fwd.solver_stat.shape[1]) - 1).long()
+      gradient = fwd.solver_stat[torch.arange(b, device=dev), last, 1]
+      stopped = gradient >= m.opt.tolerance
+      loose += torch.stack([stopped.sum(), (stopped & ~within[:, 1]).sum()])
+      loose_worst = torch.maximum(loose_worst, torch.where(
+          stopped, fwd.solver_fwdinv[:, 1], 0.0).max())
+      within[:, 1] |= stopped
+    ok &= within.all()
+    worst = torch.maximum(worst, fwd.solver_fwdinv.amax(0))
+    active += (fwd.contact.dist < fwd.contact.includemargin).sum()
+    d = nxt
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = read_launches(linalg)
+  if not launches["chol_factor"] or not launches["chol_solve"]:
+    raise AssertionError(f"a kernel was not launched: {launches}")
+  if not bool(ok) or not bool(torch.isfinite(d.qpos).all()):
+    raise AssertionError(f"solver_fwdinv above 1e-6: max {worst.tolist()}")
+  stops = ("" if exact_solves else
+           f"; {int(loose[0])} of {b * steps} solves ended on the improvement "
+           f"test, {int(loose[1])} of them with solver_fwdinv[1] above 1e-6 "
+           f"(max {float(loose_worst):.3e})")
+  log(phase, f"inverse_test {label} RK4 {b} lanes fp64, {steps} steps "
+      f"of {m.opt.timestep:g} s in {seconds:.3f} s, fresh forces a step: max "
+      f"solver_fwdinv [{float(worst[0]):.3e}, {float(worst[1]):.3e}] over "
+      f"every lane and step (tol 1e-6){stops}; active contacts a lane "
+      f"{float(active) / b / steps:.2f}; launches a step "
+      + ", ".join(f"{k} {v / steps:g}"
+                  for k, v in launches.items() if not k.endswith("_jvp")))
+  return launches
+
+
 def convex_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
   """Phase 20: the convex slice's two models' fleets, the collision
   stage's share of two profiled steps, the kernels against the plain
@@ -2217,41 +2370,9 @@ def convex_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
       "1e-4): " + ", ".join(sets))
 
   # the fork's inverse_test on box_stack: RK4, fresh forces every step
-  b = 64
-  gen = torch.Generator(device=dev).manual_seed(20)
   m = constraint_model(mt, "box_stack", dev, torch.float64, "RK4")
-  randn = lambda *shape: torch.randn(shape, generator=gen, device=dev,
-                                     dtype=m.dtype)
-  d = convex_data(mt, m, b, seed=22)
-  worst = torch.zeros(2, dtype=m.dtype, device=dev)
-  ok = torch.ones((), dtype=torch.bool, device=dev)
-  active = torch.zeros((), dtype=torch.long, device=dev)
-  reset_launches(linalg)
-  t0 = time.perf_counter()
-  for _ in range(BOX_INVERSE_STEPS):
-    d = d.replace(qfrc_applied=0.3 * randn(b, m.nv),
-                  xfrc_applied=0.3 * randn(b, m.nbody, 6))
-    fwd = mt.compare_fwd_inv(m, mt.forward(m, d))
-    ok &= (fwd.solver_fwdinv <= 1e-6).all()
-    worst = torch.maximum(worst, fwd.solver_fwdinv.amax(0))
-    active += (fwd.contact.dist < fwd.contact.includemargin).sum()
-    d = mt.step(m, d)
-  torch.cuda.synchronize()
-  seconds = time.perf_counter() - t0
-  launches = read_launches(linalg)
-  add(launches)
-  if not launches["chol_factor"] or not launches["chol_solve"]:
-    raise AssertionError(f"a kernel was not launched: {launches}")
-  if not bool(ok) or not bool(torch.isfinite(d.qpos).all()):
-    raise AssertionError(f"solver_fwdinv above 1e-6: max {worst.tolist()}")
-  log("slice: boxes and convex meshes",
-      f"inverse_test box_stack RK4 {b} lanes fp64, {BOX_INVERSE_STEPS} steps "
-      f"of {m.opt.timestep:g} s in {seconds:.3f} s, fresh forces a step: max "
-      f"solver_fwdinv [{float(worst[0]):.3e}, {float(worst[1]):.3e}] over "
-      f"every lane and step (tol 1e-6); active contacts a lane "
-      f"{float(active) / b / BOX_INVERSE_STEPS:.2f}; launches a step "
-      + ", ".join(f"{k} {v / BOX_INVERSE_STEPS:g}"
-                  for k, v in launches.items() if not k.endswith("_jvp")))
+  add(box_inverse_test(mt, linalg, dev, m, "slice: boxes and convex meshes",
+                       "box_stack", BOX_INVERSE_STEPS, seed=20))
 
   # transition_ad of 8 box-stack lanes at rest in contact
   m = constraint_model(mt, "box_stack", dev, torch.float64)
@@ -2484,6 +2605,236 @@ def balance_slice(mt, linalg, dev, card: str) -> dict:
   return total
 
 
+def contact_model(mt, name: str, dev, dtype, cone: str | None = "ELLIPTIC",
+                  integrator: str = "EULER", budget: bool = True):
+  """put_model of the snapshot ``name`` with its friction cone and
+  integrator set in the snapshot's Mapping, as phase 15 sets the
+  integrator (``cone=None`` keeps the model's); ``budget=False`` drops
+  MJX's contact-budget numerics."""
+  from mujoco_inversedynamicstest_tpu_torch.models.types import (
+      ConeType,
+      IntegratorType,
+  )
+
+  with np.load(mt.asset_path(f"{name}.npz")) as z:
+    snap = {k: z[k] for k in z.files}
+  if cone is not None:
+    snap["opt_cone"] = np.array(int(ConeType[cone]))
+  snap["opt_integrator"] = np.array(int(IntegratorType[integrator]))
+  if not budget:
+    snap["max_contact_points"] = snap["max_geom_pairs"] = np.array(-1)
+  return mt.put_model(snap, device=dev, dtype=dtype)
+
+
+def contact_data(mt, m, name: str, batch: int, seed: int):
+  """The humanoid: phase 6's fleet states with the feet on the floor and
+  0.1 randn qvel; the other models: qpos0 (at rest in contact) moved by
+  0.005 randn in each dof's tangent direction, and qvel 0.05 randn (the
+  stacks) or 0.5 randn (elliptic_pairs, whose bodies then slide), from a
+  seeded numpy generator."""
+  rng = np.random.RandomState(seed)
+  t = lambda *shape: torch.as_tensor(rng.randn(batch, *shape), dtype=m.dtype,
+                                     device=m.device)
+  if name == "humanoid":
+    d = fleet_data(mt, m, batch, seed, drop=0.22)
+    return d.replace(qvel=0.1 * t(m.nv))
+  d = mt.make_data(m, batch)
+  vel = 0.5 if name == "elliptic_pairs" else 0.05
+  return d.replace(qpos=mt.integrate_pos(m, d.qpos, 0.005 * t(m.nv), 1.0),
+                   qvel=vel * t(m.nv))
+
+
+def middle_share(constraint, m, d) -> tuple[int, int]:
+  """(active elliptic slots in the cone's middle zone, active elliptic
+  slots) at the qacc of ``d``'s last forward."""
+  ct = constraint.cone_tables(m)
+  jar = (d.efc_J @ d.qacc[..., None])[..., 0] - d.efc_aref
+  middle = constraint.cone_quantities(m, d, jar).middle
+  active = (d.contact.dist < d.contact.includemargin)[:, m.const(ct.slot)]
+  return int((middle & active).sum()), int(active.sum())
+
+
+def timed_fleet(mt, linalg, m, d, steps: int):
+  """A warm-up step, then ``steps`` steps (step_n), synchronized: the end
+  state, seconds and the kernels' launches of the timed steps."""
+  d = mt.step(m, d)
+  torch.cuda.synchronize()
+  reset_launches(linalg)
+  t0 = time.perf_counter()
+  d = mt.step_n(m, d, steps)
+  torch.cuda.synchronize()
+  return d, time.perf_counter() - t0, read_launches(linalg)
+
+
+def contact_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
+  """Phase 22: the contact models.  Elliptic cones on box_stack,
+  convex_mesh, the Newton-100 humanoid and elliptic_pairs (the cone set in
+  each snapshot's Mapping): each fleet (4096 fp32, CONTACT_STEPS EULER
+  steps) and the
+  same under the pyramidal cone, in turns; the kernels against the plain
+  versions on 64 fp64 lanes x 5 steps of each; the fork's inverse_test and
+  transition_ad on elliptic box_stack; then sphere_budget (MJX's contact
+  budget) against the same scene without its numerics.  Returns the
+  kernels' launches of these runs, each read with the counts reset before
+  it, and the primal kernels' timings at the new n."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import collision, constraint
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  t_phase = time.perf_counter()
+  total = dict.fromkeys(KERNELS, 0)
+
+  def add(launches):
+    for k in KERNELS:
+      total[k] += launches[k]
+
+  middle_all = 0
+  for i, name in enumerate(CONTACT_MODELS):
+    runs = {}
+    # in turns: elliptic first on even models, pyramidal first on odd ones
+    for cone in (("ELLIPTIC", "PYRAMIDAL") if i % 2 == 0
+                 else ("PYRAMIDAL", "ELLIPTIC")):
+      m = contact_model(mt, name, dev, torch.float32, cone)
+      d, seconds, launches = timed_fleet(
+          mt, linalg, m, contact_data(mt, m, name, FLEET, seed=22),
+          CONTACT_STEPS)
+      add(launches)
+      finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
+      runs[cone] = dict(m=m, d=d, seconds=seconds, launches=launches,
+                        finite=int(finite.sum()), resets=int(d.warning.sum()),
+                        rows=constraint.row_layout(m).nefc)
+      if not launches["chol_factor"] or not launches["chol_solve"]:
+        raise AssertionError(f"{name} {cone}: a kernel was not launched")
+      if runs[cone]["finite"] != FLEET:
+        raise AssertionError(f"{name} {cone}: non-finite lanes")
+    ell, pyr = runs["ELLIPTIC"], runs["PYRAMIDAL"]
+    mid, act = middle_share(constraint, ell["m"], ell["d"])
+    middle_all += mid
+    rate = lambda r: FLEET * CONTACT_STEPS / r["seconds"]
+    active = (ell["d"].contact.dist
+              < ell["d"].contact.includemargin).sum(1).float()
+    log("slice: contact models",
+        f"{name} (nv {ell['m'].nv}) B={FLEET} fp32 EULER, {CONTACT_STEPS} "
+        f"steps: elliptic {rate(ell):.1f} steps/s, pyramidal "
+        f"{rate(pyr):.1f} steps/s (in turns), ratio "
+        f"{rate(ell) / rate(pyr):.3f} on {card}; rows elliptic "
+        f"{ell['rows']}, pyramidal {pyr['rows']}; factorizations a step "
+        f"elliptic {ell['launches']['chol_factor'] / CONTACT_STEPS:g}, "
+        f"pyramidal {pyr['launches']['chol_factor'] / CONTACT_STEPS:g}; "
+        f"finite lanes {ell['finite']} and {pyr['finite']} of {FLEET}; "
+        f"auto-resets {ell['resets']} and {pyr['resets']}; active contacts "
+        f"a lane {float(active.mean()):.2f}; active elliptic slots in the "
+        f"middle zone {mid} of {act} = {mid / max(act, 1):.4f}")
+    if ell["resets"]:
+      raise AssertionError(f"{name}: {ell['resets']} auto-resets under the "
+                           "elliptic cone")
+  if not middle_all:
+    raise AssertionError("no elliptic slot in the middle zone: the cone's "
+                         "force never ran")
+
+  # kernels against plain versions, fp64, 64 lanes, 5 steps of each
+  errs = []
+  reset_launches(linalg)
+  for name in CONTACT_MODELS:
+    m = contact_model(mt, name, dev, torch.float64)
+    d_k = d_p = contact_data(mt, m, name, 64, seed=23)
+    err = 0.0
+    for _ in range(5):
+      d_k = mt.step(m, d_k)
+      with plain_cholesky(linalg):
+        d_p = mt.step(m, d_p)
+      err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)).abs().max())
+                       for f in ("qpos", "qvel", "efc_force")))
+    if not err <= 1e-9:
+      raise AssertionError(f"{name} fp64 steps, kernels vs plain: {err:.3e}")
+    errs.append(f"{name} {err:.3e}")
+  add(read_launches(linalg))
+  log("slice: contact models",
+      "elliptic, 64 lanes fp64, 5 steps, kernels vs plain, max |dqpos|,"
+      "|dqvel|,|defc_force| (tol 1e-9): " + ", ".join(errs))
+
+  # the fork's inverse_test on elliptic box_stack
+  m = contact_model(mt, "box_stack", dev, torch.float64, integrator="RK4")
+  add(box_inverse_test(mt, linalg, dev, m, "slice: contact models",
+                       "elliptic box_stack", CONTACT_INVERSE_STEPS, seed=24,
+                       exact_solves=False))
+
+  # transition_ad of 8 elliptic box-stack lanes, sliding
+  m = contact_model(mt, "box_stack", dev, torch.float64)
+  d = contact_data(mt, m, "box_stack", 8, seed=25)
+  d = mt.forward(m, d.replace(qvel=10 * d.qvel))
+  mid, act = middle_share(constraint, m, d)
+  reset_launches(linalg)
+  t0 = time.perf_counter()
+  ad = derivative.transition_ad(m, d)
+  torch.cuda.synchronize()
+  seconds = time.perf_counter() - t0
+  launches = read_launches(linalg)
+  if not all(launches.values()):
+    raise AssertionError(f"a kernel was not launched: {launches}")
+  add(launches)
+  with plain_cholesky(linalg):
+    plain = derivative.transition_ad(m, d)
+  fd = derivative.transition_fd(
+      m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
+      eps=1e-6, flg_centered=True)
+  err_plain = float((ad.A - plain.A).abs().max())
+  err_fd = float((ad.A - fd.A).abs().max())
+  scale = float(fd.A.abs().max())
+  if not mid:
+    raise AssertionError("transition_ad's states have no middle-zone slot")
+  if not err_plain <= 1e-9:
+    raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
+  if not err_fd <= 1e-4 * scale:
+    raise AssertionError(f"transition_ad vs transition_fd: {err_fd:.3e}")
+  log("slice: contact models",
+      f"elliptic box_stack 8 lanes fp64 EULER, sliding, {mid} of {act} "
+      f"active elliptic slots in the middle zone: transition_ad "
+      f"{seconds:.3f} s; kernels vs plain max |dA| {err_plain:.3e} (tol "
+      f"1e-9); vs transition_fd (centered, eps 1e-6) {err_fd:.3e} (tol 1e-4 "
+      f"of max|A| = {1e-4 * scale:.3e}); launches {launches}, tangents a "
+      f"lane {read_tangents(linalg)}")
+
+  # MJX's contact budget against the same scene without it
+  out = {}
+  for budget in (True, False):
+    m = contact_model(mt, "sphere_budget", dev, torch.float32, cone=None,
+                      budget=budget)
+    d = mt.make_data(m, FLEET)
+    d = d.replace(qvel=0.1 * torch.randn(
+        d.qvel.shape, generator=torch.Generator(device=dev).manual_seed(26),
+        device=dev))
+    d, seconds, launches = timed_fleet(mt, linalg, m, d, BUDGET_STEPS)
+    add(launches)
+    finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
+    active = (d.contact.dist < d.contact.includemargin).sum(1).float()
+    out[budget] = (FLEET * BUDGET_STEPS / seconds, int(finite.sum()))
+    log("slice: contact models",
+        f"sphere_budget {'with' if budget else 'without'} its numerics B="
+        f"{FLEET} fp32: {collision.contact_layout(m).ncon} slots a lane, "
+        f"active contacts a lane mean {float(active.mean()):.2f} max "
+        f"{int(active.max())}; {BUDGET_STEPS} steps in {seconds:.3f} s = "
+        f"{out[budget][0]:.1f} steps/s; finite lanes {out[budget][1]} of "
+        f"{FLEET}; auto-resets {int(d.warning.sum())}; launches a step "
+        + ", ".join(f"{k} {v / BUDGET_STEPS:g}" for k, v in launches.items()
+                    if not k.endswith("_jvp")))
+    if out[budget][1] != FLEET:
+      raise AssertionError("sphere_budget: non-finite lanes")
+  # the primal kernels at the new n: elliptic_pairs' nv and its dof blocks
+  # other than the free bodies' 6, sphere_budget's nv
+  from mujoco_inversedynamicstest_tpu_torch.ops import smooth
+
+  times = {}
+  for name in ("elliptic_pairs", "sphere_budget"):
+    m = contact_model(mt, name, "cpu", torch.float64, cone=None)
+    for n in sorted(({m.nv} | set(smooth._dof_blocks(m) or ())) - {6}):
+      for k, v in time_kernels(linalg, dev, n).items():
+        times.setdefault(k, {"by_n": {}})["by_n"][str(n)] = v
+  log("slice: contact models",
+      f"budget speedup {out[True][0] / out[False][0]:.3f}x; phase 22 in "
+      f"{time.perf_counter() - t_phase:.1f} s")
+  return total, times
+
+
 def main() -> None:
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   mode = parser.add_mutually_exclusive_group()
@@ -2496,6 +2847,8 @@ def main() -> None:
                     help="only phase 20, the boxes and convex meshes")
   mode.add_argument("--lqr", action="store_true",
                     help="only phase 21, the humanoid's balance LQR")
+  mode.add_argument("--contact", action="store_true",
+                    help="only phase 22, the contact models")
   args = parser.parse_args()
   if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -2527,34 +2880,62 @@ def main() -> None:
     convex_slice(mt, linalg, dev, smi)
   elif args.lqr:
     balance_slice(mt, linalg, dev, smi)
+  elif args.contact:
+    contact_slice(mt, linalg, dev, smi)
   else:
+    t_last = [t0]
+
+    def lap(phases: str) -> None:
+      now = time.perf_counter()
+      log("time", f"phases {phases} in {now - t_last[0]:.1f} s, "
+          f"{now - t0:.1f} s since the build began")
+      t_last[0] = now
+
     slice_err = check_kernels(linalg, dev)
     slice_err.update(check_jvp_kernels(linalg, dev))
+    lap("1-5, 8")
     times = time_kernels(linalg, dev)
     times.update(check_path_kernels(mt, linalg, dev))
     main_path_shapes(linalg)
+    lap("9")
     by_path = {"fleet_step": fleet_step(mt, linalg, dev, smi)}
+    lap("6")
     inverse_dynamics(mt, linalg, dev)
+    lap("7")
     for asset in ("humanoid.npz", "humanoid_mjx.npz"):
       transition(mt, linalg, dev, asset)
     for integrator in ("RK4", "IMPLICIT"):
       transition(mt, linalg, dev, "humanoid.npz", integrator)
+    lap("10")
     linearization_chunk(mt, linalg, dev)
+    lap("11")
     mpc_launches, res, cfg = mpc_fleet(mt, linalg, dev, "humanoid_mjx.npz",
                                        MPC_RUN)
     by_path["mpc_fleet"] = mpc_launches
     tangents = read_tangents(linalg)
+    lap("12")
     mpc_reference(mt, linalg, dev)
+    lap("13")
     mpc_torques(mt, linalg, dev, res, cfg)
+    lap("14")
     by_path["integrators_fleet"] = integrators_fleet(mt, linalg, dev, smi)
+    lap("15")
     by_path["inverse_test"] = inverse_test(mt, linalg, dev)
+    lap("16")
     by_path["sensors"] = sensors(mt, linalg, dev, smi)
+    lap("17")
     by_path["constraint_rows"], times_small = constraint_rows(
         mt, linalg, dev, smi)
+    lap("18")
     by_path["tendons"], times_n2 = tendon_slice(mt, linalg, dev, smi)
+    lap("19")
     by_path["convex"], times_convex = convex_slice(mt, linalg, dev, smi)
+    lap("20")
     by_path["lqr_balance"] = balance_slice(mt, linalg, dev, smi)
-    for more in (times_n2, times_convex):
+    lap("21")
+    by_path["contact"], times_contact = contact_slice(mt, linalg, dev, smi)
+    lap("22")
+    for more in (times_n2, times_convex, times_contact):
       for k, v in more.items():
         times_small.setdefault(k, {"by_n": {}})["by_n"].update(v["by_n"])
     launches = {k: sum(p.get(k, 0) for p in by_path.values())

@@ -72,7 +72,10 @@ _ARRAY_FIELDS = (
     "geom_pos", "geom_quat", "geom_size", "geom_friction", "geom_margin",
     "geom_gap", "geom_solref", "geom_solimp", "geom_solmix", "geom_type",
     "geom_bodyid", "geom_contype", "geom_conaffinity", "geom_condim",
-    "geom_priority", "geom_dataid", "exclude_signature",
+    "geom_priority", "geom_dataid", "geom_rbound", "exclude_signature",
+    "pair_dim", "pair_geom1", "pair_geom2", "pair_signature", "pair_solref",
+    "pair_solreffriction", "pair_solimp", "pair_margin", "pair_gap",
+    "pair_friction",
     "mesh_vert", "mesh_vertadr", "mesh_vertnum",
     "site_pos", "site_quat", "site_size", "site_type", "site_bodyid",
     "sensor_type", "sensor_datatype", "sensor_needstage", "sensor_objtype",
@@ -191,17 +194,13 @@ def validate_model(f: Mapping) -> None:
   _validate_sensors(f, bad)
   # before the size refusals too: an equality is refused by its own name
   _validate_equalities(f, bad)
-  for name in ("nflex", "npair", "nplugin", "nuserdata", "nhistory"):
+  for name in ("nflex", "nplugin", "nuserdata", "nhistory"):
     if int(f[name]):
       bad(f"{name} = {int(f[name])}")
-  for name in _BUDGET_NUMERICS:
-    if int(f[name]) > 0:
-      bad(f"contact budget <numeric> {name}")
   IntegratorType(int(f["opt_integrator"]))
+  ConeType(int(f["opt_cone"]))
   if int(f["opt_solver"]) != SolverType.NEWTON:
     bad(f"solver {SolverType(int(f['opt_solver'])).name}")
-  if int(f["opt_cone"]) != ConeType.PYRAMIDAL:
-    bad("elliptic friction cone")
   if int(f["opt_noslip_iterations"]):
     bad("noslip solver")
   enable = int(f["opt_enableflags"]) & ~int(EnableBit.INVDISCRETE)
@@ -297,9 +296,13 @@ def build_tree_layout(body_parentid, body_jntnum, dof_parentid, body_dofadr,
 
 def _mesh_hulls(f: Mapping) -> tuple:
   """Each mesh's convex hull topology (``ops/hull.py``), built on the host
-  only when a mesh geom can collide; ``()`` otherwise."""
+  only when a mesh geom can collide, by its contype and conaffinity or in
+  an explicit ``<pair>``; ``()`` otherwise."""
   mesh = np.asarray(f["geom_type"]) == GeomType.MESH
-  if not np.any(mesh & ((np.asarray(f["geom_contype"]) != 0)
+  paired = np.zeros_like(mesh)
+  paired[np.asarray(f["pair_geom1"], np.int64)] = True
+  paired[np.asarray(f["pair_geom2"], np.int64)] = True
+  if not np.any(mesh & (paired | (np.asarray(f["geom_contype"]) != 0)
                         | (np.asarray(f["geom_conaffinity"]) != 0))):
     return ()
   from mujoco_inversedynamicstest_tpu_torch.ops import hull
@@ -342,7 +345,9 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       "dof_armature", "dof_damping", "dof_invweight0", "dof_frictionloss",
       "dof_solref", "dof_solimp", "eq_data", "eq_solref", "eq_solimp",
       "geom_pos", "geom_quat", "geom_size", "geom_friction", "geom_margin",
-      "geom_gap", "geom_solref", "geom_solimp", "geom_solmix",
+      "geom_gap", "geom_solref", "geom_solimp", "geom_solmix", "geom_rbound",
+      "pair_margin", "pair_gap", "pair_friction", "pair_solref",
+      "pair_solreffriction", "pair_solimp",
       "site_pos", "site_quat", "site_size", "sensor_cutoff",
       "actuator_gear", "actuator_ctrlrange", "actuator_forcerange",
       "actuator_gainprm", "actuator_biasprm", "actuator_dynprm",
@@ -362,6 +367,7 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       "eq_type", "eq_obj1id", "eq_obj2id", "eq_objtype", "eq_active0",
       "geom_type", "geom_bodyid", "geom_contype", "geom_conaffinity",
       "geom_condim", "geom_priority", "geom_dataid", "exclude_signature",
+      "pair_geom1", "pair_geom2", "pair_dim",
       "site_type", "site_bodyid",
       "sensor_type", "sensor_datatype", "sensor_needstage", "sensor_objtype",
       "sensor_objid", "sensor_reftype", "sensor_refid", "sensor_adr",
@@ -386,6 +392,8 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       tendon_frictionloss_nz=np.asarray(f["tendon_frictionloss"]) > 0,
       wrap_prm=np.asarray(f["wrap_prm"], np.float64),
       mesh_hull=_mesh_hulls(f),
+      max_contact_points=int(f["max_contact_points"]),
+      max_geom_pairs=int(f["max_geom_pairs"]),
       **{k: t(k) for k in float_fields},
       **{k: i(k) for k in int_fields},
   )

@@ -406,7 +406,20 @@ class Model:
   geom_condim: np.ndarray
   geom_priority: np.ndarray
   geom_dataid: np.ndarray          # mesh id of a mesh geom, else -1
+  geom_rbound: torch.Tensor        # (ngeom,) bounding-sphere radius
   exclude_signature: np.ndarray
+
+  # explicit <pair>s: their geoms and condim, and the parameters that
+  # replace the geoms' mixed ones
+  pair_geom1: np.ndarray
+  pair_geom2: np.ndarray
+  pair_dim: np.ndarray
+  pair_margin: torch.Tensor        # (npair,)
+  pair_gap: torch.Tensor           # (npair,)
+  pair_friction: torch.Tensor      # (npair, 5)
+  pair_solref: torch.Tensor        # (npair, 2)
+  pair_solreffriction: torch.Tensor  # (npair, 2)
+  pair_solimp: torch.Tensor        # (npair, 5)
 
   site_pos: torch.Tensor           # (nsite, 3)
   site_quat: torch.Tensor          # (nsite, 4)
@@ -483,6 +496,11 @@ class Model:
   # convex hull topology of each mesh (ops/hull.HullSpec); () when no mesh
   # geom can collide
   mesh_hull: tuple
+  # MJX's contact budget (<numeric> customs), -1 when absent: the nearest
+  # max_geom_pairs candidates of each pair group go to the narrowphase, the
+  # nearest max_contact_points slots of each condim to the rows
+  max_contact_points: int = -1
+  max_geom_pairs: int = -1
 
   # derived host tables and device constants, computed once per model
   _memo: dict = dataclasses.field(default_factory=dict, repr=False,
@@ -520,16 +538,21 @@ class Contact:
   """Static-shape contact set, batched (analog of ``mjContact``).
 
   Every slot exists every step; ``dist >= includemargin`` marks it inactive.
+  Every field is lane data, with the fleet dimension first.  A slot's pair
+  and parameters are constants of the model (expanded views), unless the
+  model has a contact budget that selects pairs or slots lane by lane
+  (``collision.ContactLayout.lane_slots``).
   """
   dist: torch.Tensor           # (B, ncon)
   pos: torch.Tensor            # (B, ncon, 3)
   frame: torch.Tensor          # (B, ncon, 3, 3) rows = [normal, tan1, tan2]
-  includemargin: torch.Tensor  # (ncon,)
-  friction: torch.Tensor       # (ncon, 5)
-  solref: torch.Tensor         # (ncon, 2)
-  solimp: torch.Tensor         # (ncon, 5)
-  geom1: np.ndarray            # (ncon,)
-  geom2: np.ndarray            # (ncon,)
+  includemargin: torch.Tensor  # (B, ncon)
+  friction: torch.Tensor       # (B, ncon, 5)
+  solref: torch.Tensor         # (B, ncon, 2)
+  solreffriction: torch.Tensor  # (B, ncon, 2): 0 unless a <pair> sets it
+  solimp: torch.Tensor         # (B, ncon, 5)
+  geom1: torch.Tensor          # (B, ncon) geom ids
+  geom2: torch.Tensor
 
 
 @dataclasses.dataclass

@@ -4,9 +4,12 @@ Port of ``mujoco_inversedynamicstest_tpu/ops/collision.py`` for the
 primitive pairs (plane with sphere, capsule, box and cylinder; sphere with
 sphere, capsule and box; capsule-capsule) and the convex pairs of
 ``ops/collision_convex.py`` (plane, sphere, capsule, box and mesh against a
-box or a mesh hull).  The candidate pairs are enumerated statically from
-contype/conaffinity, body and parent filters and excludes; every contact
-slot exists every step and ``dist >= includemargin`` marks it inactive.
+box or a mesh hull).  The candidate pairs are the explicit ``<pair>``s and
+the pairs enumerated statically from contype/conaffinity, body and parent
+filters and excludes; every contact slot exists every step and
+``dist >= includemargin`` marks it inactive.  MJX's contact budget (the
+``max_geom_pairs`` and ``max_contact_points`` numerics) bounds the slots,
+which each lane then fills with its own nearest pairs.
 Any other pair kind (ellipsoid; cylinder with anything but a plane; height
 field; SDF) is refused by its name when the model is loaded.
 
@@ -66,7 +69,10 @@ _CONVEX_SLOTS = {
 class PairGroup(NamedTuple):
   """Same-type geom pairs sharing one condim and, for the convex pairs,
   one hull topology (mesh ids ``did1``/``did2``, -1 for a box or a
-  primitive), all static."""
+  primitive), all static.  ``ipair`` is each pair's explicit ``<pair>``
+  (-1 for a pair of the contype/conaffinity rule); ``npair_run`` pairs of
+  each lane go to the narrowphase, all of them unless ``max_geom_pairs``
+  caps the group."""
   types: Tuple[int, int]
   geom1: np.ndarray
   geom2: np.ndarray
@@ -74,15 +80,27 @@ class PairGroup(NamedTuple):
   condim: int
   did1: int = -1
   did2: int = -1
+  ipair: np.ndarray = None
+  npair_run: int = 0
 
 
 class ContactLayout(NamedTuple):
-  """Static contact-slot layout of a model."""
+  """Static contact-slot layout of a model.
+
+  ``dim`` is the condim of each slot the rows see.  Without a budget that
+  selects lane by lane, ``geom1``/``geom2`` are each slot's geoms; with one
+  (``lane_slots``) they are -1 and the geoms are lane data of
+  ``Data.contact``.  ``reduce_groups`` holds, per condim, the candidate
+  slots (of ``ncon_full``) and how many of them ``max_contact_points``
+  keeps; it is empty without that numeric."""
   groups: Tuple[PairGroup, ...]
   ncon: int
   dim: np.ndarray           # condim per slot
   geom1: np.ndarray         # per slot
   geom2: np.ndarray
+  ncon_full: int = 0
+  reduce_groups: tuple = ()
+  lane_slots: bool = False
 
 
 def _dist_pos(p1, nrm, p2, r):
@@ -93,7 +111,7 @@ def _dist_pos(p1, nrm, p2, r):
 
 def _plane_sphere(p1, m1, s1, p2, m2, s2, margin):
   nrm = m1[..., :, 2]
-  dist, pos = _dist_pos(p1, nrm, p2, s2[:, 0])
+  dist, pos = _dist_pos(p1, nrm, p2, s2[..., 0])
   return dist[..., None], pos[..., None, :], nrm[..., None, :], torch.zeros_like(
       pos)[..., None, :]
 
@@ -101,9 +119,9 @@ def _plane_sphere(p1, m1, s1, p2, m2, s2, margin):
 def _plane_capsule(p1, m1, s1, p2, m2, s2, margin):
   nrm = m1[..., :, 2]
   axis = m2[..., :, 2]
-  seg = axis * s2[:, 1:2]
-  d1, c1 = _dist_pos(p1, nrm, p2 + seg, s2[:, 0])
-  d2, c2 = _dist_pos(p1, nrm, p2 - seg, s2[:, 0])
+  seg = axis * s2[..., 1:2]
+  d1, c1 = _dist_pos(p1, nrm, p2 + seg, s2[..., 0])
+  d2, c2 = _dist_pos(p1, nrm, p2 - seg, s2[..., 0])
   return (torch.stack([d1, d2], -1), torch.stack([c1, c2], -2),
           torch.stack([nrm, nrm], -2), torch.stack([axis, axis], -2))
 
@@ -125,23 +143,23 @@ def _one_slot(dist, pos, n):
 
 def _sphere_sphere(p1, m1, s1, p2, m2, s2, margin):
   fb = math.normalize(math.cross(m1[..., :, 2], m2[..., :, 2]))
-  return _one_slot(*_sphere_sphere_raw(p1, s1[:, 0], p2, s2[:, 0], fb))
+  return _one_slot(*_sphere_sphere_raw(p1, s1[..., 0], p2, s2[..., 0], fb))
 
 
 def _sphere_capsule(p1, m1, s1, p2, m2, s2, margin):
   axis = m2[..., :, 2]
   x = torch.sum(axis * (p1 - p2), dim=-1)
-  x = torch.minimum(torch.maximum(x, -s2[:, 1]), s2[:, 1])
+  x = torch.minimum(torch.maximum(x, -s2[..., 1]), s2[..., 1])
   near = p2 + axis * x[..., None]
   fb = math.normalize(math.cross(m1[..., :, 2], axis))
-  return _one_slot(*_sphere_sphere_raw(p1, s1[:, 0], near, s2[:, 0], fb))
+  return _one_slot(*_sphere_sphere_raw(p1, s1[..., 0], near, s2[..., 0], fb))
 
 
 def _capsule_capsule(p1, m1, s1, p2, m2, s2, margin):
   """Closest points of the two segments (generic path of
   ``mjraw_CapsuleCapsule``; exactly parallel capsules give one contact)."""
-  a1 = m1[..., :, 2] * s1[:, 1:2]
-  a2 = m2[..., :, 2] * s2[:, 1:2]
+  a1 = m1[..., :, 2] * s1[..., 1:2]
+  a2 = m2[..., :, 2] * s2[..., 1:2]
   dif = p1 - p2
   dot = lambda a, b: torch.sum(a * b, dim=-1)
   ma, mb, mc = dot(a1, a1), -dot(a1, a2), dot(a2, a2)
@@ -164,7 +182,7 @@ def _capsule_capsule(p1, m1, s1, p2, m2, s2, margin):
   q1 = p1 + a1 * x1[..., None]
   q2 = p2 + a2 * x2[..., None]
   fb = math.normalize(math.cross(m1[..., :, 2], m2[..., :, 2]))
-  return _one_slot(*_sphere_sphere_raw(q1, s1[:, 0], q2, s2[:, 0], fb))
+  return _one_slot(*_sphere_sphere_raw(q1, s1[..., 0], q2, s2[..., 0], fb))
 
 
 @functools.lru_cache(maxsize=None)
@@ -340,7 +358,7 @@ def _lane_chunks(m: Model, grp: PairGroup, batch: int, itemsize: int) -> int:
     return 1
   nedge = lambda did, t: len(cc.BOX_HULL.edge if t == GeomType.BOX
                              else m.mesh_hull[did].edge)
-  nbytes = (3 * batch * len(grp.geom1) * nedge(grp.did1, t1)
+  nbytes = (3 * batch * grp.npair_run * nedge(grp.did1, t1)
             * nedge(grp.did2, t2) * 3 * itemsize)
   return max(1, min(batch, -(-nbytes // CONVEX_CHUNK_BYTES)))
 
@@ -350,6 +368,9 @@ def _build_layout(m: Model) -> ContactLayout:
   if m.opt.disableflags & (DisableBit.CONTACT | DisableBit.CONSTRAINT):
     return ContactLayout((), 0, empty, empty, empty)
 
+  # explicit <pair>s first, with their own condim; they bypass every filter
+  raw = [(int(a), int(b), k, int(c)) for k, (a, b, c) in enumerate(
+      zip(m.pair_geom1, m.pair_geom2, m.pair_dim))]
   ng = m.ngeom
   tri1, tri2 = np.triu_indices(ng, k=1)
   b1, b2 = m.geom_bodyid[tri1], m.geom_bodyid[tri2]
@@ -369,13 +390,20 @@ def _build_layout(m: Model) -> ContactLayout:
     keep &= ~(((w1 == pw2) & (w1 != 0)) | ((w2 == pw1) & (w2 != 0)))
   keep &= ((m.geom_contype[tri1] & m.geom_conaffinity[tri2])
            | (m.geom_contype[tri2] & m.geom_conaffinity[tri1])) != 0
+  if len(m.pair_geom1):
+    # a geom pair that a <pair> names collides once, as the <pair>
+    ex1 = np.concatenate([m.pair_geom1, m.pair_geom2])
+    ex2 = np.concatenate([m.pair_geom2, m.pair_geom1])
+    keep &= ~np.isin(tri1 * ng + tri2, ex1 * ng + ex2)
   p1, p2 = m.geom_priority[tri1], m.geom_priority[tri2]
   cd = np.where(p1 > p2, m.geom_condim[tri1],
                 np.where(p2 > p1, m.geom_condim[tri2],
                          np.maximum(m.geom_condim[tri1], m.geom_condim[tri2])))
+  raw += [(int(g1), int(g2), -1, int(c))
+          for g1, g2, c in zip(tri1[keep], tri2[keep], cd[keep])]
 
   by_key = {}
-  for g1, g2, c in zip(tri1[keep], tri2[keep], cd[keep]):
+  for g1, g2, ip, c in raw:
     if m.geom_type[g1] > m.geom_type[g2]:
       g1, g2 = g2, g1
     key = (GeomType(int(m.geom_type[g1])), GeomType(int(m.geom_type[g2])))
@@ -386,22 +414,43 @@ def _build_layout(m: Model) -> ContactLayout:
     # each convex group has one static hull topology
     did = lambda g: (int(m.geom_dataid[g])
                      if m.geom_type[g] == GeomType.MESH else -1)
-    by_key.setdefault((key, did(g1), did(g2), int(c)), []).append(
-        (int(g1), int(g2)))
+    by_key.setdefault((key, did(g1), did(g2), c), []).append((g1, g2, ip))
 
-  groups, slot_dim, slot_g1, slot_g2 = [], [], [], []
+  groups, slot_dim = [], []
   for key, did1, did2, condim in sorted(by_key):
     pairs = np.array(by_key[(key, did1, did2, condim)], np.int64)
     nslot = _nslot(key)
+    run = len(pairs)
+    if m.max_geom_pairs > 0:
+      run = min(run, m.max_geom_pairs)
     groups.append(PairGroup(key, pairs[:, 0], pairs[:, 1], nslot, condim,
-                            did1, did2))
-    slot_dim += [condim] * (len(pairs) * nslot)
-    slot_g1 += np.repeat(pairs[:, 0], nslot).tolist()
-    slot_g2 += np.repeat(pairs[:, 1], nslot).tolist()
+                            did1, did2, pairs[:, 2], run))
+    slot_dim += [condim] * (run * nslot)
+  full_dim = np.array(slot_dim, np.int64)
+  lane_slots = any(g.npair_run < len(g.geom1) for g in groups)
 
-  return ContactLayout(tuple(groups), len(slot_dim),
-                       np.array(slot_dim, np.int64),
-                       np.array(slot_g1, np.int64), np.array(slot_g2, np.int64))
+  # max_contact_points keeps the nearest slots of each condim
+  reduce_groups, dim = (), full_dim
+  if m.max_contact_points > 0 and len(full_dim):
+    reduce_groups = tuple(
+        (int(c), idx, min(len(idx), m.max_contact_points))
+        for c in np.unique(full_dim)
+        for idx in (np.nonzero(full_dim == c)[0],))
+    dim = np.concatenate([np.full(k, c, np.int64)
+                          for c, _, k in reduce_groups])
+    if all(k == len(idx) for _, idx, k in reduce_groups):
+      reduce_groups, dim = (), full_dim
+    lane_slots |= bool(reduce_groups)
+
+  if lane_slots:
+    slot_g1 = slot_g2 = np.full(len(dim), -1, np.int64)
+  else:
+    slot_g1 = np.concatenate([empty] + [np.repeat(g.geom1, g.nslot)
+                                        for g in groups])
+    slot_g2 = np.concatenate([empty] + [np.repeat(g.geom2, g.nslot)
+                                        for g in groups])
+  return ContactLayout(tuple(groups), len(dim), dim, slot_g1, slot_g2,
+                       len(full_dim), reduce_groups, lane_slots)
 
 
 def contact_layout(m: Model) -> ContactLayout:
@@ -425,7 +474,11 @@ def make_frame(normal: torch.Tensor, yhint: torch.Tensor) -> torch.Tensor:
 
 def _pair_params(m: Model, grp: PairGroup):
   """Mixed contact parameters of a pair group (``mj_contactParam``):
-  (margin, includemargin, friction5, solref, solimp), each per pair."""
+  (margin, friction5, solref, solreffriction, solimp), each per pair.  An
+  explicit ``<pair>`` gives its own margin, friction, solref,
+  solreffriction and solimp; a mixed pair has no solreffriction (0, 0).
+  As in C MuJoCo 3.10, a contact's includemargin is its margin: no gap is
+  subtracted."""
   g1, g2 = m.const(grp.geom1), m.const(grp.geom2)
   p1 = m.geom_priority[grp.geom1]
   p2 = m.geom_priority[grp.geom2]
@@ -450,56 +503,149 @@ def _pair_params(m: Model, grp: PairGroup):
   f1, f2 = m.geom_friction[g1], m.geom_friction[g2]
   fri3 = torch.where(use1, f1, torch.where(use2, f2, torch.maximum(f1, f2)))
   friction5 = fri3[:, m.const(np.array([0, 0, 1, 2, 2]))]
-  gap = torch.maximum(m.geom_gap[g1], m.geom_gap[g2])
-  margin = torch.maximum(m.geom_margin[g1], m.geom_margin[g2])
-  return margin, margin - gap, friction5, solref, solimp
+  # C 3.10 adds the two geoms' margins and makes a row of every contact
+  # within the margin, whatever the gap (the JAX package takes the larger
+  # margin and subtracts the larger gap: ROADMAP §3)
+  margin = m.geom_margin[g1] + m.geom_margin[g2]
+  solreffriction = torch.zeros_like(solref)
+  is_pair = grp.ipair >= 0
+  if np.any(is_pair):
+    sel = m.const(is_pair)
+    ip = m.const(np.where(is_pair, grp.ipair, 0))
+    pick = lambda own, mixed: torch.where(
+        sel.reshape((-1,) + (1,) * (mixed.ndim - 1)), own[ip], mixed)
+    margin = pick(m.pair_margin, margin)
+    friction5 = pick(m.pair_friction, friction5)
+    solref, solimp = pick(m.pair_solref, solref), pick(m.pair_solimp, solimp)
+    solreffriction = pick(m.pair_solreffriction, solreffriction)
+  return margin, friction5, solref, solreffriction, solimp
+
+
+def group_params(m: Model) -> tuple:
+  """Each pair group's ``_pair_params``, computed once."""
+  return m.memo("group_params", lambda: tuple(
+      _pair_params(m, g) for g in contact_layout(m).groups))
 
 
 def group_margins(m: Model) -> tuple:
   """Each pair group's margin (P,), the narrowphase's argument."""
-  return m.memo("group_margins", lambda: tuple(
-      _pair_params(m, g)[0] for g in contact_layout(m).groups))
+  return tuple(p[0] for p in group_params(m))
 
 
 def contact_constants(m: Model):
-  """Per-slot mixed parameters (includemargin, friction5, solref,
-  solimp); lane-independent, computed once."""
+  """Per-slot mixed parameters and geoms (includemargin, friction5, solref,
+  solreffriction, solimp, geom1, geom2) of a layout without lane
+  selection; lane-independent, computed once."""
 
   def build():
     lay = contact_layout(m)
-    parts = [_pair_params(m, g)[1:] for g in lay.groups]
     rep = lambda x, g: torch.repeat_interleave(x, g.nslot, dim=0)
-    return tuple(torch.cat([rep(p[i], g) for p, g in zip(parts, lay.groups)])
-                 for i in range(4))
+    return tuple(torch.cat([rep(p[i], g) for p, g in zip(group_params(m),
+                                                          lay.groups)])
+                 for i in range(5)) + (m.const(lay.geom1),
+                                       m.const(lay.geom2))
 
   return m.memo("contact_constants", build)
 
 
+def _nearest_pairs(m: Model, d: Data, grp: PairGroup,
+                   margin: torch.Tensor) -> torch.Tensor:
+  """(B, npair_run): each lane's nearest candidates of a capped group by
+  bounding-sphere distance less the pair's margin (a plane: the signed
+  distance of the other geom's sphere), the broadphase of MJX's
+  ``max_geom_pairs``.  A stable sort keeps the lower candidate of a tie,
+  as XLA's ``top_k`` does, whatever the lane count."""
+  g1, g2 = m.const(grp.geom1), m.const(grp.geom2)
+  p1, p2 = d.geom_xpos[:, g1], d.geom_xpos[:, g2]
+  if grp.types[0] == GeomType.PLANE:
+    bdist = (torch.sum((p2 - p1) * d.geom_xmat[:, g1, :, 2], dim=-1)
+             - m.geom_rbound[g2])
+  else:
+    bdist = (torch.linalg.vector_norm(p2 - p1, dim=-1) - m.geom_rbound[g1]
+             - m.geom_rbound[g2])
+  order = torch.sort(bdist - margin, dim=-1, stable=True).indices
+  return order[:, :grp.npair_run]
+
+
+def _lane_take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+  """x (B, n, ...) at the lane indices idx (B, k): (B, k, ...)."""
+  return torch.take_along_dim(
+      x, idx.reshape(idx.shape + (1,) * (x.ndim - 2)), dim=1)
+
+
+def _nearest_slots(m: Model, lay: ContactLayout, dist, includemargin):
+  """(B, ncon): each lane's kept slots of ``max_contact_points``, per
+  condim the nearest by dist - includemargin, lower slots first in a
+  tie."""
+  score = dist - includemargin
+  sels = []
+  for _, idx, keep in lay.reduce_groups:
+    idx_t = m.const(idx)
+    order = torch.sort(score[:, idx_t], dim=-1, stable=True).indices
+    sels.append(idx_t[order[:, :keep]])
+  return torch.cat(sels, dim=1)
+
+
 def collision(m: Model, d: Data) -> Data:
   """Runs every pair group's narrowphase into the static-shape contact set
-  (``mj_collision``)."""
+  (``mj_collision``).  With a contact budget, each lane takes its own
+  nearest pairs of a capped group to the narrowphase, and its own nearest
+  slots of each condim (MJX's ``max_geom_pairs``, ``max_contact_points``).
+  The slots' geoms and parameters are lane data either way: without lane
+  selection they are the model's constants, expanded."""
   lay = contact_layout(m)
   if lay.ncon == 0:
     return d.replace(contact=None)
-  dists, poss, frames = [], [], []
   bsz = d.batch
-  for grp, margin in zip(lay.groups, group_margins(m)):
+  lanes = lay.lane_slots
+  dists, poss, frames, prms, geoms = [], [], [], [], []
+  for grp, prm in zip(lay.groups, group_params(m)):
     fn = _group_narrowphase(m, grp)
     g1, g2 = m.const(grp.geom1), m.const(grp.geom2)
-    args = (d.geom_xpos[:, g1], d.geom_xmat[:, g1], d.geom_xpos[:, g2],
-            d.geom_xmat[:, g2])
+    capped = grp.npair_run < len(grp.geom1)
+    if capped:
+      sel = _nearest_pairs(m, d, grp, prm[0])
+      g1, g2, prm = g1[sel], g2[sel], tuple(p[sel] for p in prm)
+      args = (_lane_take(d.geom_xpos, g1), _lane_take(d.geom_xmat, g1),
+              m.geom_size[g1], _lane_take(d.geom_xpos, g2),
+              _lane_take(d.geom_xmat, g2), m.geom_size[g2], prm[0])
+    else:
+      args = (d.geom_xpos[:, g1], d.geom_xmat[:, g1], m.geom_size[g1],
+              d.geom_xpos[:, g2], d.geom_xmat[:, g2], m.geom_size[g2],
+              prm[0])
+      if lanes:
+        prm = tuple(p.expand((bsz,) + p.shape) for p in prm)
+        g1, g2 = g1.expand(bsz, -1), g2.expand(bsz, -1)
     chunks = _lane_chunks(m, grp, bsz, d.geom_xpos.element_size())
-    outs = [fn(p1, m1, m.geom_size[g1], p2, m2, m.geom_size[g2], margin)
-            for p1, m1, p2, m2 in zip(*(torch.tensor_split(a, chunks)
-                                        for a in args))]
-    dist, pos, nrm, yhint = (outs[0] if chunks == 1 else
-                             [torch.cat(o) for o in zip(*outs)])
+    if chunks == 1:
+      dist, pos, nrm, yhint = fn(*args)
+    else:
+      # sizes and margin are lane data only in a capped group
+      per_lane = (True, True, capped, True, True, capped, capped)
+      split = [torch.tensor_split(a, chunks) if lane else (a,) * chunks
+               for a, lane in zip(args, per_lane)]
+      outs = [fn(*a) for a in zip(*split)]
+      dist, pos, nrm, yhint = [torch.cat(o) for o in zip(*outs)]
     dists.append(dist.reshape(bsz, -1))
     poss.append(pos.reshape(bsz, -1, 3))
     frames.append(make_frame(nrm, yhint).reshape(bsz, -1, 3, 3))
-  includemargin, friction, solref, solimp = contact_constants(m)
+    if lanes:
+      rep = lambda x: torch.repeat_interleave(x, grp.nslot, dim=1)
+      prms.append(tuple(rep(p) for p in prm))
+      geoms.append((rep(g1), rep(g2)))
+  cat = lambda xs: torch.cat(xs, 1)
+  dist, pos, frame = cat(dists), cat(poss), cat(frames)
+  if not lanes:
+    # the model's constants, seen as lane data (a view, no copy)
+    fields = [x.expand((bsz,) + x.shape) for x in contact_constants(m)]
+  else:
+    fields = [cat(x) for x in zip(*prms)] + [cat(x) for x in zip(*geoms)]
+  if lay.reduce_groups:
+    sel = _nearest_slots(m, lay, dist, fields[0])
+    dist, pos, frame = (_lane_take(x, sel) for x in (dist, pos, frame))
+    fields = [_lane_take(x, sel) for x in fields]
+  includemargin, friction, solref, solreffriction, solimp, g1, g2 = fields
   return d.replace(contact=Contact(
-      dist=torch.cat(dists, 1), pos=torch.cat(poss, 1),
-      frame=torch.cat(frames, 1), includemargin=includemargin,
-      friction=friction, solref=solref, solimp=solimp,
-      geom1=lay.geom1, geom2=lay.geom2))
+      dist=dist, pos=pos, frame=frame, includemargin=includemargin,
+      friction=friction, solref=solref, solreffriction=solreffriction,
+      solimp=solimp, geom1=g1, geom2=g2))

@@ -24,6 +24,7 @@ import numpy as np
 import torch
 
 from mujoco_inversedynamicstest_tpu_torch.models.types import (
+    ConeType,
     Data,
     DisableBit,
     EqType,
@@ -72,10 +73,17 @@ class RowLayout(NamedTuple):
     return self.ne + self.nf + self.nl
 
 
+def elliptic(m: Model) -> bool:
+  """Whether the model's friction cones are elliptic."""
+  return m.opt.cone == ConeType.ELLIPTIC
+
+
 def _build_row_layout(m: Model) -> RowLayout:
-  # frictionless contacts take one row, pyramidal 2 (condim - 1)
+  # frictionless contacts take one row, pyramidal 2 (condim - 1), elliptic
+  # condim
   dim = collision.contact_layout(m).dim
-  ncon_rows = int(np.sum(np.where(dim == 1, 1, 2 * (dim - 1))))
+  ncon_rows = int(np.sum(np.where(dim == 1, 1, dim if elliptic(m)
+                                  else 2 * (dim - 1))))
   flags = m.opt.disableflags
   on = lambda bit: not flags & (DisableBit.CONSTRAINT | bit)
   empty = np.zeros(0, np.int64)
@@ -161,13 +169,13 @@ def _impedance(solimp: torch.Tensor, pos: torch.Tensor, margin: torch.Tensor):
 def _kbip(m: Model, solref, solimp, imp, impp,
           friction: bool = False) -> torch.Tensor:
   """Stiffness, damping, impedance, impedance' per row
-  (``mj_makeImpedance``); solref/solimp are lane-independent.  Friction
-  rows have no stiffness."""
-  ref0, ref1 = solref[:, 0], solref[:, 1]
+  (``mj_makeImpedance``); solref/solimp are per row, or per lane and row.
+  Friction rows have no stiffness."""
+  ref0, ref1 = solref[..., 0], solref[..., 1]
   if not m.opt.disableflags & DisableBit.REFSAFE:
     ref0 = torch.where(ref0 > 0,
                        torch.clamp(ref0, min=2 * m.opt.timestep), ref0)
-  dmax = torch.clamp(solimp[:, 1], _MINIMP, _MAXIMP)
+  dmax = torch.clamp(solimp[..., 1], _MINIMP, _MAXIMP)
   k = torch.where(
       ref0 > 0,
       1.0 / torch.clamp(dmax**2 * ref0**2 * ref1**2, min=math.MINVAL),
@@ -459,15 +467,17 @@ def _eq_acc_bias(m: Model, d: Data) -> torch.Tensor:
   return bias if lay.eq_perm is None else bias[:, m.const(lay.eq_perm)]
 
 
-def _contact_row_map(clay):
+def _contact_row_map(m: Model):
   """Static per-row tables (slot, friction axis k, sign); pyramidal rows
-  come as (k, +1), (k, -1) per friction axis, frictionless as (0, 0)."""
+  come as (k, +1), (k, -1) per friction axis, elliptic ones as (k, 0) for
+  k = 0 (the normal) .. condim - 1, frictionless as (0, 0)."""
+  ell = elliptic(m)
   slot_idx, k_idx, sign = [], [], []
-  for slot, condim in enumerate(clay.dim):
-    if condim == 1:
-      slot_idx.append(slot)
-      k_idx.append(0)
-      sign.append(0.0)
+  for slot, condim in enumerate(collision.contact_layout(m).dim):
+    if condim == 1 or ell:
+      slot_idx += [slot] * condim
+      k_idx += list(range(condim))
+      sign += [0.0] * condim
     else:
       for k in range(1, condim):
         for s in (1.0, -1.0):
@@ -477,59 +487,99 @@ def _contact_row_map(clay):
   return np.array(slot_idx), np.array(k_idx), np.array(sign)
 
 
+def slot_bodies(m: Model, con):
+  """The bodies of each slot's two geoms, (B, ncon) each."""
+  bodyid = m.const(m.geom_bodyid)
+  return bodyid[con.geom1], bodyid[con.geom2]
+
+
 def _contact_rows(m: Model, d: Data):
   """Contact rows (``mj_instantiateContact``, contact ``mj_diagApprox``,
-  pyramidal R: Rpy = 2 mu_reg^2 R0).  Returns (J, pos, margin, active,
-  KBIP, R, D)."""
-  clay = collision.contact_layout(m)
+  ``mj_makeImpedance``).  Pyramidal: every row carries the contact's
+  distance, R = Rpy = 2 mu_reg^2 R0.  Elliptic: the normal row carries
+  the distance and margin, the friction rows 0; R1 = R0 / impratio and
+  Rj mu_j^2 = R1 mu_1^2; the friction rows have no stiffness and take
+  their damping from solreffriction where a <pair> sets it.  Returns (J,
+  pos, margin, active, KBIP, R, D)."""
   con = d.contact
-  slot_idx, k_idx, sign_np = _contact_row_map(clay)
+  ell = elliptic(m)
+  slot_idx, k_idx, sign_np = _contact_row_map(m)
   nrows = len(slot_idx)
   si = m.const(slot_idx)
   ar = m.const(np.arange(nrows))
-  b1, b2 = m.geom_bodyid[con.geom1], m.geom_bodyid[con.geom2]
+  b1, b2 = slot_bodies(m, con)
 
   frame = con.frame[:, si]                               # (B, R, 3, 3)
-  n_dir = frame[..., 0, :]
-  is_tan = (k_idx >= 1) & (k_idx <= 2)
-  tan_row = m.const(np.where(is_tan, np.maximum(k_idx, 1), 1))
-  rot_row = m.const(np.where(k_idx >= 3, k_idx - 3, 0))
-  mu_row = con.friction[si, m.const(np.maximum(k_idx - 1, 0))]
-  sign_mu = (m.const(sign_np) * mu_row)[:, None]
-  w_t = n_dir + sign_mu * (frame[:, ar, tan_row]
-                           * m.const(is_tan.astype(float))[:, None])
-  w_r = sign_mu * (frame[:, ar, rot_row]
-                   * m.const((k_idx >= 3).astype(float))[:, None])
+  mu_row = con.friction[..., si, m.const(np.maximum(k_idx - 1, 0))]
+  if ell:
+    # row k: the translational axis k of the frame for k < 3, the
+    # rotational axis k - 3 above
+    is_t = k_idx < 3
+    w_t = (frame[:, ar, m.const(np.where(is_t, k_idx, 0))]
+           * m.const(is_t.astype(float))[:, None])
+    w_r = (frame[:, ar, m.const(np.where(is_t, 0, k_idx - 3))]
+           * m.const((~is_t).astype(float))[:, None])
+  else:
+    n_dir = frame[..., 0, :]
+    is_tan = (k_idx >= 1) & (k_idx <= 2)
+    tan_row = m.const(np.where(is_tan, np.maximum(k_idx, 1), 1))
+    rot_row = m.const(np.where(k_idx >= 3, k_idx - 3, 0))
+    sign_mu = (m.const(sign_np) * mu_row)[..., None]
+    w_t = n_dir + sign_mu * (frame[:, ar, tan_row]
+                             * m.const(is_tan.astype(float))[:, None])
+    w_r = sign_mu * (frame[:, ar, rot_row]
+                     * m.const((k_idx >= 3).astype(float))[:, None])
 
   p_row = con.pos[:, si]
   com = d.subtree_com[:, m.const(m.body_rootid)]
   cdof_t = d.cdof.transpose(1, 2)
+  rb1, rb2 = b1[:, si], b2[:, si]                        # (B, R)
+  dof_mask = m.const(m.tree.body_dof_mask)
+  com_of = lambda b: torch.take_along_dim(com, b[..., None], dim=1)
+  mask = lambda b: dof_mask[b]
 
   def side_rows(bids):
-    off = p_row - com[:, m.const(bids[slot_idx])]
+    off = p_row - com_of(bids)
     u = torch.cat([math.cross(off, w_t) + w_r, w_t], dim=-1)
     return u @ cdof_t                                     # (B, R, nv)
 
-  mask = lambda bids: m.const(m.tree.body_dof_mask[bids[slot_idx]])
-  rows_j = (torch.where(mask(b2), side_rows(b2), 0.0)
-            - torch.where(mask(b1), side_rows(b1), 0.0))
+  rows_j = (torch.where(mask(rb2), side_rows(rb2), 0.0)
+            - torch.where(mask(rb1), side_rows(rb1), 0.0))
 
   invw = m.body_invweight0
-  tran = invw[m.const(b1), 0] + invw[m.const(b2), 0]      # (ncon,)
+  tran = invw[b1, 0] + invw[b2, 0]                       # (B, ncon)
   imp, impp = _impedance(con.solimp, con.dist, con.includemargin)
   kbip = _kbip(m, con.solref, con.solimp, imp, impp)     # (B, ncon, 4)
   active = con.dist < con.includemargin
-
-  mu0 = con.friction[:, 0]
-  da0 = torch.where(m.const(clay.dim == 1), tran, tran + mu0**2 * tran)
-  r0 = torch.clamp((1 - imp) * da0 / imp, min=math.MINVAL)
-  r_py = 2.0 * (mu0 / np.sqrt(m.opt.impratio))**2 * r0
-  rows_r = torch.where(m.const(k_idx == 0), r0[:, si], r_py[:, si])
+  mu0 = con.friction[..., 0]
   rows_active = active[:, si]
+  normal = m.const(k_idx == 0)
+  if ell:
+    r0 = torch.clamp((1 - imp) * tran / imp, min=math.MINVAL)
+    r1 = r0 / max(math.MINVAL, m.opt.impratio)
+    rows_r = torch.where(normal, r0[:, si], r1[:, si] * mu0[..., si] ** 2
+                         / torch.clamp(mu_row**2, min=math.MINVAL))
+    srf = con.solreffriction[..., si, :]
+    own = torch.any(srf != 0, dim=-1, keepdim=True)
+    kbip_f = _kbip(m, torch.where(own, srf, con.solref[..., si, :]),
+                   con.solimp[..., si, :], imp[:, si], impp[:, si],
+                   friction=True)
+    rows_kbip = torch.where(normal[:, None], kbip[:, si], kbip_f)
+    rows_pos = torch.where(normal, con.dist[:, si], 0.0)
+    rows_margin = torch.where(normal, con.includemargin[..., si], 0.0)
+  else:
+    da0 = torch.where(m.const(collision.contact_layout(m).dim == 1), tran,
+                      tran + mu0**2 * tran)
+    r0 = torch.clamp((1 - imp) * da0 / imp, min=math.MINVAL)
+    r_py = 2.0 * (mu0 / np.sqrt(m.opt.impratio))**2 * r0
+    rows_r = torch.where(normal, r0[:, si], r_py[:, si])
+    rows_kbip = kbip[:, si]
+    rows_pos = con.dist[:, si]
+    rows_margin = con.includemargin[..., si]
   rows_d = torch.where(rows_active, 1.0 / rows_r, 0.0)
-  return (rows_j * rows_active[..., None], con.dist[:, si],
-          con.includemargin[si].expand(d.batch, nrows), rows_active,
-          kbip[:, si], rows_r, rows_d)
+  return (rows_j * rows_active[..., None], rows_pos,
+          rows_margin.expand(d.batch, nrows), rows_active, rows_kbip, rows_r,
+          rows_d)
 
 
 def _finish(m: Model, rows: _Rows, friction: bool = False):
@@ -616,15 +666,121 @@ def row_kinds(m: Model) -> tuple[torch.Tensor, torch.Tensor]:
   return m.memo("row_kinds", kinds)
 
 
+class ConeTables(NamedTuple):
+  """Static gather tables of the elliptic contacts (slots with condim >
+  1): each slot's efc rows, padded to 6 with its first row."""
+  nes: int
+  slot: np.ndarray        # (nes,) contact slot
+  rows: np.ndarray        # (nes, 6) efc rows
+  rmask: np.ndarray       # (nes, 6) bool: a row of the slot
+  is_ell: np.ndarray      # (nefc,) bool: an elliptic row
+  flat: np.ndarray        # (nefc,) an elliptic row's place in (nes * 6)
+
+
+def cone_tables(m: Model) -> ConeTables:
+  """The elliptic cone tables of ``m`` (``nes = 0`` for pyramidal
+  cones)."""
+
+  def build():
+    lay = row_layout(m)
+    dim = collision.contact_layout(m).dim
+    slot = np.nonzero(dim > 1)[0] if elliptic(m) else np.zeros(0, np.int64)
+    first = lay.ncon_start + np.concatenate(
+        [[0], np.cumsum(np.where(dim == 1, 1, dim))[:-1]]).astype(np.int64)
+    j = np.arange(6)
+    rmask = j[None] < dim[slot][:, None]
+    rows = first[slot][:, None] + np.where(rmask, j[None], 0)
+    is_ell = np.zeros(lay.nefc, bool)
+    flat = np.zeros(lay.nefc, np.int64)
+    is_ell[rows[rmask]] = True
+    flat[rows[rmask]] = np.nonzero(rmask.reshape(-1))[0]
+    return ConeTables(len(slot), slot, rows, rmask, is_ell, flat)
+
+  return m.memo("cone_tables", build)
+
+
+class Cone(NamedTuple):
+  """The elliptic slots at one jar (the elliptic branch of
+  ``mj_constraintUpdate``), each (B, nes[, 6]): U = jar_j coef_j in the
+  dual cone's coordinates with coef = (mu, friction...), N = U_0, T the
+  norm of U's friction part (kept off 0 before its square root), Dm =
+  D_0 / (mu^2 (1 + mu^2)), and the zones (top: no force; bottom: each
+  row quadratic; middle: the cone's force)."""
+  U: torch.Tensor
+  N: torch.Tensor
+  T: torch.Tensor
+  Dm: torch.Tensor
+  mu: torch.Tensor
+  coef: torch.Tensor
+  jar: torch.Tensor       # the slots' rows of jar (0 on the padding)
+  top: torch.Tensor
+  bottom: torch.Tensor
+  middle: torch.Tensor
+
+
+def cone_quantities(m: Model, d: Data, jar: torch.Tensor) -> Cone:
+  """The elliptic slots' cone coordinates and zones at ``jar``."""
+  ct = cone_tables(m)
+  rmask = m.const(ct.rmask.astype(float))
+  fr = d.contact.friction[..., m.const(ct.slot), :]      # ([B,] nes, 5)
+  mu = fr[..., 0] / np.sqrt(max(math.MINVAL, m.opt.impratio))
+  coef = torch.cat([mu[..., None], fr], dim=-1) * rmask
+  jar_rows = jar[:, m.const(ct.rows)] * rmask            # (B, nes, 6)
+  u = jar_rows * coef
+  n = u[..., 0]
+  t2 = torch.sum(u[..., 1:] ** 2, dim=-1)
+  # the square root's argument is kept off 0, so that its tangent stays
+  # finite where the friction part vanishes (C: mjMINVAL)
+  t = torch.sqrt(torch.clamp(t2, min=math.MINVAL**2))
+  d0 = d.efc_D[:, m.const(ct.rows[:, 0])]
+  dm = d0 / torch.clamp(mu * mu * (1 + mu * mu), min=math.MINVAL)
+  no_t = t2 <= math.MINVAL**2
+  top = (n >= mu * t) | (no_t & (n >= 0))
+  bottom = ((mu * n + t <= 0) & ~top) | (no_t & (n < 0))
+  return Cone(u, n, t, dm, mu.expand_as(n), coef.expand_as(u), jar_rows,
+              top, bottom, ~top & ~bottom)
+
+
+def _cone_rows(m: Model, x: torch.Tensor) -> torch.Tensor:
+  """(B, nes[, ...]) per elliptic slot -> (B, nefc[, ...]) on its rows."""
+  return x[:, m.const(cone_tables(m).flat // 6)]
+
+
+def cone_hessian(m: Model, c: Cone) -> torch.Tensor:
+  """(B, nes, 6, 6): each middle-zone slot's cone Hessian (the
+  ``flg_coneHessian`` branch of ``mj_constraintUpdate``), zero in the
+  other zones and on the padding:
+  Dm coef_i coef_j [[1, -mu U'/T], [-mu U/T, mu N U U'/T^3 + (mu^2 -
+  mu N / T) I]]."""
+  u, n, t, mu = c.U, c.N, c.T, c.mu
+  uf = u[..., 1:]
+  s1 = (-mu / t)[..., None] * uf                          # (B, nes, 5)
+  corner = torch.ones_like(n)[..., None, None]
+  block = ((mu * n / t**3)[..., None, None] * uf[..., :, None]
+           * uf[..., None, :]
+           + (mu * mu - mu * n / t)[..., None, None]
+           * torch.eye(5, dtype=u.dtype, device=u.device))
+  h = torch.cat([torch.cat([corner, s1[..., None, :]], dim=-1),
+                 torch.cat([s1[..., :, None], block], dim=-1)], dim=-2)
+  h = h * (c.Dm[..., None, None] * c.coef[..., :, None]
+           * c.coef[..., None, :])
+  return torch.where(c.middle[..., None, None], h, 0.0)
+
+
 def zones(m: Model, d: Data, jar: torch.Tensor):
-  """The zones of ``mj_constraintUpdate`` (pyramidal cones) at ``jar``:
-  (quadratic, linear negative, linear positive) masks, the last two None
-  without equality and friction rows.  Equality rows are always
-  quadratic; a friction row is linear below -R floss (force +floss) and
-  above R floss (force -floss), quadratic between; every other row
-  (limits, contacts) is an inequality, quadratic exactly when jar < 0."""
+  """The zones of ``mj_constraintUpdate`` at ``jar``: (quadratic, linear
+  negative, linear positive) masks, the last two None without equality
+  and friction rows.  Equality rows are always quadratic; a friction row
+  is linear below -R floss (force +floss) and above R floss (force
+  -floss), quadratic between; limits, frictionless and pyramidal contacts
+  are inequalities, quadratic exactly when jar < 0.  An elliptic
+  contact's rows are left out: their zone is their slot's
+  (``cone_quantities``), which ``forces_cost`` and the line search read."""
   lay = row_layout(m)
   quad = jar < 0
+  ct = cone_tables(m)
+  if ct.nes:
+    quad = quad & ~m.const(ct.is_ell)
   if not lay.ne and not lay.nf:
     return quad, None, None
   is_eq, is_fri = row_kinds(m)
@@ -637,21 +793,41 @@ def zones(m: Model, d: Data, jar: torch.Tensor):
 
 def forces_cost(m: Model, d: Data, jar: torch.Tensor):
   """Constraint force, cost and quadratic-zone mask at ``jar = J qacc -
-  aref`` (``mj_constraintUpdate``), by the zones of ``zones``."""
+  aref`` (``mj_constraintUpdate``), by the zones of ``zones``; an
+  elliptic slot in its middle zone takes the cone's force
+  f_0 = -Dm (N - mu T) mu, f_j = -f_0 U_j coef_j / T, and costs
+  Dm (N - mu T)^2 / 2."""
+  ct = cone_tables(m)
   quad, lin_neg, lin_pos = zones(m, d, jar)
   if lin_neg is None:
-    force = torch.where(quad, -d.efc_D * jar, 0.0) * d.efc_active
+    force = torch.where(quad, -d.efc_D * jar, 0.0)
     cost = 0.5 * torch.sum(torch.where(quad, d.efc_D * jar * jar, 0.0),
                            dim=-1)
-    return force, cost, quad
-  floss = d.efc_frictionloss
-  force = torch.where(quad, -d.efc_D * jar, 0.0)
-  force = torch.where(lin_neg, floss, torch.where(lin_pos, -floss, force))
-  half = 0.5 * d.efc_R * floss * floss
-  cost = torch.sum(torch.where(
-      quad, 0.5 * d.efc_D * jar * jar, torch.where(
-          lin_neg, -half - floss * jar, torch.where(
-              lin_pos, -half + floss * jar, 0.0))), dim=-1)
+  else:
+    floss = d.efc_frictionloss
+    force = torch.where(quad, -d.efc_D * jar, 0.0)
+    force = torch.where(lin_neg, floss, torch.where(lin_pos, -floss, force))
+    half = 0.5 * d.efc_R * floss * floss
+    cost = torch.sum(torch.where(
+        quad, 0.5 * d.efc_D * jar * jar, torch.where(
+            lin_neg, -half - floss * jar, torch.where(
+                lin_pos, -half + floss * jar, 0.0))), dim=-1)
+  if ct.nes:
+    c = cone_quantities(m, d, jar)
+    d_rows = d.efc_D[:, m.const(ct.rows)]
+    nmt = c.N - c.mu * c.T
+    f0 = -c.Dm * nmt * c.mu
+    f_mid = torch.cat([f0[..., None],
+                       (-f0 / c.T)[..., None] * c.U[..., 1:] * c.coef[..., 1:]],
+                      dim=-1)
+    f_cone = torch.where(c.middle[..., None], f_mid, torch.where(
+        c.bottom[..., None], -d_rows * c.jar, 0.0))
+    is_ell = m.const(ct.is_ell)
+    force = torch.where(is_ell, f_cone.flatten(1)[:, m.const(ct.flat)], force)
+    cost = cost + torch.sum(torch.where(
+        c.bottom, 0.5 * torch.sum(d_rows * c.jar * c.jar, dim=-1),
+        torch.where(c.middle, 0.5 * c.Dm * nmt * nmt, 0.0)), dim=-1)
+    quad = torch.where(is_ell, _cone_rows(m, c.bottom), quad)
   return force * d.efc_active, cost, quad
 
 
@@ -662,32 +838,46 @@ def constraint_update(m: Model, d: Data, jar: torch.Tensor) -> Data:
   return d.replace(efc_force=force, qfrc_constraint=qfrc)
 
 
-def _contact_force_map(m: Model) -> torch.Tensor:
-  """(ncon_rows, 6 ncon): each contact row's share of its slot's force in
-  the contact frame (``mju_decodePyramid``): 1 into the normal for every
-  row, ±mu_k into friction component k for the pair of rows of axis k."""
+def _contact_force_map(m: Model) -> tuple[torch.Tensor, torch.Tensor]:
+  """Two (ncon_rows, 6 ncon) maps of each contact row into its slot's
+  force in the contact frame, (normal, friction).  Pyramidal
+  (``mju_decodePyramid``): every row adds 1 into the normal, and the
+  rows of friction axis k add ±1 into component k, which
+  ``contact_forces_frame`` scales by the lane's mu_k.  Elliptic: row k is
+  component k, all in the first map."""
   clay = collision.contact_layout(m)
-  slot_idx, k_idx, sign = _contact_row_map(clay)
-  friction = collision.contact_constants(m)[1]             # (ncon, 5)
+  slot_idx, k_idx, sign = _contact_row_map(m)
   rows = np.arange(len(slot_idx))
-  out = torch.zeros((len(slot_idx), clay.ncon, 6), dtype=m.dtype,
-                    device=m.device)
-  out[m.const(rows), m.const(slot_idx), 0] = 1.0
-  fric = np.nonzero(k_idx >= 1)[0]
-  mu = friction[m.const(slot_idx[fric]), m.const(k_idx[fric] - 1)]
-  out[m.const(rows[fric]), m.const(slot_idx[fric]),
-      m.const(k_idx[fric])] = m.const(sign[fric]) * mu
-  return out.reshape(len(slot_idx), clay.ncon * 6)
+  shape = (len(slot_idx), clay.ncon, 6)
+  normal = torch.zeros(shape, dtype=m.dtype, device=m.device)
+  friction = torch.zeros(shape, dtype=m.dtype, device=m.device)
+  if elliptic(m):
+    normal[m.const(rows), m.const(slot_idx), m.const(k_idx)] = 1.0
+  else:
+    normal[m.const(rows), m.const(slot_idx), 0] = 1.0
+    fric = np.nonzero(k_idx >= 1)[0]
+    friction[m.const(rows[fric]), m.const(slot_idx[fric]),
+             m.const(k_idx[fric])] = m.const(sign[fric])
+  return (normal.reshape(len(slot_idx), -1),
+          friction.reshape(len(slot_idx), -1))
 
 
 def contact_forces_frame(m: Model, d: Data) -> torch.Tensor:
   """Each contact slot's force and torque in its contact frame, (B, ncon,
   6) (``mj_contactForce``): for pyramidal rows the normal force is the sum
-  of the slot's rows and friction component k is mu_k times the difference
-  of axis k's pair of rows; a frictionless slot's one row is its normal
+  of the slot's rows and friction component k is the lane's mu_k times
+  the difference of axis k's pair of rows; elliptic rows are the
+  components themselves; a frictionless slot's one row is its normal
   force.  Inactive slots read zero."""
   lay = row_layout(m)
-  ncon = collision.contact_layout(m).ncon
+  clay = collision.contact_layout(m)
   f_rows = d.efc_force[:, lay.ncon_start:]
-  return (f_rows @ m.memo("contact_force_map", lambda: _contact_force_map(m))
-          ).reshape(d.batch, ncon, 6)
+  normal, friction = m.memo("contact_force_map",
+                            lambda: _contact_force_map(m))
+  out = f_rows @ normal
+  if not elliptic(m):
+    slot_idx, k_idx, _ = _contact_row_map(m)
+    mu = d.contact.friction[:, m.const(slot_idx),
+                            m.const(np.maximum(k_idx - 1, 0))]
+    out = out + (f_rows * mu) @ friction
+  return out.reshape(d.batch, clay.ncon, 6)

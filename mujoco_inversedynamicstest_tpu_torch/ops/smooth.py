@@ -615,23 +615,21 @@ def rne_postconstraint(m: Model, d: Data) -> Data:
     force = constraint.contact_forces_frame(m, d)
     f_world = math.mat_t_vec(con.frame, force[..., :3])
     t_world = math.mat_t_vec(con.frame, force[..., 3:])
-    b1, b2 = m.geom_bodyid[clay.geom1], m.geom_bodyid[clay.geom2]
+    b1, b2 = constraint.slot_bodies(m, con)
 
     def wrench(bodies):
-      com = d.subtree_com[:, m.const(m.body_rootid[bodies])]
+      com = torch.take_along_dim(d.subtree_com, m.const(m.body_rootid)[
+          bodies][..., None], dim=1)
       return torch.cat([t_world - math.cross(com - con.pos, f_world),
                         f_world], dim=-1)
 
     # body 1 takes -wrench, body 2 +wrench, the world nothing: one product
-    # with a fixed (nbody, 2 ncon) table of signs, in a fixed order
-    def signs():
-      s = np.zeros((m.nbody, 2 * clay.ncon))
-      s[b1, np.arange(clay.ncon)] -= 1.0
-      s[b2, clay.ncon + np.arange(clay.ncon)] += 1.0
-      s[0] = 0.0
-      return m.const(s)
-
-    cfrc_ext = cfrc_ext + m.memo("contact_wrench_signs", signs) @ torch.cat(
+    # with each lane's (nbody, 2 ncon) table of signs, in a fixed order
+    body = m.const(np.arange(1, m.nbody))[:, None]
+    on = lambda b: (b[:, None] == body).to(cfrc_ext.dtype)
+    table = torch.cat([-on(b1), on(b2)], dim=2)
+    table = torch.cat([torch.zeros_like(table[:, :1]), table], dim=1)
+    cfrc_ext = cfrc_ext + table @ torch.cat(
         [wrench(b1), wrench(b2)], dim=1)
 
   eq = constraint.equality_wrenches(m, d) if constraint.row_layout(

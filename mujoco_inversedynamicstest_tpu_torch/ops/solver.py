@@ -54,6 +54,12 @@ class _State:
   stats: torch.Tensor
 
 
+def solver_tolerance(m: Model, dtype: torch.dtype) -> float:
+  """``opt.tolerance``, floored at 10 ulp of ``dtype``: below that the
+  cost and slope comparisons are float noise."""
+  return max(m.opt.tolerance, 10 * torch.finfo(dtype).eps)
+
+
 def _select(live: torch.Tensor, new, old):
   """Per-lane choice between two states (the batched while-loop carry)."""
   pick = lambda a, b: torch.where(live.reshape((-1,) + (1,) * (a.ndim - 1)),
@@ -93,12 +99,22 @@ def _eval_state(m: Model, d: Data, qacc, with_grad: bool) -> _State:
 
 def _refresh_gradient(m: Model, d: Data, st: _State) -> _State:
   """grad = M qacc - qfrc_smooth - qfrc_constraint, preconditioned by the
-  exact Hessian ``M + Jᵀ diag(D · quad) J`` through the Cholesky kernels."""
+  exact Hessian ``M + Jᵀ diag(D · quad) J``, plus each elliptic slot's
+  cone block ``J_cᵀ H_c J_c`` in its middle zone (C's ``HessianCone``),
+  through the Cholesky kernels."""
   grad = st.Ma - d.qfrc_smooth - st.qfrc_constraint
   dd = d.efc_D * st.quad_mask
   # a plain fp32/fp64 matmul: TF32 stays off (see chip_smoke.py)
   hess = d.qM + torch.matmul(d.efc_J.transpose(1, 2) * dd[:, None, :],
                              d.efc_J)
+  ct = constraint.cone_tables(m)
+  if ct.nes:
+    hc = constraint.cone_hessian(m, constraint.cone_quantities(m, d,
+                                                              st.jaref))
+    jc = (d.efc_J[:, m.const(ct.rows)]
+          * m.const(ct.rmask.astype(float))[..., None])   # (B, nes, 6, nv)
+    hess = hess + torch.matmul(jc.flatten(1, 2).transpose(1, 2),
+                               torch.matmul(hc, jc).flatten(1, 2))
   hess = 0.5 * (hess + hess.transpose(1, 2))
   mgrad = linalg.chol_solve(linalg.chol_factor(hess), grad)
   return dataclasses.replace(st, grad=grad, mgrad=mgrad)
@@ -141,16 +157,66 @@ def line_phi(m: Model, d: Data, st: _State):
           lin_pos[..., None], lin_rows[1], rows))
     return rows
 
+  cone = _cone_line(m, d, st, jv, quad_rows)
+
   def phi(alpha):
     x = st.jaref + alpha[:, None] * jv
     total = quad_gauss + torch.sum(row_terms(x), dim=1)
+    mid = None
+    if cone is not None:
+      bottom, mid = cone(alpha)
+      total = total + bottom
     cost = total[:, 0] + alpha * total[:, 1] + alpha * alpha * total[:, 2]
     d0 = total[:, 1] + 2 * alpha * total[:, 2]
     d1 = 2 * total[:, 2]
+    if mid is not None:
+      cost, d0, d1 = cost + mid[:, 0], d0 + mid[:, 1], d1 + mid[:, 2]
     d1 = d1 + (d1 == 0) * math.MINVAL
     return torch.stack([alpha, cost, d0, d1], dim=-1)
 
   return phi, mv, jv
+
+
+def _cone_line(m: Model, d: Data, st: _State, jv, quad_rows):
+  """The elliptic slots' part of phi(alpha) (C's ``CGprepare`` and
+  ``CGeval``), None without them: a function of alpha (B,) giving the
+  bottom-zone slots' summed row quadratics as (B, 3) coefficients in
+  alpha, and the middle-zone slots' (B, 3) cost, phi' and phi''.  Each
+  slot's zone is that of N(alpha) = U_0 + alpha V_0 and
+  T(alpha)^2 = UU + alpha (2 UV + alpha VV), with V = J search in the cone's
+  coordinates."""
+  ct = constraint.cone_tables(m)
+  if not ct.nes:
+    return None
+  c = constraint.cone_quantities(m, d, st.jaref)
+  rmask = m.const(ct.rmask.astype(float))
+  rows = m.const(ct.rows)
+  v = jv[:, rows] * rmask * c.coef
+  u0, v0, mu, dm = c.U[..., 0], v[..., 0], c.mu, c.Dm
+  uu = torch.sum(c.U[..., 1:] ** 2, dim=-1)
+  uv = torch.sum(c.U[..., 1:] * v[..., 1:], dim=-1)
+  vv = torch.sum(v[..., 1:] ** 2, dim=-1)
+  slot_quad = torch.sum(quad_rows[:, rows] * rmask[..., None], dim=2)
+
+  def terms(alpha):
+    a = alpha[:, None]
+    n = u0 + a * v0
+    tsqr = uu + a * (2 * uv + a * vv)
+    no_t = tsqr <= math.MINVAL**2
+    t = torch.sqrt(torch.clamp(tsqr, min=math.MINVAL**2))
+    top = (n >= mu * t) | (no_t & (n >= 0))
+    bottom = ((mu * n + t <= 0) & ~top) | (no_t & (n < 0))
+    middle = ~top & ~bottom
+    nmt = n - mu * t
+    t1 = (uv + a * vv) / t
+    t2 = vv / t - (uv + a * vv) * t1 / (t * t)
+    slope = v0 - mu * t1
+    mid = torch.stack([0.5 * dm * nmt * nmt, dm * nmt * slope,
+                       dm * (slope * slope - nmt * mu * t2)], dim=-1)
+    return (torch.sum(torch.where(bottom[..., None], slot_quad, 0.0), dim=1),
+            torch.sum(torch.where(middle[..., None], mid, 0.0), dim=1))
+
+  return terms
 
 
 def _linesearch(m: Model, d: Data, st: _State) -> _State:
@@ -170,7 +236,10 @@ def _linesearch(m: Model, d: Data, st: _State) -> _State:
     return torch.where(mask[:, None], new, old)
 
   smag = math.norm_safe(st.search) * m.stat_meaninertia * max(1, m.nv)
-  gtol = m.opt.tolerance * m.opt.ls_tolerance * smag
+  # the solver's tolerance, floored as solve floors it: below ~10 ulp a
+  # slope is float noise, and an fp32 lane on the cone's curved phi would
+  # otherwise bisect for all ls_iterations rounds (fp64 keeps C's)
+  gtol = solver_tolerance(m, smag.dtype) * m.opt.ls_tolerance * smag
 
   p0 = phi(torch.zeros_like(smag))
   pn = phi(newton(p0))
@@ -220,7 +289,7 @@ def _linesearch(m: Model, d: Data, st: _State) -> _State:
     hi = pick(live, new_hi, hi)
     live = live & ~done
 
-  improved = (lo[:, 1] < p0[:, 1]) | (hi[:, 1] < p0[:, 1])
+  improved = (lo[:, 1] <= p0[:, 1]) | (hi[:, 1] <= p0[:, 1])
   lo_best = lo[:, 1] < hi[:, 1]
   alpha = torch.where(lo_best, lo[:, 0], hi[:, 0]) * improved
   return dataclasses.replace(
@@ -288,8 +357,7 @@ def solve(m: Model, d: Data) -> Data:
     qacc0 = d.qacc_smooth
   st = _eval_state(m, d, qacc0, with_grad=True)
 
-  # below ~10 ulp the cost comparison is float noise
-  tol = max(m.opt.tolerance, 10 * torch.finfo(qacc0.dtype).eps)
+  tol = solver_tolerance(m, qacc0.dtype)
   scale = m.stat_meaninertia * max(1, m.nv)
 
   def met(st):

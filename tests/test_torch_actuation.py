@@ -10,6 +10,8 @@ MuJoCo and the JAX package.  Where the JAX package and C differ, the test
 follows C and asserts the JAX difference.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import importlib
 
 import jax

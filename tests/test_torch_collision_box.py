@@ -18,6 +18,8 @@ In float64 on the CPU:
   humanoid's contacts bit-equal to their form before the margin.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import sys
 import warnings
 
@@ -69,9 +71,9 @@ def _port_contacts(mjm, mjd):
   """The port's active contacts of one lane, as ``_c_contacts`` gives C's."""
   m = mt.put_model(mjm, device="cpu")
   ct = mt.forward(m, mt.put_data(m, mjd)).contact
-  act = (ct.dist[0] < ct.includemargin).numpy()
+  act = (ct.dist[0] < ct.includemargin[0]).numpy()
   return [(float(ct.dist[0, i]), ct.pos[0, i].numpy(),
-           ct.frame[0, i, 0].numpy(), int(ct.geom1[i]), int(ct.geom2[i]))
+           ct.frame[0, i, 0].numpy(), int(ct.geom1[0, i]), int(ct.geom2[0, i]))
           for i in np.nonzero(act)[0]]
 
 
@@ -286,7 +288,14 @@ ELLIPSOID, CYLINDER, HFIELD, SDF = 4, 5, 1, 8
      "CYLINDER-CYLINDER"),
     ((), dict(geom_type=(0, HFIELD)), "HFIELD-BOX"),
     ((), dict(geom_type=(1, SDF)), "PLANE-SDF"),
-    ((), dict(npair=(None, 1)), "npair = 1"),
+    ((), dict(npair=(None, 1), pair_geom1=(None, [6]), pair_geom2=(None, [1]),
+              pair_dim=(None, [3]), pair_margin=(None, [0.0]),
+              pair_gap=(None, [0.0]),
+              pair_friction=(None, [[1.0, 1.0, 0.005, 1e-4, 1e-4]]),
+              pair_solref=(None, [[0.02, 1.0]]),
+              pair_solreffriction=(None, [[0.0, 0.0]]),
+              pair_solimp=(None, [[0.9, 0.95, 0.001, 0.5, 2.0]])),
+     "collision pair CYLINDER-BOX"),
     ((), dict(nflex=(None, 1)), "nflex = 1"),
 ], ids=["plane-ellipsoid", "ellipsoid-box", "sphere-ellipsoid",
         "cylinder-box", "sphere-cylinder", "capsule-cylinder",

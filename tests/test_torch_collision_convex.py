@@ -20,6 +20,8 @@ In float64 on the CPU:
   chunks equal to the group run whole.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import sys
 import warnings
 

@@ -10,6 +10,8 @@ package (every static row) and C MuJoCo (the active rows), ``forward``,
 20 steps, ``inverse`` and the reference fork's forward/inverse check.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import jax
 import mujoco
 import numpy as np

@@ -6,7 +6,16 @@ JAX package where the friction rows pass through all three of their zones;
 per-lane ``eq_active``, the EQUALITY and FRICTIONLOSS disable flags,
 ``jac``/``jac_dot``, ``transition_ad`` and the mocap poses against C
 MuJoCo; the refusals of ``validate_model`` by name (float64, CPU).
+
+The Newton solve in float32 against float64 on the same states, under
+each friction cone (box_stack, elliptic_pairs; 16 lanes): every fp32 lane
+meets the solver's tolerance, its qacc lies within 1e-3 of max|qacc|, and
+the fp64 cost at the fp32 qacc within 1e-6 (relative) of the fp64
+optimum.  fp32 fleets run the solver's tolerances floored at 10 ulp (the
+outer loop's and the line search's slope test) and its tie rule.
 """
+
+import torch_threads  # noqa: F401  (first: pins torch's threads)
 
 import jax
 import jax.numpy as jnp
@@ -20,7 +29,7 @@ import mujoco_inversedynamicstest_tpu_torch as mt
 from mujoco_inversedynamicstest_tpu.ops import constraint as jconstraint
 from mujoco_inversedynamicstest_tpu.ops import solver as jsolver
 from mujoco_inversedynamicstest_tpu_torch.models.types import DisableBit
-from mujoco_inversedynamicstest_tpu_torch.ops import constraint, solver
+from mujoco_inversedynamicstest_tpu_torch.ops import constraint, math, solver
 from mujoco_inversedynamicstest_tpu_torch.ops import support
 from mujoco_inversedynamicstest_tpu_torch.opt import derivative
 from test_torch_constraint_rows import MODELS, lanes, setup_lanes
@@ -330,3 +339,36 @@ def test_integrators_carry_eq_active_and_mocap(integrator):
       mujoco.mj_step(mjm, mjd)
     np.testing.assert_allclose(d.qpos[i].numpy(), mjd.qpos, rtol=0,
                                atol=1e-6, err_msg=f"lane {i}")
+
+
+@pytest.mark.parametrize("cone", ["PYRAMIDAL", "ELLIPTIC"])
+@pytest.mark.parametrize("name", ["box_stack", "elliptic_pairs"])
+def test_fp32_solve_matches_fp64(name, cone):
+  """fp32 fleets run the solver's floored tolerances (the outer loop's and
+  the line search's slope test, 10 ulp) and its tie rule: their solve
+  must still reach fp64's optimum to fp32's precision."""
+  mjm = mujoco.MjModel.from_xml_path(str(mt.asset_path(f"{name}.xml")))
+  mjm.opt.cone = getattr(mujoco.mjtCone, f"mjCONE_{cone}")
+  m64 = mt.put_model(mjm, device="cpu")
+  m32 = mt.put_model(mjm, device="cpu", dtype=torch.float32)
+  lanes = 16
+  qvel = 0.3 * np.random.RandomState(0).randn(lanes, mjm.nv)
+  d = mt.from_jax_arrays(m64, {"qpos": np.stack([mjm.qpos0] * lanes),
+                               "qvel": qvel})
+  d = mt.step(m64, mt.step(m64, d))
+  f64 = mt.forward(m64, d)
+  f32 = mt.forward(m32, mt.from_jax_arrays(
+      m32, {"qpos": d.qpos.numpy(), "qvel": d.qvel.numpy()}))
+  assert int(f64.efc_active.any(-1).sum()) >= lanes // 2
+  assert int(f32.solver_niter.max()) < mjm.opt.iterations
+  scale = float(f64.qacc.abs().max())
+  err = float((f32.qacc.double() - f64.qacc).abs().max())
+  assert err <= 1e-3 * scale, (err, scale)
+  cost64 = solver._eval_state(m64, f64, f64.qacc, False).cost
+  cost32 = solver._eval_state(m64, f64, f32.qacc.double(), False).cost
+  gap = cost32 - cost64
+  assert bool((gap <= 1e-6 * torch.clamp(cost64.abs(), min=1.0)).all()), (
+      gap.max(), cost64.abs().max())
+  if cone == "ELLIPTIC":
+    jar = math.matvec(f64.efc_J, f64.qacc) - f64.efc_aref
+    assert int(constraint.cone_quantities(m64, f64, jar).middle.sum()) > 0

@@ -5,6 +5,8 @@ A file of its own: compiling the JAX package's iLQR takes about half a
 minute, and the Tier-1 command gives each file one worker.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import importlib
 
 import jax

@@ -12,6 +12,8 @@ and the small models' trajectories
 (``test_torch_integrators_trajectories.py``).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 
 import jax

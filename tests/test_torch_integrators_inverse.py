@@ -11,6 +11,8 @@ IMPLICIT against C's centered finite differences (1e-6, as
 ``tests/test_torch_opt.py::test_humanoid_transition_matches_c``).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import warnings
 
 import jax

@@ -9,6 +9,8 @@ the same solver iteration count.  There the JAX package keeps its first
 stage's fields and is far from C (ROADMAP queue 3).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import jax
 import mujoco
 import numpy as np

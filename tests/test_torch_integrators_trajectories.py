@@ -6,6 +6,8 @@ that the port's ``put_model`` accepts: a damped pendulum, a chain with
 hinge, slide and ball joints and springs, and a free body with a hinge.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import mujoco
 import numpy as np
 import pytest

@@ -6,6 +6,8 @@ setting of the reference fork's ``src/inverse/inverse_test.cpp`` (random
 applied forces and controls, tolerance 1e-6).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import jax
 import jax.numpy as jnp
 import mujoco

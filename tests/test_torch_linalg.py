@@ -8,6 +8,8 @@ themselves are checked against the plain versions by the ``gpu`` tests below
 and by ``chip_smoke.py``; they skip without a card.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import subprocess
 import sys
 from functools import partial

@@ -21,6 +21,8 @@
   that file against what the script computes now.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import os
 import sys
 

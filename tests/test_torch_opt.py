@@ -17,6 +17,8 @@ the solver's iterations from a converged warm start and lands far from C.
 The humanoid's Jacobians are therefore held to C, not to the JAX package.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import warnings
 
 import jax

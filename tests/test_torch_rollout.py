@@ -16,6 +16,8 @@
   (1e-10).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import jax
 import jax.numpy as jnp
 import mujoco

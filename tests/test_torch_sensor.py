@@ -13,6 +13,8 @@ against C; ``sensordata`` after ``step`` under EULER and RK4 against C
 the sensor disable flag; ``put_model``'s refusals; the vendored XML.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import importlib.util
 import os
 import re
@@ -145,8 +147,8 @@ def test_sensor_stages_match_jax_and_c(humanoid):
     # 1e-10 of the field's size: cfrc_int sums forces of up to 3e3
     close(ours, theirs, 1e-10 * max(1.0, np.abs(theirs).max()), what)
 
-  geom1, geom2 = dp.contact.geom1, dp.contact.geom2
   for b, mjd in enumerate(mjds):
+    geom1, geom2 = dp.contact.geom1[b], dp.contact.geom2[b]
     mujoco.mj_rnePostConstraint(mjm, mjd)
     mujoco.mj_subtreeVel(mjm, mjd)
     for ours, field in ((dp.site_xpos, "site_xpos"),
@@ -158,7 +160,7 @@ def test_sensor_stages_match_jax_and_c(humanoid):
       close(ours[b].reshape(theirs.shape), theirs, 1e-8, field)
     # each C contact against the port's active slot of the same geoms
     # nearest to it; the world force frameᵀ f flips with the geom order
-    active = (dp.contact.dist[b] < dp.contact.includemargin).numpy()
+    active = (dp.contact.dist[b] < dp.contact.includemargin[b]).numpy()
     f_world = (frc[b, :, None, :3] @ dp.contact.frame[b])[:, 0].numpy()
     for i in range(mjd.ncon):
       con = mjd.contact[i]

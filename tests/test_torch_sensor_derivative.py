@@ -11,6 +11,8 @@ there (ROADMAP queue 3).  The force, torque and touch rows read the
 constraint forces, whose tangent ``ops/solver.py::_newton_tangent`` sets.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import dataclasses
 import warnings
 

@@ -10,6 +10,8 @@ to C there).  This file holds the one JAX ``transition_ad`` of the humanoid
 contact states' file.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import jax
 import mujoco
 import numpy as np

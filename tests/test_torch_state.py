@@ -17,6 +17,8 @@ warm start, time, mocap poses and eq_active, in float64:
   ``mj_objectVelocity``) within 1e-12.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import mujoco
 import numpy as np
 import pytest

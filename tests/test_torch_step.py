@@ -6,6 +6,8 @@ package (f64, 1e-9) and with C ``mj_forward`` at the tolerance of
 the vmapped JAX step (qpos to 1e-8).
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import jax
 import mujoco
 import numpy as np

@@ -12,6 +12,8 @@ without the reference's arm26); the transmission's lengths and moments
 against C; and each vendored XML against its snapshot.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import jax
 import mujoco
 import numpy as np

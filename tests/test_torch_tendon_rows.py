@@ -9,6 +9,8 @@ equality always on; inverse dynamics against C ``mj_inverse``; and the
 tendon sensors against C.
 """
 
+import torch_threads  # noqa: F401  (first: pins torch's threads)
+
 import jax
 import mujoco
 import numpy as np
