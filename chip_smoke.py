@@ -2,6 +2,19 @@
 
     python3 chip_smoke.py
 
+A full run is two processes on the card: this one runs the timed work
+(the kernels' timings, the fleets, the MPC solves, phases 11, 14 and 21),
+and a second one it starts after phase 12 (``--checks``) runs the untimed
+fp64 checks beside it (the kernels against their plain versions in phases
+3-4, 8 and 9, phases 7, 10 and 16, and the fp64 parts of phases 6, 13, 15
+and 17-23: kernels against plain versions, inverse_tests, transition_ad
+against transition_fd).  Phases 5, 6, 9, 11 and 12 run alone.  The second
+process's lines are printed as they come, after ``checks |``; a failure in
+either process fails the script.  Phase 6's loop is timed alone before the
+second process starts, twice while it runs and once more after it ends,
+and the four rates are printed.  A ``[time]`` line follows each phase in
+both.
+
 Phases, each printing one line; any failure raises and the script exits
 non-zero:
 
@@ -206,13 +219,37 @@ non-zero:
    (210 slots), 4096 fp32 lanes x 20 steps each: slots a lane, finite
    lanes, steps/s.
 
+23. slice: quadruped and terrain -- cylinder and ellipsoid collision (the
+   support-function descent of ops/ccd.py) and height fields, on
+   dm_control's quadruped as the walk and fetch tasks build it
+   (quadruped, quadruped_fetch: an ellipsoid torso, cylinder eyes, capsule
+   legs, sphere toes, the fetch ball with condim 6) and on free spheres,
+   capsules, a box and a convex mesh over the escape task's terrain
+   (terrain_objects): each at B = 4096 fp32, 20 EULER steps (step_n, after
+   a warm-up step) from states the way the tasks start them (a random
+   orientation, the body lowered onto the floor or the terrain, controls
+   uniform in ctrlrange): steps/s, factorizations a step, finite lanes,
+   auto-resets, active contact slots a lane, peak memory; the collision
+   stage's device ms and launches against those of 2 profiled steps; the
+   primal kernels timed at n = 22 and 28.  Then the fp32 contacts of 64
+   states against the fp64 ones (each (lane, pair)'s active set equal,
+   depths within 1e-4; a hull on the height field by its deepest
+   contact), each model's 5 steps of 64 lanes fp64 with the kernels
+   against 5 with the plain versions (within 1e-9), the fork's
+   inverse_test on quadruped_fetch (RK4, 64 lanes fp64, 20 steps of fresh
+   forces, solver_fwdinv <= 1e-6), and transition_ad of 8 fetch lanes,
+   upright with the ball on the torso (an ellipsoid-sphere descent pair),
+   against the plain versions (<= 1e-9) and transition_fd (centered, eps
+   1e-6, zero warm start; within 1e-4 of max|A|).
+
 Phase 10 also runs transition_ad of the Newton-100 humanoid under RK4 and
 IMPLICIT (the qDeriv Jacobian nested in the dual step).  Every kernel
-launch of phases 6-22 must be at a shape (n, lanes[, tangents], dtype) that
+launch of phases 6-23 must be at a shape (n, lanes[, tangents], dtype) that
 phase 9 checked.  Then
 one JSON line of the kernel report (launches: the sum over the main paths,
 phases 6, 12, 15, 16, 17, 18, 19, 20, 21 (its transition_ad and its
-fleet) and 22, each read with the counts reset before it;
+fleet), 22 and 23, each read with the counts reset before it, in either
+process;
 by path beside it; the JVP kernels with the tangent counts of their phase 12
 launches), the nvidia-smi line, and the result line.  There is no CPU path: without
 CUDA the script fails.  It imports neither jax nor mujoco: the models
@@ -236,11 +273,15 @@ runs only the build and phase 20, and
 
     python3 chip_smoke.py --lqr
 
-only the build and phase 21, and
+only the build and phase 21,
 
     python3 chip_smoke.py --contact
 
-only the build and phase 22.
+only the build and phase 22, and
+
+    python3 chip_smoke.py --shapes
+
+only the build and phase 23 (both its timed and its check parts).
 """
 
 from __future__ import annotations
@@ -251,6 +292,7 @@ import json
 import os
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -315,6 +357,12 @@ BALANCE_REFERENCE = "humanoid_balance_c.npz"
 # 5 and 12 for time
 CONTACT_MODELS = ("box_stack", "convex_mesh", "humanoid", "elliptic_pairs")
 CONTACT_STEPS, CONTACT_INVERSE_STEPS, BUDGET_STEPS = 5, 12, 20
+# phase 23: dm_control's quadruped (walk and fetch) and free objects on the
+# escape task's terrain (cylinder and ellipsoid collision, height fields):
+# their fleets, the fork's inverse_test on the fetch model (RK4, 20 steps of
+# fresh forces) and transition_ad with the ball on the torso
+SHAPES_MODELS = ("quadruped", "quadruped_fetch", "terrain_objects")
+SHAPES_STEPS, FETCH_INVERSE_STEPS = 20, 20
 GRID_N, GRID_B = (1, 2, 6, 27, 32, 33, 64, 128), (1, 127, 4096)
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}  # of max|reference|
 # NVIDIA's H100 SXM data sheet: memory rate, and fp32 outside tensor cores
@@ -322,6 +370,11 @@ HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
 
 
 T_START = time.perf_counter()
+# which parts of each phase this process runs: a full run runs the timed
+# fleets, solves and kernel timings here, and the untimed fp64 checks in a
+# second process on the same card (``--checks``); a run of one phase runs
+# both
+TIMED = CHECKS = True
 
 
 def log(phase: str, msg: str) -> None:
@@ -785,6 +838,32 @@ def contact_shapes(mt) -> tuple[set, set]:
   return primal, jvp
 
 
+def quadruped_shapes(mt) -> tuple[set, set]:
+  """Phase 23's launches, as ``constraint_shapes`` counts them: each
+  model's nv and dof blocks at the fleet (4096 fp32), the 64-lane fp64 runs
+  (the fetch model's inverse_test among them) and the 64-lane fp32
+  contacts; on the fetch model also transition_ad's 8 lanes (JVPs at 2 nv
+  + na + nu tangents) and transition_fd's 8 x (2 (2 nv + na + nu) + 1)
+  copies."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import smooth
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  primal, jvp = set(), set()
+  for name in SHAPES_MODELS:
+    m = contact_model(mt, name, "cpu", torch.float64, cone=None)
+    blocks = smooth._dof_blocks(m)
+    sizes = {(m.nv, 1)} | ({(sz, len(st)) for sz, st in blocks.items()}
+                           if blocks else set())
+    runs = [(FLEET, torch.float32), (64, torch.float64),
+            (64, torch.float32)]
+    if name == "quadruped_fetch":
+      nz = derivative.state_dim(m) + m.nu
+      runs += [(8, torch.float64), (8 * (2 * nz + 1), torch.float64)]
+      jvp |= {(sz, 8 * k, nz, torch.float64) for sz, k in sizes}
+    primal |= {(sz, b * k, dt) for sz, k in sizes for b, dt in runs}
+  return primal, jvp
+
+
 def balance_shapes() -> tuple[set, set]:
   """Phase 21's launches beyond phase 6's fleet (4096 fp32) and the
   4-lane fp64 runs: at n = 27 in fp64, the height sweep's inverse (2001
@@ -795,7 +874,7 @@ def balance_shapes() -> tuple[set, set]:
 
 
 def path_shapes(mt) -> tuple[list, list]:
-  """The launches of phases 6-22 and of --bench: (n, B, dtype) of the
+  """The launches of phases 6-23 and of --bench: (n, B, dtype) of the
   primal kernels and (n, B, T, dtype) of the JVP kernels.  Phases 6-17 and
   --bench at n = 27.  Primal:
   the fleet step, the fp64 steps and inverse dynamics of 64 lanes, the
@@ -805,9 +884,9 @@ def path_shapes(mt) -> tuple[list, list]:
   alphas) and chunk (F lin_batch: its forward and its dual step's
   primal), and the torque replay (4 lanes stepped, 400 states).  JVP: 75
   tangents a lane (nx + nu of the humanoid) at every dual step's lanes,
-  and one a lane in the folded comparison.  Phases 18-21's from
+  and one a lane in the folded comparison.  Phases 18-23's from
   ``constraint_shapes``, ``tendon_shapes``, ``convex_shapes``,
-  ``balance_shapes`` and ``contact_shapes``."""
+  ``balance_shapes``, ``contact_shapes`` and ``quadruped_shapes``."""
   f32 = {FLEET, BENCH_CHUNK_LANES, 75 * BENCH_CHUNK_LANES}
   jvp = {(8, 75, torch.float64), (BENCH_CHUNK_LANES, 75, torch.float32),
          (75 * BENCH_CHUNK_LANES, 1, torch.float32)}
@@ -823,11 +902,12 @@ def path_shapes(mt) -> tuple[list, list]:
   convex_primal, convex_jvp = convex_shapes(mt)
   balance_primal, balance_jvp = balance_shapes()
   contact_primal, contact_jvp = contact_shapes(mt)
+  shapes_primal, shapes_jvp = quadruped_shapes(mt)
   key = lambda s: (str(s[-1]),) + s[:-1]
   return (sorted(primal | more_primal | tendon_primal | convex_primal
-                 | balance_primal | contact_primal, key=key),
+                 | balance_primal | contact_primal | shapes_primal, key=key),
           sorted(jvp | more_jvp | tendon_jvp | convex_jvp | balance_jvp
-                 | contact_jvp, key=key))
+                 | contact_jvp | shapes_jvp, key=key))
 
 
 def check_path_kernels(mt, linalg, dev) -> dict:
@@ -840,7 +920,7 @@ def check_path_kernels(mt, linalg, dev) -> dict:
   kernel, plain (medians of the pairs).  Returns those numbers."""
   rng = np.random.default_rng(4)
   primal, jvp = path_shapes(mt)
-  for n, b, dt in primal:
+  for n, b, dt in primal if CHECKS else ():
     h = spd(rng, b, n, dev).to(dt)
     l = linalg.chol_factor_ref(h)
     x = torch.as_tensor(rng.standard_normal((b, n)), device=dev).to(dt)
@@ -849,7 +929,8 @@ def check_path_kernels(mt, linalg, dev) -> dict:
     check_kernel("chol_solve", linalg.chol_solve(l, x),
                  linalg.chol_solve_ref(l, x), case)
   out = {}
-  for n, b, t, dt in jvp:
+  bench = (27, BENCH_CHUNK_LANES, 75, torch.float32)
+  for n, b, t, dt in jvp if CHECKS else (bench,):
     h = spd(rng, b, n, dev).to(dt)
     dh = sym(rng, (t, b, n, n), dev).to(dt)
     l = linalg.chol_factor_ref(h)
@@ -857,13 +938,15 @@ def check_path_kernels(mt, linalg, dev) -> dict:
     x = torch.as_tensor(rng.standard_normal((b, n)), device=dev).to(dt)
     db = torch.as_tensor(rng.standard_normal((t, b, n)), device=dev).to(dt)
     case = f"main-path shape n={n} B={b} T={t} {dt}"
-    for d in (dh, lane_major(dh)):
-      check_kernel("chol_factor_jvp", linalg.chol_factor_jvp(l, d), dl, case)
-    ref = linalg.chol_solve_jvp_ref(l, dl, x, db)
-    for a, c in ((dl, db), (lane_major(dl), lane_major(db))):
-      check_kernel("chol_solve_jvp", linalg.chol_solve_jvp(l, a, x, c), ref,
-                   case)
-    if (n, b, t, dt) != (27, BENCH_CHUNK_LANES, 75, torch.float32):
+    if CHECKS:
+      for d in (dh, lane_major(dh)):
+        check_kernel("chol_factor_jvp", linalg.chol_factor_jvp(l, d), dl,
+                     case)
+      ref = linalg.chol_solve_jvp_ref(l, dl, x, db)
+      for a, c in ((dl, db), (lane_major(dl), lane_major(db))):
+        check_kernel("chol_solve_jvp", linalg.chol_solve_jvp(l, a, x, c),
+                     ref, case)
+    if (n, b, t, dt) != bench or not TIMED:
       continue
     work = jvp_work(27, b, t, h.element_size())
     vj = lambda f, p, tg: torch.func.vmap(
@@ -889,6 +972,8 @@ def check_path_kernels(mt, linalg, dev) -> dict:
             f"{v['library_ms']:.4f} / {v['bound_ms']:.4f} ({v['bound_by']}"
             f", {work[k][0] / 1e6:.1f} MB; kernel at "
             f"{v['bound_ms'] / v['ms']:.1%} of it)" for k, v in out.items()))
+  if not CHECKS:
+    return out
   log("kernel: main-path shapes",
       "all four kernels bit-equal to their plain versions: primal (n, B) = "
       + ", ".join(f"({n}, {b}) {str(dt)[6:]}" for n, b, dt in primal)
@@ -933,55 +1018,58 @@ def humanoid(mt, asset: str, dev, dtype, integrator: str = "EULER",
 
 def fleet_step(mt, linalg, dev, card: str) -> dict:
   """Phase 6."""
-  m = mt.put_model(mt.asset_path("humanoid_mjx.npz"), device=dev,
-                   dtype=torch.float32)
-  d = mt.step(m, fleet_data(mt, m, FLEET, seed=0))  # warm-up step
-  torch.cuda.synchronize()
+  launches = {}
+  if TIMED:
+    m = mt.put_model(mt.asset_path("humanoid_mjx.npz"), device=dev,
+                     dtype=torch.float32)
+    d = mt.step(m, fleet_data(mt, m, FLEET, seed=0))  # warm-up step
+    torch.cuda.synchronize()
 
-  linalg.chol_factor.launches = 0
-  linalg.chol_solve.launches = 0
-  t0 = time.perf_counter()
-  for _ in range(FLEET_STEPS):
-    d = mt.step(m, d)
-  torch.cuda.synchronize()
-  seconds = time.perf_counter() - t0
-  launches = {"chol_factor": linalg.chol_factor.launches,
-              "chol_solve": linalg.chol_solve.launches}
+    linalg.chol_factor.launches = 0
+    linalg.chol_solve.launches = 0
+    t0 = time.perf_counter()
+    for _ in range(FLEET_STEPS):
+      d = mt.step(m, d)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = {"chol_factor": linalg.chol_factor.launches,
+                "chol_solve": linalg.chol_solve.launches}
 
-  for name, count in launches.items():
-    if count < 4 * FLEET_STEPS:
-      raise AssertionError(f"{name} launched {count} times in the fleet run")
-  finite = bool(torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all())
-  if not finite:
-    raise AssertionError("non-finite lanes after the fleet run")
-  resets = int(d.warning.sum())
-  log("slice: fleet step",
-      f"humanoid_mjx B={FLEET} fp32, {FLEET_STEPS} steps in {seconds:.3f} s "
-      f"= {FLEET * FLEET_STEPS / seconds:.1f} steps/s on {card}; launches "
-      f"{launches}; all lanes finite; auto-resets {resets}")
-  profile_steps(mt, m, d, 1e3 * seconds / FLEET_STEPS)
+    for name, count in launches.items():
+      if count < 4 * FLEET_STEPS:
+        raise AssertionError(f"{name} launched {count} times in the fleet run")
+    finite = bool(torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all())
+    if not finite:
+      raise AssertionError("non-finite lanes after the fleet run")
+    resets = int(d.warning.sum())
+    log("slice: fleet step",
+        f"humanoid_mjx B={FLEET} fp32, {FLEET_STEPS} steps in {seconds:.3f} s "
+        f"= {FLEET * FLEET_STEPS / seconds:.1f} steps/s on {card}; launches "
+        f"{launches}; all lanes finite; auto-resets {resets}")
+    profile_steps(mt, m, d, 1e3 * seconds / FLEET_STEPS)
 
-  # kernels against plain versions, fp64, 64 lanes, 5 steps with contacts.
-  # The Newton-100 humanoid: with the MJX budget (1 Newton iteration, 4
-  # line-search rounds) a contact step is discontinuous in the last bit of
-  # its inputs, so two runs that differ by the order of an atomic add would
-  # not agree to 1e-9 (PERF.md, Findings).
-  m64 = mt.put_model(mt.asset_path("humanoid.npz"), device=dev,
-                     dtype=torch.float64)
-  d_k = d_p = fleet_data(mt, m64, 64, seed=1, drop=0.22)
-  for _ in range(5):
-    d_k = mt.step(m64, d_k)
-  with plain_cholesky(linalg):
+  if CHECKS:
+    # kernels against plain versions, fp64, 64 lanes, 5 steps with contacts.
+    # The Newton-100 humanoid: with the MJX budget (1 Newton iteration, 4
+    # line-search rounds) a contact step is discontinuous in the last bit of
+    # its inputs, so two runs that differ by the order of an atomic add would
+    # not agree to 1e-9 (PERF.md, Findings).
+    m64 = mt.put_model(mt.asset_path("humanoid.npz"), device=dev,
+                       dtype=torch.float64)
+    d_k = d_p = fleet_data(mt, m64, 64, seed=1, drop=0.22)
     for _ in range(5):
-      d_p = mt.step(m64, d_p)
-  err = max(float((d_k.qpos - d_p.qpos).abs().max()),
-            float((d_k.qvel - d_p.qvel).abs().max()))
-  ncon = int((d_k.contact.dist < d_k.contact.includemargin).sum())
-  if not err <= 1e-9:
-    raise AssertionError(f"fp64 kernel vs plain steps differ by {err:.3e}")
-  log("slice: fleet step",
-      f"humanoid 64 lanes fp64, 5 steps, kernels vs plain: max |dqpos|,|dqvel| "
-      f"{err:.3e} (tol 1e-9); {ncon} active contacts at the end")
+      d_k = mt.step(m64, d_k)
+    with plain_cholesky(linalg):
+      for _ in range(5):
+        d_p = mt.step(m64, d_p)
+    err = max(float((d_k.qpos - d_p.qpos).abs().max()),
+              float((d_k.qvel - d_p.qvel).abs().max()))
+    ncon = int((d_k.contact.dist < d_k.contact.includemargin).sum())
+    if not err <= 1e-9:
+      raise AssertionError(f"fp64 kernel vs plain steps differ by {err:.3e}")
+    log("slice: fleet step",
+        f"humanoid 64 lanes fp64, 5 steps, kernels vs plain: max |dqpos|,|dqvel| "
+        f"{err:.3e} (tol 1e-9); {ncon} active contacts at the end")
   return launches
 
 
@@ -1372,27 +1460,36 @@ def mpc_reference(mt, linalg, dev) -> dict:
   cfg = mpc_config(northstar, *MPC_REF_RUN)
   fleet = northstar.make_fleet(m, mt.make_data(m, 1), cfg)
   reset_launches(linalg)
-  run_k = profile_mpc(m, northstar, cfg, fleet, asset)
+  # the timed process profiles the solve by stage; the checks process
+  # solves the same fleet without timers, and again with the plain versions
+  if TIMED:
+    run_k = profile_mpc(m, northstar, cfg, fleet, asset)
+  else:
+    run_k = northstar.fleet_mpc_fn(m, northstar.balance_cost(m), cfg)(fleet)
   launches = read_launches(linalg)
-  with plain_cholesky(linalg):
-    run_p = northstar.fleet_mpc_fn(m, northstar.balance_cost(m), cfg)(fleet)
-  costs, plain = run_k.plan_costs[:, 0], run_p.plan_costs[:, 0]
+  costs = run_k.plan_costs[:, 0]
   if not all(launches.values()):
     raise AssertionError(f"a kernel was not launched: {launches}")
   if not (bool(torch.isfinite(costs).all()) and bool((costs < 1e5).all())):
     raise AssertionError(f"plan costs {costs.tolist()}")
-  if not (torch.equal(costs, plain) and torch.equal(run_k.us, run_p.us)):
-    raise AssertionError(
-        f"kernels vs plain: plan costs differ by "
-        f"{float((costs - plain).abs().max()):.3e}, controls by "
-        f"{float((run_k.us - run_p.us).abs().max()):.3e}")
+  same = "not compared with the plain versions here"
+  if CHECKS:
+    with plain_cholesky(linalg):
+      run_p = northstar.fleet_mpc_fn(m, northstar.balance_cost(m), cfg)(
+          fleet)
+    plain = run_p.plan_costs[:, 0]
+    if not (torch.equal(costs, plain) and torch.equal(run_k.us, run_p.us)):
+      raise AssertionError(
+          f"kernels vs plain: plan costs differ by "
+          f"{float((costs - plain).abs().max()):.3e}, controls by "
+          f"{float((run_k.us - run_p.us).abs().max()):.3e}")
+    same = "equal to the bit with the plain versions"
   log("slice: MPC on the Newton-100 humanoid",
       f"{asset} fp32 F={cfg.fleet} H={MPC_HORIZON} iterations=2 alphas=8 "
       f"lin_batch={cfg.lin_batch} ({cfg.fleet * cfg.lin_batch} lanes x 75 "
       f"tangents a linearization chunk): {plan_costs(costs)}; mean iterations "
       f"{float(run_k.niters.double().mean()):.3f}; plan costs and applied "
-      f"controls equal to the bit with the plain versions; launches "
-      f"{launches}")
+      f"controls {same}; launches {launches}")
   return launches
 
 
@@ -1434,50 +1531,53 @@ def integrators_fleet(mt, linalg, dev, card: str) -> dict:
   timed runs."""
   t_phase = time.perf_counter()
   total = {"chol_factor": 0, "chol_solve": 0}
-  for name in INTEGRATORS:
-    m = humanoid(mt, "humanoid_mjx.npz", dev, torch.float32, name)
-    d = mt.step(m, fleet_data(mt, m, FLEET, seed=0))  # warm-up step
-    torch.cuda.synchronize()
-    reset_launches(linalg)
-    t0 = time.perf_counter()
-    d = mt.step_n(m, d, INTEGRATOR_STEPS)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = read_launches(linalg)
-    for k in total:
-      if not launches[k]:
-        raise AssertionError(f"{k} was not launched under {name}")
-      total[k] += launches[k]
-    if not bool(torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()):
-      raise AssertionError(f"non-finite lanes after the {name} fleet run")
-    log("slice: integrators fleet",
-        f"humanoid_mjx B={FLEET} fp32 {name}: {INTEGRATOR_STEPS} steps in "
-        f"{seconds:.3f} s = {FLEET * INTEGRATOR_STEPS / seconds:.1f} steps/s "
-        f"on {card}; launches a step " + ", ".join(
-            f"{k} {v / INTEGRATOR_STEPS:g}" for k, v in launches.items())
-        + f"; all lanes finite; auto-resets {int(d.warning.sum())}")
-    if name == "RK4":
-      profile_steps(mt, m, d, 1e3 * seconds / INTEGRATOR_STEPS)
+  if TIMED:
+    for name in INTEGRATORS:
+      m = humanoid(mt, "humanoid_mjx.npz", dev, torch.float32, name)
+      d = mt.step(m, fleet_data(mt, m, FLEET, seed=0))  # warm-up step
+      torch.cuda.synchronize()
+      reset_launches(linalg)
+      t0 = time.perf_counter()
+      d = mt.step_n(m, d, INTEGRATOR_STEPS)
+      torch.cuda.synchronize()
+      seconds = time.perf_counter() - t0
+      launches = read_launches(linalg)
+      for k in total:
+        if not launches[k]:
+          raise AssertionError(f"{k} was not launched under {name}")
+        total[k] += launches[k]
+      if not bool(torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()):
+        raise AssertionError(f"non-finite lanes after the {name} fleet run")
+      log("slice: integrators fleet",
+          f"humanoid_mjx B={FLEET} fp32 {name}: {INTEGRATOR_STEPS} steps in "
+          f"{seconds:.3f} s = {FLEET * INTEGRATOR_STEPS / seconds:.1f} steps/s "
+          f"on {card}; launches a step " + ", ".join(
+              f"{k} {v / INTEGRATOR_STEPS:g}" for k, v in launches.items())
+          + f"; all lanes finite; auto-resets {int(d.warning.sum())}")
+      if name == "RK4":
+        profile_steps(mt, m, d, 1e3 * seconds / INTEGRATOR_STEPS)
 
-  # kernels against plain versions, fp64, 64 Newton-100 lanes on the floor
-  for name in INTEGRATORS[1:]:
-    m64 = humanoid(mt, "humanoid.npz", dev, torch.float64, name)
-    d_k = d_p = fleet_data(mt, m64, 64, seed=1, drop=0.22)
-    d_k = mt.step_n(m64, d_k, 5)
-    with plain_cholesky(linalg):
-      d_p = mt.step_n(m64, d_p, 5)
-    err = max(float((d_k.qpos - d_p.qpos).abs().max()),
-              float((d_k.qvel - d_p.qvel).abs().max()))
-    if not err <= 1e-9:
-      raise AssertionError(f"{name} fp64 kernel vs plain steps differ by "
-                           f"{err:.3e}")
-    ncon = int((d_k.contact.dist < d_k.contact.includemargin).sum())
-    log("slice: integrators fleet",
-        f"humanoid {name} {d_k.batch} lanes fp64, 5 steps, kernels vs plain: "
-        "max "
-        f"|dqpos|,|dqvel| {err:.3e} (tol 1e-9); {ncon} active contacts at "
-        "the end")
-  time_implicit_solve(linalg, dev)
+  if CHECKS:
+    # kernels against plain versions, fp64, 64 Newton-100 lanes on the floor
+    for name in INTEGRATORS[1:]:
+      m64 = humanoid(mt, "humanoid.npz", dev, torch.float64, name)
+      d_k = d_p = fleet_data(mt, m64, 64, seed=1, drop=0.22)
+      d_k = mt.step_n(m64, d_k, 5)
+      with plain_cholesky(linalg):
+        d_p = mt.step_n(m64, d_p, 5)
+      err = max(float((d_k.qpos - d_p.qpos).abs().max()),
+                float((d_k.qvel - d_p.qvel).abs().max()))
+      if not err <= 1e-9:
+        raise AssertionError(f"{name} fp64 kernel vs plain steps differ by "
+                             f"{err:.3e}")
+      ncon = int((d_k.contact.dist < d_k.contact.includemargin).sum())
+      log("slice: integrators fleet",
+          f"humanoid {name} {d_k.batch} lanes fp64, 5 steps, kernels vs plain: "
+          "max "
+          f"|dqpos|,|dqvel| {err:.3e} (tol 1e-9); {ncon} active contacts at "
+          "the end")
+  if TIMED:
+    time_implicit_solve(linalg, dev)
   log("slice: integrators fleet",
       f"phase 15 in {time.perf_counter() - t_phase:.1f} s")
   return total
@@ -1621,135 +1721,138 @@ def sensors(mt, linalg, dev, card: str) -> dict:
   from mujoco_inversedynamicstest_tpu_torch.opt import derivative
 
   t_phase = time.perf_counter()
-  names = ("humanoid_sensors", "humanoid")
-  models, starts = {}, {}
-  for name in names:
-    m = mt.put_model(mt.asset_path(f"{name}.npz"), device=dev,
-                     dtype=torch.float32)
-    models[name] = m
-    starts[name] = mt.step(m, fleet_data(mt, m, FLEET, seed=0, drop=0.22))
-  torch.cuda.synchronize()
   total = dict.fromkeys(KERNELS, 0)
-  rates = {name: [] for name in names}
-  for name in names + names[::-1]:
-    m = models[name]
+  if TIMED:
+    names = ("humanoid_sensors", "humanoid")
+    models, starts = {}, {}
+    for name in names:
+      m = mt.put_model(mt.asset_path(f"{name}.npz"), device=dev,
+                       dtype=torch.float32)
+      models[name] = m
+      starts[name] = mt.step(m, fleet_data(mt, m, FLEET, seed=0, drop=0.22))
+    torch.cuda.synchronize()
+    total = dict.fromkeys(KERNELS, 0)
+    rates = {name: [] for name in names}
+    for name in names + names[::-1]:
+      m = models[name]
+      reset_launches(linalg)
+      t0 = time.perf_counter()
+      d = mt.step_n(m, starts[name], SENSOR_STEPS)
+      torch.cuda.synchronize()
+      seconds = time.perf_counter() - t0
+      launches = read_launches(linalg)
+      rates[name].append(FLEET * SENSOR_STEPS / seconds)
+      if not bool(torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()):
+        raise AssertionError(f"non-finite lanes after the {name} fleet run")
+      for k in ("chol_factor", "chol_solve"):
+        if not launches[k]:
+          raise AssertionError(f"{k} was not launched on {name}")
+      if name == "humanoid_sensors":
+        for k in KERNELS:
+          total[k] += launches[k]
+        if d.sensordata.shape != (FLEET, 66):
+          raise AssertionError(f"sensordata {tuple(d.sensordata.shape)}")
+        if not bool(torch.isfinite(d.sensordata).all()):
+          raise AssertionError("non-finite sensordata")
+        touching = d.sensordata[:, 48:] > 0
+        if not bool(touching.any()):
+          raise AssertionError("no touch sensor reads a force")
+        log("slice: sensors",
+            f"{name} B={FLEET} fp32: {SENSOR_STEPS} steps in {seconds:.3f} s "
+            f"= {rates[name][-1]:.1f} steps/s on {card}; launches a step "
+            + ", ".join(f"{k} {v / SENSOR_STEPS:g}" for k, v in
+                        launches.items() if not k.endswith("_jvp"))
+            + f"; sensordata finite; touch sensors reading > 0: "
+            f"{int(touching.sum())} of {touching.numel()} (lanes with one: "
+            f"{int(touching.any(1).sum())}); auto-resets "
+            f"{int(d.warning.sum())}")
+      else:
+        log("slice: sensors",
+            f"{name} B={FLEET} fp32: {SENSOR_STEPS} steps in {seconds:.3f} s "
+            f"= {rates[name][-1]:.1f} steps/s on {card}; launches a step "
+            + ", ".join(f"{k} {v / SENSOR_STEPS:g}" for k, v in
+                        launches.items() if not k.endswith("_jvp")))
+    profiled = {}
+    for name in names:
+      m, d = models[name], starts[name]
+      device_ms, device_launches, _ = device_profile(lambda: mt.step_n(m, d, 2))
+      profiled[name] = (device_ms / 2, device_launches / 2)
+    profile_sensor_stage(mt, models["humanoid_sensors"],
+                         starts["humanoid_sensors"])
+    med = {name: float(np.median(r)) for name, r in rates.items()}
+    stage = profiled["humanoid_sensors"][1] - profiled["humanoid"][1]
+    log("slice: sensors",
+        f"steps/s medians: with sensors {med['humanoid_sensors']:.1f}, without "
+        f"{med['humanoid']:.1f} ({med['humanoid_sensors'] / med['humanoid']:.3f}"
+        "x); 2 profiled steps: " + ", ".join(
+            f"{n} device {ms:.3f} ms / {nl:.0f} launches a step"
+            for n, (ms, nl) in profiled.items())
+        + f"; the sensor stage {stage:.0f} launches a step")
+
+  if CHECKS:
+    # kernels against plain versions, fp64, 64 lanes, 5 steps on the floor
+    m64 = mt.put_model(mt.asset_path("humanoid_sensors.npz"), device=dev,
+                       dtype=torch.float64)
+    d_k = d_p = fleet_data(mt, m64, 64, seed=1, drop=0.22)
+    err = 0.0
+    for _ in range(5):
+      d_k = mt.step(m64, d_k)
+      with plain_cholesky(linalg):
+        d_p = mt.step(m64, d_p)
+      err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)).abs().max())
+                       for f in ("sensordata", "qpos", "qvel")))
+    if not err <= 1e-9:
+      raise AssertionError(f"fp64 sensor steps, kernels vs plain: {err:.3e}")
+    log("slice: sensors",
+        f"humanoid_sensors 64 lanes fp64, 5 steps, kernels vs plain: max "
+        f"|dsensordata|,|dqpos|,|dqvel| {err:.3e} (tol 1e-9); max "
+        f"|sensordata| {float(d_k.sensordata.abs().max()):.3e}; touch > 0 "
+        f"{int((d_k.sensordata[:, 48:] > 0).sum())}")
+
+    # C, D: 8 lanes fp64, Euler, feet on the floor
+    d = fleet_data(mt, m64, 8, seed=1, drop=0.22)
+    rng = np.random.RandomState(4)
+    d = mt.forward(m64, d.replace(
+        qvel=torch.as_tensor(0.1 * rng.randn(8, m64.nv), device=dev)))
     reset_launches(linalg)
     t0 = time.perf_counter()
-    d = mt.step_n(m, starts[name], SENSOR_STEPS)
+    ad = derivative.transition_ad(m64, d, flg_sensor=True)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches(linalg)
-    rates[name].append(FLEET * SENSOR_STEPS / seconds)
-    if not bool(torch.isfinite(d.qpos).all() and torch.isfinite(d.qvel).all()):
-      raise AssertionError(f"non-finite lanes after the {name} fleet run")
-    for k in ("chol_factor", "chol_solve"):
-      if not launches[k]:
-        raise AssertionError(f"{k} was not launched on {name}")
-    if name == "humanoid_sensors":
-      for k in KERNELS:
-        total[k] += launches[k]
-      if d.sensordata.shape != (FLEET, 66):
-        raise AssertionError(f"sensordata {tuple(d.sensordata.shape)}")
-      if not bool(torch.isfinite(d.sensordata).all()):
-        raise AssertionError("non-finite sensordata")
-      touching = d.sensordata[:, 48:] > 0
-      if not bool(touching.any()):
-        raise AssertionError("no touch sensor reads a force")
-      log("slice: sensors",
-          f"{name} B={FLEET} fp32: {SENSOR_STEPS} steps in {seconds:.3f} s "
-          f"= {rates[name][-1]:.1f} steps/s on {card}; launches a step "
-          + ", ".join(f"{k} {v / SENSOR_STEPS:g}" for k, v in
-                      launches.items() if not k.endswith("_jvp"))
-          + f"; sensordata finite; touch sensors reading > 0: "
-          f"{int(touching.sum())} of {touching.numel()} (lanes with one: "
-          f"{int(touching.any(1).sum())}); auto-resets "
-          f"{int(d.warning.sum())}")
-    else:
-      log("slice: sensors",
-          f"{name} B={FLEET} fp32: {SENSOR_STEPS} steps in {seconds:.3f} s "
-          f"= {rates[name][-1]:.1f} steps/s on {card}; launches a step "
-          + ", ".join(f"{k} {v / SENSOR_STEPS:g}" for k, v in
-                      launches.items() if not k.endswith("_jvp")))
-  profiled = {}
-  for name in names:
-    m, d = models[name], starts[name]
-    device_ms, device_launches, _ = device_profile(lambda: mt.step_n(m, d, 2))
-    profiled[name] = (device_ms / 2, device_launches / 2)
-  profile_sensor_stage(mt, models["humanoid_sensors"],
-                       starts["humanoid_sensors"])
-  med = {name: float(np.median(r)) for name, r in rates.items()}
-  stage = profiled["humanoid_sensors"][1] - profiled["humanoid"][1]
-  log("slice: sensors",
-      f"steps/s medians: with sensors {med['humanoid_sensors']:.1f}, without "
-      f"{med['humanoid']:.1f} ({med['humanoid_sensors'] / med['humanoid']:.3f}"
-      "x); 2 profiled steps: " + ", ".join(
-          f"{n} device {ms:.3f} ms / {nl:.0f} launches a step"
-          for n, (ms, nl) in profiled.items())
-      + f"; the sensor stage {stage:.0f} launches a step")
-
-  # kernels against plain versions, fp64, 64 lanes, 5 steps on the floor
-  m64 = mt.put_model(mt.asset_path("humanoid_sensors.npz"), device=dev,
-                     dtype=torch.float64)
-  d_k = d_p = fleet_data(mt, m64, 64, seed=1, drop=0.22)
-  err = 0.0
-  for _ in range(5):
-    d_k = mt.step(m64, d_k)
+    if not all(launches.values()):
+      raise AssertionError(f"a kernel was not launched: {launches}")
+    for k in KERNELS:
+      total[k] += launches[k]
+    if ad.C.shape != (8, 66, 54) or ad.D.shape != (8, 66, m64.nu):
+      raise AssertionError(f"C {tuple(ad.C.shape)}, D {tuple(ad.D.shape)}")
     with plain_cholesky(linalg):
-      d_p = mt.step(m64, d_p)
-    err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)).abs().max())
-                     for f in ("sensordata", "qpos", "qvel")))
-  if not err <= 1e-9:
-    raise AssertionError(f"fp64 sensor steps, kernels vs plain: {err:.3e}")
-  log("slice: sensors",
-      f"humanoid_sensors 64 lanes fp64, 5 steps, kernels vs plain: max "
-      f"|dsensordata|,|dqpos|,|dqvel| {err:.3e} (tol 1e-9); max "
-      f"|sensordata| {float(d_k.sensordata.abs().max()):.3e}; touch > 0 "
-      f"{int((d_k.sensordata[:, 48:] > 0).sum())}")
-
-  # C, D: 8 lanes fp64, Euler, feet on the floor
-  d = fleet_data(mt, m64, 8, seed=1, drop=0.22)
-  rng = np.random.RandomState(4)
-  d = mt.forward(m64, d.replace(
-      qvel=torch.as_tensor(0.1 * rng.randn(8, m64.nv), device=dev)))
-  reset_launches(linalg)
-  t0 = time.perf_counter()
-  ad = derivative.transition_ad(m64, d, flg_sensor=True)
-  torch.cuda.synchronize()
-  seconds = time.perf_counter() - t0
-  launches = read_launches(linalg)
-  if not all(launches.values()):
-    raise AssertionError(f"a kernel was not launched: {launches}")
-  for k in KERNELS:
-    total[k] += launches[k]
-  if ad.C.shape != (8, 66, 54) or ad.D.shape != (8, 66, m64.nu):
-    raise AssertionError(f"C {tuple(ad.C.shape)}, D {tuple(ad.D.shape)}")
-  with plain_cholesky(linalg):
-    plain = derivative.transition_ad(m64, d, flg_sensor=True)
-  # from a zero warm start the perturbed solves iterate to their minimum;
-  # from the forward's converged one they stop after one iteration within
-  # the solver's tolerance, which 2 eps magnifies in the force rows
-  fd = derivative.transition_fd(
-      m64, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
-      eps=1e-6, flg_centered=True, flg_sensor=True)
-  err_plain = max(float((getattr(ad, f) - getattr(plain, f)).abs().max())
-                  for f in "ABCD")
-  err_fd = {f: float((getattr(ad, f) - getattr(fd, f)).abs().max())
-            for f in "CD"}
-  scale = {f: float(getattr(fd, f).abs().max()) for f in "CD"}
-  if not err_plain <= 1e-9:
-    raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
-  for f in "CD":
-    if not err_fd[f] <= 1e-4 * scale[f]:
-      raise AssertionError(f"{f} vs transition_fd: {err_fd[f]:.3e}")
-  ncon = int((d.contact.dist < d.contact.includemargin).sum())
-  log("slice: sensors",
-      f"humanoid_sensors 8 lanes fp64 EULER, {ncon} active contacts: "
-      f"transition_ad(flg_sensor=True) {seconds:.3f} s, C "
-      f"{tuple(ad.C.shape)}, D {tuple(ad.D.shape)}; kernels vs plain max "
-      f"|dA|,|dB|,|dC|,|dD| {err_plain:.3e} (tol 1e-9); vs transition_fd "
-      + ", ".join(f"{f} {err_fd[f]:.3e} (tol 1e-4 of max|{f}| = "
-                  f"{1e-4 * scale[f]:.3e})" for f in "CD")
-      + f"; launches {launches}, tangents a lane {read_tangents(linalg)}")
+      plain = derivative.transition_ad(m64, d, flg_sensor=True)
+    # from a zero warm start the perturbed solves iterate to their minimum;
+    # from the forward's converged one they stop after one iteration within
+    # the solver's tolerance, which 2 eps magnifies in the force rows
+    fd = derivative.transition_fd(
+        m64, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
+        eps=1e-6, flg_centered=True, flg_sensor=True)
+    err_plain = max(float((getattr(ad, f) - getattr(plain, f)).abs().max())
+                    for f in "ABCD")
+    err_fd = {f: float((getattr(ad, f) - getattr(fd, f)).abs().max())
+              for f in "CD"}
+    scale = {f: float(getattr(fd, f).abs().max()) for f in "CD"}
+    if not err_plain <= 1e-9:
+      raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
+    for f in "CD":
+      if not err_fd[f] <= 1e-4 * scale[f]:
+        raise AssertionError(f"{f} vs transition_fd: {err_fd[f]:.3e}")
+    ncon = int((d.contact.dist < d.contact.includemargin).sum())
+    log("slice: sensors",
+        f"humanoid_sensors 8 lanes fp64 EULER, {ncon} active contacts: "
+        f"transition_ad(flg_sensor=True) {seconds:.3f} s, C "
+        f"{tuple(ad.C.shape)}, D {tuple(ad.D.shape)}; kernels vs plain max "
+        f"|dA|,|dB|,|dC|,|dD| {err_plain:.3e} (tol 1e-9); vs transition_fd "
+        + ", ".join(f"{f} {err_fd[f]:.3e} (tol 1e-4 of max|{f}| = "
+                    f"{1e-4 * scale[f]:.3e})" for f in "CD")
+        + f"; launches {launches}, tangents a lane {read_tangents(linalg)}")
   log("slice: sensors", f"phase 17 in {time.perf_counter() - t_phase:.1f} s")
   return total
 
@@ -1776,133 +1879,136 @@ def constraint_rows(mt, linalg, dev, card: str) -> tuple[dict, dict]:
   from mujoco_inversedynamicstest_tpu_torch.opt import derivative
 
   t_phase = time.perf_counter()
+  small = {}
   total = dict.fromkeys(KERNELS, 0)
 
   def add(launches):
     for k in KERNELS:
       total[k] += launches[k]
 
-  for name in CONSTRAINT_MODELS:
-    m = constraint_model(mt, name, dev, torch.float32)
-    d = mt.step(m, constraint_data(mt, m, FLEET, seed=18))  # warm-up step
-    torch.cuda.synchronize()
+  if TIMED:
+    for name in CONSTRAINT_MODELS:
+      m = constraint_model(mt, name, dev, torch.float32)
+      d = mt.step(m, constraint_data(mt, m, FLEET, seed=18))  # warm-up step
+      torch.cuda.synchronize()
+      reset_launches(linalg)
+      t0 = time.perf_counter()
+      d = mt.step_n(m, d, CONSTRAINT_STEPS)
+      torch.cuda.synchronize()
+      seconds = time.perf_counter() - t0
+      launches = read_launches(linalg)
+      add(launches)
+      for k in ("chol_factor", "chol_solve"):
+        if not launches[k]:
+          raise AssertionError(f"{k} was not launched on {name}")
+      finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
+      if not bool(finite.all()):
+        raise AssertionError(f"{name}: {int((~finite).sum())} non-finite lanes")
+      lay = constraint.row_layout(m)
+      log("slice: constraint rows",
+          f"{name} (nv {m.nv}; rows: {lay.ne} equality, {lay.nf} friction, "
+          f"{lay.nl} limit) B={FLEET} fp32: {CONSTRAINT_STEPS} steps in "
+          f"{seconds:.3f} s = {FLEET * CONSTRAINT_STEPS / seconds:.1f} steps/s "
+          f"on {card}; launches a step " + ", ".join(
+              f"{k} {v / CONSTRAINT_STEPS:g}" for k, v in launches.items()
+              if not k.endswith("_jvp"))
+          + f"; finite lanes {int(finite.sum())} of {FLEET}; auto-resets "
+          f"{int(d.warning.sum())}; active rows a lane "
+          f"{float(d.efc_active.sum(1).float().mean()):.2f}")
+
+    small = {}
+    for n in (3, 5):
+      for k, v in time_kernels(linalg, dev, n).items():
+        small.setdefault(k, {"by_n": {}})["by_n"][str(n)] = v
+
+  if CHECKS:
+    # the fork's inverse_test: RK4, fresh forces and controls every step
+    b = 64
+    gen = torch.Generator(device=dev).manual_seed(18)
+    m = constraint_model(mt, "slider_crank", dev, torch.float64, "RK4")
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                       dtype=m.dtype)
+    d = constraint_data(mt, m, b, seed=19)
+    worst = torch.zeros(2, dtype=m.dtype, device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
     reset_launches(linalg)
     t0 = time.perf_counter()
-    d = mt.step_n(m, d, CONSTRAINT_STEPS)
+    for _ in range(CRANK_INVERSE_STEPS):
+      d = d.replace(qfrc_applied=0.3 * randn(b, m.nv),
+                    xfrc_applied=0.3 * randn(b, m.nbody, 6),
+                    ctrl=0.2 * randn(b, m.nu))
+      fwd, d = fwd_inv_step(mt, m, d)
+      ok &= (fwd.solver_fwdinv <= 1e-6).all() & fwd.efc_active.all()
+      worst = torch.maximum(worst, fwd.solver_fwdinv.amax(0))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches(linalg)
     add(launches)
-    for k in ("chol_factor", "chol_solve"):
-      if not launches[k]:
-        raise AssertionError(f"{k} was not launched on {name}")
-    finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
-    if not bool(finite.all()):
-      raise AssertionError(f"{name}: {int((~finite).sum())} non-finite lanes")
-    lay = constraint.row_layout(m)
+    if not launches["chol_factor"] or not launches["chol_solve"]:
+      raise AssertionError(f"a kernel was not launched: {launches}")
+    if not bool(ok):
+      raise AssertionError("solver_fwdinv above 1e-6 or an inactive connect "
+                           f"row: max {worst.tolist()}")
     log("slice: constraint rows",
-        f"{name} (nv {m.nv}; rows: {lay.ne} equality, {lay.nf} friction, "
-        f"{lay.nl} limit) B={FLEET} fp32: {CONSTRAINT_STEPS} steps in "
-        f"{seconds:.3f} s = {FLEET * CONSTRAINT_STEPS / seconds:.1f} steps/s "
-        f"on {card}; launches a step " + ", ".join(
-            f"{k} {v / CONSTRAINT_STEPS:g}" for k, v in launches.items()
-            if not k.endswith("_jvp"))
-        + f"; finite lanes {int(finite.sum())} of {FLEET}; auto-resets "
-        f"{int(d.warning.sum())}; active rows a lane "
-        f"{float(d.efc_active.sum(1).float().mean()):.2f}")
+        f"inverse_test slider_crank RK4 {b} lanes fp64, {CRANK_INVERSE_STEPS} "
+        f"steps ({CRANK_INVERSE_STEPS * m.opt.timestep:g} s of the fork's 1 s, "
+        f"cut for time) in {seconds:.3f} s, fresh forces and controls a step: "
+        "max "
+        f"solver_fwdinv [{float(worst[0]):.3e}, {float(worst[1]):.3e}] over "
+        f"every lane and step (tol 1e-6); launches a step " + ", ".join(
+            f"{k} {v / CRANK_INVERSE_STEPS:g}" for k, v in launches.items()
+            if not k.endswith("_jvp")))
 
-  small = {}
-  for n in (3, 5):
-    for k, v in time_kernels(linalg, dev, n).items():
-      small.setdefault(k, {"by_n": {}})["by_n"][str(n)] = v
+    # kernels against plain versions, fp64, 64 lanes, 5 steps
+    errs = []
+    for name in CONSTRAINT_MODELS:
+      m = constraint_model(mt, name, dev, torch.float64)
+      d_k = d_p = constraint_data(mt, m, 64, seed=20)
+      err = 0.0
+      for _ in range(5):
+        d_k = mt.step(m, d_k)
+        with plain_cholesky(linalg):
+          d_p = mt.step(m, d_p)
+        err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)).abs().max())
+                         for f in ("qpos", "qvel", "efc_force")))
+      if not err <= 1e-9:
+        raise AssertionError(f"{name} fp64 steps, kernels vs plain: {err:.3e}")
+      errs.append(f"{name} {err:.3e}")
+    log("slice: constraint rows", "64 lanes fp64, 5 steps, kernels vs plain, "
+        "max |dqpos|,|dqvel|,|defc_force| (tol 1e-9): " + ", ".join(errs))
 
-  # the fork's inverse_test: RK4, fresh forces and controls every step
-  b = 64
-  gen = torch.Generator(device=dev).manual_seed(18)
-  m = constraint_model(mt, "slider_crank", dev, torch.float64, "RK4")
-  randn = lambda *shape: torch.randn(shape, generator=gen, device=dev,
-                                     dtype=m.dtype)
-  d = constraint_data(mt, m, b, seed=19)
-  worst = torch.zeros(2, dtype=m.dtype, device=dev)
-  ok = torch.ones((), dtype=torch.bool, device=dev)
-  reset_launches(linalg)
-  t0 = time.perf_counter()
-  for _ in range(CRANK_INVERSE_STEPS):
-    d = d.replace(qfrc_applied=0.3 * randn(b, m.nv),
-                  xfrc_applied=0.3 * randn(b, m.nbody, 6),
-                  ctrl=0.2 * randn(b, m.nu))
-    fwd, d = fwd_inv_step(mt, m, d)
-    ok &= (fwd.solver_fwdinv <= 1e-6).all() & fwd.efc_active.all()
-    worst = torch.maximum(worst, fwd.solver_fwdinv.amax(0))
-  torch.cuda.synchronize()
-  seconds = time.perf_counter() - t0
-  launches = read_launches(linalg)
-  add(launches)
-  if not launches["chol_factor"] or not launches["chol_solve"]:
-    raise AssertionError(f"a kernel was not launched: {launches}")
-  if not bool(ok):
-    raise AssertionError("solver_fwdinv above 1e-6 or an inactive connect "
-                         f"row: max {worst.tolist()}")
-  log("slice: constraint rows",
-      f"inverse_test slider_crank RK4 {b} lanes fp64, {CRANK_INVERSE_STEPS} "
-      f"steps ({CRANK_INVERSE_STEPS * m.opt.timestep:g} s of the fork's 1 s, "
-      f"cut for time) in {seconds:.3f} s, fresh forces and controls a step: "
-      "max "
-      f"solver_fwdinv [{float(worst[0]):.3e}, {float(worst[1]):.3e}] over "
-      f"every lane and step (tol 1e-6); launches a step " + ", ".join(
-          f"{k} {v / CRANK_INVERSE_STEPS:g}" for k, v in launches.items()
-          if not k.endswith("_jvp")))
-
-  # kernels against plain versions, fp64, 64 lanes, 5 steps
-  errs = []
-  for name in CONSTRAINT_MODELS:
-    m = constraint_model(mt, name, dev, torch.float64)
-    d_k = d_p = constraint_data(mt, m, 64, seed=20)
-    err = 0.0
-    for _ in range(5):
-      d_k = mt.step(m, d_k)
-      with plain_cholesky(linalg):
-        d_p = mt.step(m, d_p)
-      err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)).abs().max())
-                       for f in ("qpos", "qvel", "efc_force")))
-    if not err <= 1e-9:
-      raise AssertionError(f"{name} fp64 steps, kernels vs plain: {err:.3e}")
-    errs.append(f"{name} {err:.3e}")
-  log("slice: constraint rows", "64 lanes fp64, 5 steps, kernels vs plain, "
-      "max |dqpos|,|dqvel|,|defc_force| (tol 1e-9): " + ", ".join(errs))
-
-  # transition_ad of 8 slider-crank lanes
-  m = constraint_model(mt, "slider_crank", dev, torch.float64)
-  d = mt.forward(m, constraint_data(mt, m, 8, seed=21))
-  reset_launches(linalg)
-  t0 = time.perf_counter()
-  ad = derivative.transition_ad(m, d)
-  torch.cuda.synchronize()
-  seconds = time.perf_counter() - t0
-  launches = read_launches(linalg)
-  if not all(launches.values()):
-    raise AssertionError(f"a kernel was not launched: {launches}")
-  add(launches)
-  with plain_cholesky(linalg):
-    plain = derivative.transition_ad(m, d)
-  fd = derivative.transition_fd(
-      m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
-      eps=1e-6, flg_centered=True)
-  err_plain = max(float((ad.A - plain.A).abs().max()),
-                  float((ad.B - plain.B).abs().max()))
-  err_fd = max(float((ad.A - fd.A).abs().max()),
-               float((ad.B - fd.B).abs().max()))
-  scale = float(fd.A.abs().max())
-  if not err_plain <= 1e-9:
-    raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
-  if not err_fd <= 1e-4 * scale:
-    raise AssertionError(f"transition_ad vs transition_fd: {err_fd:.3e}")
-  log("slice: constraint rows",
-      f"slider_crank 8 lanes fp64 EULER: transition_ad {seconds:.3f} s, A "
-      f"{tuple(ad.A.shape)}; kernels vs plain max |dA|,|dB| {err_plain:.3e} "
-      f"(tol 1e-9); vs transition_fd (centered, eps 1e-6) {err_fd:.3e} (tol "
-      f"1e-4 of max|A| = {1e-4 * scale:.3e}); launches {launches}, tangents "
-      f"a lane {read_tangents(linalg)}")
+    # transition_ad of 8 slider-crank lanes
+    m = constraint_model(mt, "slider_crank", dev, torch.float64)
+    d = mt.forward(m, constraint_data(mt, m, 8, seed=21))
+    reset_launches(linalg)
+    t0 = time.perf_counter()
+    ad = derivative.transition_ad(m, d)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(linalg)
+    if not all(launches.values()):
+      raise AssertionError(f"a kernel was not launched: {launches}")
+    add(launches)
+    with plain_cholesky(linalg):
+      plain = derivative.transition_ad(m, d)
+    fd = derivative.transition_fd(
+        m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
+        eps=1e-6, flg_centered=True)
+    err_plain = max(float((ad.A - plain.A).abs().max()),
+                    float((ad.B - plain.B).abs().max()))
+    err_fd = max(float((ad.A - fd.A).abs().max()),
+                 float((ad.B - fd.B).abs().max()))
+    scale = float(fd.A.abs().max())
+    if not err_plain <= 1e-9:
+      raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
+    if not err_fd <= 1e-4 * scale:
+      raise AssertionError(f"transition_ad vs transition_fd: {err_fd:.3e}")
+    log("slice: constraint rows",
+        f"slider_crank 8 lanes fp64 EULER: transition_ad {seconds:.3f} s, A "
+        f"{tuple(ad.A.shape)}; kernels vs plain max |dA|,|dB| {err_plain:.3e} "
+        f"(tol 1e-9); vs transition_fd (centered, eps 1e-6) {err_fd:.3e} (tol "
+        f"1e-4 of max|A| = {1e-4 * scale:.3e}); launches {launches}, tangents "
+        f"a lane {read_tangents(linalg)}")
   log("slice: constraint rows",
       f"phase 18 in {time.perf_counter() - t_phase:.1f} s")
   return total, small
@@ -1973,184 +2079,189 @@ def tendon_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
   )
 
   t_phase = time.perf_counter()
+  small = {}
   total = dict.fromkeys(KERNELS, 0)
 
   def add(launches):
     for k in KERNELS:
       total[k] += launches[k]
 
-  runs = [("tendon_arm", i) for i in INTEGRATORS] + [
-      ("actuated", "EULER"), ("tendon_rows", "EULER")]
-  for name, integrator in runs:
-    m = constraint_model(mt, name, dev, torch.float32, integrator)
-    d = mt.step(m, tendon_data(mt, m, FLEET, seed=19))  # warm-up step
-    torch.cuda.synchronize()
+  if TIMED:
+    runs = [("tendon_arm", i) for i in INTEGRATORS] + [
+        ("actuated", "EULER"), ("tendon_rows", "EULER")]
+    for name, integrator in runs:
+      m = constraint_model(mt, name, dev, torch.float32, integrator)
+      d = mt.step(m, tendon_data(mt, m, FLEET, seed=19))  # warm-up step
+      torch.cuda.synchronize()
+      reset_launches(linalg)
+      t0 = time.perf_counter()
+      d = mt.step_n(m, d, TENDON_STEPS)
+      torch.cuda.synchronize()
+      seconds = time.perf_counter() - t0
+      launches = read_launches(linalg)
+      add(launches)
+      for k in ("chol_factor", "chol_solve"):
+        if not launches[k]:
+          raise AssertionError(f"{k} was not launched on {name} {integrator}")
+      finite = (torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
+                & torch.isfinite(d.act).all(1))
+      if not bool(finite.all()):
+        raise AssertionError(f"{name} {integrator}: {int((~finite).sum())} "
+                             "non-finite lanes")
+      lay = constraint.row_layout(m)
+      log("slice: tendons",
+          f"{name} {integrator} (nv {m.nv}, na {m.na}, {m.ntendon} tendons; "
+          f"rows: {lay.ne} equality, {lay.nf} friction, {lay.nl} limit) "
+          f"B={FLEET} fp32: {TENDON_STEPS} steps in {seconds:.3f} s = "
+          f"{FLEET * TENDON_STEPS / seconds:.1f} steps/s on {card}; launches a "
+          "step " + ", ".join(f"{k} {v / TENDON_STEPS:g}"
+                              for k, v in launches.items()
+                              if not k.endswith("_jvp"))
+          + f"; finite lanes {int(finite.sum())} of {FLEET}; auto-resets "
+          f"{int(d.warning.sum())}")
+
+    small = {k: {"by_n": {"2": v}} for k, v in time_kernels(linalg, dev,
+                                                             2).items()}
+
+  if CHECKS:
+    # the fork's inverse_test on the tendon arm: RK4, fresh forces a step
+    b = 64
+    gen = torch.Generator(device=dev).manual_seed(19)
+    m = constraint_model(mt, "tendon_arm", dev, torch.float64, "RK4")
+    randn = lambda *shape: torch.randn(shape, generator=gen, device=dev,
+                                       dtype=m.dtype)
+    d = tendon_data(mt, m, b, seed=20)
+    worst = torch.zeros(2, dtype=m.dtype, device=dev)
+    ok = torch.ones((), dtype=torch.bool, device=dev)
     reset_launches(linalg)
     t0 = time.perf_counter()
-    d = mt.step_n(m, d, TENDON_STEPS)
+    for _ in range(ARM_INVERSE_STEPS):
+      d = d.replace(qfrc_applied=0.3 * randn(b, m.nv),
+                    xfrc_applied=0.3 * randn(b, m.nbody, 6),
+                    ctrl=torch.rand((b, m.nu), generator=gen, device=dev,
+                                    dtype=m.dtype))
+      fwd, d = fwd_inv_step(mt, m, d)
+      ok &= (fwd.solver_fwdinv <= 1e-6).all()
+      worst = torch.maximum(worst, fwd.solver_fwdinv.amax(0))
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches(linalg)
     add(launches)
-    for k in ("chol_factor", "chol_solve"):
-      if not launches[k]:
-        raise AssertionError(f"{k} was not launched on {name} {integrator}")
-    finite = (torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
-              & torch.isfinite(d.act).all(1))
-    if not bool(finite.all()):
-      raise AssertionError(f"{name} {integrator}: {int((~finite).sum())} "
-                           "non-finite lanes")
-    lay = constraint.row_layout(m)
+    if not launches["chol_factor"] or not launches["chol_solve"]:
+      raise AssertionError(f"a kernel was not launched: {launches}")
+    if not bool(ok) or not bool(torch.isfinite(d.qpos).all()):
+      raise AssertionError(f"solver_fwdinv above 1e-6: max {worst.tolist()}")
     log("slice: tendons",
-        f"{name} {integrator} (nv {m.nv}, na {m.na}, {m.ntendon} tendons; "
-        f"rows: {lay.ne} equality, {lay.nf} friction, {lay.nl} limit) "
-        f"B={FLEET} fp32: {TENDON_STEPS} steps in {seconds:.3f} s = "
-        f"{FLEET * TENDON_STEPS / seconds:.1f} steps/s on {card}; launches a "
-        "step " + ", ".join(f"{k} {v / TENDON_STEPS:g}"
-                            for k, v in launches.items()
-                            if not k.endswith("_jvp"))
-        + f"; finite lanes {int(finite.sum())} of {FLEET}; auto-resets "
-        f"{int(d.warning.sum())}")
+        f"inverse_test tendon_arm RK4 {b} lanes fp64, {ARM_INVERSE_STEPS} "
+        f"steps of {m.opt.timestep:g} s in {seconds:.3f} s, fresh forces and "
+        f"controls a step: max solver_fwdinv [{float(worst[0]):.3e}, "
+        f"{float(worst[1]):.3e}] over every lane and step (tol 1e-6); "
+        "launches a step " + ", ".join(
+            f"{k} {v / ARM_INVERSE_STEPS:g}" for k, v in launches.items()
+            if not k.endswith("_jvp")))
 
-  small = {k: {"by_n": {"2": v}} for k, v in time_kernels(linalg, dev,
-                                                           2).items()}
+  if TIMED:
+    # BASELINE rung 2: iLQR reach on the tendon arm
+    m = constraint_model(mt, "tendon_arm", dev, torch.float32)
+    d0, us, target = reach_problems(mt, m, REACH_F, seed=21)
+    cfg = ILQRConfig(iterations=REACH_ITERATIONS, n_alpha=REACH_ALPHAS)
+    torch.cuda.synchronize()
+    reset_launches(linalg)
+    t0 = time.perf_counter()
+    res = ilqr(m, reach_cost, d0, us, cfg, cost_args=(target,))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(linalg)
+    add(launches)
+    if not all(launches.values()):
+      raise AssertionError(f"a kernel was not launched: {launches}")
+    finite = torch.isfinite(res.cost) & torch.isfinite(res.us).flatten(1).all(1)
+    dist = lambda q: (arm_hand(q) - target).norm(dim=-1)
+    start = float(dist(res.xs.qpos[:, 0]).median())
+    end = float(dist(res.xs.qpos[:, -1]).median())
+    if not bool(finite.all()) or not end < start:
+      raise AssertionError(f"reach iLQR: {int((~finite).sum())} non-finite "
+                           f"lanes, median distance {start:.4f} -> {end:.4f}")
+    log("slice: tendons",
+        f"BASELINE rung 2: iLQR reach on tendon_arm, F={REACH_F} fp32, "
+        f"H={REACH_H}, {REACH_ITERATIONS} iterations, {REACH_ALPHAS} alphas: "
+        f"{seconds:.3f} s = {REACH_F / seconds:.2f} solves/s on {card}; finite "
+        f"lanes {int(finite.sum())} of {REACH_F}; mean iterations "
+        f"{float(res.niter.float().mean()):.2f}; median hand-target distance "
+        f"{start:.4f} m at the start, {end:.4f} m at the plan's end; plan cost "
+        f"median {float(res.cost.median()):.4f}; launches {launches}")
 
-  # the fork's inverse_test on the tendon arm: RK4, fresh forces a step
-  b = 64
-  gen = torch.Generator(device=dev).manual_seed(19)
-  m = constraint_model(mt, "tendon_arm", dev, torch.float64, "RK4")
-  randn = lambda *shape: torch.randn(shape, generator=gen, device=dev,
-                                     dtype=m.dtype)
-  d = tendon_data(mt, m, b, seed=20)
-  worst = torch.zeros(2, dtype=m.dtype, device=dev)
-  ok = torch.ones((), dtype=torch.bool, device=dev)
-  reset_launches(linalg)
-  t0 = time.perf_counter()
-  for _ in range(ARM_INVERSE_STEPS):
-    d = d.replace(qfrc_applied=0.3 * randn(b, m.nv),
-                  xfrc_applied=0.3 * randn(b, m.nbody, 6),
-                  ctrl=torch.rand((b, m.nu), generator=gen, device=dev,
-                                  dtype=m.dtype))
-    fwd, d = fwd_inv_step(mt, m, d)
-    ok &= (fwd.solver_fwdinv <= 1e-6).all()
-    worst = torch.maximum(worst, fwd.solver_fwdinv.amax(0))
-  torch.cuda.synchronize()
-  seconds = time.perf_counter() - t0
-  launches = read_launches(linalg)
-  add(launches)
-  if not launches["chol_factor"] or not launches["chol_solve"]:
-    raise AssertionError(f"a kernel was not launched: {launches}")
-  if not bool(ok) or not bool(torch.isfinite(d.qpos).all()):
-    raise AssertionError(f"solver_fwdinv above 1e-6: max {worst.tolist()}")
-  log("slice: tendons",
-      f"inverse_test tendon_arm RK4 {b} lanes fp64, {ARM_INVERSE_STEPS} "
-      f"steps of {m.opt.timestep:g} s in {seconds:.3f} s, fresh forces and "
-      f"controls a step: max solver_fwdinv [{float(worst[0]):.3e}, "
-      f"{float(worst[1]):.3e}] over every lane and step (tol 1e-6); "
-      "launches a step " + ", ".join(
-          f"{k} {v / ARM_INVERSE_STEPS:g}" for k, v in launches.items()
-          if not k.endswith("_jvp")))
+  if CHECKS:
+    m = constraint_model(mt, "tendon_arm", dev, torch.float64)
+    d0, us, target = reach_problems(mt, m, REACH_CHECK_LANES, seed=22)
+    cfg = ILQRConfig(iterations=REACH_CHECK_ITERATIONS, n_alpha=REACH_ALPHAS)
+    reset_launches(linalg)
+    kern = ilqr(m, reach_cost, d0, us, cfg, cost_args=(target,))
+    add(read_launches(linalg))
+    with plain_cholesky(linalg):
+      plain = ilqr(m, reach_cost, d0, us, cfg, cost_args=(target,))
+    rel = float(((kern.cost - plain.cost).abs() / plain.cost.abs()).max())
+    if not rel <= 1e-9:
+      raise AssertionError(f"reach iLQR kernels vs plain: {rel:.3e}")
+    log("slice: tendons",
+        f"reach iLQR {REACH_CHECK_LANES} lanes fp64, "
+        f"{REACH_CHECK_ITERATIONS} iterations, kernels vs plain: plan costs "
+        f"max relative difference {rel:.3e} (tol 1e-9)")
 
-  # BASELINE rung 2: iLQR reach on the tendon arm
-  m = constraint_model(mt, "tendon_arm", dev, torch.float32)
-  d0, us, target = reach_problems(mt, m, REACH_F, seed=21)
-  cfg = ILQRConfig(iterations=REACH_ITERATIONS, n_alpha=REACH_ALPHAS)
-  torch.cuda.synchronize()
-  reset_launches(linalg)
-  t0 = time.perf_counter()
-  res = ilqr(m, reach_cost, d0, us, cfg, cost_args=(target,))
-  torch.cuda.synchronize()
-  seconds = time.perf_counter() - t0
-  launches = read_launches(linalg)
-  add(launches)
-  if not all(launches.values()):
-    raise AssertionError(f"a kernel was not launched: {launches}")
-  finite = torch.isfinite(res.cost) & torch.isfinite(res.us).flatten(1).all(1)
-  dist = lambda q: (arm_hand(q) - target).norm(dim=-1)
-  start = float(dist(res.xs.qpos[:, 0]).median())
-  end = float(dist(res.xs.qpos[:, -1]).median())
-  if not bool(finite.all()) or not end < start:
-    raise AssertionError(f"reach iLQR: {int((~finite).sum())} non-finite "
-                         f"lanes, median distance {start:.4f} -> {end:.4f}")
-  log("slice: tendons",
-      f"BASELINE rung 2: iLQR reach on tendon_arm, F={REACH_F} fp32, "
-      f"H={REACH_H}, {REACH_ITERATIONS} iterations, {REACH_ALPHAS} alphas: "
-      f"{seconds:.3f} s = {REACH_F / seconds:.2f} solves/s on {card}; finite "
-      f"lanes {int(finite.sum())} of {REACH_F}; mean iterations "
-      f"{float(res.niter.float().mean()):.2f}; median hand-target distance "
-      f"{start:.4f} m at the start, {end:.4f} m at the plan's end; plan cost "
-      f"median {float(res.cost.median()):.4f}; launches {launches}")
+    # kernels against plain versions, fp64, 64 lanes, 5 steps
+    errs = []
+    for name in TENDON_MODELS:
+      m = constraint_model(mt, name, dev, torch.float64)
+      d_k = d_p = tendon_data(mt, m, 64, seed=23)
+      err = 0.0
+      for _ in range(5):
+        d_k = mt.step(m, d_k)
+        with plain_cholesky(linalg):
+          d_p = mt.step(m, d_p)
+        fields = ["qpos", "qvel", "act"] + (
+            ["efc_force"] if d_k.efc_force is not None else [])
+        err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)).abs().max())
+                         for f in fields))
+      if not err <= 1e-9:
+        raise AssertionError(f"{name} fp64 steps, kernels vs plain: {err:.3e}")
+      errs.append(f"{name} {err:.3e}")
+    log("slice: tendons", "64 lanes fp64, 5 steps, kernels vs plain, max "
+        "|dqpos|,|dqvel|,|dact|,|defc_force| (tol 1e-9): " + ", ".join(errs))
 
-  m = constraint_model(mt, "tendon_arm", dev, torch.float64)
-  d0, us, target = reach_problems(mt, m, REACH_CHECK_LANES, seed=22)
-  cfg = ILQRConfig(iterations=REACH_CHECK_ITERATIONS, n_alpha=REACH_ALPHAS)
-  reset_launches(linalg)
-  kern = ilqr(m, reach_cost, d0, us, cfg, cost_args=(target,))
-  add(read_launches(linalg))
-  with plain_cholesky(linalg):
-    plain = ilqr(m, reach_cost, d0, us, cfg, cost_args=(target,))
-  rel = float(((kern.cost - plain.cost).abs() / plain.cost.abs()).max())
-  if not rel <= 1e-9:
-    raise AssertionError(f"reach iLQR kernels vs plain: {rel:.3e}")
-  log("slice: tendons",
-      f"reach iLQR {REACH_CHECK_LANES} lanes fp64, "
-      f"{REACH_CHECK_ITERATIONS} iterations, kernels vs plain: plan costs "
-      f"max relative difference {rel:.3e} (tol 1e-9)")
-
-  # kernels against plain versions, fp64, 64 lanes, 5 steps
-  errs = []
-  for name in TENDON_MODELS:
-    m = constraint_model(mt, name, dev, torch.float64)
-    d_k = d_p = tendon_data(mt, m, 64, seed=23)
-    err = 0.0
-    for _ in range(5):
-      d_k = mt.step(m, d_k)
-      with plain_cholesky(linalg):
-        d_p = mt.step(m, d_p)
-      fields = ["qpos", "qvel", "act"] + (
-          ["efc_force"] if d_k.efc_force is not None else [])
-      err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)).abs().max())
-                       for f in fields))
-    if not err <= 1e-9:
-      raise AssertionError(f"{name} fp64 steps, kernels vs plain: {err:.3e}")
-    errs.append(f"{name} {err:.3e}")
-  log("slice: tendons", "64 lanes fp64, 5 steps, kernels vs plain, max "
-      "|dqpos|,|dqvel|,|dact|,|defc_force| (tol 1e-9): " + ", ".join(errs))
-
-  # transition_ad of 8 tendon-arm lanes
-  m = constraint_model(mt, "tendon_arm", dev, torch.float64)
-  d = mt.forward(m, tendon_data(mt, m, 8, seed=24))
-  reset_launches(linalg)
-  t0 = time.perf_counter()
-  ad = derivative.transition_ad(m, d)
-  torch.cuda.synchronize()
-  seconds = time.perf_counter() - t0
-  launches = read_launches(linalg)
-  if not all(launches.values()):
-    raise AssertionError(f"a kernel was not launched: {launches}")
-  add(launches)
-  with plain_cholesky(linalg):
-    plain = derivative.transition_ad(m, d)
-  fd = derivative.transition_fd(
-      m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
-      eps=1e-6, flg_centered=True)
-  err_plain = max(float((ad.A - plain.A).abs().max()),
-                  float((ad.B - plain.B).abs().max()))
-  err_a = float((ad.A - fd.A).abs().max())
-  err_b = float((ad.B - fd.B).abs().max())
-  scale_a, scale_b = float(fd.A.abs().max()), float(fd.B.abs().max())
-  if not err_plain <= 1e-9:
-    raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
-  if not (err_a <= 1e-4 * scale_a and err_b <= 1e-4 * scale_b):
-    raise AssertionError(f"transition_ad vs transition_fd: A {err_a:.3e}, "
-                         f"B {err_b:.3e}")
-  log("slice: tendons",
-      f"tendon_arm 8 lanes fp64 EULER: transition_ad {seconds:.3f} s, A "
-      f"{tuple(ad.A.shape)}, B {tuple(ad.B.shape)}; kernels vs plain max "
-      f"|dA|,|dB| {err_plain:.3e} (tol 1e-9); vs transition_fd (centered, "
-      f"eps 1e-6) |dA| {err_a:.3e}, |dB| {err_b:.3e} (tol 1e-4 of max|A| = "
-      f"{1e-4 * scale_a:.3e}, of max|B| = {1e-4 * scale_b:.3e}); launches "
-      f"{launches}, tangents a lane {read_tangents(linalg)}")
+    # transition_ad of 8 tendon-arm lanes
+    m = constraint_model(mt, "tendon_arm", dev, torch.float64)
+    d = mt.forward(m, tendon_data(mt, m, 8, seed=24))
+    reset_launches(linalg)
+    t0 = time.perf_counter()
+    ad = derivative.transition_ad(m, d)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(linalg)
+    if not all(launches.values()):
+      raise AssertionError(f"a kernel was not launched: {launches}")
+    add(launches)
+    with plain_cholesky(linalg):
+      plain = derivative.transition_ad(m, d)
+    fd = derivative.transition_fd(
+        m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
+        eps=1e-6, flg_centered=True)
+    err_plain = max(float((ad.A - plain.A).abs().max()),
+                    float((ad.B - plain.B).abs().max()))
+    err_a = float((ad.A - fd.A).abs().max())
+    err_b = float((ad.B - fd.B).abs().max())
+    scale_a, scale_b = float(fd.A.abs().max()), float(fd.B.abs().max())
+    if not err_plain <= 1e-9:
+      raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
+    if not (err_a <= 1e-4 * scale_a and err_b <= 1e-4 * scale_b):
+      raise AssertionError(f"transition_ad vs transition_fd: A {err_a:.3e}, "
+                           f"B {err_b:.3e}")
+    log("slice: tendons",
+        f"tendon_arm 8 lanes fp64 EULER: transition_ad {seconds:.3f} s, A "
+        f"{tuple(ad.A.shape)}, B {tuple(ad.B.shape)}; kernels vs plain max "
+        f"|dA|,|dB| {err_plain:.3e} (tol 1e-9); vs transition_fd (centered, "
+        f"eps 1e-6) |dA| {err_a:.3e}, |dB| {err_b:.3e} (tol 1e-4 of max|A| = "
+        f"{1e-4 * scale_a:.3e}, of max|B| = {1e-4 * scale_b:.3e}); launches "
+        f"{launches}, tangents a lane {read_tangents(linalg)}")
   log("slice: tendons", f"phase 19 in {time.perf_counter() - t_phase:.1f} s")
   return total, small
 
@@ -2189,9 +2300,11 @@ def contact_sets(collision, m, d) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def box_inverse_test(mt, linalg, dev, m, phase: str, label: str,
-                     steps: int, seed: int, exact_solves: bool = True) -> dict:
+                     steps: int, seed: int, exact_solves: bool = True,
+                     data=None) -> dict:
   """The fork's inverse_test on 64 lanes of box_stack ``m`` (fp64, RK4):
-  from convex_data's states, fresh qfrc_applied and xfrc_applied (0.3
+  from convex_data's states (or ``data``'s, of the same signature), fresh
+  qfrc_applied and xfrc_applied (0.3
   randn, a torch.Generator seeded with ``seed``) every step, forward and
   compare_fwd_inv; both solver_fwdinv entries <= 1e-6 on every lane at
   every step.  solver_fwdinv[1] is the forward solve's own residual: a
@@ -2205,7 +2318,7 @@ def box_inverse_test(mt, linalg, dev, m, phase: str, label: str,
   gen = torch.Generator(device=dev).manual_seed(seed)
   randn = lambda *shape: torch.randn(shape, generator=gen, device=dev,
                                      dtype=m.dtype)
-  d = convex_data(mt, m, b, seed=seed + 2)
+  d = (data or convex_data)(mt, m, b, seed=seed + 2)
   worst = torch.zeros(2, dtype=m.dtype, device=dev)
   ok = torch.ones((), dtype=torch.bool, device=dev)
   active = torch.zeros((), dtype=torch.long, device=dev)
@@ -2264,147 +2377,150 @@ def convex_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
   from mujoco_inversedynamicstest_tpu_torch.opt import derivative
 
   t_phase = time.perf_counter()
+  times = {}
   total = dict.fromkeys(KERNELS, 0)
 
   def add(launches):
     for k in KERNELS:
       total[k] += launches[k]
 
-  for name in CONVEX_MODELS:
-    m = constraint_model(mt, name, dev, torch.float32)
-    d = mt.step(m, convex_data(mt, m, FLEET, seed=20))  # warm-up step
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+  if TIMED:
+    for name in CONVEX_MODELS:
+      m = constraint_model(mt, name, dev, torch.float32)
+      d = mt.step(m, convex_data(mt, m, FLEET, seed=20))  # warm-up step
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      reset_launches(linalg)
+      t0 = time.perf_counter()
+      d = mt.step_n(m, d, CONVEX_STEPS)
+      torch.cuda.synchronize()
+      seconds = time.perf_counter() - t0
+      peak = torch.cuda.max_memory_allocated() / 2**30
+      launches = read_launches(linalg)
+      add(launches)
+      for k in ("chol_factor", "chol_solve"):
+        if not launches[k]:
+          raise AssertionError(f"{k} was not launched on {name}")
+      finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
+      if not bool(finite.all()):
+        raise AssertionError(f"{name}: {int((~finite).sum())} non-finite lanes")
+      active = (d.contact.dist < d.contact.includemargin).sum(1).float()
+      lay = collision.contact_layout(m)
+      log("slice: boxes and convex meshes",
+          f"{name} (nv {m.nv}, {lay.ncon} contact slots in {len(lay.groups)} "
+          f"pair groups) B={FLEET} fp32 EULER: {CONVEX_STEPS} steps in "
+          f"{seconds:.3f} s = {FLEET * CONVEX_STEPS / seconds:.1f} steps/s on "
+          f"{card}; launches a step " + ", ".join(
+              f"{k} {v / CONVEX_STEPS:g}" for k, v in launches.items()
+              if not k.endswith("_jvp"))
+          + f"; finite lanes {int(finite.sum())} of {FLEET}; auto-resets "
+          f"{int(d.warning.sum())}; active contacts a lane mean "
+          f"{float(active.mean()):.2f}, max {int(active.max())}; peak "
+          f"{peak:.3f} GiB")
+
+      # the collision stage's share of two profiled steps
+      step_ms, step_launches, per_launch = device_profile(
+          lambda: mt.step_n(m, d, 2))
+      pos = mt.fwd_position(m, d)
+      collide = lambda: collision.collision(m, pos)
+      collide()
+      col_ms, col_launches, _ = device_profile(collide)
+      log("profile: collision",
+          f"{name} B={FLEET} fp32: a step {step_ms / 2:.3f} device ms / "
+          f"{step_launches / 2:.0f} launches; collision {col_ms:.3f} ms / "
+          f"{col_launches} launches = {col_ms / (step_ms / 2):.1%} of the "
+          f"step's device time, {col_launches / (step_launches / 2):.1%} of "
+          "its launches; in the steps " + ", ".join(
+              f"{k} {us:.2f} us/launch ({count})"
+              for k, (us, count) in per_launch.items() if count))
+
+    times = {}
+    for name in CONVEX_MODELS:
+      m = constraint_model(mt, name, "cpu", torch.float64)
+      for n in sorted({m.nv} | set(smooth._dof_blocks(m) or ())):
+        if str(n) not in times.get("chol_factor", {}).get("by_n", {}):
+          for k, v in time_kernels(linalg, dev, n).items():
+            times.setdefault(k, {"by_n": {}})["by_n"][str(n)] = v
+
+  if CHECKS:
+    # kernels against plain versions, fp64, 64 lanes, 5 steps; then the fp32
+    # contacts of the same 64 states against the fp64 ones
+    errs, sets = [], []
+    for name in CONVEX_MODELS:
+      m = constraint_model(mt, name, dev, torch.float64)
+      d0 = convex_data(mt, m, 64, seed=21)
+      d_k = d_p = d0
+      err = 0.0
+      for _ in range(5):
+        d_k = mt.step(m, d_k)
+        with plain_cholesky(linalg):
+          d_p = mt.step(m, d_p)
+        err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)).abs().max())
+                         for f in ("qpos", "qvel", "efc_force")))
+      if not err <= 1e-9:
+        raise AssertionError(f"{name} fp64 steps, kernels vs plain: {err:.3e}")
+      errs.append(f"{name} {err:.3e}")
+
+      m32 = constraint_model(mt, name, dev, torch.float32)
+      reset_launches(linalg)
+      for d64 in (d0, d_k):
+        c64 = mt.fwd_position(m, d64)
+        c32 = mt.fwd_position(m32, mt.make_data(m32, 64).replace(
+            qpos=d64.qpos.float(), qvel=d64.qvel.float()))
+        s64, n64 = contact_sets(collision, m, c64)
+        s32, n32 = contact_sets(collision, m32, c32)
+        if not torch.equal(n64, n32):
+          raise AssertionError(f"{name}: fp32 and fp64 active contacts differ "
+                               f"on {int((n64 != n32).sum())} (lane, pair)s")
+        both = torch.isfinite(s64)
+        derr = float((s64 - s32)[both].abs().max())
+        if not derr <= 1e-4:
+          raise AssertionError(f"{name}: fp32 vs fp64 contact depth {derr:.3e}")
+        sets.append(f"{name} {int(n64.sum())} active, max |ddist| {derr:.3e}")
+      add(read_launches(linalg))
+    log("slice: boxes and convex meshes",
+        "64 lanes fp64, 5 steps, kernels vs plain, max |dqpos|,|dqvel|,"
+        "|defc_force| (tol 1e-9): " + ", ".join(errs) + "; the fp32 contacts "
+        "of the first and last of those states against the fp64 ones, each "
+        "(lane, geom pair)'s set: the same active contacts, depths (tol "
+        "1e-4): " + ", ".join(sets))
+
+    # the fork's inverse_test on box_stack: RK4, fresh forces every step
+    m = constraint_model(mt, "box_stack", dev, torch.float64, "RK4")
+    add(box_inverse_test(mt, linalg, dev, m, "slice: boxes and convex meshes",
+                         "box_stack", BOX_INVERSE_STEPS, seed=20))
+
+    # transition_ad of 8 box-stack lanes at rest in contact
+    m = constraint_model(mt, "box_stack", dev, torch.float64)
+    d = mt.forward(m, convex_data(mt, m, 8, seed=23))
     reset_launches(linalg)
     t0 = time.perf_counter()
-    d = mt.step_n(m, d, CONVEX_STEPS)
+    ad = derivative.transition_ad(m, d)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
-    peak = torch.cuda.max_memory_allocated() / 2**30
     launches = read_launches(linalg)
+    if not all(launches.values()):
+      raise AssertionError(f"a kernel was not launched: {launches}")
     add(launches)
-    for k in ("chol_factor", "chol_solve"):
-      if not launches[k]:
-        raise AssertionError(f"{k} was not launched on {name}")
-    finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
-    if not bool(finite.all()):
-      raise AssertionError(f"{name}: {int((~finite).sum())} non-finite lanes")
-    active = (d.contact.dist < d.contact.includemargin).sum(1).float()
-    lay = collision.contact_layout(m)
+    with plain_cholesky(linalg):
+      plain = derivative.transition_ad(m, d)
+    fd = derivative.transition_fd(
+        m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
+        eps=1e-6, flg_centered=True)
+    err_plain = float((ad.A - plain.A).abs().max())
+    err_fd = float((ad.A - fd.A).abs().max())
+    scale = float(fd.A.abs().max())
+    if not err_plain <= 1e-9:
+      raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
+    if not err_fd <= 1e-4 * scale:
+      raise AssertionError(f"transition_ad vs transition_fd: {err_fd:.3e}")
+    ncon = int((d.contact.dist < d.contact.includemargin).sum())
     log("slice: boxes and convex meshes",
-        f"{name} (nv {m.nv}, {lay.ncon} contact slots in {len(lay.groups)} "
-        f"pair groups) B={FLEET} fp32 EULER: {CONVEX_STEPS} steps in "
-        f"{seconds:.3f} s = {FLEET * CONVEX_STEPS / seconds:.1f} steps/s on "
-        f"{card}; launches a step " + ", ".join(
-            f"{k} {v / CONVEX_STEPS:g}" for k, v in launches.items()
-            if not k.endswith("_jvp"))
-        + f"; finite lanes {int(finite.sum())} of {FLEET}; auto-resets "
-        f"{int(d.warning.sum())}; active contacts a lane mean "
-        f"{float(active.mean()):.2f}, max {int(active.max())}; peak "
-        f"{peak:.3f} GiB")
-
-    # the collision stage's share of two profiled steps
-    step_ms, step_launches, per_launch = device_profile(
-        lambda: mt.step_n(m, d, 2))
-    pos = mt.fwd_position(m, d)
-    collide = lambda: collision.collision(m, pos)
-    collide()
-    col_ms, col_launches, _ = device_profile(collide)
-    log("profile: collision",
-        f"{name} B={FLEET} fp32: a step {step_ms / 2:.3f} device ms / "
-        f"{step_launches / 2:.0f} launches; collision {col_ms:.3f} ms / "
-        f"{col_launches} launches = {col_ms / (step_ms / 2):.1%} of the "
-        f"step's device time, {col_launches / (step_launches / 2):.1%} of "
-        "its launches; in the steps " + ", ".join(
-            f"{k} {us:.2f} us/launch ({count})"
-            for k, (us, count) in per_launch.items() if count))
-
-  times = {}
-  for name in CONVEX_MODELS:
-    m = constraint_model(mt, name, "cpu", torch.float64)
-    for n in sorted({m.nv} | set(smooth._dof_blocks(m) or ())):
-      if str(n) not in times.get("chol_factor", {}).get("by_n", {}):
-        for k, v in time_kernels(linalg, dev, n).items():
-          times.setdefault(k, {"by_n": {}})["by_n"][str(n)] = v
-
-  # kernels against plain versions, fp64, 64 lanes, 5 steps; then the fp32
-  # contacts of the same 64 states against the fp64 ones
-  errs, sets = [], []
-  for name in CONVEX_MODELS:
-    m = constraint_model(mt, name, dev, torch.float64)
-    d0 = convex_data(mt, m, 64, seed=21)
-    d_k = d_p = d0
-    err = 0.0
-    for _ in range(5):
-      d_k = mt.step(m, d_k)
-      with plain_cholesky(linalg):
-        d_p = mt.step(m, d_p)
-      err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)).abs().max())
-                       for f in ("qpos", "qvel", "efc_force")))
-    if not err <= 1e-9:
-      raise AssertionError(f"{name} fp64 steps, kernels vs plain: {err:.3e}")
-    errs.append(f"{name} {err:.3e}")
-
-    m32 = constraint_model(mt, name, dev, torch.float32)
-    reset_launches(linalg)
-    for d64 in (d0, d_k):
-      c64 = mt.fwd_position(m, d64)
-      c32 = mt.fwd_position(m32, mt.make_data(m32, 64).replace(
-          qpos=d64.qpos.float(), qvel=d64.qvel.float()))
-      s64, n64 = contact_sets(collision, m, c64)
-      s32, n32 = contact_sets(collision, m32, c32)
-      if not torch.equal(n64, n32):
-        raise AssertionError(f"{name}: fp32 and fp64 active contacts differ "
-                             f"on {int((n64 != n32).sum())} (lane, pair)s")
-      both = torch.isfinite(s64)
-      derr = float((s64 - s32)[both].abs().max())
-      if not derr <= 1e-4:
-        raise AssertionError(f"{name}: fp32 vs fp64 contact depth {derr:.3e}")
-      sets.append(f"{name} {int(n64.sum())} active, max |ddist| {derr:.3e}")
-    add(read_launches(linalg))
-  log("slice: boxes and convex meshes",
-      "64 lanes fp64, 5 steps, kernels vs plain, max |dqpos|,|dqvel|,"
-      "|defc_force| (tol 1e-9): " + ", ".join(errs) + "; the fp32 contacts "
-      "of the first and last of those states against the fp64 ones, each "
-      "(lane, geom pair)'s set: the same active contacts, depths (tol "
-      "1e-4): " + ", ".join(sets))
-
-  # the fork's inverse_test on box_stack: RK4, fresh forces every step
-  m = constraint_model(mt, "box_stack", dev, torch.float64, "RK4")
-  add(box_inverse_test(mt, linalg, dev, m, "slice: boxes and convex meshes",
-                       "box_stack", BOX_INVERSE_STEPS, seed=20))
-
-  # transition_ad of 8 box-stack lanes at rest in contact
-  m = constraint_model(mt, "box_stack", dev, torch.float64)
-  d = mt.forward(m, convex_data(mt, m, 8, seed=23))
-  reset_launches(linalg)
-  t0 = time.perf_counter()
-  ad = derivative.transition_ad(m, d)
-  torch.cuda.synchronize()
-  seconds = time.perf_counter() - t0
-  launches = read_launches(linalg)
-  if not all(launches.values()):
-    raise AssertionError(f"a kernel was not launched: {launches}")
-  add(launches)
-  with plain_cholesky(linalg):
-    plain = derivative.transition_ad(m, d)
-  fd = derivative.transition_fd(
-      m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
-      eps=1e-6, flg_centered=True)
-  err_plain = float((ad.A - plain.A).abs().max())
-  err_fd = float((ad.A - fd.A).abs().max())
-  scale = float(fd.A.abs().max())
-  if not err_plain <= 1e-9:
-    raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
-  if not err_fd <= 1e-4 * scale:
-    raise AssertionError(f"transition_ad vs transition_fd: {err_fd:.3e}")
-  ncon = int((d.contact.dist < d.contact.includemargin).sum())
-  log("slice: boxes and convex meshes",
-      f"box_stack 8 lanes fp64 EULER, {ncon} active contacts: transition_ad "
-      f"{seconds:.3f} s, A {tuple(ad.A.shape)}; kernels vs plain max |dA| "
-      f"{err_plain:.3e} (tol 1e-9); vs transition_fd (centered, eps 1e-6) "
-      f"{err_fd:.3e} (tol 1e-4 of max|A| = {1e-4 * scale:.3e}); launches "
-      f"{launches}, tangents a lane {read_tangents(linalg)}")
+        f"box_stack 8 lanes fp64 EULER, {ncon} active contacts: transition_ad "
+        f"{seconds:.3f} s, A {tuple(ad.A.shape)}; kernels vs plain max |dA| "
+        f"{err_plain:.3e} (tol 1e-9); vs transition_fd (centered, eps 1e-6) "
+        f"{err_fd:.3e} (tol 1e-4 of max|A| = {1e-4 * scale:.3e}); launches "
+        f"{launches}, tangents a lane {read_tangents(linalg)}")
   log("slice: boxes and convex meshes",
       f"phase 20 in {time.perf_counter() - t_phase:.1f} s")
   return total, times
@@ -2681,161 +2797,573 @@ def contact_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
   from mujoco_inversedynamicstest_tpu_torch.opt import derivative
 
   t_phase = time.perf_counter()
+  times = {}
   total = dict.fromkeys(KERNELS, 0)
 
   def add(launches):
     for k in KERNELS:
       total[k] += launches[k]
 
-  middle_all = 0
-  for i, name in enumerate(CONTACT_MODELS):
-    runs = {}
-    # in turns: elliptic first on even models, pyramidal first on odd ones
-    for cone in (("ELLIPTIC", "PYRAMIDAL") if i % 2 == 0
-                 else ("PYRAMIDAL", "ELLIPTIC")):
-      m = contact_model(mt, name, dev, torch.float32, cone)
-      d, seconds, launches = timed_fleet(
-          mt, linalg, m, contact_data(mt, m, name, FLEET, seed=22),
-          CONTACT_STEPS)
+  if TIMED:
+    middle_all = 0
+    for i, name in enumerate(CONTACT_MODELS):
+      runs = {}
+      # in turns: elliptic first on even models, pyramidal first on odd ones
+      for cone in (("ELLIPTIC", "PYRAMIDAL") if i % 2 == 0
+                   else ("PYRAMIDAL", "ELLIPTIC")):
+        m = contact_model(mt, name, dev, torch.float32, cone)
+        d, seconds, launches = timed_fleet(
+            mt, linalg, m, contact_data(mt, m, name, FLEET, seed=22),
+            CONTACT_STEPS)
+        add(launches)
+        finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
+        runs[cone] = dict(m=m, d=d, seconds=seconds, launches=launches,
+                          finite=int(finite.sum()), resets=int(d.warning.sum()),
+                          rows=constraint.row_layout(m).nefc)
+        if not launches["chol_factor"] or not launches["chol_solve"]:
+          raise AssertionError(f"{name} {cone}: a kernel was not launched")
+        if runs[cone]["finite"] != FLEET:
+          raise AssertionError(f"{name} {cone}: non-finite lanes")
+      ell, pyr = runs["ELLIPTIC"], runs["PYRAMIDAL"]
+      mid, act = middle_share(constraint, ell["m"], ell["d"])
+      middle_all += mid
+      rate = lambda r: FLEET * CONTACT_STEPS / r["seconds"]
+      active = (ell["d"].contact.dist
+                < ell["d"].contact.includemargin).sum(1).float()
+      log("slice: contact models",
+          f"{name} (nv {ell['m'].nv}) B={FLEET} fp32 EULER, {CONTACT_STEPS} "
+          f"steps: elliptic {rate(ell):.1f} steps/s, pyramidal "
+          f"{rate(pyr):.1f} steps/s (in turns), ratio "
+          f"{rate(ell) / rate(pyr):.3f} on {card}; rows elliptic "
+          f"{ell['rows']}, pyramidal {pyr['rows']}; factorizations a step "
+          f"elliptic {ell['launches']['chol_factor'] / CONTACT_STEPS:g}, "
+          f"pyramidal {pyr['launches']['chol_factor'] / CONTACT_STEPS:g}; "
+          f"finite lanes {ell['finite']} and {pyr['finite']} of {FLEET}; "
+          f"auto-resets {ell['resets']} and {pyr['resets']}; active contacts "
+          f"a lane {float(active.mean()):.2f}; active elliptic slots in the "
+          f"middle zone {mid} of {act} = {mid / max(act, 1):.4f}")
+      if ell["resets"]:
+        raise AssertionError(f"{name}: {ell['resets']} auto-resets under the "
+                             "elliptic cone")
+    if not middle_all:
+      raise AssertionError("no elliptic slot in the middle zone: the cone's "
+                           "force never ran")
+
+  if CHECKS:
+    # kernels against plain versions, fp64, 64 lanes, 5 steps of each
+    errs = []
+    reset_launches(linalg)
+    for name in CONTACT_MODELS:
+      m = contact_model(mt, name, dev, torch.float64)
+      d_k = d_p = contact_data(mt, m, name, 64, seed=23)
+      err = 0.0
+      for _ in range(5):
+        d_k = mt.step(m, d_k)
+        with plain_cholesky(linalg):
+          d_p = mt.step(m, d_p)
+        err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)).abs().max())
+                         for f in ("qpos", "qvel", "efc_force")))
+      if not err <= 1e-9:
+        raise AssertionError(f"{name} fp64 steps, kernels vs plain: {err:.3e}")
+      errs.append(f"{name} {err:.3e}")
+    add(read_launches(linalg))
+    log("slice: contact models",
+        "elliptic, 64 lanes fp64, 5 steps, kernels vs plain, max |dqpos|,"
+        "|dqvel|,|defc_force| (tol 1e-9): " + ", ".join(errs))
+
+    # the fork's inverse_test on elliptic box_stack
+    m = contact_model(mt, "box_stack", dev, torch.float64, integrator="RK4")
+    add(box_inverse_test(mt, linalg, dev, m, "slice: contact models",
+                         "elliptic box_stack", CONTACT_INVERSE_STEPS, seed=24,
+                         exact_solves=False))
+
+    # transition_ad of 8 elliptic box-stack lanes, sliding
+    m = contact_model(mt, "box_stack", dev, torch.float64)
+    d = contact_data(mt, m, "box_stack", 8, seed=25)
+    d = mt.forward(m, d.replace(qvel=10 * d.qvel))
+    mid, act = middle_share(constraint, m, d)
+    reset_launches(linalg)
+    t0 = time.perf_counter()
+    ad = derivative.transition_ad(m, d)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(linalg)
+    if not all(launches.values()):
+      raise AssertionError(f"a kernel was not launched: {launches}")
+    add(launches)
+    with plain_cholesky(linalg):
+      plain = derivative.transition_ad(m, d)
+    fd = derivative.transition_fd(
+        m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
+        eps=1e-6, flg_centered=True)
+    err_plain = float((ad.A - plain.A).abs().max())
+    err_fd = float((ad.A - fd.A).abs().max())
+    scale = float(fd.A.abs().max())
+    if not mid:
+      raise AssertionError("transition_ad's states have no middle-zone slot")
+    if not err_plain <= 1e-9:
+      raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
+    if not err_fd <= 1e-4 * scale:
+      raise AssertionError(f"transition_ad vs transition_fd: {err_fd:.3e}")
+    log("slice: contact models",
+        f"elliptic box_stack 8 lanes fp64 EULER, sliding, {mid} of {act} "
+        f"active elliptic slots in the middle zone: transition_ad "
+        f"{seconds:.3f} s; kernels vs plain max |dA| {err_plain:.3e} (tol "
+        f"1e-9); vs transition_fd (centered, eps 1e-6) {err_fd:.3e} (tol 1e-4 "
+        f"of max|A| = {1e-4 * scale:.3e}); launches {launches}, tangents a "
+        f"lane {read_tangents(linalg)}")
+
+  if TIMED:
+    # MJX's contact budget against the same scene without it
+    out = {}
+    for budget in (True, False):
+      m = contact_model(mt, "sphere_budget", dev, torch.float32, cone=None,
+                        budget=budget)
+      d = mt.make_data(m, FLEET)
+      d = d.replace(qvel=0.1 * torch.randn(
+          d.qvel.shape, generator=torch.Generator(device=dev).manual_seed(26),
+          device=dev))
+      d, seconds, launches = timed_fleet(mt, linalg, m, d, BUDGET_STEPS)
       add(launches)
       finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
-      runs[cone] = dict(m=m, d=d, seconds=seconds, launches=launches,
-                        finite=int(finite.sum()), resets=int(d.warning.sum()),
-                        rows=constraint.row_layout(m).nefc)
-      if not launches["chol_factor"] or not launches["chol_solve"]:
-        raise AssertionError(f"{name} {cone}: a kernel was not launched")
-      if runs[cone]["finite"] != FLEET:
-        raise AssertionError(f"{name} {cone}: non-finite lanes")
-    ell, pyr = runs["ELLIPTIC"], runs["PYRAMIDAL"]
-    mid, act = middle_share(constraint, ell["m"], ell["d"])
-    middle_all += mid
-    rate = lambda r: FLEET * CONTACT_STEPS / r["seconds"]
-    active = (ell["d"].contact.dist
-              < ell["d"].contact.includemargin).sum(1).float()
+      active = (d.contact.dist < d.contact.includemargin).sum(1).float()
+      out[budget] = (FLEET * BUDGET_STEPS / seconds, int(finite.sum()))
+      log("slice: contact models",
+          f"sphere_budget {'with' if budget else 'without'} its numerics B="
+          f"{FLEET} fp32: {collision.contact_layout(m).ncon} slots a lane, "
+          f"active contacts a lane mean {float(active.mean()):.2f} max "
+          f"{int(active.max())}; {BUDGET_STEPS} steps in {seconds:.3f} s = "
+          f"{out[budget][0]:.1f} steps/s; finite lanes {out[budget][1]} of "
+          f"{FLEET}; auto-resets {int(d.warning.sum())}; launches a step "
+          + ", ".join(f"{k} {v / BUDGET_STEPS:g}" for k, v in launches.items()
+                      if not k.endswith("_jvp")))
+      if out[budget][1] != FLEET:
+        raise AssertionError("sphere_budget: non-finite lanes")
+    # the primal kernels at the new n: elliptic_pairs' nv and its dof blocks
+    # other than the free bodies' 6, sphere_budget's nv
+    from mujoco_inversedynamicstest_tpu_torch.ops import smooth
+
+    times = {}
+    for name in ("elliptic_pairs", "sphere_budget"):
+      m = contact_model(mt, name, "cpu", torch.float64, cone=None)
+      for n in sorted(({m.nv} | set(smooth._dof_blocks(m) or ())) - {6}):
+        for k, v in time_kernels(linalg, dev, n).items():
+          times.setdefault(k, {"by_n": {}})["by_n"][str(n)] = v
     log("slice: contact models",
-        f"{name} (nv {ell['m'].nv}) B={FLEET} fp32 EULER, {CONTACT_STEPS} "
-        f"steps: elliptic {rate(ell):.1f} steps/s, pyramidal "
-        f"{rate(pyr):.1f} steps/s (in turns), ratio "
-        f"{rate(ell) / rate(pyr):.3f} on {card}; rows elliptic "
-        f"{ell['rows']}, pyramidal {pyr['rows']}; factorizations a step "
-        f"elliptic {ell['launches']['chol_factor'] / CONTACT_STEPS:g}, "
-        f"pyramidal {pyr['launches']['chol_factor'] / CONTACT_STEPS:g}; "
-        f"finite lanes {ell['finite']} and {pyr['finite']} of {FLEET}; "
-        f"auto-resets {ell['resets']} and {pyr['resets']}; active contacts "
-        f"a lane {float(active.mean()):.2f}; active elliptic slots in the "
-        f"middle zone {mid} of {act} = {mid / max(act, 1):.4f}")
-    if ell["resets"]:
-      raise AssertionError(f"{name}: {ell['resets']} auto-resets under the "
-                           "elliptic cone")
-  if not middle_all:
-    raise AssertionError("no elliptic slot in the middle zone: the cone's "
-                         "force never ran")
-
-  # kernels against plain versions, fp64, 64 lanes, 5 steps of each
-  errs = []
-  reset_launches(linalg)
-  for name in CONTACT_MODELS:
-    m = contact_model(mt, name, dev, torch.float64)
-    d_k = d_p = contact_data(mt, m, name, 64, seed=23)
-    err = 0.0
-    for _ in range(5):
-      d_k = mt.step(m, d_k)
-      with plain_cholesky(linalg):
-        d_p = mt.step(m, d_p)
-      err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)).abs().max())
-                       for f in ("qpos", "qvel", "efc_force")))
-    if not err <= 1e-9:
-      raise AssertionError(f"{name} fp64 steps, kernels vs plain: {err:.3e}")
-    errs.append(f"{name} {err:.3e}")
-  add(read_launches(linalg))
-  log("slice: contact models",
-      "elliptic, 64 lanes fp64, 5 steps, kernels vs plain, max |dqpos|,"
-      "|dqvel|,|defc_force| (tol 1e-9): " + ", ".join(errs))
-
-  # the fork's inverse_test on elliptic box_stack
-  m = contact_model(mt, "box_stack", dev, torch.float64, integrator="RK4")
-  add(box_inverse_test(mt, linalg, dev, m, "slice: contact models",
-                       "elliptic box_stack", CONTACT_INVERSE_STEPS, seed=24,
-                       exact_solves=False))
-
-  # transition_ad of 8 elliptic box-stack lanes, sliding
-  m = contact_model(mt, "box_stack", dev, torch.float64)
-  d = contact_data(mt, m, "box_stack", 8, seed=25)
-  d = mt.forward(m, d.replace(qvel=10 * d.qvel))
-  mid, act = middle_share(constraint, m, d)
-  reset_launches(linalg)
-  t0 = time.perf_counter()
-  ad = derivative.transition_ad(m, d)
-  torch.cuda.synchronize()
-  seconds = time.perf_counter() - t0
-  launches = read_launches(linalg)
-  if not all(launches.values()):
-    raise AssertionError(f"a kernel was not launched: {launches}")
-  add(launches)
-  with plain_cholesky(linalg):
-    plain = derivative.transition_ad(m, d)
-  fd = derivative.transition_fd(
-      m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
-      eps=1e-6, flg_centered=True)
-  err_plain = float((ad.A - plain.A).abs().max())
-  err_fd = float((ad.A - fd.A).abs().max())
-  scale = float(fd.A.abs().max())
-  if not mid:
-    raise AssertionError("transition_ad's states have no middle-zone slot")
-  if not err_plain <= 1e-9:
-    raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
-  if not err_fd <= 1e-4 * scale:
-    raise AssertionError(f"transition_ad vs transition_fd: {err_fd:.3e}")
-  log("slice: contact models",
-      f"elliptic box_stack 8 lanes fp64 EULER, sliding, {mid} of {act} "
-      f"active elliptic slots in the middle zone: transition_ad "
-      f"{seconds:.3f} s; kernels vs plain max |dA| {err_plain:.3e} (tol "
-      f"1e-9); vs transition_fd (centered, eps 1e-6) {err_fd:.3e} (tol 1e-4 "
-      f"of max|A| = {1e-4 * scale:.3e}); launches {launches}, tangents a "
-      f"lane {read_tangents(linalg)}")
-
-  # MJX's contact budget against the same scene without it
-  out = {}
-  for budget in (True, False):
-    m = contact_model(mt, "sphere_budget", dev, torch.float32, cone=None,
-                      budget=budget)
-    d = mt.make_data(m, FLEET)
-    d = d.replace(qvel=0.1 * torch.randn(
-        d.qvel.shape, generator=torch.Generator(device=dev).manual_seed(26),
-        device=dev))
-    d, seconds, launches = timed_fleet(mt, linalg, m, d, BUDGET_STEPS)
-    add(launches)
-    finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
-    active = (d.contact.dist < d.contact.includemargin).sum(1).float()
-    out[budget] = (FLEET * BUDGET_STEPS / seconds, int(finite.sum()))
-    log("slice: contact models",
-        f"sphere_budget {'with' if budget else 'without'} its numerics B="
-        f"{FLEET} fp32: {collision.contact_layout(m).ncon} slots a lane, "
-        f"active contacts a lane mean {float(active.mean()):.2f} max "
-        f"{int(active.max())}; {BUDGET_STEPS} steps in {seconds:.3f} s = "
-        f"{out[budget][0]:.1f} steps/s; finite lanes {out[budget][1]} of "
-        f"{FLEET}; auto-resets {int(d.warning.sum())}; launches a step "
-        + ", ".join(f"{k} {v / BUDGET_STEPS:g}" for k, v in launches.items()
-                    if not k.endswith("_jvp")))
-    if out[budget][1] != FLEET:
-      raise AssertionError("sphere_budget: non-finite lanes")
-  # the primal kernels at the new n: elliptic_pairs' nv and its dof blocks
-  # other than the free bodies' 6, sphere_budget's nv
-  from mujoco_inversedynamicstest_tpu_torch.ops import smooth
-
-  times = {}
-  for name in ("elliptic_pairs", "sphere_budget"):
-    m = contact_model(mt, name, "cpu", torch.float64, cone=None)
-    for n in sorted(({m.nv} | set(smooth._dof_blocks(m) or ())) - {6}):
-      for k, v in time_kernels(linalg, dev, n).items():
-        times.setdefault(k, {"by_n": {}})["by_n"][str(n)] = v
-  log("slice: contact models",
-      f"budget speedup {out[True][0] / out[False][0]:.3f}x; phase 22 in "
-      f"{time.perf_counter() - t_phase:.1f} s")
+        f"budget speedup {out[True][0] / out[False][0]:.3f}x; phase 22 in "
+        f"{time.perf_counter() - t_phase:.1f} s")
   return total, times
 
 
+def lowest_points(m, pos) -> np.ndarray:
+  """(B, ngeom) the height of each geom's lowest point at ``pos``'s
+  frames: a sphere's, capsule's, cylinder's, ellipsoid's and box's exact
+  support along -z, a mesh's bounding sphere."""
+  from mujoco_inversedynamicstest_tpu_torch.models.types import GeomType
+
+  z = pos.geom_xpos[..., 2]
+  az = pos.geom_xmat[..., 2, :].abs()          # |z row| of each frame
+  s = m.geom_size
+  r, hl = s[:, 0], s[:, 1]
+  t = lambda k: m.const(m.geom_type == k)
+  low = torch.where(t(GeomType.SPHERE), z - r, z - m.geom_rbound)
+  low = torch.where(t(GeomType.CAPSULE), z - r - hl * az[..., 2], low)
+  low = torch.where(t(GeomType.CYLINDER), z - hl * az[..., 2] - r * torch.sqrt(
+      torch.clamp(1 - az[..., 2] ** 2, min=0.0)), low)
+  low = torch.where(t(GeomType.ELLIPSOID),
+                    z - torch.sqrt(((s * az) ** 2).sum(-1)), low)
+  low = torch.where(t(GeomType.BOX), z - (s * az).sum(-1), low)
+  return low.cpu().numpy()
+
+
+def drop_onto(mt, m, d, ground, gap: float):
+  """``d`` with each free body's root moved up or down so that the lowest
+  point of its geoms (``lowest_points``) lies ``gap`` above ``ground(x,
+  y)`` (host numpy heights of the world's floor or terrain) under its root;
+  bodies that hang from another move with it."""
+  from mujoco_inversedynamicstest_tpu_torch.models.types import JointType
+
+  pos = mt.fwd_position(m, d)
+  low = lowest_points(m, pos)
+  xpos = pos.xpos.cpu().numpy()
+  qpos = d.qpos.cpu().numpy().copy()
+  for j in np.nonzero(m.jnt_type == JointType.FREE)[0]:
+    root = int(m.body_rootid[np.nonzero(m.body_jntadr == j)[0][0]])
+    geoms = np.nonzero(m.body_rootid[m.geom_bodyid] == root)[0]
+    a = int(m.jnt_qposadr[j])
+    x, y = xpos[:, root, 0], xpos[:, root, 1]
+    qpos[:, a + 2] += ground(x, y) + gap - low[:, geoms].min(1)
+  return d.replace(qpos=torch.as_tensor(qpos, dtype=m.dtype,
+                                        device=m.device))
+
+
+def field_height(m):
+  """The top surface of height field 0 at world (x, y), the field's geom
+  at its pose (turned about z by none): heights of the cell's triangle."""
+  grid = m.hfield_grid[0]
+  geom = int(np.nonzero(m.geom_type == 1)[0][0])
+  z0 = float(m.geom_pos[geom, 2])
+  ox, oy = float(m.geom_pos[geom, 0]), float(m.geom_pos[geom, 1])
+
+  def height(x, y):
+    cf = np.clip((x - ox + grid.size[0]) / grid.dx, 0, grid.ncol - 1 - 1e-9)
+    rf = np.clip((y - oy + grid.size[1]) / grid.dy, 0, grid.nrow - 1 - 1e-9)
+    ci, ri = np.floor(cf).astype(int), np.floor(rf).astype(int)
+    fx, fy = cf - ci, rf - ri
+    z = grid.vert[..., 2]
+    z00, z11 = z[ri, ci], z[ri + 1, ci + 1]
+    # the cell's (c, r) -> (c+1, r+1) diagonal splits it in two triangles
+    upper = fx >= fy
+    zc = np.where(upper, z[ri, ci + 1], z[ri + 1, ci])
+    return z0 + np.where(upper, z00 + fx * (zc - z00) + fy * (z11 - zc),
+                         z00 + fy * (zc - z00) + fx * (z11 - zc))
+
+  return height
+
+
+def quadruped_data(mt, m, name: str, batch: int, seed: int,
+                   ball_on_torso: bool = False):
+  """States the way dm_control's tasks start them, from a seeded numpy
+  generator: each free body's orientation random (a normalized randn
+  quaternion), the quadruped's legs at qpos0 and the body lowered onto the
+  floor, its lowest point 2 mm into it (the fetch ball on the floor 0.5-2
+  m away, or resting on the upright torso); terrain_objects' objects at
+  their x, y with 0.05 randn, lowered onto the terrain likewise; controls
+  uniform in ctrlrange, qvel 0.05 randn."""
+  rng = np.random.RandomState(seed)
+  d = mt.make_data(m, batch)
+  qpos = d.qpos.cpu().numpy().copy()
+  quat = lambda: (lambda q: q / np.linalg.norm(q, axis=1, keepdims=True))(
+      rng.randn(batch, 4))
+  if name == "terrain_objects":
+    for a in range(0, m.nq, 7):
+      qpos[:, a:a + 2] += 0.05 * rng.randn(batch, 2)
+      qpos[:, a + 3:a + 7] = quat()
+    ground = field_height(m)
+  else:
+    qpos[:, 3:7] = np.tile([1.0, 0.0, 0.0, 0.0], (batch, 1)) if (
+        ball_on_torso) else quat()
+    if name == "quadruped_fetch":
+      # the ball: its free joint follows the quadruped's 7 + 16 hinges
+      r, phi = rng.uniform(0.5, 2.0, batch), rng.uniform(0, 2 * np.pi, batch)
+      qpos[:, 23:25] = np.c_[r * np.cos(phi), r * np.sin(phi)]
+      qpos[:, 26:30] = quat()
+    ground = lambda x, y: np.zeros_like(x)
+  lo, hi = m.actuator_ctrlrange.cpu().numpy().T
+  d = d.replace(
+      qpos=torch.as_tensor(qpos, dtype=m.dtype, device=m.device),
+      qvel=torch.as_tensor(0.05 * rng.randn(batch, m.nv), dtype=m.dtype,
+                           device=m.device),
+      ctrl=torch.as_tensor(rng.uniform(lo, hi, (batch, m.nu)),
+                           dtype=m.dtype, device=m.device))
+  d = drop_onto(mt, m, d, ground, -0.002)
+  if ball_on_torso:
+    # the ball (radius 0.15) 2 mm into the top of the torso (half-height
+    # 0.2), at the torso's x, y
+    qpos = d.qpos.clone()
+    qpos[:, 23:26] = qpos[:, 0:3] + torch.as_tensor(
+        [0.0, 0.0, 0.2 + 0.15 - 0.002], dtype=m.dtype, device=m.device)
+    qpos[:, 26:30] = torch.as_tensor([1.0, 0, 0, 0], dtype=m.dtype,
+                                     device=m.device)
+    d = d.replace(qpos=qpos, qvel=torch.zeros_like(d.qvel))
+  return d
+
+
+def quadruped_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
+  """Phase 23: cylinder and ellipsoid collision (the support descent) and
+  height fields on dm_control's quadruped (walk and fetch) and on free
+  objects over the escape task's terrain.  Each model's fleet (4096 fp32,
+  SHAPES_STEPS EULER steps after a warm-up step) from states the way the
+  tasks start them, the collision stage's share of two profiled steps and
+  the primal kernels timed at the new n (timed); the fp32 contacts of 64
+  states against the fp64 ones, each model's 5 fp64 steps of 64 lanes with
+  the kernels against 5 with the plain versions, the fork's inverse_test on
+  quadruped_fetch (RK4, 64 lanes fp64, FETCH_INVERSE_STEPS steps of fresh
+  forces) and transition_ad of 8 fetch lanes with the ball on the torso
+  against the plain versions and transition_fd (checks).  Returns the
+  kernels' launches of these runs, each read with the counts reset before
+  it, and the primal kernels' timings at the new n."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import collision, smooth
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  t_phase = time.perf_counter()
+  phase = "slice: quadruped and terrain"
+  total = dict.fromkeys(KERNELS, 0)
+  times = {}
+
+  def add(launches):
+    for k in KERNELS:
+      total[k] += launches[k]
+
+  model = lambda name, dtype, integrator="EULER": contact_model(
+      mt, name, dev, dtype, cone=None, integrator=integrator)
+  data = lambda m, name, batch, seed, **kw: quadruped_data(
+      mt, m, name, batch, seed, **kw)
+
+  if TIMED:
+    for name in SHAPES_MODELS:
+      m = model(name, torch.float32)
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      d, seconds, launches = timed_fleet(
+          mt, linalg, m, data(m, name, FLEET, seed=23), SHAPES_STEPS)
+      peak = torch.cuda.max_memory_allocated() / 2**30
+      add(launches)
+      for k in ("chol_factor", "chol_solve"):
+        if not launches[k]:
+          raise AssertionError(f"{k} was not launched on {name}")
+      finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
+      if not bool(finite.all()):
+        raise AssertionError(f"{name}: {int((~finite).sum())} non-finite "
+                             "lanes")
+      active = (d.contact.dist < d.contact.includemargin).sum(1).float()
+      lay = collision.contact_layout(m)
+      kinds = sorted({f"{g.types[0].name.lower()}-{g.types[1].name.lower()}"
+                      for g in lay.groups})
+      log(phase,
+          f"{name} (nv {m.nv}, {lay.ncon} contact slots in "
+          f"{len(lay.groups)} pair groups: {', '.join(kinds)}) B={FLEET} "
+          f"fp32 EULER: {SHAPES_STEPS} steps in {seconds:.3f} s = "
+          f"{FLEET * SHAPES_STEPS / seconds:.1f} steps/s on {card}; "
+          f"factorizations a step {launches['chol_factor'] / SHAPES_STEPS:g}"
+          f", solves {launches['chol_solve'] / SHAPES_STEPS:g}; finite lanes "
+          f"{int(finite.sum())} of {FLEET}; auto-resets "
+          f"{int(d.warning.sum())}; active contact slots a lane mean "
+          f"{float(active.mean()):.2f}, max {int(active.max())}; peak "
+          f"{peak:.3f} GiB")
+      # the collision stage's share of two profiled steps
+      step_ms, step_launches, per_launch = device_profile(
+          lambda: mt.step_n(m, d, 2))
+      pos = mt.fwd_position(m, d)
+      collide = lambda: collision.collision(m, pos)
+      collide()
+      col_ms, col_launches, _ = device_profile(collide)
+      log("profile: collision",
+          f"{name} B={FLEET} fp32: a step {step_ms / 2:.3f} device ms / "
+          f"{step_launches / 2:.0f} launches; collision {col_ms:.3f} ms / "
+          f"{col_launches} launches = {col_ms / (step_ms / 2):.1%} of the "
+          f"step's device time, {col_launches / (step_launches / 2):.1%} of "
+          "its launches; in the steps " + ", ".join(
+              f"{k} {us:.2f} us/launch ({count})"
+              for k, (us, count) in per_launch.items() if count))
+    # the primal kernels at the new n: the quadrupeds' nv (the fetch model's
+    # dof blocks are 22 and the ball's 6; terrain_objects' 36 and 6 are
+    # phase 20's)
+    for name in ("quadruped", "quadruped_fetch"):
+      m = contact_model(mt, name, "cpu", torch.float64, cone=None)
+      for n in sorted({m.nv} | set(smooth._dof_blocks(m) or ())) :
+        if n in (6, 36) or str(n) in times.get("chol_factor", {}).get(
+            "by_n", {}):
+          continue
+        for k, v in time_kernels(linalg, dev, n).items():
+          times.setdefault(k, {"by_n": {}})["by_n"][str(n)] = v
+
+  if CHECKS:
+    # the fp32 contacts of 64 states against the fp64 ones; the kernels
+    # against the plain versions, 64 lanes fp64, 5 steps
+    errs, sets = [], []
+    for name in SHAPES_MODELS:
+      m = model(name, torch.float64)
+      m32 = model(name, torch.float32)
+      d0 = data(m, name, 64, seed=24)
+      reset_launches(linalg)
+      c64 = mt.fwd_position(m, d0)
+      c32 = mt.fwd_position(m32, mt.make_data(m32, 64).replace(
+          qpos=d0.qpos.float(), qvel=d0.qvel.float()))
+      s64, n64 = contact_sets(collision, m, c64)
+      s32, n32 = contact_sets(collision, m32, c32)
+      # a hull on a height field: each prism's descent ends at one point of
+      # a flat contact, which is not unique, and the 4 kept slots drop a
+      # contact at the point of a deeper one; fp32 and fp64 may end at
+      # other points and keep another count (PERF.md §7).  Their deepest
+      # contact is held to the fp64 one.
+      prism = torch.cat([torch.full((len(g.geom1),), bool(
+          g.types[0] == 1 and g.types[1] in (6, 7)), device=dev)
+                         for g in collision.contact_layout(m).groups])
+      differ = (n64 != n32) & ~prism
+      if bool(differ.any()):
+        raise AssertionError(f"{name}: fp32 and fp64 active contacts differ "
+                             f"on {int(differ.sum())} (lane, pair)s")
+      both = torch.isfinite(s64) & ~prism[:, None]
+      deep = prism & (n64 > 0)
+      both[..., 0] |= deep & (n32 > 0)
+      derr = float((s64 - s32)[both].abs().max()) if bool(both.any()) else 0.
+      if not derr <= 1e-4 or not torch.equal(n64[deep] > 0, n32[deep] > 0):
+        raise AssertionError(f"{name}: fp32 vs fp64 contact depth {derr:.3e}")
+      sets.append(f"{name} {int(n64.sum())} active, max |ddist| {derr:.3e}"
+                  + (f", hull-field pairs with another count of slots "
+                     f"{int(((n64 != n32) & prism).sum())} of "
+                     f"{int(deep.sum())}" if bool(prism.any()) else ""))
+      d_k = d_p = d0
+      err = 0.0
+      for _ in range(5):
+        d_k = mt.step(m, d_k)
+        with plain_cholesky(linalg):
+          d_p = mt.step(m, d_p)
+        err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)
+                                ).abs().max())
+                         for f in ("qpos", "qvel", "efc_force")))
+      add(read_launches(linalg))
+      if not err <= 1e-9:
+        raise AssertionError(f"{name} fp64 steps, kernels vs plain: "
+                             f"{err:.3e}")
+      errs.append(f"{name} {err:.3e}")
+    log(phase,
+        "the fp32 contacts of 64 states against the fp64 ones, each (lane, "
+        "geom pair)'s set: the same active contacts (a hull on the height "
+        "field: its deepest), depths (tol 1e-4): "
+        + ", ".join(sets) + "; 64 lanes fp64, 5 steps, kernels vs plain, "
+        "max |dqpos|,|dqvel|,|defc_force| (tol 1e-9): " + ", ".join(errs))
+
+    # the fork's inverse_test on quadruped_fetch: RK4, fresh forces a step
+    m = model("quadruped_fetch", torch.float64, "RK4")
+    add(box_inverse_test(
+        mt, linalg, dev, m, phase, "quadruped_fetch", FETCH_INVERSE_STEPS,
+        seed=25, data=lambda mt, m, b, seed: data(m, "quadruped_fetch", b,
+                                                  seed)))
+
+    # transition_ad of 8 fetch lanes, upright, the ball resting on the torso
+    m = model("quadruped_fetch", torch.float64)
+    d = mt.forward(m, data(m, "quadruped_fetch", 8, seed=26,
+                           ball_on_torso=True))
+    ball = int(np.nonzero(m.geom_type == 2)[0][-1])
+    torso = int(np.nonzero(m.geom_type == 4)[0][0])
+    on = ((d.contact.geom1 == torso) & (d.contact.geom2 == ball)
+          | (d.contact.geom1 == ball) & (d.contact.geom2 == torso))
+    on &= d.contact.dist < d.contact.includemargin
+    if not bool(on.any(1).all()):
+      raise AssertionError("transition_ad's lanes: the ball is not on the "
+                           "torso")
+    reset_launches(linalg)
+    t0 = time.perf_counter()
+    ad = derivative.transition_ad(m, d)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(linalg)
+    if not all(launches.values()):
+      raise AssertionError(f"a kernel was not launched: {launches}")
+    add(launches)
+    with plain_cholesky(linalg):
+      plain = derivative.transition_ad(m, d)
+    fd = derivative.transition_fd(
+        m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
+        eps=1e-6, flg_centered=True)
+    err_plain = max(float((ad.A - plain.A).abs().max()),
+                    float((ad.B - plain.B).abs().max()))
+    err_fd = float((ad.A - fd.A).abs().max())
+    scale = float(fd.A.abs().max())
+    if not err_plain <= 1e-9:
+      raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
+    if not err_fd <= 1e-4 * scale:
+      raise AssertionError(f"transition_ad vs transition_fd: {err_fd:.3e}")
+    ncon = int((d.contact.dist < d.contact.includemargin).sum())
+    log(phase,
+        f"quadruped_fetch 8 lanes fp64 EULER, upright, the ball on the torso "
+        f"(an ellipsoid-sphere descent pair), {ncon} active contacts: "
+        f"transition_ad {seconds:.3f} s, A {tuple(ad.A.shape)}, B "
+        f"{tuple(ad.B.shape)}; kernels vs plain max |dA|,|dB| "
+        f"{err_plain:.3e} (tol 1e-9); vs transition_fd (centered, eps 1e-6) "
+        f"max |dA| {err_fd:.3e} = {err_fd / scale:.3e} of max|A| "
+        f"{scale:.3e} (tol 1e-4 of it); launches {launches}, tangents a "
+        f"lane {read_tangents(linalg)}")
+  log(phase, f"phase 23 in {time.perf_counter() - t_phase:.1f} s")
+  return total, times
+
+
+def fleet_rate(mt, dev) -> float:
+  """Phase 6's timed loop alone (100 steps of 4096 humanoid_mjx lanes,
+  fp32, after a warm-up step): steps/s."""
+  m = mt.put_model(mt.asset_path("humanoid_mjx.npz"), device=dev,
+                   dtype=torch.float32)
+  d = mt.step(m, fleet_data(mt, m, FLEET, seed=0))
+  torch.cuda.synchronize()
+  t0 = time.perf_counter()
+  for _ in range(FLEET_STEPS):
+    d = mt.step(m, d)
+  torch.cuda.synchronize()
+  return FLEET * FLEET_STEPS / (time.perf_counter() - t0)
+
+
+class ChecksProcess:
+  """The untimed fp64 checks (``--checks``) in a second process on the same
+  card: its lines are printed as they
+  come, after ``checks |``, and its last line is its result.  ``result``
+  waits for it and fails the run unless it exited with 0; ``stop`` ends it
+  whatever its state."""
+
+  def __init__(self):
+    self.lines = []
+    self.proc = subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--checks"],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        cwd=REPO)
+    self.reader = threading.Thread(target=self._read, daemon=True)
+    self.reader.start()
+
+  def _read(self):
+    for line in self.proc.stdout:
+      self.lines.append(line.rstrip("\n"))
+      print(f"checks | {self.lines[-1]}", flush=True)
+
+  def result(self) -> dict:
+    rc = self.proc.wait()
+    self.reader.join()
+    if rc != 0:
+      raise SystemExit(f"chip_smoke: the checks process failed ({rc})")
+    return json.loads(self.lines[-1])["checks"]
+
+  def stop(self):
+    if self.proc.poll() is None:
+      self.proc.kill()
+      self.proc.wait()
+
+
+def run_checks(mt, linalg, dev, smi, lap) -> None:
+  """The checks process: the kernels against their plain versions (phases
+  3-4, 8, 9), phases 7, 10 and 16, and the fp64 checks of phases 6, 13, 15
+  and 17-23.  Prints one JSON line: its launches by path, the kernels'
+  largest errors, and the launches at shapes phase 9 did not check."""
+  slice_err = check_kernels(linalg, dev)
+  slice_err.update(check_jvp_kernels(linalg, dev))
+  lap("3-4, 8")
+  check_path_kernels(mt, linalg, dev)
+  main_path_shapes(linalg)
+  lap("9")
+  by_path = {"fleet_step": fleet_step(mt, linalg, dev, smi)}
+  lap("6")
+  inverse_dynamics(mt, linalg, dev)
+  lap("7")
+  for asset in ("humanoid.npz", "humanoid_mjx.npz"):
+    transition(mt, linalg, dev, asset)
+  for integrator in ("RK4", "IMPLICIT"):
+    transition(mt, linalg, dev, "humanoid.npz", integrator)
+  lap("10")
+  mpc_reference(mt, linalg, dev)
+  lap("13")
+  by_path["integrators_fleet"] = integrators_fleet(mt, linalg, dev, smi)
+  lap("15")
+  by_path["inverse_test"] = inverse_test(mt, linalg, dev)
+  lap("16")
+  by_path["sensors"] = sensors(mt, linalg, dev, smi)
+  lap("17")
+  by_path["constraint_rows"] = constraint_rows(mt, linalg, dev, smi)[0]
+  lap("18")
+  by_path["tendons"] = tendon_slice(mt, linalg, dev, smi)[0]
+  lap("19")
+  by_path["convex"] = convex_slice(mt, linalg, dev, smi)[0]
+  lap("20")
+  by_path["contact"] = contact_slice(mt, linalg, dev, smi)[0]
+  lap("22")
+  by_path["shapes"] = quadruped_slice(mt, linalg, dev, smi)[0]
+  lap("23")
+  checked = set().union(*path_shapes(mt))
+  unchecked = sorted(map(str, main_path_shapes(linalg) - checked))
+  print(json.dumps({"checks": {"by_path": by_path, "slice_err": slice_err,
+                               "unchecked": unchecked}}))
+
+
 def main() -> None:
+  global TIMED, CHECKS
   parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
   mode = parser.add_mutually_exclusive_group()
   mode.add_argument("--bench", action="store_true",
@@ -2849,6 +3377,11 @@ def main() -> None:
                     help="only phase 21, the humanoid's balance LQR")
   mode.add_argument("--contact", action="store_true",
                     help="only phase 22, the contact models")
+  mode.add_argument("--shapes", action="store_true",
+                    help="only phase 23, the quadruped and the terrain")
+  mode.add_argument("--checks", action="store_true",
+                    help="the untimed checks of a full run (the full run "
+                    "starts this process itself)")
   args = parser.parse_args()
   if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
@@ -2870,7 +3403,18 @@ def main() -> None:
           if "registers" in ln]
   log("build", f"nvcc sm_90a {SOURCE} -> {os.path.relpath(path, REPO)} in "
       f"{build_s:.2f} s; ptxas: {' | '.join(regs)}")
+  t_last = [t0]
 
+  def lap(phases: str) -> None:
+    now = time.perf_counter()
+    log("time", f"phases {phases} in {now - t_last[0]:.1f} s, "
+        f"{now - t0:.1f} s since the build began")
+    t_last[0] = now
+
+  if args.checks:
+    TIMED = False
+    run_checks(mt, linalg, dev, smi, lap)
+    return
   if args.bench:
     for asset in ("humanoid_mjx.npz", "humanoid.npz"):
       mpc_fleet(mt, linalg, dev, asset, MPC_BENCH, profile_run=True)
@@ -2882,80 +3426,108 @@ def main() -> None:
     balance_slice(mt, linalg, dev, smi)
   elif args.contact:
     contact_slice(mt, linalg, dev, smi)
+  elif args.shapes:
+    quadruped_slice(mt, linalg, dev, smi)
   else:
-    t_last = [t0]
-
-    def lap(phases: str) -> None:
-      now = time.perf_counter()
-      log("time", f"phases {phases} in {now - t_last[0]:.1f} s, "
-          f"{now - t0:.1f} s since the build began")
-      t_last[0] = now
-
-    slice_err = check_kernels(linalg, dev)
-    slice_err.update(check_jvp_kernels(linalg, dev))
-    lap("1-5, 8")
-    times = time_kernels(linalg, dev)
-    times.update(check_path_kernels(mt, linalg, dev))
-    main_path_shapes(linalg)
-    lap("9")
-    by_path = {"fleet_step": fleet_step(mt, linalg, dev, smi)}
-    lap("6")
-    inverse_dynamics(mt, linalg, dev)
-    lap("7")
-    for asset in ("humanoid.npz", "humanoid_mjx.npz"):
-      transition(mt, linalg, dev, asset)
-    for integrator in ("RK4", "IMPLICIT"):
-      transition(mt, linalg, dev, "humanoid.npz", integrator)
-    lap("10")
-    linearization_chunk(mt, linalg, dev)
-    lap("11")
-    mpc_launches, res, cfg = mpc_fleet(mt, linalg, dev, "humanoid_mjx.npz",
-                                       MPC_RUN)
-    by_path["mpc_fleet"] = mpc_launches
-    tangents = read_tangents(linalg)
-    lap("12")
-    mpc_reference(mt, linalg, dev)
-    lap("13")
-    mpc_torques(mt, linalg, dev, res, cfg)
-    lap("14")
-    by_path["integrators_fleet"] = integrators_fleet(mt, linalg, dev, smi)
-    lap("15")
-    by_path["inverse_test"] = inverse_test(mt, linalg, dev)
-    lap("16")
-    by_path["sensors"] = sensors(mt, linalg, dev, smi)
-    lap("17")
-    by_path["constraint_rows"], times_small = constraint_rows(
-        mt, linalg, dev, smi)
-    lap("18")
-    by_path["tendons"], times_n2 = tendon_slice(mt, linalg, dev, smi)
-    lap("19")
-    by_path["convex"], times_convex = convex_slice(mt, linalg, dev, smi)
-    lap("20")
-    by_path["lqr_balance"] = balance_slice(mt, linalg, dev, smi)
-    lap("21")
-    by_path["contact"], times_contact = contact_slice(mt, linalg, dev, smi)
-    lap("22")
-    for more in (times_n2, times_convex, times_contact):
-      for k, v in more.items():
-        times_small.setdefault(k, {"by_n": {}})["by_n"].update(v["by_n"])
+    CHECKS = False
+    rates, checks = [], []
+    try:
+      by_path, times, tangents = timed_run(mt, linalg, dev, smi, lap, rates,
+                                           checks)
+      result = checks[0].result()
+      lap("(the checks process's end)")
+    finally:
+      for proc in checks:
+        proc.stop()
+    rates.append(fleet_rate(mt, dev))
+    log("slice: fleet step",
+        "steps/s of phase 6's loop, in turns: alone "
+        f"{rates[0]:.1f}, with the checks process {rates[1]:.1f}, with it "
+        f"{rates[2]:.1f}, alone {rates[3]:.1f} (with / alone "
+        f"{(rates[1] + rates[2]) / (rates[0] + rates[3]):.3f})")
+    for path_name, counts in result["by_path"].items():
+      mine = by_path.setdefault(path_name, {})
+      for k, v in counts.items():
+        mine[k] = mine.get(k, 0) + v
     launches = {k: sum(p.get(k, 0) for p in by_path.values())
                 for k in KERNELS}
     checked = set().union(*path_shapes(mt))
-    unchecked = main_path_shapes(linalg) - checked
+    unchecked = sorted(set(map(str, main_path_shapes(linalg) - checked))
+                       | set(result["unchecked"]))
     if unchecked:
-      raise AssertionError(f"launches at shapes {sorted(map(str, unchecked))}"
-                           " that phase 9 did not hold to the plain versions")
-
+      raise AssertionError(f"launches at shapes {unchecked} that phase 9 "
+                           "did not hold to the plain versions")
+    for k in KERNELS:
+      if not launches[k]:
+        raise AssertionError(f"{k} was not launched on the main paths")
     print(json.dumps({"kernels": [
         {"name": k, "route": "cuda", "source": SOURCE,
          "replaces": REPLACES[k], "launches": launches[k],
          "launches_by_path": {p: c[k] for p, c in by_path.items() if k in c},
-         "tangents": tangents.get(k), "max_abs_err": slice_err[k],
-         **times[k], **times_small.get(k, {})} for k in KERNELS]}))
+         "tangents": tangents.get(k),
+         "max_abs_err": result["slice_err"][k],
+         **times[k]} for k in KERNELS]}))
   print(smi)
   print(json.dumps({"ok": True, "device": {
       "platform": "gpu", "kind": torch.cuda.get_device_name(0),
       "count": torch.cuda.device_count()}}))
+
+
+def timed_run(mt, linalg, dev, smi, lap, rates,
+              checks) -> tuple[dict, dict, dict]:
+  """The timed process of a full run: the kernels' timings (phases 5, 9),
+  the fleets, the MPC solves and phases 11, 14 and 21.  Phases 5, 6, 9, 11
+  and 12 run alone; then the checks process starts (appended to
+  ``checks``) and runs beside the rest: beside phase 12, its own MPC
+  solves of phase 13 doubled phase 12's time (194.1 against 395.6 s in two
+  runs).  Phase 6's loop is timed alone first and twice once the checks
+  process has started (appended to ``rates``).  Returns the launches by
+  path, the kernels' timings and the JVP kernels' tangents a lane of
+  phase 12."""
+  rates.append(fleet_rate(mt, dev))
+  by_path = {"fleet_step": fleet_step(mt, linalg, dev, smi)}
+  lap("6")
+  times = time_kernels(linalg, dev)
+  times.update(check_path_kernels(mt, linalg, dev))
+  lap("5, 9 (timings)")
+  linearization_chunk(mt, linalg, dev)
+  lap("11")
+  mpc_launches, res, cfg = mpc_fleet(mt, linalg, dev, "humanoid_mjx.npz",
+                                     MPC_RUN)
+  by_path["mpc_fleet"] = mpc_launches
+  tangents = read_tangents(linalg)
+  lap("12")
+  checks.append(ChecksProcess())
+  rates.append(fleet_rate(mt, dev))
+  rates.append(fleet_rate(mt, dev))
+  lap("(phase 6's loop twice beside the checks process)")
+  mpc_reference(mt, linalg, dev)
+  lap("13")
+  mpc_torques(mt, linalg, dev, res, cfg)
+  lap("14")
+  by_path["integrators_fleet"] = integrators_fleet(mt, linalg, dev, smi)
+  lap("15")
+  by_path["sensors"] = sensors(mt, linalg, dev, smi)
+  lap("17")
+  by_path["constraint_rows"], times_small = constraint_rows(
+      mt, linalg, dev, smi)
+  lap("18")
+  by_path["tendons"], times_n2 = tendon_slice(mt, linalg, dev, smi)
+  lap("19")
+  by_path["convex"], times_convex = convex_slice(mt, linalg, dev, smi)
+  lap("20")
+  by_path["lqr_balance"] = balance_slice(mt, linalg, dev, smi)
+  lap("21")
+  by_path["contact"], times_contact = contact_slice(mt, linalg, dev, smi)
+  lap("22")
+  by_path["shapes"], times_shapes = quadruped_slice(mt, linalg, dev, smi)
+  lap("23")
+  for more in (times_n2, times_convex, times_contact, times_shapes):
+    for k, v in more.items():
+      times_small.setdefault(k, {"by_n": {}})["by_n"].update(v["by_n"])
+  for k, v in times_small.items():
+    times[k].update(v)
+  return by_path, times, tangents
 
 
 if __name__ == "__main__":

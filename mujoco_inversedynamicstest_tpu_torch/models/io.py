@@ -76,7 +76,9 @@ _ARRAY_FIELDS = (
     "pair_dim", "pair_geom1", "pair_geom2", "pair_signature", "pair_solref",
     "pair_solreffriction", "pair_solimp", "pair_margin", "pair_gap",
     "pair_friction",
-    "mesh_vert", "mesh_vertadr", "mesh_vertnum",
+    "mesh_vert", "mesh_vertadr", "mesh_vertnum", "mesh_graphadr",
+    "mesh_graph",
+    "hfield_size", "hfield_nrow", "hfield_ncol", "hfield_adr", "hfield_data",
     "site_pos", "site_quat", "site_size", "site_type", "site_bodyid",
     "sensor_type", "sensor_datatype", "sensor_needstage", "sensor_objtype",
     "sensor_objid", "sensor_reftype", "sensor_refid", "sensor_adr",
@@ -294,21 +296,42 @@ def build_tree_layout(body_parentid, body_jntnum, dof_parentid, body_dofadr,
                     ancestor_mask=ancestor_mask, body_dof_mask=body_dof_mask)
 
 
-def _mesh_hulls(f: Mapping) -> tuple:
-  """Each mesh's convex hull topology (``ops/hull.py``), built on the host
-  only when a mesh geom can collide, by its contype and conaffinity or in
-  an explicit ``<pair>``; ``()`` otherwise."""
-  mesh = np.asarray(f["geom_type"]) == GeomType.MESH
-  paired = np.zeros_like(mesh)
+def _can_collide(f: Mapping, gtype: GeomType) -> bool:
+  """Whether a geom of type ``gtype`` can collide, by its contype and
+  conaffinity or in an explicit ``<pair>``."""
+  of_type = np.asarray(f["geom_type"]) == gtype
+  paired = np.zeros_like(of_type)
   paired[np.asarray(f["pair_geom1"], np.int64)] = True
   paired[np.asarray(f["pair_geom2"], np.int64)] = True
-  if not np.any(mesh & (paired | (np.asarray(f["geom_contype"]) != 0)
-                        | (np.asarray(f["geom_conaffinity"]) != 0))):
-    return ()
+  return bool(np.any(of_type & (paired | (np.asarray(f["geom_contype"]) != 0)
+                                | (np.asarray(f["geom_conaffinity"]) != 0))))
+
+
+def _mesh_tables(f: Mapping) -> tuple:
+  """Each mesh's convex hull topology and C's plane-contact tables
+  (``ops/hull.py``), built on the host only when a mesh geom can collide;
+  ``((), ())`` otherwise."""
+  if not _can_collide(f, GeomType.MESH):
+    return (), ()
   from mujoco_inversedynamicstest_tpu_torch.ops import hull
 
-  return hull.mesh_hulls(f["mesh_vert"], f["mesh_vertadr"],
-                         f["mesh_vertnum"])
+  return (hull.mesh_hulls(f["mesh_vert"], f["mesh_vertadr"],
+                          f["mesh_vertnum"]),
+          hull.mesh_graphs(f["mesh_vert"], f["mesh_vertadr"],
+                           f["mesh_vertnum"], f["mesh_graphadr"],
+                           f["mesh_graph"]))
+
+
+def _hfield_grids(f: Mapping) -> tuple:
+  """Each height field's vertex grid (``ops/hfield.py``), built on the host
+  only when a height-field geom can collide; ``()`` otherwise."""
+  if not _can_collide(f, GeomType.HFIELD):
+    return ()
+  from mujoco_inversedynamicstest_tpu_torch.ops import hfield
+
+  return hfield.hfield_grids(f["hfield_size"], f["hfield_nrow"],
+                             f["hfield_ncol"], f["hfield_adr"],
+                             f["hfield_data"])
 
 
 def put_model(src, device="cuda", dtype=torch.float64) -> Model:
@@ -378,6 +401,7 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       "actuator_actlimited", "actuator_actearly",
       "tendon_adr", "tendon_num", "tendon_limited", "wrap_type", "wrap_objid",
   )
+  mesh_hull, mesh_graph = _mesh_tables(f)
   m = Model(
       nq=int(f["nq"]), nv=int(f["nv"]), nu=int(f["nu"]),
       nbody=int(f["nbody"]), njnt=int(f["njnt"]), ngeom=int(f["ngeom"]),
@@ -391,7 +415,10 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       dof_frictionloss_nz=np.asarray(f["dof_frictionloss"]) > 0,
       tendon_frictionloss_nz=np.asarray(f["tendon_frictionloss"]) > 0,
       wrap_prm=np.asarray(f["wrap_prm"], np.float64),
-      mesh_hull=_mesh_hulls(f),
+      mesh_hull=mesh_hull,
+      mesh_graph=mesh_graph,
+      hfield_grid=_hfield_grids(f),
+      geom_rbound_np=np.asarray(f["geom_rbound"], np.float64),
       max_contact_points=int(f["max_contact_points"]),
       max_geom_pairs=int(f["max_geom_pairs"]),
       **{k: t(k) for k in float_fields},

@@ -259,6 +259,9 @@ class DisableBit(enum.IntFlag):
   AUTORESET = 1 << 16
   NATIVECCD = 1 << 17
   ISLAND = 1 << 18
+  # multi-contact CCD: on unless disabled in mujoco 3.10; the port's CCD
+  # pairs give one contact under either setting (ROADMAP §3)
+  MULTICCD = 1 << 19
 
 
 class EnableBit(enum.IntFlag):
@@ -501,6 +504,14 @@ class Model:
   # nearest max_contact_points slots of each condim to the rows
   max_contact_points: int = -1
   max_geom_pairs: int = -1
+  # what C's plane-mesh contact reads of each mesh (ops/hull.MeshGraph); ()
+  # when no mesh geom can collide
+  mesh_graph: tuple = ()
+  # each height field's vertex grid (ops/hfield.HFieldGrid); () when no
+  # height-field geom can collide
+  hfield_grid: tuple = ()
+  # geom_rbound on the host, for the narrowphases' static choices
+  geom_rbound_np: np.ndarray = None
 
   # derived host tables and device constants, computed once per model
   _memo: dict = dataclasses.field(default_factory=dict, repr=False,

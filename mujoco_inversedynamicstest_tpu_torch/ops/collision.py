@@ -2,16 +2,20 @@
 
 Port of ``mujoco_inversedynamicstest_tpu/ops/collision.py`` for the
 primitive pairs (plane with sphere, capsule, box and cylinder; sphere with
-sphere, capsule and box; capsule-capsule) and the convex pairs of
+sphere, capsule and box; capsule-capsule), the convex pairs of
 ``ops/collision_convex.py`` (plane, sphere, capsule, box and mesh against a
-box or a mesh hull).  The candidate pairs are the explicit ``<pair>``s and
+box or a mesh hull), the cylinder and ellipsoid pairs of
+``ops/collision_sdf.py`` and the height-field pairs of ``ops/hfield.py``
+(with a sphere, a capsule, a box or a mesh).  The candidate pairs are the
+explicit ``<pair>``s and
 the pairs enumerated statically from contype/conaffinity, body and parent
 filters and excludes; every contact slot exists every step and
 ``dist >= includemargin`` marks it inactive.  MJX's contact budget (the
 ``max_geom_pairs`` and ``max_contact_points`` numerics) bounds the slots,
 which each lane then fills with its own nearest pairs.
-Any other pair kind (ellipsoid; cylinder with anything but a plane; height
-field; SDF) is refused by its name when the model is loaded.
+Any other pair kind (a height field with an ellipsoid, a cylinder or
+another height field; SDF) is refused by its name when the model is
+loaded.
 
 Every narrowphase takes ``(pos1, mat1, size1, pos2, mat2, size2, margin)``
 of a group's pairs, positions (B, P, 3), frames (B, P, 3, 3), sizes (P, 3)
@@ -36,6 +40,8 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
     Model,
 )
 from mujoco_inversedynamicstest_tpu_torch.ops import collision_convex as cc
+from mujoco_inversedynamicstest_tpu_torch.ops import collision_sdf as csdf
+from mujoco_inversedynamicstest_tpu_torch.ops import hfield
 from mujoco_inversedynamicstest_tpu_torch.ops import math
 from mujoco_inversedynamicstest_tpu_torch.ops.hull import HullSpec
 
@@ -44,19 +50,9 @@ _BIG = 1e10
 # pass this many bytes (three tensors of (B, P, Ea, Eb, 3) live at once)
 CONVEX_CHUNK_BYTES = 10 * 2**30
 
-# pairs whose kernels need hull topology (grouped per distinct mesh pair)
-_CONVEX_KEYS = {
-    (GeomType.PLANE, GeomType.MESH),
-    (GeomType.SPHERE, GeomType.MESH),
-    (GeomType.CAPSULE, GeomType.BOX),
-    (GeomType.CAPSULE, GeomType.MESH),
-    (GeomType.BOX, GeomType.BOX),
-    (GeomType.BOX, GeomType.MESH),
-    (GeomType.MESH, GeomType.MESH),
-}
 # contact slots per convex pair
 _CONVEX_SLOTS = {
-    (GeomType.PLANE, GeomType.MESH): 4,
+    (GeomType.PLANE, GeomType.MESH): cc.PLANE_MESH_SLOTS,
     (GeomType.SPHERE, GeomType.MESH): 1,
     (GeomType.CAPSULE, GeomType.BOX): 2,
     (GeomType.CAPSULE, GeomType.MESH): 2,
@@ -64,6 +60,12 @@ _CONVEX_SLOTS = {
     (GeomType.BOX, GeomType.MESH): 4,
     (GeomType.MESH, GeomType.MESH): 4,
 }
+# cylinder and ellipsoid pairs (ops/collision_sdf.py), height-field pairs
+# (ops/hfield.py)
+_SDF_SLOTS = {(GeomType(a), GeomType(b)): k
+              for (a, b), k in csdf.SDF_SLOTS.items()}
+_HFIELD_SLOTS = {(GeomType(a), GeomType(b)): k
+                 for (a, b), k in hfield.HFIELD_SLOTS.items()}
 
 
 class PairGroup(NamedTuple):
@@ -316,8 +318,14 @@ _NARROWPHASE = {
 
 
 def _nslot(key) -> int:
-  return (_NARROWPHASE[key][1] if key in _NARROWPHASE
-          else _CONVEX_SLOTS[key])
+  if key in _NARROWPHASE:
+    return _NARROWPHASE[key][1]
+  for table in (_CONVEX_SLOTS, _SDF_SLOTS, _HFIELD_SLOTS):
+    if key in table:
+      return table[key]
+  raise NotImplementedError(
+      f"unsupported by the PyTorch port: collision pair "
+      f"{key[0].name}-{key[1].name}")
 
 
 def _device_hull(m: Model, spec: HullSpec) -> HullSpec:
@@ -330,16 +338,26 @@ def _group_narrowphase(m: Model, grp: PairGroup) -> Callable:
   a closure over the group's hulls (``ops/collision_convex.py``)."""
   if grp.types in _NARROWPHASE:
     return _NARROWPHASE[grp.types][0]
+  if grp.types in _SDF_SLOTS:
+    return csdf.SDF_NARROWPHASE[(int(grp.types[0]), int(grp.types[1]))]
 
   def build():
     t1, t2 = grp.types
+    if t1 == GeomType.HFIELD:
+      return hfield.make_narrowphase(m, grp)
+    if t1 == GeomType.PLANE:        # a mesh: a box is a primitive pair
+      # C's rule reads the mesh geom's bounding radius, the mesh's own
+      rbound = np.unique(m.geom_rbound_np[grp.geom2])
+      if len(rbound) != 1:
+        raise NotImplementedError(
+            "unsupported by the PyTorch port: geoms of one mesh with "
+            f"different bounding radii {rbound}")
+      return cc.make_plane_mesh(m.mesh_graph[grp.did2], float(rbound[0]))
 
     def hull_of(did, t):
       spec = cc.BOX_HULL if t == GeomType.BOX else m.mesh_hull[did]
       return _device_hull(m, spec), t == GeomType.BOX
 
-    if t1 == GeomType.PLANE:
-      return cc.make_plane_convex(*hull_of(grp.did2, t2))
     if t1 == GeomType.SPHERE:
       return cc.make_sphere_convex(*hull_of(grp.did2, t2))
     if t1 == GeomType.CAPSULE:
@@ -407,13 +425,11 @@ def _build_layout(m: Model) -> ContactLayout:
     if m.geom_type[g1] > m.geom_type[g2]:
       g1, g2 = g2, g1
     key = (GeomType(int(m.geom_type[g1])), GeomType(int(m.geom_type[g2])))
-    if key not in _NARROWPHASE and key not in _CONVEX_KEYS:
-      raise NotImplementedError(
-          f"unsupported by the PyTorch port: collision pair "
-          f"{key[0].name}-{key[1].name}")
-    # each convex group has one static hull topology
-    did = lambda g: (int(m.geom_dataid[g])
-                     if m.geom_type[g] == GeomType.MESH else -1)
+    _nslot(key)
+    # each convex group has one static hull topology, each height-field
+    # group one grid
+    did = lambda g: (int(m.geom_dataid[g]) if m.geom_type[g] in (
+        GeomType.MESH, GeomType.HFIELD) else -1)
     by_key.setdefault((key, did(g1), did(g2), c), []).append((g1, g2, ip))
 
   groups, slot_dim = [], []
@@ -560,6 +576,10 @@ def _nearest_pairs(m: Model, d: Data, grp: PairGroup,
   if grp.types[0] == GeomType.PLANE:
     bdist = (torch.sum((p2 - p1) * d.geom_xmat[:, g1, :, 2], dim=-1)
              - m.geom_rbound[g2])
+  elif grp.types[0] == GeomType.HFIELD:
+    # the field's bounding sphere from its extents (its geom_rbound is 0)
+    bdist = (torch.linalg.vector_norm(p2 - p1, dim=-1)
+             - m.hfield_grid[grp.did1].bound() - m.geom_rbound[g2])
   else:
     bdist = (torch.linalg.vector_norm(p2 - p1, dim=-1) - m.geom_rbound[g1]
              - m.geom_rbound[g2])

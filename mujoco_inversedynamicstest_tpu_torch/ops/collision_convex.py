@@ -22,7 +22,8 @@ from typing import NamedTuple
 
 import torch
 
-from mujoco_inversedynamicstest_tpu_torch.ops.hull import HullSpec, box_hull
+from mujoco_inversedynamicstest_tpu_torch.ops.hull import (
+    HullSpec, MeshGraph, box_hull)
 
 _BIG = 1e10
 BOX_HULL = box_hull()
@@ -361,8 +362,9 @@ def _deepest_face(h: WorldHull, p):
 
 
 def make_plane_convex(spec2: HullSpec, is_box2: bool):
-  """Plane vs convex hull: 4 deepest vertices below margin (C's
-  ``mjc_PlaneConvex`` keeps a 4-point manifold likewise)."""
+  """Plane vs convex hull: the 4 deepest vertices within the margin, the
+  JAX package's rule.  ``ops/collision.py`` gives a plane and a box
+  ``_plane_box`` and a plane and a mesh ``make_plane_mesh`` (C's rule)."""
   nslot = 4
 
   def fn(p1, m1, s1, p2, m2, s2, margin):
@@ -379,6 +381,102 @@ def make_plane_convex(spec2: HullSpec, is_box2: bool):
     pos = vk - n[..., None, :] * (dist[..., None] * 0.5)
     nrm = n[..., None, :].expand_as(pos)
     return dist, pos, nrm, torch.zeros_like(pos)
+
+  return fn
+
+
+def _lin3(a, b):
+  """(a0 b0 + a1 b1) + a2 b2 over the trailing axis, in C's order of the
+  sums (a tie of two vertices is then broken as C breaks it)."""
+  return (a[..., 0] * b[..., 0] + a[..., 1] * b[..., 1]) + a[..., 2] * b[..., 2]
+
+
+PLANE_MESH_SLOTS = 3
+
+
+def make_plane_mesh(graph: MeshGraph, rbound: float):
+  """Plane against a mesh: C 3.10's ``mjc_PlaneConvex``, at most 3 hull
+  vertices.
+
+  1. The support vertex along the plane's inward normal: the first vertex
+     of largest support, or for a mesh of at least 10 vertices with a hull
+     graph a steepest-ascent hill climb over the graph from local vertex 0,
+     each round moving to the first neighbour of largest support if it is
+     strictly larger.  No contact unless it lies within the margin.
+  2. Then the vertices C tries after it, in its order (``MeshGraph.extra``:
+     the graph neighbours of the support vertex, or every other vertex
+     without a graph).  One is kept if it lies strictly within the margin
+     and at least 0.3 ``geom_rbound`` from the first contact's point, until
+     3 contacts are made.
+
+  Every contact point is a hull vertex moved half its depth along the
+  normal.  The rule is pinned by probes of C 3.10 (``mj_forward``,
+  ``scripts/plane_mesh_probe.py``): a cube, a hexagonal and a triangular
+  prism and an octagonal pyramid resting flat (3, 3, 2 and 3 contacts),
+  the same yawed through 0-120 degrees, tilted by small angles and at
+  random, the icosahedron of ``convex_mesh`` (2 contacts at rest), a 72-gon
+  prism and spheres of 40 and 300 sampled vertices: every contact of C at
+  each of 720 poses.  Below 10 vertices C reads the neighbours of a global
+  vertex id as if it were a local one; ``MeshGraph`` keeps that reading.
+  The JAX package keeps the 4 deepest vertices instead (ROADMAP §3).
+  """
+  nslot = PLANE_MESH_SLOTS
+  nround = max(len(graph.climb_gid) - 1, 0) if graph.climb else 0
+
+  def fn(p1, m1, s1, p2, m2, s2, margin):
+    n = m1[..., :, 2]
+    vert = _const(graph.vert, p1)                         # (V, 3)
+    # support of -n in the mesh frame, summed in C's order
+    d = -n[..., None]
+    loc = (d[..., 0, :] * m2[..., 0, :] + d[..., 1, :] * m2[..., 1, :]
+           ) + d[..., 2, :] * m2[..., 2, :]                # (..., 3)
+    score = _lin3(loc[..., None, :], vert)                 # (..., V)
+    if graph.climb:
+      nbr = _const(graph.climb_nbr, p1)
+      gid = _const(graph.climb_gid, p1)
+      score_l = score[..., gid]                            # (..., N)
+      cur = torch.zeros(score.shape[:-1], dtype=torch.long,
+                        device=p1.device)
+      best = score_l[..., 0]
+      for _ in range(nround):
+        nb = nbr[cur]                                      # (..., D)
+        s = torch.where(nb >= 0, torch.take_along_dim(
+            score_l, nb.clamp(min=0), dim=-1), -float("inf"))
+        j = torch.argmax(s, dim=-1)
+        sj = _take(s, j, -1)
+        up = sj > best
+        cur = torch.where(up, _take(nb, j, -1), cur)
+        best = torch.where(up, sj, best)
+      first = gid[cur]
+    else:
+      cur = first = torch.argmax(score, dim=-1)
+    wvert = _mt(vert, m2) + p2[..., None, :]               # (..., V, 3)
+    v0 = _take(wvert, first)
+    dist0 = _dot(v0 - p1, n)
+    ok0 = dist0 <= margin
+    pos0 = v0 - n * (0.5 * dist0)[..., None]
+
+    # the vertices C tries next, in its order
+    extra = _const(graph.extra, p1)[cur]                  # (..., E)
+    have = extra >= 0
+    ex = extra.clamp(min=0)
+    thr = _lin3(n, p2 - p1) - margin
+    pnt = torch.take_along_dim(wvert, ex[..., None], dim=-2)
+    keep = (have & (torch.take_along_dim(score, ex, dim=-1) > thr[..., None])
+            & ~(0.3 * rbound > _norm(pnt - pos0[..., None, :]))
+            & ok0[..., None])
+    rank = torch.cumsum(keep.long(), dim=-1)
+    dists, poss = [torch.where(ok0, dist0, _BIG)], [pos0]
+    for r in range(1, nslot):
+      hit = keep & (rank == r)
+      i = torch.argmax(hit.long(), dim=-1)
+      pr = _take(pnt, i)
+      dr = _dot(pr - p1, n)
+      dists.append(torch.where(torch.any(hit, dim=-1), dr, _BIG))
+      poss.append(pr - n * (0.5 * dr)[..., None])
+    pos = torch.stack(poss, dim=-2)
+    nrm = n[..., None, :].expand_as(pos)
+    return torch.stack(dists, dim=-1), pos, nrm, torch.zeros_like(pos)
 
   return fn
 

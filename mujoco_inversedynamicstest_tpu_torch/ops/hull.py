@@ -197,3 +197,77 @@ def mesh_hulls(mesh_vert, mesh_vertadr, mesh_vertnum,
   return tuple(
       build_hull(mesh_vert[int(adr):int(adr) + int(num)], maxhullvert)
       for adr, num in zip(mesh_vertadr, mesh_vertnum))
+
+
+class MeshGraph(NamedTuple):
+  """What C's ``mjc_PlaneConvex`` reads of a mesh (host numpy): its
+  vertices in the compiled order, how its support vertex is found, and the
+  vertices it then tries, in C's order.
+
+  ``climb``: a hill climb over the compiler's hull graph (``mesh_graph``,
+  used when the mesh has one and at least 10 vertices), from local vertex
+  0; otherwise the first vertex of largest support.  ``climb_nbr`` (N, D)
+  holds each local vertex's neighbours (local ids, -1 padded) and
+  ``climb_gid`` (N,) each local vertex's global id.  ``extra`` (K, E) holds,
+  for each value the support search leaves in C's ``meshindex`` (a local id
+  after a climb, a global id otherwise), the global ids of the vertices C
+  tries next, in its order (-1 padded)."""
+  vert: np.ndarray
+  climb: bool
+  climb_nbr: np.ndarray
+  climb_gid: np.ndarray
+  extra: np.ndarray
+
+
+def _padded(rows, fill: int = -1) -> np.ndarray:
+  width = max([1] + [len(r) for r in rows])
+  return np.array([list(r) + [fill] * (width - len(r)) for r in rows],
+                  np.int64).reshape(len(rows), width)
+
+
+def mesh_graph(vert: np.ndarray, graph) -> MeshGraph:
+  """``MeshGraph`` of one mesh from its vertices (V, 3) and the flat slice
+  of ``mesh_graph`` that starts at its ``mesh_graphadr`` (None without a
+  graph).  Below 10 vertices C finds the support vertex by a search over
+  the global vertices but reads the neighbours of that global id as if it
+  were a local one; the tables keep that reading."""
+  vert = np.asarray(vert, np.float64)
+  nvert = len(vert)
+  if graph is None:
+    extra = [[j for j in range(nvert) if j != k] for k in range(nvert)]
+    return MeshGraph(vert, False, np.zeros((1, 1), np.int64),
+                     np.zeros(1, np.int64), _padded(extra))
+  graph = np.asarray(graph, np.int64)
+  numvert = int(graph[0])
+  edgeadr = lambda k: int(graph[2 + k])
+  gid = graph[2 + numvert:2 + 2 * numvert]
+  local = graph[2 + 2 * numvert:]
+
+  def neighbours(k):
+    out, i = [], edgeadr(k)
+    while local[i] >= 0:
+      out.append(int(local[i]))
+      i += 1
+    return out
+
+  climb = nvert >= 10
+  nbr = [neighbours(k) for k in range(numvert)]
+  if climb:
+    extra = [[int(gid[j]) for j in nbr[k]] for k in range(numvert)]
+  else:
+    if nvert > numvert:
+      raise NotImplementedError(
+          "unsupported by the PyTorch port: plane contact with a mesh of "
+          "fewer than 10 vertices, some inside its hull")
+    extra = [[int(gid[j]) for j in nbr[k]] for k in range(nvert)]
+  return MeshGraph(vert, climb, _padded(nbr), gid.copy(), _padded(extra))
+
+
+def mesh_graphs(mesh_vert, mesh_vertadr, mesh_vertnum, mesh_graphadr,
+                mesh_graph_flat):
+  """``MeshGraph`` per mesh, from the snapshot arrays of a compiled model."""
+  out = []
+  for adr, num, gadr in zip(mesh_vertadr, mesh_vertnum, mesh_graphadr):
+    graph = None if int(gadr) < 0 else mesh_graph_flat[int(gadr):]
+    out.append(mesh_graph(mesh_vert[int(adr):int(adr) + int(num)], graph))
+  return tuple(out)

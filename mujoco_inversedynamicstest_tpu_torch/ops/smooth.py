@@ -121,11 +121,16 @@ def kinematics(m: Model, d: Data) -> Data:
 
   xmat = math.quat_to_mat(xquat)
   xipos, ximat = math.local_to_global(xpos, xquat, m.body_ipos, m.body_iquat)
-  # geom and site frames in one local_to_global: the sites add no launch
+  # geom and site frames in one local_to_global: the sites add no launch.
+  # The compiler leaves a geom's quaternion a few ulp off unit length (a
+  # mesh's principal frame turned by quarter turns: 0.5000000000000007 x
+  # 4); C's mju_quat2Mat is homogeneous and gives that frame exact zeros,
+  # quat_to_mat only for a unit quaternion, and C's plane-mesh rule breaks a
+  # tie of equally deep vertices by those zeros
   body, pos, quat = m.memo("geom_site_frames", lambda: (
       m.const(np.concatenate([m.geom_bodyid, m.site_bodyid])),
-      torch.cat([m.geom_pos, m.site_pos]), torch.cat([m.geom_quat,
-                                                      m.site_quat])))
+      torch.cat([m.geom_pos, m.site_pos]),
+      torch.cat([math.normalize_quat(m.geom_quat), m.site_quat])))
   fpos, fmat = math.local_to_global(xpos[:, body], xquat[:, body], pos, quat)
   ng = m.ngeom
   return d.replace(qpos=qpos, xpos=xpos, xquat=xquat, xmat=xmat,

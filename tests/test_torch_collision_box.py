@@ -31,6 +31,7 @@ import torch
 import collision_poses as poses
 import mujoco_inversedynamicstest_tpu_torch as mt
 from mujoco_inversedynamicstest_tpu.ops import collision as jc
+from mujoco_inversedynamicstest_tpu_torch.models.types import GeomType
 from mujoco_inversedynamicstest_tpu_torch.ops import collision as tc
 from mujoco_inversedynamicstest_tpu_torch.ops import linalg, math
 from mujoco_inversedynamicstest_tpu_torch.opt import derivative
@@ -286,7 +287,8 @@ ELLIPSOID, CYLINDER, HFIELD, SDF = 4, 5, 1, 8
     ((0, 1, 2, 3, 4), dict(geom_contype=(6, 1)), "CAPSULE-CYLINDER"),
     ((0, 1, 2, 3, 4), dict(geom_type=(5, CYLINDER), geom_contype=(6, 1)),
      "CYLINDER-CYLINDER"),
-    ((), dict(geom_type=(0, HFIELD)), "HFIELD-BOX"),
+    ((1, 2, 3, 4, 5), dict(geom_type=(0, HFIELD), geom_contype=(6, 1)),
+     "HFIELD-CYLINDER"),
     ((), dict(geom_type=(1, SDF)), "PLANE-SDF"),
     ((), dict(npair=(None, 1), pair_geom1=(None, [6]), pair_geom2=(None, [1]),
               pair_dim=(None, [3]), pair_margin=(None, [0.0]),
@@ -301,8 +303,26 @@ ELLIPSOID, CYLINDER, HFIELD, SDF = 4, 5, 1, 8
         "cylinder-box", "sphere-cylinder", "capsule-cylinder",
         "cylinder-cylinder", "hfield", "sdf", "explicit-pair", "flex"])
 def test_put_model_refuses_unported_pairs(off, change, what):
+  """Each pair kind the port does not collide is refused by its name when
+  the model is loaded; the cylinder and ellipsoid pairs, refused until
+  they were ported, now load and form their group (an explicit <pair>
+  too)."""
+  if what.split()[-1] in PORTED_SINCE:
+    m = mt.put_model(_snapshot(off, **change), device="cpu")
+    groups = {f"{g.types[0].name}-{g.types[1].name}": g
+              for g in tc.contact_layout(m).groups}
+    assert what.split()[-1] in groups
+    if "pair" in what:
+      assert (groups[what.split()[-1]].ipair >= 0).all()
+    return
   with pytest.raises(NotImplementedError, match=what):
     mt.put_model(_snapshot(off, **change), device="cpu")
+
+
+# the kinds of the refusal cases that ops/collision_sdf.py now collides
+PORTED_SINCE = {"PLANE-ELLIPSOID", "ELLIPSOID-BOX", "SPHERE-ELLIPSOID",
+                "CYLINDER-BOX", "SPHERE-CYLINDER", "CAPSULE-CYLINDER",
+                "CYLINDER-CYLINDER"}
 
 
 def _old_one_slot(dist, pos, n):
@@ -459,7 +479,13 @@ def test_kernels_match_plain_versions_on_card(cuda, name):
 
 def test_slot_counts_are_the_jax_packages():
   """The port's slot count of every pair kind it collides is the JAX
-  package's (``_PAIR_SLOTS``), and so are its convex keys."""
-  for key in list(tc._NARROWPHASE) + list(tc._CONVEX_SLOTS):
-    assert tc._nslot(key) == jc._PAIR_SLOTS[key], key
-  assert set(tc._CONVEX_KEYS) == set(jc._CONVEX_KEYS)
+  package's (``_PAIR_SLOTS``), and so are its convex keys; except
+  plane-mesh, where the port keeps C's 3 contacts (``mjc_PlaneConvex``)
+  and the JAX package 4."""
+  keys = (list(tc._NARROWPHASE) + list(tc._CONVEX_SLOTS)
+          + list(tc._SDF_SLOTS) + list(tc._HFIELD_SLOTS))
+  for key in keys:
+    want = 3 if key == (GeomType.PLANE, GeomType.MESH) else jc._PAIR_SLOTS[key]
+    assert tc._nslot(key) == want, key
+  assert jc._PAIR_SLOTS[(GeomType.PLANE, GeomType.MESH)] == 4
+  assert set(tc._CONVEX_SLOTS) == set(jc._CONVEX_KEYS)

@@ -149,10 +149,19 @@ def test_model_entry_points_default_to_the_card():
                          "noslip_iterations=\"3\" "), "noslip solver",
         id=HUMANOID.replace("<option ", "<option cone=\"elliptic\" ")
         + "-elliptic"),
-    (ALL_SMOOTH["freebody"].replace(
-        "<worldbody>", "<worldbody><geom type=\"plane\" size=\"5 5 .1\"/>"
-    ).replace("type=\"box\"", "type=\"ellipsoid\""),
-     "collision pair PLANE-ELLIPSOID"),
+    # the ellipsoid's pairs are ported: the ellipsoid is refused on a height
+    # field (the id is the case's from before the port)
+    pytest.param(
+        ALL_SMOOTH["freebody"].replace(
+            "<worldbody>", "<asset><hfield name=\"h\" nrow=\"3\" ncol=\"3\" "
+            "size=\"5 5 .1 .1\"/></asset><worldbody><geom type=\"hfield\" "
+            "hfield=\"h\"/>").replace("type=\"box\"", "type=\"ellipsoid\""),
+        "collision pair HFIELD-ELLIPSOID",
+        id=ALL_SMOOTH["freebody"].replace(
+            "<worldbody>",
+            "<worldbody><geom type=\"plane\" size=\"5 5 .1\"/>").replace(
+                "type=\"box\"", "type=\"ellipsoid\"")
+        + "-collision pair PLANE-ELLIPSOID"),
 ])
 def test_put_model_refuses_unported_features(xml, what):
   with pytest.raises(NotImplementedError, match=what):
