@@ -7,7 +7,7 @@ A full run is two processes on the card: this one runs the timed work
 and a second one it starts after phase 12 (``--checks``) runs the untimed
 fp64 checks beside it (the kernels against their plain versions in phases
 3-4, 8 and 9, phases 7, 10 and 16, and the fp64 parts of phases 6, 13, 15
-and 17-23: kernels against plain versions, inverse_tests, transition_ad
+and 17-24: kernels against plain versions, inverse_tests, transition_ad
 against transition_fd).  Phases 5, 6, 9, 11 and 12 run alone.  The second
 process's lines are printed as they come, after ``checks |``; a failure in
 either process fails the script.  Phase 6's loop is timed alone before the
@@ -44,7 +44,8 @@ non-zero:
    bit-equal.
 9. kernel: main-path shapes, and timing: JVP kernels -- all four kernels
    against their plain versions, bit-equal, at every shape at which
-   phases 6-22 launch them (n = 27 for the humanoid, the JVP kernels at
+   phases 6-24 launch them, the solve at its columns (n = 27 for the
+   humanoid, the JVP kernels at
    (lanes, tangents) (8, 75) and (1, 75) fp64, (640, 75), (800, 75),
    (1024, 75) and the folded (76,800, 1), in both layouts; n = 1-6 for phase 18's and
    phase 19's models, each dof block and nv, the JVPs at (8, 7) fp64 and,
@@ -52,7 +53,10 @@ non-zero:
    reach iLQR's linearization, (12,800) fp32 and (200) fp64; n = 6, 30
    and 36 for phase 20's models, the JVPs at (8, 72) fp64; phase 22's
    elliptic_pairs (n = 19 and its dof blocks) and sphere_budget (n = 120
-   and its 6-dof blocks)); then at the
+   and its 6-dof blocks); phase 23's quadrupeds (n = 22, 28); phase 24's
+   models (n = 1, 2, 13, 17 and 27, 36, 19 with their blocks), the dual
+   solvers' M⁻¹ Jᵀ at nefc columns: 324 on the humanoid, 164 on box_stack's
+   6-dof blocks, 44 on elliptic_pairs'); then at the
    bench's chunk (1024 lanes, 75 tangents) the JVP kernels timed against
    the plain versions, their bounds (L read once a lane) and
    torch.func.vmap over torch.func.jvp of torch.linalg.cholesky /
@@ -242,13 +246,37 @@ non-zero:
    against the plain versions (<= 1e-9) and transition_fd (centered, eps
    1e-6, zero warm start; within 1e-4 of max|A|).
 
+24. slice: solvers, fluid and energy -- the CG and PGS solvers, the noslip
+   pass, fluid forces and the ENERGY flag: dm_control's swimmer15 and fish
+   (the inertia-box fluid), acrobot and cartpole (under their own RK4) and
+   pendulum (ENERGY on), each at B = 4096 fp32, 20 steps (step_n, after a
+   warm-up step) from states the way their tasks start them; the
+   Newton-100 humanoid under CG and under Newton in turns (5 steps each),
+   under PGS (1 step), box_stack under PGS with noslip_iterations 4 (1
+   step) and elliptic_pairs under Newton with noslip 4 (2 steps): steps/s,
+   finite lanes, auto-resets (none), launches a step, peak memory, the
+   solver's iterations or sweeps and the noslip sweeps a solve, d.energy
+   finite; the fluid forces' device ms and launches against those of 2
+   profiled swimmer15 steps; chol_solve at (4096, 27) x 324 and (4096, 36)
+   x 164 columns and at box_stack's (6 x 4096, 6) x 164 against its plain
+   version, torch.cholesky_solve and its bound, the primal kernels at n =
+   17 and 13.  Then each configuration's fp64 steps of 64 lanes with the
+   kernels against the plain versions (qpos, qvel, efc_force, energy within
+   1e-9; 5 steps, the PGS ones 2), the fork's inverse_test on swimmer15
+   (RK4, 64 lanes fp64, 20 steps of fresh forces, solver_fwdinv <= 1e-6),
+   and transition_ad of 8 swimmer15 lanes under EULER and IMPLICIT against
+   the plain versions (<= 1e-9) and transition_fd (centered, eps 1e-6, zero
+   warm start; within 1e-4 of max|A|).
+
 Phase 10 also runs transition_ad of the Newton-100 humanoid under RK4 and
 IMPLICIT (the qDeriv Jacobian nested in the dual step).  Every kernel
-launch of phases 6-23 must be at a shape (n, lanes[, tangents], dtype) that
-phase 9 checked.  Then
+launch of phases 6-24 must be at a shape phase 9 checked: (n, lanes,
+dtype) of the factor, (n, lanes, columns, dtype) of the solve, (n, lanes,
+tangents, dtype) of the factor's JVP, (n, lanes, tangents, columns,
+dtype) of the solve's.  Then
 one JSON line of the kernel report (launches: the sum over the main paths,
 phases 6, 12, 15, 16, 17, 18, 19, 20, 21 (its transition_ad and its
-fleet), 22 and 23, each read with the counts reset before it, in either
+fleet), 22, 23 and 24, each read with the counts reset before it, in either
 process;
 by path beside it; the JVP kernels with the tangent counts of their phase 12
 launches), the nvidia-smi line, and the result line.  There is no CPU path: without
@@ -281,7 +309,11 @@ only the build and phase 22, and
 
     python3 chip_smoke.py --shapes
 
-only the build and phase 23 (both its timed and its check parts).
+only the build and phase 23 (both its timed and its check parts), and
+
+    python3 chip_smoke.py --suite
+
+only the build and phase 24 (both parts).
 """
 
 from __future__ import annotations
@@ -363,6 +395,24 @@ CONTACT_STEPS, CONTACT_INVERSE_STEPS, BUDGET_STEPS = 5, 12, 20
 # fresh forces) and transition_ad with the ball on the torso
 SHAPES_MODELS = ("quadruped", "quadruped_fetch", "terrain_objects")
 SHAPES_STEPS, FETCH_INVERSE_STEPS = 20, 20
+# phase 24: the solvers, fluid forces and energy -- dm_control's swimmer15
+# and fish (fluid), acrobot, cartpole and pendulum (ENERGY, the first two
+# under their own RK4), each fleet SUITE_STEPS steps; the Newton-100
+# humanoid under CG beside Newton in turns and under PGS, box_stack under
+# PGS with noslip, elliptic_pairs under Newton with noslip, each fleet the
+# steps beside it; the fork's inverse_test on swimmer15 and transition_ad
+# of 8 swimmer15 lanes under EULER and IMPLICIT
+SUITE_MODELS = ("swimmer15", "fish", "acrobot", "cartpole", "pendulum")
+SUITE_STEPS, SWIMMER_INVERSE_STEPS = 20, 20
+# noslip_iterations="4": dm_control's dog's
+NOSLIP_ITERATIONS = 4
+# (model, solver, noslip iterations, timed steps, checked fp64 steps): the
+# PGS fleets' 3 timed steps and the noslip fleet's 5 cut to 1, 1 and 2, and
+# the PGS fleets' 5 fp64 steps to 2, for the phase's time (PERF.md §4)
+SOLVER_FLEETS = (("humanoid", "CG", 0, 5, 5), ("humanoid", "NEWTON", 0, 5, 5),
+                 ("humanoid", "PGS", 0, 1, 2),
+                 ("box_stack", "PGS", NOSLIP_ITERATIONS, 1, 2),
+                 ("elliptic_pairs", "NEWTON", NOSLIP_ITERATIONS, 2, 5))
 GRID_N, GRID_B = (1, 2, 6, 27, 32, 33, 64, 128), (1, 127, 4096)
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}  # of max|reference|
 # NVIDIA's H100 SXM data sheet: memory rate, and fp32 outside tensor cores
@@ -873,10 +923,11 @@ def balance_shapes() -> tuple[set, set]:
   return primal, {(27, 1, 75, torch.float64)}
 
 
-def path_shapes(mt) -> tuple[list, list]:
-  """The launches of phases 6-23 and of --bench: (n, B, dtype) of the
-  primal kernels and (n, B, T, dtype) of the JVP kernels.  Phases 6-17 and
-  --bench at n = 27.  Primal:
+def path_shapes(mt) -> dict:
+  """The launches of phases 6-24 and of --bench, by kernel: (n, B, dtype)
+  of chol_factor, (n, B, columns, dtype) of chol_solve, (n, B, T, dtype)
+  of chol_factor_jvp and (n, B, T, columns, dtype) of chol_solve_jvp.
+  Phases 6-17 and --bench at n = 27.  Primal:
   the fleet step, the fp64 steps and inverse dynamics of 64 lanes, the
   transitions of 8 lanes (a forward, the dual step's primal, the centered
   FD's 8 x 151 copies), the linearization chunk (1024 lanes; 1024 x 75 in
@@ -886,7 +937,9 @@ def path_shapes(mt) -> tuple[list, list]:
   tangents a lane (nx + nu of the humanoid) at every dual step's lanes,
   and one a lane in the folded comparison.  Phases 18-23's from
   ``constraint_shapes``, ``tendon_shapes``, ``convex_shapes``,
-  ``balance_shapes``, ``contact_shapes`` and ``quadruped_shapes``."""
+  ``balance_shapes``, ``contact_shapes`` and ``quadruped_shapes``, whose
+  solves are of one column; phase 24's from ``suite_shapes``, with the
+  dual solvers' nefc columns."""
   f32 = {FLEET, BENCH_CHUNK_LANES, 75 * BENCH_CHUNK_LANES}
   jvp = {(8, 75, torch.float64), (BENCH_CHUNK_LANES, 75, torch.float32),
          (75 * BENCH_CHUNK_LANES, 1, torch.float32)}
@@ -897,57 +950,76 @@ def path_shapes(mt) -> tuple[list, list]:
   primal = ({(27, b, torch.float32) for b in f32}
             | {(27, b, torch.float64) for b in f64})
   jvp = {(27,) + s for s in jvp}
-  more_primal, more_jvp = constraint_shapes(mt)
-  tendon_primal, tendon_jvp = tendon_shapes(mt)
-  convex_primal, convex_jvp = convex_shapes(mt)
-  balance_primal, balance_jvp = balance_shapes()
-  contact_primal, contact_jvp = contact_shapes(mt)
-  shapes_primal, shapes_jvp = quadruped_shapes(mt)
-  key = lambda s: (str(s[-1]),) + s[:-1]
-  return (sorted(primal | more_primal | tendon_primal | convex_primal
-                 | balance_primal | contact_primal | shapes_primal, key=key),
-          sorted(jvp | more_jvp | tendon_jvp | convex_jvp | balance_jvp
-                 | contact_jvp | shapes_jvp, key=key))
+  for more_primal, more_jvp in (
+      constraint_shapes(mt), tendon_shapes(mt), convex_shapes(mt),
+      balance_shapes(), contact_shapes(mt), quadruped_shapes(mt)):
+    primal |= more_primal
+    jvp |= more_jvp
+  shapes = {"chol_factor": primal,
+            "chol_solve": {(n, b, 1, dt) for n, b, dt in primal},
+            "chol_factor_jvp": jvp,
+            "chol_solve_jvp": {(n, b, t, 1, dt) for n, b, t, dt in jvp}}
+  for k, more in suite_shapes(mt).items():
+    shapes[k] |= more
+  return shapes
+
+
+def shape_key(s: tuple) -> tuple:
+  """Sorts launch shapes by dtype, then by their numbers."""
+  return (str(s[-1]),) + s[:-1]
 
 
 def check_path_kernels(mt, linalg, dev) -> dict:
   """Phase 9: all four kernels against their plain versions, bit-equal, at
-  each shape of ``path_shapes`` (the JVP kernels in both layouts); then,
-  at the bench's chunk (1024 lanes, 75 tangents), the JVP kernels
-  (wrapper included), their plain versions and the one-call yardsticks
-  torch.func.vmap over torch.func.jvp of torch.linalg.cholesky and of
-  torch.cholesky_solve, timed in turns plain, kernel, library, library,
-  kernel, plain (medians of the pairs).  Returns those numbers."""
+  each shape of ``path_shapes`` (the solve at its columns, the JVP kernels
+  in both layouts); then, at the bench's chunk (1024 lanes, 75 tangents),
+  the JVP kernels (wrapper included), their plain versions and the
+  one-call yardsticks torch.func.vmap over torch.func.jvp of
+  torch.linalg.cholesky and of torch.cholesky_solve, timed in turns plain,
+  kernel, library, library, kernel, plain (medians of the pairs).  Returns
+  those numbers."""
   rng = np.random.default_rng(4)
-  primal, jvp = path_shapes(mt)
-  for n, b, dt in primal if CHECKS else ():
+  shapes = path_shapes(mt)
+  rhs = lambda b, n, k, lead=(): torch.as_tensor(rng.standard_normal(
+      lead + (b, n) + ((k,) if k > 1 else ())), device=dev)
+  for n, b, dt in sorted(shapes["chol_factor"], key=shape_key) if CHECKS else ():
     h = spd(rng, b, n, dev).to(dt)
-    l = linalg.chol_factor_ref(h)
-    x = torch.as_tensor(rng.standard_normal((b, n)), device=dev).to(dt)
-    case = f"main-path shape n={n} B={b} {dt}"
-    check_kernel("chol_factor", linalg.chol_factor(h), l, case)
+    check_kernel("chol_factor", linalg.chol_factor(h),
+                 linalg.chol_factor_ref(h),
+                 f"main-path shape n={n} B={b} {dt}")
+  for n, b, k, dt in sorted(shapes["chol_solve"], key=shape_key) if CHECKS else ():
+    l = linalg.chol_factor_ref(spd(rng, b, n, dev).to(dt))
+    x = rhs(b, n, k).to(dt)
     check_kernel("chol_solve", linalg.chol_solve(l, x),
-                 linalg.chol_solve_ref(l, x), case)
+                 linalg.chol_solve_ref(l, x),
+                 f"main-path shape n={n} B={b} columns={k} {dt}")
   out = {}
   bench = (27, BENCH_CHUNK_LANES, 75, torch.float32)
-  for n, b, t, dt in jvp if CHECKS else (bench,):
+  columns = {}
+  for n, b, t, k, dt in shapes["chol_solve_jvp"]:
+    columns.setdefault((n, b, t, dt), set()).add(k)
+  jvp = shapes["chol_factor_jvp"] | set(columns)
+  for n, b, t, dt in sorted(jvp, key=shape_key) if CHECKS else (bench,):
     h = spd(rng, b, n, dev).to(dt)
     dh = sym(rng, (t, b, n, n), dev).to(dt)
     l = linalg.chol_factor_ref(h)
     dl = linalg.chol_factor_jvp_ref(l, dh)
-    x = torch.as_tensor(rng.standard_normal((b, n)), device=dev).to(dt)
-    db = torch.as_tensor(rng.standard_normal((t, b, n)), device=dev).to(dt)
     case = f"main-path shape n={n} B={b} T={t} {dt}"
     if CHECKS:
-      for d in (dh, lane_major(dh)):
-        check_kernel("chol_factor_jvp", linalg.chol_factor_jvp(l, d), dl,
-                     case)
-      ref = linalg.chol_solve_jvp_ref(l, dl, x, db)
-      for a, c in ((dl, db), (lane_major(dl), lane_major(db))):
-        check_kernel("chol_solve_jvp", linalg.chol_solve_jvp(l, a, x, c),
-                     ref, case)
+      if (n, b, t, dt) in shapes["chol_factor_jvp"]:
+        for d in (dh, lane_major(dh)):
+          check_kernel("chol_factor_jvp", linalg.chol_factor_jvp(l, d), dl,
+                       case)
+      for k in sorted(columns.get((n, b, t, dt), ())):
+        x, db = rhs(b, n, k).to(dt), rhs(b, n, k, (t,)).to(dt)
+        ref = linalg.chol_solve_jvp_ref(l, dl, x, db)
+        for a, c in ((dl, db), (lane_major(dl), lane_major(db))):
+          check_kernel("chol_solve_jvp", linalg.chol_solve_jvp(l, a, x, c),
+                       ref, f"{case} columns={k}")
     if (n, b, t, dt) != bench or not TIMED:
       continue
+    x = torch.as_tensor(rng.standard_normal((b, n)), device=dev).to(dt)
+    db = torch.as_tensor(rng.standard_normal((t, b, n)), device=dev).to(dt)
     work = jvp_work(27, b, t, h.element_size())
     vj = lambda f, p, tg: torch.func.vmap(
         lambda *u: torch.func.jvp(f, p, u)[1])(*tg)
@@ -974,12 +1046,12 @@ def check_path_kernels(mt, linalg, dev) -> dict:
             f"{v['bound_ms'] / v['ms']:.1%} of it)" for k, v in out.items()))
   if not CHECKS:
     return out
+  fmt = lambda s: "(" + ", ".join(map(str, s[:-1])) + f") {str(s[-1])[6:]}"
   log("kernel: main-path shapes",
-      "all four kernels bit-equal to their plain versions: primal (n, B) = "
-      + ", ".join(f"({n}, {b}) {str(dt)[6:]}" for n, b, dt in primal)
-      + "; JVP (n, B, T) = " + ", ".join(f"({n}, {b}, {t}) {str(dt)[6:]}"
-                                         for n, b, t, dt in jvp)
-      + " in both layouts")
+      "all four kernels bit-equal to their plain versions (the JVP kernels "
+      "in both layouts): " + "; ".join(
+          f"{k} {{{', '.join(fmt(x) for x in sorted(v, key=shape_key))}}}"
+          for k, v in shapes.items()))
   return out
 
 
@@ -1136,15 +1208,15 @@ def inverse_dynamics(mt, linalg, dev) -> None:
 
 
 # the shapes of every kernel launch since the counts were last read by
-# main_path_shapes
-SEEN_SHAPES = set()
+# main_path_shapes, by kernel
+SEEN_SHAPES = {k: set() for k in KERNELS}
 
 
 def reset_launches(linalg) -> None:
   for k in KERNELS:
     fn = getattr(linalg, k)
     fn.launches = 0
-    SEEN_SHAPES.update(fn.shapes)
+    SEEN_SHAPES[k].update(fn.shapes)
     fn.shapes.clear()
 
 
@@ -1159,13 +1231,20 @@ def read_tangents(linalg) -> dict:
           for k in KERNELS if k.endswith("_jvp")}
 
 
-def main_path_shapes(linalg) -> set:
-  """Every shape (n, lanes[, tangents], dtype) at which a kernel launched
-  since the last call."""
+def main_path_shapes(linalg) -> dict:
+  """Every shape at which each kernel launched since the last call (as
+  ``path_shapes`` keys them)."""
   reset_launches(linalg)
-  seen = set(SEEN_SHAPES)
-  SEEN_SHAPES.clear()
+  seen = {k: set(v) for k, v in SEEN_SHAPES.items()}
+  for v in SEEN_SHAPES.values():
+    v.clear()
   return seen
+
+
+def unchecked_shapes(mt, linalg) -> list:
+  """The launches since the last call at shapes phase 9 did not check."""
+  checked, seen = path_shapes(mt), main_path_shapes(linalg)
+  return sorted(f"{k} {s}" for k in KERNELS for s in seen[k] - checked[k])
 
 
 def transition(mt, linalg, dev, asset: str,
@@ -2343,7 +2422,8 @@ def box_inverse_test(mt, linalg, dev, m, phase: str, label: str,
       within[:, 1] |= stopped
     ok &= within.all()
     worst = torch.maximum(worst, fwd.solver_fwdinv.amax(0))
-    active += (fwd.contact.dist < fwd.contact.includemargin).sum()
+    if fwd.contact is not None:
+      active += (fwd.contact.dist < fwd.contact.includemargin).sum()
     d = nxt
   torch.cuda.synchronize()
   seconds = time.perf_counter() - t0
@@ -3270,6 +3350,357 @@ def quadruped_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
   return total, times
 
 
+def suite_model(mt, name: str, dev, dtype, solver: str | None = None,
+                noslip: int = 0, integrator: str | None = None):
+  """put_model of the snapshot ``name`` with its solver, noslip iterations
+  and integrator set in the snapshot's Mapping where given (the model's
+  own otherwise), as phase 22 sets the cone."""
+  from mujoco_inversedynamicstest_tpu_torch.models.types import (
+      IntegratorType,
+      SolverType,
+  )
+
+  with np.load(mt.asset_path(f"{name}.npz")) as z:
+    snap = {k: z[k] for k in z.files}
+  if solver is not None:
+    snap["opt_solver"] = np.array(int(SolverType[solver]))
+  if noslip:
+    snap["opt_noslip_iterations"] = np.array(noslip)
+  if integrator is not None:
+    snap["opt_integrator"] = np.array(int(IntegratorType[integrator]))
+  return mt.put_model(snap, device=dev, dtype=dtype)
+
+
+def suite_data(mt, m, name: str, batch: int, seed: int):
+  """States the way the dm_control tasks start them, from a seeded numpy
+  generator: swimmer15 (swimmer.py, randomize_limited_and_rotational_joints)
+  each limited hinge uniform in its range and the root's rotation in
+  [-pi, pi]; fish (fish.py) a random root orientation, the fins and tail
+  uniform in [-0.2, 0.2]; acrobot and pendulum (swingup) their hinges
+  uniform in [-pi, pi]; cartpole (swingup) the cart at 0.01 randn, the
+  pole at pi + 0.01 randn, qvel 0.01 randn; the controls uniform in
+  ctrlrange.  humanoid, box_stack and elliptic_pairs: phase 22's
+  ``contact_data``."""
+  from mujoco_inversedynamicstest_tpu_torch.models.types import JointType
+
+  if name not in SUITE_MODELS:
+    return contact_data(mt, m, name, batch, seed)
+  rng = np.random.RandomState(seed)
+  d = mt.make_data(m, batch)
+  qpos = d.qpos.cpu().numpy().copy()
+  qvel = np.zeros((batch, m.nv))
+  rng_lim = m.jnt_range.cpu().numpy()
+  for j, (jt, adr) in enumerate(zip(m.jnt_type, m.jnt_qposadr)):
+    if jt == JointType.FREE:
+      q = rng.randn(batch, 4)
+      qpos[:, adr + 3:adr + 7] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    elif name == "fish":
+      qpos[:, adr] = rng.uniform(-0.2, 0.2, batch)
+    elif name == "cartpole":
+      qpos[:, adr] = (np.pi if jt == JointType.HINGE else 0.0) + (
+          0.01 * rng.randn(batch))
+    elif m.jnt_limited[j]:
+      qpos[:, adr] = rng.uniform(*rng_lim[j], batch)
+    elif jt == JointType.HINGE:
+      qpos[:, adr] = rng.uniform(-np.pi, np.pi, batch)
+  if name == "cartpole":
+    qvel = 0.01 * rng.randn(batch, m.nv)
+  lo, hi = m.actuator_ctrlrange.cpu().numpy().T
+  t = lambda x: torch.as_tensor(x, dtype=m.dtype, device=m.device)
+  return d.replace(qpos=t(qpos), qvel=t(qvel),
+                   ctrl=t(rng.uniform(lo, hi, (batch, m.nu))))
+
+
+def suite_configs() -> list:
+  """Phase 24's models as (label, name, solver, noslip iterations, timed
+  steps, checked steps)."""
+  out = [(name, name, None, 0, SUITE_STEPS, 5) for name in SUITE_MODELS]
+  for name, solver, noslip, steps, checked in SOLVER_FLEETS:
+    label = f"{name} {solver}" + (f" + noslip {noslip}" if noslip else "")
+    out.append((label, name, solver, noslip, steps, checked))
+  return out
+
+
+def suite_shapes(mt) -> dict:
+  """Phase 24's launches, by kernel (``path_shapes``): each model's nv and
+  dof blocks at the fleet (4096 fp32) and the 64-lane fp64 runs, the
+  solve at one column and, under PGS or noslip, at nefc columns (M⁻¹ Jᵀ of
+  the dual); on swimmer15 also the inverse_test's 64 lanes, transition_ad's
+  8 lanes (JVPs at 2 nv + nu tangents) and transition_fd's 8 x (2 (2 nv +
+  nu) + 1) copies; the multi-column solve timed at (27, 4096, 324),
+  (36, 4096, 164) and (6, 6 x 4096, 164) fp32."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import constraint, smooth
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  out = {k: set() for k in KERNELS}
+  for _, name, solver, noslip, _, _ in suite_configs():
+    m = suite_model(mt, name, "cpu", torch.float64, solver, noslip)
+    blocks = smooth._dof_blocks(m)
+    sizes = {(m.nv, 1)} | ({(sz, len(st)) for sz, st in blocks.items()}
+                           if blocks else set())
+    cols = {1}
+    if solver == "PGS" or noslip:
+      cols.add(constraint.row_layout(m).nefc)
+    runs = [(FLEET, torch.float32), (64, torch.float64)]
+    if name == "swimmer15":
+      nz = derivative.state_dim(m) + m.nu
+      runs += [(8, torch.float64), (8 * (2 * nz + 1), torch.float64)]
+      out["chol_factor_jvp"] |= {(sz, 8 * k, nz, torch.float64)
+                                 for sz, k in sizes}
+      out["chol_solve_jvp"] |= {(sz, 8 * k, nz, 1, torch.float64)
+                                for sz, k in sizes}
+    out["chol_factor"] |= {(sz, b * k, dt) for sz, k in sizes
+                           for b, dt in runs}
+    out["chol_solve"] |= {(sz, b * k, c, dt) for sz, k in sizes
+                          for b, dt in runs for c in cols}
+  out["chol_solve"] |= {(27, FLEET, 324, torch.float32),
+                        (36, FLEET, 164, torch.float32),
+                        (6, 6 * FLEET, 164, torch.float32)}
+  return out
+
+
+def time_solve_columns(linalg, dev, n: int, k: int, lanes: int) -> dict:
+  """The solve kernel (wrapper included), its plain version and
+  torch.cholesky_solve at (lanes, n) fp32 with k right-hand-side columns,
+  in turns plain, kernel, library, library, kernel, plain (medians of the
+  pairs), beside the bound: L's lower triangle and the k columns read once,
+  x written once, 2 n^2 k operations a lane."""
+  rng = np.random.default_rng(5)
+  l = linalg.chol_factor_ref(spd(rng, lanes, n, dev).float())
+  b = torch.as_tensor(rng.standard_normal((lanes, n, k)), device=dev).float()
+  tri = lanes * n * (n + 1) // 2
+  p1, k1, y1, y2, k2, p2 = (time_ms(f, reps=10) for f in (
+      lambda: linalg.chol_solve_ref(l, b), lambda: linalg.chol_solve(l, b),
+      lambda: torch.cholesky_solve(b, l), lambda: torch.cholesky_solve(b, l),
+      lambda: linalg.chol_solve(l, b), lambda: linalg.chol_solve_ref(l, b)))
+  bound, bound_by = bound_ms((tri + 2 * b.numel()) * 4, 2.0 * lanes * n * n * k)
+  return {"ms": float(np.median([k1, k2])),
+          "plain_ms": float(np.median([p1, p2])), "bound_ms": bound,
+          "bound_by": bound_by, "library_ms": float(np.median([y1, y2]))}
+
+
+@contextlib.contextmanager
+def solver_counts():
+  """Counts each constraint solve's iterations (CG, Newton) or sweeps
+  (PGS), and the noslip pass's sweeps: yields a dict of two lists, to
+  which each ``fwd_constraint`` call appends its lanes' counts (the
+  noslip's apart)."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import noslip, solver
+
+  counts = {"solver": [], "noslip": []}
+  inner_solve, inner_noslip = solver.fwd_constraint, noslip.noslip
+
+  def solve(m, d):
+    out = inner_solve(m, d)
+    counts["solver"].append(out.solver_niter)
+    return out
+
+  def sweeps(m, d, *dual):
+    out = inner_noslip(m, d, *dual)
+    counts["noslip"].append(out.solver_niter - d.solver_niter)
+    return out
+
+  solver.fwd_constraint, noslip.noslip = solve, sweeps
+  try:
+    yield counts
+  finally:
+    solver.fwd_constraint, noslip.noslip = inner_solve, inner_noslip
+
+
+def count_text(counts: dict) -> str:
+  """A solve's main iterations or sweeps a lane, and its noslip sweeps,
+  each mean / max over the solves counted."""
+  text = ""
+  if counts["solver"]:
+    total = torch.stack(counts["solver"]).float()
+    main = total - (torch.stack(counts["noslip"]).float()
+                    if counts["noslip"] else 0.0)
+    text = (f"solver iterations a solve and lane {float(main.mean()):.2f} / "
+            f"{int(main.max())}")
+  if counts["noslip"]:
+    ns = torch.stack(counts["noslip"]).float()
+    text += f", noslip sweeps {float(ns.mean()):.2f} / {int(ns.max())}"
+  return text
+
+
+def suite_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
+  """Phase 24: the solvers (CG, PGS, noslip), fluid forces and energy.
+  Each fleet (4096 fp32 from the tasks' starts; SUITE_STEPS steps of the
+  dm_control models, the solver fleets the steps of SOLVER_FLEETS, the
+  humanoid under CG and Newton in turns) with its steps/s, finite lanes,
+  auto-resets, launches a step, peak memory and solver counts a step; the
+  fluid stage's device share of two profiled swimmer15 steps; the solve
+  kernel at many columns and the factor at the new n (timed).  Each
+  configuration's 5 fp64 steps of 64 lanes with the kernels against 5
+  with the plain versions, the fork's inverse_test on swimmer15 (RK4, 64
+  lanes fp64) and transition_ad of 8 swimmer15 lanes under EULER and
+  IMPLICIT against the plain versions and transition_fd (checks).  Returns
+  the kernels' launches of these runs, each read with the counts reset
+  before it, and the kernels' timings."""
+  from mujoco_inversedynamicstest_tpu_torch.models.types import EnableBit
+  from mujoco_inversedynamicstest_tpu_torch.ops import passive
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  t_phase = time.perf_counter()
+  phase = "slice: solvers, fluid and energy"
+  total = dict.fromkeys(KERNELS, 0)
+  times = {}
+
+  def add(launches):
+    for k in KERNELS:
+      total[k] += launches[k]
+
+  def fleet(label, name, solver, noslip, steps):
+    m = suite_model(mt, name, dev, torch.float32, solver, noslip)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    d = mt.step(m, suite_data(mt, m, name, FLEET, seed=24))  # warm-up
+    torch.cuda.synchronize()
+    reset_launches(linalg)
+    with solver_counts() as counts:
+      t0 = time.perf_counter()
+      d = mt.step_n(m, d, steps)
+      torch.cuda.synchronize()
+      seconds = time.perf_counter() - t0
+    launches = read_launches(linalg)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    add(launches)
+    finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
+    resets = int(d.warning.sum())
+    energy = ""
+    if m.opt.enableflags & EnableBit.ENERGY:
+      if not bool(torch.isfinite(d.energy).all()):
+        raise AssertionError(f"{label}: non-finite energy")
+      energy = (f"; energy (potential, kinetic) mean "
+                f"{d.energy.mean(0).tolist()}")
+    rate = FLEET * steps / seconds
+    log(phase,
+        f"{label} (nv {m.nv}) B={FLEET} fp32 {steps} steps in {seconds:.3f} "
+        f"s = {rate:.1f} steps/s on {card}; finite lanes {int(finite.sum())} "
+        f"of {FLEET}; auto-resets {resets}; launches a step " + ", ".join(
+            f"{k} {v / steps:g}" for k, v in launches.items()
+            if not k.endswith("_jvp"))
+        + f"; peak {peak:.3f} GiB; {count_text(counts)}{energy}")
+    if not bool(finite.all()) or resets:
+      raise AssertionError(f"{label}: {int((~finite).sum())} non-finite "
+                           f"lanes, {resets} auto-resets")
+    if not launches["chol_factor"] or not launches["chol_solve"]:
+      raise AssertionError(f"{label}: a primal kernel was not launched")
+    return m, d, rate
+
+  if TIMED:
+    for name in SUITE_MODELS:
+      m, d, _ = fleet(name, name, None, 0, SUITE_STEPS)
+      if name == "swimmer15":
+        step_ms, step_launches, _ = device_profile(
+            lambda: mt.step_n(m, d, 2))
+        vel = mt.fwd_velocity(m, mt.fwd_position(m, d))
+        fluid = lambda: passive.fluid(m, vel)
+        fluid()
+        fl_ms, fl_launches, _ = device_profile(fluid)
+        log("profile: fluid",
+            f"swimmer15 B={FLEET} fp32: a step {step_ms / 2:.3f} device ms "
+            f"/ {step_launches / 2:.0f} launches; the fluid forces "
+            f"{fl_ms:.3f} ms / {fl_launches} launches = "
+            f"{fl_ms / (step_ms / 2):.1%} of the step's device time, "
+            f"{fl_launches / (step_launches / 2):.1%} of its launches")
+    # the humanoid under CG and under Newton in turns: CG, Newton, Newton,
+    # CG; then the other solver fleets
+    configs = suite_configs()[len(SUITE_MODELS):]
+    cg, newton = configs[:2]
+    turns = [fleet(*c[:5])[2] for c in (cg, newton, newton, cg)]
+    log(phase, "humanoid steps/s in turns CG, Newton, Newton, CG: "
+        + ", ".join(f"{r:.1f}" for r in turns) + " (CG / Newton "
+        f"{(turns[0] + turns[3]) / (turns[1] + turns[2]):.3f})")
+    for c in configs[2:]:
+      fleet(*c[:5])
+    # the solve kernel at the dual solvers' columns (box_stack's path: its
+    # six-dof blocks); the factor at the new n
+    for n, lanes, k in ((27, FLEET, 324), (36, FLEET, 164),
+                        (6, 6 * FLEET, 164)):
+      v = time_solve_columns(linalg, dev, n, k, lanes)
+      times.setdefault("chol_solve", {"by_n_columns": {}})[
+          "by_n_columns"][f"{n}x{k} at {lanes} lanes"] = v
+      log("timing", f"chol_solve ({lanes}, {n}) fp32 x {k} columns, ms "
+          f"kernel / plain / torch.cholesky_solve / bound: {v['ms']:.4f} / "
+          f"{v['plain_ms']:.4f} / {v['library_ms']:.4f} / "
+          f"{v['bound_ms']:.4f} ({v['bound_by']}; kernel at "
+          f"{v['bound_ms'] / v['ms']:.1%} of it)")
+    for n in (17, 13):
+      for k, v in time_kernels(linalg, dev, n).items():
+        times.setdefault(k, {}).setdefault("by_n", {})[str(n)] = v
+
+  if CHECKS:
+    errs = []
+    reset_launches(linalg)
+    for label, name, solver, noslip, _, checked in suite_configs():
+      m = suite_model(mt, name, dev, torch.float64, solver, noslip)
+      d_k = d_p = suite_data(mt, m, name, 64, seed=25)
+      err = 0.0
+      for _ in range(checked):
+        d_k = mt.step(m, d_k)
+        with plain_cholesky(linalg):
+          d_p = mt.step(m, d_p)
+        err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)
+                                ).abs().max())
+                         for f in ("qpos", "qvel", "efc_force", "energy")
+                         if getattr(d_k, f) is not None))
+      if not err <= 1e-9:
+        raise AssertionError(f"{label} fp64 steps, kernels vs plain: "
+                             f"{err:.3e}")
+      errs.append(f"{label} ({checked} steps) {err:.3e}")
+    add(read_launches(linalg))
+    log(phase, "64 lanes fp64, kernels vs plain, max |dqpos|,|dqvel|,"
+        "|defc_force|,|denergy| (tol 1e-9): " + ", ".join(errs))
+
+    # the fork's inverse_test on swimmer15: RK4, fresh forces a step
+    m = suite_model(mt, "swimmer15", dev, torch.float64, integrator="RK4")
+    add(box_inverse_test(
+        mt, linalg, dev, m, phase, "swimmer15", SWIMMER_INVERSE_STEPS,
+        seed=26, data=lambda mt, m, b, seed: suite_data(mt, m, "swimmer15",
+                                                        b, seed)))
+
+    # transition_ad of 8 swimmer15 lanes, EULER and IMPLICIT
+    for integrator in ("EULER", "IMPLICIT"):
+      m = suite_model(mt, "swimmer15", dev, torch.float64,
+                      integrator=integrator)
+      d = suite_data(mt, m, "swimmer15", 8, seed=27)
+      d = mt.forward(m, d.replace(qvel=torch.as_tensor(
+          0.5 * np.random.RandomState(28).randn(8, m.nv), device=dev)))
+      reset_launches(linalg)
+      t0 = time.perf_counter()
+      ad = derivative.transition_ad(m, d)
+      torch.cuda.synchronize()
+      seconds = time.perf_counter() - t0
+      launches = read_launches(linalg)
+      if not all(launches.values()):
+        raise AssertionError(f"a kernel was not launched: {launches}")
+      add(launches)
+      with plain_cholesky(linalg):
+        plain = derivative.transition_ad(m, d)
+      fd = derivative.transition_fd(
+          m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
+          eps=1e-6, flg_centered=True)
+      err_plain = max(float((ad.A - plain.A).abs().max()),
+                      float((ad.B - plain.B).abs().max()))
+      err_fd = float((ad.A - fd.A).abs().max())
+      scale = float(fd.A.abs().max())
+      if not err_plain <= 1e-9:
+        raise AssertionError(f"transition_ad kernels vs plain: "
+                             f"{err_plain:.3e}")
+      if not err_fd <= 1e-4 * scale:
+        raise AssertionError(f"transition_ad vs transition_fd: {err_fd:.3e}")
+      log(phase,
+          f"swimmer15 8 lanes fp64 {integrator}, in the fluid: transition_ad "
+          f"{seconds:.3f} s, A {tuple(ad.A.shape)}, B {tuple(ad.B.shape)}; "
+          f"kernels vs plain max |dA|,|dB| {err_plain:.3e} (tol 1e-9); vs "
+          f"transition_fd (centered, eps 1e-6) max |dA| {err_fd:.3e} = "
+          f"{err_fd / scale:.3e} of max|A| {scale:.3e} (tol 1e-4 of it); "
+          f"launches {launches}, tangents a lane {read_tangents(linalg)}")
+  log(phase, f"phase 24 in {time.perf_counter() - t_phase:.1f} s")
+  return total, times
+
+
 def fleet_rate(mt, dev) -> float:
   """Phase 6's timed loop alone (100 steps of 4096 humanoid_mjx lanes,
   fp32, after a warm-up step): steps/s."""
@@ -3321,7 +3752,7 @@ class ChecksProcess:
 def run_checks(mt, linalg, dev, smi, lap) -> None:
   """The checks process: the kernels against their plain versions (phases
   3-4, 8, 9), phases 7, 10 and 16, and the fp64 checks of phases 6, 13, 15
-  and 17-23.  Prints one JSON line: its launches by path, the kernels'
+  and 17-24.  Prints one JSON line: its launches by path, the kernels'
   largest errors, and the launches at shapes phase 9 did not check."""
   slice_err = check_kernels(linalg, dev)
   slice_err.update(check_jvp_kernels(linalg, dev))
@@ -3356,10 +3787,10 @@ def run_checks(mt, linalg, dev, smi, lap) -> None:
   lap("22")
   by_path["shapes"] = quadruped_slice(mt, linalg, dev, smi)[0]
   lap("23")
-  checked = set().union(*path_shapes(mt))
-  unchecked = sorted(map(str, main_path_shapes(linalg) - checked))
+  by_path["suite"] = suite_slice(mt, linalg, dev, smi)[0]
+  lap("24")
   print(json.dumps({"checks": {"by_path": by_path, "slice_err": slice_err,
-                               "unchecked": unchecked}}))
+                               "unchecked": unchecked_shapes(mt, linalg)}}))
 
 
 def main() -> None:
@@ -3379,6 +3810,8 @@ def main() -> None:
                     help="only phase 22, the contact models")
   mode.add_argument("--shapes", action="store_true",
                     help="only phase 23, the quadruped and the terrain")
+  mode.add_argument("--suite", action="store_true",
+                    help="only phase 24, the solvers, fluid and energy")
   mode.add_argument("--checks", action="store_true",
                     help="the untimed checks of a full run (the full run "
                     "starts this process itself)")
@@ -3428,6 +3861,12 @@ def main() -> None:
     contact_slice(mt, linalg, dev, smi)
   elif args.shapes:
     quadruped_slice(mt, linalg, dev, smi)
+  elif args.suite:
+    suite_slice(mt, linalg, dev, smi)
+    unchecked = unchecked_shapes(mt, linalg)
+    if unchecked:
+      raise AssertionError(f"launches at shapes {unchecked} that phase 9 "
+                           "did not hold to the plain versions")
   else:
     CHECKS = False
     rates, checks = [], []
@@ -3451,8 +3890,7 @@ def main() -> None:
         mine[k] = mine.get(k, 0) + v
     launches = {k: sum(p.get(k, 0) for p in by_path.values())
                 for k in KERNELS}
-    checked = set().union(*path_shapes(mt))
-    unchecked = sorted(set(map(str, main_path_shapes(linalg) - checked))
+    unchecked = sorted(set(unchecked_shapes(mt, linalg))
                        | set(result["unchecked"]))
     if unchecked:
       raise AssertionError(f"launches at shapes {unchecked} that phase 9 "
@@ -3522,9 +3960,13 @@ def timed_run(mt, linalg, dev, smi, lap, rates,
   lap("22")
   by_path["shapes"], times_shapes = quadruped_slice(mt, linalg, dev, smi)
   lap("23")
-  for more in (times_n2, times_convex, times_contact, times_shapes):
+  by_path["suite"], times_suite = suite_slice(mt, linalg, dev, smi)
+  lap("24")
+  for more in (times_n2, times_convex, times_contact, times_shapes,
+               times_suite):
     for k, v in more.items():
-      times_small.setdefault(k, {"by_n": {}})["by_n"].update(v["by_n"])
+      for by, rows in v.items():
+        times_small.setdefault(k, {}).setdefault(by, {}).update(rows)
   for k, v in times_small.items():
     times[k].update(v)
   return by_path, times, tangents

@@ -72,7 +72,8 @@ _ARRAY_FIELDS = (
     "geom_pos", "geom_quat", "geom_size", "geom_friction", "geom_margin",
     "geom_gap", "geom_solref", "geom_solimp", "geom_solmix", "geom_type",
     "geom_bodyid", "geom_contype", "geom_conaffinity", "geom_condim",
-    "geom_priority", "geom_dataid", "geom_rbound", "exclude_signature",
+    "geom_priority", "geom_dataid", "geom_rbound", "geom_fluid",
+    "exclude_signature",
     "pair_dim", "pair_geom1", "pair_geom2", "pair_signature", "pair_solref",
     "pair_solreffriction", "pair_solimp", "pair_margin", "pair_gap",
     "pair_friction",
@@ -103,7 +104,8 @@ _SIZE_FIELDS = (
 _OPT_FIELDS = (
     "timestep", "gravity", "wind", "density", "viscosity", "impratio",
     "tolerance", "ls_tolerance", "integrator", "cone", "solver", "iterations",
-    "ls_iterations", "noslip_iterations", "disableflags", "enableflags",
+    "ls_iterations", "noslip_iterations", "noslip_tolerance", "magnetic",
+    "disableflags", "enableflags",
 )
 # MJX-convention <numeric> customs (contact budgets)
 _BUDGET_NUMERICS = ("max_contact_points", "max_geom_pairs")
@@ -142,7 +144,8 @@ def _source_arrays(src) -> dict[str, np.ndarray]:
     f = {k: np.asarray(v) for k, v in src.items()}
   else:
     return _snapshot_arrays(src)
-  missing = sorted(set(_ARRAY_FIELDS + _SIZE_FIELDS) - set(f))
+  missing = sorted(set(_ARRAY_FIELDS + _SIZE_FIELDS
+                       + tuple(f"opt_{o}" for o in _OPT_FIELDS)) - set(f))
   if missing:
     raise ValueError(f"model snapshot lacks the fields {missing}: rewrite it "
                      "from the MjModel with save_model_snapshot")
@@ -201,16 +204,12 @@ def validate_model(f: Mapping) -> None:
       bad(f"{name} = {int(f[name])}")
   IntegratorType(int(f["opt_integrator"]))
   ConeType(int(f["opt_cone"]))
-  if int(f["opt_solver"]) != SolverType.NEWTON:
-    bad(f"solver {SolverType(int(f['opt_solver'])).name}")
-  if int(f["opt_noslip_iterations"]):
-    bad("noslip solver")
-  enable = int(f["opt_enableflags"]) & ~int(EnableBit.INVDISCRETE)
+  SolverType(int(f["opt_solver"]))
+  enable = int(f["opt_enableflags"]) & ~int(EnableBit.INVDISCRETE
+                                            | EnableBit.ENERGY)
   if enable:
-    bad(f"enable flags {enable:#x}")
-  if (float(f["opt_density"]) > 0 or float(f["opt_viscosity"]) > 0
-      or np.any(f["opt_wind"] != 0)):
-    bad("fluid forces")
+    bad("enable flags " + ", ".join(
+        b.name for b in EnableBit if enable & b) + f" ({enable:#x})")
   _validate_tendons(f, bad)
   _validate_actuators(f, bad)
 
@@ -356,6 +355,12 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       ls_iterations=int(f["opt_ls_iterations"]),
       disableflags=int(f["opt_disableflags"]),
       enableflags=int(f["opt_enableflags"]),
+      noslip_iterations=int(f["opt_noslip_iterations"]),
+      noslip_tolerance=float(f["opt_noslip_tolerance"]),
+      density=float(f["opt_density"]),
+      viscosity=float(f["opt_viscosity"]),
+      wind=t("opt_wind"),
+      magnetic=t("opt_magnetic"),
   )
   tree = build_tree_layout(i("body_parentid"), i("body_jntnum"),
                            i("dof_parentid"), i("body_dofadr"),
@@ -369,7 +374,7 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       "dof_solref", "dof_solimp", "eq_data", "eq_solref", "eq_solimp",
       "geom_pos", "geom_quat", "geom_size", "geom_friction", "geom_margin",
       "geom_gap", "geom_solref", "geom_solimp", "geom_solmix", "geom_rbound",
-      "pair_margin", "pair_gap", "pair_friction", "pair_solref",
+      "geom_fluid", "pair_margin", "pair_gap", "pair_friction", "pair_solref",
       "pair_solreffriction", "pair_solimp",
       "site_pos", "site_quat", "site_size", "sensor_cutoff",
       "actuator_gear", "actuator_ctrlrange", "actuator_forcerange",
@@ -412,6 +417,11 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       stat_meaninertia=float(f["stat_meaninertia"]),
       has_dof_damping=bool(np.any(f["dof_damping"] > 0)),
       has_gravcomp=bool(np.any(f["body_gravcomp"] != 0)),
+      has_fluid=bool(float(f["opt_density"]) > 0
+                     or float(f["opt_viscosity"]) > 0
+                     or np.any(f["opt_wind"] != 0)),
+      geom_fluid_active=np.asarray(f["geom_fluid"]).reshape(
+          len(f["geom_type"]), -1)[:, 0] > 0,
       dof_frictionloss_nz=np.asarray(f["dof_frictionloss"]) > 0,
       tendon_frictionloss_nz=np.asarray(f["tendon_frictionloss"]) > 0,
       wrap_prm=np.asarray(f["wrap_prm"], np.float64),
@@ -484,6 +494,7 @@ def make_data(m: Model, batch: int, device=None, dtype=None) -> Data:
       mocap_quat=pose(m.body_quat),
       act=z(m.na),
       sensordata=z(m.nsensordata),
+      energy=z(2),
   )
 
 

@@ -212,7 +212,7 @@ PORTED_SENSORS = frozenset(SensorType[n] for n in (
     "JOINTACTFRC", "BALLQUAT", "BALLANGVEL", "FRAMEPOS", "FRAMEQUAT",
     "FRAMEXAXIS", "FRAMEYAXIS", "FRAMEZAXIS", "FRAMELINVEL", "FRAMEANGVEL",
     "FRAMELINACC", "FRAMEANGACC", "SUBTREECOM", "SUBTREELINVEL",
-    "SUBTREEANGMOM", "CLOCK"))
+    "SUBTREEANGMOM", "CLOCK", "MAGNETOMETER", "E_POTENTIAL", "E_KINETIC"))
 # the sensors that read the frame of an object (and of a reference object)
 # of one of FRAME_OBJECTS
 FRAME_SENSORS = frozenset(SensorType[n] for n in (
@@ -318,6 +318,12 @@ class Option:
   ls_iterations: int
   disableflags: int
   enableflags: int
+  noslip_iterations: int
+  noslip_tolerance: float
+  density: float
+  viscosity: float
+  wind: torch.Tensor       # (3,)
+  magnetic: torch.Tensor   # (3,)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -410,6 +416,7 @@ class Model:
   geom_priority: np.ndarray
   geom_dataid: np.ndarray          # mesh id of a mesh geom, else -1
   geom_rbound: torch.Tensor        # (ngeom,) bounding-sphere radius
+  geom_fluid: torch.Tensor         # (ngeom, 12) ellipsoid fluid model
   exclude_signature: np.ndarray
 
   # explicit <pair>s: their geoms and condim, and the parameters that
@@ -496,6 +503,10 @@ class Model:
   stat_meaninertia: float
   has_dof_damping: bool
   has_gravcomp: bool
+  # density, viscosity or wind set: passive adds the fluid forces
+  has_fluid: bool
+  # (ngeom,) bool: geoms with fluidshape="ellipsoid" (geom_fluid[:, 0] > 0)
+  geom_fluid_active: np.ndarray
   # convex hull topology of each mesh (ops/hull.HullSpec); () when no mesh
   # geom can collide
   mesh_hull: tuple
@@ -627,6 +638,7 @@ class Data:
   qfrc_spring: torch.Tensor = None  # (B, nv)
   qfrc_damper: torch.Tensor = None  # (B, nv)
   qfrc_gravcomp: torch.Tensor = None  # (B, nv)
+  qfrc_fluid: torch.Tensor = None  # (B, nv)
   qfrc_passive: torch.Tensor = None  # (B, nv)
   qfrc_bias: torch.Tensor = None   # (B, nv)
   efc_aref: torch.Tensor = None    # (B, nefc)
@@ -643,6 +655,9 @@ class Data:
   solver_niter: torch.Tensor = None    # (B,) int32
   solver_stat: torch.Tensor = None     # (B, stat_cap, 3)
   solver_fwdinv: torch.Tensor = None   # (B, 2)
+  # potential and kinetic energy, under the ENERGY enable flag (mj_energyPos,
+  # mj_energyVel); zero otherwise
+  energy: torch.Tensor = None          # (B, 2)
 
   # sensors and the post-constraint RNE they read
   sensordata: torch.Tensor = None      # (B, nsensordata)

@@ -278,7 +278,8 @@ def forward(m: Model, d: Data, skip_sensor: bool = False,
   callback (C's ``mjcb_control``): it fires where ``mj_forwardSkip`` calls
   it, after the velocity stage and its sensors and before actuation, and
   its result becomes ``d.ctrl``.  As in C it does not fire when actuation
-  is disabled.
+  is disabled.  Under the ENERGY enable flag ``d.energy`` holds the
+  potential and kinetic energy (C's; the JAX package leaves it zero).
   """
   d = fwd_position(m, d)
   if not skip_sensor:
@@ -286,6 +287,11 @@ def forward(m: Model, d: Data, skip_sensor: bool = False,
   d = fwd_velocity(m, d)
   if not skip_sensor:
     d = sensor.sensor_vel(m, d)
+  if m.opt.enableflags & EnableBit.ENERGY:
+    # C's mj_energyPos after the position stage, mj_energyVel after the
+    # velocity stage; the first reads no velocity
+    d = d.replace(energy=torch.stack([sensor.energy_pos(m, d),
+                                      sensor.energy_vel(m, d)], dim=-1))
   if ctrl_fn is not None and not m.opt.disableflags & DisableBit.ACTUATION:
     d = _control(m, d, ctrl_fn)
   d = fwd_actuation(m, d)
@@ -516,7 +522,7 @@ def implicit(m: Model, d: Data) -> Data:
   steps the lone free bodies by C's implicit midpoint rule
   (``_midpoint_qvel``; the JAX package has no such term), but for
   INVDISCRETE, whose inverse (``inverse.discrete_acc``) undoes the solve
-  alone: C skips the rule then too."""
+  alone, and in a fluid: C skips the rule then too."""
   full = m.opt.integrator == IntegratorType.IMPLICIT
   qderiv = smooth_vel_deriv(m, d, flg_bias=full)
   mh = d.qM - m.opt.timestep * qderiv
@@ -525,7 +531,10 @@ def implicit(m: Model, d: Data) -> Data:
     return _advance(m, d, torch.linalg.solve(mh, qfrc), d.act_dot)
   mh = 0.5 * (mh + mh.transpose(1, 2))
   qacc = linalg.chol_solve(linalg.chol_factor(mh), qfrc)
-  if m.opt.enableflags & EnableBit.INVDISCRETE:
+  # C applies the rule neither under INVDISCRETE nor in a fluid (density or
+  # viscosity set: its probe, tests/test_torch_fluid.py)
+  if (m.opt.enableflags & EnableBit.INVDISCRETE or m.opt.density > 0
+      or m.opt.viscosity > 0):
     return _advance(m, d, qacc, d.act_dot)
   qvel, qvel_for_pos = _midpoint_qvel(m, d, d.qvel + qacc * m.opt.timestep)
   return _advance(m, d, qacc, d.act_dot, qvel_for_pos=qvel_for_pos,

@@ -403,7 +403,7 @@ def _solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
   with torch.cuda.device(l.device):
     _check_launch(fn(l.data_ptr(), b.data_ptr(), x.data_ptr(), n, ld, bsz, k,
                      per_block, smem, _stream(l)), "chol_solve")
-  _count(chol_solve, n, bsz, l.dtype)
+  _count(chol_solve, n, bsz, k, l.dtype)
   return x
 
 
@@ -416,8 +416,10 @@ def _strides(*ts: torch.Tensor | None) -> ctypes.Array:
 
 
 def _count(fn, *shape) -> None:
-  """One launch of ``fn``'s kernel at ``shape``: (n, lanes, dtype) of a
-  primal kernel, (n, lanes, tangents a lane, dtype) of a JVP kernel."""
+  """One launch of ``fn``'s kernel at ``shape``: (n, lanes, dtype) of the
+  factor, (n, lanes, columns, dtype) of the solve, (n, lanes, tangents a
+  lane, dtype) of the factor's JVP and (n, lanes, tangents a lane,
+  columns, dtype) of the solve's."""
   fn.launches += 1
   fn.shapes[shape] += 1
 
@@ -506,7 +508,7 @@ def chol_solve_jvp(l: torch.Tensor, dl: torch.Tensor | None, x: torch.Tensor,
         None if db4 is None else db4.data_ptr(), dx4.data_ptr(),
         _strides(l, dl4, x3, db4, dx4), n, lanes, nt, k, g.lanes, g.warps,
         g.buffers, g.smem, _stream(l)), "chol_solve_jvp")
-  _count(chol_solve_jvp, n, lanes, nt, l.dtype)
+  _count(chol_solve_jvp, n, lanes, nt, k, l.dtype)
   return dx if tangents else dx[0]
 
 

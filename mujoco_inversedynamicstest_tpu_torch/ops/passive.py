@@ -1,8 +1,12 @@
 """Passive forces: joint and tendon springs, dof and tendon dampers,
-gravity compensation.
+gravity compensation, fluid forces.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/passive.py`` without the fluid
-and flex terms (``put_model`` refuses models that need them).
+Port of ``mujoco_inversedynamicstest_tpu/ops/passive.py`` without the flex
+terms (``put_model`` refuses flex).  The fluid forces (``mj_fluid``) are
+both of C's models, the inertia box of each body and the ellipsoid of each
+``fluidshape="ellipsoid"`` geom, computed in one batch over the bodies and
+geoms of each model and applied to the dofs in one contraction (the JAX
+package loops over the geoms to pick the bodies).
 """
 
 from __future__ import annotations
@@ -13,6 +17,7 @@ import torch
 from mujoco_inversedynamicstest_tpu_torch.models.types import (
     Data,
     DisableBit,
+    GeomType,
     JointType,
     Model,
 )
@@ -58,6 +63,159 @@ def gravcomp(m: Model, d: Data) -> torch.Tensor:
   return support.jac_transpose(m, d, d.xipos, force, torch.zeros_like(force))
 
 
+def _mv(mat: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+  """mat v for (..., 3, 3) and (..., 3), by products and sums."""
+  return (mat * v[..., None, :]).sum(-1)
+
+
+def _fluid_layout(m: Model):
+  """The fluid forces' host tables: the bodies of the inertia-box model
+  (massive bodies with no ellipsoid geom, C's ``mj_fluid``), the geoms of
+  the ellipsoid model (those with ``fluidshape="ellipsoid"`` on massive
+  bodies), and each geom's equivalent semi-axes' source (``mju_geomSemiAxes``)."""
+  mass = m.body_mass.cpu().numpy()
+  massive = mass >= math.MINVAL
+  ell = m.geom_fluid_active & massive[m.geom_bodyid]
+  box = massive.copy()
+  box[0] = False
+  box[m.geom_bodyid[m.geom_fluid_active]] = False
+  return np.nonzero(box)[0], np.nonzero(ell)[0]
+
+
+def _semiaxes(m: Model, geoms: np.ndarray) -> torch.Tensor:
+  """Equivalent ellipsoid semi-axes (K, 3) of the geoms (``mju_geomSemiAxes``):
+  a sphere's radius thrice, a capsule's (r, r, half-length + r), a
+  cylinder's (r, r, half-length), the size of the others."""
+  size = m.geom_size[m.const(geoms)]
+  t = m.geom_type[geoms]
+  r = size[:, 0]
+  s1 = torch.where(m.const(np.isin(t, (GeomType.SPHERE, GeomType.CAPSULE,
+                                       GeomType.CYLINDER))), r, size[:, 1])
+  s2 = torch.where(m.const(t == GeomType.SPHERE), r, size[:, 2])
+  s2 = torch.where(m.const(t == GeomType.CAPSULE), r + size[:, 1], s2)
+  s2 = torch.where(m.const(t == GeomType.CYLINDER), size[:, 1], s2)
+  return torch.stack([r, s1, s2], dim=-1)
+
+
+def _box_fluid(m: Model, d: Data, bodies: np.ndarray):
+  """The inertia-box model (``mj_inertiaBoxFluidModel``) of ``bodies``: each
+  body's box of equal inertia, viscous drag on the box's equivalent sphere
+  and the density's quadratic drag on its faces, in the inertial frame
+  with the wind subtracted.  Returns the world force and torque (B, K, 3)
+  at each body's CoM."""
+  b = m.const(bodies)
+  inert, mass = m.body_inertia[b], m.body_mass[b]
+  roll = inert[:, [1, 0, 0]] + inert[:, [2, 2, 1]] - inert
+  box = torch.sqrt(torch.clamp(roll, min=math.MINVAL) / mass[:, None] * 6.0)
+  root = m.const(m.body_rootid[bodies])
+  vel = math.transform_motion(d.cvel[:, b], d.xipos[:, b]
+                              - d.subtree_com[:, root])
+  rot = d.ximat[:, b]
+  ang = math.mat_t_vec(rot, vel[..., :3])
+  lin = math.mat_t_vec(rot, vel[..., 3:]) - math.mat_t_vec(rot, m.opt.wind)
+  diam = box.mean(-1, keepdim=True)
+  visc, rho = m.opt.viscosity, m.opt.density
+  frc_ang = ang * (-torch.pi * diam**3 * visc)
+  frc_lin = lin * (-3.0 * torch.pi * diam * visc)
+  bx, by, bz = box.unbind(-1)
+  face = torch.stack([by * bz, bx * bz, bx * by], dim=-1)
+  roll4 = torch.stack([bx * (by**4 + bz**4), by * (bx**4 + bz**4),
+                       bz * (bx**4 + by**4)], dim=-1)
+  frc_lin = frc_lin - 0.5 * rho * face * torch.abs(lin) * lin
+  frc_ang = frc_ang - rho * roll4 * torch.abs(ang) * ang / 64.0
+  return _mv(rot, frc_lin), _mv(rot, frc_ang)
+
+
+def _ellipsoid_fluid(m: Model, d: Data, geoms: np.ndarray):
+  """The ellipsoid model (``mj_ellipsoidFluidModel``: ``mj_addedMassForces``
+  and ``mj_viscousForces``) of ``geoms``: added mass, Magnus and Kutta
+  lift, blunt, slender and angular drag and Stokes viscosity on each geom's
+  equivalent ellipsoid, scaled by its interaction coefficient, in the
+  geom's frame with the wind subtracted.  Returns the world force and
+  torque (B, K, 3) at each geom's centre."""
+  g = m.const(geoms)
+  coef = m.geom_fluid[g]
+  interact, c_blunt, c_slender, c_ang, c_kutta, c_magnus = coef[:, :6].T
+  v_mass, v_inert = coef[:, 6:9], coef[:, 9:12]
+  rho, visc = m.opt.density, m.opt.viscosity
+  root = m.const(m.body_rootid[m.geom_bodyid[geoms]])
+  body = m.const(m.geom_bodyid[geoms])
+  vel = math.transform_motion(d.cvel[:, body], d.geom_xpos[:, g]
+                              - d.subtree_com[:, root])
+  rot = d.geom_xmat[:, g]
+  ang = math.mat_t_vec(rot, vel[..., :3])
+  lin = math.mat_t_vec(rot, vel[..., 3:]) - math.mat_t_vec(rot, m.opt.wind)
+
+  # added mass (mj_addedMassForces)
+  p_lin, p_ang = rho * v_mass * lin, rho * v_inert * ang
+  frc_ang = math.cross(p_lin, lin) + math.cross(p_ang, ang)
+  frc_lin = math.cross(p_lin, ang)
+
+  # lift, drag and viscosity (mj_viscousForces)
+  size = _semiaxes(m, geoms)
+  s0, s1, s2 = size.unbind(-1)
+  volume = 4.0 / 3.0 * torch.pi * s0 * s1 * s2
+  d_max, d_min = size.amax(-1), size.amin(-1)
+  d_mid = s0 + s1 + s2 - d_max - d_min
+  a_max = torch.pi * d_max * d_mid
+  magnus = math.cross(ang, lin) * (c_magnus * rho * volume)[:, None]
+  lx, ly, lz = lin.unbind(-1)
+  sq = lambda x: x * x
+  proj_denom = (sq(sq(s1 * s2)) * sq(lx) + sq(sq(s2 * s0)) * sq(ly)
+                + sq(sq(s0 * s1)) * sq(lz))
+  proj_num = sq(s1 * s2 * lx) + sq(s2 * s0 * ly) + sq(s0 * s1 * lz)
+  a_proj = torch.pi * torch.sqrt(proj_denom
+                                 / torch.clamp(proj_num, min=math.MINVAL))
+  norm = torch.stack([sq(s1 * s2) * lx, sq(s2 * s0) * ly, sq(s0 * s1) * lz],
+                     dim=-1)
+  lin_norm = torch.linalg.vector_norm(lin, dim=-1)
+  cos_alpha = proj_num / torch.clamp(lin_norm * proj_denom, min=math.MINVAL)
+  kutta = math.cross(math.cross(norm, lin) * (
+      c_kutta * rho * cos_alpha * a_proj)[..., None], lin)
+  eq_d = 2.0 / 3.0 * (s0 + s1 + s2)
+  moment = lambda a, b, c: 8.0 / 15.0 * torch.pi * a * torch.maximum(b, c)**4
+  i_max = 8.0 / 15.0 * torch.pi * d_mid * d_max**4
+  inertia = torch.stack([moment(s0, s1, s2), moment(s1, s2, s0),
+                         moment(s2, s0, s1)], dim=-1)
+  mom_visc = ang * (c_ang[:, None] * inertia
+                    + c_slender[:, None] * (i_max[:, None] - inertia))
+  drag_lin = visc * 3.0 * torch.pi * eq_d + rho * lin_norm * (
+      a_proj * c_blunt + c_slender * (a_max - a_proj))
+  drag_ang = visc * torch.pi * eq_d**3 + rho * torch.linalg.vector_norm(
+      mom_visc, dim=-1)
+  frc_ang = (frc_ang - drag_ang[..., None] * ang) * interact[:, None]
+  frc_lin = (frc_lin + magnus + kutta - drag_lin[..., None] * lin
+             ) * interact[:, None]
+  return _mv(rot, frc_lin), _mv(rot, frc_ang)
+
+
+def fluid(m: Model, d: Data) -> torch.Tensor:
+  """Fluid forces (``mj_fluid``), (B, nv): the inertia-box model on every
+  massive body without an ellipsoid geom and the ellipsoid model on every
+  ellipsoid geom, each force and torque applied at its body's CoM or its
+  geom's centre, all in one contraction with ``cdof``."""
+  bodies, geoms = m.memo("fluid_layout", lambda: _fluid_layout(m))
+  points, owner, force, torque = [], [], [], []
+  if bodies.size:
+    f, t = _box_fluid(m, d, bodies)
+    points.append(d.xipos[:, m.const(bodies)])
+    owner.append(bodies)
+    force.append(f)
+    torque.append(t)
+  if geoms.size:
+    f, t = _ellipsoid_fluid(m, d, geoms)
+    points.append(d.geom_xpos[:, m.const(geoms)])
+    owner.append(m.geom_bodyid[geoms])
+    force.append(f)
+    torque.append(t)
+  if not owner:
+    return d.qpos.new_zeros((d.batch, m.nv))
+  owner = np.concatenate(owner)
+  cat = lambda xs: torch.cat(xs, dim=1) if len(xs) > 1 else xs[0]
+  return support.apply_at_bodies(m, d, cat(points), owner, cat(force),
+                                 cat(torque))
+
+
 def _tendon_forces(m: Model, d: Data):
   """Tendon spring (toward the ``lengthspring`` deadband [lower, upper],
   zero inside it) and damper forces along each tendon, (B, ntendon)."""
@@ -92,7 +250,8 @@ def passive(m: Model, d: Data) -> Data:
     actgrav = m.jnt_actgravcomp[m.dof_jntid] != 0
     if actgrav.any():
       to_passive = torch.where(m.const(actgrav), 0.0, qfrc_gravcomp)
+  qfrc_fluid = fluid(m, d) if m.has_fluid else zero
   return d.replace(
       qfrc_spring=qfrc_spring, qfrc_damper=qfrc_damper,
-      qfrc_gravcomp=qfrc_gravcomp,
-      qfrc_passive=qfrc_spring + qfrc_damper + to_passive)
+      qfrc_gravcomp=qfrc_gravcomp, qfrc_fluid=qfrc_fluid,
+      qfrc_passive=qfrc_spring + qfrc_damper + qfrc_fluid + to_passive)

@@ -22,6 +22,7 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
     Data,
     DataType,
     DisableBit,
+    JointType,
     Model,
     ObjType,
     SensorType,
@@ -53,7 +54,8 @@ _KIND = {
     S.ACCELEROMETER: ("siteacc", 3),
     S.FRAMEANGACC: ("frameacc", 0), S.FRAMELINACC: ("frameacc", 3),
     S.TORQUE: ("forcetorque", 0), S.FORCE: ("forcetorque", 3),
-    S.TOUCH: ("touch", 0),
+    S.TOUCH: ("touch", 0), S.MAGNETOMETER: ("magnetometer", 0),
+    S.E_POTENTIAL: ("epotential", 0), S.E_KINETIC: ("ekinetic", 0),
 }
 # the kinds that read cacc or cfrc_int (mj_rnePostConstraint)
 _RNEPOST = {"siteacc", "frameacc", "forcetorque"}
@@ -90,7 +92,7 @@ def _build_plan(m: Model, stage: Stage) -> _Plan | None:
   width = {"ballquat": 4, "framequat": 4, "frameaxis": 9, "sitevel": 6,
            "framevel": 6, "subtreevel": 6, "siteacc": 6, "frameacc": 6,
            "forcetorque": 6, "framepos": 3, "ballangvel": 3,
-           "subtreecom": 3}
+           "subtreecom": 3, "magnetometer": 3}
   members = {}
   for i in ids:
     kind, _ = _KIND[S(int(m.sensor_type[i]))]
@@ -384,7 +386,55 @@ def _values(m: Model, d: Data, g: _Group, cache: dict) -> torch.Tensor:
     return math.rotate_spatial_t(d.site_xmat[:, oid], w)
   if k == "touch":
     return _touch(m, d, g.objid)[..., None]
+  if k == "magnetometer":
+    return math.mat_t_vec(d.site_xmat[:, oid], m.opt.magnetic)
+  if k in ("epotential", "ekinetic"):
+    e = energy_pos(m, d) if k == "epotential" else energy_vel(m, d)
+    return e[:, None, None].expand(d.batch, len(g.objid), 1)
   raise NotImplementedError(f"sensor kind {k}")
+
+
+def energy_pos(m: Model, d: Data) -> torch.Tensor:
+  """Potential energy (B,) (``mj_energyPos``): gravity's on every body's
+  CoM, and the joint and tendon springs' (a free joint's translation and
+  rotation, a ball's rotation; a tendon's outside its ``lengthspring``
+  deadband), from a completed position stage."""
+  e = d.qpos.new_zeros(d.batch)
+  if not m.opt.disableflags & DisableBit.GRAVITY:
+    e = e - torch.sum(m.body_mass[1:] * (d.xipos[:, 1:] * m.opt.gravity
+                                         ).sum(-1), dim=-1)
+  if m.opt.disableflags & DisableBit.SPRING:
+    return e
+  jt, adr = m.jnt_type, m.jnt_qposadr
+  k = m.jnt_stiffness
+  scalar = np.nonzero((jt == JointType.HINGE) | (jt == JointType.SLIDE))[0]
+  free = np.nonzero(jt == JointType.FREE)[0]
+  ball = np.nonzero(jt == JointType.BALL)[0]
+  if scalar.size:
+    p = m.const(adr[scalar])
+    dif = d.qpos[:, p] - m.qpos_spring[p]
+    e = e + 0.5 * torch.sum(k[m.const(scalar)] * dif * dif, dim=-1)
+  if free.size:
+    p = m.const(adr[free][:, None] + np.arange(3))
+    dif = d.qpos[:, p] - m.qpos_spring[p]
+    e = e + 0.5 * torch.sum(k[m.const(free)] * (dif * dif).sum(-1), dim=-1)
+  for jids, off in ((ball, 0), (free, 3)):
+    if jids.size:
+      p = m.const(adr[jids][:, None] + off + np.arange(4))
+      dif = math.quat_sub(math.normalize_quat(d.qpos[:, p]), m.qpos_spring[p])
+      e = e + 0.5 * torch.sum(k[m.const(jids)] * (dif * dif).sum(-1), dim=-1)
+  if m.ntendon:
+    length = d.ten_length
+    lower, upper = m.tendon_lengthspring[:, 0], m.tendon_lengthspring[:, 1]
+    disp = torch.where(length > upper, upper - length,
+                       torch.where(length < lower, lower - length, 0.0))
+    e = e + 0.5 * torch.sum(m.tendon_stiffness * disp * disp, dim=-1)
+  return e
+
+
+def energy_vel(m: Model, d: Data) -> torch.Tensor:
+  """Kinetic energy 0.5 qvelᵀ M qvel (B,) (``mj_energyVel``)."""
+  return 0.5 * torch.sum(d.qvel * smooth.mul_m(m, d, d.qvel), dim=-1)
 
 
 def _stage(m: Model, d: Data, stage: Stage) -> Data:

@@ -1,7 +1,8 @@
-"""Constraint solver: primal Newton with an exact line search.
+"""Constraint solvers: primal Newton and Polak-Ribière CG with an exact line
+search, and the dispatch to PGS and the noslip pass.
 
-Port of the Newton path of ``mujoco_inversedynamicstest_tpu/ops/solver.py``
-(``mj_solNewton``).  The solve minimizes, per lane,
+Port of ``mujoco_inversedynamicstest_tpu/ops/solver.py`` (``mj_solNewton``,
+``mj_solCG``).  The primal solve minimizes, per lane,
 
     cost(qacc) = 0.5 (qacc - qacc_smooth)' M (qacc - qacc_smooth)
                  + sum_i s_i(J_i qacc - aref_i)
@@ -25,9 +26,10 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
     Data,
     DisableBit,
     Model,
+    SolverType,
 )
 from mujoco_inversedynamicstest_tpu_torch.ops import constraint, linalg, math
-from mujoco_inversedynamicstest_tpu_torch.ops import smooth
+from mujoco_inversedynamicstest_tpu_torch.ops import noslip, smooth
 
 
 def stat_cap(m: Model) -> int:
@@ -97,12 +99,19 @@ def _eval_state(m: Model, d: Data, qacc, with_grad: bool) -> _State:
   return st
 
 
-def _refresh_gradient(m: Model, d: Data, st: _State) -> _State:
-  """grad = M qacc - qfrc_smooth - qfrc_constraint, preconditioned by the
-  exact Hessian ``M + Jᵀ diag(D · quad) J``, plus each elliptic slot's
-  cone block ``J_cᵀ H_c J_c`` in its middle zone (C's ``HessianCone``),
-  through the Cholesky kernels."""
+def _refresh_gradient(m: Model, d: Data, st: _State,
+                      newton: bool | None = None) -> _State:
+  """grad = M qacc - qfrc_smooth - qfrc_constraint, preconditioned through
+  the Cholesky kernels: under Newton by the exact Hessian ``M + Jᵀ diag(D ·
+  quad) J``, plus each elliptic slot's cone block ``J_cᵀ H_c J_c`` in its
+  middle zone (C's ``HessianCone``); under CG by M (``mj_solveM``).
+  ``newton`` overrides the model's solver."""
   grad = st.Ma - d.qfrc_smooth - st.qfrc_constraint
+  if newton is None:
+    newton = m.opt.solver == SolverType.NEWTON
+  if not newton:
+    return dataclasses.replace(st, grad=grad,
+                               mgrad=smooth.solve_m(m, d, grad))
   dd = d.efc_D * st.quad_mask
   # a plain fp32/fp64 matmul: TF32 stays off (see chip_smoke.py)
   hess = d.qM + torch.matmul(d.efc_J.transpose(1, 2) * dd[:, None, :],
@@ -301,6 +310,12 @@ def _linesearch(m: Model, d: Data, st: _State) -> _State:
   )
 
 
+def _has_tangent(st: _State) -> bool:
+  """Whether the iterate carries a forward-mode tangent."""
+  return any(fwAD.unpack_dual(x).tangent is not None
+             for x in (st.qacc, st.search))
+
+
 def _newton_tangent(m: Model, d: Data, st: _State,
                     met: torch.Tensor) -> _State:
   """Under forward-mode AD, gives qacc of the lanes ``met`` (B,), those
@@ -347,7 +362,9 @@ def _newton_tangent(m: Model, d: Data, st: _State,
 
 
 def solve(m: Model, d: Data) -> Data:
-  """Newton solver loop (``mj_solNewton``)."""
+  """The primal solver loop: ``mj_solNewton``, or ``mj_solCG`` under the CG
+  solver, whose search direction is Polak-Ribière's on the M-preconditioned
+  gradient, reset to steepest descent where its beta is negative."""
   if not m.opt.disableflags & DisableBit.WARMSTART:
     warm = _eval_state(m, d, d.qacc_warmstart, with_grad=False)
     smth = _eval_state(m, d, d.qacc_smooth, with_grad=False)
@@ -368,8 +385,11 @@ def solve(m: Model, d: Data) -> Data:
   def live(st):
     return ~((st.niter >= m.opt.iterations) | met(st))
 
+  cg = m.opt.solver == SolverType.CG
+
   def iterate(st: _State) -> _State:
     st = _linesearch(m, d, st)
+    prev_grad, prev_mgrad = st.grad, st.mgrad
     force, ccost, quad = constraint.forces_cost(m, d, st.jaref)
     st = dataclasses.replace(
         st, efc_force=force,
@@ -377,6 +397,11 @@ def solve(m: Model, d: Data) -> Data:
         quad_mask=quad, cost=ccost + _gauss_cost(d, st.qacc, st.Ma),
         prev_cost=st.cost)
     st = _refresh_gradient(m, d, st)
+    search = -st.mgrad
+    if cg:
+      beta = _dot(st.grad, st.mgrad - prev_mgrad) / torch.clamp(
+          _dot(prev_grad, prev_mgrad), min=math.MINVAL)
+      search = search + torch.clamp(beta, min=0.0)[:, None] * st.search
     row = torch.stack([(st.prev_cost - st.cost) / scale,
                        math.norm_safe(st.grad) / scale,
                        st.lineslope / scale], dim=-1)
@@ -384,7 +409,7 @@ def solve(m: Model, d: Data) -> Data:
     slot = torch.arange(st.stats.shape[1], device=row.device)
     at = (slot[None, :] == st.niter[:, None])[..., None]
     return dataclasses.replace(
-        st, search=-st.mgrad, niter=st.niter + 1,
+        st, search=search, niter=st.niter + 1,
         stats=torch.where(at, row[:, None, :], st.stats))
 
   # as C's mj_solNewton: one iteration before the first convergence test,
@@ -397,6 +422,11 @@ def solve(m: Model, d: Data) -> Data:
     while bool(alive.any()):
       st = _select(alive, iterate(st), st)
       alive = live(st) & rows
+  if cg and _has_tangent(st):
+    # a converged CG iterate is Newton's optimum: its tangent is that of a
+    # Newton step from it (_newton_tangent), along the Newton direction
+    st = _refresh_gradient(m, d, st, newton=True)
+    st = dataclasses.replace(st, search=-st.mgrad)
   st = _newton_tangent(m, d, st, met(st))
 
   lane = rows[:, None]
@@ -408,11 +438,26 @@ def solve(m: Model, d: Data) -> Data:
 
 
 def fwd_constraint(m: Model, d: Data) -> Data:
-  """Constraint forces and final qacc (``mj_fwdConstraint``)."""
+  """Constraint forces and final qacc (``mj_fwdConstraint``): PGS
+  (``ops/pgs.py``) or the primal solve, then the noslip pass
+  (``ops/noslip.py``) where ``noslip_iterations`` > 0."""
   if constraint.row_layout(m).nefc == 0:
     return d.replace(qacc=d.qacc_smooth,
                      qfrc_constraint=torch.zeros_like(d.qacc_smooth),
                      qacc_warmstart=d.qacc_smooth,
                      solver_niter=torch.zeros(d.batch, dtype=torch.int32,
                                               device=d.qacc_smooth.device))
-  return solve(m, d)
+  ar_b = None
+  if m.opt.solver == SolverType.PGS:
+    # pgs imports this module
+    from mujoco_inversedynamicstest_tpu_torch.ops import pgs
+
+    # PGS and noslip share the dual matrix, as C's efc_AR
+    if m.opt.noslip_iterations > 0:
+      ar_b = noslip.dual(m, d)
+    d = pgs.pgs(m, d, ar_b)
+  else:
+    d = solve(m, d)
+  if m.opt.noslip_iterations > 0:
+    d = noslip.noslip(m, d, ar_b)
+  return d

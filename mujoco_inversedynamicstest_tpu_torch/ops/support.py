@@ -77,11 +77,19 @@ def jac_transpose(m: Model, d: Data, points: torch.Tensor,
   6-vector ``[(p - com_root) x f + t ; f]`` without forming the (nbody, nv,
   3) Jacobians.
   """
-  off = points - d.subtree_com[:, m.const(m.body_rootid)]
+  return apply_at_bodies(m, d, points, np.arange(m.nbody), force, torque)
+
+
+def apply_at_bodies(m: Model, d: Data, points: torch.Tensor,
+                    bodies: np.ndarray, force: torch.Tensor,
+                    torque: torch.Tensor) -> torch.Tensor:
+  """``jac_transpose`` of K points (B, K, 3) on the host ``bodies`` (K,),
+  which may repeat: the sum of ``jacpᵀ f + jacrᵀ t`` over the K."""
+  off = points - d.subtree_com[:, m.const(m.body_rootid[bodies])]
   u = torch.cat([math.cross(off, force) + torque, force], dim=-1)
-  rows = u @ d.cdof.transpose(1, 2)                       # (B, nbody, nv)
-  return torch.sum(torch.where(m.const(m.tree.body_dof_mask), rows, 0.0),
-                   dim=1)
+  rows = u @ d.cdof.transpose(1, 2)                       # (B, K, nv)
+  return torch.sum(torch.where(m.const(m.tree.body_dof_mask[bodies]), rows,
+                               0.0), dim=1)
 
 
 def apply_ft(m: Model, d: Data, force: torch.Tensor, torque: torch.Tensor,

@@ -301,6 +301,9 @@ SENSOR_SMALL = """
     <touch site="sole" cutoff="2"/>
     <touch site="imu"/>
     <clock/>
+    <magnetometer site="imu"/>
+    <e_potential/>
+    <e_kinetic/>
   </sensor>
 </mujoco>
 """
@@ -436,8 +439,10 @@ TOUCH_GRID = ('<extension><plugin plugin="mujoco.sensor.touch_grid"/>'
     (TENDON.replace('name="t"', 'name="t" limited="true" range="-1 1"'),
      '<tendonlimitpos tendon="t"/>', "sensor type TENDONLIMITPOS"),
     ("", '<jointlimitfrc joint="j"/>', "sensor type JOINTLIMITFRC"),
-    ("", "<e_potential/>", "sensor type E_POTENTIAL"),
-    ("", '<magnetometer site="s"/>', "sensor type MAGNETOMETER"),
+    # the energy sensors and the magnetometer are ported: the ids "energy"
+    # and "magnetometer" hold two sensors that stay refused
+    ("", '<jointlimitvel joint="j"/>', "sensor type JOINTLIMITVEL"),
+    ("", '<normal geom1="g" geom2="floor"/>', "sensor type GEOMNORMAL"),
     ("", '<rangefinder site="s"/>', "sensor type RANGEFINDER"),
     ("", '<camprojection site="s" camera="cam"/>',
      "sensor type CAMPROJECTION"),

@@ -140,13 +140,25 @@ def test_model_entry_points_default_to_the_card():
         "<joint ", "<joint name=\"j\" ").replace(
             "</mujoco>", "<actuator><general joint=\"j\" dyntype=\"user\" "
             "/></actuator></mujoco>"), "actuator dynamics USER"),
-    (ALL_SMOOTH["pendulum"].replace(
-        "<option ", "<option solver=\"CG\" "), "solver CG"),
-    # elliptic cones are ported: the elliptic humanoid is refused for its
-    # noslip solver (the id is the case's from before the port)
+    # CG is ported: the pendulum is refused for the OVERRIDE enable flag
+    # (the id is the case's from before the port)
     pytest.param(
-        HUMANOID.replace("<option ", "<option cone=\"elliptic\" "
-                         "noslip_iterations=\"3\" "), "noslip solver",
+        ALL_SMOOTH["pendulum"].replace(
+            "<option timestep=\"0.002\" gravity=\"0 0 -9.81\"/>",
+            "<option timestep=\"0.002\" gravity=\"0 0 -9.81\">"
+            "<flag override=\"enable\"/></option>"),
+        "enable flags OVERRIDE",
+        id=ALL_SMOOTH["pendulum"].replace(
+            "<option ", "<option solver=\"CG\" ") + "-solver CG"),
+    # elliptic cones and the noslip solver are ported: the elliptic
+    # humanoid with noslip is refused for the FWDINV enable flag (the id is
+    # the case's from before the ports)
+    pytest.param(
+        HUMANOID.replace(
+            "<option timestep=\".005\"/>",
+            "<option cone=\"elliptic\" noslip_iterations=\"3\" "
+            "timestep=\".005\"><flag fwdinv=\"enable\"/></option>"),
+        "enable flags FWDINV",
         id=HUMANOID.replace("<option ", "<option cone=\"elliptic\" ")
         + "-elliptic"),
     # the ellipsoid's pairs are ported: the ellipsoid is refused on a height
