@@ -7,7 +7,7 @@ A full run is two processes on the card: this one runs the timed work
 and a second one it starts after phase 12 (``--checks``) runs the untimed
 fp64 checks beside it (the kernels against their plain versions in phases
 3-4, 8 and 9, phases 7, 10 and 16, and the fp64 parts of phases 6, 13, 15
-and 17-24: kernels against plain versions, inverse_tests, transition_ad
+and 17-25: kernels against plain versions, inverse_tests, transition_ad
 against transition_fd).  Phases 5, 6, 9, 11 and 12 run alone.  The second
 process's lines are printed as they come, after ``checks |``; a failure in
 either process fails the script.  Phase 6's loop is timed alone before the
@@ -44,19 +44,21 @@ non-zero:
    bit-equal.
 9. kernel: main-path shapes, and timing: JVP kernels -- all four kernels
    against their plain versions, bit-equal, at every shape at which
-   phases 6-24 launch them, the solve at its columns (n = 27 for the
+   phases 6-25 launch them, the solve at its columns (n = 27 for the
    humanoid, the JVP kernels at
-   (lanes, tangents) (8, 75) and (1, 75) fp64, (640, 75), (800, 75),
+   (lanes, tangents) (8, 75) and (1, 75) fp64, (320, 75), (400, 75),
    (1024, 75) and the folded (76,800, 1), in both layouts; n = 1-6 for phase 18's and
    phase 19's models, each dof block and nv, the JVPs at (8, 7) fp64 and,
    on the tendon arm (n = 2), at 16 tangents a lane: (8) fp64 and the
-   reach iLQR's linearization, (12,800) fp32 and (200) fp64; n = 6, 30
+   reach iLQR's linearization, (6,400) fp32 and (200) fp64; n = 6, 30
    and 36 for phase 20's models, the JVPs at (8, 72) fp64; phase 22's
    elliptic_pairs (n = 19 and its dof blocks) and sphere_budget (n = 120
    and its 6-dof blocks); phase 23's quadrupeds (n = 22, 28); phase 24's
    models (n = 1, 2, 13, 17 and 27, 36, 19 with their blocks), the dual
    solvers' M⁻¹ Jᵀ at nefc columns: 324 on the humanoid, 164 on box_stack's
-   6-dof blocks, 44 on elliptic_pairs'); then at the
+   6-dof blocks, 44 on elliptic_pairs'; phase 25's flex scenes (n = 30,
+   42, 69, 75, 87 and their 3- and 6-dof blocks), the JVPs at (8, 84) and
+   (8, 138) fp64); then at the
    bench's chunk (1024 lanes, 75 tangents) the JVP kernels timed against
    the plain versions, their bounds (L read once a lane) and
    torch.func.vmap over torch.func.jvp of torch.linalg.cholesky /
@@ -73,8 +75,8 @@ non-zero:
    (torch.profiler); the folded copies must agree to the bit, and the
    vmap route's primal next state must equal step's to the bit.
 12. slice: MPC fleet -- northstar.measure_solves_per_sec on humanoid_mjx,
-   fp32, H = 100, 2 iLQR iterations, 8 alphas, F = 32, lin_batch = 20
-   (a linearization chunk of 640 lanes x 75 tangents), n_apply = 100
+   fp32, H = 100, 2 iLQR iterations, 8 alphas, F = 16, lin_batch = 20
+   (a linearization chunk of 320 lanes x 75 tangents), n_apply = 100
    (the whole plan is executed), one timed run (its cold run, as long in
    PyTorch, cut for time); solves/s, finite
    lanes (>= 0.9), mean iterations, the plan cost's mean and median, peak
@@ -82,7 +84,7 @@ non-zero:
    these states in C too (tests/test_torch_opt.py), so its plan costs
    measure the divergence.
 13. slice: MPC on the Newton-100 humanoid -- the same solve on the model
-   that does not diverge, F = 16, lin_batch = 50 (800 lanes x 75 tangents
+   that does not diverge, F = 8, lin_batch = 50 (400 lanes x 75 tangents
    a chunk), one replan: one solve timed by iLQR stage with the kernels,
    then the same fleet with the plain versions; every plan cost finite and below
    1e5, and the two runs' plan costs and controls equal to the bit.
@@ -147,7 +149,7 @@ non-zero:
    RK4, 64 lanes fp64, 60 steps (0.3 s, cut for time) of fresh
    qfrc_applied, xfrc_applied and ctrl from a seeded torch.Generator (both
    solver_fwdinv entries <= 1e-6 on every lane at every step).  Then
-   BASELINE rung 2: iLQR reach on the tendon arm, F = 256 fp32 problems,
+   BASELINE rung 2: iLQR reach on the tendon arm, F = 128 fp32 problems,
    H = 50, ILQRConfig(iterations=2) (10 took 272 s: cut for time),
    a seeded reachable target per lane, cost |hand - target|^2 + 1e-3 |u|^2
    (the hand from the arm's closed-form planar kinematics): solves/s,
@@ -190,7 +192,7 @@ non-zero:
    host, which has no finite solution here); then a fleet of 4096 fp32
    lanes from the pose with 0.01 hinge and velocity noise, half closed
    loop (ctrl0 - K dx + smoothed control noise, in ctrl_fn) and half open
-   loop (K = 0), 400 steps through opt.rollout: the share of each half
+   loop (K = 0), 250 steps through opt.rollout: the share of each half
    balanced at every step (at least 0.9 closed loop, at most 0.5 open
    loop), steps/s, finite lanes, each half's auto-resets (none in the
    closed loop), launches; then 4 fp64 lanes for 25 closed-loop steps and 4 for
@@ -268,16 +270,36 @@ non-zero:
    the plain versions (<= 1e-9) and transition_fd (centered, eps 1e-6, zero
    warm start; within 1e-4 of max|A|).
 
+25. slice: flex -- the flex scenes of the JAX package's tests
+   (``scripts/flex_models.py``): a cloth with stretch elasticity (20
+   steps), a sheet with edge rows under a sphere, a capsule, a box, a
+   mesh, a cylinder and an ellipsoid, a tet cube with a box on it, a
+   folded sheet (self-collision) and a trilinear cube with a sphere on it
+   (5 steps each), B = 4096 fp32 from seeded states at rest in contact
+   (``flex_data``): steps/s, finite lanes, auto-resets (none), active
+   slots a lane, launches a step, peak memory, and the flex collision's
+   device ms and launches against a step's; the kernels timed at the
+   scenes' nv, the JVP kernels at transition_ad's shapes (fp64).  Then
+   the fp32 contacts of 64 states against fp64 (closed forms: active sets
+   equal, depths within 1e-4; the descent groups and the box's SAT
+   manifold on the tets: each lane's deepest contact within 1e-4), the
+   fork's inverse_test on flex_sheet_sphere (RK4, 64 lanes fp64, 20 steps
+   of fresh forces of 0.01 randn, solver_fwdinv <= 1e-6) and
+   transition_ad of 8 lanes of
+   flex_cloth and flex_sheet_box against the plain versions (<= 1e-9) and
+   transition_fd (centered, eps 1e-6, zero warm start; within 1e-4 of
+   max|A|).
+
 Phase 10 also runs transition_ad of the Newton-100 humanoid under RK4 and
 IMPLICIT (the qDeriv Jacobian nested in the dual step).  Every kernel
-launch of phases 6-24 must be at a shape phase 9 checked: (n, lanes,
+launch of phases 6-25 must be at a shape phase 9 checked: (n, lanes,
 dtype) of the factor, (n, lanes, columns, dtype) of the solve, (n, lanes,
 tangents, dtype) of the factor's JVP, (n, lanes, tangents, columns,
 dtype) of the solve's.  Then
 one JSON line of the kernel report (launches: the sum over the main paths,
 phases 6, 12, 15, 16, 17, 18, 19, 20, 21 (its transition_ad and its
-fleet), 22, 23 and 24, each read with the counts reset before it, in either
-process;
+fleet), 22, 23, 24 and 25, each read with the counts reset before it, in
+either process;
 by path beside it; the JVP kernels with the tangent counts of their phase 12
 launches), the nvidia-smi line, and the result line.  There is no CPU path: without
 CUDA the script fails.  It imports neither jax nor mujoco: the models
@@ -313,7 +335,11 @@ only the build and phase 23 (both its timed and its check parts), and
 
     python3 chip_smoke.py --suite
 
-only the build and phase 24 (both parts).
+only the build and phase 24 (both parts), and
+
+    python3 chip_smoke.py --flex
+
+only the build and phase 25 (both parts).
 """
 
 from __future__ import annotations
@@ -343,8 +369,9 @@ REPLACES = {
 KERNELS = tuple(REPLACES)
 # (fleet, lin_batch, n_apply) of the MPC phases 12 and 13, and of --bench
 MPC_HORIZON = 100
-# phase 12: F cut from 64 (PRs 3 and 4) to 32 to keep the script in its time
-MPC_RUN, MPC_REF_RUN, MPC_BENCH = (32, 20, 100), (16, 50, 1), (512, 2, 1)
+# phase 12: F cut from 64 to 32, then to 16, and phase 13's from 16 to 8,
+# to keep the script in its time (phase 25 added)
+MPC_RUN, MPC_REF_RUN, MPC_BENCH = (16, 20, 100), (8, 50, 1), (512, 2, 1)
 BENCH_CHUNK_LANES = 1024  # 512 x 2: the bench chunk, 75 tangents a lane
 FLEET, FLEET_STEPS = 4096, 100
 INTEGRATORS, INTEGRATOR_STEPS = ("EULER", "RK4", "IMPLICIT",
@@ -365,7 +392,8 @@ TENDON_MODELS = ("tendon_arm", "actuated", "tendon_rows")
 # 2 iterations (10 took 272 s, 27-47 s each on an H100 by its host):
 # cut for time
 TENDON_STEPS, ARM_INVERSE_STEPS = 20, 60
-REACH_F, REACH_H, REACH_ITERATIONS, REACH_ALPHAS = 256, 50, 2, 8
+# F cut from 256 to 128 to make room for phase 25
+REACH_F, REACH_H, REACH_ITERATIONS, REACH_ALPHAS = 128, 50, 2, 8
 REACH_CHECK_LANES, REACH_CHECK_ITERATIONS = 4, 1
 # phase 20: the convex slice's models (boxes, a cylinder on the plane,
 # convex meshes), their fleets, and the fork's inverse_test on the box stack
@@ -374,9 +402,10 @@ CONVEX_MODELS = ("box_stack", "convex_mesh")
 CONVEX_STEPS, BOX_INVERSE_STEPS = 20, 60
 # phase 21: BASELINE rung 3, the humanoid's one-leg balance LQR
 # (scripts/balance.py): the fleet of B lanes, half closed loop and half open
-# loop, for T steps (2 s; the notebook's 5 s run is cut for time); the
+# loop, for T steps (1.25 s; the notebook's 5 s run is cut for time, from
+# 2 s to make room for phase 25: open loop falls within 1 s); the
 # sweep's lanes; the fp64 C reference's lanes and steps
-BALANCE_FLEET, BALANCE_STEPS, BALANCE_SEED = 4096, 400, 21
+BALANCE_FLEET, BALANCE_STEPS, BALANCE_SEED = 4096, 250, 21
 BALANCE_SWEEP, BALANCE_C_LANES = 2001, 4
 BALANCE_REFERENCE = "humanoid_balance_c.npz"
 # phase 22: the contact models -- elliptic cones on the convex slice's
@@ -413,10 +442,34 @@ SOLVER_FLEETS = (("humanoid", "CG", 0, 5, 5), ("humanoid", "NEWTON", 0, 5, 5),
                  ("humanoid", "PGS", 0, 1, 2),
                  ("box_stack", "PGS", NOSLIP_ITERATIONS, 1, 2),
                  ("elliptic_pairs", "NEWTON", NOSLIP_ITERATIONS, 2, 5))
+# phase 25: the flex scenes of the JAX package's tests (scripts/
+# flex_models.py), each fleet FLEX_STEPS steps (the cloth 20); the fork's
+# inverse_test on flex_sheet_sphere; transition_ad of the cloth and of the
+# box on the sheet
+FLEX_SCENES = ("flex_cloth", "flex_sheet_sphere", "flex_sheet_capsule",
+               "flex_sheet_box", "flex_sheet_mesh", "flex_sheet_cylinder",
+               "flex_sheet_ellipsoid", "flex_tet_box", "flex_self",
+               "flex_trilinear")
+FLEX_STEPS, CLOTH_STEPS, FLEX_INVERSE_STEPS = 5, 20, 20
+# the solid cubes lowered onto the plane, 1 mm into it (the tet cube's
+# bottom vertices at 0.15, radius 0.005; the trilinear cube's at 0.06)
+FLEX_DROP = {"flex_tet_box": 0.146, "flex_trilinear": 0.056}
+# the free body's height in each scene's states: 1 mm into the sheet (at
+# z = 0, radius 0.008) or the lowered cube's top (the tet cube's vertices
+# at 0.25 - 0.146, the trilinear one's at 0.26 - 0.056, radius 0.005), by
+# its half-height below its centre
+FLEX_REST = {"flex_sheet_sphere": 0.022, "flex_sheet_capsule": 0.017,
+             "flex_sheet_box": 0.017, "flex_sheet_mesh": 0.019,
+             "flex_sheet_cylinder": 0.017, "flex_sheet_ellipsoid": 0.011,
+             "flex_tet_box": 0.118, "flex_trilinear": 0.228}
+# the nv of the flex scenes, whose kernels phase 25 times: flex_trilinear,
+# flex_cloth, the sheets, flex_self, flex_tet_box
+FLEX_NV = (30, 42, 69, 75, 87)
 GRID_N, GRID_B = (1, 2, 6, 27, 32, 33, 64, 128), (1, 127, 4096)
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}  # of max|reference|
-# NVIDIA's H100 SXM data sheet: memory rate, and fp32 outside tensor cores
-HBM_BYTES_PER_S, FP32_FLOP_PER_S = 3.35e12, 67e12
+# NVIDIA's H100 SXM data sheet: memory rate, and fp32 and fp64 outside
+# tensor cores
+HBM_BYTES_PER_S, FP32_FLOP_PER_S, FP64_FLOP_PER_S = 3.35e12, 67e12, 34e12
 
 
 T_START = time.perf_counter()
@@ -459,12 +512,13 @@ def rel_err(x: torch.Tensor, ref: torch.Tensor) -> float:
   return float((x - ref).abs().max() / ref.abs().max().clamp(min=1e-300))
 
 
-def bound_ms(nbytes: float, flops: float) -> tuple[float, str]:
+def bound_ms(nbytes: float, flops: float,
+             fp64: bool = False) -> tuple[float, str]:
   """The least time the card could take: each input byte read once and each
   output byte written once at the memory rate, or the operations at the
-  fp32 rate, whichever is longer."""
+  fp32 (``fp64``: fp64) rate, whichever is longer."""
   t_bytes = 1e3 * nbytes / HBM_BYTES_PER_S
-  t_ops = 1e3 * flops / FP32_FLOP_PER_S
+  t_ops = 1e3 * flops / (FP64_FLOP_PER_S if fp64 else FP32_FLOP_PER_S)
   return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
@@ -814,7 +868,7 @@ def tendon_shapes(mt) -> tuple[set, set]:
   runs; on the tendon arm also transition_ad's 8 lanes (JVPs at 2 nv + na
   + nu tangents) and transition_fd's 8 x (2 (2 nv + na + nu) + 1) copies,
   and the reach iLQR's rollout (F), forward pass (F x alphas) and
-  linearization (F H lanes: a forward and the dual step), at F = 256 fp32
+  linearization (F H lanes: a forward and the dual step), at F = 128 fp32
   and F = 4 fp64."""
   from mujoco_inversedynamicstest_tpu_torch.ops import smooth
   from mujoco_inversedynamicstest_tpu_torch.opt import derivative
@@ -924,7 +978,7 @@ def balance_shapes() -> tuple[set, set]:
 
 
 def path_shapes(mt) -> dict:
-  """The launches of phases 6-24 and of --bench, by kernel: (n, B, dtype)
+  """The launches of phases 6-25 and of --bench, by kernel: (n, B, dtype)
   of chol_factor, (n, B, columns, dtype) of chol_solve, (n, B, T, dtype)
   of chol_factor_jvp and (n, B, T, columns, dtype) of chol_solve_jvp.
   Phases 6-17 and --bench at n = 27.  Primal:
@@ -937,9 +991,9 @@ def path_shapes(mt) -> dict:
   tangents a lane (nx + nu of the humanoid) at every dual step's lanes,
   and one a lane in the folded comparison.  Phases 18-23's from
   ``constraint_shapes``, ``tendon_shapes``, ``convex_shapes``,
-  ``balance_shapes``, ``contact_shapes`` and ``quadruped_shapes``, whose
-  solves are of one column; phase 24's from ``suite_shapes``, with the
-  dual solvers' nefc columns."""
+  ``balance_shapes``, ``contact_shapes``, ``quadruped_shapes`` and
+  (phase 25) ``flex_shapes``, whose solves are of one column; phase 24's
+  from ``suite_shapes``, with the dual solvers' nefc columns."""
   f32 = {FLEET, BENCH_CHUNK_LANES, 75 * BENCH_CHUNK_LANES}
   jvp = {(8, 75, torch.float64), (BENCH_CHUNK_LANES, 75, torch.float32),
          (75 * BENCH_CHUNK_LANES, 1, torch.float32)}
@@ -952,7 +1006,8 @@ def path_shapes(mt) -> dict:
   jvp = {(27,) + s for s in jvp}
   for more_primal, more_jvp in (
       constraint_shapes(mt), tendon_shapes(mt), convex_shapes(mt),
-      balance_shapes(), contact_shapes(mt), quadruped_shapes(mt)):
+      balance_shapes(), contact_shapes(mt), quadruped_shapes(mt),
+      flex_shapes(mt)):
     primal |= more_primal
     jvp |= more_jvp
   shapes = {"chol_factor": primal,
@@ -2380,10 +2435,10 @@ def contact_sets(collision, m, d) -> tuple[torch.Tensor, torch.Tensor]:
 
 def box_inverse_test(mt, linalg, dev, m, phase: str, label: str,
                      steps: int, seed: int, exact_solves: bool = True,
-                     data=None) -> dict:
+                     data=None, scale: float = 0.3) -> dict:
   """The fork's inverse_test on 64 lanes of box_stack ``m`` (fp64, RK4):
   from convex_data's states (or ``data``'s, of the same signature), fresh
-  qfrc_applied and xfrc_applied (0.3
+  qfrc_applied and xfrc_applied (``scale``
   randn, a torch.Generator seeded with ``seed``) every step, forward and
   compare_fwd_inv; both solver_fwdinv entries <= 1e-6 on every lane at
   every step.  solver_fwdinv[1] is the forward solve's own residual: a
@@ -2408,8 +2463,8 @@ def box_inverse_test(mt, linalg, dev, m, phase: str, label: str,
   reset_launches(linalg)
   t0 = time.perf_counter()
   for _ in range(steps):
-    d = d.replace(qfrc_applied=0.3 * randn(b, m.nv),
-                  xfrc_applied=0.3 * randn(b, m.nbody, 6))
+    d = d.replace(qfrc_applied=scale * randn(b, m.nv),
+                  xfrc_applied=scale * randn(b, m.nbody, 6))
     fwd, nxt = fwd_inv_step(mt, m, d)
     within = fwd.solver_fwdinv <= 1e-6
     if not exact_solves:
@@ -3700,6 +3755,291 @@ def suite_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
   log(phase, f"phase 24 in {time.perf_counter() - t_phase:.1f} s")
   return total, times
 
+def flex_data(mt, m, name: str, batch: int, seed: int):
+  """States of a flex scene, from a seeded numpy generator: each vertex
+  (a trilinear cube's node) 0.5 mm randn off its place; the free body at
+  rest 1 mm into the sheet or the cube (``FLEX_REST``) with 5 mm of
+  uniform noise across; ``flex_self``'s sheet folded as
+  ``tests/test_flex_self.py::_folded_state`` folds it (its columns beyond
+  x = 0.04 reflected over x = 0.06, 10 mm above the rest); the solid
+  cubes lowered 1 mm into the plane (``FLEX_DROP``)."""
+  from mujoco_inversedynamicstest_tpu_torch.models.types import JointType
+
+  rng = np.random.RandomState(seed)
+  d = mt.make_data(m, batch)
+  qpos = d.qpos.cpu().numpy().copy()
+  fl = m.flex
+  bodies = fl.nodebodyid if np.any(fl.interp) else fl.vertbodyid
+  body_pos = m.body_pos.cpu().numpy()
+  for b in bodies:
+    if not m.body_jntnum[b]:
+      continue                                 # a pinned vertex
+    adr = m.jnt_qposadr[m.body_jntadr[b]]
+    if name == "flex_self" and body_pos[b, 0] > 0.04:
+      qpos[:, adr] = (0.12 - body_pos[b, 0]) - body_pos[b, 0]
+      qpos[:, adr + 2] = 0.010
+    qpos[:, adr + 2] -= FLEX_DROP.get(name, 0.0)
+    qpos[:, adr:adr + 3] += 5e-4 * rng.randn(batch, 3)
+  for j in np.nonzero(m.jnt_type == JointType.FREE)[0]:
+    adr = m.jnt_qposadr[j]
+    qpos[:, adr:adr + 2] += rng.uniform(-5e-3, 5e-3, (batch, 2))
+    qpos[:, adr + 2] = FLEX_REST[name]
+  return d.replace(qpos=torch.as_tensor(qpos, dtype=m.dtype, device=m.device))
+
+
+def flex_shapes(mt) -> tuple[set, set]:
+  """Phase 25's launches, as ``constraint_shapes`` counts them: each
+  scene's nv and dof blocks at the fleet (4096 fp32) and at 64 lanes in
+  fp32 and fp64 (the contacts against each other, flex_sheet_sphere's
+  inverse_test); on flex_cloth and flex_sheet_box transition_ad's 8 lanes
+  (JVPs at 2 nv tangents) and transition_fd's 8 x (4 nv + 1) copies."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import smooth
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  primal, jvp = set(), set()
+  for name in FLEX_SCENES:
+    m = suite_model(mt, name, "cpu", torch.float64)
+    blocks = smooth._dof_blocks(m)
+    sizes = {(m.nv, 1)} | ({(sz, len(st)) for sz, st in blocks.items()}
+                           if blocks else set())
+    runs = [(FLEET, torch.float32), (64, torch.float32), (64, torch.float64)]
+    if name in ("flex_cloth", "flex_sheet_box"):
+      nz = derivative.state_dim(m) + m.nu
+      runs += [(8, torch.float64), (8 * (2 * nz + 1), torch.float64)]
+      jvp |= {(sz, 8 * k, nz, torch.float64) for sz, k in sizes}
+    primal |= {(sz, b * k, dt) for sz, k in sizes for b, dt in runs}
+  return primal, jvp
+
+
+def flex_contact_sets(collision, m, d) -> list:
+  """(label, exact, depths) of each element group: exact groups (closed
+  forms) give each lane's active depths sorted ascending (+inf where
+  inactive), (B, slots); the support-descent groups (a mesh, a cylinder,
+  an ellipsoid, self-collision) and the box's SAT manifold on a tet cube,
+  whose fp32 answers part from fp64 ones at knife edges by up to the
+  descent's accuracy, give each lane's deepest active depth, (B, 1).
+  The geom pairs' (flex vertices on a plane) come first, as
+  ``contact_sets``."""
+  from mujoco_inversedynamicstest_tpu_torch.models.types import GeomType
+
+  lay = collision.contact_layout(m)
+  dist = torch.where(d.contact.dist < d.contact.includemargin,
+                     d.contact.dist.double(), float("inf"))
+  out = ([("geom pairs", True, contact_sets(collision, m, d)[0].flatten(1))]
+         if lay.groups else [])
+  start = sum(len(g.geom1) * g.nslot for g in lay.groups)
+  for eg in lay.elem_groups:
+    n = eg.npair_run * eg.nslot
+    group = torch.sort(dist[:, start:start + n], dim=-1).values
+    start += n
+    descent = eg.kind == "selfpair" or eg.gtype in (
+        GeomType.MESH, GeomType.CYLINDER, GeomType.ELLIPSOID) or (
+            eg.gtype == GeomType.BOX and m.flex.dim[eg.flexid] == 3)
+    label = eg.kind + ("" if eg.gtype < 0 else
+                       f" {GeomType(eg.gtype).name.lower()}")
+    out.append((label, not descent, group[:, :1] if descent else group))
+  return out
+
+
+def time_jvp_kernels(linalg, dev, n: int, b: int, t: int) -> dict:
+  """The two JVP kernels (wrapper included) at (b lanes, n) fp64 with t
+  tangents a lane, against their plain versions and the vmap-of-jvp
+  yardstick, in turns plain, kernel, library, library, kernel, plain
+  (medians of the pairs), beside the bound (``jvp_work``, fp64 rate)."""
+  rng = np.random.default_rng(6)
+  h = spd(rng, b, n, dev)
+  dh = sym(rng, (t, b, n, n), dev)
+  l = linalg.chol_factor_ref(h)
+  dl = linalg.chol_factor_jvp_ref(l, dh)
+  x = torch.as_tensor(rng.standard_normal((b, n)), device=dev)
+  db = torch.as_tensor(rng.standard_normal((t, b, n)), device=dev)
+  work = jvp_work(n, b, t, h.element_size())
+  vj = lambda f, p, tg: torch.func.vmap(
+      lambda *u: torch.func.jvp(f, p, u)[1])(*tg)
+  out = {}
+  for name, kern, plain, library in (
+      ("chol_factor_jvp", lambda: linalg.chol_factor_jvp(l, dh),
+       lambda: linalg.chol_factor_jvp_ref(l, dh),
+       lambda: vj(torch.linalg.cholesky, (h,), (dh,))),
+      ("chol_solve_jvp", lambda: linalg.chol_solve_jvp(l, dl, x, db),
+       lambda: linalg.chol_solve_jvp_ref(l, dl, x, db),
+       lambda: vj(lambda a, r: torch.cholesky_solve(r, a),
+                  (l, x[..., None]), (dl, db[..., None])))):
+    p1, k1, y1, y2, k2, p2 = (time_ms(f, reps=10) for f in (
+        plain, kern, library, library, kern, plain))
+    bound, bound_by = bound_ms(*work[name], fp64=True)
+    out[name] = {"ms": float(np.median([k1, k2])),
+                 "plain_ms": float(np.median([p1, p2])),
+                 "bound_ms": bound, "bound_by": bound_by,
+                 "library_ms": float(np.median([y1, y2]))}
+  log("timing: JVP kernels", f"({b} lanes, {t} tangents, {n}) fp64, ms "
+      "kernel / plain / vmap-of-jvp yardstick / bound: " + ", ".join(
+          f"{k} {v['ms']:.4f} / {v['plain_ms']:.4f} / {v['library_ms']:.4f}"
+          f" / {v['bound_ms']:.5f} ({v['bound_by']})"
+          for k, v in out.items()))
+  return out
+
+
+def flex_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
+  """Phase 25: the flex scenes.  Each fleet (4096 fp32 from
+  ``flex_data``'s states; the cloth CLOTH_STEPS steps, the rest
+  FLEX_STEPS) with its steps/s, finite lanes, auto-resets, active slots a
+  lane, launches a step, peak memory, and the flex collision's device ms
+  and launches against a step's; the kernels timed at the scenes' nv
+  (fp32, 4096 lanes) and the JVP kernels at transition_ad's shapes (fp64).
+  Then (checks) the fp32 contacts of 64 states of each scene with contacts
+  against fp64 (active sets equal, depths within 1e-4), the fork's
+  inverse_test on flex_sheet_sphere (RK4, 64 lanes fp64, fresh forces a
+  step) and transition_ad of 8 lanes of flex_cloth and flex_sheet_box
+  against the plain versions and transition_fd.  Returns the kernels'
+  launches of these runs and the timings."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import collision
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  t_phase = time.perf_counter()
+  phase = "slice: flex"
+  total = dict.fromkeys(KERNELS, 0)
+  times = {}
+
+  def add(launches):
+    for k in KERNELS:
+      total[k] += launches[k]
+
+  if TIMED:
+    for name in FLEX_SCENES:
+      steps = CLOTH_STEPS if name == "flex_cloth" else FLEX_STEPS
+      m = suite_model(mt, name, dev, torch.float32)
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      d = mt.step(m, flex_data(mt, m, name, FLEET, seed=25))  # warm-up
+      torch.cuda.synchronize()
+      reset_launches(linalg)
+      t0 = time.perf_counter()
+      d = mt.step_n(m, d, steps)
+      torch.cuda.synchronize()
+      seconds = time.perf_counter() - t0
+      launches = read_launches(linalg)
+      peak = torch.cuda.max_memory_allocated() / 2**30
+      add(launches)
+      finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
+      resets = int(d.warning.sum())
+      active = (0.0 if d.contact is None else float(
+          (d.contact.dist < d.contact.includemargin).sum(1).float().mean()))
+      step_ms, step_launches, _ = device_profile(lambda: mt.step(m, d))
+      if d.contact is None:
+        col = "no contacts (contact disabled)"
+      else:
+        pos = mt.fwd_position(m, d)
+        col_ms, col_launches, _ = device_profile(
+            lambda: collision.collision(m, pos))
+        col = (f"collision {col_ms:.3f} device ms / {col_launches} launches "
+               f"= {col_ms / step_ms:.1%} / "
+               f"{col_launches / step_launches:.1%} of a step's")
+      log(phase,
+          f"{name} (nv {m.nv}, {collision.contact_layout(m).ncon} slots) "
+          f"B={FLEET} fp32 {steps} steps in {seconds:.3f} s = "
+          f"{FLEET * steps / seconds:.1f} steps/s on {card}; finite lanes "
+          f"{int(finite.sum())} of {FLEET}; auto-resets {resets}; active "
+          f"slots a lane {active:.2f}; launches a step " + ", ".join(
+              f"{k} {v / steps:g}" for k, v in launches.items()
+              if not k.endswith("_jvp"))
+          + f"; peak {peak:.3f} GiB; a step {step_ms:.3f} device ms / "
+          f"{step_launches} launches; {col}")
+      if not bool(finite.all()) or resets:
+        raise AssertionError(f"{name}: {int((~finite).sum())} non-finite "
+                             f"lanes, {resets} auto-resets")
+      if not launches["chol_factor"] or not launches["chol_solve"]:
+        raise AssertionError(f"{name}: a primal kernel was not launched")
+    for n in FLEX_NV:
+      for k, v in time_kernels(linalg, dev, n).items():
+        times.setdefault(k, {}).setdefault("by_n", {})[str(n)] = v
+    for name in ("flex_cloth", "flex_sheet_box"):
+      m = suite_model(mt, name, "cpu", torch.float64)
+      nz = derivative.state_dim(m) + m.nu
+      for k, v in time_jvp_kernels(linalg, dev, m.nv, 8, nz).items():
+        times.setdefault(k, {}).setdefault("by_shape", {})[
+            f"({m.nv}, 8 lanes, {nz} tangents) fp64"] = v
+
+  if CHECKS:
+    # fp32 contacts against fp64 on the same 64 states
+    rows = []
+    for name in FLEX_SCENES[1:]:
+      m32 = suite_model(mt, name, dev, torch.float32)
+      m64 = suite_model(mt, name, dev, torch.float64)
+      d32 = flex_data(mt, m32, name, 64, seed=26)
+      d64 = flex_data(mt, m64, name, 64, seed=26)
+      p32, p64 = mt.fwd_position(m32, d32), mt.fwd_position(m64, d64)
+      s32 = flex_contact_sets(collision, m32, p32)
+      s64 = flex_contact_sets(collision, m64, p64)
+      parted = int(((p32.contact.dist < p32.contact.includemargin)
+                    != (p64.contact.dist < p64.contact.includemargin)).sum())
+      for (label, exact, a), (_, _, b) in zip(s32, s64):
+        if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+          raise AssertionError(f"{name} {label}: fp32 and fp64 active "
+                               f"{'sets' if exact else 'deepest'} differ")
+        live = torch.isfinite(b)
+        worst = float((a - b)[live].abs().max()) if bool(live.any()) else 0.0
+        if not worst <= 1e-4:
+          raise AssertionError(f"{name} {label}: fp32 depths {worst:.3e} "
+                               "from fp64")
+        rows.append(f"{name} {label}: {int(live.sum()) / 64:.2f} a lane "
+                    f"{'active' if exact else 'with a deepest'}, "
+                    f"{worst:.3e}")
+      rows[-1] += f" ({parted} slots active in one precision only)"
+    log(phase, "fp32 contacts of 64 states against fp64, closed forms: "
+        "active sets equal, max |ddepth|; descent and the tets' SAT "
+        "manifold: each lane's deepest contact (tol 1e-4): "
+        + "; ".join(rows))
+
+    # the fork's inverse_test on flex_sheet_sphere: RK4, fresh forces a
+    # step, 0.01 randn (a vertex body weighs 8 g: 0.3 N would throw the
+    # sheet off the sphere within the run)
+    m = suite_model(mt, "flex_sheet_sphere", dev, torch.float64,
+                    integrator="RK4")
+    add(box_inverse_test(
+        mt, linalg, dev, m, phase, "flex_sheet_sphere", FLEX_INVERSE_STEPS,
+        seed=27, data=lambda mt, m, b, seed: flex_data(
+            mt, m, "flex_sheet_sphere", b, seed), scale=0.01))
+
+    # transition_ad of 8 lanes: the cloth's elasticity, the box's weighted
+    # contact rows
+    for name in ("flex_cloth", "flex_sheet_box"):
+      m = suite_model(mt, name, dev, torch.float64)
+      d = flex_data(mt, m, name, 8, seed=28)
+      d = mt.forward(m, d.replace(qvel=torch.as_tensor(
+          0.05 * np.random.RandomState(29).randn(8, m.nv), device=dev)))
+      reset_launches(linalg)
+      t0 = time.perf_counter()
+      ad = derivative.transition_ad(m, d)
+      torch.cuda.synchronize()
+      seconds = time.perf_counter() - t0
+      launches = read_launches(linalg)
+      if not all(launches.values()):
+        raise AssertionError(f"a kernel was not launched: {launches}")
+      add(launches)
+      with plain_cholesky(linalg):
+        plain = derivative.transition_ad(m, d)
+      fd = derivative.transition_fd(
+          m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
+          eps=1e-6, flg_centered=True)
+      err_plain = float((ad.A - plain.A).abs().max())
+      err_fd = float((ad.A - fd.A).abs().max())
+      scale = float(fd.A.abs().max())
+      if not err_plain <= 1e-9:
+        raise AssertionError(f"transition_ad kernels vs plain: "
+                             f"{err_plain:.3e}")
+      if not err_fd <= 1e-4 * scale:
+        raise AssertionError(f"transition_ad vs transition_fd: {err_fd:.3e}")
+      log(phase,
+          f"{name} 8 lanes fp64: transition_ad {seconds:.3f} s, A "
+          f"{tuple(ad.A.shape)}; kernels vs plain max |dA| {err_plain:.3e} "
+          f"(tol 1e-9); vs transition_fd (centered, eps 1e-6) max |dA| "
+          f"{err_fd:.3e} = {err_fd / scale:.3e} of max|A| {scale:.3e} (tol "
+          f"1e-4 of it); launches {launches}, tangents a lane "
+          f"{read_tangents(linalg)}")
+  log(phase, f"phase 25 in {time.perf_counter() - t_phase:.1f} s")
+  return total, times
+
 
 def fleet_rate(mt, dev) -> float:
   """Phase 6's timed loop alone (100 steps of 4096 humanoid_mjx lanes,
@@ -3752,7 +4092,7 @@ class ChecksProcess:
 def run_checks(mt, linalg, dev, smi, lap) -> None:
   """The checks process: the kernels against their plain versions (phases
   3-4, 8, 9), phases 7, 10 and 16, and the fp64 checks of phases 6, 13, 15
-  and 17-24.  Prints one JSON line: its launches by path, the kernels'
+  and 17-25.  Prints one JSON line: its launches by path, the kernels'
   largest errors, and the launches at shapes phase 9 did not check."""
   slice_err = check_kernels(linalg, dev)
   slice_err.update(check_jvp_kernels(linalg, dev))
@@ -3789,6 +4129,8 @@ def run_checks(mt, linalg, dev, smi, lap) -> None:
   lap("23")
   by_path["suite"] = suite_slice(mt, linalg, dev, smi)[0]
   lap("24")
+  by_path["flex"] = flex_slice(mt, linalg, dev, smi)[0]
+  lap("25")
   print(json.dumps({"checks": {"by_path": by_path, "slice_err": slice_err,
                                "unchecked": unchecked_shapes(mt, linalg)}}))
 
@@ -3812,6 +4154,8 @@ def main() -> None:
                     help="only phase 23, the quadruped and the terrain")
   mode.add_argument("--suite", action="store_true",
                     help="only phase 24, the solvers, fluid and energy")
+  mode.add_argument("--flex", action="store_true",
+                    help="only phase 25, the flex scenes")
   mode.add_argument("--checks", action="store_true",
                     help="the untimed checks of a full run (the full run "
                     "starts this process itself)")
@@ -3861,8 +4205,8 @@ def main() -> None:
     contact_slice(mt, linalg, dev, smi)
   elif args.shapes:
     quadruped_slice(mt, linalg, dev, smi)
-  elif args.suite:
-    suite_slice(mt, linalg, dev, smi)
+  elif args.suite or args.flex:
+    (suite_slice if args.suite else flex_slice)(mt, linalg, dev, smi)
     unchecked = unchecked_shapes(mt, linalg)
     if unchecked:
       raise AssertionError(f"launches at shapes {unchecked} that phase 9 "
@@ -3962,8 +4306,10 @@ def timed_run(mt, linalg, dev, smi, lap, rates,
   lap("23")
   by_path["suite"], times_suite = suite_slice(mt, linalg, dev, smi)
   lap("24")
+  by_path["flex"], times_flex = flex_slice(mt, linalg, dev, smi)
+  lap("25")
   for more in (times_n2, times_convex, times_contact, times_shapes,
-               times_suite):
+               times_suite, times_flex):
     for k, v in more.items():
       for by, rows in v.items():
         times_small.setdefault(k, {}).setdefault(by, {}).update(rows)

@@ -28,6 +28,7 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
     DynType,
     EnableBit,
     EqType,
+    FlexModel,
     FRAME_OBJECTS,
     FRAME_SENSORS,
     GainType,
@@ -95,11 +96,27 @@ _ARRAY_FIELDS = (
     "actuator_armature", "actuator_damping", "actuator_dampingpoly",
     "actuator_delay",
     "qpos0", "qpos_spring",
+    # flexes
+    "flex_dim", "flex_vertadr", "flex_vertnum", "flex_edgeadr",
+    "flex_edgenum", "flex_elemadr", "flex_elemnum", "flex_elemdataadr",
+    "flex_elemedgeadr", "flex_elem", "flex_elemedge", "flex_edge",
+    "flex_vert", "flex_vert0", "flex_vertbodyid", "flex_centered",
+    "flex_rigid", "flexedge_rigid", "flex_edgeequality", "flex_internal",
+    "flex_selfcollide", "flex_contype", "flex_conaffinity", "flex_condim",
+    "flex_priority", "flex_radius", "flex_friction", "flex_solref",
+    "flex_solimp", "flex_margin", "flex_gap", "flex_solmix",
+    "flexedge_length0", "flexedge_invweight0", "flex_edgestiffness",
+    "flex_edgedamping", "flex_damping", "flex_stiffness",
+    "flex_stiffnessadr", "flex_interp", "flex_nodeadr", "flex_nodenum",
+    "flex_nodebodyid", "flex_node0", "flex_cellnum", "flex_evpair",
+    "flex_evpairadr", "flex_evpairnum", "flex_passive", "flex_vertmetric",
+    "flex_bendingadr", "flexvert_J_rownnz",
 )
 _SIZE_FIELDS = (
     "nq", "nv", "nu", "na", "nbody", "njnt", "ngeom", "nsite", "nmocap",
     "neq", "ntendon", "nwrap", "nsensor", "nsensordata", "nflex", "npair",
-    "nplugin", "nmesh", "nuserdata", "nhistory",
+    "nplugin", "nmesh", "nuserdata", "nhistory", "nflexvert", "nflexedge",
+    "nflexelem", "nflexnode", "nflexevpair", "nflexbending",
 )
 _OPT_FIELDS = (
     "timestep", "gravity", "wind", "density", "viscosity", "impratio",
@@ -178,6 +195,9 @@ def _validate_equalities(f: Mapping, bad) -> None:
   for i, t in enumerate(EqType(int(t)) for t in f["eq_type"]):
     if t not in PORTED_EQUALITIES:
       bad(f"{t.name} equality")
+    if t == EqType.FLEX and not 0 <= int(f["eq_obj1id"][i]) < int(f["nflex"]):
+      bad(f"FLEX equality of flex {int(f['eq_obj1id'][i])}, which the model "
+          f"does not have ({int(f['nflex'])} flexes)")
     if t in (EqType.CONNECT, EqType.WELD) and int(f["eq_objtype"][i]) not in (
         ObjType.BODY, ObjType.SITE):
       bad(f"{t.name} equality on object type {int(f['eq_objtype'][i])}")
@@ -199,9 +219,10 @@ def validate_model(f: Mapping) -> None:
   _validate_sensors(f, bad)
   # before the size refusals too: an equality is refused by its own name
   _validate_equalities(f, bad)
-  for name in ("nflex", "nplugin", "nuserdata", "nhistory"):
+  for name in ("nplugin", "nuserdata", "nhistory"):
     if int(f[name]):
       bad(f"{name} = {int(f[name])}")
+  _validate_flex(f, bad)
   IntegratorType(int(f["opt_integrator"]))
   ConeType(int(f["opt_cone"]))
   SolverType(int(f["opt_solver"]))
@@ -212,6 +233,61 @@ def validate_model(f: Mapping) -> None:
         b.name for b in EnableBit if enable & b) + f" ({enable:#x})")
   _validate_tendons(f, bad)
   _validate_actuators(f, bad)
+
+
+# the sensors that read the bodies of the contact slots (touch) or the
+# contact wrenches of ``rne_postconstraint``; the JAX package gives a flex
+# contact's weighted bodies no meaning there
+_CONTACT_BODY_SENSORS = frozenset(SensorType[n] for n in (
+    "TOUCH", "ACCELEROMETER", "FORCE", "TORQUE", "FRAMELINACC",
+    "FRAMEANGACC"))
+
+
+def _validate_flex(f: Mapping, bad) -> None:
+  """Refuses, by name, the flex features the port does not compute: those
+  the JAX package refuses (trilinear flexes beyond its generator's
+  configuration, models mixing trilinear and vertex-dof flexes), and the
+  mujoco 3.10 features the JAX package (written for 3.3.1) does not
+  compute: bending elasticity (``elastic2d="bend"``/``"both"``), the
+  per-vertex metric and Jacobian, flex_passive, a contact margin or gap;
+  and, on a flex that collides, the sensors that read contact bodies and
+  the ENERGY flag."""
+  nflex = int(f["nflex"])
+  if not nflex:
+    return
+  if int(f["nflexbending"]) or np.any(np.asarray(f["flex_bendingadr"]) >= 0):
+    bad('flex bending elasticity (elastic2d="bend" or "both")')
+  for name, what in (("flex_passive", "flex_passive"),
+                     ("flex_vertmetric", "flex vertex metric"),
+                     ("flexvert_J_rownnz", "flex vertex Jacobian (flexvert_J)"),
+                     ("flex_margin", "flex contact margin"),
+                     ("flex_gap", "flex contact gap")):
+    if np.any(np.asarray(f[name]) != 0):
+      bad(what)
+  interp = np.asarray(f["flex_interp"])
+  for fl in range(nflex):
+    if interp[fl]:
+      if int(interp[fl]) != 1 or int(f["flex_nodenum"][fl]) != 8:
+        bad("flex interpolation order beyond trilinear (8 nodes)")
+      if not f["flex_centered"][fl]:
+        bad("non-centered trilinear flex nodes")
+      if f["flex_internal"][fl]:
+        bad("internal contacts on a trilinear flex")
+      if int(f["flex_selfcollide"][fl]):
+        bad("self-collision on a trilinear flex")
+      if f["flex_edgeequality"][fl]:
+        bad("edge equality on a trilinear flex")
+      if f["flex_edgestiffness"][fl] or f["flex_edgedamping"][fl]:
+        bad("edge stiffness or damping on a trilinear flex")
+    elif np.any(interp):
+      bad("mixed trilinear and vertex-dof flexes in one model")
+  collides = np.any((np.asarray(f["flex_contype"])
+                     | np.asarray(f["flex_conaffinity"])) != 0)
+  for t in np.unique(np.asarray(f["sensor_type"])) if collides else ():
+    if SensorType(int(t)) in _CONTACT_BODY_SENSORS:
+      bad(f"sensor type {SensorType(int(t)).name} with flex contacts")
+  if int(f["opt_enableflags"]) & EnableBit.ENERGY:
+    bad("the ENERGY flag with flexes")
 
 
 def _validate_tendons(f: Mapping, bad) -> None:
@@ -333,12 +409,164 @@ def _hfield_grids(f: Mapping) -> tuple:
                              f["hfield_data"])
 
 
+# edges per element, by the flex's dimension
+_ELEM_EDGES = {1: 1, 2: 3, 3: 6}
+
+
+def _put_flex(f: Mapping, t) -> FlexModel | None:
+  """The flexes of the snapshot arrays ``f`` (the JAX package's
+  ``_put_flex``): local vertex and edge ids rebased to global, the
+  elements' packed stiffness (21 numbers an element from
+  ``flex_stiffnessadr``) unpacked into a dense metric, or on a trilinear
+  flex the (3 N, 3 N) nodal stiffness, and each trilinear vertex's 8 node
+  weights (``mj_flex``: node bit 0 is z, bit 1 y, bit 2 x).  ``t`` makes a
+  tensor on the model's device."""
+  nflex = int(f["nflex"])
+  if not nflex:
+    return None
+  a = lambda name: np.asarray(f[name])
+  ai = lambda name: np.asarray(f[name]).astype(np.int64)
+  nvert, nedge, nelem = (int(f[k]) for k in ("nflexvert", "nflexedge",
+                                             "nflexelem"))
+  dim, vertadr, vertnum = ai("flex_dim"), ai("flex_vertadr"), ai("flex_vertnum")
+  edgeadr, edgenum = ai("flex_edgeadr"), ai("flex_edgenum")
+  elemadr, elemnum = ai("flex_elemadr"), ai("flex_elemnum")
+  edge = ai("flex_edge").reshape(nedge, 2).copy()
+  vertflexid = np.zeros(nvert, np.int64)
+  for fl in range(nflex):
+    edge[edgeadr[fl]:edgeadr[fl] + edgenum[fl]] += vertadr[fl]
+    vertflexid[vertadr[fl]:vertadr[fl] + vertnum[fl]] = fl
+  nvpe = int(dim.max()) + 1
+  nepe = _ELEM_EDGES[int(dim.max())]
+  elem = np.full((nelem, nvpe), -1, np.int64)
+  elemedge = np.full((nelem, nepe), -1, np.int64)
+  flat_elem, flat_ee = ai("flex_elem"), ai("flex_elemedge")
+  for fl in range(nflex):
+    dv, de = int(dim[fl]) + 1, _ELEM_EDGES[int(dim[fl])]
+    base, eebase = int(f["flex_elemdataadr"][fl]), int(f["flex_elemedgeadr"][fl])
+    n = int(elemnum[fl])
+    sl = slice(elemadr[fl], elemadr[fl] + n)
+    elem[sl, :dv] = flat_elem[base:base + n * dv].reshape(n, dv) + vertadr[fl]
+    if flat_ee.size:
+      elemedge[sl, :de] = (flat_ee[eebase:eebase + n * de].reshape(n, de)
+                           + edgeadr[fl])
+
+  interp, nodenum = ai("flex_interp"), ai("flex_nodenum")
+  stiff, stiffadr = a("flex_stiffness"), ai("flex_stiffnessadr")
+  metric = np.zeros((nelem, nepe, nepe))
+  nodal, interp_w = [], []
+  vert0 = a("flex_vert0").reshape(nvert, 3)
+  for fl in range(nflex):
+    if interp[fl]:
+      n3 = 3 * int(nodenum[fl])
+      k = (stiff[stiffadr[fl]:stiffadr[fl] + n3 * n3].reshape(n3, n3)
+           if stiffadr[fl] >= 0 else np.zeros((0, 0)))
+      nodal.append(t(k))
+      co = vert0[vertadr[fl]:vertadr[fl] + vertnum[fl]]
+      j = np.arange(int(nodenum[fl]))
+      interp_w.append(np.where(j & 4, co[:, 0:1], 1 - co[:, 0:1])
+                      * np.where(j & 2, co[:, 1:2], 1 - co[:, 1:2])
+                      * np.where(j & 1, co[:, 2:3], 1 - co[:, 2:3]))
+      continue
+    nodal.append(t(np.zeros((0, 0))))
+    interp_w.append(np.zeros((0, 0)))
+    if dim[fl] == 1 or f["flex_rigid"][fl] or stiffadr[fl] < 0:
+      continue
+    de = _ELEM_EDGES[int(dim[fl])]
+    r, c = np.triu_indices(de)
+    n = int(elemnum[fl])
+    packed = stiff[stiffadr[fl]:stiffadr[fl] + 21 * n].reshape(n, 21)
+    sl = slice(elemadr[fl], elemadr[fl] + n)
+    metric[sl, r, c] = packed[:, :len(r)]
+    metric[sl, c, r] = packed[:, :len(r)]
+  evpair = (ai("flex_evpair").reshape(-1, 2) if int(f["nflexevpair"])
+            else np.zeros((0, 2), np.int64))
+  edgestiffness, edgedamping = a("flex_edgestiffness"), a("flex_edgedamping")
+  return FlexModel(
+      nflex=nflex, nvert=nvert, nedge=nedge, nelem=nelem, dim=dim,
+      vertadr=vertadr, vertnum=vertnum, edgeadr=edgeadr, edgenum=edgenum,
+      elemadr=elemadr, elemnum=elemnum, vertbodyid=ai("flex_vertbodyid"),
+      vertflexid=vertflexid, vert=a("flex_vert").reshape(nvert, 3),
+      centered=a("flex_centered").astype(bool), edge=edge,
+      edge_rigid=a("flexedge_rigid").astype(bool), elem=elem,
+      elemedge=elemedge, rigid=a("flex_rigid").astype(bool),
+      edgeequality=a("flex_edgeequality").astype(bool),
+      internal=a("flex_internal").astype(bool),
+      selfcollide=ai("flex_selfcollide"), contype=ai("flex_contype"),
+      conaffinity=ai("flex_conaffinity"), condim=ai("flex_condim"),
+      priority=ai("flex_priority"), radius_np=a("flex_radius").astype(float),
+      evpair=evpair, evpairadr=ai("flex_evpairadr"),
+      evpairnum=ai("flex_evpairnum"), interp=interp,
+      nodeadr=ai("flex_nodeadr"), nodenum=nodenum,
+      nodebodyid=ai("flex_nodebodyid"), interp_w=tuple(interp_w),
+      radius=t(a("flex_radius")),
+      friction=t(a("flex_friction")), solref=t(a("flex_solref")),
+      solimp=t(a("flex_solimp")), solmix=t(a("flex_solmix")),
+      edge_length0=t(a("flexedge_length0")),
+      edge_invweight0=t(a("flexedge_invweight0")),
+      edgestiffness=t(edgestiffness), edgedamping=t(edgedamping),
+      damping=t(a("flex_damping")), metric=t(metric),
+      node0=t(a("flex_node0").reshape(-1, 3)), stiffness_nodal=tuple(nodal),
+      has_elasticity=bool(np.any(metric != 0)),
+      has_nodal_elasticity=any(bool(torch.any(k != 0)) for k in nodal
+                               if k.numel()),
+      has_edge_sd=bool(np.any(edgestiffness > 0) | np.any(edgedamping > 0)))
+
+
+# the geom fields one sphere geom a flex vertex appends, from the flex's
+# own parameters (``_append_flex_geoms`` of the JAX package)
+_VERTEX_GEOM_FIELDS = {
+    "geom_friction": "flex_friction", "geom_margin": "flex_margin",
+    "geom_gap": "flex_gap", "geom_solref": "flex_solref",
+    "geom_solimp": "flex_solimp", "geom_solmix": "flex_solmix",
+    "geom_contype": "flex_contype", "geom_conaffinity": "flex_conaffinity",
+    "geom_condim": "flex_condim", "geom_priority": "flex_priority",
+}
+
+
+def _with_vertex_geoms(f: Mapping, flex: FlexModel) -> tuple[dict, np.ndarray]:
+  """``f`` with one sphere geom of the flex's radius a vertex of every
+  vertex-dof flex appended past C's geoms, at the vertex's body-local
+  position (the body itself when the flex is centered), and the geoms'
+  flex ids (-1 for C's).  A trilinear flex's vertices have no bodies, and
+  no geoms: its contacts are all element groups (``ops/flexcol.py``)."""
+  ngeom = int(f["ngeom"])
+  if flex is None or np.all(flex.interp != 0):
+    return dict(f), np.full(ngeom, -1, np.int64)
+  vf = flex.vertflexid
+  nv = flex.nvert
+  g = dict(f)
+  cat = lambda name, extra: np.concatenate(
+      [np.asarray(f[name]), np.asarray(extra).astype(np.asarray(f[name]).dtype)
+       .reshape((nv,) + np.asarray(f[name]).shape[1:])])
+  radius = flex.radius_np[vf]
+  local = np.where(flex.centered[vf][:, None], 0.0, flex.vert)
+  size = np.zeros((nv, 3))
+  size[:, 0] = radius
+  g["geom_pos"] = cat("geom_pos", local)
+  g["geom_quat"] = cat("geom_quat", np.tile([1.0, 0.0, 0.0, 0.0], (nv, 1)))
+  g["geom_size"] = cat("geom_size", size)
+  g["geom_rbound"] = cat("geom_rbound", radius)
+  g["geom_fluid"] = cat("geom_fluid", np.zeros((nv, 12)))
+  g["geom_type"] = cat("geom_type", np.full(nv, int(GeomType.SPHERE)))
+  g["geom_dataid"] = cat("geom_dataid", np.full(nv, -1))
+  g["geom_bodyid"] = cat("geom_bodyid", flex.vertbodyid)
+  for name, src in _VERTEX_GEOM_FIELDS.items():
+    g[name] = cat(name, np.asarray(f[src])[vf])
+  g["ngeom"] = np.array(ngeom + nv)
+  return g, np.concatenate([np.full(ngeom, -1, np.int64), vf])
+
+
 def put_model(src, device="cuda", dtype=torch.float64) -> Model:
   """Builds the port's ``Model`` from a ``mujoco.MjModel``, a snapshot
   ``.npz`` path, or a mapping of snapshot arrays, on the card unless
   ``device`` says otherwise (``device="cpu"`` runs the plain versions)."""
   f = _source_arrays(src)
   validate_model(f)
+  flex = _put_flex(f, lambda x: torch.as_tensor(
+      np.asarray(x, np.float64), dtype=dtype, device=device))
+  ngeom_mj = int(f["ngeom"])
+  f, geom_flexid = _with_vertex_geoms(f, flex)
   t = lambda name: torch.as_tensor(np.asarray(f[name], np.float64),
                                    dtype=dtype, device=device)
   i = lambda name: np.asarray(f[name]).astype(np.int64)
@@ -421,7 +649,7 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
                      or float(f["opt_viscosity"]) > 0
                      or np.any(f["opt_wind"] != 0)),
       geom_fluid_active=np.asarray(f["geom_fluid"]).reshape(
-          len(f["geom_type"]), -1)[:, 0] > 0,
+          len(f["geom_type"]), 12)[:, 0] > 0,
       dof_frictionloss_nz=np.asarray(f["dof_frictionloss"]) > 0,
       tendon_frictionloss_nz=np.asarray(f["tendon_frictionloss"]) > 0,
       wrap_prm=np.asarray(f["wrap_prm"], np.float64),
@@ -431,6 +659,7 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       geom_rbound_np=np.asarray(f["geom_rbound"], np.float64),
       max_contact_points=int(f["max_contact_points"]),
       max_geom_pairs=int(f["max_geom_pairs"]),
+      flex=flex, geom_flexid=geom_flexid, ngeom_mj=ngeom_mj,
       **{k: t(k) for k in float_fields},
       **{k: i(k) for k in int_fields},
   )

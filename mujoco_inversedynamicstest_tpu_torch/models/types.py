@@ -54,7 +54,7 @@ class EqType(enum.IntEnum):
 # the equality types the port builds rows for (ops/constraint.py);
 # validate_model refuses every other type by its name
 PORTED_EQUALITIES = frozenset({EqType.CONNECT, EqType.WELD, EqType.JOINT,
-                               EqType.TENDON})
+                               EqType.TENDON, EqType.FLEX})
 
 
 class ConeType(enum.IntEnum):
@@ -336,6 +336,66 @@ class TreeLayout:
 
 
 @dataclasses.dataclass(frozen=True)
+class FlexModel:
+  """The flexes (deformable bodies) of a model (``mjModel.flex_*``), with
+  C's local vertex and edge ids rebased to global ones.  Layout tables are
+  host numpy; the parameters the step reads are tensors on the model's
+  device."""
+  nflex: int
+  nvert: int
+  nedge: int
+  nelem: int
+  dim: np.ndarray             # (nflex,) 1 (cable), 2 (cloth) or 3 (solid)
+  vertadr: np.ndarray
+  vertnum: np.ndarray
+  edgeadr: np.ndarray
+  edgenum: np.ndarray
+  elemadr: np.ndarray
+  elemnum: np.ndarray
+  vertbodyid: np.ndarray      # (nvert,) -1 on a trilinear flex
+  vertflexid: np.ndarray      # (nvert,)
+  vert: np.ndarray         # (nvert, 3) body-local vertex positions
+  centered: np.ndarray        # (nflex,) bool: vertices at their bodies
+  edge: np.ndarray            # (nedge, 2) global vertex ids
+  edge_rigid: np.ndarray      # (nedge,) bool
+  elem: np.ndarray            # (nelem, dim + 1) global vertex ids, -1 pad
+  elemedge: np.ndarray        # (nelem, 1 | 3 | 6) global edge ids, -1 pad
+  rigid: np.ndarray           # (nflex,) bool
+  edgeequality: np.ndarray    # (nflex,) bool
+  internal: np.ndarray        # (nflex,) bool
+  selfcollide: np.ndarray     # (nflex,) mjtFlexSelf
+  contype: np.ndarray
+  conaffinity: np.ndarray
+  condim: np.ndarray
+  priority: np.ndarray
+  radius_np: np.ndarray       # (nflex,)
+  evpair: np.ndarray          # (nevpair, 2) local (element, vertex)
+  evpairadr: np.ndarray
+  evpairnum: np.ndarray
+  interp: np.ndarray          # (nflex,) 1: trilinear nodes
+  nodeadr: np.ndarray
+  nodenum: np.ndarray
+  nodebodyid: np.ndarray
+  interp_w: tuple             # per flex (vertnum, nodenum) weights, or ()
+  radius: torch.Tensor        # (nflex,)
+  friction: torch.Tensor      # (nflex, 3)
+  solref: torch.Tensor        # (nflex, 2)
+  solimp: torch.Tensor        # (nflex, 5)
+  solmix: torch.Tensor        # (nflex,)
+  edge_length0: torch.Tensor  # (nedge,)
+  edge_invweight0: torch.Tensor  # (nedge,)
+  edgestiffness: torch.Tensor  # (nflex,)
+  edgedamping: torch.Tensor   # (nflex,)
+  damping: torch.Tensor       # (nflex,)
+  metric: torch.Tensor        # (nelem, nepe, nepe) element stretch metric
+  node0: torch.Tensor         # (nnode, 3)
+  stiffness_nodal: tuple      # per flex (3 nodenum, 3 nodenum), or empty
+  has_elasticity: bool        # a nonzero element metric
+  has_nodal_elasticity: bool  # a nonzero trilinear nodal stiffness
+  has_edge_sd: bool           # edge stiffness or damping
+
+
+@dataclasses.dataclass(frozen=True)
 class Model:
   """Compiled model of the ported slice (analog of ``mjModel``)."""
   nq: int
@@ -523,6 +583,12 @@ class Model:
   hfield_grid: tuple = ()
   # geom_rbound on the host, for the narrowphases' static choices
   geom_rbound_np: np.ndarray = None
+  # the flexes, None without; a vertex-dof flex adds one sphere geom a
+  # vertex past C's geoms (``ngeom`` counts them; ``ngeom_mj`` does not),
+  # whose flex ``geom_flexid`` gives (-1 for C's geoms)
+  flex: FlexModel = None
+  geom_flexid: np.ndarray = None
+  ngeom_mj: int = -1
 
   # derived host tables and device constants, computed once per model
   _memo: dict = dataclasses.field(default_factory=dict, repr=False,
@@ -575,6 +641,11 @@ class Contact:
   solimp: torch.Tensor         # (B, ncon, 5)
   geom1: torch.Tensor          # (B, ncon) geom ids
   geom2: torch.Tensor
+  # with flex element contacts: each side's bodies and weights, (B, ncon,
+  # 2, W) (``mj_elemBodyWeight``; a geom's side is its body at weight 1);
+  # None otherwise
+  bary_body: torch.Tensor = None
+  bary_w: torch.Tensor = None
 
 
 @dataclasses.dataclass
@@ -618,6 +689,9 @@ class Data:
   qLD: torch.Tensor = None         # (B, nv, nv) lower Cholesky factor of qM
   ten_length: torch.Tensor = None  # (B, ntendon)
   ten_J: torch.Tensor = None       # (B, ntendon, nv)
+  flexvert_xpos: torch.Tensor = None    # (B, nflexvert, 3)
+  flexedge_length: torch.Tensor = None  # (B, nflexedge)
+  flexedge_J: torch.Tensor = None       # (B, nflexedge, nv), where needed
   actuator_length: torch.Tensor = None  # (B, nu)
   actuator_moment: torch.Tensor = None  # (B, nu, nv)
   contact: Contact = None
@@ -634,6 +708,7 @@ class Data:
   cvel: torch.Tensor = None        # (B, nbody, 6)
   cdof_dot: torch.Tensor = None    # (B, nv, 6)
   ten_velocity: torch.Tensor = None  # (B, ntendon)
+  flexedge_velocity: torch.Tensor = None  # (B, nflexedge), where needed
   actuator_velocity: torch.Tensor = None  # (B, nu)
   qfrc_spring: torch.Tensor = None  # (B, nv)
   qfrc_damper: torch.Tensor = None  # (B, nv)

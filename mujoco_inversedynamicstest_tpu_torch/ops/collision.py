@@ -5,9 +5,10 @@ primitive pairs (plane with sphere, capsule, box and cylinder; sphere with
 sphere, capsule and box; capsule-capsule), the convex pairs of
 ``ops/collision_convex.py`` (plane, sphere, capsule, box and mesh against a
 box or a mesh hull), the cylinder and ellipsoid pairs of
-``ops/collision_sdf.py`` and the height-field pairs of ``ops/hfield.py``
-(with a sphere, a capsule, a box or a mesh).  The candidate pairs are the
-explicit ``<pair>``s and
+``ops/collision_sdf.py``, the height-field pairs of ``ops/hfield.py``
+(with a sphere, a capsule, a box or a mesh), and the flex element contacts
+of ``ops/flexcol.py``, whose slots follow the geom pairs'.  The candidate
+pairs are the explicit ``<pair>``s and
 the pairs enumerated statically from contype/conaffinity, body and parent
 filters and excludes; every contact slot exists every step and
 ``dist >= includemargin`` marks it inactive.  MJX's contact budget (the
@@ -41,7 +42,7 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
 )
 from mujoco_inversedynamicstest_tpu_torch.ops import collision_convex as cc
 from mujoco_inversedynamicstest_tpu_torch.ops import collision_sdf as csdf
-from mujoco_inversedynamicstest_tpu_torch.ops import hfield
+from mujoco_inversedynamicstest_tpu_torch.ops import flexcol, hfield
 from mujoco_inversedynamicstest_tpu_torch.ops import math
 from mujoco_inversedynamicstest_tpu_torch.ops.hull import HullSpec
 
@@ -103,6 +104,8 @@ class ContactLayout(NamedTuple):
   ncon_full: int = 0
   reduce_groups: tuple = ()
   lane_slots: bool = False
+  # flex element contact groups (ops/flexcol.py), after the geom pairs
+  elem_groups: tuple = ()
 
 
 def _dist_pos(p1, nrm, p2, r):
@@ -328,7 +331,7 @@ def _nslot(key) -> int:
       f"{key[0].name}-{key[1].name}")
 
 
-def _device_hull(m: Model, spec: HullSpec) -> HullSpec:
+def device_hull(m: Model, spec: HullSpec) -> HullSpec:
   """The hull's tables on the model's device, made once."""
   return HullSpec(*(m.const(a) for a in spec))
 
@@ -356,7 +359,7 @@ def _group_narrowphase(m: Model, grp: PairGroup) -> Callable:
 
     def hull_of(did, t):
       spec = cc.BOX_HULL if t == GeomType.BOX else m.mesh_hull[did]
-      return _device_hull(m, spec), t == GeomType.BOX
+      return device_hull(m, spec), t == GeomType.BOX
 
     if t1 == GeomType.SPHERE:
       return cc.make_sphere_convex(*hull_of(grp.did2, t2))
@@ -408,6 +411,8 @@ def _build_layout(m: Model) -> ContactLayout:
     keep &= ~(((w1 == pw2) & (w1 != 0)) | ((w2 == pw1) & (w2 != 0)))
   keep &= ((m.geom_contype[tri1] & m.geom_conaffinity[tri2])
            | (m.geom_contype[tri2] & m.geom_conaffinity[tri1])) != 0
+  if m.flex is not None and m.flex.nvert and np.any(m.geom_flexid >= 0):
+    keep &= _flex_vertex_pairs(m, tri1, tri2)
   if len(m.pair_geom1):
     # a geom pair that a <pair> names collides once, as the <pair>
     ex1 = np.concatenate([m.pair_geom1, m.pair_geom2])
@@ -432,6 +437,9 @@ def _build_layout(m: Model) -> ContactLayout:
         GeomType.MESH, GeomType.HFIELD) else -1)
     by_key.setdefault((key, did(g1), did(g2), c), []).append((g1, g2, ip))
 
+  elem_groups = flexcol.build_elem_groups(m)
+  if m.flex is not None:
+    _refuse_flex_margins(m, raw, elem_groups)
   groups, slot_dim = [], []
   for key, did1, did2, condim in sorted(by_key):
     pairs = np.array(by_key[(key, did1, did2, condim)], np.int64)
@@ -442,8 +450,12 @@ def _build_layout(m: Model) -> ContactLayout:
     groups.append(PairGroup(key, pairs[:, 0], pairs[:, 1], nslot, condim,
                             did1, did2, pairs[:, 2], run))
     slot_dim += [condim] * (run * nslot)
+  for eg in elem_groups:
+    slot_dim += [eg.condim] * (eg.npair_run * eg.nslot)
   full_dim = np.array(slot_dim, np.int64)
-  lane_slots = any(g.npair_run < len(g.geom1) for g in groups)
+  # a flex element slot's geoms and bodies are lane data
+  lane_slots = bool(elem_groups) or any(g.npair_run < len(g.geom1)
+                                        for g in groups)
 
   # max_contact_points keeps the nearest slots of each condim
   reduce_groups, dim = (), full_dim
@@ -466,7 +478,43 @@ def _build_layout(m: Model) -> ContactLayout:
     slot_g2 = np.concatenate([empty] + [np.repeat(g.geom2, g.nslot)
                                         for g in groups])
   return ContactLayout(tuple(groups), len(dim), dim, slot_g1, slot_g2,
-                       len(full_dim), reduce_groups, lane_slots)
+                       len(full_dim), reduce_groups, lane_slots, elem_groups)
+
+
+def _flex_vertex_pairs(m: Model, tri1: np.ndarray,
+                       tri2: np.ndarray) -> np.ndarray:
+  """Which candidate geom pairs the flex vertex geoms keep: none of one
+  flex with itself (its self-collision is element pairs), and none of a
+  flex vertex with a geom that collides with the flex's elements."""
+  f1, f2 = m.geom_flexid[tri1], m.geom_flexid[tri2]
+  keep = ~((f1 >= 0) & (f1 == f2))
+  one_flex = (f1 >= 0) != (f2 >= 0)
+  partner = np.where(f1 >= 0, m.geom_type[tri2], m.geom_type[tri1])
+  dim = m.flex.dim[np.maximum(np.where(f1 >= 0, f1, f2), 0)]
+  elem_level = np.isin(partner, flexcol.ELEM_PARTNER_TYPES) & (dim >= 1)
+  elem_level &= ~np.isin(partner, flexcol.SMOOTH_PARTNER_TYPES) | (dim == 2)
+  return keep & ~(one_flex & elem_level)
+
+
+def _refuse_flex_margins(m: Model, raw: list, elem_groups: tuple) -> None:
+  """Refuses a contact margin or gap on a geom that collides with a flex
+  (its vertex geoms or its elements): C 3.10's rule for mixing them with
+  a flex's is not the JAX package's, and the port follows neither
+  unchecked."""
+  gflex = m.geom_flexid
+  partners = [g for g1, g2, _, _ in raw for g in (g1, g2)
+              if (gflex[g1] >= 0) != (gflex[g2] >= 0) and gflex[g] < 0]
+  partners += [int(g) for eg in elem_groups
+               if eg.kind in ("geom_elem", "plane_vert")
+               for g in np.unique(eg.pair_geom)]
+  if not partners:
+    return
+  partners = np.unique(partners)
+  if (np.any(m.geom_margin.cpu().numpy()[partners] != 0)
+      or np.any(m.geom_gap.cpu().numpy()[partners] != 0)):
+    raise NotImplementedError(
+        "unsupported by the PyTorch port: a contact margin or gap on a geom "
+        "that collides with a flex")
 
 
 def contact_layout(m: Model) -> ContactLayout:
@@ -488,17 +536,13 @@ def make_frame(normal: torch.Tensor, yhint: torch.Tensor) -> torch.Tensor:
   return torch.stack([n, y, math.cross(n, y)], dim=-2)
 
 
-def _pair_params(m: Model, grp: PairGroup):
-  """Mixed contact parameters of a pair group (``mj_contactParam``):
-  (margin, friction5, solref, solreffriction, solimp), each per pair.  An
-  explicit ``<pair>`` gives its own margin, friction, solref,
-  solreffriction and solimp; a mixed pair has no solreffriction (0, 0).
-  As in C MuJoCo 3.10, a contact's includemargin is its margin: no gap is
-  subtracted."""
-  g1, g2 = m.const(grp.geom1), m.const(grp.geom2)
-  p1 = m.geom_priority[grp.geom1]
-  p2 = m.geom_priority[grp.geom2]
-  s1, s2 = m.geom_solmix[g1], m.geom_solmix[g2]
+def mix_params(m: Model, p1: np.ndarray, p2: np.ndarray, s1, s2, sr1, sr2,
+               si1, si2, f1, f2):
+  """``mj_contactParam``'s mixing of two sides' parameters, per pair:
+  (friction5, solref, solimp).  p: priorities (host), s: solmix, sr:
+  solref, si: solimp, f: friction (3); the higher priority's own, else
+  solmix-weighted solref (the smaller of two where either is direct) and
+  solimp, the larger friction."""
   mix = torch.where(
       (s1 >= math.MINVAL) & (s2 >= math.MINVAL),
       s1 / torch.clamp(s1 + s2, min=math.MINVAL),
@@ -508,17 +552,28 @@ def _pair_params(m: Model, grp: PairGroup):
   use2 = m.const(p1 < p2)[:, None]
   mix = torch.where(use1[:, 0], 1.0, torch.where(use2[:, 0], 0.0, mix))
   mix = mix[:, None]
-
-  sr1, sr2 = m.geom_solref[g1], m.geom_solref[g2]
   both_std = ((sr1[:, 0] > 0) & (sr2[:, 0] > 0))[:, None]
   solref = torch.where(use1, sr1, torch.where(use2, sr2, torch.where(
       both_std, mix * sr1 + (1 - mix) * sr2, torch.minimum(sr1, sr2))))
-  si1, si2 = m.geom_solimp[g1], m.geom_solimp[g2]
   solimp = torch.where(use1, si1, torch.where(
       use2, si2, mix * si1 + (1 - mix) * si2))
-  f1, f2 = m.geom_friction[g1], m.geom_friction[g2]
   fri3 = torch.where(use1, f1, torch.where(use2, f2, torch.maximum(f1, f2)))
-  friction5 = fri3[:, m.const(np.array([0, 0, 1, 2, 2]))]
+  return fri3[:, m.const(np.array([0, 0, 1, 2, 2]))], solref, solimp
+
+
+def _pair_params(m: Model, grp: PairGroup):
+  """Mixed contact parameters of a pair group (``mj_contactParam``):
+  (margin, friction5, solref, solreffriction, solimp), each per pair.  An
+  explicit ``<pair>`` gives its own margin, friction, solref,
+  solreffriction and solimp; a mixed pair has no solreffriction (0, 0).
+  As in C MuJoCo 3.10, a contact's includemargin is its margin: no gap is
+  subtracted."""
+  g1, g2 = m.const(grp.geom1), m.const(grp.geom2)
+  friction5, solref, solimp = mix_params(
+      m, m.geom_priority[grp.geom1], m.geom_priority[grp.geom2],
+      m.geom_solmix[g1], m.geom_solmix[g2], m.geom_solref[g1],
+      m.geom_solref[g2], m.geom_solimp[g1], m.geom_solimp[g2],
+      m.geom_friction[g1], m.geom_friction[g2])
   # C 3.10 adds the two geoms' margins and makes a row of every contact
   # within the margin, whatever the gap (the JAX package takes the larger
   # margin and subtracts the larger gap: ROADMAP §3)
@@ -541,6 +596,14 @@ def group_params(m: Model) -> tuple:
   """Each pair group's ``_pair_params``, computed once."""
   return m.memo("group_params", lambda: tuple(
       _pair_params(m, g) for g in contact_layout(m).groups))
+
+
+def elem_params(m: Model) -> tuple:
+  """Each flex element group's ``flexcol.elem_pair_params``, computed
+  once."""
+  return m.memo("elem_params", lambda: tuple(
+      flexcol.elem_pair_params(m, g)
+      for g in contact_layout(m).elem_groups))
 
 
 def group_margins(m: Model) -> tuple:
@@ -587,7 +650,7 @@ def _nearest_pairs(m: Model, d: Data, grp: PairGroup,
   return order[:, :grp.npair_run]
 
 
-def _lane_take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+def lane_take(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
   """x (B, n, ...) at the lane indices idx (B, k): (B, k, ...)."""
   return torch.take_along_dim(
       x, idx.reshape(idx.shape + (1,) * (x.ndim - 2)), dim=1)
@@ -626,9 +689,9 @@ def collision(m: Model, d: Data) -> Data:
     if capped:
       sel = _nearest_pairs(m, d, grp, prm[0])
       g1, g2, prm = g1[sel], g2[sel], tuple(p[sel] for p in prm)
-      args = (_lane_take(d.geom_xpos, g1), _lane_take(d.geom_xmat, g1),
-              m.geom_size[g1], _lane_take(d.geom_xpos, g2),
-              _lane_take(d.geom_xmat, g2), m.geom_size[g2], prm[0])
+      args = (lane_take(d.geom_xpos, g1), lane_take(d.geom_xmat, g1),
+              m.geom_size[g1], lane_take(d.geom_xpos, g2),
+              lane_take(d.geom_xmat, g2), m.geom_size[g2], prm[0])
     else:
       args = (d.geom_xpos[:, g1], d.geom_xmat[:, g1], m.geom_size[g1],
               d.geom_xpos[:, g2], d.geom_xmat[:, g2], m.geom_size[g2],
@@ -653,6 +716,32 @@ def collision(m: Model, d: Data) -> Data:
       rep = lambda x: torch.repeat_interleave(x, grp.nslot, dim=1)
       prms.append(tuple(rep(p) for p in prm))
       geoms.append((rep(g1), rep(g2)))
+  bary = []
+  if lay.elem_groups:
+    # a geom slot's side is its geom's body at weight 1
+    width = flexcol.bary_width(m)
+    if geoms:
+      body = m.const(m.geom_bodyid)
+      bb = torch.stack([body[torch.cat([g[k] for g in geoms], 1)]
+                        for k in (0, 1)], dim=2)[..., None]
+      bw = torch.ones_like(bb, dtype=d.qpos.dtype)
+      pad = (0, width - 1)
+      bary.append((torch.nn.functional.pad(bb, pad),
+                   torch.nn.functional.pad(bw, pad)))
+    for eg, prm in zip(lay.elem_groups, elem_params(m)):
+      ec = flexcol.run_elem_group(m, d, eg)
+      dists.append(ec.dist)
+      poss.append(ec.pos)
+      frames.append(make_frame(ec.nrm, torch.zeros_like(ec.nrm)))
+      if ec.sel is None:
+        prm = tuple(p.expand((bsz,) + p.shape) for p in prm)
+      else:
+        prm = tuple(lane_take(p.expand((bsz,) + p.shape), ec.sel)
+                    for p in prm)
+      prms.append(tuple(torch.repeat_interleave(p, eg.nslot, dim=1)
+                        for p in prm))
+      geoms.append((ec.geom1, ec.geom2))
+      bary.append((ec.bary_body, ec.bary_w))
   cat = lambda xs: torch.cat(xs, 1)
   dist, pos, frame = cat(dists), cat(poss), cat(frames)
   if not lanes:
@@ -660,12 +749,14 @@ def collision(m: Model, d: Data) -> Data:
     fields = [x.expand((bsz,) + x.shape) for x in contact_constants(m)]
   else:
     fields = [cat(x) for x in zip(*prms)] + [cat(x) for x in zip(*geoms)]
+  fields += [cat(x) for x in zip(*bary)] if bary else [None, None]
   if lay.reduce_groups:
     sel = _nearest_slots(m, lay, dist, fields[0])
-    dist, pos, frame = (_lane_take(x, sel) for x in (dist, pos, frame))
-    fields = [_lane_take(x, sel) for x in fields]
-  includemargin, friction, solref, solreffriction, solimp, g1, g2 = fields
+    dist, pos, frame = (lane_take(x, sel) for x in (dist, pos, frame))
+    fields = [None if x is None else lane_take(x, sel) for x in fields]
+  (includemargin, friction, solref, solreffriction, solimp, g1, g2,
+   bary_body, bary_w) = fields
   return d.replace(contact=Contact(
       dist=dist, pos=pos, frame=frame, includemargin=includemargin,
       friction=friction, solref=solref, solreffriction=solreffriction,
-      solimp=solimp, geom1=g1, geom2=g2))
+      solimp=solimp, geom1=g1, geom2=g2, bary_body=bary_body, bary_w=bary_w))

@@ -222,13 +222,20 @@ def _seg_seg_cross_2d(p_a, e_a, p_b, e_b, n):
 
 
 def _face_face_manifold(h_ref: WorldHull, f_ref, h_inc: WorldHull, f_inc,
-                        margin, nslot: int):
+                        margin, nslot: int, score_fn=None):
   """Contact candidates where face f_inc of h_inc meets face f_ref of h_ref.
 
   Candidates = inc-verts inside ref-poly + ref-verts inside inc-poly +
   pairwise edge crossings, all projected along the ref normal; up to
   ``nslot`` survivors are selected by depth then spread.
   Returns (dist, pos) of shape (..., nslot), (..., nslot, 3), +BIG padded.
+
+  ``score_fn`` remaps the candidates' depths for the selection (still
+  masked by ``depth <= margin``): a thin two-sided flex element
+  (``ops/flexcol.py``) scores by ``|d| - rt``, so that a candidate far
+  behind its plane (tunnelled through, force-free) does not crowd out the
+  ones near the surface that carry force.  The raw depths are returned
+  either way.
   """
   n = _take(h_ref.face_normal, f_ref)                      # (..., 3)
   poly_r, mask_r = _face_poly(h_ref, f_ref)                # (..., FR, 3)
@@ -269,7 +276,8 @@ def _face_face_manifold(h_ref: WorldHull, f_ref, h_inc: WorldHull, f_inc,
                       torch.where(denom < 0, -tiny, tiny), denom)
   depth = _dot(ni[..., None, :], pi[..., None, :] - cand) / denom[..., None]
   valid = valid & (depth <= margin[..., None])
-  score = torch.where(valid, depth, _BIG)
+  scored = depth if score_fn is None else score_fn(depth)
+  score = torch.where(valid, scored, _BIG)
 
   # selection: deepest first, then maximize minimum spread
   num = cand.shape[-2]
@@ -283,7 +291,7 @@ def _face_face_manifold(h_ref: WorldHull, f_ref, h_inc: WorldHull, f_inc,
     else:
       # among valid unpicked, prefer far from already-picked; tie-break depth
       spread = torch.where(valid & ~sel, mind, -_BIG)
-      pick = torch.argmax(spread - 1e-6 * depth, dim=-1)
+      pick = torch.argmax(spread - 1e-6 * scored, dim=-1)
     ok = _take(valid, pick, -1) & ~_take(sel, pick, -1)
     dp = _take(depth, pick, -1)
     cp = _take(cand, pick)

@@ -2,9 +2,10 @@
 
 Port of ``mujoco_inversedynamicstest_tpu/ops/constraint.py`` for the rows the
 port builds: equality rows of type connect, weld (on bodies or sites),
-joint and tendon; dof and tendon friction loss; joint limits on hinges,
-slides and balls, and tendon limits; and pyramidal or frictionless
-contacts.  Every potential row exists every step;
+joint, tendon and flex (one row a non-rigid edge); dof and tendon friction
+loss; joint limits on hinges, slides and balls, and tendon limits; and
+pyramidal, elliptic or frictionless contacts, whose sides are a geom's
+body or, on a flex element, the element's bodies with weights.  Every potential row exists every step;
 an inactive row (an equality element switched off in its lane by
 ``eq_active``, a limit or contact out of reach) has a zero Jacobian and
 D = 0, which makes it a no-op downstream, as C's packing leaves it out.
@@ -49,6 +50,27 @@ class EqGroup(NamedTuple):
   kind: EqType
   site: bool              # connect/weld between sites (else bodies)
   ids: np.ndarray         # the elements, in id order
+  # a flex group's rows: each element's non-rigid edges, one row each
+  edges: tuple = ()
+
+  @property
+  def nrows(self) -> int:
+    if self.kind == EqType.FLEX:
+      return sum(len(e) for e in self.edges)
+    return _EQ_ROWS[self.kind] * len(self.ids)
+
+  def row_ids(self) -> np.ndarray:
+    """The element of each of the group's rows."""
+    if self.kind == EqType.FLEX:
+      return np.repeat(self.ids, [len(e) for e in self.edges])
+    return np.repeat(self.ids, _EQ_ROWS[self.kind])
+
+
+def _flex_eq_edges(m: Model, f: int) -> np.ndarray:
+  """The global ids of flex ``f``'s non-rigid edges."""
+  fl = m.flex
+  adr, num = int(fl.edgeadr[f]), int(fl.edgenum[f])
+  return adr + np.nonzero(~fl.edge_rigid[adr:adr + num])[0]
 
 
 class RowLayout(NamedTuple):
@@ -96,7 +118,11 @@ def _build_row_layout(m: Model) -> RowLayout:
         ids = np.nonzero((m.eq_type == kind) & (site == on_site))[0]
         if ids.size:
           groups.append(EqGroup(kind, on_site, ids))
-          keys.append(np.repeat(ids, _EQ_ROWS[kind]))
+    ids = np.nonzero(m.eq_type == EqType.FLEX)[0]
+    if ids.size:
+      groups.append(EqGroup(EqType.FLEX, False, ids, tuple(
+          _flex_eq_edges(m, int(m.eq_obj1id[i])) for i in ids)))
+    keys = [g.row_ids() for g in groups]
   ne = sum(len(k) for k in keys)
   eq_perm = None
   if len(groups) > 1:
@@ -339,6 +365,15 @@ def _eq_rows(m: Model, d: Data, g: EqGroup) -> _Rows:
   ``getposdim``: the norm of a connect's or weld's residual)."""
   bsz, k, nv = d.batch, len(g.ids), m.nv
   ids = m.const(g.ids)
+  if g.kind == EqType.FLEX:
+    # each non-rigid edge: its length less length0 along the edge Jacobian
+    # (``mj_instantiateEquality``), diagonal the edge's invweight0
+    edges = m.const(np.concatenate(g.edges))
+    rows = m.const(g.row_ids())
+    pos = d.flexedge_length[:, edges] - m.flex.edge_length0[edges]
+    return _Rows(d.flexedge_J[:, edges], pos, pos, d.eq_active[:, rows],
+                 pos.new_zeros(len(edges)), m.eq_solref[rows],
+                 m.eq_solimp[rows], m.flex.edge_invweight0[edges])
   r = _EQ_ROWS[g.kind]
   rep = lambda x: torch.repeat_interleave(x, r, dim=0)
   active = torch.repeat_interleave(d.eq_active[:, ids], r, dim=1)
@@ -413,11 +448,11 @@ def equality_wrenches(m: Model, d: Data):
         else np.argsort(lay.eq_perm))
   start, out, bodies = 0, [], []
   for g in lay.eq_groups:
-    r, k = _EQ_ROWS[g.kind], len(g.ids)
-    rows = at[start:start + k * r]
-    start += k * r
-    if g.kind in _SCALAR_EQ:
+    rows = at[start:start + g.nrows]
+    start += g.nrows
+    if g.kind in _SCALAR_EQ or g.kind == EqType.FLEX:
       continue
+    r, k = _EQ_ROWS[g.kind], len(g.ids)
     f = d.efc_force[:, m.const(rows)].reshape(d.batch, k, r)
     torque = f[..., 3:] if r == 6 else torch.zeros_like(f)
     for (p, b), sign in zip(_eq_anchors(m, d, g), (1.0, -1.0)):
@@ -435,12 +470,13 @@ def _eq_acc_bias(m: Model, d: Data) -> torch.Tensor:
   equality row (``mj_referenceConstraint``): at the anchors of a connect
   or weld, J-dot qvel (``mj_jacDot``), and for a weld's rotation rows the
   time derivative of its rotation Jacobian, by the product rule over
-  ts vec(conj(q2) (0, w) quat), contracted with qvel; zero on joint rows."""
+  ts vec(conj(q2) (0, w) quat), contracted with qvel; zero on joint,
+  tendon and flex edge rows."""
   lay = row_layout(m)
   out = []
   for g in lay.eq_groups:
-    if g.kind in _SCALAR_EQ:
-      out.append(d.qvel.new_zeros((d.batch, len(g.ids))))
+    if g.kind in _SCALAR_EQ or g.kind == EqType.FLEX:
+      out.append(d.qvel.new_zeros((d.batch, g.nrows)))
       continue
     (p1, b1), (p2, b2) = _eq_anchors(m, d, g)
     jp1, jr1 = support.jac_dot(m, d, p1, b1)
@@ -488,7 +524,14 @@ def _contact_row_map(m: Model):
 
 
 def slot_bodies(m: Model, con):
-  """The bodies of each slot's two geoms, (B, ncon) each."""
+  """The bodies of each slot's two geoms, (B, ncon) each.  A flex element
+  contact has no one body a side, and the JAX package gives its readers
+  (touch, the contact wrenches of ``rne_postconstraint``) no meaning:
+  refused, by name."""
+  if con.bary_body is not None:
+    raise NotImplementedError(
+        "unsupported by the PyTorch port: a reader of the contact slots' "
+        "bodies (touch, cfrc_ext) on a model with flex element contacts")
   bodyid = m.const(m.geom_bodyid)
   return bodyid[con.geom1], bodyid[con.geom2]
 
@@ -507,7 +550,8 @@ def _contact_rows(m: Model, d: Data):
   nrows = len(slot_idx)
   si = m.const(slot_idx)
   ar = m.const(np.arange(nrows))
-  b1, b2 = slot_bodies(m, con)
+  if con.bary_body is None:
+    b1, b2 = slot_bodies(m, con)
 
   frame = con.frame[:, si]                               # (B, R, 3, 3)
   mu_row = con.friction[..., si, m.const(np.maximum(k_idx - 1, 0))]
@@ -533,21 +577,29 @@ def _contact_rows(m: Model, d: Data):
   p_row = con.pos[:, si]
   com = d.subtree_com[:, m.const(m.body_rootid)]
   cdof_t = d.cdof.transpose(1, 2)
-  rb1, rb2 = b1[:, si], b2[:, si]                        # (B, R)
   dof_mask = m.const(m.tree.body_dof_mask)
   com_of = lambda b: torch.take_along_dim(com, b[..., None], dim=1)
-  mask = lambda b: dof_mask[b]
 
   def side_rows(bids):
     off = p_row - com_of(bids)
     u = torch.cat([math.cross(off, w_t) + w_r, w_t], dim=-1)
-    return u @ cdof_t                                     # (B, R, nv)
-
-  rows_j = (torch.where(mask(rb2), side_rows(rb2), 0.0)
-            - torch.where(mask(rb1), side_rows(rb1), 0.0))
+    return torch.where(dof_mask[bids], u @ cdof_t, 0.0)   # (B, R, nv)
 
   invw = m.body_invweight0
-  tran = invw[b1, 0] + invw[b2, 0]                       # (B, ncon)
+  if con.bary_body is None:
+    rows_j = side_rows(b2[:, si]) - side_rows(b1[:, si])
+    tran = invw[b1, 0] + invw[b2, 0]                     # (B, ncon)
+  else:
+    # each side: the weighted sum over its bodies (``mj_elemBodyWeight``;
+    # a geom's side is its body at weight 1), in the Jacobian and in the
+    # diagonal approximation
+    bb, bw = con.bary_body[:, si], con.bary_w[:, si]     # (B, R, 2, W)
+    rows_j = 0.0
+    for side, sign in ((1, 1.0), (0, -1.0)):
+      for k in range(bb.shape[-1]):
+        rows_j = rows_j + (sign * bw[:, :, side, k, None]) * side_rows(
+            bb[:, :, side, k])
+    tran = torch.sum(con.bary_w * invw[con.bary_body, 0], dim=(-1, -2))
   imp, impp = _impedance(con.solimp, con.dist, con.includemargin)
   kbip = _kbip(m, con.solref, con.solimp, imp, impp)     # (B, ncon, 4)
   active = con.dist < con.includemargin

@@ -45,6 +45,7 @@ def fwd_position(m: Model, d: Data) -> Data:
   up ``mj_invPosition``."""
   d = smooth.kinematics(m, d)
   d = smooth.com_pos(m, d)
+  d = smooth.flex(m, d)
   d = smooth.tendon(m, d)
   d = smooth.crb(m, d)
   d = smooth.factor_m(m, d)
@@ -57,6 +58,8 @@ def fwd_velocity(m: Model, d: Data) -> Data:
   """Velocity-dependent stage (``mj_fwdVelocity``)."""
   if m.ntendon:
     d = d.replace(ten_velocity=math.matvec(d.ten_J, d.qvel))
+  if d.flexedge_J is not None:
+    d = d.replace(flexedge_velocity=math.matvec(d.flexedge_J, d.qvel))
   if m.nu:
     d = d.replace(actuator_velocity=math.matvec(d.actuator_moment, d.qvel))
   d = smooth.com_vel(m, d)

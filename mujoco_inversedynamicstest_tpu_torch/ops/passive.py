@@ -1,8 +1,8 @@
 """Passive forces: joint and tendon springs, dof and tendon dampers,
-gravity compensation, fluid forces.
+gravity compensation, fluid forces, and the flexes' element elasticity,
+trilinear nodal elasticity and edge spring-dampers.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/passive.py`` without the flex
-terms (``put_model`` refuses flex).  The fluid forces (``mj_fluid``) are
+Port of ``mujoco_inversedynamicstest_tpu/ops/passive.py``.  The fluid forces (``mj_fluid``) are
 both of C's models, the inertia box of each body and the ellipsoid of each
 ``fluidshape="ellipsoid"`` geom, computed in one batch over the bodies and
 geoms of each model and applied to the dofs in one contraction (the JAX
@@ -21,7 +21,7 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
     JointType,
     Model,
 )
-from mujoco_inversedynamicstest_tpu_torch.ops import math, support
+from mujoco_inversedynamicstest_tpu_torch.ops import math, smooth, support
 
 
 def _spring(m: Model, d: Data) -> torch.Tensor:
@@ -227,6 +227,123 @@ def _tendon_forces(m: Model, d: Data):
   return spring, -m.tendon_damping * d.ten_velocity
 
 
+# each element edge's two local vertices (C's edge order of an element)
+_ELEM_EDGES = {2: np.array([[1, 2], [2, 0], [0, 1]]),
+               3: np.array([[0, 1], [1, 2], [2, 0], [2, 3], [0, 3], [1, 3]])}
+
+
+def flex_elasticity(m: Model, d: Data) -> torch.Tensor:
+  """Element elasticity with Rayleigh damping (the element loop of
+  ``mj_passive``): each element's squared-length elongations, with the
+  discrete damping term, contracted with its metric, pushed to its
+  vertices along the squared lengths' gradients, and to the dofs through
+  the vertices' point Jacobians.  (B, nv)."""
+  fl = m.flex
+  fvert = d.qpos.new_zeros((d.batch, fl.nvert, 3))
+  for f in range(fl.nflex):
+    dim = int(fl.dim[f])
+    if dim == 1 or fl.rigid[f]:
+      continue
+    ea, en = int(fl.elemadr[f]), int(fl.elemnum[f])
+    ltab = _ELEM_EDGES[dim]
+    nepe = len(ltab)
+    vert_ids = fl.elem[ea:ea + en, :dim + 1]
+    edge_ids = m.const(fl.elemedge[ea:ea + en, :nepe])
+    x = d.flexvert_xpos[:, m.const(vert_ids)]            # (B, ne, dim+1, 3)
+    grad0 = x[:, :, m.const(ltab[:, 0])] - x[:, :, m.const(ltab[:, 1])]
+    length = d.flexedge_length[:, edge_ids]
+    length0 = fl.edge_length0[edge_ids]
+    dt = m.opt.timestep
+    prev = length - d.flexedge_velocity[:, edge_ids] * dt
+    elong = (length * length - length0 * length0
+             + (length * length - prev * prev) * (fl.damping[f] / dt))
+    metric = fl.metric[ea:ea + en, :nepe, :nepe]
+    coef = torch.sum(elong[..., :, None] * metric, dim=-2)  # (B, ne, nepe)
+    f0 = (-coef[..., None] * grad0).reshape(d.batch, -1, 3)
+    ends = [vert_ids[:, ltab[:, k]].reshape(-1) for k in (0, 1)]
+    for k, (idx, sgn) in enumerate(zip(ends, (1.0, -1.0))):
+      fvert = smooth.ordered_index_add(m, fvert, idx, sgn * f0,
+                                       ("flex_elasticity", f, k))
+  return support.apply_at_bodies(m, d, d.flexvert_xpos, fl.vertbodyid,
+                                 fvert, torch.zeros_like(fvert))
+
+
+def _mat2rot(mat: torch.Tensor, iters: int = 80) -> torch.Tensor:
+  """The rotation of a deformation gradient (``mju_mat2Rot``, Mueller et
+  al. 2016) as a quaternion, by a fixed count of updates; a converged
+  update is a no-op."""
+  quat = mat.new_tensor([1.0, 0.0, 0.0, 0.0]).expand(mat.shape[:-2] + (4,))
+  cols_m = mat.transpose(-1, -2)
+  for _ in range(iters):
+    cols_r = math.quat_to_mat(quat).transpose(-1, -2)
+    omega = torch.sum(math.cross(cols_r, cols_m), dim=-2)
+    denom = torch.abs(torch.sum(cols_r * cols_m, dim=(-1, -2))) + math.MINVAL
+    omega = omega / denom[..., None]
+    w = torch.linalg.vector_norm(omega, dim=-1)
+    axis = omega / torch.clamp(w, min=math.MINVAL)[..., None]
+    qn = math.normalize_quat(math.quat_mul(math.axis_angle_quat(axis, w),
+                                           quat))
+    quat = torch.where((w < 1e-12)[..., None], quat, qn)
+  return quat
+
+
+def flex_nodal_elasticity(m: Model, d: Data):
+  """Stretch-frame nodal elasticity of the trilinear flexes (the interp
+  branch of ``mj_passive``): the nodes re-centred, the rotation fit from
+  the deformation gradient at the cell centre (``mju_defGradient``,
+  ``mju_mat2Rot``), displacements and velocities rotated into its frame,
+  one (3N, 3N) product with the nodal stiffness, rotated back onto the
+  nodes' dofs.  Returns the (B, nv) spring and damper forces."""
+  fl = m.flex
+  qfrc_s = d.qpos.new_zeros((d.batch, m.nv))
+  qfrc_d = d.qpos.new_zeros((d.batch, m.nv))
+  for f in range(fl.nflex):
+    stiff = fl.stiffness_nodal[f]
+    if not fl.interp[f] or not stiff.numel():
+      continue
+    na, nn = int(fl.nodeadr[f]), int(fl.nodenum[f])
+    bodies = fl.nodebodyid[na:na + nn]
+    dof_idx = (m.body_dofadr[bodies][:, None] + np.arange(3)).reshape(-1)
+    xpos = d.xpos[:, m.const(bodies)]                    # (B, nn, 3)
+    vel = d.qvel[:, m.const(dof_idx)].reshape(d.batch, nn, 3)
+    xc = xpos - torch.mean(xpos, dim=1, keepdim=True)
+    j = np.arange(nn)
+    grad = m.const(np.stack([np.where(j & 4, 1.0, -1.0),
+                             np.where(j & 2, 1.0, -1.0),
+                             np.where(j & 1, 1.0, -1.0)], axis=1) * 0.25)
+    defgrad = torch.sum(xc[..., :, :, None] * grad[:, None, :], dim=-3)
+    quat = _mat2rot(defgrad)                            # (B, 4)
+    qinv = math.quat_conj(quat)[:, None]
+    x_r = math.rotate(xc, qinv) + 0.5
+    v_r = math.rotate(vel, qinv)
+    displ = (x_r - fl.node0[na:na + nn]).reshape(d.batch, -1)
+    frc = math.matvec(stiff, displ).reshape(d.batch, nn, 3)
+    dmp = math.matvec(stiff, v_r.reshape(d.batch, -1)).reshape(
+        d.batch, nn, 3) * fl.damping[f]
+    q = quat[:, None]
+    cols = m.const(dof_idx)
+    qfrc_s = qfrc_s.index_add(1, cols, math.rotate(frc, q).reshape(
+        d.batch, -1))
+    qfrc_d = qfrc_d.index_add(1, cols, math.rotate(dmp, q).reshape(
+        d.batch, -1))
+  return qfrc_s, qfrc_d
+
+
+def flex_edge_springdamper(m: Model, d: Data):
+  """Edge spring-dampers (the edge loop of ``mj_passive``): stiffness
+  times (length0 - length) and -damping times the edge velocity along the
+  edge Jacobian; rigid edges and rigid flexes take none.  Returns the
+  (B, nv) spring and damper forces."""
+  fl = m.flex
+  edge_flex = np.repeat(np.arange(fl.nflex), fl.edgenum)
+  on = m.const((~fl.edge_rigid & ~fl.rigid[edge_flex]).astype(float))
+  ef = m.const(edge_flex)
+  spring = fl.edgestiffness[ef] * on * (fl.edge_length0 - d.flexedge_length)
+  damper = -fl.edgedamping[ef] * on * d.flexedge_velocity
+  jt = d.flexedge_J.transpose(1, 2)
+  return math.matvec(jt, spring), math.matvec(jt, damper)
+
+
 def passive(m: Model, d: Data) -> Data:
   """All passive forces (``mj_passive``).  Gravity compensation of the
   dofs of ``jnt_actgravcomp`` joints goes to qfrc_actuator instead
@@ -242,6 +359,21 @@ def passive(m: Model, d: Data) -> Data:
       qfrc_spring = qfrc_spring + math.matvec(jt, spring)
     if not flags & DisableBit.DAMPER:
       qfrc_damper = qfrc_damper + math.matvec(jt, damper)
+  fl = m.flex
+  if fl is not None:
+    # element elasticity goes to qfrc_spring, as C accounts it
+    if fl.has_elasticity and not flags & DisableBit.SPRING:
+      qfrc_spring = qfrc_spring + flex_elasticity(m, d)
+    terms = []
+    if fl.has_nodal_elasticity:
+      terms.append(flex_nodal_elasticity(m, d))
+    if fl.has_edge_sd:
+      terms.append(flex_edge_springdamper(m, d))
+    for spring, damper in terms:
+      if not flags & DisableBit.SPRING:
+        qfrc_spring = qfrc_spring + spring
+      if not flags & DisableBit.DAMPER:
+        qfrc_damper = qfrc_damper + damper
   qfrc_gravcomp = zero
   to_passive = zero
   if m.has_gravcomp and not flags & DisableBit.GRAVITY:

@@ -61,7 +61,7 @@ def _units(m: Model) -> tuple:
 def _primal(d: Data) -> Data:
   """``d`` with the fields PGS reads as plain tensors (their primal
   values under forward-mode AD)."""
-  p = lambda x: fwAD.unpack_dual(x).primal
+  p = lambda x: None if x is None else fwAD.unpack_dual(x).primal
   return d.replace(
       efc_J=p(d.efc_J), efc_R=p(d.efc_R), efc_aref=p(d.efc_aref),
       efc_D=p(d.efc_D), efc_frictionloss=p(d.efc_frictionloss),

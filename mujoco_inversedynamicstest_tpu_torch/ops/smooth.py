@@ -236,6 +236,61 @@ def com_pos(m: Model, d: Data) -> Data:
   return d.replace(subtree_com=subtree_com, cinert=cinert, cdof=cdof)
 
 
+def _point_rows(m: Model, d: Data, points: torch.Tensor, bodies: np.ndarray,
+                w: torch.Tensor) -> torch.Tensor:
+  """(B, K, nv): w_k . jacp(point_k) for K points (B, K, 3) on the host
+  ``bodies`` (K,), each along its own direction w (B, K, 3) (``mj_jac``
+  contracted: cdof_lin . w + cdof_ang . (off x w) on the dofs that move the
+  body)."""
+  off = points - d.subtree_com[:, m.const(m.body_rootid[bodies])]
+  u = torch.cat([math.cross(off, w), w], dim=-1)
+  rows = u @ d.cdof.transpose(1, 2)
+  return torch.where(m.const(m.tree.body_dof_mask[bodies]), rows, 0.0)
+
+
+def flex_needs_jacobian(m: Model) -> bool:
+  """Whether an edge row, an edge spring-damper or the element elasticity
+  reads the edge Jacobian (``mj_flex`` skips it otherwise)."""
+  fl = m.flex
+  return bool(np.any(fl.edgeequality & ~fl.rigid & (fl.interp == 0))
+              or fl.has_edge_sd or fl.has_elasticity)
+
+
+def flex(m: Model, d: Data) -> Data:
+  """Flex vertex positions, edge lengths and, where something reads them,
+  edge Jacobians (``mj_flex``).  A vertex sits at its body's frame, at
+  its body-local position unless the flex is centered; a trilinear
+  flex's vertex is its static weights times its 8 node bodies' positions.
+  Edge e's Jacobian row is u_e . (jacp(v2) - jacp(v1)), u_e the unit edge
+  vector."""
+  fl = m.flex
+  if fl is None:
+    return d
+  if np.any(fl.interp):
+    parts = []
+    for f in range(fl.nflex):
+      na, nn = int(fl.nodeadr[f]), int(fl.nodenum[f])
+      nodes = d.xpos[:, m.const(fl.nodebodyid[na:na + nn])]   # (B, nn, 3)
+      parts.append(m.const(fl.interp_w[f]) @ nodes)
+    xpos = torch.cat(parts, dim=1)
+  else:
+    vb = m.const(fl.vertbodyid)
+    local = m.const(np.where(fl.centered[fl.vertflexid][:, None], 0.0,
+                             fl.vert))
+    xpos = d.xpos[:, vb] + math.matvec(d.xmat[:, vb], local)
+  v1, v2 = fl.edge[:, 0], fl.edge[:, 1]
+  vec = xpos[:, m.const(v2)] - xpos[:, m.const(v1)]
+  length = math.norm_safe(vec)
+  d = d.replace(flexvert_xpos=xpos, flexedge_length=length)
+  if not flex_needs_jacobian(m):
+    return d
+  u = vec / length[..., None]
+  vb = fl.vertbodyid
+  jac = (_point_rows(m, d, xpos[:, m.const(v2)], vb[v2], u)
+         - _point_rows(m, d, xpos[:, m.const(v1)], vb[v1], u))
+  return d.replace(flexedge_J=jac)
+
+
 def crb(m: Model, d: Data) -> Data:
   """Composite-rigid-body mass matrix, dense (``mj_crb``)."""
   crb_body = tree_sum_up(m, d.cinert)

@@ -298,7 +298,10 @@ ELLIPSOID, CYLINDER, HFIELD, SDF = 4, 5, 1, 8
               pair_solreffriction=(None, [[0.0, 0.0]]),
               pair_solimp=(None, [[0.9, 0.95, 0.001, 0.5, 2.0]])),
      "collision pair CYLINDER-BOX"),
-    ((), dict(nflex=(None, 1)), "nflex = 1"),
+    # flexes collide now; a flex feature the port does not compute is
+    # refused by its name, before anything of the flex is read
+    ((), dict(nflex=(None, 1), nflexbending=(None, 1)),
+     "flex bending elasticity"),
 ], ids=["plane-ellipsoid", "ellipsoid-box", "sphere-ellipsoid",
         "cylinder-box", "sphere-cylinder", "capsule-cylinder",
         "cylinder-cylinder", "hfield", "sdf", "explicit-pair", "flex"])

@@ -97,7 +97,9 @@ def test_exclude_matches_c(model, body1, ncon):
 
 def weld_rule_pairs(m):
   """The candidate geom pairs of the rule before the repair, exclusions by
-  weld id: (g1, g2) with g1 < g2."""
+  weld id: (g1, g2) with g1 < g2.  A flex's vertex geoms pair as the
+  layout pairs them (``collision._flex_vertex_pairs``: no pair within one
+  flex, none with a geom that collides with its elements)."""
   if m.opt.disableflags & (DisableBit.CONTACT | DisableBit.CONSTRAINT):
     return set()
   tri1, tri2 = np.triu_indices(m.ngeom, k=1)
@@ -112,6 +114,8 @@ def weld_rule_pairs(m):
   keep &= ~(((w1 == pw2) & (w1 != 0)) | ((w2 == pw1) & (w2 != 0)))
   keep &= ((m.geom_contype[tri1] & m.geom_conaffinity[tri2])
            | (m.geom_contype[tri2] & m.geom_conaffinity[tri1])) != 0
+  if m.flex is not None and np.any(m.geom_flexid >= 0):
+    keep &= collision._flex_vertex_pairs(m, tri1, tri2)
   return {(int(a), int(b)) for a, b in zip(tri1[keep], tri2[keep])}
 
 
