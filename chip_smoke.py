@@ -7,7 +7,7 @@ A full run is two processes on the card: this one runs the timed work
 and a second one it starts after phase 12 (``--checks``) runs the untimed
 fp64 checks beside it (the kernels against their plain versions in phases
 3-4, 8 and 9, phases 7, 10 and 16, and the fp64 parts of phases 6, 13, 15
-and 17-25: kernels against plain versions, inverse_tests, transition_ad
+and 17-26: kernels against plain versions, inverse_tests, transition_ad
 against transition_fd).  Phases 5, 6, 9, 11 and 12 run alone.  The second
 process's lines are printed as they come, after ``checks |``; a failure in
 either process fails the script.  Phase 6's loop is timed alone before the
@@ -44,7 +44,7 @@ non-zero:
    bit-equal.
 9. kernel: main-path shapes, and timing: JVP kernels -- all four kernels
    against their plain versions, bit-equal, at every shape at which
-   phases 6-25 launch them, the solve at its columns (n = 27 for the
+   phases 6-26 launch them, the solve at its columns (n = 27 for the
    humanoid, the JVP kernels at
    (lanes, tangents) (8, 75) and (1, 75) fp64, (320, 75), (400, 75),
    (1024, 75) and the folded (76,800, 1), in both layouts; n = 1-6 for phase 18's and
@@ -58,7 +58,9 @@ non-zero:
    solvers' M⁻¹ Jᵀ at nefc columns: 324 on the humanoid, 164 on box_stack's
    6-dof blocks, 44 on elliptic_pairs'; phase 25's flex scenes (n = 30,
    42, 69, 75, 87 and their 3- and 6-dof blocks), the JVPs at (8, 84) and
-   (8, 138) fp64); then at the
+   (8, 138) fp64; phase 26's quadruped with its rangefinders (n = 22, the
+   JVPs at (8, 68) fp64) and its transmission and sensor-tail scenes (n =
+   1-6)); then at the
    bench's chunk (1024 lanes, 75 tangents) the JVP kernels timed against
    the plain versions, their bounds (L read once a lane) and
    torch.func.vmap over torch.func.jvp of torch.linalg.cholesky /
@@ -149,7 +151,7 @@ non-zero:
    RK4, 64 lanes fp64, 60 steps (0.3 s, cut for time) of fresh
    qfrc_applied, xfrc_applied and ctrl from a seeded torch.Generator (both
    solver_fwdinv entries <= 1e-6 on every lane at every step).  Then
-   BASELINE rung 2: iLQR reach on the tendon arm, F = 128 fp32 problems,
+   BASELINE rung 2: iLQR reach on the tendon arm, F = 64 fp32 problems,
    H = 50, ILQRConfig(iterations=2) (10 took 272 s: cut for time),
    a seeded reachable target per lane, cost |hand - target|^2 + 1e-3 |u|^2
    (the hand from the arm's closed-form planar kinematics): solves/s,
@@ -192,7 +194,7 @@ non-zero:
    host, which has no finite solution here); then a fleet of 4096 fp32
    lanes from the pose with 0.01 hinge and velocity noise, half closed
    loop (ctrl0 - K dx + smoothed control noise, in ctrl_fn) and half open
-   loop (K = 0), 250 steps through opt.rollout: the share of each half
+   loop (K = 0), 200 steps through opt.rollout: the share of each half
    balanced at every step (at least 0.9 closed loop, at most 0.5 open
    loop), steps/s, finite lanes, each half's auto-resets (none in the
    closed loop), launches; then 4 fp64 lanes for 25 closed-loop steps and 4 for
@@ -290,15 +292,41 @@ non-zero:
    transition_fd (centered, eps 1e-6, zero warm start; within 1e-4 of
    max|A|).
 
+26. slice: sensor tail -- the rest of the sensors, the scene ray cast and
+   the SITE, SLIDERCRANK and BODY (adhesion) transmissions.
+   quadruped_rangefinder (dm_control's quadruped with the escape task's 32
+   sensors, 20 of them rangefinders, on the walk task's floor) and phase
+   23's quadruped from the same walk-task starts, B = 4096 fp32, 20 EULER
+   steps (step_n, after a warm-up step) each, in turns rangefinder, plain,
+   plain, rangefinder: steps/s of each and their ratio, finite lanes,
+   auto-resets, the rangefinders hitting and reading -1, each kernel's
+   launches a step; the sensor stage's and the rangefinder cast's device
+   ms and launches against those of 2 profiled steps with rangefinders; the three transmission scenes
+   (scripts/sensor_tail_models.py: a slider-crank, a site with a reference
+   site, adhesion) at B = 4096 fp32, 20 steps: steps/s, finite lanes, the
+   share of adhesion lanes whose sphere stays on the floor; the kernels
+   timed at (4096, 22) fp32 and the JVP kernels at (8 lanes, 68 tangents,
+   22) fp64.  Then the fp32 rangefinders of 64 states against fp64 (the
+   same geom hit, distances within 1e-4 m, rays grazing a silhouette
+   counted, at most 2%); 64 lanes fp64, 5 steps of quadruped_rangefinder,
+   the transmission scenes and the sensor-tail scenes (sensor_tail,
+   sensor_cams, sensor_limits) with the kernels against 5 with the plain
+   versions (qpos, qvel, sensordata, actuator_length within 1e-9); and
+   transition_ad(flg_sensor=True) of 8 upright quadruped_rangefinder lanes
+   standing on their toes (fp64, EULER): C (8, 56, 56) and D (8, 56, 12)
+   against the plain versions (<= 1e-9) and transition_fd (centered, eps
+   1e-6, zero warm start; within 1e-4 of max|C|, of max|D| and of the
+   largest of C's rangefinder rows).
+
 Phase 10 also runs transition_ad of the Newton-100 humanoid under RK4 and
 IMPLICIT (the qDeriv Jacobian nested in the dual step).  Every kernel
-launch of phases 6-25 must be at a shape phase 9 checked: (n, lanes,
+launch of phases 6-26 must be at a shape phase 9 checked: (n, lanes,
 dtype) of the factor, (n, lanes, columns, dtype) of the solve, (n, lanes,
 tangents, dtype) of the factor's JVP, (n, lanes, tangents, columns,
 dtype) of the solve's.  Then
 one JSON line of the kernel report (launches: the sum over the main paths,
 phases 6, 12, 15, 16, 17, 18, 19, 20, 21 (its transition_ad and its
-fleet), 22, 23, 24 and 25, each read with the counts reset before it, in
+fleet), 22, 23, 24, 25 and 26, each read with the counts reset before it, in
 either process;
 by path beside it; the JVP kernels with the tangent counts of their phase 12
 launches), the nvidia-smi line, and the result line.  There is no CPU path: without
@@ -339,7 +367,11 @@ only the build and phase 24 (both parts), and
 
     python3 chip_smoke.py --flex
 
-only the build and phase 25 (both parts).
+only the build and phase 25 (both parts), and
+
+    python3 chip_smoke.py --tail
+
+only the build and phase 26 (both parts).
 """
 
 from __future__ import annotations
@@ -392,8 +424,8 @@ TENDON_MODELS = ("tendon_arm", "actuated", "tendon_rows")
 # 2 iterations (10 took 272 s, 27-47 s each on an H100 by its host):
 # cut for time
 TENDON_STEPS, ARM_INVERSE_STEPS = 20, 60
-# F cut from 256 to 128 to make room for phase 25
-REACH_F, REACH_H, REACH_ITERATIONS, REACH_ALPHAS = 128, 50, 2, 8
+# F cut from 256 to 128 to make room for phase 25, and to 64 for phase 26
+REACH_F, REACH_H, REACH_ITERATIONS, REACH_ALPHAS = 64, 50, 2, 8
 REACH_CHECK_LANES, REACH_CHECK_ITERATIONS = 4, 1
 # phase 20: the convex slice's models (boxes, a cylinder on the plane,
 # convex meshes), their fleets, and the fork's inverse_test on the box stack
@@ -402,10 +434,10 @@ CONVEX_MODELS = ("box_stack", "convex_mesh")
 CONVEX_STEPS, BOX_INVERSE_STEPS = 20, 60
 # phase 21: BASELINE rung 3, the humanoid's one-leg balance LQR
 # (scripts/balance.py): the fleet of B lanes, half closed loop and half open
-# loop, for T steps (1.25 s; the notebook's 5 s run is cut for time, from
-# 2 s to make room for phase 25: open loop falls within 1 s); the
-# sweep's lanes; the fp64 C reference's lanes and steps
-BALANCE_FLEET, BALANCE_STEPS, BALANCE_SEED = 4096, 250, 21
+# loop, for T steps (1 s; the notebook's 5 s run is cut for time, to 2 s,
+# to 1.25 s for phase 25 and to 1 s for phase 26: open loop falls within 1
+# s); the sweep's lanes; the fp64 C reference's lanes and steps
+BALANCE_FLEET, BALANCE_STEPS, BALANCE_SEED = 4096, 200, 21
 BALANCE_SWEEP, BALANCE_C_LANES = 2001, 4
 BALANCE_REFERENCE = "humanoid_balance_c.npz"
 # phase 22: the contact models -- elliptic cones on the convex slice's
@@ -465,6 +497,18 @@ FLEX_REST = {"flex_sheet_sphere": 0.022, "flex_sheet_capsule": 0.017,
 # the nv of the flex scenes, whose kernels phase 25 times: flex_trilinear,
 # flex_cloth, the sheets, flex_self, flex_tet_box
 FLEX_NV = (30, 42, 69, 75, 87)
+# phase 26: the sensor tail and the transmissions -- dm_control's quadruped
+# with its 20 rangefinders (the escape task's sensors on the walk task's
+# floor) beside phase 23's quadruped, in turns, RANGEFINDER_STEPS steps a
+# run; the three transmission scenes' fleets; the sensor-tail scenes
+# (scripts/sensor_tail_models.py) in the checks
+RANGEFINDER_STEPS, TRANSMISSION_STEPS = 20, 20
+TRANSMISSION_SCENES = ("transmission_slidercrank", "transmission_refsite",
+                       "transmission_adhesion")
+TAIL_SCENES = ("sensor_tail", "sensor_cams", "sensor_limits")
+# the fp32 rays of 64 states that may hit another geom than fp64's (a ray
+# grazing a silhouette): at most this share
+GRAZE_SHARE = 0.02
 GRID_N, GRID_B = (1, 2, 6, 27, 32, 33, 64, 128), (1, 127, 4096)
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}  # of max|reference|
 # NVIDIA's H100 SXM data sheet: memory rate, and fp32 and fp64 outside
@@ -868,7 +912,7 @@ def tendon_shapes(mt) -> tuple[set, set]:
   runs; on the tendon arm also transition_ad's 8 lanes (JVPs at 2 nv + na
   + nu tangents) and transition_fd's 8 x (2 (2 nv + na + nu) + 1) copies,
   and the reach iLQR's rollout (F), forward pass (F x alphas) and
-  linearization (F H lanes: a forward and the dual step), at F = 128 fp32
+  linearization (F H lanes: a forward and the dual step), at F = 64 fp32
   and F = 4 fp64."""
   from mujoco_inversedynamicstest_tpu_torch.ops import smooth
   from mujoco_inversedynamicstest_tpu_torch.opt import derivative
@@ -968,6 +1012,35 @@ def quadruped_shapes(mt) -> tuple[set, set]:
   return primal, jvp
 
 
+def tail_shapes(mt) -> tuple[set, set]:
+  """Phase 26's launches, as ``constraint_shapes`` counts them: each model's
+  nv and dof blocks at the 64-lane fp64 runs, the quadruped with its
+  rangefinders and the transmission scenes also at the fleet (4096 fp32),
+  the quadruped's rays at 64 lanes in fp32; on it also transition_ad's 8
+  lanes (JVPs at 2 nv + na + nu tangents) and transition_fd's 8 x (2 (2 nv
+  + na + nu) + 1) copies.  Phase 23's quadruped fleet is
+  ``quadruped_shapes``'."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import smooth
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  primal, jvp = set(), set()
+  for name in ("quadruped_rangefinder",) + TRANSMISSION_SCENES + TAIL_SCENES:
+    m = contact_model(mt, name, "cpu", torch.float64, cone=None)
+    blocks = smooth._dof_blocks(m)
+    sizes = {(m.nv, 1)} | ({(sz, len(st)) for sz, st in blocks.items()}
+                           if blocks else set())
+    runs = [(64, torch.float64)]
+    if name not in TAIL_SCENES:
+      runs.append((FLEET, torch.float32))
+    if name == "quadruped_rangefinder":
+      nz = derivative.state_dim(m) + m.nu
+      runs += [(64, torch.float32), (8, torch.float64),
+               (8 * (2 * nz + 1), torch.float64)]
+      jvp |= {(sz, 8 * k, nz, torch.float64) for sz, k in sizes}
+    primal |= {(sz, b * k, dt) for sz, k in sizes for b, dt in runs}
+  return primal, jvp
+
+
 def balance_shapes() -> tuple[set, set]:
   """Phase 21's launches beyond phase 6's fleet (4096 fp32) and the
   4-lane fp64 runs: at n = 27 in fp64, the height sweep's inverse (2001
@@ -978,7 +1051,7 @@ def balance_shapes() -> tuple[set, set]:
 
 
 def path_shapes(mt) -> dict:
-  """The launches of phases 6-25 and of --bench, by kernel: (n, B, dtype)
+  """The launches of phases 6-26 and of --bench, by kernel: (n, B, dtype)
   of chol_factor, (n, B, columns, dtype) of chol_solve, (n, B, T, dtype)
   of chol_factor_jvp and (n, B, T, columns, dtype) of chol_solve_jvp.
   Phases 6-17 and --bench at n = 27.  Primal:
@@ -991,9 +1064,10 @@ def path_shapes(mt) -> dict:
   tangents a lane (nx + nu of the humanoid) at every dual step's lanes,
   and one a lane in the folded comparison.  Phases 18-23's from
   ``constraint_shapes``, ``tendon_shapes``, ``convex_shapes``,
-  ``balance_shapes``, ``contact_shapes``, ``quadruped_shapes`` and
-  (phase 25) ``flex_shapes``, whose solves are of one column; phase 24's
-  from ``suite_shapes``, with the dual solvers' nefc columns."""
+  ``balance_shapes``, ``contact_shapes``, ``quadruped_shapes``, (phase
+  25) ``flex_shapes`` and (phase 26) ``tail_shapes``, whose solves are of
+  one column; phase 24's from ``suite_shapes``, with the dual solvers'
+  nefc columns."""
   f32 = {FLEET, BENCH_CHUNK_LANES, 75 * BENCH_CHUNK_LANES}
   jvp = {(8, 75, torch.float64), (BENCH_CHUNK_LANES, 75, torch.float32),
          (75 * BENCH_CHUNK_LANES, 1, torch.float32)}
@@ -1007,7 +1081,7 @@ def path_shapes(mt) -> dict:
   for more_primal, more_jvp in (
       constraint_shapes(mt), tendon_shapes(mt), convex_shapes(mt),
       balance_shapes(), contact_shapes(mt), quadruped_shapes(mt),
-      flex_shapes(mt)):
+      flex_shapes(mt), tail_shapes(mt)):
     primal |= more_primal
     jvp |= more_jvp
   shapes = {"chol_factor": primal,
@@ -1721,17 +1795,23 @@ def time_implicit_solve(linalg, dev) -> None:
   """IMPLICIT's dense LU solve (torch.linalg.solve, a library call: the
   JAX package's jnp.linalg.solve is outside any Pallas kernel) against
   IMPLICITFAST's factor and solve by the kernels, at (4096, 27) fp32, in
-  turns LU, kernels, kernels, LU (medians of the pairs)."""
+  turns LU, kernels, kernels, LU (medians of the pairs); beside the LU
+  solve's bound: the (B, n, n) systems and right-hand sides read once and
+  the solutions written once, or B (2 n^3 / 3 + 2 n^2) operations."""
   rng = np.random.default_rng(6)
   h = spd(rng, FLEET, 27, dev).float()
   rhs = torch.as_tensor(rng.standard_normal((FLEET, 27)), device=dev).float()
   lu = lambda: torch.linalg.solve(h, rhs)
   chol = lambda: linalg.chol_solve(linalg.chol_factor(h), rhs)
   lu1, ch1, ch2, lu2 = (time_ms(f) for f in (lu, chol, chol, lu))
+  n = h.shape[-1]
+  bound, bound_by = bound_ms((h.numel() + 2 * rhs.numel()) * h.element_size(),
+                             FLEET * (2 * n**3 / 3 + 2 * n * n))
   log("timing: implicit solve",
       f"({FLEET}, 27) fp32, ms: torch.linalg.solve (IMPLICIT) "
-      f"{float(np.median([lu1, lu2])):.4f}; chol_factor + chol_solve "
-      f"kernels (IMPLICITFAST) {float(np.median([ch1, ch2])):.4f}")
+      f"{float(np.median([lu1, lu2])):.4f} (bound {bound:.5f}, {bound_by}); "
+      f"chol_factor + chol_solve kernels (IMPLICITFAST) "
+      f"{float(np.median([ch1, ch2])):.4f}")
 
 
 def fwd_inv_step(mt, m, d):
@@ -4041,6 +4121,273 @@ def flex_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
   return total, times
 
 
+def tail_data(mt, m, name: str, batch: int, seed: int,
+              upright: bool = False):
+  """Phase 26's states, from a seeded numpy generator.  The quadrupeds:
+  the walk task's starts (``quadruped_data``), or where ``upright`` each
+  standing on its toes (a random yaw, a 0.05 randn tilt, the hinges 0.1
+  randn about qpos0, lowered 1 mm into the floor).  The adhesion sphere
+  resting on the floor, rising at up to 0.5 m/s, its control uniform in
+  its range; sensor_limits swung by 1.2 randn (limits active); the other
+  scenes qpos0 moved by 0.3 randn in each dof's tangent direction.  qvel
+  0.3 randn and controls uniform in their range, where not said."""
+  if name.startswith("quadruped") and not upright:
+    return quadruped_data(mt, m, "quadruped", batch, seed)
+  rng = np.random.RandomState(seed)
+  t = lambda x: torch.as_tensor(x, dtype=m.dtype, device=m.device)
+  d = mt.make_data(m, batch)
+  lo, hi = m.actuator_ctrlrange.cpu().numpy().T
+  ctrl = t(rng.uniform(lo, hi, (batch, m.nu)))
+  if name.startswith("quadruped"):
+    yaw = rng.uniform(0, 2 * np.pi, batch)
+    q = np.c_[np.cos(yaw / 2), 0.05 * rng.randn(batch, 2), np.sin(yaw / 2)]
+    qpos = d.qpos.cpu().numpy().copy()
+    qpos[:, 3:7] = q / np.linalg.norm(q, axis=1, keepdims=True)
+    qpos[:, 7:] += 0.1 * rng.randn(batch, m.nq - 7)
+    d = d.replace(qpos=t(qpos), qvel=t(0.05 * rng.randn(batch, m.nv)),
+                  ctrl=ctrl)
+    return drop_onto(mt, m, d, lambda x, y: np.zeros_like(x), -0.001)
+  if name == "transmission_adhesion":
+    qvel = np.zeros((batch, m.nv))
+    qvel[:, 2] = rng.uniform(0, 0.5, batch)
+    return d.replace(qvel=t(qvel), ctrl=ctrl)
+  scale = 1.2 if name == "sensor_limits" else 0.3
+  return d.replace(
+      qpos=mt.integrate_pos(m, d.qpos, t(scale * rng.randn(batch, m.nv)), 1.0),
+      qvel=t(0.3 * rng.randn(batch, m.nv)), ctrl=ctrl)
+
+
+def tail_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
+  """Phase 26: the sensor tail and the transmissions.  dm_control's
+  quadruped with its 20 rangefinders and phase 23's quadruped from the same
+  walk-task starts (4096 fp32, RANGEFINDER_STEPS EULER steps after a
+  warm-up step), in turns rangefinder, plain, plain, rangefinder; the
+  sensor stage's and the rays' device ms and launches against a step's;
+  the transmission scenes' fleets; the kernels timed at the quadruped's nv
+  and at transition_ad's JVP shape (timed).  The fp32 rays of 64 states
+  against fp64; each model's 5 fp64 steps of 64 lanes with the kernels
+  against 5 with the plain versions; transition_ad(flg_sensor=True) of 8
+  upright lanes against the plain versions and transition_fd (checks).
+  Returns the kernels' launches of these runs, each read with the counts
+  reset before it, and the kernels' timings."""
+  from mujoco_inversedynamicstest_tpu_torch.models.types import SensorType
+  from mujoco_inversedynamicstest_tpu_torch.ops import ray, sensor
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  t_phase = time.perf_counter()
+  phase = "slice: sensor tail"
+  total = dict.fromkeys(KERNELS, 0)
+  times = {}
+
+  def add(launches):
+    for k in KERNELS:
+      total[k] += launches[k]
+
+  model = lambda name, dtype: contact_model(mt, name, dev, dtype, cone=None)
+
+  def rays(m, d):
+    sites = m.sensor_objid[m.sensor_type == SensorType.RANGEFINDER]
+    s = m.const(sites)
+    return ray.ray(m, d, d.site_xpos[:, s], d.site_xmat[:, s, :, 2],
+                   bodyexclude=m.site_bodyid[sites])
+
+  if TIMED:
+    names = ("quadruped_rangefinder", "quadruped")
+    models = {name: model(name, torch.float32) for name in names}
+    d0 = tail_data(mt, models["quadruped"], "quadruped", FLEET, seed=23)
+    starts = {"quadruped": d0, "quadruped_rangefinder": mt.make_data(
+        models["quadruped_rangefinder"], FLEET).replace(
+            qpos=d0.qpos, qvel=d0.qvel, ctrl=d0.ctrl)}
+    starts = {n: mt.step(models[n], d) for n, d in starts.items()}
+    torch.cuda.synchronize()
+    rates = {name: [] for name in names}
+    rf = models["quadruped_rangefinder"].sensor_type == SensorType.RANGEFINDER
+    rf_adr = models["quadruped_rangefinder"].sensor_adr[rf]
+    for name in names + names[::-1]:
+      m = models[name]
+      reset_launches(linalg)
+      t0 = time.perf_counter()
+      d = mt.step_n(m, starts[name], RANGEFINDER_STEPS)
+      torch.cuda.synchronize()
+      seconds = time.perf_counter() - t0
+      launches = read_launches(linalg)
+      rates[name].append(FLEET * RANGEFINDER_STEPS / seconds)
+      finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
+      if not bool(finite.all()):
+        raise AssertionError(f"{name}: {int((~finite).sum())} non-finite "
+                             "lanes")
+      for k in ("chol_factor", "chol_solve"):
+        if not launches[k]:
+          raise AssertionError(f"{k} was not launched on {name}")
+      extra = ""
+      if name == "quadruped_rangefinder":
+        add(launches)
+        if not bool(torch.isfinite(d.sensordata).all()):
+          raise AssertionError("non-finite sensordata")
+        reading = d.sensordata[:, m.const(rf_adr)]
+        extra = (f"; sensordata finite; rangefinders hitting "
+                 f"{float((reading >= 0).float().mean()):.1%}, reading -1 "
+                 f"{float((reading == -1).float().mean()):.1%}")
+      log(phase,
+          f"{name} B={FLEET} fp32 EULER: {RANGEFINDER_STEPS} steps in "
+          f"{seconds:.3f} s = {rates[name][-1]:.1f} steps/s on {card}; "
+          "launches a step " + ", ".join(
+              f"{k} {v / RANGEFINDER_STEPS:g}" for k, v in launches.items()
+              if not k.endswith("_jvp"))
+          + f"; finite lanes {int(finite.sum())} of {FLEET}; auto-resets "
+          f"{int(d.warning.sum())}" + extra)
+    med = {name: float(np.median(r)) for name, r in rates.items()}
+    m, d = models["quadruped_rangefinder"], starts["quadruped_rangefinder"]
+    step_ms, step_launches, _ = device_profile(lambda: mt.step_n(m, d, 2))
+    step_ms, step_launches = step_ms / 2, step_launches / 2
+    fwd = mt.forward(m, d)
+    stage = lambda: sensor.sensor_acc(m, sensor.sensor_vel(
+        m, sensor.sensor_pos(m, fwd)))
+    cast = lambda: rays(m, fwd)
+    parts = {}
+    for part, fn in (("sensor stage", stage), ("rangefinder cast", cast)):
+      fn()
+      parts[part] = device_profile(fn)[:2]
+    log("profile: sensor tail",
+        f"steps/s medians: with rangefinders {med[names[0]]:.1f}, phase 23's "
+        f"quadruped {med[names[1]]:.1f} ({med[names[0]] / med[names[1]]:.3f}"
+        f"x); 2 profiled steps with rangefinders: device {step_ms:.3f} ms / "
+        f"{step_launches:.0f} launches a step; " + "; ".join(
+            f"{part} {ms:.3f} ms / {nl} launches = {ms / step_ms:.1%} of the "
+            f"step's device time, {nl / step_launches:.1%} of its launches"
+            for part, (ms, nl) in parts.items()))
+    for name in TRANSMISSION_SCENES:
+      m = model(name, torch.float32)
+      d, seconds, launches = timed_fleet(
+          mt, linalg, m, tail_data(mt, m, name, FLEET, seed=26),
+          TRANSMISSION_STEPS)
+      add(launches)
+      finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
+      if not bool(finite.all()):
+        raise AssertionError(f"{name}: {int((~finite).sum())} non-finite "
+                             "lanes")
+      if not launches["chol_factor"] or not launches["chol_solve"]:
+        raise AssertionError(f"{name}: a primal kernel was not launched")
+      extra = ""
+      if name == "transmission_adhesion":
+        held = (d.qpos[:, 2] - 0.099).abs() < 0.005
+        extra = (f"; the sphere on the floor on {float(held.float().mean()):.1%}"
+                 " of lanes (controls uniform in 0-5, rising at up to 0.5 "
+                 "m/s)")
+      log(phase,
+          f"{name} (nv {m.nv}) B={FLEET} fp32: {TRANSMISSION_STEPS} steps in "
+          f"{seconds:.3f} s = {FLEET * TRANSMISSION_STEPS / seconds:.1f} "
+          f"steps/s on {card}; finite lanes {int(finite.sum())} of {FLEET}; "
+          f"auto-resets {int(d.warning.sum())}; launches a step " + ", ".join(
+              f"{k} {v / TRANSMISSION_STEPS:g}" for k, v in launches.items()
+              if not k.endswith("_jvp")) + extra)
+    m = model("quadruped_rangefinder", torch.float32)
+    for k, v in time_kernels(linalg, dev, m.nv).items():
+      times.setdefault(k, {}).setdefault("by_shape", {})[
+          f"({FLEET}, {m.nv}) fp32, phase 26"] = v
+    nz = derivative.state_dim(m) + m.nu
+    for k, v in time_jvp_kernels(linalg, dev, m.nv, 8, nz).items():
+      times.setdefault(k, {}).setdefault("by_shape", {})[
+          f"({m.nv}, 8 lanes, {nz} tangents) fp64, phase 26"] = v
+
+  if CHECKS:
+    # the fp32 rangefinders of 64 states against fp64
+    m64 = model("quadruped_rangefinder", torch.float64)
+    m32 = model("quadruped_rangefinder", torch.float32)
+    d64 = tail_data(mt, m64, "quadruped", 64, seed=24)
+    d32 = mt.make_data(m32, 64).replace(qpos=d64.qpos.float())
+    reset_launches(linalg)
+    dist64, geom64 = rays(m64, mt.fwd_position(m64, d64))
+    dist32, geom32 = rays(m32, mt.fwd_position(m32, d32))
+    add(read_launches(linalg))
+    graze = geom64 != geom32
+    err = float((dist64 - dist32.double())[~graze].abs().max())
+    if not err <= 1e-4 or int(graze.sum()) > GRAZE_SHARE * graze.numel():
+      raise AssertionError(f"fp32 rays against fp64: max |ddist| {err:.3e}, "
+                           f"{int(graze.sum())} hit another geom")
+    rays_line = (f"the fp32 rangefinders of 64 walk-task starts against "
+                 f"fp64: {int(graze.sum())} of {graze.numel()} rays graze a "
+                 f"silhouette (hit another geom; at most "
+                 f"{GRAZE_SHARE:.0%}), the rest hit the same geom, max "
+                 f"|ddist| {err:.3e} m (tol 1e-4), {int((geom64 >= 0).sum())}"
+                 " hit")
+
+    # the kernels against the plain versions, 64 lanes fp64, 5 steps
+    errs = []
+    for name in ("quadruped_rangefinder",) + TRANSMISSION_SCENES + TAIL_SCENES:
+      m = model(name, torch.float64)
+      d_k = d_p = tail_data(mt, m, name, 64, seed=25)
+      fields = ["qpos", "qvel"] + (["sensordata"] if m.nsensordata else []) + (
+          ["actuator_length"] if m.nu else [])
+      reset_launches(linalg)
+      err = 0.0
+      for _ in range(5):
+        d_k = mt.step(m, d_k)
+        with plain_cholesky(linalg):
+          d_p = mt.step(m, d_p)
+        err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)
+                                ).abs().max()) for f in fields))
+      add(read_launches(linalg))
+      if not err <= 1e-9 or not all(bool(torch.isfinite(getattr(d_k, f)).all())
+                                    for f in fields):
+        raise AssertionError(f"{name} fp64 steps, kernels vs plain: "
+                             f"{err:.3e}")
+      errs.append(f"{name} {err:.3e}")
+    log(phase, rays_line + "; 64 lanes fp64, 5 steps, kernels vs plain, max "
+        "|dqpos|,|dqvel|,|dsensordata|,|dactuator_length| (tol 1e-9): "
+        + ", ".join(errs))
+
+    # C, D of 8 upright lanes, standing on their toes
+    m = model("quadruped_rangefinder", torch.float64)
+    d = mt.forward(m, tail_data(mt, m, "quadruped_rangefinder", 8, seed=27,
+                                upright=True))
+    reset_launches(linalg)
+    t0 = time.perf_counter()
+    ad = derivative.transition_ad(m, d, flg_sensor=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(linalg)
+    if not all(launches.values()):
+      raise AssertionError(f"a kernel was not launched: {launches}")
+    add(launches)
+    with plain_cholesky(linalg):
+      plain = derivative.transition_ad(m, d, flg_sensor=True)
+    fd = derivative.transition_fd(
+        m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
+        eps=1e-6, flg_centered=True, flg_sensor=True)
+    err_plain = max(float((getattr(ad, f) - getattr(plain, f)).abs().max())
+                    for f in "ABCD")
+    # C's rangefinder rows apart as well: the force sensors' rows, through
+    # the contacts' stiffness, are 1e6 times larger
+    rows = m.const(m.sensor_adr[m.sensor_type == SensorType.RANGEFINDER])
+    parts = {"C": (ad.C, fd.C), "D": (ad.D, fd.D),
+             "C's rangefinder rows": (ad.C[:, rows], fd.C[:, rows])}
+    err_fd = {f: float((a - b).abs().max()) for f, (a, b) in parts.items()}
+    scale = {f: float(b.abs().max()) for f, (_, b) in parts.items()}
+    if not err_plain <= 1e-9:
+      raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
+    for f in parts:
+      if not err_fd[f] <= 1e-4 * scale[f]:
+        raise AssertionError(f"{f} vs transition_fd: {err_fd[f]:.3e} of "
+                             f"max|{f}| {scale[f]:.3e}")
+    if not scale["C's rangefinder rows"] > 0:
+      raise AssertionError("the rangefinders' C rows are zero")
+    ncon = int((d.contact.dist < d.contact.includemargin).sum())
+    log(phase,
+        f"quadruped_rangefinder 8 lanes fp64 EULER, upright on their toes, "
+        f"{ncon} active contacts: transition_ad(flg_sensor=True) "
+        f"{seconds:.3f} s, C {tuple(ad.C.shape)}, D {tuple(ad.D.shape)}; "
+        f"kernels vs plain max |dA|,|dB|,|dC|,|dD| {err_plain:.3e} (tol "
+        "1e-9); vs transition_fd (centered, eps 1e-6) " + ", ".join(
+            f"{f} {err_fd[f]:.3e} = {err_fd[f] / max(scale[f], 1e-300):.3e} "
+            f"of their max {scale[f]:.3e} (tol 1e-4 of it)" for f in parts)
+        + " (D is 0 where the controls reach the sensors only through the "
+        "activations, as the quadruped's filtered actuators do)"
+        + f"; launches {launches}, tangents a lane {read_tangents(linalg)}")
+  log(phase, f"phase 26 in {time.perf_counter() - t_phase:.1f} s")
+  return total, times
+
+
 def fleet_rate(mt, dev) -> float:
   """Phase 6's timed loop alone (100 steps of 4096 humanoid_mjx lanes,
   fp32, after a warm-up step): steps/s."""
@@ -4092,7 +4439,7 @@ class ChecksProcess:
 def run_checks(mt, linalg, dev, smi, lap) -> None:
   """The checks process: the kernels against their plain versions (phases
   3-4, 8, 9), phases 7, 10 and 16, and the fp64 checks of phases 6, 13, 15
-  and 17-25.  Prints one JSON line: its launches by path, the kernels'
+  and 17-26.  Prints one JSON line: its launches by path, the kernels'
   largest errors, and the launches at shapes phase 9 did not check."""
   slice_err = check_kernels(linalg, dev)
   slice_err.update(check_jvp_kernels(linalg, dev))
@@ -4131,6 +4478,8 @@ def run_checks(mt, linalg, dev, smi, lap) -> None:
   lap("24")
   by_path["flex"] = flex_slice(mt, linalg, dev, smi)[0]
   lap("25")
+  by_path["tail"] = tail_slice(mt, linalg, dev, smi)[0]
+  lap("26")
   print(json.dumps({"checks": {"by_path": by_path, "slice_err": slice_err,
                                "unchecked": unchecked_shapes(mt, linalg)}}))
 
@@ -4156,6 +4505,9 @@ def main() -> None:
                     help="only phase 24, the solvers, fluid and energy")
   mode.add_argument("--flex", action="store_true",
                     help="only phase 25, the flex scenes")
+  mode.add_argument("--tail", action="store_true",
+                    help="only phase 26, the sensor tail and the "
+                    "transmissions")
   mode.add_argument("--checks", action="store_true",
                     help="the untimed checks of a full run (the full run "
                     "starts this process itself)")
@@ -4205,8 +4557,9 @@ def main() -> None:
     contact_slice(mt, linalg, dev, smi)
   elif args.shapes:
     quadruped_slice(mt, linalg, dev, smi)
-  elif args.suite or args.flex:
-    (suite_slice if args.suite else flex_slice)(mt, linalg, dev, smi)
+  elif args.suite or args.flex or args.tail:
+    (suite_slice if args.suite else flex_slice if args.flex else tail_slice)(
+        mt, linalg, dev, smi)
     unchecked = unchecked_shapes(mt, linalg)
     if unchecked:
       raise AssertionError(f"launches at shapes {unchecked} that phase 9 "
@@ -4308,8 +4661,10 @@ def timed_run(mt, linalg, dev, smi, lap, rates,
   lap("24")
   by_path["flex"], times_flex = flex_slice(mt, linalg, dev, smi)
   lap("25")
+  by_path["tail"], times_tail = tail_slice(mt, linalg, dev, smi)
+  lap("26")
   for more in (times_n2, times_convex, times_contact, times_shapes,
-               times_suite, times_flex):
+               times_suite, times_flex, times_tail):
     for k, v in more.items():
       for by, rows in v.items():
         times_small.setdefault(k, {}).setdefault(by, {}).update(rows)

@@ -56,6 +56,7 @@ _ARRAY_FIELDS = (
     "body_inertia", "body_gravcomp", "body_invweight0", "body_parentid",
     "body_rootid", "body_weldid", "body_jntadr", "body_jntnum",
     "body_dofadr", "body_dofnum", "body_subtreemass", "body_mocapid",
+    "body_geomadr", "body_geomnum",
     "jnt_pos", "jnt_axis", "jnt_stiffness", "jnt_range", "jnt_margin",
     "jnt_solref", "jnt_solimp", "jnt_type", "jnt_qposadr", "jnt_dofadr",
     "jnt_limited", "jnt_actfrclimited", "jnt_actfrcrange", "jnt_actgravcomp",
@@ -74,18 +75,21 @@ _ARRAY_FIELDS = (
     "geom_gap", "geom_solref", "geom_solimp", "geom_solmix", "geom_type",
     "geom_bodyid", "geom_contype", "geom_conaffinity", "geom_condim",
     "geom_priority", "geom_dataid", "geom_rbound", "geom_fluid",
-    "exclude_signature",
+    "geom_group", "geom_rgba", "geom_matid", "mat_rgba", "exclude_signature",
     "pair_dim", "pair_geom1", "pair_geom2", "pair_signature", "pair_solref",
     "pair_solreffriction", "pair_solimp", "pair_margin", "pair_gap",
     "pair_friction",
     "mesh_vert", "mesh_vertadr", "mesh_vertnum", "mesh_graphadr",
-    "mesh_graph",
+    "mesh_graph", "mesh_face", "mesh_faceadr", "mesh_facenum",
     "hfield_size", "hfield_nrow", "hfield_ncol", "hfield_adr", "hfield_data",
     "site_pos", "site_quat", "site_size", "site_type", "site_bodyid",
     "sensor_type", "sensor_datatype", "sensor_needstage", "sensor_objtype",
     "sensor_objid", "sensor_reftype", "sensor_refid", "sensor_adr",
     "sensor_dim", "sensor_cutoff", "sensor_history", "sensor_delay",
-    "sensor_interval",
+    "sensor_interval", "sensor_intprm",
+    "cam_mode", "cam_bodyid", "cam_targetbodyid", "cam_pos", "cam_quat",
+    "cam_pos0", "cam_poscom0", "cam_mat0", "cam_resolution", "cam_sensorsize",
+    "cam_intrinsic", "cam_fovy",
     "actuator_gear", "actuator_ctrlrange", "actuator_forcerange",
     "actuator_gainprm", "actuator_biasprm", "actuator_dynprm",
     "actuator_trnid", "actuator_trntype", "actuator_dyntype",
@@ -94,7 +98,7 @@ _ARRAY_FIELDS = (
     "actuator_actearly", "actuator_lengthrange", "actuator_acc0",
     "actuator_ctrllimited", "actuator_forcelimited", "actuator_plugin",
     "actuator_armature", "actuator_damping", "actuator_dampingpoly",
-    "actuator_delay",
+    "actuator_delay", "actuator_cranklength",
     "qpos0", "qpos_spring",
     # flexes
     "flex_dim", "flex_vertadr", "flex_vertnum", "flex_edgeadr",
@@ -110,13 +114,13 @@ _ARRAY_FIELDS = (
     "flex_stiffnessadr", "flex_interp", "flex_nodeadr", "flex_nodenum",
     "flex_nodebodyid", "flex_node0", "flex_cellnum", "flex_evpair",
     "flex_evpairadr", "flex_evpairnum", "flex_passive", "flex_vertmetric",
-    "flex_bendingadr", "flexvert_J_rownnz",
+    "flex_bendingadr", "flexvert_J_rownnz", "flex_elemlayer",
 )
 _SIZE_FIELDS = (
     "nq", "nv", "nu", "na", "nbody", "njnt", "ngeom", "nsite", "nmocap",
     "neq", "ntendon", "nwrap", "nsensor", "nsensordata", "nflex", "npair",
     "nplugin", "nmesh", "nuserdata", "nhistory", "nflexvert", "nflexedge",
-    "nflexelem", "nflexnode", "nflexevpair", "nflexbending",
+    "nflexelem", "nflexnode", "nflexevpair", "nflexbending", "ncam", "nmat",
 )
 _OPT_FIELDS = (
     "timestep", "gravity", "wind", "density", "viscosity", "impratio",
@@ -169,21 +173,61 @@ def _source_arrays(src) -> dict[str, np.ndarray]:
   return f
 
 
-def _validate_sensors(f: Mapping, bad) -> None:
+# the sensors that measure the distance between two geom sets
+_GEOMDIST_SENSORS = frozenset(SensorType[n] for n in (
+    "GEOMDIST", "GEOMNORMAL", "GEOMFROMTO"))
+
+
+def sensor_geoms(body_geomadr, body_geomnum, objtype: int,
+                 objid: int) -> range:
+  """The geoms of a distance sensor's side: a body's, or one geom."""
+  if objtype == ObjType.BODY:
+    adr = int(body_geomadr[objid])
+    return range(adr, adr + int(body_geomnum[objid]))
+  return range(objid, objid + 1)
+
+
+def _validate_sensors(f: Mapping, bad, user_ok: bool = False) -> None:
   """Refuses every sensor the port does not compute, by name: its type,
-  an object or reference type it cannot read, a delay or history."""
+  an object or reference type it cannot read, a delay or history; a USER
+  sensor without ``user_sensor_fn``; mujoco 3.10's rangefinder outputs
+  beyond the distance (the JAX package, written for 3.3.1, has none); a
+  distance sensor over a geom pair without a closed-form narrowphase."""
+  from mujoco_inversedynamicstest_tpu_torch.ops.collision import (
+      DISTANCE_PAIRS)
+
   for i in range(int(f["nsensor"])):
     t = SensorType(int(f["sensor_type"][i]))
     if t not in PORTED_SENSORS:
       bad(f"sensor type {t.name}")
+    if t == SensorType.USER and not user_ok:
+      bad("sensor type USER without a user_sensor_fn (pass put_model the "
+          "(m, d, sensor_id) -> (B, dim) callback, C's mjcb_sensor)")
     objs = [int(f["sensor_objtype"][i])]
     if int(f["sensor_refid"][i]) >= 0:
       objs.append(int(f["sensor_reftype"][i]))
     for ot in objs:
-      if ot == ObjType.CAMERA:
+      if ot == ObjType.CAMERA and not (t in FRAME_SENSORS
+                                       or t == SensorType.CAMPROJECTION):
         bad(f"sensor object type CAMERA ({t.name})")
       if t in FRAME_SENSORS and ot not in FRAME_OBJECTS:
         bad(f"sensor object type {ot} ({t.name})")
+    if t == SensorType.RANGEFINDER and (
+        int(f["sensor_dim"][i]) != 1
+        or int(np.asarray(f["sensor_intprm"])[i, 0]) != 1):
+      bad("RANGEFINDER output other than the distance (mujoco 3.10's "
+          "data= beyond dist)")
+    if t in _GEOMDIST_SENSORS:
+      types = np.asarray(f["geom_type"])
+      side = lambda ot, oid: sensor_geoms(f["body_geomadr"],
+                                          f["body_geomnum"], ot, int(oid))
+      for g1 in side(objs[0], f["sensor_objid"][i]):
+        for g2 in side(objs[-1], f["sensor_refid"][i]):
+          pair = tuple(sorted((GeomType(int(types[g1])),
+                               GeomType(int(types[g2])))))
+          if pair not in DISTANCE_PAIRS:
+            bad(f"{t.name} sensor over geom pair {pair[0].name}-"
+                f"{pair[1].name}")
     if (np.any(f["sensor_history"][i] != 0) or float(f["sensor_delay"][i])
         or np.any(f["sensor_interval"][i] != 0)):
       bad(f"sensor delay, interval or history ({t.name})")
@@ -203,10 +247,11 @@ def _validate_equalities(f: Mapping, bad) -> None:
       bad(f"{t.name} equality on object type {int(f['eq_objtype'][i])}")
 
 
-def validate_model(f: Mapping) -> None:
+def validate_model(f: Mapping, user_sensor_fn=None) -> None:
   """Raises NotImplementedError for every feature the port has not ported.
 
-  ``f``: the snapshot arrays of a model (see ``save_model_snapshot``).
+  ``f``: the snapshot arrays of a model (see ``save_model_snapshot``);
+  ``user_sensor_fn``: the USER sensors' callback ``put_model`` was given.
   """
 
   def bad(msg):
@@ -216,7 +261,7 @@ def validate_model(f: Mapping) -> None:
     JointType(int(jt))
   # before the size refusals, so that a tendon or plugin sensor is refused
   # by its own name
-  _validate_sensors(f, bad)
+  _validate_sensors(f, bad, user_sensor_fn is not None)
   # before the size refusals too: an equality is refused by its own name
   _validate_equalities(f, bad)
   for name in ("nplugin", "nuserdata", "nhistory"):
@@ -286,6 +331,9 @@ def _validate_flex(f: Mapping, bad) -> None:
   for t in np.unique(np.asarray(f["sensor_type"])) if collides else ():
     if SensorType(int(t)) in _CONTACT_BODY_SENSORS:
       bad(f"sensor type {SensorType(int(t)).name} with flex contacts")
+  if collides and np.any(np.asarray(f["actuator_trntype"]) == TrnType.BODY):
+    # adhesion reads the contact slots' bodies too
+    bad("actuator transmission BODY with flex contacts")
   if int(f["opt_enableflags"]) & EnableBit.ENERGY:
     bad("the ENERGY flag with flexes")
 
@@ -311,9 +359,7 @@ def _validate_actuators(f: Mapping, bad) -> None:
   lengthrange and acc0 in the snapshot."""
   nu = int(f["nu"])
   for i in range(nu):
-    trn = TrnType(int(f["actuator_trntype"][i]))
-    if trn not in (TrnType.JOINT, TrnType.JOINTINPARENT, TrnType.TENDON):
-      bad(f"actuator transmission {trn.name}")
+    TrnType(int(f["actuator_trntype"][i]))
     dyn = DynType(int(f["actuator_dyntype"][i]))
     if dyn not in PORTED_DYNAMICS:
       bad(f"actuator dynamics {dyn.name}")
@@ -397,16 +443,50 @@ def _mesh_tables(f: Mapping) -> tuple:
                            f["mesh_graph"]))
 
 
+def _has_rangefinder(f: Mapping) -> bool:
+  return bool(np.any(np.asarray(f["sensor_type"]) == SensorType.RANGEFINDER))
+
+
 def _hfield_grids(f: Mapping) -> tuple:
   """Each height field's vertex grid (``ops/hfield.py``), built on the host
-  only when a height-field geom can collide; ``()`` otherwise."""
-  if not _can_collide(f, GeomType.HFIELD):
+  only when a height-field geom can collide or a rangefinder can cast at
+  it; ``()`` otherwise."""
+  if not (_can_collide(f, GeomType.HFIELD) or _has_rangefinder(f)
+          and np.any(np.asarray(f["geom_type"]) == GeomType.HFIELD)):
     return ()
   from mujoco_inversedynamicstest_tpu_torch.ops import hfield
 
   return hfield.hfield_grids(f["hfield_size"], f["hfield_nrow"],
                              f["hfield_ncol"], f["hfield_adr"],
                              f["hfield_data"])
+
+
+def _mesh_tris(f: Mapping) -> tuple:
+  """Each mesh's whole surface, (T, 3, 3) triangles in its geom's frame (C's
+  compiler folds the mesh's pose into the geom's), for the ray cast: the
+  true surface, which may be concave, not the hull; built only when a
+  rangefinder exists (the JAX package's ``_build_mesh_tris``)."""
+  if not (_has_rangefinder(f) and np.any(np.asarray(f["geom_type"])
+                                         == GeomType.MESH)):
+    return ()
+  vert = np.asarray(f["mesh_vert"], np.float64).reshape(-1, 3)
+  face = np.asarray(f["mesh_face"], np.int64).reshape(-1, 3)
+  return tuple(
+      np.ascontiguousarray(vert[int(va) + face[int(fa):int(fa) + int(fn)]])
+      for va, fa, fn in zip(f["mesh_vertadr"], f["mesh_faceadr"],
+                            f["mesh_facenum"]))
+
+
+def _geom_visible(f: Mapping) -> np.ndarray:
+  """(ngeom,) whether each geom is visible to ``mj_ray``: its alpha, or its
+  material's where it has one, above 0 (the JAX package's
+  ``_geom_visible``)."""
+  own = np.asarray(f["geom_rgba"]).reshape(-1, 4)[:, 3] > 0
+  matid = np.asarray(f["geom_matid"]).astype(np.int64)
+  if not int(f["nmat"]):
+    return own
+  mat = np.asarray(f["mat_rgba"]).reshape(-1, 4)[np.maximum(matid, 0), 3] > 0
+  return np.where(matid >= 0, mat, own)
 
 
 # edges per element, by the flex's dimension
@@ -499,6 +579,7 @@ def _put_flex(f: Mapping, t) -> FlexModel | None:
       evpairnum=ai("flex_evpairnum"), interp=interp,
       nodeadr=ai("flex_nodeadr"), nodenum=nodenum,
       nodebodyid=ai("flex_nodebodyid"), interp_w=tuple(interp_w),
+      elemlayer=ai("flex_elemlayer"),
       radius=t(a("flex_radius")),
       friction=t(a("flex_friction")), solref=t(a("flex_solref")),
       solimp=t(a("flex_solimp")), solmix=t(a("flex_solmix")),
@@ -557,12 +638,23 @@ def _with_vertex_geoms(f: Mapping, flex: FlexModel) -> tuple[dict, np.ndarray]:
   return g, np.concatenate([np.full(ngeom, -1, np.int64), vf])
 
 
-def put_model(src, device="cuda", dtype=torch.float64) -> Model:
+def put_model(src, device="cuda", dtype=torch.float64,
+              user_sensor_fn=None) -> Model:
   """Builds the port's ``Model`` from a ``mujoco.MjModel``, a snapshot
   ``.npz`` path, or a mapping of snapshot arrays, on the card unless
-  ``device`` says otherwise (``device="cpu"`` runs the plain versions)."""
+  ``device`` says otherwise (``device="cpu"`` runs the plain versions).
+  ``user_sensor_fn(m, d, sensor_id) -> (B, dim)`` computes the USER
+  sensors at their stage (C's ``mjcb_sensor``)."""
   f = _source_arrays(src)
-  validate_model(f)
+  validate_model(f, user_sensor_fn)
+  ncam = int(f["ncam"])
+  cam = {k: torch.as_tensor(np.asarray(f[k], np.float64).reshape(
+      (ncam,) + shape), dtype=dtype, device=device) for k, shape in (
+          ("cam_pos", (3,)), ("cam_quat", (4,)), ("cam_pos0", (3,)),
+          ("cam_poscom0", (3,)), ("cam_mat0", (3, 3)),
+          ("cam_resolution", (2,)), ("cam_sensorsize", (2,)),
+          ("cam_intrinsic", (4,)), ("cam_fovy", ()))}
+  geom_visible = _geom_visible(f)
   flex = _put_flex(f, lambda x: torch.as_tensor(
       np.asarray(x, np.float64), dtype=dtype, device=device))
   ngeom_mj = int(f["ngeom"])
@@ -608,6 +700,7 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       "actuator_gear", "actuator_ctrlrange", "actuator_forcerange",
       "actuator_gainprm", "actuator_biasprm", "actuator_dynprm",
       "actuator_actrange", "actuator_lengthrange", "actuator_acc0",
+      "actuator_cranklength",
       "tendon_stiffness", "tendon_damping", "tendon_frictionloss",
       "tendon_lengthspring", "tendon_length0", "tendon_invweight0",
       "tendon_range", "tendon_margin", "tendon_solref_lim",
@@ -617,6 +710,7 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
   int_fields = (
       "body_parentid", "body_rootid", "body_weldid", "body_jntadr",
       "body_jntnum", "body_dofadr", "body_dofnum", "body_mocapid",
+      "body_geomadr", "body_geomnum",
       "jnt_type", "jnt_qposadr", "jnt_dofadr", "jnt_limited",
       "jnt_actfrclimited", "jnt_actgravcomp",
       "dof_bodyid", "dof_jntid", "dof_parentid",
@@ -660,6 +754,10 @@ def put_model(src, device="cuda", dtype=torch.float64) -> Model:
       max_contact_points=int(f["max_contact_points"]),
       max_geom_pairs=int(f["max_geom_pairs"]),
       flex=flex, geom_flexid=geom_flexid, ngeom_mj=ngeom_mj,
+      ncam=ncam, cam_mode=i("cam_mode"), cam_bodyid=i("cam_bodyid"),
+      cam_targetbodyid=i("cam_targetbodyid"), **cam,
+      geom_group=i("geom_group")[:ngeom_mj], geom_visible=geom_visible,
+      mesh_tris=_mesh_tris(f), user_sensor_fn=user_sensor_fn,
       **{k: t(k) for k in float_fields},
       **{k: i(k) for k in int_fields},
   )

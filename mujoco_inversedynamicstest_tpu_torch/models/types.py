@@ -202,24 +202,29 @@ class ObjType(enum.IntEnum):
   GEOM = 5
   SITE = 6
   CAMERA = 7
+  TENDON = 18
 
 
 # the sensor types the port computes (ops/sensor.py); validate_model
-# refuses every other type by its name
+# refuses every other type by its name, and a USER sensor without the
+# model's user_sensor_fn
 PORTED_SENSORS = frozenset(SensorType[n] for n in (
     "TOUCH", "ACCELEROMETER", "VELOCIMETER", "GYRO", "FORCE", "TORQUE",
-    "JOINTPOS", "JOINTVEL", "TENDONPOS", "TENDONVEL", "ACTUATORPOS", "ACTUATORVEL", "ACTUATORFRC",
-    "JOINTACTFRC", "BALLQUAT", "BALLANGVEL", "FRAMEPOS", "FRAMEQUAT",
-    "FRAMEXAXIS", "FRAMEYAXIS", "FRAMEZAXIS", "FRAMELINVEL", "FRAMEANGVEL",
-    "FRAMELINACC", "FRAMEANGACC", "SUBTREECOM", "SUBTREELINVEL",
-    "SUBTREEANGMOM", "CLOCK", "MAGNETOMETER", "E_POTENTIAL", "E_KINETIC"))
+    "JOINTPOS", "JOINTVEL", "TENDONPOS", "TENDONVEL", "ACTUATORPOS",
+    "ACTUATORVEL", "ACTUATORFRC", "JOINTACTFRC", "BALLQUAT", "BALLANGVEL",
+    "FRAMEPOS", "FRAMEQUAT", "FRAMEXAXIS", "FRAMEYAXIS", "FRAMEZAXIS",
+    "FRAMELINVEL", "FRAMEANGVEL", "FRAMELINACC", "FRAMEANGACC", "SUBTREECOM",
+    "SUBTREELINVEL", "SUBTREEANGMOM", "CLOCK", "MAGNETOMETER", "E_POTENTIAL",
+    "E_KINETIC", "RANGEFINDER", "CAMPROJECTION", "JOINTLIMITPOS",
+    "JOINTLIMITVEL", "JOINTLIMITFRC", "TENDONLIMITPOS", "TENDONLIMITVEL",
+    "TENDONLIMITFRC", "GEOMDIST", "GEOMNORMAL", "GEOMFROMTO", "USER"))
 # the sensors that read the frame of an object (and of a reference object)
 # of one of FRAME_OBJECTS
 FRAME_SENSORS = frozenset(SensorType[n] for n in (
     "FRAMEPOS", "FRAMEQUAT", "FRAMEXAXIS", "FRAMEYAXIS", "FRAMEZAXIS",
     "FRAMELINVEL", "FRAMEANGVEL", "FRAMELINACC", "FRAMEANGACC"))
 FRAME_OBJECTS = frozenset({ObjType.XBODY, ObjType.BODY, ObjType.GEOM,
-                           ObjType.SITE})
+                           ObjType.SITE, ObjType.CAMERA})
 
 
 class Stage(enum.IntEnum):
@@ -377,6 +382,7 @@ class FlexModel:
   nodenum: np.ndarray
   nodebodyid: np.ndarray
   interp_w: tuple             # per flex (vertnum, nodenum) weights, or ()
+  elemlayer: np.ndarray       # (nelem,) a solid element's distance from the surface
   radius: torch.Tensor        # (nflex,)
   friction: torch.Tensor      # (nflex, 3)
   solref: torch.Tensor        # (nflex, 2)
@@ -491,6 +497,9 @@ class Model:
   pair_solreffriction: torch.Tensor  # (npair, 2)
   pair_solimp: torch.Tensor        # (npair, 5)
 
+  body_geomadr: np.ndarray
+  body_geomnum: np.ndarray
+
   site_pos: torch.Tensor           # (nsite, 3)
   site_quat: torch.Tensor          # (nsite, 4)
   site_size: torch.Tensor          # (nsite, 3)
@@ -526,6 +535,7 @@ class Model:
   actuator_actrange: torch.Tensor  # (nu, 2)
   actuator_lengthrange: torch.Tensor  # (nu, 2)
   actuator_acc0: torch.Tensor      # (nu,)
+  actuator_cranklength: torch.Tensor  # (nu,) slider-crank rod length
   actuator_trnid: np.ndarray
   actuator_trntype: np.ndarray
   actuator_dyntype: np.ndarray
@@ -589,6 +599,34 @@ class Model:
   flex: FlexModel = None
   geom_flexid: np.ndarray = None
   ngeom_mj: int = -1
+
+  # cameras (``camlight``, the camera sensors): mjtCamLight mode, body,
+  # target body, local pose, the TRACK modes' offsets and frame, and the
+  # image's pixels, sensor size, focal lengths and principal point, field
+  # of view
+  ncam: int = 0
+  cam_mode: np.ndarray = None
+  cam_bodyid: np.ndarray = None
+  cam_targetbodyid: np.ndarray = None
+  cam_pos: torch.Tensor = None        # (ncam, 3)
+  cam_quat: torch.Tensor = None       # (ncam, 4)
+  cam_pos0: torch.Tensor = None       # (ncam, 3)
+  cam_poscom0: torch.Tensor = None    # (ncam, 3)
+  cam_mat0: torch.Tensor = None       # (ncam, 3, 3)
+  cam_resolution: torch.Tensor = None  # (ncam, 2)
+  cam_sensorsize: torch.Tensor = None  # (ncam, 2)
+  cam_intrinsic: torch.Tensor = None  # (ncam, 4)
+  cam_fovy: torch.Tensor = None       # (ncam,)
+  # the scene ray cast (``ray.ray``, ``mj_ray``): each of C's geoms' group
+  # and whether it is visible (alpha > 0, the material's where it has one)
+  geom_group: np.ndarray = None
+  geom_visible: np.ndarray = None
+  # each mesh's whole surface (T, 3, 3) in its geom's frame, for the ray
+  # cast; () unless a rangefinder can cast at a mesh
+  mesh_tris: tuple = ()
+  # ``user_sensor_fn(m, d, sensor_id) -> (B, dim)`` of the USER sensors, C's
+  # ``mjcb_sensor``; None without
+  user_sensor_fn: object = None
 
   # derived host tables and device constants, computed once per model
   _memo: dict = dataclasses.field(default_factory=dict, repr=False,
@@ -681,6 +719,8 @@ class Data:
   geom_xmat: torch.Tensor = None   # (B, ngeom, 3, 3)
   site_xpos: torch.Tensor = None   # (B, nsite, 3)
   site_xmat: torch.Tensor = None   # (B, nsite, 3, 3)
+  cam_xpos: torch.Tensor = None    # (B, ncam, 3)
+  cam_xmat: torch.Tensor = None    # (B, ncam, 3, 3)
   subtree_com: torch.Tensor = None  # (B, nbody, 3)
   cinert: torch.Tensor = None      # (B, nbody, 10)
   cdof: torch.Tensor = None        # (B, nv, 6)

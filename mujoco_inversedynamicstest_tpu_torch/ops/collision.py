@@ -320,6 +320,53 @@ _NARROWPHASE = {
 }
 
 
+# the pairs of a closed-form narrowphase, whose nearest contact at margin =
+# distmax is C's mj_geomDistance: the distance sensors' pairs.  The descent
+# and hull pairs stop where their contact search does, which C's distance
+# routines do not: validate_model refuses distance sensors over them
+DISTANCE_PAIRS = frozenset(_NARROWPHASE)
+
+
+def geom_distance(m: Model, d: Data, geom1: np.ndarray, geom2: np.ndarray,
+                  distmax: torch.Tensor):
+  """Smallest signed distances (B, K) between K geom pairs (host ids) and
+  the segments (B, K, 6) from the first geom's surface to the second's
+  (``mj_geomDistance``): each pair's narrowphase at margin ``distmax``
+  (K,), its nearest contact, the first of equal ones; where none lies
+  within ``distmax``, ``distmax`` and zeros.  One call a pair kind."""
+  types = m.geom_type
+  flip = types[geom1] > types[geom2]
+  a, b = np.where(flip, geom2, geom1), np.where(flip, geom1, geom2)
+  kinds = np.stack([types[a], types[b]], axis=1)
+  order, dists, fromtos = [], [], []
+  for kind in np.unique(kinds, axis=0):
+    ks = np.nonzero((kinds == kind).all(1))[0]
+    key = (GeomType(int(kind[0])), GeomType(int(kind[1])))
+    if key not in DISTANCE_PAIRS:
+      raise NotImplementedError(
+          f"unsupported by the PyTorch port: geom distance over the pair "
+          f"{key[0].name}-{key[1].name}")
+    ga, gb, kk = m.const(a[ks]), m.const(b[ks]), m.const(ks)
+    margin = distmax[kk]
+    dist, pos, nrm, _ = _NARROWPHASE[key][0](
+        d.geom_xpos[:, ga], d.geom_xmat[:, ga], m.geom_size[ga],
+        d.geom_xpos[:, gb], d.geom_xmat[:, gb], m.geom_size[gb], margin)
+    j = torch.argmin(dist, dim=-1, keepdim=True)
+    dmin = torch.take_along_dim(dist, j, dim=-1)[..., 0]
+    p = torch.take_along_dim(pos, j[..., None], dim=-2)[..., 0, :]
+    # the normal from the first geom to the second
+    n = torch.take_along_dim(nrm, j[..., None], dim=-2)[..., 0, :] * m.const(
+        np.where(flip[ks], -1.0, 1.0))[:, None]
+    found = dmin < margin
+    half = (0.5 * dmin)[..., None] * n
+    dists.append(torch.where(found, dmin, margin))
+    fromtos.append(torch.where(found[..., None],
+                               torch.cat([p - half, p + half], dim=-1), 0.0))
+    order.append(ks)
+  inv = m.const(np.argsort(np.concatenate(order)))
+  return torch.cat(dists, dim=1)[:, inv], torch.cat(fromtos, dim=1)[:, inv]
+
+
 def _nslot(key) -> int:
   if key in _NARROWPHASE:
     return _NARROWPHASE[key][1]
@@ -604,6 +651,29 @@ def elem_params(m: Model) -> tuple:
   return m.memo("elem_params", lambda: tuple(
       flexcol.elem_pair_params(m, g)
       for g in contact_layout(m).elem_groups))
+
+
+def slot_gaps(m: Model, con: Contact) -> torch.Tensor:
+  """(B, ncon) each slot's gap: the two geoms' gaps added, or an explicit
+  ``<pair>``'s own.  C 3.10 keeps a contact up to its margin plus its gap
+  and makes rows of those within the margin (``includemargin``); under a
+  contact budget the slots' geoms are lane data and their gaps are added
+  whatever their pair."""
+  lay = contact_layout(m)
+  if lay.lane_slots:
+    return m.geom_gap[con.geom1] + m.geom_gap[con.geom2]
+
+  def build():
+    gaps = []
+    for g in lay.groups:
+      gap = m.geom_gap[m.const(g.geom1)] + m.geom_gap[m.const(g.geom2)]
+      if g.ipair is not None and np.any(g.ipair >= 0):
+        gap = torch.where(m.const(g.ipair >= 0), m.pair_gap[m.const(
+            np.maximum(g.ipair, 0))], gap)
+      gaps.append(torch.repeat_interleave(gap, g.nslot))
+    return torch.cat(gaps)
+
+  return m.memo("slot_gaps", build).expand(con.dist.shape)
 
 
 def group_margins(m: Model) -> tuple:

@@ -45,6 +45,7 @@ def fwd_position(m: Model, d: Data) -> Data:
   up ``mj_invPosition``."""
   d = smooth.kinematics(m, d)
   d = smooth.com_pos(m, d)
+  d = smooth.camlight(m, d)
   d = smooth.flex(m, d)
   d = smooth.tendon(m, d)
   d = smooth.crb(m, d)

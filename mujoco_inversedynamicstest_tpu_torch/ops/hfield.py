@@ -1,7 +1,7 @@
 """Height-field narrowphase, batched.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/hfield.py:1-375`` (its ray
-cast, ``ray_hfield``, waits for the rangefinder).  The field spans
+Port of ``mujoco_inversedynamicstest_tpu/ops/hfield.py``, the narrowphase
+and the ray cast ``ray_hfield``.  The field spans
 ``x in [-size0, size0]`` over ``ncol`` samples and ``y in [-size1, size1]``
 over ``nrow``; ``data[r, c]`` is the normalized height at ``(dx c - size0,
 dy r - size1)`` scaled by ``size2``, and a base of depth ``size3`` hangs
@@ -56,6 +56,14 @@ class HFieldGrid:
                                              ) * self.size[2]
     self.vert = np.stack(
         np.broadcast_arrays(xs[None, :], ys[:, None], z), axis=-1)
+
+  def cell_tris(self) -> np.ndarray:
+    """Every cell's two top triangles, ((nrow-1) (ncol-1) 2, 3, 3), in the
+    order of ``_gather_subgrid_tris``."""
+    v = self.vert
+    tri_a = np.stack([v[:-1, :-1], v[1:, 1:], v[:-1, 1:]], axis=2)
+    tri_b = np.stack([v[:-1, :-1], v[1:, 1:], v[1:, :-1]], axis=2)
+    return np.concatenate([tri_a, tri_b], axis=2).reshape(-1, 3, 3)
 
   def bound(self) -> float:
     """Radius of the field's bounding sphere about its frame's origin."""
@@ -283,3 +291,22 @@ def make_narrowphase(m, grp):
 # (HFIELD, other) -> slots: SPHERE, CAPSULE, BOX, MESH
 HFIELD_SLOTS = {(1, 2): HFIELD_NSLOT, (1, 3): HFIELD_NSLOT,
                 (1, 6): HFIELD_NSLOT, (1, 7): HFIELD_NSLOT}
+
+
+def ray_hfield(m, d, g: int, pnt: torch.Tensor,
+               vec: torch.Tensor) -> torch.Tensor:
+  """Distances (B, R) of R rays a lane (``pnt``, ``vec`` (B, R, 3)) to the
+  height-field geom ``g`` (``mj_rayHfield``): the nearest of every top
+  triangle and of the base box below z = 0, +inf on a miss."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import ray
+
+  did = int(m.geom_dataid[g])
+  grid = m.hfield_grid[did]
+  tris = m.memo(("hfield_tris", did), lambda: m.const(grid.cell_tris()))
+  half = 0.5 * float(grid.size[3])
+  pos, mat = d.geom_xpos[:, None, g], d.geom_xmat[:, None, g]
+  base = m.const(np.array([grid.size[0], grid.size[1], half]))
+  x_base = ray._ray_box(pos - mat[..., :, 2] * half, mat, base, pnt, vec)
+  lpnt, lvec = ray._ray_map(pos, mat, pnt, vec)
+  x_top = ray._ray_triangles(tris, lpnt, lvec).amin(-1)
+  return torch.minimum(x_base, x_top)

@@ -8,7 +8,11 @@ host, by what they compute (``_plan``): each group is one batched
 computation over all its objects (every site of a VELOCIMETER or GYRO, say),
 each sensor then takes its columns, and one gather writes a stage's values
 into ``sensordata``, after the stage's cutoffs.  A stage with no sensor,
-or a model whose sensors are disabled, costs nothing.
+or a model whose sensors are disabled, costs nothing.  So all of a model's
+rangefinders are one scene cast (``ray.ray``), and all of its distance
+sensors' geom pairs one narrowphase call a pair kind
+(``collision.geom_distance``); each USER sensor calls the model's
+``user_sensor_fn`` (C's ``mjcb_sensor``).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from mujoco_inversedynamicstest_tpu_torch.models.io import sensor_geoms
 from mujoco_inversedynamicstest_tpu_torch.models.types import (
     Data,
     DataType,
@@ -56,6 +61,13 @@ _KIND = {
     S.TORQUE: ("forcetorque", 0), S.FORCE: ("forcetorque", 3),
     S.TOUCH: ("touch", 0), S.MAGNETOMETER: ("magnetometer", 0),
     S.E_POTENTIAL: ("epotential", 0), S.E_KINETIC: ("ekinetic", 0),
+    S.RANGEFINDER: ("rangefinder", 0), S.CAMPROJECTION: ("camprojection", 0),
+    S.JOINTLIMITPOS: ("limitpos", 0), S.TENDONLIMITPOS: ("limitpos", 0),
+    S.JOINTLIMITVEL: ("limitvel", 0), S.TENDONLIMITVEL: ("limitvel", 0),
+    S.JOINTLIMITFRC: ("limitfrc", 0), S.TENDONLIMITFRC: ("limitfrc", 0),
+    # [distance, normal, fromto]
+    S.GEOMDIST: ("geomdist", 0), S.GEOMNORMAL: ("geomdist", 1),
+    S.GEOMFROMTO: ("geomdist", 4), S.USER: ("user", 0),
 }
 # the kinds that read cacc or cfrc_int (mj_rnePostConstraint)
 _RNEPOST = {"siteacc", "frameacc", "forcetorque"}
@@ -69,6 +81,9 @@ class _Group(NamedTuple):
   objid: np.ndarray        # the group's distinct (object, reference) pairs
   refid: np.ndarray
   cols: np.ndarray         # the group's values, in its sensors' order
+  # the distance sensors' cutoff a pair (their narrowphase's margin), the
+  # USER sensor's id
+  extra: np.ndarray = None
 
 
 class _Plan(NamedTuple):
@@ -92,27 +107,37 @@ def _build_plan(m: Model, stage: Stage) -> _Plan | None:
   width = {"ballquat": 4, "framequat": 4, "frameaxis": 9, "sitevel": 6,
            "framevel": 6, "subtreevel": 6, "siteacc": 6, "frameacc": 6,
            "forcetorque": 6, "framepos": 3, "ballangvel": 3,
-           "subtreecom": 3, "magnetometer": 3}
+           "subtreecom": 3, "magnetometer": 3, "camprojection": 2,
+           "geomdist": 10}
+  cutoff = m.sensor_cutoff.cpu().numpy()
   members = {}
   for i in ids:
     kind, _ = _KIND[S(int(m.sensor_type[i]))]
     ref = int(m.sensor_reftype[i]) if m.sensor_refid[i] >= 0 else -1
-    members.setdefault((kind, int(m.sensor_objtype[i]), ref), []).append(i)
+    # each USER sensor is a group of its own
+    alone = int(i) if kind == "user" else -1
+    members.setdefault((kind, int(m.sensor_objtype[i]), ref, alone),
+                       []).append(i)
   groups, addrs, ncols = [], [], 0
-  for (kind, objtype, reftype), sids in members.items():
-    pairs = list(dict.fromkeys((int(m.sensor_objid[i]), int(m.sensor_refid[i]))
-                               for i in sids))
-    w = width.get(kind, 1)
+  for (kind, objtype, reftype, alone), sids in members.items():
+    extra = lambda i: (float(cutoff[i]) if kind == "geomdist" else
+                       int(i) if kind == "user" else 0)
+    key = lambda i: (int(m.sensor_objid[i]), int(m.sensor_refid[i]),
+                     extra(i))
+    pairs = list(dict.fromkeys(key(i) for i in sids))
+    w = int(m.sensor_dim[alone]) if kind == "user" else width.get(kind, 1)
     cols = []
     for i in sids:
-      p = pairs.index((int(m.sensor_objid[i]), int(m.sensor_refid[i])))
+      p = pairs.index(key(i))
       off = _KIND[S(int(m.sensor_type[i]))][1]
       dim = int(m.sensor_dim[i])
       cols.append(p * w + off + np.arange(dim))
       addrs.append(int(m.sensor_adr[i]) + np.arange(dim))
-    pairs = np.array(pairs, np.int64)
-    groups.append(_Group(kind, objtype, reftype, pairs[:, 0], pairs[:, 1],
-                         np.concatenate(cols)))
+    groups.append(_Group(kind, objtype, reftype,
+                         np.array([p[0] for p in pairs], np.int64),
+                         np.array([p[1] for p in pairs], np.int64),
+                         np.concatenate(cols),
+                         np.array([p[2] for p in pairs])))
     ncols += len(groups[-1].cols)
   addr = np.concatenate(addrs)
   index = np.zeros(m.nsensordata, np.int64)
@@ -121,12 +146,14 @@ def _build_plan(m: Model, stage: Stage) -> _Plan | None:
   mask[addr] = True
 
   # cutoffs (apply_cutoff): REAL clipped to [-c, c], POSITIVE to c, where
-  # c > 0; the sensors' columns in the order of ``addr``
+  # c > 0, except on GEOMFROMTO (whose cutoff is only the narrowphase's
+  # margin); the sensors' columns in the order of ``addr``
   lo, hi = np.full(ncols, -np.inf), np.full(ncols, np.inf)
-  cutoff = m.sensor_cutoff.cpu().numpy()
   sid_of_addr = np.repeat(np.arange(m.nsensor), m.sensor_dim)
   for col, a in enumerate(addr):
     i = sid_of_addr[a]
+    if m.sensor_type[i] == S.GEOMFROMTO:
+      continue
     if cutoff[i] > 0 and m.sensor_datatype[i] == DataType.REAL:
       lo[col], hi[col] = -cutoff[i], cutoff[i]
     elif cutoff[i] > 0 and m.sensor_datatype[i] == DataType.POSITIVE:
@@ -154,6 +181,8 @@ def _frame_pos_mat(m: Model, d: Data, objtype: int, objid: np.ndarray):
     return d.geom_xpos[:, i], d.geom_xmat[:, i]
   if t == ObjType.SITE:
     return d.site_xpos[:, i], d.site_xmat[:, i]
+  if t == ObjType.CAMERA:
+    return d.cam_xpos[:, i], d.cam_xmat[:, i]
   raise NotImplementedError(f"sensor object type {t.name}")
 
 
@@ -171,6 +200,11 @@ def _frame_quat(m: Model, d: Data, objtype: int, objid: np.ndarray):
   if t == ObjType.SITE:
     return math.quat_mul(d.xquat[:, m.const(m.site_bodyid[objid])],
                          m.site_quat[i])
+  if t == ObjType.CAMERA:
+    # C's get_xquat: the body's quaternion times the camera's, whatever the
+    # camera's mode (its frame, cam_xmat, may look elsewhere)
+    return math.quat_mul(d.xquat[:, m.const(m.cam_bodyid[objid])],
+                         m.cam_quat[i])
   raise NotImplementedError(f"sensor object type {t.name}")
 
 
@@ -182,6 +216,8 @@ def _obj_body(m: Model, objtype: int, objid: np.ndarray) -> np.ndarray:
     return m.geom_bodyid[objid]
   if t == ObjType.SITE:
     return m.site_bodyid[objid]
+  if t == ObjType.CAMERA:
+    return m.cam_bodyid[objid]
   raise NotImplementedError(f"sensor object type {t.name}")
 
 
@@ -323,6 +359,117 @@ def _touch_lanes(m: Model, d: Data, sites: np.ndarray) -> torch.Tensor:
   return torch.stack(out, dim=1)
 
 
+def _limit_rows(m: Model, objtype: int, objid: np.ndarray) -> tuple:
+  """Each joint's or tendon's limit rows, (n, 2) efc indices in row order,
+  and which of the two exist: a limited hinge or slide joint, or tendon,
+  has two (lower, upper), a ball joint one, any other none."""
+  lay = constraint.row_layout(m)
+  start = lay.ne + lay.nf
+  keys = np.concatenate([np.repeat(lay.limit_jnt, 2), lay.ball_jnt])
+  if lay.limit_perm is not None:
+    keys = keys[lay.limit_perm]
+  if objtype == ObjType.TENDON:
+    start += len(keys)
+    keys = np.repeat(lay.limit_ten, 2)
+  rows = np.zeros((len(objid), 2), np.int64)
+  exists = np.zeros((len(objid), 2), bool)
+  for k, j in enumerate(objid):
+    r = np.nonzero(keys == j)[0]
+    rows[k, :len(r)] = start + r
+    exists[k, :len(r)] = True
+  return m.const(rows), m.const(exists)
+
+
+def _limit(m: Model, d: Data, g: _Group) -> torch.Tensor:
+  """The first active limit row of each joint or tendon (B, n) (C's limit
+  sensors): its distance past the margin, its velocity or its force, 0
+  where no row is active."""
+  if d.efc_J is None:
+    return d.qpos.new_zeros((d.batch, len(g.objid)))
+  rows, exists = m.memo(("limit_rows", g.objtype, g.objid.tobytes()),
+                        lambda: _limit_rows(m, g.objtype, g.objid))
+  if g.kind == "limitpos":
+    val = (d.efc_pos - d.efc_margin)[:, rows]
+  elif g.kind == "limitvel":
+    val = math.matvec(d.efc_J[:, rows], d.qvel[:, None])
+  else:
+    val = d.efc_force[:, rows]
+  act = d.efc_active[:, rows] & exists
+  return torch.where(act[..., 0], val[..., 0],
+                     torch.where(act[..., 1], val[..., 1], 0.0))
+
+
+def _cam_focal(m: Model) -> torch.Tensor:
+  """Each camera's focal lengths in pixels (ncam, 2), on the host as C's
+  ``cam_project`` forms them: from the intrinsics where the sensor size is
+  set, in float (C keeps both in float: intrinsic / sensorsize * pixels),
+  else from the vertical field of view."""
+  res = m.cam_resolution.cpu().numpy()
+  ss = m.cam_sensorsize.cpu().numpy().astype(np.float32)
+  intr = m.cam_intrinsic.cpu().numpy()[:, :2].astype(np.float32)
+  with np.errstate(divide="ignore", invalid="ignore"):
+    lens = intr / ss * res.astype(np.float32)
+  fov = 0.5 / np.tan(m.cam_fovy.cpu().numpy() * np.pi / 360.0) * res[:, 1]
+  return m.const(np.where((ss != 0).all(1, keepdims=True),
+                          lens.astype(np.float64), fov[:, None]))
+
+
+def _cam_project(m: Model, d: Data, g: _Group) -> torch.Tensor:
+  """Pixel coordinates (B, n, 2) of sites in camera images
+  (``cam_project``)."""
+  c = m.const(g.refid)
+  xc = math.mat_t_vec(d.cam_xmat[:, c],
+                      d.site_xpos[:, m.const(g.objid)] - d.cam_xpos[:, c])
+  f = m.memo("cam_focal", lambda: _cam_focal(m))[c]
+  res = m.cam_resolution[c]
+  z = xc[..., 2]
+  return torch.stack([-f[:, 0] * xc[..., 0] / z + res[:, 0] / 2.0,
+                      f[:, 1] * xc[..., 1] / z + res[:, 1] / 2.0], dim=-1)
+
+
+def _geom_pairs(m: Model, g: _Group) -> tuple:
+  """The geom pairs of the group's distance sensors, in the JAX package's
+  order (the first side's geoms, then the second's): their geoms and
+  margins, and the (n, W) table of each sensor's pairs, padded with the
+  pair count (an extra column that never wins)."""
+  g1, g2, margin, table = [], [], [], []
+  for o, r, c in zip(g.objid, g.refid, g.extra):
+    mine = []
+    for a in sensor_geoms(m.body_geomadr, m.body_geomnum, g.objtype, o):
+      for b in sensor_geoms(m.body_geomadr, m.body_geomnum, g.reftype, r):
+        mine.append(len(g1))
+        g1.append(a)
+        g2.append(b)
+        margin.append(c)
+    table.append(mine)
+  width = max(len(t) for t in table)
+  table = [t + [len(g1)] * (width - len(t)) for t in table]
+  return (np.array(g1), np.array(g2), m.const(np.array(margin, np.float64)),
+          m.const(np.array(table)))
+
+
+def _geom_dist(m: Model, d: Data, g: _Group) -> torch.Tensor:
+  """[distance, normal, fromto] (B, n, 10) of the distance sensors: the
+  smallest signed distance between their two geom sets within the cutoff
+  (``mj_geomDistance`` of each geom pair at margin = cutoff), the first
+  of equal ones; where none lies within it, the cutoff and zeros."""
+  g1, g2, margin, table = m.memo(("geom_pairs", g.objid.tobytes(),
+                                  g.refid.tobytes(), g.extra.tobytes(),
+                                  g.objtype, g.reftype),
+                                 lambda: _geom_pairs(m, g))
+  dist, fromto = collision.geom_distance(m, d, g1, g2, margin)
+  dist = torch.cat([dist, torch.full_like(dist[:, :1], float("inf"))], 1)
+  fromto = torch.cat([fromto, torch.zeros_like(fromto[:, :1])], 1)
+  k = torch.argmin(dist[:, table], dim=-1, keepdim=True)
+  best = torch.take_along_dim(table[None], k, dim=-1)[..., 0]   # (B, n)
+  dist = torch.take_along_dim(dist, best, dim=1)
+  ft = torch.take_along_dim(fromto, best[..., None], dim=1)
+  n = ft[..., 3:] - ft[..., :3]
+  nn = math.norm_safe(n, keepdim=True)
+  n = torch.where(nn > 1e-15, n / nn, 0.0)
+  return torch.cat([dist[..., None], n, ft], dim=-1)
+
+
 def _values(m: Model, d: Data, g: _Group, cache: dict) -> torch.Tensor:
   """The group's rows (B, n, w), one a distinct (object, reference)."""
   oid = m.const(g.objid)
@@ -391,6 +538,20 @@ def _values(m: Model, d: Data, g: _Group, cache: dict) -> torch.Tensor:
   if k in ("epotential", "ekinetic"):
     e = energy_pos(m, d) if k == "epotential" else energy_vel(m, d)
     return e[:, None, None].expand(d.batch, len(g.objid), 1)
+  if k == "rangefinder":
+    # every rangefinder of the stage in one cast, each blind to its body
+    dist, _ = ray.ray(m, d, d.site_xpos[:, oid], d.site_xmat[:, oid, :, 2],
+                      bodyexclude=m.site_bodyid[g.objid])
+    return dist[..., None]
+  if k in ("limitpos", "limitvel", "limitfrc"):
+    return _limit(m, d, g)[..., None]
+  if k == "camprojection":
+    return _cam_project(m, d, g)
+  if k == "geomdist":
+    return _geom_dist(m, d, g)
+  if k == "user":
+    sid = int(g.extra[0])
+    return m.user_sensor_fn(m, d, sid).reshape(d.batch, 1, -1)
   raise NotImplementedError(f"sensor kind {k}")
 
 

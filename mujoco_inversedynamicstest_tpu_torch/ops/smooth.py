@@ -236,6 +236,41 @@ def com_pos(m: Model, d: Data) -> Data:
   return d.replace(subtree_com=subtree_com, cinert=cinert, cdof=cdof)
 
 
+def camlight(m: Model, d: Data) -> Data:
+  """Camera frames ``cam_xpos``, ``cam_xmat`` (B, ncam, ...) by each
+  camera's mode (``mj_camlight``): fixed to its body; TRACK and TRACKCOM
+  at an offset from its body's frame or subtree CoM, in a fixed world
+  orientation; TARGETBODY and TARGETBODYCOM turned to look at the target's
+  frame or subtree CoM.  From a completed ``com_pos``; nothing without
+  cameras."""
+  if not m.ncam:
+    return d
+  body = m.const(m.cam_bodyid)
+  xmat = d.xmat[:, body]
+  pos = d.xpos[:, body] + math.matvec(xmat, m.cam_pos)
+  mat = xmat @ math.quat_to_mat(m.cam_quat)
+  mode, target = m.cam_mode, m.cam_targetbodyid
+  track, trackcom = mode == 1, mode == 2
+  if np.any(track | trackcom):
+    pos = torch.where(m.const(track[:, None]), d.xpos[:, body] + m.cam_pos0,
+                      torch.where(m.const(trackcom[:, None]),
+                                  d.subtree_com[:, body] + m.cam_poscom0, pos))
+    mat = torch.where(m.const((track | trackcom)[:, None, None]), m.cam_mat0,
+                      mat)
+  look = ((mode == 3) | (mode == 4)) & (target >= 0)
+  if np.any(look):
+    tgt = m.const(np.where(look, target, 0))
+    at = torch.where(m.const((mode == 3)[:, None]), d.xpos[:, tgt],
+                     d.subtree_com[:, tgt])
+    z = math.normalize(pos - at)        # minus the view direction
+    up = m.const(np.array([0.0, 0.0, 1.0]))
+    x = math.normalize(math.cross(up, z))
+    y = math.normalize(math.cross(z, x))
+    mat = torch.where(m.const(look[:, None, None]),
+                      torch.stack([x, y, z], dim=-1), mat)
+  return d.replace(cam_xpos=pos, cam_xmat=mat)
+
+
 def _point_rows(m: Model, d: Data, points: torch.Tensor, bodies: np.ndarray,
                 w: torch.Tensor) -> torch.Tensor:
   """(B, K, nv): w_k . jacp(point_k) for K points (B, K, 3) on the host
@@ -532,25 +567,161 @@ def tendon(m: Model, d: Data) -> Data:
 
 def _transmission_pieces(m: Model):
   """Host tables of ``transmission``: the actuators by kind (hinge or
-  slide joint, ball, free, tendon)."""
+  slide joint, ball, free, tendon, site, site with a reference site,
+  slider-crank, body)."""
   trn, jid = m.actuator_trntype, m.actuator_trnid[:, 0]
   joint = (trn == TrnType.JOINT) | (trn == TrnType.JOINTINPARENT)
   jt = np.where(joint, m.jnt_type[np.where(joint, jid, 0)], -1)
+  site = trn == TrnType.SITE
+  ref = m.actuator_trnid[:, 1] >= 0
   return tuple(np.nonzero(sel)[0] for sel in (
       joint & ((jt == JointType.HINGE) | (jt == JointType.SLIDE)),
-      jt == JointType.BALL, jt == JointType.FREE, trn == TrnType.TENDON))
+      jt == JointType.BALL, jt == JointType.FREE, trn == TrnType.TENDON,
+      site & ~ref, site & ref, trn == TrnType.SLIDERCRANK,
+      trn == TrnType.BODY))
+
+
+def _common_ancestor_dofs(m: Model, b0: int, b1: int) -> np.ndarray:
+  """The dofs of the chain two bodies share (``mj_transmission``'s refsite
+  search): walking up the dof tree from each body's weld's last dof until
+  the two meet, that dof and its ancestors; none where they never meet."""
+  w0, w1 = int(m.body_weldid[b0]), int(m.body_weldid[b1])
+  if m.body_dofnum[w0] == 0 or m.body_dofnum[w1] == 0:
+    return np.zeros(0, np.int64)
+  d0 = int(m.body_dofadr[w0] + m.body_dofnum[w0] - 1)
+  d1 = int(m.body_dofadr[w1] + m.body_dofnum[w1] - 1)
+  while d0 != d1:
+    if d0 < d1:
+      d1 = int(m.dof_parentid[d1])
+    else:
+      d0 = int(m.dof_parentid[d0])
+    if d0 == -1 or d1 == -1:
+      return np.zeros(0, np.int64)
+  chain = []
+  while d0 >= 0:
+    chain.append(d0)
+    d0 = int(m.dof_parentid[d0])
+  return np.array(chain, np.int64)
+
+
+def _site_moment(jacp, jacr, force, torque) -> torch.Tensor:
+  """(B, K, nv): jacpᵀ force + jacrᵀ torque of K points (B, K, nv, 3)."""
+  return (torch.einsum("bkvc,bkc->bkv", jacp, force)
+          + torch.einsum("bkvc,bkc->bkv", jacr, torque))
+
+
+def _site_transmission(m: Model, d: Data, sel: np.ndarray):
+  """SITE transmissions without a reference site: length 0, the moment of
+  the gear's wrench in the site's frame at the site."""
+  sid = m.actuator_trnid[sel, 0]
+  s = m.const(sid)
+  jacp, jacr = support.jac(m, d, d.site_xpos[:, s], m.site_bodyid[sid])
+  smat = d.site_xmat[:, s]
+  g = m.actuator_gear[m.const(sel)]
+  return (d.qpos.new_zeros((d.batch, len(sel))),
+          _site_moment(jacp, jacr, math.matvec(smat, g[:, :3]),
+                       math.matvec(smat, g[:, 3:])))
+
+
+def _refsite_transmission(m: Model, d: Data, sel: np.ndarray):
+  """SITE transmissions with a reference site: length the site's position
+  and rotation in the reference site's frame, weighted by the gear; the
+  moment the difference of the two sites' Jacobians, less the dofs the two
+  bodies share, along the gear rotated into the reference frame.  The
+  sites' rotations are site_quat * xquat, in C's order."""
+  sid, rid = m.actuator_trnid[sel, 0], m.actuator_trnid[sel, 1]
+  s, r = m.const(sid), m.const(rid)
+  bid, rbid = m.site_bodyid[sid], m.site_bodyid[rid]
+
+  def shared():
+    keep = np.ones((len(sel), m.nv))
+    for k, (b0, b1) in enumerate(zip(bid, rbid)):
+      keep[k, _common_ancestor_dofs(m, int(b0), int(b1))] = 0.0
+    return m.const(keep)
+
+  keep = m.memo(("refsite_dofs", sel.tobytes()), shared)
+  jacp, jacr = support.jac(m, d, d.site_xpos[:, s], bid)
+  jacp_r, jacr_r = support.jac(m, d, d.site_xpos[:, r], rbid)
+  rmat = d.site_xmat[:, r]
+  g = m.actuator_gear[m.const(sel)]
+  vec = math.mat_t_vec(rmat, d.site_xpos[:, s] - d.site_xpos[:, r])
+  quat = math.quat_mul(m.site_quat[s], d.xquat[:, m.const(bid)])
+  refquat = math.quat_mul(m.site_quat[r], d.xquat[:, m.const(rbid)])
+  length = (torch.sum(vec * g[:, :3], dim=-1)
+            + torch.sum(math.quat_sub(quat, refquat) * g[:, 3:], dim=-1))
+  moment = _site_moment(jacp - jacp_r, jacr - jacr_r,
+                        math.matvec(rmat, g[:, :3]),
+                        math.matvec(rmat, g[:, 3:])) * keep
+  return length, moment
+
+
+def _crank_transmission(m: Model, d: Data, sel: np.ndarray):
+  """SLIDERCRANK transmissions: the slider's travel along its site's z axis
+  from the crank pin, a rod of ``actuator_cranklength`` between them (where
+  the rod cannot reach, the projection alone), and its derivative through
+  both sites' Jacobians; both times the gear."""
+  sid, slid = m.actuator_trnid[sel, 0], m.actuator_trnid[sel, 1]
+  c, s = m.const(sid), m.const(slid)
+  k = m.const(sel)
+  rod = m.actuator_cranklength[k]
+  axis = d.site_xmat[:, s, :, 2]
+  vec = d.site_xpos[:, c] - d.site_xpos[:, s]
+  av = torch.sum(vec * axis, dim=-1)
+  det = av * av + rod * rod - torch.sum(vec * vec, dim=-1)
+  ok = det > 0
+  sdet = torch.sqrt(torch.clamp(det, min=math.MINVAL))
+  length = av - torch.where(ok, sdet, 0.0)
+  one_m = (1.0 - av / sdet)[..., None]
+  dldv = torch.where(ok[..., None], axis * one_m + vec / sdet[..., None], axis)
+  dlda = torch.where(ok[..., None], vec * one_m, vec)
+  jacp_c, _ = support.jac(m, d, d.site_xpos[:, c], m.site_bodyid[sid])
+  jacp_s, jacr_s = support.jac(m, d, d.site_xpos[:, s], m.site_bodyid[slid])
+  jac_axis = math.cross(jacr_s, axis[:, :, None])
+  g0 = m.actuator_gear[k, 0]
+  return length * g0, _site_moment(jac_axis, jacp_c - jacp_s, dlda,
+                                   dldv) * g0[:, None]
+
+
+def _body_transmission(m: Model, d: Data, sel: np.ndarray):
+  """BODY transmissions (adhesion): length 0, the moment minus the mean of
+  the normal Jacobians (from the contact frame, body 2's less body 1's) of
+  the lane's contacts of the body, 0 without any.  As in C, a contact
+  counts up to its margin plus its gap, rows or none (a pair kind whose
+  narrowphase stops at the margin reports none in the gap)."""
+  length = d.qpos.new_zeros((d.batch, len(sel)))
+  if not collision.contact_layout(m).ncon:
+    return length, d.qpos.new_zeros((d.batch, len(sel), m.nv))
+  con = d.contact
+  b1, b2 = constraint.slot_bodies(m, con)
+  n = con.frame[..., 0, :]
+  root = m.const(m.body_rootid)
+  mask = m.const(m.tree.body_dof_mask)
+
+  def side(b):
+    com = torch.take_along_dim(d.subtree_com, root[b][..., None], dim=1)
+    u = torch.cat([math.cross(con.pos - com, n), n], dim=-1)
+    return torch.where(mask[b], u @ d.cdof.transpose(1, 2), 0.0)
+
+  jn = side(b2) - side(b1)                                 # (B, ncon, nv)
+  bid = m.const(m.actuator_trnid[sel, 0])[:, None]
+  kept = con.dist < con.includemargin + collision.slot_gaps(m, con)
+  counted = (kept[:, None]
+             & ((b1[:, None] == bid) | (b2[:, None] == bid))).to(jn.dtype)
+  count = counted.sum(-1, keepdim=True)
+  return length, -(counted @ jn) / torch.clamp(count, min=1.0)
 
 
 def transmission(m: Model, d: Data) -> Data:
   """Actuator lengths and dense (nu, nv) moments (``mj_transmission``) for
   joint transmissions (on any joint; JOINTINPARENT rotates a ball's or a
-  free joint's rotational gear into the joint's frame) and tendon
-  transmissions; built out of place, so that ``torch.func`` transforms
-  can batch it."""
+  free joint's rotational gear into the joint's frame), tendon, site (with
+  or without a reference site), slider-crank and body (adhesion)
+  transmissions, from a completed collision; built out of place, so that
+  ``torch.func`` transforms can batch it."""
   if not m.nu:
     return d
-  scalar, ball, free, ten = m.memo("transmission", lambda: _transmission_pieces(
-      m))
+  (scalar, ball, free, ten, site, refsite, crank,
+   body) = m.memo("transmission", lambda: _transmission_pieces(m))
   jid, gear = m.actuator_trnid[:, 0], m.actuator_gear
   inparent = m.actuator_trntype == TrnType.JOINTINPARENT
   lengths, moments = [], []
@@ -591,6 +762,12 @@ def transmission(m: Model, d: Data) -> Data:
     g0 = gear[m.const(ten), 0]
     lengths.append((ten, d.ten_length[:, tid] * g0))
     moments.append((ten, d.ten_J[:, tid] * g0[:, None]))
+  for sel, fn in ((site, _site_transmission), (refsite, _refsite_transmission),
+                  (crank, _crank_transmission), (body, _body_transmission)):
+    if sel.size:
+      length, moment = fn(m, d, sel)
+      lengths.append((sel, length))
+      moments.append((sel, moment))
   if len(lengths) == 1:
     # one kind, in actuator order
     return d.replace(actuator_length=lengths[0][1],

@@ -24,7 +24,7 @@ import torch
 import mujoco_inversedynamicstest_tpu as mi
 import mujoco_inversedynamicstest_tpu_torch as mt
 from mujoco_inversedynamicstest_tpu_torch.ops import forward as fwd
-from test_torch_tendon import MODELS, c_model, seeded
+from test_torch_tendon import MODELS, c_model, dense, seeded
 
 jilqr = importlib.import_module("mujoco_inversedynamicstest_tpu.opt.ilqr")
 ilqr_mod = importlib.import_module(
@@ -323,18 +323,14 @@ def test_implicitfast_invdiscrete_skips_the_midpoint_as_c():
 
 
 _REFUSED = {
-    "actuator transmission SITE": """<mujoco><worldbody><body>
-      <joint type="hinge"/><geom size="0.1"/><site name="s"/></body>
-      </worldbody><actuator><general site="s"/></actuator></mujoco>""",
-    "actuator transmission SLIDERCRANK": """<mujoco><worldbody><body>
-      <joint type="hinge"/><geom size="0.1"/><site name="a"/></body>
-      <body pos="0.3 0 0"><joint type="slide"/><geom size="0.1"/>
-      <site name="b"/></body></worldbody><actuator>
-      <general cranksite="a" slidersite="b" cranklength="0.2"/>
-      </actuator></mujoco>""",
-    "actuator transmission BODY": """<mujoco><worldbody><body name="b">
-      <joint type="hinge"/><geom size="0.1"/></body></worldbody>
-      <actuator><adhesion body="b" ctrlrange="0 1"/></actuator></mujoco>""",
+    # adhesion reads the contact slots' bodies, which a flex element contact
+    # does not have
+    "actuator transmission BODY": """<mujoco><worldbody>
+      <flexcomp type="grid" count="3 3 1" spacing="0.1 0.1 0.1" radius="0.01"
+                name="sheet" dim="2" mass="0.1"/>
+      <body name="b" pos="0 0 0.3"><freejoint/><geom size="0.05"/></body>
+      </worldbody><actuator><adhesion body="b" ctrlrange="0 1"/></actuator>
+      </mujoco>""",
     "actuator dynamics USER": """<mujoco><worldbody><body>
       <joint name="j" type="hinge"/><geom size="0.1"/></body></worldbody>
       <actuator><general joint="j" dyntype="user"/></actuator></mujoco>""",
@@ -344,6 +340,21 @@ _REFUSED = {
     "actuator bias USER": """<mujoco><worldbody><body>
       <joint name="j" type="hinge"/><geom size="0.1"/></body></worldbody>
       <actuator><general joint="j" biastype="user"/></actuator></mujoco>""",
+}
+# refused until the transmission and sensor-tail slice, which computes them:
+# each is now held to C
+_PORTED = {
+    "actuator transmission SITE": """<mujoco><worldbody><body>
+      <joint type="hinge"/><geom size="0.1"/><site name="s" pos="0.1 0 0"/>
+      </body></worldbody><actuator><general site="s" gear="0 1 0 0 0 1"/>
+      </actuator></mujoco>""",
+    "actuator transmission SLIDERCRANK": """<mujoco><worldbody><body>
+      <joint type="hinge" axis="0 1 0"/><geom size="0.1"/>
+      <site name="a" pos="0.05 0 0"/></body>
+      <body pos="0.3 0 0"><joint type="slide"/><geom size="0.1"/>
+      <site name="b" euler="0 90 0"/></body></worldbody><actuator>
+      <general cranksite="a" slidersite="b" cranklength="0.2"/>
+      </actuator></mujoco>""",
     "sensor type TENDONLIMITPOS": """<mujoco><worldbody><body>
       <joint name="j" type="hinge"/><geom size="0.1"/></body></worldbody>
       <tendon><fixed name="t" limited="true" range="-1 1">
@@ -352,13 +363,31 @@ _REFUSED = {
 }
 
 
-@pytest.mark.parametrize("what", sorted(_REFUSED) + [
+@pytest.mark.parametrize("what", sorted(_REFUSED) + sorted(_PORTED) + [
     "actuator plugins", "muscle without the compiler's lengthrange"])
 def test_validate_model_refuses_by_name(what):
-  """put_model refuses each feature this slice leaves out, by its name:
-  the SITE, SLIDERCRANK and BODY transmissions, USER dynamics, gain and
-  bias, actuator plugins, the tendon-limit sensors, and a muscle whose
-  snapshot lacks the compiler's lengthrange."""
+  """put_model refuses each feature the port leaves out, by its name: the
+  BODY transmission on a model with flex contacts, USER dynamics, gain
+  and bias, actuator plugins, and a muscle whose snapshot lacks the
+  compiler's lengthrange.  The SITE and SLIDERCRANK transmissions and the
+  tendon-limit sensors, which it refused before they were ported, load
+  and match C's mj_forward at a state that moves them (1e-12)."""
+  if what in _PORTED:
+    mjm = mujoco.MjModel.from_xml_string(_PORTED[what])
+    mjd = mujoco.MjData(mjm)
+    mjd.qpos[:] = 1.3
+    mjd.qvel[:] = 0.4
+    mujoco.mj_forward(mjm, mjd)
+    mp = mt.put_model(mjm, device="cpu")
+    d = mt.forward(mp, mt.put_data(mp, mjd))
+    pairs = [(d.sensordata, mjd.sensordata)]
+    if mjm.nu:
+      pairs += [(d.actuator_length, mjd.actuator_length),
+                (d.actuator_moment, dense(mjm, mjd, "actuator_moment"))]
+    for got, ref in pairs:
+      np.testing.assert_allclose(got[0].numpy(), ref, rtol=0, atol=1e-12)
+    assert max(np.abs(ref).max(initial=0.0) for _, ref in pairs) > 0.1
+    return
   if what in _REFUSED:
     src = mujoco.MjModel.from_xml_string(_REFUSED[what])
   else:

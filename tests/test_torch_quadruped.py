@@ -12,9 +12,8 @@ the PyTorch port, in float64 on the CPU, against C MuJoCo:
   active contacts (geom pairs, depths and points), and qacc within 1e-8
   where only closed-form pairs are active;
 * ``inverse`` against ``mj_inverse`` on the same states;
-* the escape task's model is refused by name: first for its rangefinders,
-  then, without them, for its height field with a cylinder or an
-  ellipsoid.
+* the escape task's model, with its rangefinders and without them, is
+  refused by name for its height field with a cylinder or an ellipsoid.
 """
 
 import torch_threads  # noqa: F401  (first: pins torch's threads)
@@ -216,12 +215,14 @@ def _escape_xml(rangefinders):
 
 
 def test_escape_model_refused_by_name():
+  """With its rangefinders (which the port computes) and without them, the
+  escape model is refused for its height field with a cylinder or an
+  ellipsoid, which the JAX package refuses too."""
   from dm_control.suite import common
 
-  mjm = mujoco.MjModel.from_xml_string(_escape_xml(True), common.ASSETS)
-  with pytest.raises(NotImplementedError, match="sensor type RANGEFINDER"):
-    mt.put_model(mjm, device="cpu")
-  mjm = mujoco.MjModel.from_xml_string(_escape_xml(False), common.ASSETS)
-  with pytest.raises(NotImplementedError,
-                     match="collision pair HFIELD-(CYLINDER|ELLIPSOID)"):
-    mt.put_model(mjm, device="cpu")
+  for rangefinders in (True, False):
+    mjm = mujoco.MjModel.from_xml_string(_escape_xml(rangefinders),
+                                         common.ASSETS)
+    with pytest.raises(NotImplementedError,
+                       match="collision pair HFIELD-(CYLINDER|ELLIPSOID)"):
+      mt.put_model(mjm, device="cpu")

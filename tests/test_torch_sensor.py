@@ -316,7 +316,13 @@ def test_other_sensor_types_match_c(seed):
   mjm = mujoco.MjModel.from_xml_string(SENSOR_SMALL)
   types = {SensorType(int(t)) for t in mjm.sensor_type}
   humanoid = {SensorType(int(t)) for t in _humanoid().sensor_type}
-  assert types | humanoid == PORTED_SENSORS
+  # the rest are tests/test_torch_sensor_tail.py's and
+  # tests/test_torch_quadruped_rangefinder.py's
+  tail = {SensorType[n] for n in (
+      "RANGEFINDER", "CAMPROJECTION", "JOINTLIMITPOS", "JOINTLIMITVEL",
+      "JOINTLIMITFRC", "TENDONLIMITPOS", "TENDONLIMITVEL", "TENDONLIMITFRC",
+      "GEOMDIST", "GEOMNORMAL", "GEOMFROMTO", "USER")}
+  assert types | humanoid == PORTED_SENSORS - tail
   mjd = mujoco.MjData(mjm)
   rng = np.random.RandomState(seed)
   mjd.qpos[:] = mjm.qpos0
@@ -420,6 +426,7 @@ def test_sensor_stage_costs_nothing_without_sensors():
 UNPORTED = """<mujoco>
   <worldbody>
     <geom name="floor" type="plane" size="3 3 0.1"/>
+    <geom name="box" type="box" size="0.1 0.1 0.1" pos="1 0 0.1"/>
     <camera name="cam" pos="0 -1 1" xyaxes="1 0 0 0 1 1"/>
     <body name="b" pos="0 0 0.5">
       <joint name="j" type="hinge" axis="0 1 0" range="-1 1"/>
@@ -435,27 +442,31 @@ TOUCH_GRID = ('<extension><plugin plugin="mujoco.sensor.touch_grid"/>'
               '</extension>')
 
 
+# each id names the case it held before the sensor tail was ported; each
+# now holds a sensor that stays refused
 @pytest.mark.parametrize("extra, element, what", [
-    (TENDON.replace('name="t"', 'name="t" limited="true" range="-1 1"'),
-     '<tendonlimitpos tendon="t"/>', "sensor type TENDONLIMITPOS"),
-    ("", '<jointlimitfrc joint="j"/>', "sensor type JOINTLIMITFRC"),
-    # the energy sensors and the magnetometer are ported: the ids "energy"
-    # and "magnetometer" hold two sensors that stay refused
-    ("", '<jointlimitvel joint="j"/>', "sensor type JOINTLIMITVEL"),
-    ("", '<normal geom1="g" geom2="floor"/>', "sensor type GEOMNORMAL"),
-    ("", '<rangefinder site="s"/>', "sensor type RANGEFINDER"),
-    ("", '<camprojection site="s" camera="cam"/>',
-     "sensor type CAMPROJECTION"),
-    ("", '<distance geom1="g" geom2="floor"/>', "sensor type GEOMDIST"),
+    (TENDON, '<tendonactuatorfrc tendon="t"/>', "sensor type TENDONACTFRC"),
+    ("", '<insidesite site="s" objtype="geom" objname="g"/>',
+     "sensor type INSIDESITE"),
+    ("", '<contact geom1="g"/>', "sensor type CONTACT"),
+    ("", '<normal geom1="g" geom2="box"/>',
+     "GEOMNORMAL sensor over geom pair CAPSULE-BOX"),
+    ("", '<rangefinder site="s" data="dist dir"/>',
+     "RANGEFINDER output other than the distance"),
+    ("", '<fromto geom1="g" geom2="box"/>',
+     "GEOMFROMTO sensor over geom pair CAPSULE-BOX"),
+    ("", '<distance geom1="g" geom2="box"/>',
+     "GEOMDIST sensor over geom pair CAPSULE-BOX"),
     (TOUCH_GRID, '<plugin plugin="mujoco.sensor.touch_grid" objtype="site" '
      'objname="s"><config key="nchannel" value="1"/><config key="size" '
      'value="2 2"/><config key="fov" value="10 10"/><config key="gamma" '
      'value="0"/></plugin>', "sensor type PLUGIN"),
     ("", '<user dim="1" needstage="acc"/>', "sensor type USER"),
-    ("", '<framepos objtype="camera" objname="cam"/>',
-     "sensor object type CAMERA"),
+    ("", '<rangefinder camera="cam"/>',
+     "sensor object type CAMERA (RANGEFINDER)"),
     ("", '<framepos objtype="site" objname="s" reftype="camera" '
-     'refname="cam"/>', "sensor object type CAMERA"),
+     'refname="cam" nsample="2"/>',
+     "sensor delay, interval or history (FRAMEPOS)"),
     ("", '<jointpos joint="j" nsample="3"/>',
      "sensor delay, interval or history (JOINTPOS)"),
     ("", '<jointpos joint="j" interval="0.01"/>',
