@@ -7,7 +7,7 @@ A full run is two processes on the card: this one runs the timed work
 and a second one it starts after phase 12 (``--checks``) runs the untimed
 fp64 checks beside it (the kernels against their plain versions in phases
 3-4, 8 and 9, phases 7, 10 and 16, and the fp64 parts of phases 6, 13, 15
-and 17-26: kernels against plain versions, inverse_tests, transition_ad
+and 17-27: kernels against plain versions, inverse_tests, transition_ad
 against transition_fd).  Phases 5, 6, 9, 11 and 12 run alone.  The second
 process's lines are printed as they come, after ``checks |``; a failure in
 either process fails the script.  Phase 6's loop is timed alone before the
@@ -44,7 +44,7 @@ non-zero:
    bit-equal.
 9. kernel: main-path shapes, and timing: JVP kernels -- all four kernels
    against their plain versions, bit-equal, at every shape at which
-   phases 6-26 launch them, the solve at its columns (n = 27 for the
+   phases 6-27 launch them, the solve at its columns (n = 27 for the
    humanoid, the JVP kernels at
    (lanes, tangents) (8, 75) and (1, 75) fp64, (320, 75), (400, 75),
    (1024, 75) and the folded (76,800, 1), in both layouts; n = 1-6 for phase 18's and
@@ -152,7 +152,8 @@ non-zero:
    qfrc_applied, xfrc_applied and ctrl from a seeded torch.Generator (both
    solver_fwdinv entries <= 1e-6 on every lane at every step).  Then
    BASELINE rung 2: iLQR reach on the tendon arm, F = 64 fp32 problems,
-   H = 50, ILQRConfig(iterations=2) (10 took 272 s: cut for time),
+   H = 25 (50 until phase 27), ILQRConfig(iterations=2) (10 took 272 s:
+   cut for time),
    a seeded reachable target per lane, cost |hand - target|^2 + 1e-3 |u|^2
    (the hand from the arm's closed-form planar kinematics): solves/s,
    finite lanes, the median hand-target distance at the start and at the
@@ -317,16 +318,34 @@ non-zero:
    against the plain versions (<= 1e-9) and transition_fd (centered, eps
    1e-6, zero warm start; within 1e-4 of max|C|, of max|D| and of the
    largest of C's rangefinder rows).
+27. slice: plugins -- the engine plugins (PID, cable, touch grid) and the
+   SDF plugin geoms (the torus, the bowl, the mesh-SDF cube), the JAX
+   package's tests' scenes (scripts/plugin_models.py): each at B = 4096
+   fp32 from seeded states (the SDF scenes' free body resting on its SDF),
+   20 steps (the SDF scenes 5: each runs the clearance descent): steps/s,
+   finite lanes, auto-resets, each kernel's launches a step, peak memory,
+   a step's device ms and launches and, on the SDF scenes, collision's
+   against them; the kernels timed at (4096, n) fp32 for the scenes' nv
+   and the JVP kernels at (6, 8 lanes, 12 tangents) fp64.  Then 64 lanes
+   fp64, 5 steps of each scene with the kernels against 5 with the plain
+   versions (<= 1e-9); the fp32 deepest SDF contact of 64
+   states against fp64 (<= 1e-4); the touch grid's fp32 readings against
+   fp64 (each channel's taxel sum within 1e-4 of its scale, each contact
+   clear of a bin edge by 1e-5 rad in the same taxel); the fork's
+   inverse_test on the cable (EULER: RK4 diverges on it, in C too) and the
+   bowl (RK4), 64 lanes fp64 x 20 steps; transition_ad of 8 lanes of the
+   sphere resting on the torus (fp64) against the plain versions and
+   transition_fd (centered, eps 1e-6; within 1e-4 of max|A|).
 
 Phase 10 also runs transition_ad of the Newton-100 humanoid under RK4 and
 IMPLICIT (the qDeriv Jacobian nested in the dual step).  Every kernel
-launch of phases 6-26 must be at a shape phase 9 checked: (n, lanes,
+launch of phases 6-27 must be at a shape phase 9 checked: (n, lanes,
 dtype) of the factor, (n, lanes, columns, dtype) of the solve, (n, lanes,
 tangents, dtype) of the factor's JVP, (n, lanes, tangents, columns,
 dtype) of the solve's.  Then
 one JSON line of the kernel report (launches: the sum over the main paths,
 phases 6, 12, 15, 16, 17, 18, 19, 20, 21 (its transition_ad and its
-fleet), 22, 23, 24, 25 and 26, each read with the counts reset before it, in
+fleet), 22, 23, 24, 25, 26 and 27, each read with the counts reset before it, in
 either process;
 by path beside it; the JVP kernels with the tangent counts of their phase 12
 launches), the nvidia-smi line, and the result line.  There is no CPU path: without
@@ -371,7 +390,11 @@ only the build and phase 25 (both parts), and
 
     python3 chip_smoke.py --tail
 
-only the build and phase 26 (both parts).
+only the build and phase 26 (both parts), and
+
+    python3 chip_smoke.py --plugins
+
+only the build and phase 27 (both parts).
 """
 
 from __future__ import annotations
@@ -424,8 +447,13 @@ TENDON_MODELS = ("tendon_arm", "actuated", "tendon_rows")
 # 2 iterations (10 took 272 s, 27-47 s each on an H100 by its host):
 # cut for time
 TENDON_STEPS, ARM_INVERSE_STEPS = 20, 60
-# F cut from 256 to 128 to make room for phase 25, and to 64 for phase 26
-REACH_F, REACH_H, REACH_ITERATIONS, REACH_ALPHAS = 64, 50, 2, 8
+# F cut from 256 to 128 to make room for phase 25, and to 64 for phase 26;
+# H from 50 steps (0.25 s) to 25 for phase 27: the reach is host-bound, its
+# time the backward passes of the regularization's escalation (18 at H =
+# 50, 8 at H = 25 on the CPU), and took 121.6 s of phase 19's 140.7 at H =
+# 50 on an H100; the hand still closes on its target (the CPU rehearsal:
+# median 0.231 m to 0.064 m at H = 25, 0.085 m at H = 50)
+REACH_F, REACH_H, REACH_ITERATIONS, REACH_ALPHAS = 64, 25, 2, 8
 REACH_CHECK_LANES, REACH_CHECK_ITERATIONS = 4, 1
 # phase 20: the convex slice's models (boxes, a cylinder on the plane,
 # convex meshes), their fleets, and the fork's inverse_test on the box stack
@@ -509,6 +537,17 @@ TAIL_SCENES = ("sensor_tail", "sensor_cams", "sensor_limits")
 # the fp32 rays of 64 states that may hit another geom than fp64's (a ray
 # grazing a silhouette): at most this share
 GRAZE_SHARE = 0.02
+# phase 27: the engine-plugin and SDF-plugin scenes of the JAX package's
+# tests (scripts/plugin_models.py): each fleet PLUGIN_STEPS steps (the SDF
+# scenes SDF_STEPS: each step runs the clearance descent); the fork's
+# inverse_test on the cable and the bowl; transition_ad of the sphere
+# resting on the torus
+PLUGIN_SCENES = ("plugin_cable", "plugin_pid", "plugin_touch_grid")
+SDF_SCENES = ("sdf_torus", "sdf_torus_pair", "sdf_bowl", "sdflib_cube")
+PLUGIN_STEPS, SDF_STEPS, PLUGIN_INVERSE_STEPS = 20, 5, 20
+# the scenes' nv: the cable's, the PID's hinge, the touch grid's slides,
+# the free bodies of the SDF scenes
+PLUGIN_NV = (21, 1, 2, 6)
 GRID_N, GRID_B = (1, 2, 6, 27, 32, 33, 64, 128), (1, 127, 4096)
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}  # of max|reference|
 # NVIDIA's H100 SXM data sheet: memory rate, and fp32 and fp64 outside
@@ -527,6 +566,31 @@ TIMED = CHECKS = True
 def log(phase: str, msg: str) -> None:
   """One line of the run's log, after the seconds since the script began."""
   print(f"{time.perf_counter() - T_START:7.1f} s [{phase}] {msg}", flush=True)
+
+
+class _Tee:
+  """A stream that writes to the terminal and to a file."""
+
+  def __init__(self, stream, file):
+    self.stream, self.file = stream, file
+
+  def write(self, text: str) -> int:
+    self.file.write(text)
+    return self.stream.write(text)
+
+  def flush(self) -> None:
+    self.file.flush()
+    self.stream.flush()
+
+
+def tee_log(path: str) -> None:
+  """Copies everything this process prints, the checks process's lines and
+  any traceback among it, into ``path`` as well: the whole log, where a
+  caller keeps only the end of the output."""
+  os.makedirs(os.path.dirname(path), exist_ok=True)
+  file = open(path, "w", buffering=1)
+  sys.stdout = _Tee(sys.stdout, file)
+  sys.stderr = _Tee(sys.stderr, file)
 
 
 def nvidia_smi() -> str:
@@ -1051,7 +1115,7 @@ def balance_shapes() -> tuple[set, set]:
 
 
 def path_shapes(mt) -> dict:
-  """The launches of phases 6-26 and of --bench, by kernel: (n, B, dtype)
+  """The launches of phases 6-27 and of --bench, by kernel: (n, B, dtype)
   of chol_factor, (n, B, columns, dtype) of chol_solve, (n, B, T, dtype)
   of chol_factor_jvp and (n, B, T, columns, dtype) of chol_solve_jvp.
   Phases 6-17 and --bench at n = 27.  Primal:
@@ -1065,8 +1129,8 @@ def path_shapes(mt) -> dict:
   and one a lane in the folded comparison.  Phases 18-23's from
   ``constraint_shapes``, ``tendon_shapes``, ``convex_shapes``,
   ``balance_shapes``, ``contact_shapes``, ``quadruped_shapes``, (phase
-  25) ``flex_shapes`` and (phase 26) ``tail_shapes``, whose solves are of
-  one column; phase 24's from ``suite_shapes``, with the dual solvers'
+  25) ``flex_shapes``, (phase 26) ``tail_shapes`` and (phase 27)
+  ``plugin_shapes``, whose solves are of one column; phase 24's from ``suite_shapes``, with the dual solvers'
   nefc columns."""
   f32 = {FLEET, BENCH_CHUNK_LANES, 75 * BENCH_CHUNK_LANES}
   jvp = {(8, 75, torch.float64), (BENCH_CHUNK_LANES, 75, torch.float32),
@@ -1081,7 +1145,7 @@ def path_shapes(mt) -> dict:
   for more_primal, more_jvp in (
       constraint_shapes(mt), tendon_shapes(mt), convex_shapes(mt),
       balance_shapes(), contact_shapes(mt), quadruped_shapes(mt),
-      flex_shapes(mt), tail_shapes(mt)):
+      flex_shapes(mt), tail_shapes(mt), plugin_shapes(mt)):
     primal |= more_primal
     jvp |= more_jvp
   shapes = {"chol_factor": primal,
@@ -1815,14 +1879,15 @@ def time_implicit_solve(linalg, dev) -> None:
 
 
 def fwd_inv_step(mt, m, d):
-  """One step of the fork's inverse_test under RK4: forward and
-  compare_fwd_inv of ``d``, and the RK4 step from that same forward.
-  ``mt.step`` would run that forward again on the same state (its lane
-  reset leaves finite lanes as they are), so the step's bits are
-  ``mt.step``'s; a non-finite lane fails the check either way.  Returns
-  (the forward with solver_fwdinv, the next state)."""
+  """One step of the fork's inverse_test under RK4 (or EULER, where the
+  model's integrator is): forward and compare_fwd_inv of ``d``, and the
+  step from that same forward.  ``mt.step`` would run that forward again
+  on the same state (its lane reset leaves finite lanes as they are), so
+  the step's bits are ``mt.step``'s; a non-finite lane fails the check
+  either way.  Returns (the forward with solver_fwdinv, the next state)."""
   fwd = mt.forward(m, d)
-  nxt = mt.rungekutta4(m, fwd.replace(qacc_warmstart=d.qacc_warmstart))
+  integrate = {0: mt.euler, 1: mt.rungekutta4}[m.opt.integrator]
+  nxt = integrate(m, fwd.replace(qacc_warmstart=d.qacc_warmstart))
   return mt.compare_fwd_inv(m, fwd), nxt
 
 
@@ -2571,7 +2636,8 @@ def box_inverse_test(mt, linalg, dev, m, phase: str, label: str,
            f"; {int(loose[0])} of {b * steps} solves ended on the improvement "
            f"test, {int(loose[1])} of them with solver_fwdinv[1] above 1e-6 "
            f"(max {float(loose_worst):.3e})")
-  log(phase, f"inverse_test {label} RK4 {b} lanes fp64, {steps} steps "
+  log(phase, f"inverse_test {label} "
+      f"{'RK4' if m.opt.integrator == 1 else 'EULER'} {b} lanes fp64, {steps} steps "
       f"of {m.opt.timestep:g} s in {seconds:.3f} s, fresh forces a step: max "
       f"solver_fwdinv [{float(worst[0]):.3e}, {float(worst[1]):.3e}] over "
       f"every lane and step (tol 1e-6){stops}; active contacts a lane "
@@ -4388,6 +4454,325 @@ def tail_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
   return total, times
 
 
+def _quat_np(axis: str, deg: float) -> np.ndarray:
+  """The unit quaternion of a rotation by ``deg`` about axis x, y or z."""
+  q = np.zeros(4)
+  q[0] = np.cos(np.deg2rad(deg) / 2)
+  q["xyz".index(axis) + 1] = np.sin(np.deg2rad(deg) / 2)
+  return q
+
+
+def _quat_mul_np(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+  """Hamilton products of quaternions (..., 4), host float64."""
+  w1, v1, w2, v2 = a[..., :1], a[..., 1:], b[..., :1], b[..., 1:]
+  return np.concatenate([w1 * w2 - np.sum(v1 * v2, -1, keepdims=True),
+                         w1 * v2 + w2 * v1 + np.cross(v1, v2)], axis=-1)
+
+
+def _small_turns(rng, batch: int, scale: float) -> np.ndarray:
+  """(batch, 4) rotations by ``scale`` randn about random axes."""
+  axis = rng.randn(batch, 3)
+  axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+  angle = scale * rng.randn(batch, 1)
+  return np.concatenate([np.cos(angle / 2), np.sin(angle / 2) * axis], 1)
+
+
+def plugin_data(mt, m, name: str, batch: int, seed: int):
+  """Phase 27's states, from a seeded numpy generator.  The cable bent as
+  tests/test_plugins.py bends it (each ball joint up to 0.25 rad about a
+  random axis, qvel 0.1 randn); the PID hinge at 0.3 randn with 0.3 randn
+  velocity and controls uniform in +-1; the touch grid's sphere 2 mm into
+  the plane (the test presses it 6 cm, from which it leaves the plane
+  within 10 steps), 1 mm randn up or down and 1 cm randn across, sliding
+  at 0.1 randn.  The SDF scenes' free body on
+  its SDF: the sphere on the torus's top (0-5 mm below its resting height,
+  1.0925 m), the torus crossing the fixed torus at its top (rings at right
+  angles, 0.05 rad randn tilt), the ball at the bowl's bottom and the
+  sphere on the sdflib cube (0-5 mm into them), each moved 1-5 cm randn
+  across."""
+  rng = np.random.RandomState(seed)
+  d = mt.make_data(m, batch)
+  t = lambda x: torch.as_tensor(x, dtype=m.dtype, device=m.device)
+  qpos = d.qpos.cpu().numpy().copy()
+  qvel = np.zeros((batch, m.nv))
+  ctrl = np.zeros((batch, m.nu))
+  if name == "plugin_cable":
+    for j in np.nonzero(m.jnt_type == 1)[0]:         # the ball joints
+      adr = m.jnt_qposadr[j]
+      axis = rng.randn(batch, 3)
+      axis /= np.linalg.norm(axis, axis=1, keepdims=True)
+      ang = 0.25 * rng.rand(batch, 1)
+      qpos[:, adr:adr + 4] = np.c_[np.cos(ang / 2), np.sin(ang / 2) * axis]
+    qvel = 0.1 * rng.randn(batch, m.nv)
+  elif name == "plugin_pid":
+    qpos += 0.3 * rng.randn(batch, m.nq)
+    qvel = 0.3 * rng.randn(batch, m.nv)
+    ctrl = rng.uniform(-1.0, 1.0, (batch, m.nu))
+  elif name == "plugin_touch_grid":
+    qpos[:, 0] += 0.058 + 1e-3 * rng.randn(batch)
+    qpos[:, 1] += 1e-2 * rng.randn(batch)
+    qvel = 0.1 * rng.randn(batch, m.nv)
+  else:
+    rest = {"sdf_torus": (1.0925, 0.01), "sdf_torus_pair": (1.485, 0.02),
+            "sdf_bowl": (0.165, 0.05), "sdflib_cube": (0.148, 0.03)}[name]
+    qpos[:, :2] = rest[1] * rng.randn(batch, 2)
+    qpos[:, 2] = rest[0] - 0.005 * rng.rand(batch)
+    if name == "sdf_torus_pair":
+      ring = _quat_mul_np(_quat_np("x", 90), _quat_np("z", 90))
+      qpos[:, 3:7] = _quat_mul_np(ring, _small_turns(rng, batch, 0.05))
+  return d.replace(qpos=t(qpos), qvel=t(qvel), ctrl=t(ctrl))
+
+
+def plugin_shapes(mt) -> tuple[set, set]:
+  """Phase 27's launches, as ``constraint_shapes`` counts them: each
+  scene's nv and dof blocks at the fleet (4096 fp32), at 64 lanes in fp64
+  (kernels against plain versions, the inverse_tests, the contacts) and
+  fp32 (the SDF contacts, the touch grid); on sdf_torus transition_ad's 8
+  lanes (JVPs at 2 nv + na + nu tangents) and transition_fd's 8 x (2 (2 nv
+  + na + nu) + 1) copies."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import smooth
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  primal, jvp = set(), set()
+  for name in PLUGIN_SCENES + SDF_SCENES:
+    m = suite_model(mt, name, "cpu", torch.float64)
+    blocks = smooth._dof_blocks(m)
+    sizes = {(m.nv, 1)} | ({(sz, len(st)) for sz, st in blocks.items()}
+                           if blocks else set())
+    runs = [(FLEET, torch.float32), (64, torch.float64), (64, torch.float32)]
+    if name == "sdf_torus":
+      nz = derivative.state_dim(m) + m.nu
+      runs += [(8, torch.float64), (8 * (2 * nz + 1), torch.float64)]
+      jvp |= {(sz, 8 * k, nz, torch.float64) for sz, k in sizes}
+    primal |= {(sz, b * k, dt) for sz, k in sizes for b, dt in runs}
+  return primal, jvp
+
+
+def deepest_contact(d) -> torch.Tensor:
+  """(B,) each lane's deepest active contact distance, +inf without."""
+  con = d.contact
+  return torch.where(con.dist < con.includemargin, con.dist.double(),
+                     float("inf")).amin(1)
+
+
+def plugin_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
+  """Phase 27: the engine plugins (PID, cable, touch grid) and the SDF
+  plugin geoms (torus, bowl, the mesh-SDF cube).  Each fleet (4096 fp32
+  from ``plugin_data``'s states; PLUGIN_STEPS steps, the SDF scenes
+  SDF_STEPS) with its steps/s, finite lanes, auto-resets, launches and
+  factorizations a step, peak memory, a step's device ms and launches
+  and, on the SDF scenes, collision's against it; the kernels timed at the
+  scenes' nv and the JVP kernels at transition_ad's shape.  Then (checks) each model's 5 fp64 steps of 64 lanes with
+  the kernels against 5 with the plain versions; the fp32 deepest SDF
+  contact of 64 states against fp64; the touch grid's fp32 readings
+  against fp64; the fork's inverse_test on the cable (EULER) and the bowl
+  (RK4), 64 lanes fp64, fresh forces a step; transition_ad of 8 lanes of the
+  sphere resting on the torus against the plain versions and
+  transition_fd.  Returns the kernels' launches of these runs and the
+  timings."""
+  from mujoco_inversedynamicstest_tpu_torch.ops import collision
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  t_phase = time.perf_counter()
+  phase = "slice: plugins"
+  total = dict.fromkeys(KERNELS, 0)
+  times = {}
+
+  def add(launches):
+    for k in KERNELS:
+      total[k] += launches[k]
+
+  if TIMED:
+    for name in PLUGIN_SCENES + SDF_SCENES:
+      steps = SDF_STEPS if name in SDF_SCENES else PLUGIN_STEPS
+      m = suite_model(mt, name, dev, torch.float32)
+      torch.cuda.synchronize()
+      torch.cuda.reset_peak_memory_stats()
+      d = mt.step(m, plugin_data(mt, m, name, FLEET, seed=27))  # warm-up
+      torch.cuda.synchronize()
+      reset_launches(linalg)
+      t0 = time.perf_counter()
+      d = mt.step_n(m, d, steps)
+      torch.cuda.synchronize()
+      seconds = time.perf_counter() - t0
+      launches = read_launches(linalg)
+      peak = torch.cuda.max_memory_allocated() / 2**30
+      add(launches)
+      finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
+      resets = int(d.warning.sum())
+      step_ms, step_launches, _ = device_profile(lambda: mt.step(m, d))
+      extra = ""
+      if name in SDF_SCENES:
+        pos = mt.fwd_position(m, d)
+        col_ms, col_launches, _ = device_profile(
+            lambda: collision.collision(m, pos))
+        touching = float(torch.isfinite(deepest_contact(pos)).float().mean())
+        extra = (f"; collision {col_ms:.3f} device ms / {col_launches} "
+                 f"launches = {col_ms / step_ms:.1%} / "
+                 f"{col_launches / step_launches:.1%} of a step's; lanes in "
+                 f"contact {touching:.1%}")
+      elif m.nsensordata:
+        extra = (f"; sensordata finite {bool(torch.isfinite(d.sensordata).all())}"
+                 f", lanes reading > 0 "
+                 f"{float((d.sensordata.abs().sum(1) > 0).float().mean()):.1%}")
+      log(phase,
+          f"{name} (nv {m.nv}, plugins {[h.name for h in m.plugin_hooks]}) "
+          f"B={FLEET} fp32 {steps} steps in {seconds:.3f} s = "
+          f"{FLEET * steps / seconds:.1f} steps/s on {card}; finite lanes "
+          f"{int(finite.sum())} of {FLEET}; auto-resets {resets}; launches "
+          "a step " + ", ".join(
+              f"{k} {v / steps:g}" for k, v in launches.items()
+              if not k.endswith("_jvp"))
+          + f"; peak {peak:.3f} GiB; a step {step_ms:.3f} device ms / "
+          f"{step_launches} launches" + extra)
+      if not bool(finite.all()) or resets:
+        raise AssertionError(f"{name}: {int((~finite).sum())} non-finite "
+                             f"lanes, {resets} auto-resets")
+      if not launches["chol_factor"] or not launches["chol_solve"]:
+        raise AssertionError(f"{name}: a primal kernel was not launched")
+      if name in SDF_SCENES and not touching > 0:
+        raise AssertionError(f"{name}: no lane in contact")
+    for n in PLUGIN_NV:
+      for k, v in time_kernels(linalg, dev, n).items():
+        times.setdefault(k, {}).setdefault("by_shape", {})[
+            f"({FLEET}, {n}) fp32, phase 27"] = v
+    m = suite_model(mt, "sdf_torus", "cpu", torch.float64)
+    nz = derivative.state_dim(m) + m.nu
+    for k, v in time_jvp_kernels(linalg, dev, m.nv, 8, nz).items():
+      times.setdefault(k, {}).setdefault("by_shape", {})[
+          f"({m.nv}, 8 lanes, {nz} tangents) fp64, phase 27"] = v
+
+  if CHECKS:
+    # the kernels against the plain versions, 64 lanes fp64, 5 steps
+    errs = []
+    for name in PLUGIN_SCENES + SDF_SCENES:
+      m = suite_model(mt, name, dev, torch.float64)
+      d_k = d_p = plugin_data(mt, m, name, 64, seed=28)
+      fields = ["qpos", "qvel"] + (["act"] if m.na else []) + (
+          ["sensordata"] if m.nsensordata else [])
+      reset_launches(linalg)
+      err = 0.0
+      for _ in range(5):
+        d_k = mt.step(m, d_k)
+        with plain_cholesky(linalg):
+          d_p = mt.step(m, d_p)
+        err = max(err, *(float((getattr(d_k, f) - getattr(d_p, f)
+                                ).abs().max()) for f in fields))
+      add(read_launches(linalg))
+      if not err <= 1e-9 or not all(bool(torch.isfinite(getattr(d_k, f)).all())
+                                    for f in fields):
+        raise AssertionError(f"{name} fp64 steps, kernels vs plain: "
+                             f"{err:.3e}")
+      errs.append(f"{name} {err:.3e}")
+    log(phase, "64 lanes fp64, 5 steps, kernels vs plain, max "
+        "|dqpos|,|dqvel|,|dact|,|dsensordata| (tol 1e-9): " + ", ".join(errs))
+
+    # the fp32 deepest SDF contact of 64 states against fp64
+    rows = []
+    reset_launches(linalg)
+    for name in SDF_SCENES:
+      m32 = suite_model(mt, name, dev, torch.float32)
+      m64 = suite_model(mt, name, dev, torch.float64)
+      d64 = plugin_data(mt, m64, name, 64, seed=29)
+      d32 = mt.make_data(m32, 64).replace(qpos=d64.qpos.float())
+      a = deepest_contact(mt.fwd_position(m32, d32))
+      b = deepest_contact(mt.fwd_position(m64, d64))
+      if not torch.equal(torch.isfinite(a), torch.isfinite(b)):
+        raise AssertionError(f"{name}: fp32 and fp64 lanes in contact "
+                             "differ")
+      live = torch.isfinite(b)
+      worst = float((a - b)[live].abs().max()) if bool(live.any()) else 0.0
+      if not worst <= 1e-4 or not bool(live.any()):
+        raise AssertionError(f"{name}: fp32 deepest contact {worst:.3e} "
+                             "from fp64")
+      rows.append(f"{name} {int(live.sum())} of 64 in contact, {worst:.3e}")
+    add(read_launches(linalg))
+    log(phase, "fp32 deepest SDF contact of 64 states against fp64 (tol "
+        "1e-4): " + "; ".join(rows))
+
+    # the touch grid in fp32 against fp64: each channel's sum, each
+    # contact's taxel away from the bin edges
+    m32 = suite_model(mt, "plugin_touch_grid", dev, torch.float32)
+    m64 = suite_model(mt, "plugin_touch_grid", dev, torch.float64)
+    d64 = plugin_data(mt, m64, "plugin_touch_grid", 64, seed=30)
+    d32 = mt.make_data(m32, 64).replace(qpos=d64.qpos.float(),
+                                        qvel=d64.qvel.float())
+    reset_launches(linalg)
+    f32, f64 = mt.forward(m32, d32), mt.forward(m64, d64)
+    add(read_launches(linalg))
+    inst = m64.plugin_hooks[0]
+    nch = inst.nchannel
+    sums = lambda f: f.sensordata.double().reshape(64, nch, -1).sum(-1)
+    s32, s64 = sums(f32), sums(f64)
+    scale = s64.abs().amax(0)
+    worst = ((s32 - s64).abs().amax(0) / scale.clamp(min=1e-300))
+    _, tax32, val32, _, _ = m32.plugin_hooks[0].contacts(m32, f32, 0)
+    _, tax64, val64, az, el = inst.contacts(m64, f64, 0)
+    edge = lambda a, e: (a[..., None] - torch.as_tensor(
+        e, device=dev)).abs().amin(-1)
+    clear = (edge(az, inst.x_edges) > 1e-5) & (edge(el, inst.y_edges) > 1e-5)
+    same = (val32 == val64) & (~val64 | (tax32 == tax64))
+    if not bool((worst <= 1e-4).all()) or not bool(same[clear].all()):
+      raise AssertionError(f"touch grid fp32 vs fp64: channel sums "
+                           f"{worst.tolist()} of their scales, "
+                           f"{int((~same & clear).sum())} contacts binned "
+                           "apart")
+    log(phase, f"touch grid fp32 against fp64, 64 states: each channel's "
+        f"taxel sum within {float(worst.max()):.3e} of its scale "
+        f"{[round(float(x), 4) for x in scale]} (tol 1e-4); "
+        f"{int((val64 & clear).sum())} contacts counted and clear of the bin "
+        f"edges by 1e-5 rad, each in the same taxel, "
+        f"{int((val64 & ~clear).sum())} within 1e-5 rad of an edge")
+
+    # the fork's inverse_test: the ball in the bowl under RK4; the cable
+    # (10 g segments: forces of 1e-3 randn) under its own EULER, as RK4
+    # diverges on it from rest within 0.004 s, in C as well (its elastic
+    # stiffness over these inertias)
+    for name, integrator, scale in (("plugin_cable", "EULER", 1e-3),
+                                    ("sdf_bowl", "RK4", 0.05)):
+      m = suite_model(mt, name, dev, torch.float64, integrator=integrator)
+      add(box_inverse_test(
+          mt, linalg, dev, m, phase, name, PLUGIN_INVERSE_STEPS, seed=31,
+          data=lambda mt, m, b, seed, name=name: plugin_data(
+              mt, m, name, b, seed), scale=scale))
+
+    # transition_ad of 8 lanes of the sphere resting on the torus
+    m = suite_model(mt, "sdf_torus", dev, torch.float64)
+    d = mt.forward(m, plugin_data(mt, m, "sdf_torus", 8, seed=32))
+    reset_launches(linalg)
+    t0 = time.perf_counter()
+    ad = derivative.transition_ad(m, d)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(linalg)
+    if not all(launches.values()):
+      raise AssertionError(f"a kernel was not launched: {launches}")
+    add(launches)
+    with plain_cholesky(linalg):
+      plain = derivative.transition_ad(m, d)
+    fd = derivative.transition_fd(
+        m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
+        eps=1e-6, flg_centered=True)
+    err_plain = float((ad.A - plain.A).abs().max())
+    err_fd = float((ad.A - fd.A).abs().max())
+    scale = float(fd.A.abs().max())
+    ncon = int((d.contact.dist < d.contact.includemargin).sum())
+    if not err_plain <= 1e-9:
+      raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
+    if not err_fd <= 1e-4 * scale:
+      raise AssertionError(f"transition_ad vs transition_fd: {err_fd:.3e} of "
+                           f"max|A| {scale:.3e}")
+    log(phase,
+        f"sdf_torus 8 lanes fp64, the sphere resting, {ncon} active "
+        f"contacts: transition_ad {seconds:.3f} s, A {tuple(ad.A.shape)}; "
+        f"kernels vs plain max |dA| {err_plain:.3e} (tol 1e-9); vs "
+        f"transition_fd (centered, eps 1e-6) max |dA| {err_fd:.3e} = "
+        f"{err_fd / scale:.3e} of max|A| {scale:.3e} (tol 1e-4 of it); "
+        f"launches {launches}, tangents a lane {read_tangents(linalg)}")
+  log(phase, f"phase 27 in {time.perf_counter() - t_phase:.1f} s")
+  return total, times
+
+
 def fleet_rate(mt, dev) -> float:
   """Phase 6's timed loop alone (100 steps of 4096 humanoid_mjx lanes,
   fp32, after a warm-up step): steps/s."""
@@ -4439,7 +4824,7 @@ class ChecksProcess:
 def run_checks(mt, linalg, dev, smi, lap) -> None:
   """The checks process: the kernels against their plain versions (phases
   3-4, 8, 9), phases 7, 10 and 16, and the fp64 checks of phases 6, 13, 15
-  and 17-26.  Prints one JSON line: its launches by path, the kernels'
+  and 17-27.  Prints one JSON line: its launches by path, the kernels'
   largest errors, and the launches at shapes phase 9 did not check."""
   slice_err = check_kernels(linalg, dev)
   slice_err.update(check_jvp_kernels(linalg, dev))
@@ -4480,6 +4865,8 @@ def run_checks(mt, linalg, dev, smi, lap) -> None:
   lap("25")
   by_path["tail"] = tail_slice(mt, linalg, dev, smi)[0]
   lap("26")
+  by_path["plugins"] = plugin_slice(mt, linalg, dev, smi)[0]
+  lap("27")
   print(json.dumps({"checks": {"by_path": by_path, "slice_err": slice_err,
                                "unchecked": unchecked_shapes(mt, linalg)}}))
 
@@ -4508,6 +4895,9 @@ def main() -> None:
   mode.add_argument("--tail", action="store_true",
                     help="only phase 26, the sensor tail and the "
                     "transmissions")
+  mode.add_argument("--plugins", action="store_true",
+                    help="only phase 27, the engine plugins and the SDF "
+                    "plugin geoms")
   mode.add_argument("--checks", action="store_true",
                     help="the untimed checks of a full run (the full run "
                     "starts this process itself)")
@@ -4518,6 +4908,8 @@ def main() -> None:
   import mujoco_inversedynamicstest_tpu_torch as mt
   from mujoco_inversedynamicstest_tpu_torch.ops import linalg
 
+  if not args.checks:
+    tee_log(os.path.join(REPO, "chiprun_out", "chip_smoke.log"))
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
   dev = torch.device("cuda:0")
@@ -4557,9 +4949,9 @@ def main() -> None:
     contact_slice(mt, linalg, dev, smi)
   elif args.shapes:
     quadruped_slice(mt, linalg, dev, smi)
-  elif args.suite or args.flex or args.tail:
-    (suite_slice if args.suite else flex_slice if args.flex else tail_slice)(
-        mt, linalg, dev, smi)
+  elif args.suite or args.flex or args.tail or args.plugins:
+    (suite_slice if args.suite else flex_slice if args.flex else tail_slice
+     if args.tail else plugin_slice)(mt, linalg, dev, smi)
     unchecked = unchecked_shapes(mt, linalg)
     if unchecked:
       raise AssertionError(f"launches at shapes {unchecked} that phase 9 "
@@ -4663,8 +5055,10 @@ def timed_run(mt, linalg, dev, smi, lap, rates,
   lap("25")
   by_path["tail"], times_tail = tail_slice(mt, linalg, dev, smi)
   lap("26")
+  by_path["plugins"], times_plugins = plugin_slice(mt, linalg, dev, smi)
+  lap("27")
   for more in (times_n2, times_convex, times_contact, times_shapes,
-               times_suite, times_flex, times_tail):
+               times_suite, times_flex, times_tail, times_plugins):
     for k, v in more.items():
       for by, rows in v.items():
         times_small.setdefault(k, {}).setdefault(by, {}).update(rows)

@@ -20,7 +20,10 @@ batched rollouts (``opt.rollout``, open loop or closed loop through the
 in-step control callback ``ctrl_fn`` of ``forward``/``step``) and
 ``lqr_gain`` (``mt.opt``).  The
 state-vector API (``get_state``, ``set_state``, ``state_size``, by
-``StateFlag``) follows the installed mujoco's ``mjtState``.
+``StateFlag``) follows the installed mujoco's ``mjtState``.  The engine
+plugins (``plugins/``: PID actuators, elastic cables, the touch grid, SDF
+plugin geoms and the mesh-SDF bridge) are built from a model's snapshot
+and run inside the step.
 
 This package never imports jax; it imports ``mujoco`` only inside
 ``load_model`` (to compile MJCF) and ``opt.torque_parity_vs_host`` (the C

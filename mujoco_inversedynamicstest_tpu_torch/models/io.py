@@ -14,6 +14,7 @@ JAX engine cannot simulate.
 
 from __future__ import annotations
 
+import contextlib
 import os
 from collections.abc import Mapping
 from pathlib import Path
@@ -38,6 +39,7 @@ from mujoco_inversedynamicstest_tpu_torch.models.types import (
     Model,
     ObjType,
     Option,
+    PluginModel,
     PORTED_BIASES,
     PORTED_DYNAMICS,
     PORTED_EQUALITIES,
@@ -130,6 +132,28 @@ _OPT_FIELDS = (
 )
 # MJX-convention <numeric> customs (contact budgets)
 _BUDGET_NUMERICS = ("max_contact_points", "max_geom_pairs")
+# the fields the plugins read (plugins/): MjModel's, each instance's plugin
+# name and resolved attributes (read from C's plugin table), the bodies'
+# positions at qpos0 (the cable's segment lengths) and the sdflib grids.  A
+# snapshot carries them only where the model has plugins; without, each
+# takes the value of a model without plugins (so the snapshots written
+# before they were added load unchanged)
+_PLUGIN_FIELDS = {
+    "npluginstate": lambda f: np.array(0),
+    "geom_plugin": lambda f: np.full(int(f["ngeom"]), -1),
+    "body_plugin": lambda f: np.full(int(f["nbody"]), -1),
+    "sensor_plugin": lambda f: np.full(int(f["nsensor"]), -1),
+    "geom_aabb": lambda f: np.zeros((int(f["ngeom"]), 6)),
+    "mesh_pos": lambda f: np.zeros((int(f["nmesh"]), 3)),
+    "mesh_quat": lambda f: np.tile([1.0, 0.0, 0.0, 0.0], (int(f["nmesh"]), 1)),
+    "plugin_name": lambda f: np.zeros(0, dtype=str),
+    "plugin_attr": lambda f: np.zeros(0, dtype=str),
+    "body_xpos0": lambda f: np.zeros((int(f["nbody"]), 3)),
+    "plugin_grid_values": lambda f: np.zeros(0),
+    "plugin_grid_adr": lambda f: np.zeros(0, np.int64),
+    "plugin_grid_shape": lambda f: np.zeros((0, 3), np.int64),
+    "plugin_grid_frame": lambda f: np.zeros((0, 12)),
+}
 
 
 def _numeric_custom(mjm, name: str) -> int:
@@ -149,6 +173,29 @@ def _snapshot_arrays(mjm) -> dict[str, np.ndarray]:
   out.update({f"opt_{f}": np.array(getattr(mjm.opt, f)) for f in _OPT_FIELDS})
   out["stat_meaninertia"] = np.array(mjm.stat.meaninertia)
   out.update({f: np.array(_numeric_custom(mjm, f)) for f in _BUDGET_NUMERICS})
+  out.update(_plugin_arrays(mjm, out))
+  return out
+
+
+def _plugin_arrays(mjm, f: Mapping) -> dict[str, np.ndarray]:
+  """The fields of ``_PLUGIN_FIELDS`` of a compiled MjModel with plugins
+  (host only: C's plugin table and ``mj_kinematics``); none without, so
+  that the snapshots of models without plugins keep their fields."""
+  if not int(mjm.nplugin):
+    return {}
+  import mujoco
+
+  from mujoco_inversedynamicstest_tpu_torch.plugins import registry, sdflib
+
+  out = {k: np.array(getattr(mjm, k)) for k in (
+      "npluginstate", "geom_plugin", "body_plugin", "sensor_plugin",
+      "geom_aabb", "mesh_pos", "mesh_quat")}
+  out["plugin_name"], out["plugin_attr"] = registry.read_plugins(mjm)
+  d0 = mujoco.MjData(mjm)
+  d0.qpos[:] = mjm.qpos0
+  mujoco.mj_kinematics(mjm, d0)
+  out["body_xpos0"] = np.array(d0.xpos)
+  out.update(sdflib.grid_arrays({**f, **out}, out["plugin_name"]))
   return out
 
 
@@ -164,9 +211,12 @@ def _source_arrays(src) -> dict[str, np.ndarray]:
   elif isinstance(src, Mapping):
     f = {k: np.asarray(v) for k, v in src.items()}
   else:
-    return _snapshot_arrays(src)
+    f = _snapshot_arrays(src)
   missing = sorted(set(_ARRAY_FIELDS + _SIZE_FIELDS
                        + tuple(f"opt_{o}" for o in _OPT_FIELDS)) - set(f))
+  if not missing and not int(f["nplugin"]):
+    f.update({k: fn(f) for k, fn in _PLUGIN_FIELDS.items() if k not in f})
+  missing += sorted(set(_PLUGIN_FIELDS) - set(f))
   if missing:
     raise ValueError(f"model snapshot lacks the fields {missing}: rewrite it "
                      "from the MjModel with save_model_snapshot")
@@ -233,6 +283,47 @@ def _validate_sensors(f: Mapping, bad, user_ok: bool = False) -> None:
       bad(f"sensor delay, interval or history ({t.name})")
 
 
+def _validate_plugins(f: Mapping, bad) -> None:
+  """Refuses, by its name, a plugin the port has not registered (the
+  shell, ``mujoco.elasticity.shell``, among them)."""
+  from mujoco_inversedynamicstest_tpu_torch.plugins import registry
+
+  for name in np.asarray(f["plugin_name"])[:int(f["nplugin"])]:
+    if str(name) not in registry.registered_plugins():
+      bad(f"plugin '{name}' (registered: "
+          f"{', '.join(registry.registered_plugins())})")
+
+
+def _validate_plugin_hooks(f: Mapping, hooks: tuple) -> None:
+  """Refuses a PLUGIN sensor whose plugin's port computes no sensor, an
+  actuator whose plugin's port computes no actuator force (or that names
+  no instance of the model), and an SDF geom whose plugin's port has no
+  distance function, each by the plugin's name."""
+  from mujoco_inversedynamicstest_tpu_torch.plugins import registry
+
+  def bad(msg):
+    raise NotImplementedError(f"unsupported by the PyTorch port: {msg}")
+
+  base = registry.PluginInstance.actuator_force
+  for i in np.nonzero(np.asarray(f["actuator_plugin"]) >= 0)[0]:
+    pid = int(f["actuator_plugin"][i])
+    if pid >= len(hooks) or type(hooks[pid]).actuator_force is base:
+      name = hooks[pid].name if pid < len(hooks) else "<none>"
+      bad(f"actuator plugins: actuator {i} driven by plugin '{name}' "
+          f"(instance {pid} of {len(hooks)}; its port computes no actuator "
+          "force)")
+  for i in np.nonzero(np.asarray(f["sensor_type"]) == SensorType.PLUGIN)[0]:
+    inst = hooks[int(f["sensor_plugin"][i])]
+    if type(inst).sensor is registry.PluginInstance.sensor:
+      bad(f"sensor plugin '{inst.name}' (its port has no sensor hook)")
+  for g in np.nonzero(np.asarray(f["geom_type"]) == GeomType.SDF)[0]:
+    pid = int(f["geom_plugin"][g])
+    if pid < 0 or not hasattr(hooks[pid], "sdf"):
+      name = hooks[pid].name if pid >= 0 else "<none>"
+      bad(f"SDF geom backed by plugin '{name}' (its port has no sdf "
+          "distance function)")
+
+
 def _validate_equalities(f: Mapping, bad) -> None:
   """Refuses every equality the port does not build rows for, by its type's
   name."""
@@ -264,7 +355,8 @@ def validate_model(f: Mapping, user_sensor_fn=None) -> None:
   _validate_sensors(f, bad, user_sensor_fn is not None)
   # before the size refusals too: an equality is refused by its own name
   _validate_equalities(f, bad)
-  for name in ("nplugin", "nuserdata", "nhistory"):
+  _validate_plugins(f, bad)
+  for name in ("nuserdata", "nhistory", "npluginstate"):
     if int(f[name]):
       bad(f"{name} = {int(f[name])}")
   _validate_flex(f, bad)
@@ -369,7 +461,7 @@ def _validate_actuators(f: Mapping, bad) -> None:
     bias = BiasType(int(f["actuator_biastype"][i]))
     if bias not in PORTED_BIASES:
       bad(f"actuator bias {bias.name}")
-    if int(f["actuator_actnum"][i]) > 1:
+    if int(f["actuator_actnum"][i]) > 1 and int(f["actuator_plugin"][i]) < 0:
       bad("actuator with more than one activation")
     muscle = (dyn == DynType.MUSCLE or gain == GainType.MUSCLE
               or bias == BiasType.MUSCLE)
@@ -377,8 +469,6 @@ def _validate_actuators(f: Mapping, bad) -> None:
     if muscle and not (np.all(np.isfinite(lr)) and lr[1] > lr[0]
                        and float(f["actuator_acc0"][i]) > 0):
       bad("muscle without the compiler's lengthrange and acc0")
-  if nu and np.any(f["actuator_plugin"] >= 0):
-    bad("actuator plugins")
   for name, what in (("actuator_armature", "actuator armature"),
                      ("actuator_damping", "actuator damping"),
                      ("actuator_dampingpoly", "actuator polynomial damping"),
@@ -645,8 +735,12 @@ def put_model(src, device="cuda", dtype=torch.float64,
   ``device`` says otherwise (``device="cpu"`` runs the plain versions).
   ``user_sensor_fn(m, d, sensor_id) -> (B, dim)`` computes the USER
   sensors at their stage (C's ``mjcb_sensor``)."""
+  from mujoco_inversedynamicstest_tpu_torch.plugins import registry
+
   f = _source_arrays(src)
   validate_model(f, user_sensor_fn)
+  hooks = registry.build_instances(f)
+  _validate_plugin_hooks(f, hooks)
   ncam = int(f["ncam"])
   cam = {k: torch.as_tensor(np.asarray(f[k], np.float64).reshape(
       (ncam,) + shape), dtype=dtype, device=device) for k, shape in (
@@ -758,6 +852,11 @@ def put_model(src, device="cuda", dtype=torch.float64,
       cam_targetbodyid=i("cam_targetbodyid"), **cam,
       geom_group=i("geom_group")[:ngeom_mj], geom_visible=geom_visible,
       mesh_tris=_mesh_tris(f), user_sensor_fn=user_sensor_fn,
+      plugins=PluginModel(
+          hooks=hooks, geom=i("geom_plugin"), sensor=i("sensor_plugin"),
+          geom_aabb=np.asarray(f["geom_aabb"], np.float64).reshape(-1, 6),
+          mesh_pos=np.asarray(f["mesh_pos"], np.float64).reshape(-1, 3),
+          mesh_quat=np.asarray(f["mesh_quat"], np.float64).reshape(-1, 4)),
       **{k: t(k) for k in float_fields},
       **{k: i(k) for k in int_fields},
   )
@@ -768,17 +867,33 @@ def put_model(src, device="cuda", dtype=torch.float64,
   return m
 
 
-def load_model(path_or_xml: str, device="cuda",
-               dtype=torch.float64) -> Model:
-  """Compiles an MJCF file or XML string with ``mujoco`` and converts it
-  with ``put_model`` (on the card by default)."""
+def compile_mjcf(path_or_xml: str):
+  """Compiles an MJCF file or XML string with ``mujoco``: the MjModel and
+  its snapshot arrays.  XML that names ``mujoco.sdf.sdflib`` (which the
+  wheel does not ship) compiles through the port's host stub, its mesh
+  pre-scanned into the grid the compiler's marching cubes read
+  (``plugins/sdflib.py``); the arrays are read inside that compile."""
   import mujoco
 
-  if path_or_xml.lstrip().startswith("<"):
-    mjm = mujoco.MjModel.from_xml_string(path_or_xml)
-  else:
-    mjm = mujoco.MjModel.from_xml_path(str(path_or_xml))
-  return put_model(mjm, device=device, dtype=dtype)
+  from mujoco_inversedynamicstest_tpu_torch.plugins import sdflib
+
+  is_xml = str(path_or_xml).lstrip().startswith("<")
+  text = path_or_xml if is_xml else Path(path_or_xml).read_text()
+  base = "." if is_xml else os.path.dirname(os.path.abspath(path_or_xml))
+  grid = (sdflib.prescan_xml(text, base) if sdflib.PLUGIN_NAME in text
+          else None)
+  with (contextlib.nullcontext() if grid is None
+        else sdflib.host_compile_grid(grid)):
+    mjm = (mujoco.MjModel.from_xml_string(path_or_xml) if is_xml
+           else mujoco.MjModel.from_xml_path(str(path_or_xml)))
+    return mjm, _snapshot_arrays(mjm)
+
+
+def load_model(path_or_xml: str, device="cuda",
+               dtype=torch.float64) -> Model:
+  """Compiles an MJCF file or XML string with ``mujoco`` (``compile_mjcf``)
+  and converts it with ``put_model`` (on the card by default)."""
+  return put_model(compile_mjcf(path_or_xml)[1], device=device, dtype=dtype)
 
 
 def asset_path(name: str) -> Path:

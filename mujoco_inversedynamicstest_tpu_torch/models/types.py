@@ -217,7 +217,8 @@ PORTED_SENSORS = frozenset(SensorType[n] for n in (
     "SUBTREELINVEL", "SUBTREEANGMOM", "CLOCK", "MAGNETOMETER", "E_POTENTIAL",
     "E_KINETIC", "RANGEFINDER", "CAMPROJECTION", "JOINTLIMITPOS",
     "JOINTLIMITVEL", "JOINTLIMITFRC", "TENDONLIMITPOS", "TENDONLIMITVEL",
-    "TENDONLIMITFRC", "GEOMDIST", "GEOMNORMAL", "GEOMFROMTO", "USER"))
+    "TENDONLIMITFRC", "GEOMDIST", "GEOMNORMAL", "GEOMFROMTO", "USER",
+    "PLUGIN"))
 # the sensors that read the frame of an object (and of a reference object)
 # of one of FRAME_OBJECTS
 FRAME_SENSORS = frozenset(SensorType[n] for n in (
@@ -285,7 +286,7 @@ class StateFlag(enum.IntFlag):
   ``StateFlag`` carries 3.3.1's bits, before HISTORY, USERDATA and PLUGIN.)
   HISTORY, USERDATA and PLUGIN have size 0 on every model the port
   accepts: ``validate_model`` refuses history buffers, user data and
-  plugins."""
+  plugin state (``npluginstate``)."""
   TIME = 1 << 0
   QPOS = 1 << 1
   QVEL = 1 << 2
@@ -399,6 +400,22 @@ class FlexModel:
   has_elasticity: bool        # a nonzero element metric
   has_nodal_elasticity: bool  # a nonzero trilinear nodal stiffness
   has_edge_sd: bool           # edge stiffness or damping
+
+
+@dataclasses.dataclass(frozen=True)
+class PluginModel:
+  """The engine plugins of a model (``plugins/registry.py``): one instance
+  a ``<plugin>`` instance, the instance of each geom and sensor (-1:
+  none), the geoms' compiled boxes (centre and half sizes in the geom's
+  frame, what the SDF collider seeds its descent in) and the meshes' poses
+  that C's compiler took out of them (an SDF geom backed by a mesh is
+  evaluated in the mesh's frame).  Host data."""
+  hooks: tuple
+  geom: np.ndarray        # (ngeom,)
+  sensor: np.ndarray      # (nsensor,)
+  geom_aabb: np.ndarray   # (ngeom, 6)
+  mesh_pos: np.ndarray    # (nmesh, 3)
+  mesh_quat: np.ndarray   # (nmesh, 4)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -627,6 +644,8 @@ class Model:
   # ``user_sensor_fn(m, d, sensor_id) -> (B, dim)`` of the USER sensors, C's
   # ``mjcb_sensor``; None without
   user_sensor_fn: object = None
+  # the engine plugins (``PluginModel``)
+  plugins: PluginModel = None
 
   # derived host tables and device constants, computed once per model
   _memo: dict = dataclasses.field(default_factory=dict, repr=False,
@@ -635,6 +654,11 @@ class Model:
   @property
   def dtype(self) -> torch.dtype:
     return self.qpos0.dtype
+
+  @property
+  def plugin_hooks(self) -> tuple:
+    """One ``plugins.registry.PluginInstance`` a plugin instance."""
+    return () if self.plugins is None else self.plugins.hooks
 
   @property
   def device(self) -> torch.device:

@@ -6,8 +6,11 @@ sphere, capsule and box; capsule-capsule), the convex pairs of
 ``ops/collision_convex.py`` (plane, sphere, capsule, box and mesh against a
 box or a mesh hull), the cylinder and ellipsoid pairs of
 ``ops/collision_sdf.py``, the height-field pairs of ``ops/hfield.py``
-(with a sphere, a capsule, a box or a mesh), and the flex element contacts
-of ``ops/flexcol.py``, whose slots follow the geom pairs'.  The candidate
+(with a sphere, a capsule, a box or a mesh), the SDF plugin geoms (a
+plane, a sphere, a capsule, a box or another SDF against an SDF:
+``collision_sdf.make_plugin_narrowphase``, four slots, grouped by the SDF
+geom), and the flex element contacts of ``ops/flexcol.py``, whose slots
+follow the geom pairs'.  The candidate
 pairs are the explicit ``<pair>``s and
 the pairs enumerated statically from contype/conaffinity, body and parent
 filters and excludes; every contact slot exists every step and
@@ -15,8 +18,8 @@ filters and excludes; every contact slot exists every step and
 ``max_geom_pairs`` and ``max_contact_points`` numerics) bounds the slots,
 which each lane then fills with its own nearest pairs.
 Any other pair kind (a height field with an ellipsoid, a cylinder or
-another height field; SDF) is refused by its name when the model is
-loaded.
+another height field; an SDF with an ellipsoid, a cylinder, a mesh or a
+height field) is refused by its name when the model is loaded.
 
 Every narrowphase takes ``(pos1, mat1, size1, pos2, mat2, size2, margin)``
 of a group's pairs, positions (B, P, 3), frames (B, P, 3, 3), sizes (P, 3)
@@ -67,6 +70,10 @@ _SDF_SLOTS = {(GeomType(a), GeomType(b)): k
               for (a, b), k in csdf.SDF_SLOTS.items()}
 _HFIELD_SLOTS = {(GeomType(a), GeomType(b)): k
                  for (a, b), k in hfield.HFIELD_SLOTS.items()}
+# SDF plugin geoms (ops/collision_sdf.py make_plugin_narrowphase)
+_SDF_PLUGIN_SLOTS = {(GeomType(t), GeomType.SDF): csdf.SDF_PLUGIN_SLOTS
+                     for t in (GeomType.PLANE, GeomType.SPHERE,
+                               GeomType.CAPSULE, GeomType.BOX, GeomType.SDF)}
 
 
 class PairGroup(NamedTuple):
@@ -370,7 +377,7 @@ def geom_distance(m: Model, d: Data, geom1: np.ndarray, geom2: np.ndarray,
 def _nslot(key) -> int:
   if key in _NARROWPHASE:
     return _NARROWPHASE[key][1]
-  for table in (_CONVEX_SLOTS, _SDF_SLOTS, _HFIELD_SLOTS):
+  for table in (_CONVEX_SLOTS, _SDF_SLOTS, _HFIELD_SLOTS, _SDF_PLUGIN_SLOTS):
     if key in table:
       return table[key]
   raise NotImplementedError(
@@ -393,6 +400,8 @@ def _group_narrowphase(m: Model, grp: PairGroup) -> Callable:
 
   def build():
     t1, t2 = grp.types
+    if t2 == GeomType.SDF:
+      return csdf.make_plugin_narrowphase(m, grp)
     if t1 == GeomType.HFIELD:
       return hfield.make_narrowphase(m, grp)
     if t1 == GeomType.PLANE:        # a mesh: a box is a primitive pair
@@ -415,7 +424,10 @@ def _group_narrowphase(m: Model, grp: PairGroup) -> Callable:
     return cc.make_convex_convex(*hull_of(grp.did1, t1),
                                  *hull_of(grp.did2, t2))
 
-  return m.memo(("narrowphase", grp.types, grp.did1, grp.did2), build)
+  # an SDF group's box is its first pair's (the JAX package's rule)
+  first = (int(grp.geom1[0]),) if grp.types[1] == GeomType.SDF else ()
+  return m.memo(("narrowphase", grp.types, grp.did1, grp.did2) + first,
+                build)
 
 
 def _lane_chunks(m: Model, grp: PairGroup, batch: int, itemsize: int) -> int:
@@ -479,9 +491,11 @@ def _build_layout(m: Model) -> ContactLayout:
     key = (GeomType(int(m.geom_type[g1])), GeomType(int(m.geom_type[g2])))
     _nslot(key)
     # each convex group has one static hull topology, each height-field
-    # group one grid
+    # group one grid, each SDF group one SDF geom (its plugin, mesh frame
+    # and box)
     did = lambda g: (int(m.geom_dataid[g]) if m.geom_type[g] in (
-        GeomType.MESH, GeomType.HFIELD) else -1)
+        GeomType.MESH, GeomType.HFIELD) else int(g)
+                     if m.geom_type[g] == GeomType.SDF else -1)
     by_key.setdefault((key, did(g1), did(g2), c), []).append((g1, g2, ip))
 
   elem_groups = flexcol.build_elem_groups(m)

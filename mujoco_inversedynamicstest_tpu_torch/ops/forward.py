@@ -77,6 +77,8 @@ class _ActLayout(NamedTuple):
   stateless: np.ndarray      # the others: their input is ctrl
   last: np.ndarray           # (len(stateful),) their last activation
   dyn: tuple                 # (DynType, actuators, activations) a kind
+  plugin_slots: np.ndarray   # the activations of dyntype-none actuators,
+                             # which their plugins write (zero otherwise)
   muscle_gain: np.ndarray    # actuators with a muscle gain
   other_gain: np.ndarray
   muscle_bias: np.ndarray    # actuators with a muscle bias
@@ -100,6 +102,9 @@ def _act_layout(m: Model) -> _ActLayout:
     if ids.size:
       dyn.append((kind, ids, m.actuator_actadr[ids] + m.actuator_actnum[ids]
                   - 1))
+  none = stateful[m.actuator_dyntype[stateful] == DynType.NONE]
+  plugin_slots = np.concatenate([np.zeros(0, np.int64)] + [
+      m.actuator_actadr[i] + np.arange(m.actuator_actnum[i]) for i in none])
   gravcomp_dofs = np.zeros(m.nv, dtype=bool)
   actfrc_dofs, actfrc_jnt = [], []
   width = {JointType.FREE: 6, JointType.BALL: 3}
@@ -116,7 +121,7 @@ def _act_layout(m: Model) -> _ActLayout:
       act_actuator=act_actuator, stateful=stateful,
       stateless=np.nonzero(m.actuator_actadr < 0)[0],
       last=m.actuator_actadr[stateful] + m.actuator_actnum[stateful] - 1,
-      dyn=tuple(dyn),
+      dyn=tuple(dyn), plugin_slots=plugin_slots,
       muscle_gain=np.nonzero(muscle_gain)[0],
       other_gain=np.nonzero(~muscle_gain)[0],
       muscle_bias=np.nonzero(muscle_bias)[0],
@@ -167,9 +172,14 @@ def _ctrl(m: Model, d: Data) -> torch.Tensor:
 
 def _act_dot(m: Model, d: Data, ctrl: torch.Tensor) -> torch.Tensor:
   """(B, na): INTEGRATOR ctrl, FILTER and FILTEREXACT (ctrl - act) / tau,
-  MUSCLE ``mju_muscleDynamics``."""
+  MUSCLE ``mju_muscleDynamics``; zero in the activations of dyntype-none
+  actuators, which their plugins' hooks write (``fwd_actuation``)."""
+  lay = act_layout(m)
   pieces = []
-  for kind, ids, slots in act_layout(m).dyn:
+  if lay.plugin_slots.size:
+    pieces.append((lay.plugin_slots,
+                   d.act.new_zeros((d.batch, lay.plugin_slots.size))))
+  for kind, ids, slots in lay.dyn:
     u, a = ctrl[:, m.const(ids)], d.act[:, m.const(slots)]
     prm = m.actuator_dynprm[m.const(ids)]
     if kind == DynType.INTEGRATOR:
@@ -193,7 +203,9 @@ def fwd_actuation(m: Model, d: Data) -> Data:
   ``actearly``); force limits; then qfrc_actuator = momentᵀ force, with
   the gravity compensation of ``jnt_actgravcomp`` joints and the
   ``jnt_actfrclimited`` clamps.  Each kind is computed on its actuators
-  alone and put in place out of place."""
+  alone and put in place out of place.  The actuator plugins' hooks then
+  replace their actuators' activation rates and forces, before the force
+  limits (C's mjPLUGIN_ACTUATOR compute inside ``mj_fwdActuation``)."""
   zero = d.qvel.new_zeros((d.batch, m.nv))
   no_act = d.qvel.new_zeros((d.batch, m.na))
   if not m.nu or m.opt.disableflags & DisableBit.ACTUATION:
@@ -238,6 +250,11 @@ def fwd_actuation(m: Model, d: Data) -> Data:
         (lay.stateless, ctrl[:, m.const(lay.stateless)]),
         (lay.stateful, act[:, m.const(lay.last)])])
   force = gain * inputs if bias is None else gain * inputs + bias
+  for hook in m.plugin_hooks:
+    new = hook.act_dot(m, d, ctrl, act_dot)
+    act_dot = act_dot if new is None else new
+    new = hook.actuator_force(m, d, ctrl, force)
+    force = force if new is None else new
   rng = m.actuator_forcerange
   force = torch.where(m.const(m.actuator_forcelimited.astype(bool)),
                       torch.minimum(torch.maximum(force, rng[:, 0]), rng[:, 1]),

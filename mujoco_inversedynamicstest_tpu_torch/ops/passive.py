@@ -347,7 +347,8 @@ def flex_edge_springdamper(m: Model, d: Data):
 def passive(m: Model, d: Data) -> Data:
   """All passive forces (``mj_passive``).  Gravity compensation of the
   dofs of ``jnt_actgravcomp`` joints goes to qfrc_actuator instead
-  (``fwd_actuation``), as C routes it."""
+  (``fwd_actuation``), as C routes it.  The plugins' passive hooks (C's
+  mjPLUGIN_PASSIVE compute) add to qfrc_passive alone."""
   flags = m.opt.disableflags
   zero = d.qpos.new_zeros((d.batch, m.nv))
   qfrc_spring = zero if flags & DisableBit.SPRING else _spring(m, d)
@@ -383,7 +384,12 @@ def passive(m: Model, d: Data) -> Data:
     if actgrav.any():
       to_passive = torch.where(m.const(actgrav), 0.0, qfrc_gravcomp)
   qfrc_fluid = fluid(m, d) if m.has_fluid else zero
+  qfrc_passive = qfrc_spring + qfrc_damper + qfrc_fluid
+  for hook in m.plugin_hooks:
+    extra = hook.passive(m, d)
+    if extra is not None:
+      qfrc_passive = qfrc_passive + extra
   return d.replace(
       qfrc_spring=qfrc_spring, qfrc_damper=qfrc_damper,
       qfrc_gravcomp=qfrc_gravcomp, qfrc_fluid=qfrc_fluid,
-      qfrc_passive=qfrc_spring + qfrc_damper + qfrc_fluid + to_passive)
+      qfrc_passive=qfrc_passive + to_passive)

@@ -12,7 +12,9 @@ or a model whose sensors are disabled, costs nothing.  So all of a model's
 rangefinders are one scene cast (``ray.ray``), and all of its distance
 sensors' geom pairs one narrowphase call a pair kind
 (``collision.geom_distance``); each USER sensor calls the model's
-``user_sensor_fn`` (C's ``mjcb_sensor``).
+``user_sensor_fn`` (C's ``mjcb_sensor``), and each PLUGIN sensor its
+plugin's sensor hook at the stage the plugin declares (C's
+mjPLUGIN_SENSOR compute).
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ _KIND = {
     # [distance, normal, fromto]
     S.GEOMDIST: ("geomdist", 0), S.GEOMNORMAL: ("geomdist", 1),
     S.GEOMFROMTO: ("geomdist", 4), S.USER: ("user", 0),
+    S.PLUGIN: ("plugin", 0),
 }
 # the kinds that read cacc or cfrc_int (mj_rnePostConstraint)
 _RNEPOST = {"siteacc", "frameacc", "forcetorque"}
@@ -82,7 +85,7 @@ class _Group(NamedTuple):
   refid: np.ndarray
   cols: np.ndarray         # the group's values, in its sensors' order
   # the distance sensors' cutoff a pair (their narrowphase's margin), the
-  # USER sensor's id
+  # USER or PLUGIN sensor's id
   extra: np.ndarray = None
 
 
@@ -114,18 +117,19 @@ def _build_plan(m: Model, stage: Stage) -> _Plan | None:
   for i in ids:
     kind, _ = _KIND[S(int(m.sensor_type[i]))]
     ref = int(m.sensor_reftype[i]) if m.sensor_refid[i] >= 0 else -1
-    # each USER sensor is a group of its own
-    alone = int(i) if kind == "user" else -1
+    # each USER and PLUGIN sensor is a group of its own
+    alone = int(i) if kind in ("user", "plugin") else -1
     members.setdefault((kind, int(m.sensor_objtype[i]), ref, alone),
                        []).append(i)
   groups, addrs, ncols = [], [], 0
   for (kind, objtype, reftype, alone), sids in members.items():
     extra = lambda i: (float(cutoff[i]) if kind == "geomdist" else
-                       int(i) if kind == "user" else 0)
+                       int(i) if kind in ("user", "plugin") else 0)
     key = lambda i: (int(m.sensor_objid[i]), int(m.sensor_refid[i]),
                      extra(i))
     pairs = list(dict.fromkeys(key(i) for i in sids))
-    w = int(m.sensor_dim[alone]) if kind == "user" else width.get(kind, 1)
+    w = (int(m.sensor_dim[alone]) if kind in ("user", "plugin")
+         else width.get(kind, 1))
     cols = []
     for i in sids:
       p = pairs.index(key(i))
@@ -552,6 +556,10 @@ def _values(m: Model, d: Data, g: _Group, cache: dict) -> torch.Tensor:
   if k == "user":
     sid = int(g.extra[0])
     return m.user_sensor_fn(m, d, sid).reshape(d.batch, 1, -1)
+  if k == "plugin":
+    sid = int(g.extra[0])
+    inst = m.plugin_hooks[int(m.plugins.sensor[sid])]
+    return inst.sensor(m, d, sid).reshape(d.batch, 1, -1)
   raise NotImplementedError(f"sensor kind {k}")
 
 

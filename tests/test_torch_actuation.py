@@ -15,7 +15,6 @@ import torch_threads  # noqa: F401  (first: pins torch's threads)
 import importlib
 
 import jax
-import jax.numpy as jnp
 import mujoco
 import numpy as np
 import pytest
@@ -26,7 +25,8 @@ import mujoco_inversedynamicstest_tpu_torch as mt
 from mujoco_inversedynamicstest_tpu_torch.ops import forward as fwd
 from test_torch_tendon import MODELS, c_model, dense, seeded
 
-jilqr = importlib.import_module("mujoco_inversedynamicstest_tpu.opt.ilqr")
+import arm_reach_reference
+
 ilqr_mod = importlib.import_module(
     "mujoco_inversedynamicstest_tpu_torch.opt.ilqr")
 INTEGRATORS = ("EULER", "RK4", "IMPLICIT", "IMPLICITFAST")
@@ -187,16 +187,6 @@ def reach_cost(m, s, u, t, target):
   return dif @ dif + 1e-3 * u @ u
 
 
-def reach_cost_jax(target):
-  def cost(m, s, u, t):
-    del m, t
-    q1, q2 = s.qpos[0], s.qpos[0] + s.qpos[1]
-    dif = 0.5 * jnp.stack([jnp.cos(q1) + jnp.cos(q2),
-                           jnp.sin(q1) + jnp.sin(q2)]) - target
-    return dif @ dif + 1e-3 * u @ u
-  return cost
-
-
 def test_arm_reach_ilqr_matches_jax():
   """BASELINE rung 2 at a small size: a 2-problem H = 10 iLQR reach on
   the tendon arm (2 iterations, 2 alphas, no control limits: the JAX
@@ -205,32 +195,20 @@ def test_arm_reach_ilqr_matches_jax():
   JAX package's transition_ad differentiates the Newton iterations,
   ROADMAP §3), against the JAX package's ilqr vmapped over the problems:
   plan, cost and iterations to 1e-9; the plan moves the hand toward its
-  target."""
-  mjm = c_model("tendon_arm")
-  mjm.opt.integrator = mujoco.mjtIntegrator.mjINT_EULER
+  target.  The JAX package's result is ``tests/arm_reach_reference.py``'s:
+  stored, where its key (a hash of the JAX package's sources, the
+  versions, the model and the problem) is this run's, else computed (its
+  trace and compile take 3-5 minutes)."""
+  mjm, mjds, targets, us0, kw = arm_reach_reference.problem()
   mj, mp = mi.put_model(mjm), mt.put_model(mjm, device="cpu")
-  targets = np.array([[0.5, 0.6], [0.2, 0.7]])
-  us0 = 0.2 * np.ones((2, 10, mjm.nu))
-  mjds = []
-  for qpos in ((0.4, 0.9), (0.8, 1.2)):
-    mjd = mujoco.MjData(mjm)
-    mjd.qpos[:] = qpos
-    mjd.act[:] = 0.2
-    mjds.append(mjd)
-  kw = dict(iterations=2, n_alpha=2, limits=False)
-  d_j = jax.tree_util.tree_map(lambda *x: jnp.stack(x), *[
-      mi.put_data(mj, mjd) for mjd in mjds])
-  ref = jax.jit(jax.vmap(lambda d, u, g: jilqr.ilqr(
-      mj, reach_cost_jax(g), d, u, jilqr.ILQRConfig(**kw))))(
-          d_j, us0, targets)
+  ref = arm_reach_reference.jax_result(mj, mjds, targets, us0, kw)
   got = ilqr_mod.ilqr(mp, reach_cost, fleet(mp, mjds), torch.as_tensor(us0),
                       ilqr_mod.ILQRConfig(**kw),
                       cost_args=(torch.as_tensor(targets),))
   for name in ("us", "cost"):
-    np.testing.assert_allclose(getattr(got, name).numpy(),
-                               np.asarray(getattr(ref, name)), rtol=0,
+    np.testing.assert_allclose(getattr(got, name).numpy(), ref[name], rtol=0,
                                atol=1e-9, err_msg=name)
-  np.testing.assert_array_equal(got.niter.numpy(), np.asarray(ref.niter))
+  np.testing.assert_array_equal(got.niter.numpy(), ref["niter"])
   start = np.linalg.norm(hand(got.xs.qpos[:, 0].T).T.numpy() - targets, axis=1)
   end = np.linalg.norm(hand(got.xs.qpos[:, -1].T).T.numpy() - targets, axis=1)
   assert np.all(end < start), (start, end)
@@ -368,7 +346,9 @@ _PORTED = {
 def test_validate_model_refuses_by_name(what):
   """put_model refuses each feature the port leaves out, by its name: the
   BODY transmission on a model with flex contacts, USER dynamics, gain
-  and bias, actuator plugins, and a muscle whose snapshot lacks the
+  and bias, an actuator plugin that the model does not have or whose port
+  computes no actuator force (the PID is ported: tests/
+  test_torch_plugins.py), and a muscle whose snapshot lacks the
   compiler's lengthrange.  The SITE and SLIDERCRANK transmissions and the
   tendon-limit sensors, which it refused before they were ported, load
   and match C's mj_forward at a state that moves them (1e-12)."""

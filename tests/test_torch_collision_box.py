@@ -289,7 +289,9 @@ ELLIPSOID, CYLINDER, HFIELD, SDF = 4, 5, 1, 8
      "CYLINDER-CYLINDER"),
     ((1, 2, 3, 4, 5), dict(geom_type=(0, HFIELD), geom_contype=(6, 1)),
      "HFIELD-CYLINDER"),
-    ((), dict(geom_type=(1, SDF)), "PLANE-SDF"),
+    # SDF geoms collide now (their plugins' clearance descent); a geom of
+    # type SDF without a plugin is refused by that name
+    ((), dict(geom_type=(1, SDF)), "SDF geom backed by plugin '<none>'"),
     ((), dict(npair=(None, 1), pair_geom1=(None, [6]), pair_geom2=(None, [1]),
               pair_dim=(None, [3]), pair_margin=(None, [0.0]),
               pair_gap=(None, [0.0]),

@@ -316,12 +316,13 @@ def test_other_sensor_types_match_c(seed):
   mjm = mujoco.MjModel.from_xml_string(SENSOR_SMALL)
   types = {SensorType(int(t)) for t in mjm.sensor_type}
   humanoid = {SensorType(int(t)) for t in _humanoid().sensor_type}
-  # the rest are tests/test_torch_sensor_tail.py's and
-  # tests/test_torch_quadruped_rangefinder.py's
+  # the rest are tests/test_torch_sensor_tail.py's,
+  # tests/test_torch_quadruped_rangefinder.py's and (PLUGIN, the touch
+  # grid) tests/test_torch_plugins.py's
   tail = {SensorType[n] for n in (
       "RANGEFINDER", "CAMPROJECTION", "JOINTLIMITPOS", "JOINTLIMITVEL",
       "JOINTLIMITFRC", "TENDONLIMITPOS", "TENDONLIMITVEL", "TENDONLIMITFRC",
-      "GEOMDIST", "GEOMNORMAL", "GEOMFROMTO", "USER")}
+      "GEOMDIST", "GEOMNORMAL", "GEOMFROMTO", "USER", "PLUGIN")}
   assert types | humanoid == PORTED_SENSORS - tail
   mjd = mujoco.MjData(mjm)
   rng = np.random.RandomState(seed)
@@ -438,12 +439,14 @@ UNPORTED = """<mujoco>
   <sensor>SENSOR</sensor>
 </mujoco>"""
 TENDON = '<tendon><fixed name="t"><joint joint="j" coef="1"/></fixed></tendon>'
-TOUCH_GRID = ('<extension><plugin plugin="mujoco.sensor.touch_grid"/>'
-              '</extension>')
+MESH = ('<asset><mesh name="m" vertex="0 0 0 0.1 0 0 0 0.1 0 0 0 0.1"/>'
+        '</asset>')
 
 
 # each id names the case it held before the sensor tail was ported; each
-# now holds a sensor that stays refused
+# now holds a sensor that stays refused ("plugin", since the plugin slice
+# computes the touch grid, a TACTILE sensor: C validates every touch-grid
+# configuration the port would refuse)
 @pytest.mark.parametrize("extra, element, what", [
     (TENDON, '<tendonactuatorfrc tendon="t"/>', "sensor type TENDONACTFRC"),
     ("", '<insidesite site="s" objtype="geom" objname="g"/>',
@@ -457,10 +460,7 @@ TOUCH_GRID = ('<extension><plugin plugin="mujoco.sensor.touch_grid"/>'
      "GEOMFROMTO sensor over geom pair CAPSULE-BOX"),
     ("", '<distance geom1="g" geom2="box"/>',
      "GEOMDIST sensor over geom pair CAPSULE-BOX"),
-    (TOUCH_GRID, '<plugin plugin="mujoco.sensor.touch_grid" objtype="site" '
-     'objname="s"><config key="nchannel" value="1"/><config key="size" '
-     'value="2 2"/><config key="fov" value="10 10"/><config key="gamma" '
-     'value="0"/></plugin>', "sensor type PLUGIN"),
+    (MESH, '<tactile geom="g" mesh="m"/>', "sensor type TACTILE"),
     ("", '<user dim="1" needstage="acc"/>', "sensor type USER"),
     ("", '<rangefinder camera="cam"/>',
      "sensor object type CAMERA (RANGEFINDER)"),

@@ -363,7 +363,8 @@ REFUSALS = {
 
 @pytest.mark.parametrize("name", list(REFUSALS))
 def test_refusals_that_remain(name):
-  """Every sensor type the port does not compute (PLUGIN is
+  """Every sensor type the port does not compute (PLUGIN sensors are
+  computed since the plugin slice; one the port cannot compute is
   test_torch_sensor.py's case), mujoco 3.10's rangefinder on a camera and
   its outputs beyond the distance, distance sensors over pairs without a
   closed-form narrowphase, and a USER sensor without a function are
@@ -373,7 +374,7 @@ def test_refusals_that_remain(name):
   with pytest.raises(NotImplementedError, match=re.escape(what)):
     mt.put_model(mjm, device="cpu")
   left = {SensorType[n] for n in ("INSIDESITE", "CONTACT", "TACTILE",
-                                  "TENDONACTFRC", "PLUGIN")}
+                                  "TENDONACTFRC")}
   assert set(SensorType) - PORTED_SENSORS == left
 
 
