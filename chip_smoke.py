@@ -7,7 +7,7 @@ A full run is two processes on the card: this one runs the timed work
 and a second one it starts after phase 12 (``--checks``) runs the untimed
 fp64 checks beside it (the kernels against their plain versions in phases
 3-4, 8 and 9, phases 7, 10 and 16, and the fp64 parts of phases 6, 13, 15
-and 17-27: kernels against plain versions, inverse_tests, transition_ad
+and 17-28: kernels against plain versions, inverse_tests, transition_ad
 against transition_fd).  Phases 5, 6, 9, 11 and 12 run alone.  The second
 process's lines are printed as they come, after ``checks |``; a failure in
 either process fails the script.  Phase 6's loop is timed alone before the
@@ -44,7 +44,7 @@ non-zero:
    bit-equal.
 9. kernel: main-path shapes, and timing: JVP kernels -- all four kernels
    against their plain versions, bit-equal, at every shape at which
-   phases 6-27 launch them, the solve at its columns (n = 27 for the
+   phases 6-28 launch them, the solve at its columns (n = 27 for the
    humanoid, the JVP kernels at
    (lanes, tangents) (8, 75) and (1, 75) fp64, (320, 75), (400, 75),
    (1024, 75) and the folded (76,800, 1), in both layouts; n = 1-6 for phase 18's and
@@ -60,7 +60,8 @@ non-zero:
    42, 69, 75, 87 and their 3- and 6-dof blocks), the JVPs at (8, 84) and
    (8, 138) fp64; phase 26's quadruped with its rangefinders (n = 22, the
    JVPs at (8, 68) fp64) and its transmission and sensor-tail scenes (n =
-   1-6)); then at the
+   1-6); phase 28's humanoid, the JVPs at (1024, 21) and (80, 75) fp32 and
+   (8, 21) fp64); then at the
    bench's chunk (1024 lanes, 75 tangents) the JVP kernels timed against
    the plain versions, their bounds (L read once a lane) and
    torch.func.vmap over torch.func.jvp of torch.linalg.cholesky /
@@ -336,16 +337,34 @@ non-zero:
    bowl (RK4), 64 lanes fp64 x 20 steps; transition_ad of 8 lanes of the
    sphere resting on the torus (fp64) against the plain versions and
    transition_fd (centered, eps 1e-6; within 1e-4 of max|A|).
+28. slice: tools -- the tools around the engine on the Newton-100
+   humanoid (assets/humanoid.npz): system identification by
+   opt.least_squares, 1024 fp32 lanes of phase 6's states raised 0.1 m,
+   each with hidden controls u* in the middle 80% of ctrlrange, fitted
+   from u = 0 within ctrlrange (20 iterations at most): lanes within 1e-3
+   of the range of u*, finite lanes, iterations, seconds, launches; the
+   kernels timed at (1024, 27) fp32 and the JVP kernels at (1024 lanes,
+   21 tangents, 27) fp32; mpc_weak_scaling's point on the cards present
+   (8 lanes a card, H = 10; one card: efficiency not measurable).  Then,
+   under torch's deterministic algorithms: the fp64 fit of 8 lanes with
+   no constraint row within 1e-8 of the range of u*, kernels against
+   plain versions (<= 1e-12); a fleet MPC (F = 8, H = 10, fp32) saved
+   after one cycle, restored onto the card and resumed, bit-equal to two
+   cycles; the sharded fleet step of 4096 lanes and the sharded fleet MPC
+   bit-equal to the unsharded ones; names and a keyframe from the
+   snapshots on CUDA tensors; a printer dump of the model and one lane
+   (chiprun_out/tools_dump.txt); the band solvers at (64, 270, 27) fp64
+   against the dense factor (<= 1e-9).
 
 Phase 10 also runs transition_ad of the Newton-100 humanoid under RK4 and
 IMPLICIT (the qDeriv Jacobian nested in the dual step).  Every kernel
-launch of phases 6-27 must be at a shape phase 9 checked: (n, lanes,
+launch of phases 6-28 must be at a shape phase 9 checked: (n, lanes,
 dtype) of the factor, (n, lanes, columns, dtype) of the solve, (n, lanes,
 tangents, dtype) of the factor's JVP, (n, lanes, tangents, columns,
 dtype) of the solve's.  Then
 one JSON line of the kernel report (launches: the sum over the main paths,
 phases 6, 12, 15, 16, 17, 18, 19, 20, 21 (its transition_ad and its
-fleet), 22, 23, 24, 25, 26 and 27, each read with the counts reset before it, in
+fleet), 22-28, each read with the counts reset before it, in
 either process;
 by path beside it; the JVP kernels with the tangent counts of their phase 12
 launches), the nvidia-smi line, and the result line.  There is no CPU path: without
@@ -394,7 +413,11 @@ only the build and phase 26 (both parts), and
 
     python3 chip_smoke.py --plugins
 
-only the build and phase 27 (both parts).
+only the build and phase 27 (both parts), and
+
+    python3 chip_smoke.py --tools
+
+only the build and phase 28 (both parts).
 """
 
 from __future__ import annotations
@@ -549,6 +572,14 @@ PLUGIN_STEPS, SDF_STEPS, PLUGIN_INVERSE_STEPS = 20, 5, 20
 # the free bodies of the SDF scenes
 PLUGIN_NV = (21, 1, 2, 6)
 GRID_N, GRID_B = (1, 2, 6, 27, 32, 33, 64, 128), (1, 127, 4096)
+# phase 28: the system identification's fleet, iterations and the
+# height its states are raised off the floor (at contact or at a joint
+# limit the soft rows absorb part of each actuator's force and Gauss-Newton
+# can stall short of u*: the CPU rehearsal); the MPC of the checkpoint,
+# sharding and weak-scaling checks; the band solvers' (B, ntotal, nband)
+SYSID_LANES, SYSID_ITERS, SYSID_RAISE = 1024, 20, 0.1
+TOOLS_MPC_FLEET, TOOLS_MPC_HORIZON = 8, 10
+BAND = (64, 270, 27)
 TOL = {torch.float32: 1e-4, torch.float64: 1e-12}  # of max|reference|
 # NVIDIA's H100 SXM data sheet: memory rate, and fp32 and fp64 outside
 # tensor cores
@@ -882,9 +913,10 @@ def time_ms(fn, reps: int = 20) -> float:
   return start.elapsed_time(stop) / reps
 
 
-def time_kernels(linalg, dev, n: int = 27) -> dict:
+def time_kernels(linalg, dev, n: int = 27, lanes: int = 0) -> dict:
   """Phase 5: kernel (wrapper included), plain version and library call at
-  (4096, n, n) fp32 (n = 27; phase 18 at 3 and 5), timed in turns plain,
+  (lanes, n, n) fp32 (the fleet's 4096 lanes unless ``lanes`` is given; n =
+  27; phase 18 at 3 and 5), timed in turns plain,
   kernel, library, library, kernel, plain; the median of each pair.  The
   bound counts what each function must move once: both read only the
   lower triangle of their (B, n, n) input, n (n + 1) / 2 elements a
@@ -893,8 +925,9 @@ def time_kernels(linalg, dev, n: int = 27) -> dict:
   B (n (n + 1) / 2 + 2 n) elements (rhs read, x written) and does 2 B n^2
   operations."""
   rng = np.random.default_rng(1)
-  h = spd(rng, FLEET, n, dev).float()
-  rhs = torch.as_tensor(rng.standard_normal((FLEET, n)), device=dev).float()
+  lanes = lanes or FLEET
+  h = spd(rng, lanes, n, dev).float()
+  rhs = torch.as_tensor(rng.standard_normal((lanes, n)), device=dev).float()
   l = linalg.chol_factor_ref(h)
   b, n, size = h.shape[0], h.shape[-1], h.element_size()
   tri = b * n * (n + 1) // 2  # lower-triangle elements of a (B, n, n) stack
@@ -915,7 +948,7 @@ def time_kernels(linalg, dev, n: int = 27) -> dict:
                  "plain_ms": float(np.median([p1, p2])),
                  "bound_ms": bound, "bound_by": bound_by,
                  "library_ms": float(np.median([y1, y2]))}
-  log("timing", f"({FLEET}, {n}) fp32, ms kernel / plain / library / bound: "
+  log("timing", f"({lanes}, {n}) fp32, ms kernel / plain / library / bound: "
       + ", ".join(
           f"{k} {v['ms']:.4f} / {v['plain_ms']:.4f} / {v['library_ms']:.4f}"
           f" / {v['bound_ms']:.4f} ({v['bound_by']}; kernel at "
@@ -1115,7 +1148,7 @@ def balance_shapes() -> tuple[set, set]:
 
 
 def path_shapes(mt) -> dict:
-  """The launches of phases 6-27 and of --bench, by kernel: (n, B, dtype)
+  """The launches of phases 6-28 and of --bench, by kernel: (n, B, dtype)
   of chol_factor, (n, B, columns, dtype) of chol_solve, (n, B, T, dtype)
   of chol_factor_jvp and (n, B, T, columns, dtype) of chol_solve_jvp.
   Phases 6-17 and --bench at n = 27.  Primal:
@@ -1129,8 +1162,9 @@ def path_shapes(mt) -> dict:
   and one a lane in the folded comparison.  Phases 18-23's from
   ``constraint_shapes``, ``tendon_shapes``, ``convex_shapes``,
   ``balance_shapes``, ``contact_shapes``, ``quadruped_shapes``, (phase
-  25) ``flex_shapes``, (phase 26) ``tail_shapes`` and (phase 27)
-  ``plugin_shapes``, whose solves are of one column; phase 24's from ``suite_shapes``, with the dual solvers'
+  25) ``flex_shapes``, (phase 26) ``tail_shapes``, (phase 27)
+  ``plugin_shapes`` and (phase 28) ``tools_shapes``, whose solves are of
+  one column; phase 24's from ``suite_shapes``, with the dual solvers'
   nefc columns."""
   f32 = {FLEET, BENCH_CHUNK_LANES, 75 * BENCH_CHUNK_LANES}
   jvp = {(8, 75, torch.float64), (BENCH_CHUNK_LANES, 75, torch.float32),
@@ -1145,7 +1179,8 @@ def path_shapes(mt) -> dict:
   for more_primal, more_jvp in (
       constraint_shapes(mt), tendon_shapes(mt), convex_shapes(mt),
       balance_shapes(), contact_shapes(mt), quadruped_shapes(mt),
-      flex_shapes(mt), tail_shapes(mt), plugin_shapes(mt)):
+      flex_shapes(mt), tail_shapes(mt), plugin_shapes(mt),
+      tools_shapes(mt)):
     primal |= more_primal
     jvp |= more_jvp
   shapes = {"chol_factor": primal,
@@ -3987,18 +4022,20 @@ def flex_contact_sets(collision, m, d) -> list:
   return out
 
 
-def time_jvp_kernels(linalg, dev, n: int, b: int, t: int) -> dict:
-  """The two JVP kernels (wrapper included) at (b lanes, n) fp64 with t
-  tangents a lane, against their plain versions and the vmap-of-jvp
-  yardstick, in turns plain, kernel, library, library, kernel, plain
-  (medians of the pairs), beside the bound (``jvp_work``, fp64 rate)."""
+def time_jvp_kernels(linalg, dev, n: int, b: int, t: int,
+                     dtype=torch.float64) -> dict:
+  """The two JVP kernels (wrapper included) at (b lanes, n) in ``dtype``
+  (fp64 unless given) with t tangents a lane, against their plain versions
+  and the vmap-of-jvp yardstick, in turns plain, kernel, library, library,
+  kernel, plain (medians of the pairs), beside the bound (``jvp_work``, at
+  the dtype's rate)."""
   rng = np.random.default_rng(6)
-  h = spd(rng, b, n, dev)
-  dh = sym(rng, (t, b, n, n), dev)
+  h = spd(rng, b, n, dev).to(dtype)
+  dh = sym(rng, (t, b, n, n), dev).to(dtype)
   l = linalg.chol_factor_ref(h)
   dl = linalg.chol_factor_jvp_ref(l, dh)
-  x = torch.as_tensor(rng.standard_normal((b, n)), device=dev)
-  db = torch.as_tensor(rng.standard_normal((t, b, n)), device=dev)
+  x = torch.as_tensor(rng.standard_normal((b, n)), device=dev).to(dtype)
+  db = torch.as_tensor(rng.standard_normal((t, b, n)), device=dev).to(dtype)
   work = jvp_work(n, b, t, h.element_size())
   vj = lambda f, p, tg: torch.func.vmap(
       lambda *u: torch.func.jvp(f, p, u)[1])(*tg)
@@ -4013,12 +4050,13 @@ def time_jvp_kernels(linalg, dev, n: int, b: int, t: int) -> dict:
                   (l, x[..., None]), (dl, db[..., None])))):
     p1, k1, y1, y2, k2, p2 = (time_ms(f, reps=10) for f in (
         plain, kern, library, library, kern, plain))
-    bound, bound_by = bound_ms(*work[name], fp64=True)
+    bound, bound_by = bound_ms(*work[name], fp64=dtype == torch.float64)
     out[name] = {"ms": float(np.median([k1, k2])),
                  "plain_ms": float(np.median([p1, p2])),
                  "bound_ms": bound, "bound_by": bound_by,
                  "library_ms": float(np.median([y1, y2]))}
-  log("timing: JVP kernels", f"({b} lanes, {t} tangents, {n}) fp64, ms "
+  log("timing: JVP kernels", f"({b} lanes, {t} tangents, {n}) "
+      f"{str(dtype)[6:].replace('float', 'fp')}, ms "
       "kernel / plain / vmap-of-jvp yardstick / bound: " + ", ".join(
           f"{k} {v['ms']:.4f} / {v['plain_ms']:.4f} / {v['library_ms']:.4f}"
           f" / {v['bound_ms']:.5f} ({v['bound_by']})"
@@ -4773,6 +4811,347 @@ def plugin_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
   return total, times
 
 
+def sysid_problem(mt, m, lanes: int, seed: int, index=None):
+  """Phase 28's system identification on the humanoid ``m``: phase 6's
+  fleet states raised SYSID_RAISE m off the floor (``fleet_data``), hidden
+  controls u* uniform over the middle 80% of each ctrlrange, and the
+  residual r(u) = (qvel after one ``step`` under u - qvel under u*) / h
+  (the qvel difference over the timestep, so that box_qp's absolute 1e-16
+  improvement floor lies below the fit's tolerance).  ``index`` keeps
+  those lanes of the fleet.  Returns (the residual, u*, lower, upper, the
+  lanes' states under u*)."""
+  from mujoco_inversedynamicstest_tpu_torch.utils import tree
+
+  d = fleet_data(mt, m, lanes, seed=seed, drop=-SYSID_RAISE)
+  lo, hi = m.actuator_ctrlrange[:, 0], m.actuator_ctrlrange[:, 1]
+  rng = np.random.RandomState(seed)
+  frac = torch.as_tensor(0.1 + 0.8 * rng.rand(lanes, m.nu), dtype=m.dtype,
+                         device=m.device)
+  u_star = lo + (hi - lo) * frac
+  if index is not None:
+    d = tree.map_leaves(d, lambda _, x: x[index])
+    u_star = u_star[index]
+  at_star = mt.step(m, d.replace(ctrl=u_star))
+  target = at_star.qvel
+  h = m.opt.timestep
+
+  def residual(u):
+    return (mt.step(m, d.replace(ctrl=u)).qvel - target) / h
+
+  return residual, u_star, lo, hi, at_star
+
+
+def tools_mpc_config(northstar):
+  """Phase 28's humanoid MPC: F = TOOLS_MPC_FLEET, H = TOOLS_MPC_HORIZON,
+  one replan, one iLQR iteration, 4 step sizes, every timestep linearized
+  in one chunk."""
+  return northstar.NorthStarConfig(
+      horizon=TOOLS_MPC_HORIZON, fleet=TOOLS_MPC_FLEET, n_replan=1,
+      ilqr_iterations=1,
+      n_alpha=4, lin_batch=None)
+
+
+def tools_shapes(mt) -> tuple[set, set]:
+  """Phase 28's launches, as ``constraint_shapes`` counts them, at n = 27
+  (the humanoid has one tree): the fp32 system identification's fleet
+  (SYSID_LANES: the step of each iteration, its dual step's primal, JVPs
+  at nu = 21 tangents) and the fp64 one's (the fleet's step under u*, then
+  8 lanes); the MPC at F =
+  TOOLS_MPC_FLEET (the first rollout's F lanes, the forward pass's F x 4
+  step sizes, the linearization's F H lanes with their 75 tangents); the
+  sharded step at the fleet's 4096 lanes."""
+  f, hor = TOOLS_MPC_FLEET, TOOLS_MPC_HORIZON
+  primal = {(27, b, torch.float32) for b in (SYSID_LANES, f, 4 * f, f * hor,
+                                             FLEET)}
+  primal |= {(27, 8, torch.float64), (27, SYSID_LANES, torch.float64)}
+  jvp = {(27, SYSID_LANES, 21, torch.float32), (27, 8, 21, torch.float64),
+         (27, f * hor, 75, torch.float32)}
+  return primal, jvp
+
+
+@contextlib.contextmanager
+def deterministic():
+  """torch's deterministic algorithms, as a bit-equality check needs them
+  (cuBLAS reads CUBLAS_WORKSPACE_CONFIG, which ``main`` sets for the
+  processes that run these checks)."""
+  torch.use_deterministic_algorithms(True)
+  try:
+    yield
+  finally:
+    torch.use_deterministic_algorithms(False)
+
+
+def tools_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
+  """Phase 28: the tools around the engine on the humanoid
+  (``assets/humanoid.npz``: nv 27, nu 21, Newton).  Timed: system
+  identification by ``opt.least_squares`` (SYSID_LANES fp32 lanes, bounded
+  by ctrlrange from u = 0, SYSID_ITERS iterations at most): lanes within
+  1e-3 of the range of u*, finite lanes, iterations, seconds, launches; the
+  kernels at its shapes; ``mpc_weak_scaling``'s point on the cards
+  present.  Checks (under torch's deterministic algorithms): the fp64 fit
+  of 8 lanes without a constraint row within 1e-8 of the range of u*, the
+  kernels against the plain versions; a fleet MPC checkpointed after one
+  cycle, restored onto the card and resumed, bit-equal to two cycles; the
+  sharded fleet step of 4096 lanes and the sharded fleet MPC bit-equal to
+  the unsharded ones; names and a keyframe from the snapshots on CUDA
+  tensors; a printer dump of the model and one lane under chiprun_out/;
+  the band solvers at (B, ntotal, nband) = BAND against the dense fp64
+  factor.  Returns the kernels' launches and the timings."""
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative, northstar
+  from mujoco_inversedynamicstest_tpu_torch.opt import mpc as mpc_mod
+  from mujoco_inversedynamicstest_tpu_torch.parallel import scaling, sharding
+  from mujoco_inversedynamicstest_tpu_torch.utils import checkpoint, printer
+  from mujoco_inversedynamicstest_tpu_torch.utils import tree
+
+  t_phase = time.perf_counter()
+  phase = "slice: tools"
+  total = dict.fromkeys(KERNELS, 0)
+  times = {}
+
+  def add(launches):
+    for k in KERNELS:
+      total[k] += launches[k]
+
+  if TIMED:
+    m = mt.put_model(mt.asset_path("humanoid.npz"), device=dev,
+                     dtype=torch.float32)
+    residual, u_star, lo, hi, at_star = sysid_problem(mt, m, SYSID_LANES,
+                                                      seed=28)
+    u0 = torch.zeros_like(u_star)
+    torch.cuda.synchronize()
+    reset_launches(linalg)
+    t0 = time.perf_counter()
+    res = mt.opt.least_squares(residual, u0, bounds=(lo, hi),
+                               max_iter=SYSID_ITERS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = read_launches(linalg)
+    add(launches)
+    err = ((res.x - u_star).abs() / (hi - lo)).amax(1)
+    finite = torch.isfinite(res.x).all(1)
+    rows = at_star.efc_active.any(1) if at_star.efc_active is not None else (
+        torch.zeros_like(finite))
+    near = err <= 1e-3
+    log(phase,
+        f"system identification, humanoid B={SYSID_LANES} fp32 (nu 21 "
+        f"controls from 27 qvel, bounded, <= {SYSID_ITERS} iterations) in "
+        f"{seconds:.3f} s on {card}: lanes within 1e-3 of the range of u* "
+        f"{int(near.sum())} of {SYSID_LANES} ({int((near & ~rows).sum())} of "
+        f"the {int((~rows).sum())} without an active constraint row under "
+        f"u*); finite lanes {int(finite.sum())}; iterations mean "
+        f"{float(res.niter.double().mean()):.2f}, max {int(res.niter.max())};"
+        f" median |u - u*| / range {float(err.median()):.3e}; launches "
+        f"{launches}, tangents a lane {read_tangents(linalg)}")
+    if not bool(finite.all()):
+      raise AssertionError(f"{int((~finite).sum())} non-finite fits")
+    # a control moves neither M nor the Newton Hessian (each a function of
+    # the position and the active rows): the factor's tangent is zero and
+    # only the MPC below launches its JVP kernel
+    if not all(v for k, v in launches.items() if k != "chol_factor_jvp"):
+      raise AssertionError(f"a kernel was not launched: {launches}")
+    for k, v in time_kernels(linalg, dev, 27, SYSID_LANES).items():
+      times.setdefault(k, {}).setdefault("by_shape", {})[
+          f"({SYSID_LANES}, 27) fp32, phase 28"] = v
+    for k, v in time_jvp_kernels(linalg, dev, 27, SYSID_LANES, 21,
+                                 torch.float32).items():
+      times.setdefault(k, {}).setdefault("by_shape", {})[
+          f"(27, {SYSID_LANES} lanes, 21 tangents) fp32, phase 28"] = v
+
+    cfg = tools_mpc_config(northstar)
+    mesh = sharding.make_mesh()
+    reset_launches(linalg)
+    point = scaling.mpc_weak_scaling(
+        m, northstar.balance_cost(m), mt.make_data(m, 1), cfg,
+        fleet_per_device=TOOLS_MPC_FLEET)
+    launches = read_launches(linalg)
+    add(launches)
+    if not all(total.values()):
+      raise AssertionError(f"a kernel was not launched: {total}")
+    p = point.points[0]
+    log(phase,
+        f"mpc_weak_scaling on {mesh.size} card(s) ({card}), humanoid fp32, "
+        f"{TOOLS_MPC_FLEET} lanes a card, H = {TOOLS_MPC_HORIZON}, one "
+        f"iteration: points {[q.n_devices for q in point.points]}; "
+        f"{p.solves_per_sec:.3f} solves/s, warm run {p.wall_time_s:.3f} s, "
+        f"cold run {p.compile_time_s:.3f} s, plan cost mean "
+        f"{p.plan_cost_mean:.4f}; efficiency "
+        + ("not measurable on one card" if len(point.points) == 1 else
+           f"{point.efficiency:.4f}") + f"; launches {launches}")
+    if not np.isfinite(p.plan_cost_mean):
+      raise AssertionError("weak scaling: non-finite plan cost")
+
+  if CHECKS:
+    with deterministic():
+      # the fp64 fit of 8 lanes with no active constraint row under u*
+      m = mt.put_model(mt.asset_path("humanoid.npz"), device=dev,
+                       dtype=torch.float64)
+      at_star = sysid_problem(mt, m, SYSID_LANES, seed=28)[-1]
+      free = torch.nonzero(~at_star.efc_active.any(1))[:8, 0]
+      if len(free) < 8:
+        raise AssertionError(f"only {len(free)} lanes without a row")
+      res8, u_star8, lo, hi, _ = sysid_problem(mt, m, SYSID_LANES, seed=28,
+                                               index=free)
+      reset_launches(linalg)
+      fit = mt.opt.least_squares(res8, torch.zeros_like(u_star8),
+                                 bounds=(lo, hi), max_iter=SYSID_ITERS)
+      launches = read_launches(linalg)
+      add(launches)
+      with plain_cholesky(linalg):
+        plain = mt.opt.least_squares(res8, torch.zeros_like(u_star8),
+                                     bounds=(lo, hi), max_iter=SYSID_ITERS)
+      err = float(((fit.x - u_star8).abs() / (hi - lo)).max())
+      vs_plain = float((fit.x - plain.x).abs().max())
+      log(phase,
+          f"system identification, 8 lanes fp64 (lanes {free.tolist()} of "
+          f"the fleet: no active row under u*): max |u - u*| / range "
+          f"{err:.3e} (tol 1e-8), iterations {fit.niter.tolist()}; kernels "
+          f"vs plain max |dx| {vs_plain:.3e} (tol 1e-12); launches "
+          f"{launches}")
+      if not err <= 1e-8 or not vs_plain <= 1e-12:
+        raise AssertionError(f"fp64 system identification: {err:.3e} of "
+                             f"the range, {vs_plain:.3e} from plain")
+
+      # checkpoint and resume of a fleet MPC, fp32
+      m = mt.put_model(mt.asset_path("humanoid.npz"), device=dev,
+                       dtype=torch.float32)
+      cfg = tools_mpc_config(northstar)
+      mcfg = cfg.mpc_config()
+      cost = northstar.balance_cost(m)
+      fleet = northstar.make_fleet(m, mt.make_data(m, 1), cfg)
+      warm = mpc_mod.make_warm_start(m, cfg.horizon, cfg.fleet)
+      cycle = lambda mm, c: mpc_mod.mpc_step(mm, cost, c, mcfg).carry
+      reset_launches(linalg)
+      mid = cycle(m, mpc_mod.MPCCarry(d=fleet, us_warm=warm))
+      ref = cycle(m, mid)
+      path = os.path.join(REPO, "chiprun_out", "tools_checkpoint")
+      checkpoint.save(path, m, mid)
+      m2 = checkpoint.load_model(path, device=dev)
+      template = mpc_mod.MPCCarry(
+          d=derivative.select_lanes(mt.make_data(m2, cfg.fleet), slice(None)),
+          us_warm=torch.zeros_like(warm))
+      restored = checkpoint.restore(path, template)
+      on_card = all(x.device.type == torch.device(dev).type
+                    for _, x in tree.leaves_with_path(restored))
+      resumed = cycle(m2, restored)
+      add(read_launches(linalg))
+      same = all(torch.equal(a, b) for a, b in (
+          (resumed.d.qpos, ref.d.qpos), (resumed.d.qvel, ref.d.qvel),
+          (resumed.us_warm, ref.us_warm)))
+      size = sum(os.path.getsize(os.path.join(path, f))
+                 for f in os.listdir(path))
+      log(phase,
+          f"checkpoint: humanoid MPC F={cfg.fleet} fp32 H={cfg.horizon}, "
+          f"one cycle, saved ({size} bytes), restored onto {card} (every "
+          f"leaf on the card: {on_card}), resumed: qpos, qvel and the warm "
+          f"plan bit-equal to two uninterrupted cycles: {same}")
+      if not same or not on_card:
+        raise AssertionError("the resumed MPC differs from the "
+                             "uninterrupted one")
+
+      # the sharded fleet step and fleet MPC against the unsharded ones
+      mesh = sharding.make_mesh()
+      d = fleet_data(mt, m, FLEET, seed=0)
+      reset_launches(linalg)
+      whole = mt.step(m, d)
+      out, gmean = sharding.sharded_step_fn(m, mesh, mt.step)(
+          sharding.shard_batch(mesh, d))
+      out = out.gather()
+      step_same = all(torch.equal(getattr(out, f), getattr(whole, f))
+                      for f in ("qpos", "qvel", "qacc", "act"))
+      mean_err = float((gmean - whole.qacc.abs().mean()).abs())
+      ref_run = northstar.fleet_mpc_fn(m, cost, cfg)(fleet)
+      costs, cmean = scaling.sharded_fleet_mpc_fn(m, cost, cfg, mesh)(
+          sharding.shard_batch(mesh, fleet))
+      add(read_launches(linalg))
+      mpc_same = torch.equal(costs, ref_run.plan_costs)
+      log(phase,
+          f"sharding over {mesh.size} card(s): the fleet step of {FLEET} "
+          f"lanes fp32 bit-equal to the unsharded step: {step_same}, "
+          f"pmean |qacc| {float(gmean):.6g} ({mean_err:.3e} from the "
+          f"unsharded mean); the fleet MPC (F={cfg.fleet}) plan costs "
+          f"bit-equal to fleet_mpc_fn's: {mpc_same} (mean {float(cmean):.6g})")
+      if not step_same or not mpc_same or not mean_err <= 1e-5 * float(
+          whole.qacc.abs().mean()):
+        raise AssertionError("the sharded runs differ from the unsharded")
+
+    # names and a keyframe from the snapshots, on CUDA tensors
+    sys.path.insert(0, os.path.join(REPO, "scripts"))
+    import balance  # noqa: PLC0415  (C's joint and body names of the humanoid)
+
+    joints = tuple(mt.id2name(m, "joint", i) or "" for i in range(m.njnt))
+    bodies = tuple(mt.id2name(m, "body", i) or "" for i in range(m.nbody))
+    ids_ok = all(mt.name2id(m, "joint", n) == i
+                 for i, n in enumerate(joints) if n)
+    mk = mt.put_model(mt.asset_path("keyframes.npz"), device=dev,
+                      dtype=torch.float64)
+    with np.load(mt.asset_path("keyframes.npz")) as z:
+      snap = {k: z[k] for k in z.files}
+    k = mt.name2id(mk, "key", "home")
+    lanes = torch.tensor([True, False, True, False], device=dev)
+    dk = mt.reset_data_keyframe(mk, mt.make_data(mk, 4), "home", lanes=lanes)
+    key_ok = all(
+        torch.equal(getattr(dk, f)[lanes].cpu(), torch.as_tensor(
+            snap[key][k].reshape(getattr(dk, f).shape[1:])).expand(2, *getattr(
+                dk, f).shape[1:]))
+        for f, key in (("qpos", "key_qpos"), ("qvel", "key_qvel"),
+                       ("act", "key_act"), ("ctrl", "key_ctrl"),
+                       ("mocap_pos", "key_mpos"), ("mocap_quat", "key_mquat")))
+    log(phase,
+        f"names from humanoid.npz on {card}: joints and bodies equal C's "
+        f"tables (scripts/balance.py): {joints == balance.JOINTS and bodies == balance.BODIES}"
+        f", name2id inverts id2name: {ids_ok}; keyframe 'home' (id {k}) of "
+        f"keyframes.npz reset on lanes 0 and 2 of 4, bit-equal to the "
+        f"snapshot's rows: {key_ok}")
+    if not (joints == balance.JOINTS and bodies == balance.BODIES and ids_ok
+            and key_ok and dk.qpos.device.type == torch.device(dev).type):
+      raise AssertionError("names or keyframes differ from the snapshot's")
+
+    # a printer dump of the model on the card and one lane
+    dump = os.path.join(REPO, "chiprun_out", "tools_dump.txt")
+    lane = tree.map_leaves(mt.forward(m, fleet), lambda _, x: x[:1])
+    with open(dump, "w") as f:
+      f.write(printer.format_pytree(m, "model") + printer.format_pytree(
+          lane, "data"))
+    text = open(dump).read()
+    fields_ok = all(f"  {f}  " in text for f in ("qpos0", "geom_size", "qpos",
+                                                 "qacc", "qM", "xpos"))
+    log(phase, f"printer: the model and one lane on {card} dumped to "
+        f"{os.path.relpath(dump, REPO)} ({len(text)} bytes, "
+        f"{text.count(chr(10))} lines); load-bearing fields present: "
+        f"{fields_ok}")
+    if not fields_ok:
+      raise AssertionError("the printer dump lacks a field")
+
+    # the band solvers against the dense fp64 factor
+    b, ntotal, nband = BAND
+    rng = np.random.RandomState(28)
+    g = torch.as_tensor(rng.randn(b, ntotal, ntotal), device=dev)
+    dense = g @ g.transpose(1, 2)
+    idx = torch.arange(ntotal, device=dev)
+    mask = (idx[:, None] - idx[None, :]).abs() < nband
+    dense = dense * mask + ntotal * torch.eye(ntotal, device=dev,
+                                              dtype=dense.dtype)
+    rhs = torch.as_tensor(rng.randn(b, ntotal), device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    l_band = mt.opt.chol_factor_band(mt.opt.dense_to_band(dense, nband))
+    x = mt.opt.chol_solve_band(l_band, rhs)
+    torch.cuda.synchronize()
+    band_s = time.perf_counter() - t0
+    l_dense = torch.linalg.cholesky(dense)
+    err_l = float((mt.opt.band_to_dense(l_band, lower_only=True)
+                   - l_dense).abs().max())
+    err_x = float((x - torch.linalg.solve(dense, rhs)).abs().max())
+    log(phase,
+        f"band solvers at (B, ntotal, nband) = {BAND} fp64 on {card}: factor "
+        f"and solve {band_s:.3f} s; max |L - cholesky(dense)| {err_l:.3e}, "
+        f"max |x - solve(dense)| {err_x:.3e} (tol 1e-9)")
+    if not err_l <= 1e-9 or not err_x <= 1e-9:
+      raise AssertionError("band solvers differ from the dense factor")
+  log(phase, f"phase 28 in {time.perf_counter() - t_phase:.1f} s")
+  return total, times
+
+
 def fleet_rate(mt, dev) -> float:
   """Phase 6's timed loop alone (100 steps of 4096 humanoid_mjx lanes,
   fp32, after a warm-up step): steps/s."""
@@ -4824,7 +5203,7 @@ class ChecksProcess:
 def run_checks(mt, linalg, dev, smi, lap) -> None:
   """The checks process: the kernels against their plain versions (phases
   3-4, 8, 9), phases 7, 10 and 16, and the fp64 checks of phases 6, 13, 15
-  and 17-27.  Prints one JSON line: its launches by path, the kernels'
+  and 17-28.  Prints one JSON line: its launches by path, the kernels'
   largest errors, and the launches at shapes phase 9 did not check."""
   slice_err = check_kernels(linalg, dev)
   slice_err.update(check_jvp_kernels(linalg, dev))
@@ -4867,6 +5246,8 @@ def run_checks(mt, linalg, dev, smi, lap) -> None:
   lap("26")
   by_path["plugins"] = plugin_slice(mt, linalg, dev, smi)[0]
   lap("27")
+  by_path["tools"] = tools_slice(mt, linalg, dev, smi)[0]
+  lap("28")
   print(json.dumps({"checks": {"by_path": by_path, "slice_err": slice_err,
                                "unchecked": unchecked_shapes(mt, linalg)}}))
 
@@ -4898,6 +5279,9 @@ def main() -> None:
   mode.add_argument("--plugins", action="store_true",
                     help="only phase 27, the engine plugins and the SDF "
                     "plugin geoms")
+  mode.add_argument("--tools", action="store_true",
+                    help="only phase 28, least squares, checkpoints, "
+                    "sharding, names, the printer and the band solvers")
   mode.add_argument("--checks", action="store_true",
                     help="the untimed checks of a full run (the full run "
                     "starts this process itself)")
@@ -4908,6 +5292,10 @@ def main() -> None:
   import mujoco_inversedynamicstest_tpu_torch as mt
   from mujoco_inversedynamicstest_tpu_torch.ops import linalg
 
+  if args.checks or args.tools:
+    # cuBLAS's deterministic form, which phase 28's bit-equality checks
+    # run under (read when the process makes its first cuBLAS handle)
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
   if not args.checks:
     tee_log(os.path.join(REPO, "chiprun_out", "chip_smoke.log"))
   torch.backends.cuda.matmul.allow_tf32 = False
@@ -4949,9 +5337,10 @@ def main() -> None:
     contact_slice(mt, linalg, dev, smi)
   elif args.shapes:
     quadruped_slice(mt, linalg, dev, smi)
-  elif args.suite or args.flex or args.tail or args.plugins:
+  elif args.suite or args.flex or args.tail or args.plugins or args.tools:
     (suite_slice if args.suite else flex_slice if args.flex else tail_slice
-     if args.tail else plugin_slice)(mt, linalg, dev, smi)
+     if args.tail else plugin_slice if args.plugins else tools_slice)(
+         mt, linalg, dev, smi)
     unchecked = unchecked_shapes(mt, linalg)
     if unchecked:
       raise AssertionError(f"launches at shapes {unchecked} that phase 9 "
@@ -5057,8 +5446,11 @@ def timed_run(mt, linalg, dev, smi, lap, rates,
   lap("26")
   by_path["plugins"], times_plugins = plugin_slice(mt, linalg, dev, smi)
   lap("27")
+  by_path["tools"], times_tools = tools_slice(mt, linalg, dev, smi)
+  lap("28")
   for more in (times_n2, times_convex, times_contact, times_shapes,
-               times_suite, times_flex, times_tail, times_plugins):
+               times_suite, times_flex, times_tail, times_plugins,
+               times_tools):
     for k, v in more.items():
       for by, rows in v.items():
         times_small.setdefault(k, {}).setdefault(by, {}).update(rows)

@@ -1,6 +1,6 @@
 """PyTorch/CUDA port of the physics engine, beside the JAX reference.
 
-The layout mirrors ``mujoco_inversedynamicstest_tpu`` (``models/``, ``ops/``),
+The layout mirrors the JAX package's (``models/``, ``ops/``),
 so each module's counterpart is found by path.  ``Model``/``Data`` are
 dataclasses of tensors; every ``Data`` tensor has a leading fleet dimension.
 The two Pallas TPU kernels of the JAX package, and their forward-mode
@@ -23,13 +23,26 @@ state-vector API (``get_state``, ``set_state``, ``state_size``, by
 ``StateFlag``) follows the installed mujoco's ``mjtState``.  The engine
 plugins (``plugins/``: PID actuators, elastic cables, the touch grid, SDF
 plugin geoms and the mesh-SDF bridge) are built from a model's snapshot
-and run inside the step.
+and run inside the step.  The tools around the engine: names and
+keyframes from the snapshot, ``get_data`` (``models/interop.py``),
+checkpoints and text dumps (``utils/``), least squares and the band
+solvers (``opt``), fleet sharding over devices and the weak-scaling
+harness (``parallel/``), the viewer and the offscreen renderer.
 
 This package never imports jax; it imports ``mujoco`` only inside
-``load_model`` (to compile MJCF) and ``opt.torque_parity_vs_host`` (the C
-``mj_inverse`` oracle).
+``load_model`` (to compile MJCF), ``opt.torque_parity_vs_host`` (the C
+``mj_inverse`` oracle) and the host functions that hand a state to C:
+``get_data``, ``viewer.launch`` and ``renderer.Renderer``.
 """
 
+from mujoco_inversedynamicstest_tpu_torch.models.interop import (
+    get_data,
+    get_data_batch,
+    id2name,
+    name2id,
+    nkey,
+    reset_data_keyframe,
+)
 from mujoco_inversedynamicstest_tpu_torch.models.io import (
     asset_path,
     from_jax_arrays,
@@ -74,3 +87,5 @@ from mujoco_inversedynamicstest_tpu_torch.ops.support import (
     state_size,
 )
 from mujoco_inversedynamicstest_tpu_torch import opt
+from mujoco_inversedynamicstest_tpu_torch import renderer
+from mujoco_inversedynamicstest_tpu_torch import viewer

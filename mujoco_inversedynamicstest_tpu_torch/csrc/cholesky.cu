@@ -1,7 +1,6 @@
 // Batched small-matrix Cholesky factor and solve for Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of the JAX package,
-// mujoco_inversedynamicstest_tpu/ops/linalg.py:
+// Replaces the two Pallas TPU kernels of the JAX package's ops/linalg.py:
 //   mi_chol_factor_*  <- _chol_kernel  (linalg.py:63, launched by _pallas_chol)
 //   mi_chol_solve_*   <- _solve_kernel (linalg.py:86, launched by _pallas_solve)
 //

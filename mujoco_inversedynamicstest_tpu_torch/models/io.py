@@ -1,6 +1,6 @@
 """Host-side model pipeline of the PyTorch port.
 
-Counterpart of ``mujoco_inversedynamicstest_tpu/models/io.py``.  MJCF is
+Counterpart of the JAX package's ``models/io.py``.  MJCF is
 compiled by the ``mujoco`` package (imported only inside ``load_model``);
 ``put_model`` converts either a ``mujoco.MjModel`` or a *model snapshot* —
 an ``.npz`` of exactly the MjModel fields ``put_model`` reads, written by
@@ -156,6 +156,40 @@ _PLUGIN_FIELDS = {
 }
 
 
+# the names of every named object type (``mj_name2id``, ``mj_id2name``)
+# and the keyframes (``mj_resetDataKeyframe``), read by ``models/interop.py``.
+# A snapshot carries them where it was written with ``names=True``; the
+# physics does not read them, so snapshots without them load as before
+# mjtObj's value of each named object type, and the field of its name
+# addresses (XBODY shares BODY's names; DOF and the rest have none)
+OBJECT_NAMES = {
+    "body": (1, "name_bodyadr"), "xbody": (2, "name_bodyadr"),
+    "joint": (3, "name_jntadr"), "geom": (5, "name_geomadr"),
+    "site": (6, "name_siteadr"), "camera": (7, "name_camadr"),
+    "light": (8, "name_lightadr"), "flex": (9, "name_flexadr"),
+    "mesh": (10, "name_meshadr"), "skin": (11, "name_skinadr"),
+    "hfield": (12, "name_hfieldadr"), "texture": (13, "name_texadr"),
+    "material": (14, "name_matadr"), "pair": (15, "name_pairadr"),
+    "exclude": (16, "name_excludeadr"), "equality": (17, "name_eqadr"),
+    "tendon": (18, "name_tendonadr"), "actuator": (19, "name_actuatoradr"),
+    "sensor": (20, "name_sensoradr"), "numeric": (21, "name_numericadr"),
+    "text": (22, "name_textadr"), "tuple": (23, "name_tupleadr"),
+    "key": (24, "name_keyadr"), "plugin": (25, "name_pluginadr"),
+}
+NAME_ADR_FIELDS = tuple(dict.fromkeys(a for _, a in OBJECT_NAMES.values()))
+KEY_FIELDS = ("key_time", "key_qpos", "key_qvel", "key_act", "key_ctrl",
+              "key_mpos", "key_mquat")
+NAME_FIELDS = ("names", "nkey") + NAME_ADR_FIELDS + KEY_FIELDS
+
+
+def _name_arrays(mjm) -> dict[str, np.ndarray]:
+  """The fields of ``NAME_FIELDS`` of a compiled MjModel."""
+  out = {f: np.array(getattr(mjm, f)) for f in NAME_ADR_FIELDS + KEY_FIELDS}
+  out["names"] = np.frombuffer(bytes(mjm.names), np.uint8).copy()
+  out["nkey"] = np.array(int(mjm.nkey))
+  return out
+
+
 def _numeric_custom(mjm, name: str) -> int:
   """Value of a ``<numeric>`` custom by name, -1 when absent."""
   names = bytes(mjm.names)
@@ -199,9 +233,14 @@ def _plugin_arrays(mjm, f: Mapping) -> dict[str, np.ndarray]:
   return out
 
 
-def save_model_snapshot(mjm, path) -> None:
-  """Writes the MjModel fields ``put_model`` reads to an ``.npz``."""
-  np.savez(path, **_snapshot_arrays(mjm))
+def save_model_snapshot(mjm, path, names: bool = False) -> None:
+  """Writes the MjModel fields ``put_model`` reads to an ``.npz``; with
+  ``names`` also its names and keyframes (``NAME_FIELDS``), which
+  ``models/interop.py`` reads."""
+  f = _snapshot_arrays(mjm)
+  if names:
+    f.update(_name_arrays(mjm))
+  np.savez(path, **f)
 
 
 def _source_arrays(src) -> dict[str, np.ndarray]:
@@ -211,7 +250,7 @@ def _source_arrays(src) -> dict[str, np.ndarray]:
   elif isinstance(src, Mapping):
     f = {k: np.asarray(v) for k, v in src.items()}
   else:
-    f = _snapshot_arrays(src)
+    f = {**_snapshot_arrays(src), **_name_arrays(src)}
   missing = sorted(set(_ARRAY_FIELDS + _SIZE_FIELDS
                        + tuple(f"opt_{o}" for o in _OPT_FIELDS)) - set(f))
   if not missing and not int(f["nplugin"]):
@@ -738,6 +777,7 @@ def put_model(src, device="cuda", dtype=torch.float64,
   from mujoco_inversedynamicstest_tpu_torch.plugins import registry
 
   f = _source_arrays(src)
+  snapshot = dict(f)
   validate_model(f, user_sensor_fn)
   hooks = registry.build_instances(f)
   _validate_plugin_hooks(f, hooks)
@@ -852,6 +892,7 @@ def put_model(src, device="cuda", dtype=torch.float64,
       cam_targetbodyid=i("cam_targetbodyid"), **cam,
       geom_group=i("geom_group")[:ngeom_mj], geom_visible=geom_visible,
       mesh_tris=_mesh_tris(f), user_sensor_fn=user_sensor_fn,
+      snapshot=snapshot,
       plugins=PluginModel(
           hooks=hooks, geom=i("geom_plugin"), sensor=i("sensor_plugin"),
           geom_aabb=np.asarray(f["geom_aabb"], np.float64).reshape(-1, 6),
@@ -892,8 +933,10 @@ def compile_mjcf(path_or_xml: str):
 def load_model(path_or_xml: str, device="cuda",
                dtype=torch.float64) -> Model:
   """Compiles an MJCF file or XML string with ``mujoco`` (``compile_mjcf``)
-  and converts it with ``put_model`` (on the card by default)."""
-  return put_model(compile_mjcf(path_or_xml)[1], device=device, dtype=dtype)
+  and converts it with ``put_model`` (on the card by default), names and
+  keyframes included."""
+  mjm, f = compile_mjcf(path_or_xml)
+  return put_model({**f, **_name_arrays(mjm)}, device=device, dtype=dtype)
 
 
 def asset_path(name: str) -> Path:

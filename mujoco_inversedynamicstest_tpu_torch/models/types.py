@@ -1,6 +1,6 @@
 """Model / Data dataclasses of the PyTorch port.
 
-Counterpart of ``mujoco_inversedynamicstest_tpu/models/types.py``.  The JAX
+Counterpart of the JAX package's ``models/types.py``.  The JAX
 package's pytrees become plain dataclasses:
 
 * ``Model`` holds the float parameters the ported slice reads as tensors on
@@ -646,6 +646,10 @@ class Model:
   user_sensor_fn: object = None
   # the engine plugins (``PluginModel``)
   plugins: PluginModel = None
+  # the snapshot arrays the model was built from, on the host: the names
+  # and keyframes (``models/interop.py``) and checkpoints
+  # (``utils/checkpoint.py``) read them
+  snapshot: dict = dataclasses.field(default=None, repr=False, compare=False)
 
   # derived host tables and device constants, computed once per model
   _memo: dict = dataclasses.field(default_factory=dict, repr=False,

@@ -1,6 +1,6 @@
 """Support-function convex collision: direction-descent CCD, batched.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/ccd.py``.  The signed
+Port of the JAX package's ``ops/ccd.py``.  The signed
 separation of two convex support sets is the minimum over unit directions
 ``u`` of
 

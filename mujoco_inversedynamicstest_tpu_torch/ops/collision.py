@@ -1,6 +1,6 @@
 """Collision detection: static pair table + batched narrowphase.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/collision.py`` for the
+Port of the JAX package's ``ops/collision.py`` for the
 primitive pairs (plane with sphere, capsule, box and cylinder; sphere with
 sphere, capsule and box; capsule-capsule), the convex pairs of
 ``ops/collision_convex.py`` (plane, sphere, capsule, box and mesh against a

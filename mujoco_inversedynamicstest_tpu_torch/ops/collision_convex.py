@@ -1,6 +1,6 @@
 """Convex narrowphase: branchless SAT + support-point kernels, batched.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/collision_convex.py``: the
+Port of the JAX package's ``ops/collision_convex.py``: the
 separating-axis test over the static hull topology of ``ops/hull.py``
 (face normals of both hulls + Gauss-map-pruned edge-pair cross products),
 polygon-intersection manifolds for face contacts, and exact closest-point

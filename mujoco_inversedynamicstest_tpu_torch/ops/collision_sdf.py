@@ -1,6 +1,6 @@
 """Cylinder, ellipsoid and SDF plugin narrowphases, batched.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/collision_sdf.py``:
+Port of the JAX package's ``ops/collision_sdf.py``:
 closed forms where they exist (plane-ellipsoid, sphere-cylinder), and the
 support-function descent of ``ops/ccd.py`` for every other pair of the
 table (sphere, capsule, ellipsoid, cylinder and box against an ellipsoid;

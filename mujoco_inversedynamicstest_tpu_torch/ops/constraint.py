@@ -1,6 +1,6 @@
 """Constraint rows with static shapes and activity masks.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/constraint.py`` for the rows the
+Port of the JAX package's ``ops/constraint.py`` for the rows the
 port builds: equality rows of type connect, weld (on bodies or sites),
 joint, tendon and flex (one row a non-rigid edge); dof and tendon friction
 loss; joint limits on hinges, slides and balls, and tendon limits; and

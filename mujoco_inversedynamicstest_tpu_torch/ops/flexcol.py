@@ -1,7 +1,7 @@
 """Flex element contacts: geoms against flex elements, self-collision and
 internal contacts, batched.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/flexcol.py``.  Each kind of
+Port of the JAX package's ``ops/flexcol.py``.  Each kind of
 contact is a static group of pairs (``ElemGroup``), enumerated on the host
 when the model is loaded and appended after the geom-pair slots:
 

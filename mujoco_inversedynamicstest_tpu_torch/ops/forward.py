@@ -1,6 +1,6 @@
 """Forward dynamics pipeline and the integrators.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/forward.py`` (``mj_fwdPosition``,
+Port of the JAX package's ``ops/forward.py`` (``mj_fwdPosition``,
 ``mj_fwdVelocity``, ``mj_fwdActuation``, ``mj_fwdAcceleration``,
 ``mj_forward``, ``mj_Euler``, ``mj_RungeKutta``, ``mj_implicit``,
 ``mjd_smooth_vel``, ``mj_step``) for a fleet, with the sensor stages of

@@ -1,6 +1,6 @@
 """Height-field narrowphase, batched.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/hfield.py``, the narrowphase
+Port of the JAX package's ``ops/hfield.py``, the narrowphase
 and the ray cast ``ray_hfield``.  The field spans
 ``x in [-size0, size0]`` over ``ncol`` samples and ``y in [-size1, size1]``
 over ``nrow``; ``data[r, c]`` is the normalized height at ``(dx c - size0,

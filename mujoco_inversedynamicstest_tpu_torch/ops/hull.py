@@ -1,6 +1,6 @@
 """Host-side convex hull topology for box and mesh collision.
 
-Copy of ``mujoco_inversedynamicstest_tpu/ops/hull.py`` (the port imports
+Copy of the JAX package's ``ops/hull.py`` (the port imports
 nothing of the JAX package).  ``put_model`` builds each mesh's hull once,
 with qhull through ``scipy.spatial.ConvexHull``, from the snapshot arrays
 ``mesh_vert``/``mesh_vertadr``/``mesh_vertnum``, so no ``mujoco`` is

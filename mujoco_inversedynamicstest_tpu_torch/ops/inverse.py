@@ -1,4 +1,4 @@
-"""Inverse dynamics (port of ``mujoco_inversedynamicstest_tpu/ops/inverse.py``).
+"""Inverse dynamics (port of the JAX package's ``ops/inverse.py``).
 
 Given (qpos, qvel, qacc) per lane, computes the generalized force
 

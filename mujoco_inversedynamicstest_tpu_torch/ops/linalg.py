@@ -1,7 +1,7 @@
 """Batched small-matrix Cholesky factor and solve, with forward-mode AD.
 
-Port of the two Pallas TPU kernels of ``mujoco_inversedynamicstest_tpu/
-ops/linalg.py`` (``_chol_kernel`` and ``_solve_kernel``) to hand-written CUDA
+Port of the two Pallas TPU kernels of the JAX package's
+``ops/linalg.py`` (``_chol_kernel`` and ``_solve_kernel``) to hand-written CUDA
 kernels for Hopper, ``csrc/cholesky.cu``, and of the JVPs that
 ``pallas_call``'s JVP rule derives from them (``chol_factor_jvp``,
 ``chol_solve_jvp``: two more kernels in the same file).  Each kernel has a

@@ -1,6 +1,6 @@
 """Host mesh -> voxel signed-distance grid, and its device sampler.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/meshsdf.py``, the analog of
+Port of the JAX package's ``ops/meshsdf.py``, the analog of
 C's ``mujoco.sdf.sdflib`` octree (``plugin/sdf/sdflib.cc``): a dense voxel
 grid built once on the host with numpy and scipy (``mesh_sdf_grid``, the
 same arithmetic as the JAX package's, so the grids are equal), sampled on

@@ -1,6 +1,6 @@
 """Noslip post-pass: dual Gauss-Seidel over the friction rows.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/noslip.py`` (``mj_solNoSlip``).
+Port of the JAX package's ``ops/noslip.py`` (``mj_solNoSlip``).
 After the main solve the friction forces are solved again in the dual
 with the friction rows' regularization R removed, which takes away the
 slip the regularized cones allow.  The sweep visits the friction "units"

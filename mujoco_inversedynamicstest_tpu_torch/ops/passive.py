@@ -2,7 +2,7 @@
 gravity compensation, fluid forces, and the flexes' element elasticity,
 trilinear nodal elasticity and edge spring-dampers.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/passive.py``.  The fluid forces (``mj_fluid``) are
+Port of the JAX package's ``ops/passive.py``.  The fluid forces (``mj_fluid``) are
 both of C's models, the inertia box of each body and the ellipsoid of each
 ``fluidshape="ellipsoid"`` geom, computed in one batch over the bodies and
 geoms of each model and applied to the dofs in one contraction (the JAX

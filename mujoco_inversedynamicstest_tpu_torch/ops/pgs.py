@@ -1,6 +1,6 @@
 """Dual projected Gauss-Seidel solver (``mj_solPGS``).
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/pgs.py``.  PGS solves the dual
+Port of the JAX package's ``ops/pgs.py``.  PGS solves the dual
 problem: minimize ½ fᵀ AR f + fᵀ b over the constraint forces f, with AR =
 J M⁻¹ Jᵀ + diag(R) and b = J qacc_smooth - aref (``noslip.dual``), each
 force feasible: equality rows free, friction-loss rows within

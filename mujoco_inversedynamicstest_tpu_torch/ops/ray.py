@@ -1,6 +1,6 @@
 """Ray casting, batched.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/ray.py``: ``ray_geom``
+Port of the JAX package's ``ops/ray.py``: ``ray_geom``
 (``mju_rayGeom`` and the six shapes it dispatches to), whose arguments
 broadcast over leading dimensions, so one call tests every (lane, site,
 contact) ray against shapes of one type, "no hit" being +inf; the scene

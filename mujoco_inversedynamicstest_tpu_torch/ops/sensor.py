@@ -1,6 +1,6 @@
 """Sensors: the position, velocity and acceleration stages of sensordata.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/sensor.py`` (``mj_sensorPos``,
+Port of the JAX package's ``ops/sensor.py`` (``mj_sensorPos``,
 ``mj_sensorVel``, ``mj_sensorAcc``) for the types in
 ``models.types.PORTED_SENSORS``, on a fleet.  The JAX package loops over
 the sensors one by one; here a model's sensors are grouped once, on the

@@ -1,6 +1,6 @@
 """Smooth dynamics: kinematics, CoM frames, CRB, mass-matrix factor, RNE.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/smooth.py``.  The JAX package's
+Port of the JAX package's ``ops/smooth.py``.  The JAX package's
 level-wise masked vectorization carries over unchanged: bodies at equal tree
 depth are updated together, joint-type variation is handled by selects on
 static masks, and the mass matrix is one dense ``(nv, 6) @ (6, nv)`` product

@@ -1,7 +1,7 @@
 """Constraint solvers: primal Newton and Polak-Ribière CG with an exact line
 search, and the dispatch to PGS and the noslip pass.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/solver.py`` (``mj_solNewton``,
+Port of the JAX package's ``ops/solver.py`` (``mj_solNewton``,
 ``mj_solCG``).  The primal solve minimizes, per lane,
 
     cost(qacc) = 0.5 (qacc - qacc_smooth)' M (qacc - qacc_smooth)

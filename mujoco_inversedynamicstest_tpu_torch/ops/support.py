@@ -1,7 +1,7 @@
 """Support operations: point Jacobians, their products, qpos integration,
 and the state-vector API.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/support.py``: ``jac`` and
+Port of the JAX package's ``ops/support.py``: ``jac`` and
 ``jac_dot`` (the equality rows), the Jacobian-transpose product of
 ``jac_all_bodies`` as ``xfrc_accumulate`` and gravity compensation use it,
 ``apply_ft``, ``integrate_pos``, ``differentiate_pos``, ``full_m``,

@@ -1,6 +1,6 @@
 """Tendon wrapping geometry and the muscle curves, batched.
 
-Port of ``mujoco_inversedynamicstest_tpu/ops/wrap.py`` (``mju_wrap``,
+Port of the JAX package's ``ops/wrap.py`` (``mju_wrap``,
 ``wrap_circle``, ``wrap_inside``, ``mju_muscleGain``/``Bias``/``Dynamics``
 and ``mju_sigmoid``).  Every function takes tensors of any leading shape
 (a fleet of lanes, a group of wrap segments) and decides every branch of

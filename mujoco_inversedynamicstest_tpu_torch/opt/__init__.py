@@ -1,5 +1,6 @@
 """Trajectory optimization / MPC layer of the PyTorch port (derivatives,
-box QP, iLQR, MPC, the north-star harness, rollouts, LQR).
+box QP and the band solvers, iLQR, MPC, the north-star harness, rollouts,
+LQR, least squares).
 
 ``get_state``/``set_state`` here are the tangent-state helpers of
 ``opt/derivative.py``; the ``mjtState`` vectors are ``ops.support``'s
@@ -27,6 +28,10 @@ from mujoco_inversedynamicstest_tpu_torch.opt.ilqr import (
     lqr_gain,
     rollout_open_loop,
 )
+from mujoco_inversedynamicstest_tpu_torch.opt.minimize import (
+    LeastSquaresResult,
+    least_squares,
+)
 from mujoco_inversedynamicstest_tpu_torch.opt.mpc import (
     MPCCarry,
     MPCConfig,
@@ -48,7 +53,14 @@ from mujoco_inversedynamicstest_tpu_torch.opt.northstar import (
     measure_solves_per_sec,
     torque_parity_vs_host,
 )
-from mujoco_inversedynamicstest_tpu_torch.opt.qp import BoxQPResult, box_qp
+from mujoco_inversedynamicstest_tpu_torch.opt.qp import (
+    BoxQPResult,
+    band_to_dense,
+    box_qp,
+    chol_factor_band,
+    chol_solve_band,
+    dense_to_band,
+)
 from mujoco_inversedynamicstest_tpu_torch.opt.rollout import (
     RolloutResult,
     rollout,

@@ -1,6 +1,6 @@
 """Dynamics derivatives: the linearization primitives of the MPC engine.
 
-Port of ``mujoco_inversedynamicstest_tpu/opt/derivative.py`` for a fleet:
+Port of the JAX package's ``opt/derivative.py`` for a fleet:
 every function takes a ``Data`` of B lanes and returns one Jacobian a lane.
 
 * ``transition_ad`` / ``transition_fd`` -- analogs of ``mjd_transitionFD``:

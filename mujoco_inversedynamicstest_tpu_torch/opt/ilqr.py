@@ -1,6 +1,6 @@
 """iLQR trajectory optimization for a fleet of problems.
 
-Port of ``mujoco_inversedynamicstest_tpu/opt/ilqr.py``.  The JAX package
+Port of the JAX package's ``opt/ilqr.py``.  The JAX package
 solves one problem and ``vmap``s it over the fleet; here the fleet F is the
 leading dimension of everything:
 

@@ -1,6 +1,6 @@
 """Receding-horizon MPC for a fleet of problems (the north-star engine).
 
-Port of ``mujoco_inversedynamicstest_tpu/opt/mpc.py``.  One MPC *solve* is a
+Port of the JAX package's ``opt/mpc.py``.  One MPC *solve* is a
 warm-started iLQR from the current state; the fleet is the leading
 dimension of every tensor (the JAX package ``vmap``s a single problem).
 ``inverse_torques`` recovers the generalized forces of a trajectory through

@@ -1,6 +1,6 @@
 """North-star harness: humanoid MPC solves/s and torque parity.
 
-Port of ``mujoco_inversedynamicstest_tpu/opt/northstar.py``.  A fleet of
+Port of the JAX package's ``opt/northstar.py``.  A fleet of
 receding-horizon iLQR solves over the full contact dynamics, timed as
 solves per second, with the executed trajectories' generalized torques
 reproduced through the inverse-dynamics pipeline and compared with C
@@ -63,8 +63,8 @@ def balance_cost(m: Model, qpos_ref: Optional[torch.Tensor] = None,
 
   def cost(mm: Model, s: State, u: torch.Tensor, t: torch.Tensor):
     del t
-    dq = support.differentiate_pos(mm, ref.to(s.qpos.dtype), s.qpos, 1.0)
-    return (torch.sum(w.to(dq.dtype) * dq * dq) + w_vel * s.qvel @ s.qvel
+    dq = support.differentiate_pos(mm, ref.to(s.qpos), s.qpos, 1.0)
+    return (torch.sum(w.to(dq) * dq * dq) + w_vel * s.qvel @ s.qvel
             + w_ctrl * u @ u)
 
   return cost

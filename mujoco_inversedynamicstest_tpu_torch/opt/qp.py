@@ -1,6 +1,6 @@
 """Box-constrained QP for trajectory optimization, a batch of problems.
 
-Port of ``box_qp`` from ``mujoco_inversedynamicstest_tpu/opt/qp.py``, the
+Port of ``box_qp`` from the JAX package's ``opt/qp.py``, the
 projected-Newton analog of ``mju_boxQP``.  The JAX package solves one QP
 and ``vmap``s it; here ``h`` is (B, n, n) and ``g`` (B, n), and the Newton
 and Armijo ``lax.while_loop``s become loops under per-lane masks: a lane
@@ -14,9 +14,10 @@ into a lane whose matrix is not positive definite, as LAPACK returns there.
 The port's clamped ``chol_factor`` would turn such a lane's NaN gain, which
 the iLQR rejects, into a finite one, which it might accept.
 
-The banded solvers of the JAX module (``chol_factor_band``,
-``chol_solve_band``, ``band_to_dense``, ``dense_to_band``) are not on the
-MPC path and are not ported yet (ROADMAP queue 1).
+The banded solvers (``chol_factor_band``, ``chol_solve_band``,
+``band_to_dense``, ``dense_to_band``) are ``lax.scan``s over rows in the
+JAX package, not Pallas kernels; here they are loops over rows of plain
+batched torch, (B, ntotal, nband) a batch of band matrices.
 """
 
 from __future__ import annotations
@@ -130,3 +131,107 @@ def box_qp(h: torch.Tensor, g: torch.Tensor,
   grad = _matvec(h, x) + g
   free = ~(((x <= lo) & (grad > 0)) | ((x >= hi) & (grad < 0)))
   return BoxQPResult(x=x, free=free, cost=cost(x), niter=it, hfree_chol=l)
+
+
+# ---------------------------------------------------------------------------
+# banded Cholesky (trajectory band solver)
+# ---------------------------------------------------------------------------
+
+
+def chol_factor_band(mat_band: torch.Tensor, diagadd: float = 0.0,
+                     diagmul: float = 0.0) -> torch.Tensor:
+  """Cholesky of each banded SPD matrix in dense-row band storage, analog of
+  ``mju_cholFactorBand`` without the trailing dense block.
+
+  ``mat_band`` is (B, ntotal, nband): row i holds [A[i, i-nband+1], ...,
+  A[i, i]], left-zero-padded.  Returns L in the same layout (the last
+  column is its diagonal).  Row by row, as the JAX scan: the row's
+  off-diagonal entries solve the triangle of the nband-1 rows before it
+  (rows before the start: zero entries, unit diagonal), its diagonal is
+  the square root of what is left, floored at 1e-30.
+  """
+  bsz, ntotal, nband = mat_band.shape
+  dtype, dev = mat_band.dtype, mat_band.device
+  k = nband - 1
+  # the window's triangle: tri[c, e] = L[j_c, j_e] = window[c, k + e - c]
+  # for e <= c, where window[c] is the band row of row j_c = i - k + c
+  c_idx = torch.arange(k, device=dev)
+  gather = (k + c_idx[None, :] - c_idx[:, None]).clamp(0, nband - 1)
+  lower = c_idx[None, :] <= c_idx[:, None]
+  window = torch.zeros(bsz, k, nband, dtype=dtype, device=dev)
+  window[..., -1] = 1.0
+  rows = []
+  for i in range(ntotal):
+    r = mat_band[:, i]
+    diag = r[:, -1] * (1.0 + diagmul) + diagadd
+    if k:
+      tri = torch.where(lower, torch.gather(
+          window, 2, gather.expand(bsz, k, k)), 0.0)
+      off = torch.linalg.solve_triangular(tri, r[:, :k, None],
+                                          upper=False)[..., 0]
+      diag = diag - torch.sum(off * off, -1)
+    row = torch.sqrt(torch.clamp(diag, min=1e-30))[:, None]
+    row = torch.cat([off, row], -1) if k else row
+    if k:
+      window = torch.cat([window[:, 1:], row[:, None]], 1)
+    rows.append(row)
+  return torch.stack(rows, 1)
+
+
+def chol_solve_band(l_band: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """Solves (L L') x = b for each lane, given the band factor (B, ntotal,
+  nband) of ``chol_factor_band`` and b (B, ntotal): analog of
+  ``mju_cholSolveBand``.  Forward then backward substitution, a row at a
+  time."""
+  bsz, ntotal, nband = l_band.shape
+  k = nband - 1
+  y = []
+  for i in range(ntotal):
+    lrow = l_band[:, i]
+    lo = max(0, i - k)
+    acc = b[:, i]
+    if i > lo:
+      prev = torch.stack(y[lo:i], -1)
+      acc = acc - torch.sum(lrow[:, k - (i - lo):k] * prev, -1)
+    y.append(acc / lrow[:, -1])
+  x = [None] * ntotal
+  for i in reversed(range(ntotal)):
+    hi = min(ntotal, i + nband)
+    acc = y[i]
+    if hi > i + 1:
+      # L[i + t, i] = l_band[i + t, k - t], t = 1 .. hi - i - 1
+      t = torch.arange(1, hi - i, device=l_band.device)
+      col = l_band[:, i + t, k - t]
+      acc = acc - torch.sum(col * torch.stack(x[i + 1:hi], -1), -1)
+    x[i] = acc / l_band[:, i, -1]
+  return torch.stack(x, -1)
+
+
+def band_to_dense(mat_band: torch.Tensor,
+                  lower_only: bool = False) -> torch.Tensor:
+  """Expands band storage (B, ntotal, nband) to dense (B, ntotal, ntotal)
+  (analog of ``mju_band2Dense``)."""
+  bsz, ntotal, nband = mat_band.shape
+  dense = mat_band.new_zeros(bsz, ntotal, ntotal)
+  for k in range(nband):
+    offset = nband - 1 - k
+    if offset >= ntotal:
+      continue
+    i = torch.arange(offset, ntotal, device=mat_band.device)
+    dense[:, i, i - offset] = mat_band[:, offset:, k]
+  if not lower_only:
+    dense = dense + torch.tril(dense, -1).transpose(1, 2)
+  return dense
+
+
+def dense_to_band(dense: torch.Tensor, nband: int) -> torch.Tensor:
+  """Packs the lower band of each dense SPD matrix (B, ntotal, ntotal)
+  into band storage (B, ntotal, nband)."""
+  bsz, ntotal, _ = dense.shape
+  band = dense.new_zeros(bsz, ntotal, nband)
+  for k in range(nband):
+    offset = nband - 1 - k
+    if offset >= ntotal:
+      continue
+    band[:, offset:, k] = torch.diagonal(dense, -offset, dim1=1, dim2=2)
+  return band

@@ -1,6 +1,6 @@
 """Batched rollouts, open loop or closed loop.
 
-Port of ``mujoco_inversedynamicstest_tpu/opt/rollout.py`` (the analog of
+Port of the JAX package's ``opt/rollout.py`` (the analog of
 ``mujoco.rollout.rollout``).  The JAX package ``vmap``s one trajectory over
 the batch and ``lax.scan``s it over time; here the trajectories are the
 lanes of one ``Data`` and time is a loop over ``step``:

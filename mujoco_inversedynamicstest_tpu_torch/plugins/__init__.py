@@ -1,4 +1,4 @@
-"""Engine plugins of the port (``mujoco_inversedynamicstest_tpu/plugins``):
+"""Engine plugins of the port (the JAX package's ``plugins``):
 the registry and the registered ports, each registering itself on import.
 
 ``mujoco.pid`` (actuator), ``mujoco.elasticity.cable`` (passive),

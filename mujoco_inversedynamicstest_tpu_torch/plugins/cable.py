@@ -1,5 +1,5 @@
 """Discrete-elastic-rod cable plugin (port of
-``mujoco_inversedynamicstest_tpu/plugins/cable.py``, C's
+the JAX package's ``plugins/cable.py``, C's
 ``mujoco.elasticity.cable``, ``plugin/elasticity/cable.cc``).
 
 Each segment body after the first carries a ball joint; the rod's

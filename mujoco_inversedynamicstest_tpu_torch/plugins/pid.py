@@ -1,4 +1,4 @@
-"""PID actuator plugin (port of ``mujoco_inversedynamicstest_tpu/plugins/
+"""PID actuator plugin (port of the JAX package's ``plugins/
 pid.py``, C's ``mujoco.pid``, ``plugin/actuator/pid.cc``).
 
 For each of the instance's actuators, ``error = ctrl - actuator_length`` and

@@ -1,6 +1,6 @@
 """Plugin registry: named factories -> per-instance hooks.
 
-Port of ``mujoco_inversedynamicstest_tpu/plugins/registry.py``, C's global
+Port of the JAX package's ``plugins/registry.py``, C's global
 plugin table (``mjp_registerPlugin`` / ``mjp_getPluginAtSlot``).  A plugin
 is registered under its MJCF extension name; ``put_model`` calls
 ``build_instances``, which turns every ``<extension><plugin>`` instance of

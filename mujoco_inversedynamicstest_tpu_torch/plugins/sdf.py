@@ -1,5 +1,5 @@
 """Analytic SDF plugin geoms (port of
-``mujoco_inversedynamicstest_tpu/plugins/sdf.py``, C's
+the JAX package's ``plugins/sdf.py``, C's
 ``plugin/sdf/{torus,bowl,nut,bolt,gear}.cc``).
 
 Each shape is a signed distance ``sdf(x)`` in the geom's own frame over

@@ -1,5 +1,5 @@
 """Mesh-SDF bridge plugin, ``mujoco.sdf.sdflib`` (port of
-``mujoco_inversedynamicstest_tpu/plugins/sdflib.py``).
+the JAX package's ``plugins/sdflib.py``).
 
 C's plugin (``plugin/sdf/sdflib.cc``) builds an SdfLib octree from a
 triangle mesh and serves its signed distances to the SDF collider.  Here,

@@ -1,5 +1,5 @@
 """Taxel-grid touch sensor plugin (port of
-``mujoco_inversedynamicstest_tpu/plugins/touch_grid.py``, C's
+the JAX package's ``plugins/touch_grid.py``, C's
 ``mujoco.sensor.touch_grid``, ``plugin/sensor/touch_grid.cc:249-374``).
 
 The contacts of the sensor site's weld body are read as 6-D forces in

@@ -17,7 +17,6 @@ iLQR settings).
 
 from __future__ import annotations
 
-import hashlib
 import importlib
 import os
 import sys
@@ -59,24 +58,15 @@ def problem():
 
 
 def key(targets, us0, kw) -> str:
-  """The hash of what the JAX package's result depends on."""
-  import jax
-  import jaxlib
-  import mujoco
+  """The hash of what the JAX package's result depends on
+  (``jax_reference.key``: the versions, the problem, the JAX package's
+  sources and the arm's MJCF)."""
+  import jax_reference
 
-  h = hashlib.sha256()
-  for v in (jax.__version__, jaxlib.__version__, mujoco.__version__,
-            repr(sorted(kw.items())), repr(QPOS), repr(ACT0)):
-    h.update(v.encode())
-  for a in (targets, us0):
-    h.update(np.ascontiguousarray(a, np.float64).tobytes())
-  package = REPO / "mujoco_inversedynamicstest_tpu"
-  for path in sorted(package.rglob("*.py")):
-    h.update(str(path.relative_to(REPO)).encode())
-    h.update(path.read_bytes())
   arm = REPO / "mujoco_inversedynamicstest_tpu_torch" / "assets"
-  h.update((arm / "tendon_arm.xml").read_bytes())
-  return h.hexdigest()
+  return jax_reference.key(
+      [repr(sorted(kw.items())), repr(QPOS), repr(ACT0), targets, us0],
+      [arm / "tendon_arm.xml"])
 
 
 def reach_cost_jax(target):
@@ -121,6 +111,7 @@ def jax_result(mj, mjds, targets, us0, kw) -> dict:
 
 def main() -> None:
   sys.path.insert(0, str(REPO))
+  sys.path.insert(0, str(HERE))
   os.environ.setdefault("JAX_PLATFORMS", "cpu")
   import jax
 

@@ -1,7 +1,8 @@
 """The PyTorch port's implicit integrators and its Newton iteration count.
 
 IMPLICIT and IMPLICITFAST steps of the Newton-100 humanoid from seeded
-floor-contact states against the vmapped JAX step (qpos to 1e-9) and, for
+floor-contact states against the vmapped JAX step (qpos to 1e-9; its
+result stored, ``tests/jax_reference.py``) and, for
 10 steps, against C ``mj_step`` lane by lane (qpos 1e-8, qvel 1e-7, the
 tolerances of ``tests/test_forward.py``); the solver's iteration count
 against C's (one iteration from a converged warm start, none without a
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_reference
 import mujoco_inversedynamicstest_tpu as mi
 import mujoco_inversedynamicstest_tpu_torch as mt
 
@@ -61,13 +63,21 @@ def c_lanes(mjm, fields):
 @pytest.mark.parametrize("integrator", ["IMPLICIT", "IMPLICITFAST"])
 def test_implicit_steps_match_jax_and_c(integrator):
   mjm = _humanoid(integrator)
-  mj, mp = mi.put_model(mjm), mt.put_model(mjm, device="cpu")
+  mp = mt.put_model(mjm, device="cpu")
   fields = contact_states(mjm)
   dp = mt.from_jax_arrays(mp, fields)
-  d0 = mi.make_data(mj)
-  dj = jax.vmap(lambda q, v, c: d0.replace(qpos=q, qvel=v, ctrl=c))(
-      fields["qpos"], fields["qvel"], fields["ctrl"])
-  dj = jax.jit(jax.vmap(mi.step, in_axes=(None, 0)))(mj, dj)
+
+  def jax_step():
+    mj = mi.put_model(mjm)
+    d0 = mi.make_data(mj)
+    dj = jax.vmap(lambda q, v, c: d0.replace(qpos=q, qvel=v, ctrl=c))(
+        fields["qpos"], fields["qvel"], fields["ctrl"])
+    return {"qpos": jax.jit(jax.vmap(mi.step, in_axes=(None, 0)))(
+        mj, dj).qpos}
+
+  jax_qpos = jax_reference.result(
+      f"integrators_{integrator.lower()}",
+      [jax_reference.model_bytes(mjm), *fields.values()], jax_step)["qpos"]
   mjds = c_lanes(mjm, fields)
   for i in range(10):
     dp = mt.step(mp, dp)
@@ -75,8 +85,8 @@ def test_implicit_steps_match_jax_and_c(integrator):
       mujoco.mj_step(mjm, mjd)
     if i == 0:
       assert bool((dp.contact.dist < dp.contact.includemargin).any())
-      np.testing.assert_allclose(dp.qpos.numpy(), np.asarray(dj.qpos),
-                                 rtol=0, atol=1e-9)
+      np.testing.assert_allclose(dp.qpos.numpy(), jax_qpos, rtol=0,
+                                 atol=1e-9)
     for lane, mjd in enumerate(mjds):
       np.testing.assert_allclose(dp.qpos[lane].numpy(), mjd.qpos, rtol=0,
                                  atol=1e-8, err_msg=f"step {i} lane {lane}")

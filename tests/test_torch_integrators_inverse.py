@@ -8,7 +8,8 @@ and the JAX package (1e-8), and recovering the applied forces of one step
 (within 1e-6, the tolerance of the reference fork's ``inverse_test``);
 RK4 refused there, as C refuses it; ``transition_ad`` under RK4 and
 IMPLICIT against C's centered finite differences (1e-6, as
-``tests/test_torch_opt.py::test_humanoid_transition_matches_c``).
+``tests/test_torch_opt.py::test_humanoid_transition_matches_c``).  The
+JAX results are stored (``tests/jax_reference.py``).
 """
 
 import torch_threads  # noqa: F401  (first: pins torch's threads)
@@ -22,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_reference
 import mujoco_inversedynamicstest_tpu as mi
 from mujoco_inversedynamicstest_tpu import opt as jopt
 import mujoco_inversedynamicstest_tpu_torch as mt
@@ -56,28 +58,38 @@ def _states(mjm, batch, seed, forces=False):
 
 @pytest.fixture(scope="module")
 def position_stage():
-  """Two floor-contact lanes after the position stage, in the port and in
-  the JAX package."""
+  """Two floor-contact lanes after the position stage in the port, their
+  MjModel and inputs."""
   mjm = _humanoid("IMPLICIT")
   fields = _states(mjm, 2, seed=1)
-  mp, mj = mt.put_model(mjm, device="cpu"), mi.put_model(mjm)
+  mp = mt.put_model(mjm, device="cpu")
   dp = mt.fwd_position(mp, mt.from_jax_arrays(mp, fields))
-  d0 = mi.make_data(mj)
-  dj = jax.vmap(lambda q, v, c: d0.replace(qpos=q, qvel=v, ctrl=c))(
-      fields["qpos"], fields["qvel"], fields["ctrl"])
-  dj = jax.jit(jax.vmap(mi.fwd_position, in_axes=(None, 0)))(mj, dj)
   assert bool((dp.contact.dist < dp.contact.includemargin).any())
-  return mp, dp, mj, dj
+  return mp, dp, mjm, fields
 
 
 @pytest.mark.parametrize("flg_bias", [True, False])
 def test_smooth_vel_deriv_matches_jax(position_stage, flg_bias):
-  mp, dp, mj, dj = position_stage
+  mp, dp, mjm, fields = position_stage
   got = derivative.smooth_vel_deriv(mp, dp, flg_bias=flg_bias)
-  ref = jax.jit(jax.vmap(lambda dd: jopt.smooth_vel_deriv(
-      mj, dd, flg_bias=flg_bias)))(dj)
+
+  def jax_qderiv():
+    mj = mi.put_model(mjm)
+    d0 = mi.make_data(mj)
+    dj = jax.vmap(lambda q, v, c: d0.replace(qpos=q, qvel=v, ctrl=c))(
+        fields["qpos"], fields["qvel"], fields["ctrl"])
+
+    def one(d):
+      return jopt.smooth_vel_deriv(mj, mi.fwd_position(mj, d),
+                                   flg_bias=flg_bias)
+
+    return {"qderiv": jax.jit(jax.vmap(one))(dj)}
+
+  ref = jax_reference.result(
+      f"smooth_vel_deriv_{flg_bias}", [jax_reference.model_bytes(mjm),
+                                       *fields.values()], jax_qderiv)
   assert got.shape == (2, mp.nv, mp.nv)
-  np.testing.assert_allclose(got.numpy(), np.asarray(ref), rtol=0,
+  np.testing.assert_allclose(got.numpy(), ref["qderiv"], rtol=0,
                              atol=1e-10)
 
 
@@ -114,17 +126,23 @@ def test_discrete_inverse_matches_c_and_jax(integrator):
   mjd.qacc[:] = np.random.RandomState(4).randn(mjm.nv)
   mujoco.mj_inverse(mjm, mjd)
 
-  mj = mi.put_model(mjm)
-  outj = jax.jit(mi.inverse)(mj, mi.put_data(mj, mjd).replace(
-      qacc=jnp.asarray(mjd.qacc)))
+  def jax_inverse():
+    mj = mi.put_model(mjm)
+    return {"qfrc_inverse": jax.jit(mi.inverse)(
+        mj, mi.put_data(mj, mjd).replace(qacc=jnp.asarray(mjd.qacc))
+    ).qfrc_inverse}
+
+  outj = jax_reference.result(
+      f"discrete_inverse_{integrator.lower()}",
+      [jax_reference.model_bytes(mjm), mjd.qacc, *fields.values()],
+      jax_inverse)
   mp = mt.put_model(mjm, device="cpu")
   outp = mt.inverse(mp, mt.put_data(mp, mjd))
 
   assert mjd.ncon > 0
   ours = outp.qfrc_inverse[0].numpy()
   np.testing.assert_allclose(ours, mjd.qfrc_inverse, rtol=0, atol=1e-8)
-  np.testing.assert_allclose(ours, np.asarray(outj.qfrc_inverse), rtol=0,
-                             atol=1e-8)
+  np.testing.assert_allclose(ours, outj["qfrc_inverse"], rtol=0, atol=1e-8)
   np.testing.assert_array_equal(outp.qacc[0].numpy(), mjd.qacc)
 
 

@@ -2,8 +2,9 @@
 
 Four seeded floor-contact lanes stepped 10 times by the port and by C
 ``mj_step`` lane by lane, and once by the vmapped JAX step (one compile,
-the module's fixture).  The first step against the JAX package (qpos to 1e-9),
-every step against C (qpos 1e-8, qvel 1e-7), and the state RK4 leaves
+the module's fixture; its result is stored, ``tests/jax_reference.py``).
+The first step against the JAX package (qpos to 1e-9), every step against
+C (qpos 1e-8, qvel 1e-7), and the state RK4 leaves
 behind against C's: qacc and qacc_warmstart within 1e-6 of max|qacc|, and
 the same solver iteration count.  There the JAX package keeps its first
 stage's fields and is far from C (ROADMAP queue 3).
@@ -16,6 +17,7 @@ import mujoco
 import numpy as np
 import pytest
 
+import jax_reference
 import mujoco_inversedynamicstest_tpu as mi
 import mujoco_inversedynamicstest_tpu_torch as mt
 
@@ -38,18 +40,26 @@ def runs():
   qpos[:, 7:] += 0.08 * rng.randn(batch, mjm.nq - 7)
   qvel, ctrl = 0.1 * rng.randn(batch, mjm.nv), 0.2 * rng.randn(batch, mjm.nu)
 
-  mp, mj = mt.put_model(mjm, device="cpu"), mi.put_model(mjm)
+  mp = mt.put_model(mjm, device="cpu")
   dp = mt.from_jax_arrays(mp, dict(qpos=qpos, qvel=qvel, ctrl=ctrl))
-  d0 = mi.make_data(mj)
-  dj = jax.vmap(lambda q, v, c: d0.replace(qpos=q, qvel=v, ctrl=c))(
-      qpos, qvel, ctrl)
+
+  def jax_step():
+    mj = mi.put_model(mjm)
+    d0 = mi.make_data(mj)
+    dj = jax.vmap(lambda q, v, c: d0.replace(qpos=q, qvel=v, ctrl=c))(
+        qpos, qvel, ctrl)
+    dj = jax.jit(jax.vmap(mi.step, in_axes=(None, 0)))(mj, dj)
+    return {f: np.asarray(getattr(dj, f)) for f in FIELDS}
+
+  jx = jax_reference.result(
+      "integrators_rk4", [jax_reference.model_bytes(mjm), qpos, qvel, ctrl],
+      jax_step)
   mjds = []
   for q, v, c in zip(qpos, qvel, ctrl):
     mjd = mujoco.MjData(mjm)
     mjd.qpos[:], mjd.qvel[:], mjd.ctrl[:] = q, v, c
     mjds.append(mjd)
 
-  dj = jax.jit(jax.vmap(mi.step, in_axes=(None, 0)))(mj, dj)
   out = {who: {f: [] for f in FIELDS} for who in ("port", "c")}
   for _ in range(STEPS):
     dp = mt.step(mp, dp)
@@ -62,8 +72,7 @@ def runs():
           for mjd in mjds]))
   assert all(mjd.ncon > 0 for mjd in mjds)
   return (*({f: np.stack(v) for f, v in out[who].items()}
-            for who in ("port", "c")),
-          {f: np.asarray(getattr(dj, f)) for f in FIELDS})
+            for who in ("port", "c")), jx)
 
 
 def test_rk4_step_matches_jax(runs):

@@ -3,7 +3,9 @@
 Transition and inverse Jacobians against C MuJoCo's ``mjd_transitionFD`` /
 ``mjd_inverseFD`` and the JAX package, at the tolerances of
 ``tests/test_opt.py``; ``box_qp`` and the ARM fleet MPC against the JAX
-package; the humanoid north-star path against C ``mj_inverse``.  The port
+package (the transitions' and the fleet MPC's JAX results are stored,
+``tests/jax_reference.py``);
+the humanoid north-star path against C ``mj_inverse``.  The port
 solves a fleet at once where the JAX package ``vmap``s one problem, so the
 JAX side is vmapped over the same numpy inputs.  ``transition_ad`` and
 ``inverse_ad`` (``vmap`` over ``jvp``, one primal a lane) are also held to
@@ -27,6 +29,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_reference
 import mujoco_inversedynamicstest_tpu as mi
 from mujoco_inversedynamicstest_tpu import opt as jopt
 from mujoco_inversedynamicstest_tpu.ops import support as jsupport
@@ -120,8 +123,17 @@ def test_transition_matches_jax_and_c(name):
   dp = mt.forward(mp, dp)
   ad = derivative.transition_ad(mp, dp)
   fd = derivative.transition_fd(mp, dp, eps=1e-7, flg_centered=True)
-  jd = jax.jit(mi.forward)(mj, dj)
-  ad_j = jax.jit(lambda dd: jopt.transition_ad(mj, dd))(jd)
+
+  def jax_transition():
+    jd = jax.jit(mi.forward)(mj, dj)
+    out = jax.jit(lambda dd: jopt.transition_ad(mj, dd))(jd)
+    return {"A": out.A, "B": out.B}
+
+  ad_j = jax_reference.result(
+      f"transition_{name}", [jax_reference.model_bytes(mjm)] + [
+          np.atleast_1d(np.array(getattr(mjd, k))) for k in (
+              "qpos", "qvel", "ctrl", "qacc_warmstart", "time")],
+      jax_transition)
 
   assert ad.A.shape == (1, nx, nx) and ad.B.shape == (1, nx, mjm.nu)
   for tr in (ad, fd):
@@ -129,10 +141,8 @@ def test_transition_matches_jax_and_c(name):
     np.testing.assert_allclose(tr.B[0].numpy(), b_c, rtol=0, atol=5e-5)
   np.testing.assert_allclose(ad.A.numpy(), fd.A.numpy(), rtol=0, atol=1e-5)
   np.testing.assert_allclose(ad.B.numpy(), fd.B.numpy(), rtol=0, atol=1e-5)
-  np.testing.assert_allclose(ad.A[0].numpy(), np.asarray(ad_j.A), rtol=0,
-                             atol=1e-9)
-  np.testing.assert_allclose(ad.B[0].numpy(), np.asarray(ad_j.B), rtol=0,
-                             atol=1e-9)
+  np.testing.assert_allclose(ad.A[0].numpy(), ad_j["A"], rtol=0, atol=1e-9)
+  np.testing.assert_allclose(ad.B[0].numpy(), ad_j["B"], rtol=0, atol=1e-9)
 
 
 def _humanoid_state(drop, name="humanoid", seed=0):
@@ -291,12 +301,21 @@ def test_arm_fleet_mpc_matches_jax_and_c():
   applied controls equal the JAX package's to 1e-9, for lin_batch None and
   3; every lane's executed torques match C mj_inverse to 1e-9."""
   mjm = mujoco.MjModel.from_xml_string(ARM)
-  mj, mp = mi.put_model(mjm), mt.put_model(mjm, device="cpu")
+  mp = mt.put_model(mjm, device="cpu")
   kw = dict(horizon=10, fleet=4, n_replan=2, ilqr_iterations=2, n_alpha=4,
             lin_batch=None, qpos_noise=0.15, qvel_noise=0.1)
-  cfg_j = jnorthstar.NorthStarConfig(**kw)
-  ref = jnorthstar.fleet_mpc_fn(mj, jnorthstar.balance_cost(mj), cfg_j)(
-      jnorthstar.make_fleet(mj, mi.make_data(mj), cfg_j))
+
+  def jax_fleet_mpc():
+    mj = mi.put_model(mjm)
+    cfg_j = jnorthstar.NorthStarConfig(**kw)
+    out = jnorthstar.fleet_mpc_fn(mj, jnorthstar.balance_cost(mj), cfg_j)(
+        jnorthstar.make_fleet(mj, mi.make_data(mj), cfg_j))
+    return {"plan_costs": out.plan_costs, "niters": out.niters,
+            "us": out.us, "qpos": out.ds.qpos}
+
+  ref = jax_reference.result(
+      "arm_fleet_mpc", [jax_reference.model_bytes(mjm),
+                        repr(sorted(kw.items()))], jax_fleet_mpc)
 
   d0 = mt.make_data(mp, 1)
   cost = northstar.balance_cost(mp)
@@ -304,13 +323,12 @@ def test_arm_fleet_mpc_matches_jax_and_c():
       mp, cost, d0, northstar.NorthStarConfig(**kw))
   assert res.n_solves == 8 and res.finite_lane_fraction == 1.0
   run = res.run
-  np.testing.assert_allclose(run.plan_costs.numpy(),
-                             np.asarray(ref.plan_costs), rtol=0, atol=1e-9)
-  np.testing.assert_array_equal(run.niters.numpy(), np.asarray(ref.niters))
-  np.testing.assert_allclose(run.us.numpy(), np.asarray(ref.us), rtol=0,
-                             atol=1e-9)
-  np.testing.assert_allclose(run.ds.qpos.numpy(), np.asarray(ref.ds.qpos),
+  np.testing.assert_allclose(run.plan_costs.numpy(), ref["plan_costs"],
                              rtol=0, atol=1e-9)
+  np.testing.assert_array_equal(run.niters.numpy(), ref["niters"])
+  np.testing.assert_allclose(run.us.numpy(), ref["us"], rtol=0, atol=1e-9)
+  np.testing.assert_allclose(run.ds.qpos.numpy(), ref["qpos"], rtol=0,
+                             atol=1e-9)
 
   cfg3 = northstar.NorthStarConfig(**{**kw, "lin_batch": 3})
   fleet = northstar.make_fleet(mp, d0, cfg3)

@@ -9,7 +9,8 @@ whole.
   dm_control's own sensor table;
 * ``forward`` and 5 ``step``s of 4 seeded upright lanes standing on their
   toes (sphere-plane contacts, closed forms in the port and C): sensordata
-  within 1e-9 of max(1, max|ref|) of the JAX package's jitted step and
+  within 1e-9 of max(1, max|ref|) of the JAX package's jitted step (its
+  result stored, ``tests/jax_reference.py``) and
   within 1e-7 of it of C's (the step's sensordata is that of the state it
   steps from), qpos after the 5 steps likewise;
 * the fp32 rangefinders of 64 of the walk task's starts against fp64: the
@@ -26,6 +27,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_reference
 import mujoco_inversedynamicstest_tpu as mi
 import mujoco_inversedynamicstest_tpu_torch as mt
 from mujoco_inversedynamicstest_tpu_torch.models.types import SensorType
@@ -107,10 +109,22 @@ def test_forward_and_steps_match_jax_and_c():
   mp = mt.put_model(mt.asset_path(f"{NAME}.npz"), device="cpu")
   d = mt.from_jax_arrays(mp, {k: np.stack([getattr(x, k) for x in mjds])
                               for k in ("qpos", "qvel", "ctrl")})
-  mj = mi.put_model(mjm)
-  dj = jax.tree_util.tree_map(lambda *x: jnp.stack(x),
-                              *[mi.put_data(mj, x) for x in mjds])
-  step_j = jax.jit(jax.vmap(mi.step, in_axes=(None, 0)))
+
+  def jax_steps():
+    mj = mi.put_model(mjm)
+    dj = jax.tree_util.tree_map(lambda *x: jnp.stack(x),
+                                *[mi.put_data(mj, x) for x in mjds])
+    step_j = jax.jit(jax.vmap(mi.step, in_axes=(None, 0)))
+    out = {}
+    for k in range(1, STEPS + 1):
+      dj = step_j(mj, dj)
+      out[f"sensordata{k}"] = dj.sensordata
+    return {**out, "qpos": dj.qpos}
+
+  ref = jax_reference.result(
+      NAME, [jax_reference.model_bytes(mjm)] + [
+          getattr(x, f) for x in mjds for f in (
+              "qpos", "qvel", "ctrl", "act", "qacc_warmstart")], jax_steps)
   rf = mjm.sensor_adr[mjm.sensor_type == SensorType.RANGEFINDER]
   seen = []
   for k in range(STEPS + 1):
@@ -119,7 +133,7 @@ def test_forward_and_steps_match_jax_and_c():
       ours = mt.forward(mp, d).sensordata.numpy()
     else:
       ours = d.sensordata.numpy()
-      jax_sd = np.asarray(dj.sensordata)
+      jax_sd = ref[f"sensordata{k}"]
       scale = max(1.0, np.abs(jax_sd).max())
       np.testing.assert_allclose(ours, jax_sd, rtol=0, atol=1e-9 * scale,
                                  err_msg=f"step {k} vs JAX")
@@ -131,9 +145,7 @@ def test_forward_and_steps_match_jax_and_c():
       for mjd in mjds:
         mujoco.mj_step(mjm, mjd)
       d = mt.step(mp, d)
-      dj = step_j(mj, dj)
-  np.testing.assert_allclose(d.qpos.numpy(), np.asarray(dj.qpos), rtol=0,
-                             atol=1e-9)
+  np.testing.assert_allclose(d.qpos.numpy(), ref["qpos"], rtol=0, atol=1e-9)
   np.testing.assert_allclose(d.qpos.numpy(), np.stack([x.qpos for x in mjds]),
                              rtol=0, atol=1e-7)
   seen = np.concatenate(seen)

@@ -26,6 +26,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_reference
 import mujoco_inversedynamicstest_tpu as mi
 from mujoco_inversedynamicstest_tpu.ops import constraint as jconstraint
 from mujoco_inversedynamicstest_tpu.ops import ray as jray
@@ -86,23 +87,35 @@ def _port_data(mp, mjds):
 @pytest.fixture(scope="module")
 def humanoid():
   """The 8 humanoid states in C, in the JAX package (one vmapped jit of
-  forward, subtree_vel, rne_postconstraint and contact_forces_frame) and
-  in the port (one fleet of 8 lanes)."""
+  forward, subtree_vel, rne_postconstraint and contact_forces_frame; its
+  result stored, ``tests/jax_reference.py``) and in the port (one fleet of
+  8 lanes)."""
   mjm = _humanoid()
   mjds = _humanoid_states(mjm)
-  mj = mi.put_model(mjm)
-  dj = jax.tree_util.tree_map(lambda *x: jnp.stack(x),
-                              *[mi.put_data(mj, d) for d in mjds])
+  names = ("sensordata", "site_xpos", "site_xmat", "linvel", "angmom",
+           "cacc", "cfrc_int", "cfrc_ext", "forces")
 
-  def stages(m, d):
-    out = mi.forward(m, d)
-    post = jsmooth.rne_postconstraint(m, out)
-    return (out.sensordata, out.site_xpos, out.site_xmat,
-            jsmooth.subtree_vel(m, out), post.cacc, post.cfrc_int,
-            post.cfrc_ext, jconstraint.contact_forces_frame(m, out))
+  def jax_stages():
+    mj = mi.put_model(mjm)
+    dj = jax.tree_util.tree_map(lambda *x: jnp.stack(x),
+                                *[mi.put_data(mj, d) for d in mjds])
 
-  jax_out = jax.tree_util.tree_map(
-      np.asarray, jax.jit(jax.vmap(stages, in_axes=(None, 0)))(mj, dj))
+    def stages(m, d):
+      out = mi.forward(m, d)
+      post = jsmooth.rne_postconstraint(m, out)
+      return (out.sensordata, out.site_xpos, out.site_xmat,
+              *jsmooth.subtree_vel(m, out), post.cacc, post.cfrc_int,
+              post.cfrc_ext, jconstraint.contact_forces_frame(m, out))
+
+    return dict(zip(names, jax.jit(jax.vmap(stages, in_axes=(None, 0)))(
+        mj, dj)))
+
+  out = jax_reference.result(
+      "sensor_humanoid", [jax_reference.model_bytes(mjm)] + [
+          np.atleast_1d(np.array(getattr(d, k))) for d in mjds
+          for k in INPUTS], jax_stages)
+  jax_out = tuple(out[k] for k in names[:3]) + (
+      (out["linvel"], out["angmom"]),) + tuple(out[k] for k in names[5:])
   mp = mt.put_model(mjm, device="cpu")
   dp = mt.forward(mp, _port_data(mp, mjds))
   return mjm, mjds, mp, dp, jax_out

@@ -6,8 +6,8 @@ floor with contacts disabled: no constraint but the joint limits, where
 the JAX package's Jacobians are right (on contact states they are not,
 ROADMAP queue 3, and tests/test_torch_sensor_derivative.py holds the port
 to C there).  This file holds the one JAX ``transition_ad`` of the humanoid
-(its trace and compile take most of the file's time), apart from the
-contact states' file.
+(its trace and compile took most of the file's time; its result is
+stored, ``tests/jax_reference.py``), apart from the contact states' file.
 """
 
 import torch_threads  # noqa: F401  (first: pins torch's threads)
@@ -16,6 +16,7 @@ import jax
 import mujoco
 import numpy as np
 
+import jax_reference
 import mujoco_inversedynamicstest_tpu as mi
 from mujoco_inversedynamicstest_tpu import opt as jopt
 import mujoco_inversedynamicstest_tpu_torch as mt
@@ -41,9 +42,17 @@ def test_sensor_jacobians_in_the_air_match_jax_and_c():
   mujoco.mj_forward(mjm, mjd)
   assert mjd.ncon == 0
 
-  mj = mi.put_model(mjm)
-  tj = jax.jit(lambda m, d: jopt.transition_ad(m, d, flg_sensor=True))(
-      mj, mi.put_data(mj, mjd))
+  def jax_transition():
+    mj = mi.put_model(mjm)
+    out = jax.jit(lambda m, d: jopt.transition_ad(m, d, flg_sensor=True))(
+        mj, mi.put_data(mj, mjd))
+    return {k: getattr(out, k) for k in "ABCD"}
+
+  tj = jax_reference.result(
+      "sensor_transition_in_the_air", [jax_reference.model_bytes(mjm)] + [
+          np.atleast_1d(np.array(getattr(mjd, k))) for k in (
+              "qpos", "qvel", "ctrl", "xfrc_applied", "qacc_warmstart",
+              "time")], jax_transition)
   mp = mt.put_model(mjm, device="cpu")
   tp = derivative.transition_ad(mp, mt.forward(mp, mt.put_data(mp, mjd)),
                                 flg_sensor=True)
@@ -52,9 +61,9 @@ def test_sensor_jacobians_in_the_air_match_jax_and_c():
   c_c, d_c = np.zeros((ns, nx)), np.zeros((ns, mjm.nu))
   mujoco.mjd_transitionFD(mjm, mjd, 1e-6, 1, None, None, c_c, None)
   mujoco.mjd_transitionFD(mjm, mjd, 1e-6, 0, None, None, None, d_c)
-  for ours, theirs, c in ((tp.A, tj.A, None), (tp.B, tj.B, None),
-                          (tp.C, tj.C, c_c), (tp.D, tj.D, d_c)):
-    ours, theirs = ours[0].numpy(), np.asarray(theirs)
+  for ours, theirs, c in ((tp.A, tj["A"], None), (tp.B, tj["B"], None),
+                          (tp.C, tj["C"], c_c), (tp.D, tj["D"], d_c)):
+    ours = ours[0].numpy()
     scale = np.abs(theirs).max()
     np.testing.assert_allclose(ours, theirs, rtol=0, atol=1e-9 * scale)
     if c is not None:

@@ -110,10 +110,11 @@ def test_model_fields_match_jax_put_model(name):
                                   "humanoid_sensors"])
 def test_snapshot_matches_vendored_xml(name, tmp_path):
   """The committed snapshot is what save_model_snapshot writes from the
-  vendored XML, and put_model gives the same Model from either."""
+  vendored XML (the humanoid's with its names: scripts/named_snapshots.py),
+  and put_model gives the same Model from either."""
   mjm = mujoco.MjModel.from_xml_path(str(mt.asset_path(f"{name}.xml")))
   fresh = tmp_path / "snap.npz"
-  mt.save_model_snapshot(mjm, fresh)
+  mt.save_model_snapshot(mjm, fresh, names=name == "humanoid")
   with np.load(mt.asset_path(f"{name}.npz")) as committed, np.load(
       fresh) as written:
     assert sorted(committed.files) == sorted(written.files)

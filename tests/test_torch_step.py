@@ -3,7 +3,8 @@
 ``forward`` from seeded states with floor contacts is compared with the JAX
 package (f64, 1e-9) and with C ``mj_forward`` at the tolerance of
 ``tests/test_humanoid.py`` (1e-6).  Fleets of four lanes are stepped beside
-the vmapped JAX step (qpos to 1e-8).
+the vmapped JAX step (qpos to 1e-8).  The JAX results are stored
+(``tests/jax_reference.py``).
 """
 
 import torch_threads  # noqa: F401  (first: pins torch's threads)
@@ -14,6 +15,7 @@ import numpy as np
 import pytest
 import torch
 
+import jax_reference
 import mujoco_inversedynamicstest_tpu as mi
 import mujoco_inversedynamicstest_tpu_torch as mt
 
@@ -21,6 +23,7 @@ INPUTS = ("qpos", "qvel", "ctrl", "qfrc_applied", "xfrc_applied", "qacc",
           "qacc_warmstart", "time")
 # lowers the root until the feet touch the floor
 DROP = 0.22
+STEPS = 20
 
 
 def _humanoid(name="humanoid"):
@@ -38,22 +41,29 @@ def test_forward_matches_jax_and_c(seed):
   mjd.qvel[:] = 0.1 * rng.randn(mjm.nv)
   mjd.ctrl[:] = 0.2 * rng.randn(mjm.nu)
 
-  mj = mi.put_model(mjm)
-  dj = mi.put_data(mj, mjd)
-  outj = jax.jit(mi.forward)(mj, dj)
+  fields = ("qacc", "efc_J", "efc_aref", "efc_force", "qfrc_constraint")
+
+  def jax_forward():
+    mj = mi.put_model(mjm)
+    out = jax.jit(mi.forward)(mj, mi.put_data(mj, mjd))
+    return {f: getattr(out, f) for f in fields + ("solver_niter",)}
+
+  outj = jax_reference.result(
+      f"forward_humanoid_{seed}", [jax_reference.model_bytes(mjm)] + [
+          np.atleast_1d(np.array(getattr(mjd, k))) for k in INPUTS],
+      jax_forward)
   mp = mt.put_model(mjm, device="cpu")
   outp = mt.forward(mp, mt.put_data(mp, mjd))
 
   ncon = int((outp.contact.dist < outp.contact.includemargin).sum())
   assert ncon > 0
-  for field in ("qacc", "efc_J", "efc_aref", "efc_force", "qfrc_constraint"):
-    np.testing.assert_allclose(getattr(outp, field)[0].numpy(),
-                               np.asarray(getattr(outj, field)), rtol=0,
-                               atol=1e-9, err_msg=field)
+  for field in fields:
+    np.testing.assert_allclose(getattr(outp, field)[0].numpy(), outj[field],
+                               rtol=0, atol=1e-9, err_msg=field)
   mujoco.mj_forward(mjm, mjd)
   # the JAX package's count, or C's where the two differ (ROADMAP queue 3)
   niter = int(outp.solver_niter[0])
-  if niter != int(outj.solver_niter):
+  if niter != int(outj["solver_niter"]):
     assert niter == mjd.solver_niter[0]
   assert ncon == mjd.ncon
   np.testing.assert_allclose(outp.qacc[0].numpy(), mjd.qacc, rtol=0, atol=1e-6)
@@ -98,7 +108,7 @@ def test_line_search_exact_minimum_follows_c():
 ])
 def test_fleet_steps_match_vmapped_jax(name, drop):
   mjm = _humanoid(name)
-  mj, mp = mi.put_model(mjm), mt.put_model(mjm, device="cpu")
+  mp = mt.put_model(mjm, device="cpu")
   batch = 4
   rng = np.random.RandomState(3)
   dq = 0.02 * rng.randn(batch, mjm.nq)
@@ -106,8 +116,22 @@ def test_fleet_steps_match_vmapped_jax(name, drop):
   dq[:, 2] -= drop
   qpos = np.asarray(mjm.qpos0)[None] + dq
   ctrl = 0.01 * rng.randn(batch, mjm.nu)
-  d0 = mi.make_data(mj)
-  dj = jax.vmap(lambda q, c: d0.replace(qpos=q, ctrl=c))(qpos, ctrl)
+
+  def jax_steps():
+    mj = mi.put_model(mjm)
+    d0 = mi.make_data(mj)
+    dj = jax.vmap(lambda q, c: d0.replace(qpos=q, ctrl=c))(qpos, ctrl)
+    vstep = jax.jit(jax.vmap(mi.step, in_axes=(None, 0)))
+    out = {}
+    for i in range(STEPS):
+      dj = vstep(mj, dj)
+      out[f"qpos{i}"] = dj.qpos
+    return {**out, "solver_niter": dj.solver_niter,
+            "solver_stat": dj.solver_stat}
+
+  jx = jax_reference.result(
+      f"fleet_steps_{name}", [jax_reference.model_bytes(mjm), qpos, ctrl],
+      jax_steps)
   dp = mt.from_jax_arrays(mp, {"qpos": qpos, "ctrl": ctrl})
   assert dp.qpos.shape == (batch, mjm.nq)
 
@@ -115,24 +139,22 @@ def test_fleet_steps_match_vmapped_jax(name, drop):
   for mjd, q, c in zip(mjds, qpos, ctrl):
     mjd.qpos[:], mjd.ctrl[:] = q, c
 
-  vstep = jax.jit(jax.vmap(mi.step, in_axes=(None, 0)))
-  for _ in range(20):
-    dj = vstep(mj, dj)
+  for i in range(STEPS):
     dp = mt.step(mp, dp)
     for mjd in mjds:
       mujoco.mj_step(mjm, mjd)
-    np.testing.assert_allclose(dp.qpos.numpy(), np.asarray(dj.qpos),
-                               rtol=0, atol=1e-8)
+    np.testing.assert_allclose(dp.qpos.numpy(), jx[f"qpos{i}"], rtol=0,
+                               atol=1e-8)
   # the port counts Newton iterations as C does (one before the first
   # convergence test, none without a constraint row); the JAX package does
   # not (ROADMAP queue 3).  Where the two counts differ, the port's is C's,
   # and a lane without iterations keeps no solver statistics.
-  niter, niter_j = dp.solver_niter.numpy(), np.asarray(dj.solver_niter)
+  niter, niter_j = dp.solver_niter.numpy(), jx["solver_niter"]
   same = niter == niter_j
   np.testing.assert_array_equal(
       niter[~same], [mjd.solver_niter[0] for mjd in np.array(mjds)[~same]])
   np.testing.assert_allclose(dp.solver_stat.numpy()[same],
-                             np.asarray(dj.solver_stat)[same], rtol=0,
+                             jx["solver_stat"][same], rtol=0,
                              atol=1e-8)
   assert not dp.solver_stat.numpy()[niter == 0].any()
   if drop:
