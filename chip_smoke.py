@@ -7,8 +7,11 @@ A full run is two processes on the card: this one runs the timed work
 and a second one it starts after phase 12 (``--checks``) runs the untimed
 fp64 checks beside it (the kernels against their plain versions in phases
 3-4, 8 and 9, phases 7, 10 and 16, and the fp64 parts of phases 6, 13, 15
-and 17-28: kernels against plain versions, inverse_tests, transition_ad
-against transition_fd).  Phases 5, 6, 9, 11 and 12 run alone.  The second
+and 17-29: kernels against plain versions, inverse_tests, transition_ad
+against transition_fd; phase 29's right after phase 10, so that its
+transition_fd does not meet the first process's hammock fleet).  The
+first process runs phases 3-4 and 8 above n = 128 last, after its timed
+work.  Phases 5, 6, 9, 11 and 12 run alone.  The second
 process's lines are printed as they come, after ``checks |``; a failure in
 either process fails the script.  Phase 6's loop is timed alone before the
 second process starts, twice while it runs and once more after it ends,
@@ -103,11 +106,12 @@ non-zero:
    new integrator with the kernels against 5 with the plain versions (<=
    1e-9).
 16. slice: inverse_test -- the reference fork's src/inverse/inverse_test.cpp
-   on the Newton-100 humanoid under RK4, 64 lanes fp64, 100 steps (the
-   fork's 200 cut to half for time): fresh qfrc_applied, xfrc_applied and
-   ctrl a step from a seeded torch.Generator at phase 7's scales, then
-   forward + compare_fwd_inv (solver_fwdinv <= 1e-6 on every lane at every
-   step), then the RK4 step.  Then the discrete inverse under IMPLICIT and
+   on the Newton-100 humanoid under RK4, 64 lanes fp64, 60 steps (the
+   fork's 200 cut to 100 for time, then to 60 for phase 29): fresh
+   qfrc_applied, xfrc_applied and ctrl a step from a seeded
+   torch.Generator at phase 7's scales, then forward + compare_fwd_inv
+   (solver_fwdinv <= 1e-6 on every lane at every step), then the RK4
+   step.  Then the discrete inverse under IMPLICIT and
    IMPLICITFAST (INVDISCRETE): 20 steps of 64 lanes, each step's (qvel' -
    qvel) / h through inverse at the state stepped from gives back qfrc_applied
    + qfrc_actuator + Jᵀ xfrc_applied within 1e-6.
@@ -355,16 +359,42 @@ non-zero:
    snapshots on CUDA tensors; a printer dump of the model and one lane
    (chiprun_out/tools_dump.txt); the band solvers at (64, 270, 27) fp64
    against the dense factor (<= 1e-9).
+29. slice: hammock -- the kernels above n = 128 (four more CUDA kernels
+   of csrc/cholesky.cu, one block a matrix, in place in device memory:
+   chol_factor_large, chol_solve_large, chol_factor_jvp_large,
+   chol_solve_jvp_large) on the hammock (assets/hammock.xml: dm_control's
+   humanoid over a pinned 11 x 11 flexcomp sheet, nv 324, whose Newton
+   Hessian and Euler's damped matrix are 324 x 324).  Phases 3-4 and 8
+   above 128 (last in the first process): the block kernels bit-equal to
+   their plain versions over n = 129-400, B = 1, 127, 256 (the JVPs at 1
+   and 8 lanes x 1, 3 and 75 tangents, both layouts, stride-0 and absent
+   tangents) and at the hammock's shapes, launching no warp kernel;
+   phase 9 holds every
+   hammock path shape.  Timed: the block kernels at (256, 324) fp32 and
+   the JVPs at (324, 4 lanes, 669 tangents) fp64 against the plain
+   versions, the library (cholesky_ex, cholesky_solve; vmap of jvp of
+   them) and the bound, and the factor at (4096, 87 / 120) fp32 beside the
+   warp kernel; the fleet of 256 fp32 lanes from C's resting state (stored
+   in assets/hammock_c.npz), 20 EULER steps: steps/s, finite lanes,
+   auto-resets, active contacts, launches a step by n, peak memory, a
+   profiled step with the block kernels' share.  Then (checks, fp64) 8
+   lanes x 5 steps with the kernels against the plain versions (<= 1e-9);
+   the contact-free forward at reset against C (qacc <= 1e-8 of
+   max|qacc|, flexvert_xpos <= 1e-12); the fork's inverse_test under RK4
+   (16 lanes x 10 steps, solver_fwdinv <= 1e-6); transition_ad of 4 lanes
+   of the contact-free scene, 669 tangents a lane, against the plain
+   versions (<= 1e-9) and transition_fd (within 1e-4 of max|A|); and, for
+   the record, qpos against C 10 and 50 steps after C's first contact.
 
 Phase 10 also runs transition_ad of the Newton-100 humanoid under RK4 and
 IMPLICIT (the qDeriv Jacobian nested in the dual step).  Every kernel
-launch of phases 6-28 must be at a shape phase 9 checked: (n, lanes,
+launch of phases 6-29 must be at a shape phase 9 checked: (n, lanes,
 dtype) of the factor, (n, lanes, columns, dtype) of the solve, (n, lanes,
 tangents, dtype) of the factor's JVP, (n, lanes, tangents, columns,
 dtype) of the solve's.  Then
 one JSON line of the kernel report (launches: the sum over the main paths,
 phases 6, 12, 15, 16, 17, 18, 19, 20, 21 (its transition_ad and its
-fleet), 22-28, each read with the counts reset before it, in
+fleet), 22-29, each read with the counts reset before it, in
 either process;
 by path beside it; the JVP kernels with the tangent counts of their phase 12
 launches), the nvidia-smi line, and the result line.  There is no CPU path: without
@@ -417,7 +447,12 @@ only the build and phase 27 (both parts), and
 
     python3 chip_smoke.py --tools
 
-only the build and phase 28 (both parts).
+only the build and phase 28 (both parts), and
+
+    python3 chip_smoke.py --hammock
+
+only the build and phase 29 (both parts, the grid above 128 and phase 9
+at the hammock's shapes included).
 """
 
 from __future__ import annotations
@@ -443,8 +478,27 @@ REPLACES = {
     "chol_solve": "mujoco_inversedynamicstest_tpu/ops/linalg.py:86",
     "chol_factor_jvp": "mujoco_inversedynamicstest_tpu/ops/linalg.py:63",
     "chol_solve_jvp": "mujoco_inversedynamicstest_tpu/ops/linalg.py:86",
+    # the block kernels above n = 128 replace no Pallas kernel: there the
+    # JAX package calls jnp.linalg.cholesky and cho_solve, and JAX
+    # differentiates them
+    "chol_factor_large": "no Pallas kernel: jnp.linalg.cholesky above n = "
+                         "128, mujoco_inversedynamicstest_tpu/ops/"
+                         "linalg.py:348, :361",
+    "chol_solve_large": "no Pallas kernel: jax.scipy.linalg.cho_solve above "
+                        "n = 128, mujoco_inversedynamicstest_tpu/ops/"
+                        "linalg.py:367, :387-389",
+    "chol_factor_jvp_large": "no Pallas kernel: JAX's JVP of "
+                             "jnp.linalg.cholesky above n = 128, "
+                             "mujoco_inversedynamicstest_tpu/ops/"
+                             "linalg.py:348, :361",
+    "chol_solve_jvp_large": "no Pallas kernel: JAX's JVP of cho_solve above "
+                            "n = 128, mujoco_inversedynamicstest_tpu/ops/"
+                            "linalg.py:367, :387-389",
 }
 KERNELS = tuple(REPLACES)
+# the warp-per-matrix kernels (n <= 128) and the block kernels above
+WARP_KERNELS = KERNELS[:4]
+LARGE_KERNELS = KERNELS[4:]
 # (fleet, lin_batch, n_apply) of the MPC phases 12 and 13, and of --bench
 MPC_HORIZON = 100
 # phase 12: F cut from 64 to 32, then to 16, and phase 13's from 16 to 8,
@@ -454,8 +508,9 @@ BENCH_CHUNK_LANES = 1024  # 512 x 2: the bench chunk, 75 tangents a lane
 FLEET, FLEET_STEPS = 4096, 100
 INTEGRATORS, INTEGRATOR_STEPS = ("EULER", "RK4", "IMPLICIT",
                                  "IMPLICITFAST"), 20
-# the fork's inverse_test steps 1 s at 0.005 s; half of it, for time
-INVERSE_TEST_STEPS, RECOVERY_STEPS = 100, 20
+# the fork's inverse_test steps 1 s at 0.005 s; 0.3 s of it, for time (0.5 s
+# until the checks process took phase 29's checks)
+INVERSE_TEST_STEPS, RECOVERY_STEPS = 60, 20
 SENSOR_STEPS = 20
 # phase 18: the models of the constraint rows, their fleet steps, and the
 # fork's inverse_test on the slider crank: the fork steps 1 s at 0.002 s,
@@ -572,6 +627,26 @@ PLUGIN_STEPS, SDF_STEPS, PLUGIN_INVERSE_STEPS = 20, 5, 20
 # the free bodies of the SDF scenes
 PLUGIN_NV = (21, 1, 2, 6)
 GRID_N, GRID_B = (1, 2, 6, 27, 32, 33, 64, 128), (1, 127, 4096)
+# phases 3-4 and 8 above n = 128 (the block kernels): n x B for the factor
+# and the solve, (B, T) for the JVPs
+LARGE_GRID_N = (129, 160, 255, 256, 257, 324, 400)
+LARGE_GRID_B = (1, 127, 256)
+LARGE_JVP_GRID = ((1, 1), (1, 3), (1, 75), (8, 1), (8, 3), (8, 75))
+# phase 29: the hammock (assets/hammock.xml: dm_control's humanoid over a
+# pinned 11 x 11 flexcomp sheet, scripts/flex_models.py; nv 324, 2 nv + nu
+# = 669 tangents), whose Newton Hessian and Euler's damped matrix are the
+# block kernels' main path: the fleet's lanes and steps (from C's resting
+# state, assets/hammock_c.npz); the fp64 checks' lanes and steps (kernels
+# against plain versions), the fork's inverse_test (RK4) and transition_ad
+# of the contact-free scene
+HAMMOCK_NV, HAMMOCK_TANGENTS = 324, 669
+HAMMOCK_FLEET, HAMMOCK_STEPS = 256, 20
+HAMMOCK_CHECK_LANES, HAMMOCK_CHECK_STEPS = 8, 5
+HAMMOCK_INVERSE_LANES, HAMMOCK_INVERSE_STEPS = 16, 10
+HAMMOCK_AD_LANES = 4
+# C's qpos after these steps from its first contact (stored), beside the
+# JAX package's own bounds for its hammock (tests/test_flex_hammock.py)
+HAMMOCK_RECORD = ((10, 0.01), (50, 0.05))
 # phase 28: the system identification's fleet, iterations and the
 # height its states are raised off the floor (at contact or at a joint
 # limit the soft rows absorb part of each actuator's force and Gauss-Newton
@@ -1165,7 +1240,8 @@ def path_shapes(mt) -> dict:
   25) ``flex_shapes``, (phase 26) ``tail_shapes``, (phase 27)
   ``plugin_shapes`` and (phase 28) ``tools_shapes``, whose solves are of
   one column; phase 24's from ``suite_shapes``, with the dual solvers'
-  nefc columns."""
+  nefc columns; phase 29's from ``hammock_shapes``, the block kernels'
+  (chol_factor_large ... chol_solve_jvp_large) among them."""
   f32 = {FLEET, BENCH_CHUNK_LANES, 75 * BENCH_CHUNK_LANES}
   jvp = {(8, 75, torch.float64), (BENCH_CHUNK_LANES, 75, torch.float32),
          (75 * BENCH_CHUNK_LANES, 1, torch.float32)}
@@ -1187,8 +1263,10 @@ def path_shapes(mt) -> dict:
             "chol_solve": {(n, b, 1, dt) for n, b, dt in primal},
             "chol_factor_jvp": jvp,
             "chol_solve_jvp": {(n, b, t, 1, dt) for n, b, t, dt in jvp}}
-  for k, more in suite_shapes(mt).items():
-    shapes[k] |= more
+  shapes.update({k: set() for k in LARGE_KERNELS})
+  for more in (suite_shapes(mt), hammock_shapes(mt)):
+    for k, v in more.items():
+      shapes[k] |= v
   return shapes
 
 
@@ -1197,54 +1275,62 @@ def shape_key(s: tuple) -> tuple:
   return (str(s[-1]),) + s[:-1]
 
 
-def check_path_kernels(mt, linalg, dev) -> dict:
-  """Phase 9: all four kernels against their plain versions, bit-equal, at
-  each shape of ``path_shapes`` (the solve at its columns, the JVP kernels
-  in both layouts); then, at the bench's chunk (1024 lanes, 75 tangents),
+def check_path_kernels(mt, linalg, dev, shapes: dict | None = None) -> dict:
+  """Phase 9: all eight kernels against their plain versions, bit-equal, at
+  each shape of ``path_shapes`` (or of ``shapes``; the solve at its
+  columns, the JVP kernels in both layouts; the block kernels called
+  directly, whatever n); then, at the bench's chunk (1024 lanes, 75 tangents),
   the JVP kernels (wrapper included), their plain versions and the
   one-call yardsticks torch.func.vmap over torch.func.jvp of
   torch.linalg.cholesky and of torch.cholesky_solve, timed in turns plain,
   kernel, library, library, kernel, plain (medians of the pairs).  Returns
   those numbers."""
   rng = np.random.default_rng(4)
-  shapes = path_shapes(mt)
+  timed = shapes is None and TIMED
+  shapes = path_shapes(mt) if shapes is None else shapes
   rhs = lambda b, n, k, lead=(): torch.as_tensor(rng.standard_normal(
       lead + (b, n) + ((k,) if k > 1 else ())), device=dev)
-  for n, b, dt in sorted(shapes["chol_factor"], key=shape_key) if CHECKS else ():
-    h = spd(rng, b, n, dev).to(dt)
-    check_kernel("chol_factor", linalg.chol_factor(h),
-                 linalg.chol_factor_ref(h),
-                 f"main-path shape n={n} B={b} {dt}")
-  for n, b, k, dt in sorted(shapes["chol_solve"], key=shape_key) if CHECKS else ():
-    l = linalg.chol_factor_ref(spd(rng, b, n, dev).to(dt))
-    x = rhs(b, n, k).to(dt)
-    check_kernel("chol_solve", linalg.chol_solve(l, x),
-                 linalg.chol_solve_ref(l, x),
-                 f"main-path shape n={n} B={b} columns={k} {dt}")
+  for sfx in ("", "_large") if CHECKS else ():
+    factor, solve = (getattr(linalg, f"chol_{k}{sfx}")
+                     for k in ("factor", "solve"))
+    for n, b, dt in sorted(shapes[f"chol_factor{sfx}"], key=shape_key):
+      h = spd(rng, b, n, dev).to(dt)
+      check_kernel(f"chol_factor{sfx}", factor(h), linalg.chol_factor_ref(h),
+                   f"main-path shape n={n} B={b} {dt}")
+    for n, b, k, dt in sorted(shapes[f"chol_solve{sfx}"], key=shape_key):
+      l = linalg.chol_factor_ref(spd(rng, b, n, dev).to(dt))
+      x = rhs(b, n, k).to(dt)
+      check_kernel(f"chol_solve{sfx}", solve(l, x),
+                   linalg.chol_solve_ref(l, x),
+                   f"main-path shape n={n} B={b} columns={k} {dt}")
   out = {}
-  bench = (27, BENCH_CHUNK_LANES, 75, torch.float32)
+  bench = (27, BENCH_CHUNK_LANES, 75, torch.float32, "")
   columns = {}
-  for n, b, t, k, dt in shapes["chol_solve_jvp"]:
-    columns.setdefault((n, b, t, dt), set()).add(k)
-  jvp = shapes["chol_factor_jvp"] | set(columns)
-  for n, b, t, dt in sorted(jvp, key=shape_key) if CHECKS else (bench,):
+  for sfx in ("", "_large"):
+    for n, b, t, k, dt in shapes[f"chol_solve_jvp{sfx}"]:
+      columns.setdefault((n, b, t, dt, sfx), set()).add(k)
+  jvp = {s + (sfx,) for sfx in ("", "_large")
+         for s in shapes[f"chol_factor_jvp{sfx}"]} | set(columns)
+  for n, b, t, dt, sfx in (sorted(jvp, key=lambda s: shape_key(s[:-1]))
+                           if CHECKS else (bench,)):
     h = spd(rng, b, n, dev).to(dt)
     dh = sym(rng, (t, b, n, n), dev).to(dt)
     l = linalg.chol_factor_ref(h)
     dl = linalg.chol_factor_jvp_ref(l, dh)
     case = f"main-path shape n={n} B={b} T={t} {dt}"
     if CHECKS:
-      if (n, b, t, dt) in shapes["chol_factor_jvp"]:
+      factor_jvp, solve_jvp = (getattr(linalg, f"chol_{k}_jvp{sfx}")
+                               for k in ("factor", "solve"))
+      if (n, b, t, dt) in shapes[f"chol_factor_jvp{sfx}"]:
         for d in (dh, lane_major(dh)):
-          check_kernel("chol_factor_jvp", linalg.chol_factor_jvp(l, d), dl,
-                       case)
-      for k in sorted(columns.get((n, b, t, dt), ())):
+          check_kernel(f"chol_factor_jvp{sfx}", factor_jvp(l, d), dl, case)
+      for k in sorted(columns.get((n, b, t, dt, sfx), ())):
         x, db = rhs(b, n, k).to(dt), rhs(b, n, k, (t,)).to(dt)
         ref = linalg.chol_solve_jvp_ref(l, dl, x, db)
         for a, c in ((dl, db), (lane_major(dl), lane_major(db))):
-          check_kernel("chol_solve_jvp", linalg.chol_solve_jvp(l, a, x, c),
+          check_kernel(f"chol_solve_jvp{sfx}", solve_jvp(l, a, x, c),
                        ref, f"{case} columns={k}")
-    if (n, b, t, dt) != bench or not TIMED:
+    if (n, b, t, dt, sfx) != bench or not timed:
       continue
     x = torch.as_tensor(rng.standard_normal((b, n)), device=dev).to(dt)
     db = torch.as_tensor(rng.standard_normal((t, b, n)), device=dev).to(dt)
@@ -1276,8 +1362,8 @@ def check_path_kernels(mt, linalg, dev) -> dict:
     return out
   fmt = lambda s: "(" + ", ".join(map(str, s[:-1])) + f") {str(s[-1])[6:]}"
   log("kernel: main-path shapes",
-      "all four kernels bit-equal to their plain versions (the JVP kernels "
-      "in both layouts): " + "; ".join(
+      f"all {sum(1 for v in shapes.values() if v)} kernels bit-equal to "
+      "their plain versions (the JVP kernels in both layouts): " + "; ".join(
           f"{k} {{{', '.join(fmt(x) for x in sorted(v, key=shape_key))}}}"
           for k, v in shapes.items()))
   return out
@@ -1422,7 +1508,7 @@ def inverse_dynamics(mt, linalg, dev) -> None:
   d = mt.compare_fwd_inv(m, mt.forward(m, d))
   launches = {"chol_factor": linalg.chol_factor.launches,
               "chol_solve": linalg.chol_solve.launches}
-  if not all(launches.values()):
+  if not launched(launches):
     raise AssertionError(f"a kernel was not launched: {launches}")
   fwdinv = d.solver_fwdinv
   if not (torch.isfinite(fwdinv).all() and bool((fwdinv <= 1e-6).all())):
@@ -1450,6 +1536,12 @@ def reset_launches(linalg) -> None:
 
 def read_launches(linalg) -> dict:
   return {k: getattr(linalg, k).launches for k in KERNELS}
+
+
+def launched(launches: dict) -> bool:
+  """Whether every warp kernel among ``launches`` (by kernel) was
+  launched: the block kernels run only above n = 128."""
+  return all(v for k, v in launches.items() if k not in LARGE_KERNELS)
 
 
 def read_tangents(linalg) -> dict:
@@ -1498,7 +1590,7 @@ def transition(mt, linalg, dev, asset: str,
   torch.cuda.synchronize()
   seconds = time.perf_counter() - t0
   launches = read_launches(linalg)
-  if not all(launches.values()):
+  if not launched(launches):
     raise AssertionError(f"a kernel was not launched: {launches}")
   with plain_cholesky(linalg):
     plain = derivative.transition_ad(m, d)
@@ -1681,7 +1773,7 @@ def mpc_fleet(mt, linalg, dev, asset: str, run: tuple,
   launches = read_launches(linalg)
   tangents = read_tangents(linalg)
   peak = torch.cuda.max_memory_allocated() / 2**30
-  if not all(launches.values()):
+  if not launched(launches):
     raise AssertionError(f"a kernel was not launched: {launches}")
   if not res.finite_lane_fraction >= 0.9:
     raise AssertionError(f"finite lanes {res.finite_lane_fraction:.3f}")
@@ -1775,7 +1867,7 @@ def mpc_reference(mt, linalg, dev) -> dict:
     run_k = northstar.fleet_mpc_fn(m, northstar.balance_cost(m), cfg)(fleet)
   launches = read_launches(linalg)
   costs = run_k.plan_costs[:, 0]
-  if not all(launches.values()):
+  if not launched(launches):
     raise AssertionError(f"a kernel was not launched: {launches}")
   if not (bool(torch.isfinite(costs).all()) and bool((costs < 1e5).all())):
     raise AssertionError(f"plan costs {costs.tolist()}")
@@ -1960,8 +2052,8 @@ def inverse_test(mt, linalg, dev) -> dict:
   torch.cuda.synchronize()
   seconds = time.perf_counter() - t0
   launches = {k: v for k, v in read_launches(linalg).items()
-              if not k.endswith("_jvp")}
-  if not all(launches.values()):
+              if not k.endswith(("_jvp", "_large"))}
+  if not launched(launches):
     raise AssertionError(f"a kernel was not launched: {launches}")
   if not bool(ok):
     raise AssertionError(f"solver_fwdinv above 1e-6: max {worst.tolist()}")
@@ -2075,7 +2167,7 @@ def sensors(mt, linalg, dev, card: str) -> dict:
             f"{name} B={FLEET} fp32: {SENSOR_STEPS} steps in {seconds:.3f} s "
             f"= {rates[name][-1]:.1f} steps/s on {card}; launches a step "
             + ", ".join(f"{k} {v / SENSOR_STEPS:g}" for k, v in
-                        launches.items() if not k.endswith("_jvp"))
+                        launches.items() if not k.endswith(("_jvp", "_large")))
             + f"; sensordata finite; touch sensors reading > 0: "
             f"{int(touching.sum())} of {touching.numel()} (lanes with one: "
             f"{int(touching.any(1).sum())}); auto-resets "
@@ -2084,8 +2176,9 @@ def sensors(mt, linalg, dev, card: str) -> dict:
         log("slice: sensors",
             f"{name} B={FLEET} fp32: {SENSOR_STEPS} steps in {seconds:.3f} s "
             f"= {rates[name][-1]:.1f} steps/s on {card}; launches a step "
-            + ", ".join(f"{k} {v / SENSOR_STEPS:g}" for k, v in
-                        launches.items() if not k.endswith("_jvp")))
+            + ", ".join(f"{k} {v / SENSOR_STEPS:g}"
+                        for k, v in launches.items()
+                        if not k.endswith(("_jvp", "_large"))))
     profiled = {}
     for name in names:
       m, d = models[name], starts[name]
@@ -2134,7 +2227,7 @@ def sensors(mt, linalg, dev, card: str) -> dict:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches(linalg)
-    if not all(launches.values()):
+    if not launched(launches):
       raise AssertionError(f"a kernel was not launched: {launches}")
     for k in KERNELS:
       total[k] += launches[k]
@@ -2225,7 +2318,7 @@ def constraint_rows(mt, linalg, dev, card: str) -> tuple[dict, dict]:
           f"{seconds:.3f} s = {FLEET * CONSTRAINT_STEPS / seconds:.1f} steps/s "
           f"on {card}; launches a step " + ", ".join(
               f"{k} {v / CONSTRAINT_STEPS:g}" for k, v in launches.items()
-              if not k.endswith("_jvp"))
+              if not k.endswith(("_jvp", "_large")))
           + f"; finite lanes {int(finite.sum())} of {FLEET}; auto-resets "
           f"{int(d.warning.sum())}; active rows a lane "
           f"{float(d.efc_active.sum(1).float().mean()):.2f}")
@@ -2271,7 +2364,7 @@ def constraint_rows(mt, linalg, dev, card: str) -> tuple[dict, dict]:
         f"solver_fwdinv [{float(worst[0]):.3e}, {float(worst[1]):.3e}] over "
         f"every lane and step (tol 1e-6); launches a step " + ", ".join(
             f"{k} {v / CRANK_INVERSE_STEPS:g}" for k, v in launches.items()
-            if not k.endswith("_jvp")))
+            if not k.endswith(("_jvp", "_large"))))
 
     # kernels against plain versions, fp64, 64 lanes, 5 steps
     errs = []
@@ -2300,7 +2393,7 @@ def constraint_rows(mt, linalg, dev, card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches(linalg)
-    if not all(launches.values()):
+    if not launched(launches):
       raise AssertionError(f"a kernel was not launched: {launches}")
     add(launches)
     with plain_cholesky(linalg):
@@ -2430,7 +2523,7 @@ def tendon_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
           f"{FLEET * TENDON_STEPS / seconds:.1f} steps/s on {card}; launches a "
           "step " + ", ".join(f"{k} {v / TENDON_STEPS:g}"
                               for k, v in launches.items()
-                              if not k.endswith("_jvp"))
+                              if not k.endswith(("_jvp", "_large")))
           + f"; finite lanes {int(finite.sum())} of {FLEET}; auto-resets "
           f"{int(d.warning.sum())}")
 
@@ -2472,7 +2565,7 @@ def tendon_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
         f"{float(worst[1]):.3e}] over every lane and step (tol 1e-6); "
         "launches a step " + ", ".join(
             f"{k} {v / ARM_INVERSE_STEPS:g}" for k, v in launches.items()
-            if not k.endswith("_jvp")))
+            if not k.endswith(("_jvp", "_large"))))
 
   if TIMED:
     # BASELINE rung 2: iLQR reach on the tendon arm
@@ -2487,7 +2580,7 @@ def tendon_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
     seconds = time.perf_counter() - t0
     launches = read_launches(linalg)
     add(launches)
-    if not all(launches.values()):
+    if not launched(launches):
       raise AssertionError(f"a kernel was not launched: {launches}")
     finite = torch.isfinite(res.cost) & torch.isfinite(res.us).flatten(1).all(1)
     dist = lambda q: (arm_hand(q) - target).norm(dim=-1)
@@ -2551,7 +2644,7 @@ def tendon_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches(linalg)
-    if not all(launches.values()):
+    if not launched(launches):
       raise AssertionError(f"a kernel was not launched: {launches}")
     add(launches)
     with plain_cholesky(linalg):
@@ -2615,8 +2708,9 @@ def contact_sets(collision, m, d) -> tuple[torch.Tensor, torch.Tensor]:
 
 def box_inverse_test(mt, linalg, dev, m, phase: str, label: str,
                      steps: int, seed: int, exact_solves: bool = True,
-                     data=None, scale: float = 0.3) -> dict:
-  """The fork's inverse_test on 64 lanes of box_stack ``m`` (fp64, RK4):
+                     data=None, scale: float = 0.3, b: int = 64) -> dict:
+  """The fork's inverse_test on ``b`` lanes (64) of box_stack ``m`` (fp64,
+  RK4):
   from convex_data's states (or ``data``'s, of the same signature), fresh
   qfrc_applied and xfrc_applied (``scale``
   randn, a torch.Generator seeded with ``seed``) every step, forward and
@@ -2628,7 +2722,6 @@ def box_inverse_test(mt, linalg, dev, m, phase: str, label: str,
   and then only solves that met the gradient test are held to 1e-6 (C
   MuJoCo's own residual on such states reaches 9.0e-5:
   tests/test_torch_elliptic.py).  Returns the kernels' launches."""
-  b = 64
   gen = torch.Generator(device=dev).manual_seed(seed)
   randn = lambda *shape: torch.randn(shape, generator=gen, device=dev,
                                      dtype=m.dtype)
@@ -2677,8 +2770,9 @@ def box_inverse_test(mt, linalg, dev, m, phase: str, label: str,
       f"solver_fwdinv [{float(worst[0]):.3e}, {float(worst[1]):.3e}] over "
       f"every lane and step (tol 1e-6){stops}; active contacts a lane "
       f"{float(active) / b / steps:.2f}; launches a step "
-      + ", ".join(f"{k} {v / steps:g}"
-                  for k, v in launches.items() if not k.endswith("_jvp")))
+      + ", ".join(f"{k} {v / steps:g}" for k, v in launches.items()
+                  if k in ("chol_factor", "chol_solve")
+                  or k in LARGE_KERNELS and v))
   return launches
 
 
@@ -2728,7 +2822,7 @@ def convex_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
           f"{seconds:.3f} s = {FLEET * CONVEX_STEPS / seconds:.1f} steps/s on "
           f"{card}; launches a step " + ", ".join(
               f"{k} {v / CONVEX_STEPS:g}" for k, v in launches.items()
-              if not k.endswith("_jvp"))
+              if not k.endswith(("_jvp", "_large")))
           + f"; finite lanes {int(finite.sum())} of {FLEET}; auto-resets "
           f"{int(d.warning.sum())}; active contacts a lane mean "
           f"{float(active.mean()):.2f}, max {int(active.max())}; peak "
@@ -2815,7 +2909,7 @@ def convex_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches(linalg)
-    if not all(launches.values()):
+    if not launched(launches):
       raise AssertionError(f"a kernel was not launched: {launches}")
     add(launches)
     with plain_cholesky(linalg):
@@ -2953,7 +3047,7 @@ def balance_slice(mt, linalg, dev, card: str) -> dict:
     if launches[k] < BALANCE_STEPS:
       raise AssertionError(f"{k} launched {launches[k]} times in the fleet")
   total = {k: launches[k] + ad_launches[k] for k in KERNELS}
-  if not all(total.values()):
+  if not launched(total):
     raise AssertionError(f"a kernel was not launched: {total}")
   finite = torch.isfinite(out.state).all(-1).all(-1)
   ok, worst = balance.balanced(m32, out.state[..., 1:1 + m32.nq], pose32)
@@ -3204,7 +3298,7 @@ def contact_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches(linalg)
-    if not all(launches.values()):
+    if not launched(launches):
       raise AssertionError(f"a kernel was not launched: {launches}")
     add(launches)
     with plain_cholesky(linalg):
@@ -3252,7 +3346,7 @@ def contact_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
           f"{out[budget][0]:.1f} steps/s; finite lanes {out[budget][1]} of "
           f"{FLEET}; auto-resets {int(d.warning.sum())}; launches a step "
           + ", ".join(f"{k} {v / BUDGET_STEPS:g}" for k, v in launches.items()
-                      if not k.endswith("_jvp")))
+                      if not k.endswith(("_jvp", "_large"))))
       if out[budget][1] != FLEET:
         raise AssertionError("sphere_budget: non-finite lanes")
     # the primal kernels at the new n: elliptic_pairs' nv and its dof blocks
@@ -3556,7 +3650,7 @@ def quadruped_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches(linalg)
-    if not all(launches.values()):
+    if not launched(launches):
       raise AssertionError(f"a kernel was not launched: {launches}")
     add(launches)
     with plain_cholesky(linalg):
@@ -3815,7 +3909,7 @@ def suite_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
         f"s = {rate:.1f} steps/s on {card}; finite lanes {int(finite.sum())} "
         f"of {FLEET}; auto-resets {resets}; launches a step " + ", ".join(
             f"{k} {v / steps:g}" for k, v in launches.items()
-            if not k.endswith("_jvp"))
+            if not k.endswith(("_jvp", "_large")))
         + f"; peak {peak:.3f} GiB; {count_text(counts)}{energy}")
     if not bool(finite.all()) or resets:
       raise AssertionError(f"{label}: {int((~finite).sum())} non-finite "
@@ -3909,7 +4003,7 @@ def suite_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
       torch.cuda.synchronize()
       seconds = time.perf_counter() - t0
       launches = read_launches(linalg)
-      if not all(launches.values()):
+      if not launched(launches):
         raise AssertionError(f"a kernel was not launched: {launches}")
       add(launches)
       with plain_cholesky(linalg):
@@ -4126,7 +4220,7 @@ def flex_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
           f"{int(finite.sum())} of {FLEET}; auto-resets {resets}; active "
           f"slots a lane {active:.2f}; launches a step " + ", ".join(
               f"{k} {v / steps:g}" for k, v in launches.items()
-              if not k.endswith("_jvp"))
+              if not k.endswith(("_jvp", "_large")))
           + f"; peak {peak:.3f} GiB; a step {step_ms:.3f} device ms / "
           f"{step_launches} launches; {col}")
       if not bool(finite.all()) or resets:
@@ -4198,7 +4292,7 @@ def flex_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
       torch.cuda.synchronize()
       seconds = time.perf_counter() - t0
       launches = read_launches(linalg)
-      if not all(launches.values()):
+      if not launched(launches):
         raise AssertionError(f"a kernel was not launched: {launches}")
       add(launches)
       with plain_cholesky(linalg):
@@ -4337,7 +4431,7 @@ def tail_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
           f"{seconds:.3f} s = {rates[name][-1]:.1f} steps/s on {card}; "
           "launches a step " + ", ".join(
               f"{k} {v / RANGEFINDER_STEPS:g}" for k, v in launches.items()
-              if not k.endswith("_jvp"))
+              if not k.endswith(("_jvp", "_large")))
           + f"; finite lanes {int(finite.sum())} of {FLEET}; auto-resets "
           f"{int(d.warning.sum())}" + extra)
     med = {name: float(np.median(r)) for name, r in rates.items()}
@@ -4384,7 +4478,7 @@ def tail_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
           f"steps/s on {card}; finite lanes {int(finite.sum())} of {FLEET}; "
           f"auto-resets {int(d.warning.sum())}; launches a step " + ", ".join(
               f"{k} {v / TRANSMISSION_STEPS:g}" for k, v in launches.items()
-              if not k.endswith("_jvp")) + extra)
+              if not k.endswith(("_jvp", "_large"))) + extra)
     m = model("quadruped_rangefinder", torch.float32)
     for k, v in time_kernels(linalg, dev, m.nv).items():
       times.setdefault(k, {}).setdefault("by_shape", {})[
@@ -4451,7 +4545,7 @@ def tail_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches(linalg)
-    if not all(launches.values()):
+    if not launched(launches):
       raise AssertionError(f"a kernel was not launched: {launches}")
     add(launches)
     with plain_cholesky(linalg):
@@ -4660,7 +4754,7 @@ def plugin_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
           f"{int(finite.sum())} of {FLEET}; auto-resets {resets}; launches "
           "a step " + ", ".join(
               f"{k} {v / steps:g}" for k, v in launches.items()
-              if not k.endswith("_jvp"))
+              if not k.endswith(("_jvp", "_large")))
           + f"; peak {peak:.3f} GiB; a step {step_ms:.3f} device ms / "
           f"{step_launches} launches" + extra)
       if not bool(finite.all()) or resets:
@@ -4783,7 +4877,7 @@ def plugin_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = read_launches(linalg)
-    if not all(launches.values()):
+    if not launched(launches):
       raise AssertionError(f"a kernel was not launched: {launches}")
     add(launches)
     with plain_cholesky(linalg):
@@ -4947,7 +5041,8 @@ def tools_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
     # a control moves neither M nor the Newton Hessian (each a function of
     # the position and the active rows): the factor's tangent is zero and
     # only the MPC below launches its JVP kernel
-    if not all(v for k, v in launches.items() if k != "chol_factor_jvp"):
+    if not launched({k: v for k, v in launches.items()
+                     if k != "chol_factor_jvp"}):
       raise AssertionError(f"a kernel was not launched: {launches}")
     for k, v in time_kernels(linalg, dev, 27, SYSID_LANES).items():
       times.setdefault(k, {}).setdefault("by_shape", {})[
@@ -4965,7 +5060,7 @@ def tools_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
         fleet_per_device=TOOLS_MPC_FLEET)
     launches = read_launches(linalg)
     add(launches)
-    if not all(total.values()):
+    if not launched(total):
       raise AssertionError(f"a kernel was not launched: {total}")
     p = point.points[0]
     log(phase,
@@ -5152,6 +5247,518 @@ def tools_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
   return total, times
 
 
+# ---------------------------------------------------------------------------
+# phase 29: the hammock, and the kernels above n = 128
+# ---------------------------------------------------------------------------
+
+
+def check_large_kernels(linalg, dev) -> dict:
+  """Phases 3-4 and 8 above n = 128: the block kernels against their
+  plain versions, bit-equal, through the public functions (the dispatch
+  sends every CUDA n > 128 to them): the factor and the solve (one and
+  three columns) over LARGE_GRID_N x LARGE_GRID_B x fp32/fp64, the JVPs
+  over LARGE_GRID_N x LARGE_JVP_GRID x fp32/fp64, tangent-major,
+  lane-major and single-tangent, at 3 tangents also stride-0 and absent
+  tangents; then the fleet's (256, 324) fp32 and the linearization's (324,
+  4 lanes, 669 tangents) fp64.  Each (B, T) case takes the first B lanes
+  and T tangents of one draw a (n, dtype), and its reference is the same
+  slice of the plain version's output on the whole draw: the plain
+  versions compute every lane, column and tangent on its own, so the
+  slice is bit for bit the plain version of the slice, at a few plain
+  calls a (n, dtype).  Every call launches its block kernel once and no
+  warp kernel.  Returns the max abs error at the hammock's two shapes."""
+  rng = np.random.default_rng(29)
+  warp = read_launches(linalg)
+  calls = dict.fromkeys(LARGE_KERNELS, 0)
+  worst = dict.fromkeys(LARGE_KERNELS, 0.0)
+
+  def check(name, got, ref, case):
+    worst[name] = max(worst[name], check_kernel(name, got, ref, case))
+    calls[name] += 1
+    return float((got - ref).abs().max())
+
+  def jvps(l, dh, x, db, grid, case, every_case):
+    """The JVP kernels at each (B, T) of ``grid`` on the leading slices of
+    (L, dH, x, db) against the plain versions' outputs' slices; returns
+    the largest abs errors."""
+    dl = linalg.chol_factor_jvp_ref(l, dh)
+    dx = linalg.chol_solve_jvp_ref(l, dl, x, db)
+    extra = {}
+    if every_case:
+      b3 = max(b for b, t in grid if t == 3)
+      l3, x3, dl3, db3 = l[:b3], x[:b3], dl[:3, :b3], db[:3, :b3]
+      extra = {name: linalg.chol_solve_jvp_ref(l3, a, x3, c)
+               for name, a, c in (("dL stride-0", dl3[0], db3),
+                                  ("db stride-0", dl3, db3[0]),
+                                  ("dL absent", None, db3),
+                                  ("db absent", dl3, None))}
+    errs = [0.0, 0.0]
+    for b, t in grid:
+      lb, xb, dhb, dlb, dbb, dxb = (l[:b], x[:b], dh[:t, :b], dl[:t, :b],
+                                    db[:t, :b], dx[:t, :b])
+      where = f"{case} B={b} T={t}"
+      fcases = [("tangent-major", dhb, dlb),
+                ("lane-major", lane_major(dhb), dlb),
+                ("single", dhb[0], dlb[0])]
+      scases = [("tangent-major", dlb, dbb, dxb),
+                ("lane-major", lane_major(dlb), lane_major(dbb), dxb),
+                ("single", dlb[0], dbb[0], dxb[0])]
+      if every_case and t == 3:
+        fcases.append(("stride-0", dhb[:1].expand(dhb.shape),
+                       dlb[:1].expand(dlb.shape)))
+        scases += [(name, a, c, extra[name][..., :b, :]) for name, a, c in (
+            ("dL stride-0", dlb[0], dbb), ("db stride-0", dlb, dbb[0]),
+            ("dL absent", None, dbb), ("db absent", dlb, None))]
+      for name, d, ref in fcases:
+        errs[0] = max(errs[0], check("chol_factor_jvp_large",
+                                     linalg.chol_factor_jvp(lb, d), ref,
+                                     f"{where} {name}"))
+      for name, a, c, ref in scases:
+        errs[1] = max(errs[1], check("chol_solve_jvp_large",
+                                     linalg.chol_solve_jvp(lb, a, xb, c), ref,
+                                     f"{where} {name}"))
+    return errs
+
+  bmax = max(LARGE_GRID_B)
+  jb, jt = (max(v) for v in zip(*LARGE_JVP_GRID))
+  for n in LARGE_GRID_N:
+    h64 = spd(rng, bmax, n, dev)
+    rhs64 = torch.as_tensor(rng.standard_normal((bmax, n, 3)), device=dev)
+    for dt in (torch.float32, torch.float64):
+      h, rhs = h64.to(dt), rhs64.to(dt)
+      l = linalg.chol_factor_ref(h)
+      x = linalg.chol_solve_ref(l, rhs)
+      for b in LARGE_GRID_B:
+        case = f"n={n} B={b} {dt}"
+        check("chol_factor_large", linalg.chol_factor(h[:b]), l[:b], case)
+        for r, ref in ((rhs[:b, :, 0], x[:b, :, 0]), (rhs[:b], x[:b])):
+          check("chol_solve_large", linalg.chol_solve(l[:b], r), ref,
+                f"{case} rhs{tuple(r.shape)}")
+    h64, dh64 = spd(rng, jb, n, dev), sym(rng, (jt, jb, n, n), dev)
+    x64 = torch.as_tensor(rng.standard_normal((jb, n)), device=dev)
+    db64 = torch.as_tensor(rng.standard_normal((jt, jb, n)), device=dev)
+    for dt in (torch.float32, torch.float64):
+      h, dh, x, db = (v.to(dt) for v in (h64, dh64, x64, db64))
+      jvps(linalg.chol_factor_ref(h), dh, x, db, LARGE_JVP_GRID,
+           f"n={n} {dt}", every_case=True)
+
+  # the main path's shapes: the fleet's, and transition_ad's
+  n, b = HAMMOCK_NV, HAMMOCK_FLEET
+  h = spd(rng, b, n, dev).float()
+  l = linalg.chol_factor_ref(h)
+  rhs = torch.as_tensor(rng.standard_normal((b, n)), device=dev).float()
+  slice_err = {
+      "chol_factor_large": check("chol_factor_large", linalg.chol_factor(h),
+                                 l, "the fleet's shape"),
+      "chol_solve_large": check("chol_solve_large", linalg.chol_solve(l, rhs),
+                                linalg.chol_solve_ref(l, rhs),
+                                "the fleet's shape")}
+  b, t = HAMMOCK_AD_LANES, HAMMOCK_TANGENTS
+  l = linalg.chol_factor_ref(spd(rng, b, n, dev))
+  x = torch.as_tensor(rng.standard_normal((b, n)), device=dev)
+  db = torch.as_tensor(rng.standard_normal((t, b, n)), device=dev)
+  (slice_err["chol_factor_jvp_large"],
+   slice_err["chol_solve_jvp_large"]) = jvps(
+       l, sym(rng, (t, b, n, n), dev), x, db, ((b, t),),
+       "the linearization's shape", every_case=False)
+
+  launches = read_launches(linalg)
+  if any(launches[k] != warp[k] for k in WARP_KERNELS):
+    raise AssertionError("a warp kernel was launched above n = 128")
+  if any(launches[k] != warp[k] + calls[k] for k in LARGE_KERNELS):
+    raise AssertionError(f"block kernel launches {launches}, expected one a "
+                         f"call: {calls}")
+  for name in LARGE_KERNELS:
+    log(f"kernel: {name}",
+        f"{calls[name]} cases (n={LARGE_GRID_N} x "
+        + (f"B={LARGE_GRID_B}" if not name.endswith("jvp_large") else
+           f"(B, T)={LARGE_JVP_GRID}") + " x fp32/fp64"
+        + (", rhs (B,n) and (B,n,3)" if name == "chol_solve_large" else
+           ": tangent-major, lane-major and single-tangent operands, at T = "
+           "3 also stride-0" + (" and absent dL and db"
+                                if name == "chol_solve_jvp_large" else "")
+           if name.endswith("jvp_large") else "")
+        + ", and the hammock's shape): all bit-equal to the plain version, "
+        f"one block-kernel launch a call, no warp kernel; max rel err "
+        f"{worst[name]:.3e} (tol fp32 1e-4, fp64 1e-12)")
+  return slice_err
+
+
+def hammock_model(mt, dev, dtype, contact: bool = True,
+                  integrator: str | None = None):
+  """put_model of the hammock's snapshot, without contacts
+  (``mjDSBL_CONTACT`` set in the snapshot's Mapping) or under another
+  integrator where asked."""
+  from mujoco_inversedynamicstest_tpu_torch.models.types import (
+      DisableBit,
+      IntegratorType,
+  )
+
+  with np.load(mt.asset_path("hammock.npz")) as z:
+    snap = {k: z[k] for k in z.files}
+  if not contact:
+    snap["opt_disableflags"] = np.array(
+        int(snap["opt_disableflags"]) | int(DisableBit.CONTACT))
+  if integrator is not None:
+    snap["opt_integrator"] = np.array(int(IntegratorType[integrator]))
+  m = mt.put_model(snap, device=dev, dtype=dtype)
+  if m.nv != HAMMOCK_NV or 2 * m.nv + m.na + m.nu != HAMMOCK_TANGENTS:
+    raise AssertionError(f"the hammock has nv {m.nv}, nu {m.nu}")
+  return m
+
+
+def hammock_c(mt) -> dict:
+  """C MuJoCo's runs of the hammock, stored (scripts/flex_models.py:
+  hammock_c_reference): the card has no mujoco."""
+  with np.load(mt.asset_path("hammock_c.npz")) as z:
+    return {k: z[k] for k in z.files}
+
+
+def hammock_data(mt, m, batch: int, seed: int | None, state: str = "rest"):
+  """C's state ``state`` (``rest``: 2 s after reset, the humanoid lying in
+  the sheet; ``contact``: the first step with a contact) on every lane,
+  its warm start too, moved (unless ``seed`` is None) by 0.005 randn in
+  each dof's tangent direction and 0.05 randn of velocity, from a seeded
+  numpy generator."""
+  c = hammock_c(mt)
+  lanes = lambda k: torch.as_tensor(
+      np.repeat(c[f"{state}_{k}"][None], batch, 0), dtype=m.dtype,
+      device=m.device)
+  d = mt.make_data(m, batch).replace(
+      qpos=lanes("qpos"), qvel=lanes("qvel"),
+      qacc_warmstart=lanes("qacc_warmstart"))
+  if seed is None:
+    return d
+  rng = np.random.RandomState(seed)
+  t = lambda: torch.as_tensor(rng.randn(batch, m.nv), dtype=m.dtype,
+                              device=m.device)
+  return d.replace(qpos=mt.integrate_pos(m, d.qpos, 0.005 * t(), 1.0),
+                   qvel=d.qvel + 0.05 * t())
+
+
+def hammock_shapes(mt) -> dict:
+  """Phase 29's launches, by kernel, as ``path_shapes`` keys them.  Each
+  run of ``B`` lanes factors (and solves) the Newton Hessian and Euler's
+  damped matrix at n = 324 (the block kernels) and M by its dof blocks, 27
+  and 3 (the warp kernels, the 99 vertex blocks folded into one batch):
+  the fleet (256 fp32), the fp64 steps (8), the contact-free forward and
+  the record run (1), the inverse_test (16), transition_ad (4 lanes, its
+  JVPs at 669 tangents) and transition_fd (4 x 1339 copies).  The
+  timings: the block kernels at (256, 324) fp32 and (324, 4, 669) fp64,
+  the factor's at (4096, 87) and (4096, 120) fp32 beside the warp
+  kernel's."""
+  n, t = HAMMOCK_NV, HAMMOCK_TANGENTS
+  runs = {(HAMMOCK_FLEET, torch.float32)} | {
+      (b, torch.float64) for b in (
+          HAMMOCK_CHECK_LANES, 1, HAMMOCK_INVERSE_LANES, HAMMOCK_AD_LANES,
+          HAMMOCK_AD_LANES * (2 * t + 1))}
+  primal = {(sz, b * k, dt) for b, dt in runs for sz, k in ((27, 1), (3, 99))}
+  primal |= {(sz, 4096, torch.float32) for sz in (87, 120)}
+  large = {(n, b, dt) for b, dt in runs}
+  jvp = {(sz, HAMMOCK_AD_LANES * k, t, torch.float64)
+         for sz, k in ((27, 1), (3, 99))}
+  return {
+      "chol_factor": primal,
+      "chol_solve": {(sz, b, 1, dt) for sz, b, dt in primal},
+      "chol_factor_jvp": jvp,
+      "chol_solve_jvp": {(sz, b, tt, 1, dt) for sz, b, tt, dt in jvp},
+      "chol_factor_large": large | {(sz, 4096, torch.float32)
+                                    for sz in (87, 120)},
+      "chol_solve_large": {(n, b, 1, dt) for b, dt in runs},
+      "chol_factor_jvp_large": {(n, HAMMOCK_AD_LANES, t, torch.float64)},
+      "chol_solve_jvp_large": {(n, HAMMOCK_AD_LANES, t, 1, torch.float64)}}
+
+
+def time_large_kernels(linalg, dev) -> dict:
+  """Phase 29's timings: the block kernels (wrapper included), their plain
+  versions and the library call, in turns plain, kernel, library,
+  library, kernel, plain (medians of the pairs), beside the bound: the
+  factor and a one-column solve at the fleet's (256, 324) fp32
+  (``torch.linalg.cholesky_ex``, ``torch.cholesky_solve``; bytes and
+  operations as ``time_kernels`` counts them), the JVPs at the
+  linearization's (324, 4 lanes, 669 tangents) fp64 (the vmap-of-jvp
+  yardstick; ``jvp_work``).  Then, for the record, the factor's block
+  kernel at (4096, 87) and (4096, 120) fp32 beside the warp kernel that
+  the dispatch keeps there and ``cholesky_ex``."""
+  rng = np.random.default_rng(30)
+  n, b = HAMMOCK_NV, HAMMOCK_FLEET
+  h = spd(rng, b, n, dev).float()
+  rhs = torch.as_tensor(rng.standard_normal((b, n)), device=dev).float()
+  l = linalg.chol_factor_ref(h)
+  tri = b * n * (n + 1) // 2
+  out = {}
+  for name, kern, plain, library, (nbytes, flops) in (
+      ("chol_factor_large", lambda: linalg.chol_factor(h),
+       lambda: linalg.chol_factor_ref(h),
+       lambda: torch.linalg.cholesky_ex(h),
+       ((tri + h.numel()) * 4, b * n**3 / 3)),
+      ("chol_solve_large", lambda: linalg.chol_solve(l, rhs),
+       lambda: linalg.chol_solve_ref(l, rhs),
+       lambda: torch.cholesky_solve(rhs[..., None], l),
+       ((tri + 2 * rhs.numel()) * 4, 2 * b * n * n))):
+    p1, k1, y1, y2, k2, p2 = (time_ms(f, reps=5) for f in (
+        plain, kern, library, library, kern, plain))
+    bound, bound_by = bound_ms(nbytes, flops)
+    out[name] = {"ms": float(np.median([k1, k2])),
+                 "plain_ms": float(np.median([p1, p2])),
+                 "bound_ms": bound, "bound_by": bound_by,
+                 "library_ms": float(np.median([y1, y2]))}
+
+  b, t = HAMMOCK_AD_LANES, HAMMOCK_TANGENTS
+  h = spd(rng, b, n, dev)
+  dh = sym(rng, (t, b, n, n), dev)
+  l = linalg.chol_factor_ref(h)
+  dl = linalg.chol_factor_jvp_ref(l, dh)
+  x = torch.as_tensor(rng.standard_normal((b, n)), device=dev)
+  db = torch.as_tensor(rng.standard_normal((t, b, n)), device=dev)
+  work = jvp_work(n, b, t, 8)
+  vj = lambda f, p, tg: torch.func.vmap(
+      lambda *u: torch.func.jvp(f, p, u)[1])(*tg)
+  for name, kern, plain, library in (
+      ("chol_factor_jvp_large", lambda: linalg.chol_factor_jvp(l, dh),
+       lambda: linalg.chol_factor_jvp_ref(l, dh),
+       lambda: vj(torch.linalg.cholesky, (h,), (dh,))),
+      ("chol_solve_jvp_large", lambda: linalg.chol_solve_jvp(l, dl, x, db),
+       lambda: linalg.chol_solve_jvp_ref(l, dl, x, db),
+       lambda: vj(lambda a, r: torch.cholesky_solve(r, a),
+                  (l, x[..., None]), (dl, db[..., None])))):
+    p1, k1, y1, y2, k2, p2 = (time_ms(f, reps=2) for f in (
+        plain, kern, library, library, kern, plain))
+    bound, bound_by = bound_ms(*work[name[:-6]], fp64=True)
+    out[name] = {"ms": float(np.median([k1, k2])),
+                 "plain_ms": float(np.median([p1, p2])),
+                 "bound_ms": bound, "bound_by": bound_by,
+                 "library_ms": float(np.median([y1, y2]))}
+  del dh, dl
+  shape = {k: "(256, 324) fp32" if "jvp" not in k else
+           "(324, 4 lanes, 669 tangents) fp64" for k in out}
+  log("timing: block kernels", "ms kernel / plain / library (JVPs: the "
+      "vmap-of-jvp yardstick) / bound: " + ", ".join(
+          f"{k} at {shape[k]} {v['ms']:.4f} / {v['plain_ms']:.4f} / "
+          f"{v['library_ms']:.4f} / {v['bound_ms']:.4f} ({v['bound_by']}; "
+          "kernel at "
+          f"{v['bound_ms'] / v['ms']:.1%} of it)" for k, v in out.items()))
+
+  record = []
+  for n in (87, 120):
+    h = spd(rng, 4096, n, dev).float()
+    k1, w1, y1, y2, w2, k2 = (time_ms(f, reps=10) for f in (
+        lambda: linalg.chol_factor_large(h), lambda: linalg.chol_factor(h),
+        lambda: torch.linalg.cholesky_ex(h), lambda: torch.linalg.cholesky_ex(
+            h), lambda: linalg.chol_factor(h),
+        lambda: linalg.chol_factor_large(h)))
+    record.append(f"(4096, {n}) fp32 block {np.median([k1, k2]):.4f} / warp "
+                  f"{np.median([w1, w2]):.4f} / cholesky_ex "
+                  f"{np.median([y1, y2]):.4f}")
+  log("timing: block kernels", "for the record, the factor in ms (the "
+      "dispatch keeps the warp kernel at n <= 128): " + "; ".join(record))
+  return out
+
+
+def launches_by_n(linalg, steps: int) -> str:
+  """Each kernel's launches a step since the counts were last reset, by n
+  (read before the next reset)."""
+  rows = []
+  for k in KERNELS:
+    by_n = {}
+    for s, c in getattr(linalg, k).shapes.items():
+      by_n[s[0]] = by_n.get(s[0], 0) + c
+    if by_n:
+      rows.append(f"{k} " + " ".join(f"n={n}: {c / steps:g}"
+                                     for n, c in sorted(by_n.items())))
+  return "; ".join(rows)
+
+
+def hammock_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
+  """Phase 29: the hammock.  Timed: the block kernels (``time_large_kernels``);
+  the fleet of HAMMOCK_FLEET fp32 lanes from C's resting state (0.005
+  position and 0.05 velocity noise), HAMMOCK_STEPS EULER steps after a
+  warm-up step: steps/s, finite lanes, auto-resets, active contacts a
+  lane, each kernel's launches a step by n (the n = 324 factor among
+  them), peak memory, and a profiled step's device ms and launches with
+  the block kernels' share.  Checks (fp64): HAMMOCK_CHECK_LANES lanes x
+  HAMMOCK_CHECK_STEPS steps with the kernels against the plain versions;
+  the contact-free forward at reset against C's (stored); the fork's
+  inverse_test under RK4 from the resting state; transition_ad of the
+  contact-free scene against the plain versions and transition_fd; and,
+  for the record, qpos against C after 10 and 50 steps from C's first
+  contact.  Returns the kernels' launches of these runs and the
+  timings."""
+  from mujoco_inversedynamicstest_tpu_torch.opt import derivative
+
+  t_phase = time.perf_counter()
+  phase = "slice: hammock"
+  total = dict.fromkeys(KERNELS, 0)
+  times = {}
+
+  def add(launches):
+    for k in KERNELS:
+      total[k] += launches[k]
+
+  if TIMED:
+    times = time_large_kernels(linalg, dev)
+    m = hammock_model(mt, dev, torch.float32)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    d = mt.step(m, hammock_data(mt, m, HAMMOCK_FLEET, seed=29))  # warm-up
+    torch.cuda.synchronize()
+    reset_launches(linalg)
+    t0 = time.perf_counter()
+    d = mt.step_n(m, d, HAMMOCK_STEPS)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    by_n = launches_by_n(linalg, HAMMOCK_STEPS)
+    factor_324 = linalg.chol_factor_large.shapes[
+        (HAMMOCK_NV, HAMMOCK_FLEET, torch.float32)]
+    launches = read_launches(linalg)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    add(launches)
+    finite = torch.isfinite(d.qpos).all(1) & torch.isfinite(d.qvel).all(1)
+    resets = int(d.warning.sum())
+    active = float((d.contact.dist < d.contact.includemargin).sum(1).float()
+                   .mean())
+    events = device_events(lambda: mt.step(m, d))
+    step_ms = sum(e.device_time_total for e in events) / 1e3
+    step_launches = sum(e.count for e in events)
+    per = {k: sum(e.device_time_total for e in events
+                  if f"{k}_kernel" in e.key) for k in LARGE_KERNELS}
+    large_ms = sum(per.values()) / 1e3
+    top = sorted(events, key=lambda e: -e.device_time_total)[:6]
+    log(phase,
+        f"hammock (nv {m.nv}) B={HAMMOCK_FLEET} fp32 {HAMMOCK_STEPS} EULER "
+        f"steps in {seconds:.3f} s = "
+        f"{HAMMOCK_FLEET * HAMMOCK_STEPS / seconds:.1f} steps/s on {card}; "
+        f"finite lanes {int(finite.sum())} of "
+        f"{HAMMOCK_FLEET}; auto-resets {resets}; active contacts a lane "
+        f"{active:.2f}; launches a step by n: {by_n}; peak {peak:.3f} GiB; "
+        f"a profiled step {step_ms:.3f} device ms / {step_launches} "
+        f"launches, the block kernels {large_ms:.3f} ms = "
+        f"{large_ms / step_ms:.1%} of it (" + ", ".join(
+            f"{k} {us / 1e3:.3f} ms" for k, us in per.items() if us)
+        + "); its largest device items: " + "; ".join(
+            f"{e.key[:70]} {e.count} x {e.device_time_total / e.count:.1f} µs"
+            f" = {e.device_time_total / 1e3 / step_ms:.1%}" for e in top))
+    if not bool(finite.all()):
+      raise AssertionError(f"hammock: {int((~finite).sum())} non-finite lanes")
+    if not factor_324:
+      raise AssertionError("the n = 324 factor was not launched")
+    if not all(launches[k] for k in ("chol_factor", "chol_solve",
+                                     "chol_factor_large", "chol_solve_large")):
+      raise AssertionError(f"a kernel was not launched: {launches}")
+    del d
+
+  if CHECKS:
+    c = hammock_c(mt)
+    # kernels against plain versions: fp64 steps from the resting state
+    m = hammock_model(mt, dev, torch.float64)
+    d0 = hammock_data(mt, m, HAMMOCK_CHECK_LANES, seed=31)
+    reset_launches(linalg)
+    d = mt.step_n(m, d0, HAMMOCK_CHECK_STEPS)
+    torch.cuda.synchronize()
+    launches = read_launches(linalg)
+    add(launches)
+    with plain_cholesky(linalg):
+      dp = mt.step_n(m, d0, HAMMOCK_CHECK_STEPS)
+    err = max(float((d.qpos - dp.qpos).abs().max()),
+              float((d.qvel - dp.qvel).abs().max()))
+    log(phase, f"{HAMMOCK_CHECK_LANES} lanes fp64 x {HAMMOCK_CHECK_STEPS} "
+        f"steps, kernels against plain versions: max |dqpos|, |dqvel| "
+        f"{err:.3e} (tol 1e-9); launches {launches}")
+    if not err <= 1e-9 or not launches["chol_factor_large"]:
+      raise AssertionError(f"hammock kernels vs plain: {err:.3e}, "
+                           f"{launches}")
+
+    # the contact-free forward at reset against C's
+    m = hammock_model(mt, dev, torch.float64, contact=False)
+    reset_launches(linalg)
+    f = mt.forward(m, mt.make_data(m, 1))
+    add(read_launches(linalg))
+    scale = max(1.0, float(np.abs(c["reset_qacc"]).max()))
+    e_qacc = float(np.abs(f.qacc[0].cpu().numpy() - c["reset_qacc"]).max())
+    e_vert = float(np.abs(f.flexvert_xpos[0].cpu().numpy()
+                          - c["reset_flexvert_xpos"]).max())
+    log(phase, f"contact-free forward at reset against C: max |dqacc| "
+        f"{e_qacc:.3e} = {e_qacc / scale:.3e} of max|qacc| (tol 1e-8), max "
+        f"|dflexvert_xpos| {e_vert:.3e} (tol 1e-12); {int(f.efc_active.sum())}"
+        " active rows (C's 300)")
+    if not (e_qacc <= 1e-8 * scale and e_vert <= 1e-12):
+      raise AssertionError("hammock forward differs from C")
+
+    # the fork's inverse_test, RK4, from the resting state: fresh forces
+    # a step, 0.01 randn (a vertex weighs 16.5 g)
+    m = hammock_model(mt, dev, torch.float64, integrator="RK4")
+    launches = box_inverse_test(
+        mt, linalg, dev, m, phase, "hammock", HAMMOCK_INVERSE_STEPS, seed=32,
+        data=lambda mt, m, b, seed: hammock_data(mt, m, b, seed), scale=0.01,
+        b=HAMMOCK_INVERSE_LANES)
+    add(launches)
+    if not launches["chol_factor_large"]:
+      raise AssertionError("inverse_test: the block factor was not launched")
+
+    # transition_ad of the contact-free scene: the JVP block kernels
+    m = hammock_model(mt, dev, torch.float64, contact=False)
+    lanes = HAMMOCK_AD_LANES
+    d = mt.forward(m, hammock_data(mt, m, lanes, seed=33))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches(linalg)
+    t0 = time.perf_counter()
+    ad = derivative.transition_ad(m, d)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    shapes = {k: sorted(getattr(linalg, k).shapes, key=shape_key)
+              for k in ("chol_factor_jvp_large", "chol_solve_jvp_large")}
+    launches = read_launches(linalg)
+    add(launches)
+    with plain_cholesky(linalg):
+      plain = derivative.transition_ad(m, d)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fd = derivative.transition_fd(
+        m, d.replace(qacc_warmstart=torch.zeros_like(d.qacc_warmstart)),
+        eps=1e-6, flg_centered=True)
+    fd_peak = torch.cuda.max_memory_allocated() / 2**30
+    err_plain = float((ad.A - plain.A).abs().max())
+    err_fd = float((ad.A - fd.A).abs().max())
+    scale = float(fd.A.abs().max())
+    log(phase,
+        f"contact-free {lanes} lanes fp64: transition_ad {seconds:.3f} s, "
+        f"peak {peak:.3f} GiB (transition_fd's {fd_peak:.3f}), A "
+        f"{tuple(ad.A.shape)}; kernels vs plain max "
+        f"|dA| {err_plain:.3e} (tol 1e-9); vs transition_fd (centered, eps "
+        f"1e-6) max |dA| {err_fd:.3e} = {err_fd / scale:.3e} of max|A| "
+        f"{scale:.3e} (tol 1e-4 of it); launches {launches}; block JVP "
+        f"shapes {shapes}")
+    if not err_plain <= 1e-9:
+      raise AssertionError(f"transition_ad kernels vs plain: {err_plain:.3e}")
+    if not err_fd <= 1e-4 * scale:
+      raise AssertionError(f"transition_ad vs transition_fd: {err_fd:.3e}")
+    if not (launches["chol_factor_jvp_large"]
+            and launches["chol_solve_jvp_large"]):
+      raise AssertionError(f"a block JVP kernel was not launched: {launches}")
+    del ad, plain, fd
+    torch.cuda.empty_cache()
+
+    # for the record: C's first-contact state stepped on, against C
+    m = hammock_model(mt, dev, torch.float64)
+    d = hammock_data(mt, m, 1, seed=None, state="contact")
+    reset_launches(linalg)
+    rows, step = [], 0
+    for k, bound in HAMMOCK_RECORD:
+      d = mt.step_n(m, d, k - step)
+      step = k
+      e = float(np.abs(d.qpos[0].cpu().numpy() - c[f"contact_qpos{k}"]).max())
+      rows.append(f"after {k} steps {e:.3e} (the JAX package's bound for "
+                  f"its own hammock {bound})")
+    add(read_launches(linalg))
+    log(phase, f"for the record, not a check: fp64 qpos against C from C's "
+        f"first contact (t = {float(c['contact_time']):.3f} s): max |dqpos| "
+        + "; ".join(rows) + " (the flex-contact difference, ROADMAP §3)")
+  log(phase, f"phase 29 in {time.perf_counter() - t_phase:.1f} s")
+  return total, times
+
+
 def fleet_rate(mt, dev) -> float:
   """Phase 6's timed loop alone (100 steps of 4096 humanoid_mjx lanes,
   fp32, after a warm-up step): steps/s."""
@@ -5202,8 +5809,9 @@ class ChecksProcess:
 
 def run_checks(mt, linalg, dev, smi, lap) -> None:
   """The checks process: the kernels against their plain versions (phases
-  3-4, 8, 9), phases 7, 10 and 16, and the fp64 checks of phases 6, 13, 15
-  and 17-28.  Prints one JSON line: its launches by path, the kernels'
+  3-4, 8, 9; above n = 128 the timed process runs them), phases 7, 10 and
+  16, and the fp64 checks of phases 6, 13, 15 and 17-29 (29 after 10).
+  Prints one JSON line: its launches by path, the kernels'
   largest errors, and the launches at shapes phase 9 did not check."""
   slice_err = check_kernels(linalg, dev)
   slice_err.update(check_jvp_kernels(linalg, dev))
@@ -5220,6 +5828,11 @@ def run_checks(mt, linalg, dev, smi, lap) -> None:
   for integrator in ("RK4", "IMPLICIT"):
     transition(mt, linalg, dev, "humanoid.npz", integrator)
   lap("10")
+  # phase 29's checks here, early: its transition_fd (5356 fp64 lanes of
+  # nv 324) must not meet the timed process's hammock fleet (51 GiB), which
+  # runs last there
+  by_path["hammock"] = hammock_slice(mt, linalg, dev, smi)[0]
+  lap("29")
   mpc_reference(mt, linalg, dev)
   lap("13")
   by_path["integrators_fleet"] = integrators_fleet(mt, linalg, dev, smi)
@@ -5282,10 +5895,18 @@ def main() -> None:
   mode.add_argument("--tools", action="store_true",
                     help="only phase 28, least squares, checkpoints, "
                     "sharding, names, the printer and the band solvers")
+  mode.add_argument("--hammock", action="store_true",
+                    help="only phase 29, the hammock and the kernels above "
+                    "n = 128")
   mode.add_argument("--checks", action="store_true",
                     help="the untimed checks of a full run (the full run "
                     "starts this process itself)")
   args = parser.parse_args()
+  # both processes share the card, and phase 29's fleet peaks at 51 GiB:
+  # without expandable segments its cached, fragmented blocks held 79 GiB
+  # and the checks process ran out of memory beside it (read when the
+  # allocator first allocates; the checks process inherits it)
+  os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
   if not torch.cuda.is_available():
     raise SystemExit("chip_smoke: torch.cuda.is_available() is false")
   sys.path.insert(0, REPO)
@@ -5315,6 +5936,9 @@ def main() -> None:
   t_last = [t0]
 
   def lap(phases: str) -> None:
+    # the cached blocks back to the card between phases: the two processes
+    # share it, and phase 29's fleet and transition_fd take tens of GiB
+    torch.cuda.empty_cache()
     now = time.perf_counter()
     log("time", f"phases {phases} in {now - t_last[0]:.1f} s, "
         f"{now - t0:.1f} s since the build began")
@@ -5337,6 +5961,15 @@ def main() -> None:
     contact_slice(mt, linalg, dev, smi)
   elif args.shapes:
     quadruped_slice(mt, linalg, dev, smi)
+  elif args.hammock:
+    check_large_kernels(linalg, dev)
+    check_path_kernels(mt, linalg, dev, hammock_shapes(mt))
+    main_path_shapes(linalg)
+    hammock_slice(mt, linalg, dev, smi)
+    unchecked = unchecked_shapes(mt, linalg)
+    if unchecked:
+      raise AssertionError(f"launches at shapes {unchecked} that phase 9 "
+                           "did not hold to the plain versions")
   elif args.suite or args.flex or args.tail or args.plugins or args.tools:
     (suite_slice if args.suite else flex_slice if args.flex else tail_slice
      if args.tail else plugin_slice if args.plugins else tools_slice)(
@@ -5349,9 +5982,10 @@ def main() -> None:
     CHECKS = False
     rates, checks = [], []
     try:
-      by_path, times, tangents = timed_run(mt, linalg, dev, smi, lap, rates,
-                                           checks)
+      by_path, times, tangents, large_err = timed_run(
+          mt, linalg, dev, smi, lap, rates, checks)
       result = checks[0].result()
+      result["slice_err"].update(large_err)
       lap("(the checks process's end)")
     finally:
       for proc in checks:
@@ -5390,7 +6024,7 @@ def main() -> None:
 
 
 def timed_run(mt, linalg, dev, smi, lap, rates,
-              checks) -> tuple[dict, dict, dict]:
+              checks) -> tuple[dict, dict, dict, dict]:
   """The timed process of a full run: the kernels' timings (phases 5, 9),
   the fleets, the MPC solves and phases 11, 14 and 21.  Phases 5, 6, 9, 11
   and 12 run alone; then the checks process starts (appended to
@@ -5398,8 +6032,9 @@ def timed_run(mt, linalg, dev, smi, lap, rates,
   solves of phase 13 doubled phase 12's time (194.1 against 395.6 s in two
   runs).  Phase 6's loop is timed alone first and twice once the checks
   process has started (appended to ``rates``).  Returns the launches by
-  path, the kernels' timings and the JVP kernels' tangents a lane of
-  phase 12."""
+  path, the kernels' timings, the JVP kernels' tangents a lane of phase 12
+  and the block kernels' errors at the hammock's shapes (phases 3-4 and 8
+  above n = 128 run here, last)."""
   rates.append(fleet_rate(mt, dev))
   by_path = {"fleet_step": fleet_step(mt, linalg, dev, smi)}
   lap("6")
@@ -5448,6 +6083,16 @@ def timed_run(mt, linalg, dev, smi, lap, rates,
   lap("27")
   by_path["tools"], times_tools = tools_slice(mt, linalg, dev, smi)
   lap("28")
+  by_path["hammock"], times_hammock = hammock_slice(mt, linalg, dev, smi)
+  lap("29")
+  # phases 3-4 and 8 above n = 128: checks, run here after the timed work,
+  # where this process would wait for the checks process
+  seen = main_path_shapes(linalg)
+  slice_err = check_large_kernels(linalg, dev)
+  main_path_shapes(linalg)  # the grid's launches: not a main path's
+  for k, v in seen.items():
+    SEEN_SHAPES[k] |= v
+  lap("3-4, 8 above n = 128")
   for more in (times_n2, times_convex, times_contact, times_shapes,
                times_suite, times_flex, times_tail, times_plugins,
                times_tools):
@@ -5456,7 +6101,8 @@ def timed_run(mt, linalg, dev, smi, lap, rates,
         times_small.setdefault(k, {}).setdefault(by, {}).update(rows)
   for k, v in times_small.items():
     times[k].update(v)
-  return by_path, times, tangents
+  times.update(times_hammock)
+  return by_path, times, tangents, slice_err
 
 
 if __name__ == "__main__":

@@ -1,8 +1,11 @@
-// Batched small-matrix Cholesky factor and solve for Hopper (sm_90a).
+// Batched Cholesky factor and solve for Hopper (sm_90a).
 //
 // Replaces the two Pallas TPU kernels of the JAX package's ops/linalg.py:
 //   mi_chol_factor_*  <- _chol_kernel  (linalg.py:63, launched by _pallas_chol)
 //   mi_chol_solve_*   <- _solve_kernel (linalg.py:86, launched by _pallas_solve)
+// for n <= 128, a warp a matrix, with their forward-mode kernels; above
+// n = 128, where the JAX package leaves Pallas, four block kernels
+// (mi_chol_*_large_*, the second half of this file).
 //
 // Layout.  Both kernels read and write PyTorch's own layout: a contiguous
 // (B, n, n) stack of row-major matrices and a right-hand side (B, n) or
@@ -542,6 +545,315 @@ __global__ void chol_solve_jvp_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// n > 128: one block of several warps a matrix, in place in device memory.
+//
+// Replaces no Pallas kernel.  The JAX package's Pallas dispatch stops at
+// n = 128 (ops/linalg.py: _use_pallas); above it, it calls
+// jnp.linalg.cholesky and jax.scipy.linalg.cho_solve (ops/linalg.py:348,
+// :361, :367, :387-389 there) and differentiates through them.  These four
+// kernels take those sizes on the card:
+//   mi_chol_factor_large_*      the factor           (chol_factor_ref)
+//   mi_chol_solve_large_*       the solve            (chol_solve_ref)
+//   mi_chol_factor_jvp_large_*  the factor's tangent (chol_factor_jvp_ref)
+//   mi_chol_solve_jvp_large_*   the solve's tangent  (chol_solve_jvp_ref)
+// A warp-per-matrix tile stops fitting shared memory there: at n = 128 in
+// fp64 one (n, n | 1) tile is 132 kB of the 227 kB a block may use, and a
+// (324, 324) fp64 matrix is 840 kB.
+//
+// What bounds them.  A factor is n^3 / 3 operations (a multiply and a
+// subtract for each of n^3 / 6 updates) against (n (n + 1) / 2 + n^2)
+// elements moved: at n = 324 about 21 operations a byte in fp32, so the
+// card's fp32 rate outside the tensor cores bounds it, not its memory.  A
+// solve is 2 n^2 operations a column against L's triangle and two vectors,
+// under one operation a byte: the memory rate bounds it.  What stands
+// between either and its bound is the chain of n (2 n) dependent pivots,
+// each a pass over the trailing triangle (a column) in L2.
+//
+// Design (simple and exact first; a tiled trailing update on the tensor
+// cores would change the summation order):
+//   * A block takes one matrix (the solve: one (matrix, column); the JVPs:
+//     one (lane, tangent[, column]) item).  The factor copies h's lower
+//     triangle into the output and factors there; the factor's JVP works
+//     in dL's own buffer the same way.  A (324, 324) matrix stays in the
+//     50 MB L2 while its block works on it.
+//   * The factor's warps take the trailing rows r = k + 1 + w, ... in turn,
+//     their lanes the columns of a row (coalesced).  The pivot column,
+//     scaled, and the running diagonal live in shared memory.  Each pass
+//     also finishes the next column (its last update, then its scaling by
+//     the next pivot, which every thread computes from the shared
+//     diagonal), so one __syncthreads() ends each pivot.
+//   * The substitutions keep the running right-hand side in shared memory,
+//     one __syncthreads() a pivot; the solve's JVP computes y = L^T x,
+//     t = dL^T x and u = db - dL y a row a thread, in the plain version's
+//     order, before its two substitutions.
+//
+// Every element takes the plain versions' operations in their order:
+// rank-1 updates in ascending pivot order, one rounding for each product
+// and difference (-fmad=false), the pivot clamp sqrt(max(p, 1e-15)),
+// column-oriented substitutions (ascending, then descending); so the
+// kernels are bit-equal to chol_factor_ref, chol_solve_ref,
+// chol_factor_jvp_ref and chol_solve_jvp_ref.
+// ---------------------------------------------------------------------------
+
+template <typename T>
+__global__ void chol_factor_large_kernel(const T* __restrict__ h,
+                                         T* __restrict__ l, int n,
+                                         T minval) {
+  const size_t off = static_cast<size_t>(blockIdx.x) * n * n;
+  const T* src = h + off;
+  T* a = l + off;
+  T* diag = block_smem<T>();  // a[j][j] as updated so far, j past the pivot
+  T* col = diag + n;          // two buffers: a scaled pivot column, by row
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int warps = blockDim.x / kWarp;
+
+  // h's lower triangle into l (zeros above), its diagonal into shared
+  // memory, and column 0 scaled by the first pivot
+  {
+    T p = src[0];
+    p = p < minval ? minval : p;  // keeps NaN, unlike fmax
+    const T d = sqrt(p), inv = T(1) / d;
+    for (int r = warp; r < n; r += warps) {
+      const T* in = src + static_cast<size_t>(r) * n;
+      T* out = a + static_cast<size_t>(r) * n;
+      for (int c = lane; c < n; c += kWarp) {
+        T v = c <= r ? in[c] : T(0);
+        if (c == r) {
+          diag[r] = v;
+          if (r == 0) v = d;
+        } else if (c == 0 && r > 0) {
+          v = v * inv;
+          col[r] = v;
+        }
+        out[c] = v;
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int k = 0; k + 1 < n; ++k) {
+    const T* c = col + (k & 1) * n;   // column k, scaled
+    T* cn = col + ((k + 1) & 1) * n;  // column k + 1, scaled in this pass
+    const int k1 = k + 1;
+    // the next pivot: its last update, by every thread alike
+    const T ck1 = c[k1];
+    T p = diag[k1] - ck1 * ck1;
+    p = p < minval ? minval : p;
+    const T d = sqrt(p), inv = T(1) / d;
+    for (int r = k1 + warp; r < n; r += warps) {
+      T* row = a + static_cast<size_t>(r) * n;
+      const T cr = c[r];
+      if (lane == 0) {
+        if (r == k1) {
+          row[k1] = d;
+        } else {
+          const T v = (row[k1] - cr * c[k1]) * inv;
+          row[k1] = v;
+          cn[r] = v;
+        }
+      }
+      if (r > k1 && lane == kWarp - 1) diag[r] -= cr * c[r];
+      // the rest of the row, k + 1 < j < r: four columns a lane at a time,
+      // loads ahead of stores
+      int j = k1 + 1 + lane;
+      for (; j + 3 * kWarp < r; j += 4 * kWarp) {
+        const T r0 = row[j], r1 = row[j + kWarp], r2 = row[j + 2 * kWarp],
+                r3 = row[j + 3 * kWarp];
+        const T c0 = c[j], c1 = c[j + kWarp], c2 = c[j + 2 * kWarp],
+                c3 = c[j + 3 * kWarp];
+        row[j] = r0 - cr * c0;
+        row[j + kWarp] = r1 - cr * c1;
+        row[j + 2 * kWarp] = r2 - cr * c2;
+        row[j + 3 * kWarp] = r3 - cr * c3;
+      }
+      for (; j < r; j += kWarp) row[j] -= cr * c[j];
+    }
+    __syncthreads();  // column k + 1 and the trailing triangle are done
+  }
+}
+
+// L y = x for one column, L read through (row, column) strides; x is
+// overwritten below each pivot, y gets the solution.  Column by column, one
+// __syncthreads() a pivot: every thread reads x[c] (no thread writes it in
+// that pass) and updates its rows below it.
+template <typename T>
+__device__ void forward_sub(const T* __restrict__ a, long long rs,
+                            long long cs, T* x, T* y, int n) {
+  for (int c = 0; c < n; ++c) {
+    const T yc = x[c] / a[c * rs + c * cs];
+    for (int r = c + 1 + threadIdx.x; r < n; r += blockDim.x) {
+      x[r] -= a[r * rs + c * cs] * yc;
+    }
+    if (threadIdx.x == 0) y[c] = yc;
+    __syncthreads();
+  }
+}
+
+// L^T x = y the same way, columns descending: row c of L is column c of
+// L^T; y is overwritten above each pivot, x gets the solution.
+template <typename T>
+__device__ void backward_sub(const T* __restrict__ a, long long rs,
+                             long long cs, T* y, T* x, int n) {
+  for (int c = n - 1; c >= 0; --c) {
+    const T xc = y[c] / a[c * rs + c * cs];
+    for (int r = threadIdx.x; r < c; r += blockDim.x) {
+      y[r] -= a[c * rs + r * cs] * xc;
+    }
+    if (threadIdx.x == 0) x[c] = xc;
+    __syncthreads();
+  }
+}
+
+// A block a (matrix, column): blockIdx.x = b k + q.
+template <typename T>
+__global__ void chol_solve_large_kernel(const T* __restrict__ l,
+                                        const T* __restrict__ rhs,
+                                        T* __restrict__ x, int n, int k) {
+  const int b = blockIdx.x / k, q = blockIdx.x % k;
+  const T* a = l + static_cast<size_t>(b) * n * n;
+  const size_t xoff = static_cast<size_t>(b) * n * k + q;
+  T* xs = block_smem<T>();  // the running right-hand side
+  T* ys = xs + n;           // y, then the running L^T x = y
+  for (int r = threadIdx.x; r < n; r += blockDim.x) {
+    xs[r] = rhs[xoff + static_cast<size_t>(r) * k];
+  }
+  __syncthreads();
+  forward_sub(a, n, 1, xs, ys, n);
+  backward_sub(a, n, 1, ys, xs, n);
+  for (int r = threadIdx.x; r < n; r += blockDim.x) {
+    x[xoff + static_cast<size_t>(r) * k] = xs[r];
+  }
+}
+
+// A block a (lane, tangent): blockIdx.x = lane T + tangent.  The running
+// tangent lives in dL's own buffer (through its strides); shared memory
+// holds its diagonal and two buffers each of L's pivot column and of dL's.
+template <typename T>
+__global__ void chol_factor_jvp_large_kernel(
+    const T* __restrict__ l, View sl, const T* __restrict__ dh, View sdh,
+    T* __restrict__ dl, View sdl, int n, int tangents, T minval) {
+  const int p = blockIdx.x / tangents, tg = blockIdx.x % tangents;
+  const T* a = l + p * sl.lane;  // L
+  const T* src = dh + p * sdh.lane + tg * sdh.tan;
+  T* t = dl + p * sdl.lane + tg * sdl.tan;  // the running tangent, then dL
+  const long long ar = sl.row, ac = sl.col, sr = sdh.row, sc = sdh.col,
+                  tr = sdl.row, tc = sdl.col;
+  T* diag = block_smem<T>();  // the running tangent's diagonal
+  T* dcol = diag + n;         // two buffers: dL's pivot column, by row
+  T* lcol = dcol + 2 * n;     // two buffers: L's pivot column, by row
+  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+  const int warps = blockDim.x / kWarp;
+  const T dmin = sqrt(minval);
+
+  // dH's lower triangle into dL (zeros above), its diagonal into shared
+  // memory, and tangent column 0
+  {
+    const T d = a[0];
+    const T dd = d <= dmin ? T(0) : T(0.5) * src[0] / d;
+    for (int r = warp; r < n; r += warps) {
+      for (int c = lane; c < n; c += kWarp) {
+        T v = c <= r ? src[r * sr + c * sc] : T(0);
+        if (c == r) {
+          diag[r] = v;
+          if (r == 0) v = dd;
+        } else if (c == 0 && r > 0) {
+          const T lv = a[r * ar];
+          v = (v - lv * dd) / d;
+          dcol[r] = v;
+          lcol[r] = lv;
+        }
+        t[r * tr + c * tc] = v;
+      }
+    }
+  }
+  __syncthreads();
+
+  for (int k = 0; k + 1 < n; ++k) {
+    const T* dc = dcol + (k & 1) * n;  // dL's column k
+    const T* lc = lcol + (k & 1) * n;  // L's column k
+    T* dcn = dcol + ((k + 1) & 1) * n;
+    T* lcn = lcol + ((k + 1) & 1) * n;
+    const int k1 = k + 1;
+    // the next pivot's tangent: its last update, by every thread alike
+    const T d = a[k1 * ar + k1 * ac];
+    const T pk = diag[k1] - (dc[k1] * lc[k1] + lc[k1] * dc[k1]);
+    const T dd = d <= dmin ? T(0) : T(0.5) * pk / d;
+    for (int r = k1 + warp; r < n; r += warps) {
+      T* row = t + r * tr;
+      const T drk = dc[r], lrk = lc[r];
+      if (lane == 0) {
+        if (r == k1) {
+          row[k1 * tc] = dd;
+        } else {
+          const T v = row[k1 * tc] - (drk * lc[k1] + lrk * dc[k1]);
+          const T lv = a[r * ar + k1 * ac];
+          const T w = (v - lv * dd) / d;
+          row[k1 * tc] = w;
+          dcn[r] = w;
+          lcn[r] = lv;
+        }
+      }
+      if (r > k1 && lane == kWarp - 1) diag[r] -= drk * lc[r] + lrk * dc[r];
+      for (int j = k1 + 1 + lane; j < r; j += kWarp) {
+        row[j * tc] -= drk * lc[j] + lrk * dc[j];
+      }
+    }
+    __syncthreads();  // tangent column k + 1 and the trailing triangle
+  }
+}
+
+// A block a (lane, tangent, column): blockIdx.x = (lane T + tangent) k +
+// column.  dL or db may be null (a zero tangent), as in the warp kernel.
+template <typename T>
+__global__ void chol_solve_jvp_large_kernel(
+    const T* __restrict__ l, View sl, const T* __restrict__ dl, View sdl,
+    const T* __restrict__ x, View sx, const T* __restrict__ db, View sdb,
+    T* __restrict__ dx, View sdx, int n, int tangents, int k) {
+  const int q = blockIdx.x % k, item = blockIdx.x / k;
+  const int p = item / tangents, tg = item % tangents;
+  const T* a = l + p * sl.lane;
+  const T* xv = x + p * sx.lane + q * sx.col;
+  T* xs = block_smem<T>();  // x
+  T* ys = xs + n;           // y = L^T x
+  T* ts = ys + n;           // t = dL^T x
+  T* us = ts + n;           // u = db - dL y, then the running L^-1 u
+  T* ws = us + n;           // v = L^-1 u, then w = v - t and its sweep
+  for (int r = threadIdx.x; r < n; r += blockDim.x) xs[r] = xv[r * sx.row];
+  __syncthreads();
+  // y = L^T x: row r sums L[c][r] x[c], c ascending from r
+  for (int r = threadIdx.x; r < n; r += blockDim.x) {
+    T acc = T(0);
+    for (int c = r; c < n; ++c) acc += a[c * sl.row + r * sl.col] * xs[c];
+    ys[r] = acc;
+  }
+  __syncthreads();
+  const T* dlv = dl == nullptr ? nullptr : dl + p * sdl.lane + tg * sdl.tan;
+  const T* dbv = db == nullptr ? nullptr
+                               : db + p * sdb.lane + tg * sdb.tan + q * sdb.col;
+  for (int r = threadIdx.x; r < n; r += blockDim.x) {
+    T u = dbv != nullptr ? dbv[r * sdb.row] : T(0);
+    T acc = T(0);
+    if (dlv != nullptr) {
+      // t = dL^T x: dL[c][r] x[c], c ascending from r
+      for (int c = r; c < n; ++c) acc += dlv[c * sdl.row + r * sdl.col] * xs[c];
+      // u = db - dL y: column c of dL times y[c], c ascending to r
+      for (int c = 0; c <= r; ++c) u -= dlv[r * sdl.row + c * sdl.col] * ys[c];
+    }
+    ts[r] = acc;
+    us[r] = u;
+  }
+  __syncthreads();
+  forward_sub(a, sl.row, sl.col, us, ws, n);  // v = L^-1 u
+  if (dlv != nullptr) {
+    for (int r = threadIdx.x; r < n; r += blockDim.x) ws[r] = ws[r] - ts[r];
+    __syncthreads();
+  }
+  backward_sub(a, sl.row, sl.col, ws, us, n);  // dx = L^-T w
+  T* dxv = dx + p * sdx.lane + tg * sdx.tan + q * sdx.col;
+  for (int r = threadIdx.x; r < n; r += blockDim.x) dxv[r * sdx.row] = us[r];
+}
+
 // Raises the kernel's dynamic shared memory limit where the launch needs
 // more than the default, then launches it, one block of ``threads`` for
 // every ``per_block`` of ``batch``; returns the first error.
@@ -625,6 +937,42 @@ int solve_jvp(const T* l, const T* dl, const T* x, const T* db, T* dx,
                            lanes_per_block, warps, buffers, smem, stream);
 }
 
+// The n > 128 kernels: a block an item, ``blocks`` of them.
+template <typename T>
+int factor_large(const T* h, T* l, int n, int batch, int threads, int smem,
+                 cudaStream_t stream) {
+  return launch(chol_factor_large_kernel<T>, batch, 1, threads, smem, stream,
+                h, l, n, T(1e-15));
+}
+
+template <typename T>
+int solve_large(const T* l, const T* rhs, T* x, int n, int batch, int k,
+                int threads, int smem, cudaStream_t stream) {
+  return launch(chol_solve_large_kernel<T>, batch * k, 1, threads, smem,
+                stream, l, rhs, x, n, k);
+}
+
+template <typename T>
+int factor_jvp_large(const T* l, const T* dh, T* dl, const long long* s,
+                     int n, int lanes, int tangents, int threads, int smem,
+                     cudaStream_t stream) {
+  return launch(chol_factor_jvp_large_kernel<T>, lanes * tangents, 1,
+                threads, smem, stream, l, matrix_view(s), dh,
+                tangent_view(s + 3), dl, tangent_view(s + 7), n, tangents,
+                T(1e-15));
+}
+
+template <typename T>
+int solve_jvp_large(const T* l, const T* dl, const T* x, const T* db, T* dx,
+                    const long long* s, int n, int lanes, int tangents, int k,
+                    int threads, int smem, cudaStream_t stream) {
+  return launch(chol_solve_jvp_large_kernel<T>, lanes * tangents * k, 1,
+                threads, smem, stream, l, matrix_view(s), dl,
+                tangent_view(s + 3), x, matrix_view(s + 7), db,
+                tangent_view(s + 10), dx, tangent_view(s + 14), n, tangents,
+                k);
+}
+
 }  // namespace
 
 extern "C" {
@@ -685,6 +1033,62 @@ int mi_chol_solve_jvp_f64(const double* l, const double* dl,
                           cudaStream_t stream) {
   return solve_jvp(l, dl, x, db, dx, strides, n, lanes, tangents, k,
                    lanes_per_block, warps, buffers, smem, stream);
+}
+
+int mi_chol_factor_large_f32(const float* h, float* l, int n, int batch,
+                             int threads, int smem, cudaStream_t stream) {
+  return factor_large(h, l, n, batch, threads, smem, stream);
+}
+
+int mi_chol_factor_large_f64(const double* h, double* l, int n, int batch,
+                             int threads, int smem, cudaStream_t stream) {
+  return factor_large(h, l, n, batch, threads, smem, stream);
+}
+
+int mi_chol_solve_large_f32(const float* l, const float* rhs, float* x, int n,
+                            int batch, int k, int threads, int smem,
+                            cudaStream_t stream) {
+  return solve_large(l, rhs, x, n, batch, k, threads, smem, stream);
+}
+
+int mi_chol_solve_large_f64(const double* l, const double* rhs, double* x,
+                            int n, int batch, int k, int threads, int smem,
+                            cudaStream_t stream) {
+  return solve_large(l, rhs, x, n, batch, k, threads, smem, stream);
+}
+
+int mi_chol_factor_jvp_large_f32(const float* l, const float* dh, float* dl,
+                                 const long long* strides, int n, int lanes,
+                                 int tangents, int threads, int smem,
+                                 cudaStream_t stream) {
+  return factor_jvp_large(l, dh, dl, strides, n, lanes, tangents, threads,
+                          smem, stream);
+}
+
+int mi_chol_factor_jvp_large_f64(const double* l, const double* dh,
+                                 double* dl, const long long* strides, int n,
+                                 int lanes, int tangents, int threads,
+                                 int smem, cudaStream_t stream) {
+  return factor_jvp_large(l, dh, dl, strides, n, lanes, tangents, threads,
+                          smem, stream);
+}
+
+int mi_chol_solve_jvp_large_f32(const float* l, const float* dl,
+                                const float* x, const float* db, float* dx,
+                                const long long* strides, int n, int lanes,
+                                int tangents, int k, int threads, int smem,
+                                cudaStream_t stream) {
+  return solve_jvp_large(l, dl, x, db, dx, strides, n, lanes, tangents, k,
+                         threads, smem, stream);
+}
+
+int mi_chol_solve_jvp_large_f64(const double* l, const double* dl,
+                                const double* x, const double* db, double* dx,
+                                const long long* strides, int n, int lanes,
+                                int tangents, int k, int threads, int smem,
+                                cudaStream_t stream) {
+  return solve_jvp_large(l, dl, x, db, dx, strides, n, lanes, tangents, k,
+                         threads, smem, stream);
 }
 
 }  // extern "C"

@@ -554,6 +554,28 @@ def _nearest(bdist, npair_run: int):
   return torch.sort(bdist, dim=-1, stable=True).indices[:, :npair_run]
 
 
+# elements of the (lanes, slots, slots) distances ``_duplicates`` forms at
+# once: a lane chunk's (the hammock's capsule group has 6400 slots, 164 MB
+# a lane in fp32)
+DUPLICATE_CHUNK_ELEMS = 2**28
+
+
+def _duplicates(pos: torch.Tensor, tol: float) -> torch.Tensor:
+  """(B, n) bool: slot i lies within ``tol`` of an earlier slot j < i of
+  its lane (``pos`` (B, n, 3)), a few lanes at a time so that the pairwise
+  distances stay within ``DUPLICATE_CHUNK_ELEMS``; each lane's bits are
+  those of the whole batch at once."""
+  n = pos.shape[1]
+  earlier = torch.ones((n, n), dtype=torch.bool, device=pos.device).tril(-1)
+  step = max(1, DUPLICATE_CHUNK_ELEMS // max(n * n, 1))
+  out = []
+  for start in range(0, pos.shape[0], step):
+    p = pos[start:start + step]
+    d2 = sum((p[..., None, c] - p[..., None, :, c]) ** 2 for c in range(3))
+    out.append(torch.any((torch.sqrt(d2) < tol) & earlier, dim=-1))
+  return out[0] if len(out) == 1 else torch.cat(out)
+
+
 def _sides(m: Model, bsz: int, n: int, dtype, side0, side1):
   """(B, n, 2, W) bodies and weights from each side's (bodies, weights),
   each (B or 1, n, k) with k <= W, zero-padded."""
@@ -660,12 +682,8 @@ def run_elem_group(m: Model, d: Data, grp: ElemGroup) -> ElemContacts:
                         nrm.flatten(1, 2))
       rep = lambda x: torch.repeat_interleave(x, k, dim=1)
       everts, ev_ids, g = rep(everts), rep(ev_ids), rep(g)
-      d2 = sum((pos[..., None, c] - pos[..., None, :, c]) ** 2
-               for c in range(3))
-      close = torch.sqrt(d2) < (1e-9 if dtype == torch.float64 else 1e-6)
-      earlier = torch.ones(close.shape[-2:], dtype=torch.bool,
-                           device=close.device).tril(-1)
-      dist = torch.where(torch.any(close & earlier, dim=-1), _BIG, dist)
+      dist = torch.where(_duplicates(pos, 1e-9 if dtype == torch.float64
+                                     else 1e-6), _BIG, dist)
     n = dist.shape[1]
     bb, bw = _sides(m, bsz, n, dtype, (geom_body(g), one(n)),
                     _element_side(m, f, ev_ids, _bary_weights(pos, everts)))

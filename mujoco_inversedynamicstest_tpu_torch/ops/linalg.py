@@ -1,4 +1,4 @@
-"""Batched small-matrix Cholesky factor and solve, with forward-mode AD.
+"""Batched Cholesky factor and solve, with forward-mode AD.
 
 Port of the two Pallas TPU kernels of the JAX package's
 ``ops/linalg.py`` (``_chol_kernel`` and ``_solve_kernel``) to hand-written CUDA
@@ -23,8 +23,17 @@ launches, and each one's ``shapes`` counts them by shape.
 
 The kernels are built with ``nvcc`` from the sources in the checkout, at
 first use, into ``build/torch_kernels/`` and bound through ``ctypes``.  They
-read and write PyTorch's own (B, n, n) layout, one warp per matrix; the
-launch shape comes from ``launch_geometry`` (and ``jvp_launch_geometry``).
+read and write PyTorch's own (B, n, n) layout.  Up to n = ``N_MAX`` each
+matrix is one warp's, in a shared-memory tile; the launch shape comes from
+``launch_geometry`` (and ``jvp_launch_geometry``).  Above it four more
+kernels of the same file take the same functions, one block of several
+warps a matrix (a solve column, a tangent), in place in device memory:
+``chol_factor_large``, ``chol_solve_large``, ``chol_factor_jvp_large`` and
+``chol_solve_jvp_large``, whose launch shape comes from
+``large_launch_geometry``.  They replace no Pallas kernel: above n = 128
+the JAX package calls ``jnp.linalg.cholesky`` and ``cho_solve``.  Dispatch
+is by device and n alone; each of the four counts its own launches and
+shapes.
 """
 
 from __future__ import annotations
@@ -44,6 +53,7 @@ import torch
 
 # mjMINVAL: the pivot clamp of C MuJoCo's mju_cholFactor
 MINVAL = 1e-15
+# the largest n of the warp-per-matrix kernels; above it, the block kernels
 N_MAX = 128
 # shared memory one block may use on Hopper, and the matrices (one warp
 # each) a block takes at most
@@ -51,6 +61,9 @@ SMEM_MAX = 232_448
 MATS_PER_BLOCK = 4
 # the most warps a JVP block runs, each on its own (lane, tangent) items
 JVP_WARPS = 8
+# warps a block of the n > N_MAX kernels, one item (matrix, column,
+# tangent) a block
+LARGE_WARPS = 8
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "cholesky.cu"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "torch_kernels"
@@ -239,6 +252,10 @@ def _entry(name: str, dtype: torch.dtype):
       "chol_solve": [p, p, p, i, i, i, i, i, i, p],
       "chol_factor_jvp": [p, p, p, s, i, i, i, i, i, i, i, p],
       "chol_solve_jvp": [p, p, p, p, p, s, i, i, i, i, i, i, i, i, p],
+      "chol_factor_large": [p, p, i, i, i, i, p],
+      "chol_solve_large": [p, p, p, i, i, i, i, i, p],
+      "chol_factor_jvp_large": [p, p, p, s, i, i, i, i, i, p],
+      "chol_solve_jvp_large": [p, p, p, p, p, s, i, i, i, i, i, i, p],
   }[name]
   fn.restype = i
   return fn
@@ -317,6 +334,45 @@ def jvp_launch_geometry(n: int, dtype: torch.dtype, tangents: int,
                        "bytes")
 
 
+class LargeGeometry(NamedTuple):
+  """Launch shape of an n > N_MAX kernel: blocks, threads a block, dynamic
+  shared memory bytes a block."""
+  blocks: int
+  threads: int
+  smem: int
+
+
+# vectors of n elements in a block's shared memory, by kernel: the
+# factor's running diagonal and two pivot columns; the solve's right-hand
+# side and solution; the factor JVP's tangent diagonal and two columns
+# each of L and dL; the solve JVP's x, y, t, u and v
+_LARGE_VECTORS = {"chol_factor": 3, "chol_solve": 2, "chol_factor_jvp": 5,
+                  "chol_solve_jvp": 5}
+
+
+def large_launch_geometry(kernel: str, n: int, dtype: torch.dtype,
+                          lanes: int, tangents: int = 1,
+                          cols: int = 1) -> LargeGeometry:
+  """Launch shape of the n > N_MAX kernel of ``kernel`` ("chol_factor",
+  "chol_solve", "chol_factor_jvp" or "chol_solve_jvp") for ``lanes``
+  matrices, ``tangents`` tangents a lane and ``cols`` right-hand-side
+  columns: one block of ``LARGE_WARPS`` warps an item (a matrix; a
+  (matrix, column); a (lane, tangent); a (lane, tangent, column)), with a
+  few vectors of n in shared memory (``_LARGE_VECTORS``).  The matrices
+  stay in device memory, so nothing but those vectors bounds n: in fp64
+  the factor runs up to n = 9685 and the JVPs to 5811, and a launch
+  whose vectors outgrow ``SMEM_MAX`` is refused here."""
+  smem = _LARGE_VECTORS[kernel] * n * dtype.itemsize
+  if smem > SMEM_MAX:
+    raise ValueError(f"{kernel} at n={n} {dtype} needs {smem} bytes of "
+                     f"shared memory a block, over {SMEM_MAX}")
+  blocks = (lanes * (tangents if kernel.endswith("_jvp") else 1)
+            * (cols if kernel.startswith("chol_solve") else 1))
+  if blocks > 2**31 - 1:
+    raise ValueError(f"{kernel}: {blocks} blocks, over the grid's 2^31 - 1")
+  return LargeGeometry(blocks, LARGE_WARPS * 32, smem)
+
+
 def _suffix(dtype: torch.dtype) -> str:
   if dtype == torch.float32:
     return "f32"
@@ -345,8 +401,8 @@ def _check_factor_shape(h: torch.Tensor) -> int:
   if h.ndim != 3 or h.shape[1] != h.shape[2]:
     raise ValueError(f"expected (B, n, n), got {tuple(h.shape)}")
   n = h.shape[-1]
-  if not 1 <= n <= N_MAX:
-    raise ValueError(f"kernel takes 1 <= n <= {N_MAX}, got n={n}")
+  if n < 1:
+    raise ValueError(f"kernel takes n >= 1, got n={n}")
   return n
 
 
@@ -366,44 +422,82 @@ def _check_solve_shapes(l: torch.Tensor, b: torch.Tensor) -> tuple[int, int]:
 
 
 def _factor(h: torch.Tensor) -> torch.Tensor:
-  """The primal factor: ``chol_factor_ref`` on the CPU, the kernel on the
-  card, which reads ``h`` in place (a copy only if it is not
-  contiguous)."""
+  """The primal factor: ``chol_factor_ref`` on the CPU; on the card the
+  warp kernel up to n = ``N_MAX``, the block kernel above."""
   if _device_kind(h) == "cpu":
     return chol_factor_ref(h)
+  return _factor_kernel(h, _check_factor_shape(h) > N_MAX)
+
+
+def chol_factor_large(h: torch.Tensor) -> torch.Tensor:
+  """The factor's block kernel whatever n (``chol_factor_ref`` on the
+  CPU): what ``_factor`` launches above ``N_MAX``."""
+  if _device_kind(h) == "cpu":
+    return chol_factor_ref(h)
+  return _factor_kernel(h, True)
+
+
+def _factor_kernel(h: torch.Tensor, block: bool) -> torch.Tensor:
+  """Launches the factor's warp or ``block`` kernel, which reads ``h`` in
+  place (a copy only if it is not contiguous)."""
   n = _check_factor_shape(h)
-  fn = _entry("chol_factor", h.dtype)
+  name = "chol_factor_large" if block else "chol_factor"
+  fn = _entry(name, h.dtype)
   h = h.contiguous()
   l = torch.empty_like(h)  # contiguous, like h
   bsz = h.shape[0]
   if bsz == 0:
     return l
-  ld, per_block, smem = launch_geometry(n, h.dtype)
+  if block:
+    g = large_launch_geometry("chol_factor", n, h.dtype, bsz)
+    shape = (n, bsz, g.threads, g.smem)
+  else:
+    ld, per_block, smem = launch_geometry(n, h.dtype)
+    shape = (n, ld, bsz, per_block, smem)
   with torch.cuda.device(h.device):
-    _check_launch(fn(h.data_ptr(), l.data_ptr(), n, ld, bsz, per_block, smem,
-                     _stream(h)), "chol_factor")
-  _count(chol_factor, n, bsz, h.dtype)
+    _check_launch(fn(h.data_ptr(), l.data_ptr(), *shape, _stream(h)), name)
+  _count(chol_factor_large if block else chol_factor, n, bsz, h.dtype)
   return l
 
 
 def _solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-  """The primal solve: ``chol_solve_ref`` on the CPU, the kernel on the
-  card, which reads ``l`` and ``b`` in place and writes x in ``b``'s
-  shape."""
+  """The primal solve: ``chol_solve_ref`` on the CPU; on the card the warp
+  kernel up to n = ``N_MAX`` (a warp a matrix, its columns in turn), the
+  block kernel above (a block a column), each reading ``l`` and ``b`` in
+  place and writing x in ``b``'s shape."""
   if _device_kind(l) == "cpu" and b.device.type == "cpu":
     return chol_solve_ref(l, b)
+  return _solve_kernel(l, b, _check_solve_shapes(l, b)[0] > N_MAX)
+
+
+def chol_solve_large(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+  """The solve's block kernel whatever n (``chol_solve_ref`` on the CPU):
+  what ``_solve`` launches above ``N_MAX``."""
+  if _device_kind(l) == "cpu" and b.device.type == "cpu":
+    return chol_solve_ref(l, b)
+  return _solve_kernel(l, b, True)
+
+
+def _solve_kernel(l: torch.Tensor, b: torch.Tensor,
+                  block: bool) -> torch.Tensor:
   n, k = _check_solve_shapes(l, b)
-  fn = _entry("chol_solve", l.dtype)
+  name = "chol_solve_large" if block else "chol_solve"
+  fn = _entry(name, l.dtype)
   l, b = l.contiguous(), b.contiguous()
   x = torch.empty_like(b)  # contiguous, like b
   bsz = l.shape[0]
   if bsz == 0 or k == 0:
     return x
-  ld, per_block, smem = launch_geometry(n, l.dtype)
+  if block:
+    g = large_launch_geometry("chol_solve", n, l.dtype, bsz, cols=k)
+    shape = (n, bsz, k, g.threads, g.smem)
+  else:
+    ld, per_block, smem = launch_geometry(n, l.dtype)
+    shape = (n, ld, bsz, k, per_block, smem)
   with torch.cuda.device(l.device):
-    _check_launch(fn(l.data_ptr(), b.data_ptr(), x.data_ptr(), n, ld, bsz, k,
-                     per_block, smem, _stream(l)), "chol_solve")
-  _count(chol_solve, n, bsz, k, l.dtype)
+    _check_launch(fn(l.data_ptr(), b.data_ptr(), x.data_ptr(), *shape,
+                     _stream(l)), name)
+  _count(chol_solve_large if block else chol_solve, n, bsz, k, l.dtype)
   return x
 
 
@@ -419,7 +513,7 @@ def _count(fn, *shape) -> None:
   """One launch of ``fn``'s kernel at ``shape``: (n, lanes, dtype) of the
   factor, (n, lanes, columns, dtype) of the solve, (n, lanes, tangents a
   lane, dtype) of the factor's JVP and (n, lanes, tangents a lane,
-  columns, dtype) of the solve's."""
+  columns, dtype) of the solve's; the n > N_MAX kernels' the same."""
   fn.launches += 1
   fn.shapes[shape] += 1
 
@@ -437,48 +531,90 @@ def _check_tangent(ref: torch.Tensor, t: torch.Tensor, what: str) -> int:
 
 def chol_factor_jvp(l: torch.Tensor, dh: torch.Tensor) -> torch.Tensor:
   """Tangent of the factor (see ``chol_factor_jvp_ref``): CPU tensors take
-  the plain version, CUDA tensors launch the kernel.
+  the plain version, CUDA tensors launch the warp kernel up to n =
+  ``N_MAX`` and the block kernel above.
 
   ``l`` (B, n, n); ``dh`` (B, n, n) or (T, B, n, n), T tangents a lane, in
   any strides: the kernel reads each operand through its element strides
   (a stride of 0 repeats it), with no copy, and reads each lane's L once
-  for all its tangents.  dL is a new contiguous tensor of dh's shape.
+  for all its tangents (the warp kernel; the block kernel takes a block a
+  (lane, tangent) and works in dL).  dL is a new contiguous tensor of
+  dh's shape.
   """
   if _device_kind(l) == "cpu" and dh.device.type == "cpu":
     return chol_factor_jvp_ref(l, dh)
+  return _factor_jvp_kernel(l, dh, _check_factor_shape(l) > N_MAX)
+
+
+def chol_factor_jvp_large(l: torch.Tensor, dh: torch.Tensor) -> torch.Tensor:
+  """The factor JVP's block kernel whatever n (``chol_factor_jvp_ref`` on
+  the CPU), with ``chol_factor_jvp``'s contract."""
+  if _device_kind(l) == "cpu" and dh.device.type == "cpu":
+    return chol_factor_jvp_ref(l, dh)
+  return _factor_jvp_kernel(l, dh, True)
+
+
+def _factor_jvp_kernel(l: torch.Tensor, dh: torch.Tensor,
+                       block: bool) -> torch.Tensor:
   n = _check_factor_shape(l)
   tangents = _check_tangent(l, dh, "tangent of the matrix")
-  fn = _entry("chol_factor_jvp", l.dtype)
+  name = "chol_factor_jvp_large" if block else "chol_factor_jvp"
+  fn = _entry(name, l.dtype)
   dh4 = dh if tangents else dh[None]
   dl = torch.empty(dh4.shape, dtype=l.dtype, device=l.device)
   lanes, nt = l.shape[0], dh4.shape[0]
   if lanes and nt:
-    g = jvp_launch_geometry(n, l.dtype, nt)
+    if block:
+      g = large_launch_geometry("chol_factor_jvp", n, l.dtype, lanes, nt)
+      shape = (g.threads, g.smem)
+    else:
+      g = jvp_launch_geometry(n, l.dtype, nt)
+      shape = (g.lanes, g.warps, g.buffers, g.smem)
     with torch.cuda.device(l.device):
       _check_launch(fn(l.data_ptr(), dh4.data_ptr(), dl.data_ptr(),
-                       _strides(l, dh4, dl), n, lanes, nt, g.lanes, g.warps,
-                       g.buffers, g.smem, _stream(l)), "chol_factor_jvp")
-    _count(chol_factor_jvp, n, lanes, nt, l.dtype)
+                       _strides(l, dh4, dl), n, lanes, nt, *shape,
+                       _stream(l)), name)
+    _count(chol_factor_jvp_large if block else chol_factor_jvp, n, lanes, nt,
+           l.dtype)
   return dl if tangents else dl[0]
 
 
 def chol_solve_jvp(l: torch.Tensor, dl: torch.Tensor | None, x: torch.Tensor,
                    db: torch.Tensor | None) -> torch.Tensor:
   """Tangent of the solve (see ``chol_solve_jvp_ref``): CPU tensors take
-  the plain version, CUDA tensors launch the kernel.
+  the plain version, CUDA tensors launch the warp kernel up to n =
+  ``N_MAX`` and the block kernel above.
 
   ``l`` (B, n, n) and ``x`` (B, n[, k]) one a lane; ``dl`` and ``db`` of
   their shapes or with T tangents a lane in front, in any strides, or None
   (a zero tangent: the kernel is told so and reads nothing for it).  The
-  kernel reads L and x once a lane, computes y = Lᵀ x once a lane, and
-  takes the lane's tangents past them; an operand without T is read with
-  a tangent stride of 0.  dx is a new contiguous tensor of x's shape, with
-  T in front where a tangent has it.
+  warp kernel reads L and x once a lane, computes y = Lᵀ x once a lane,
+  and takes the lane's tangents past them (the block kernel: a block a
+  (lane, tangent, column)); an operand without T is read with a tangent
+  stride of 0.  dx is a new contiguous tensor of x's shape, with T in
+  front where a tangent has it.
   """
-  given = [t for t in (dl, db) if t is not None]
-  if all(t.device.type == "cpu" for t in (l, x, *given)):
+  if all(t.device.type == "cpu" for t in (l, x, dl, db) if t is not None):
     return chol_solve_jvp_ref(l, dl, x, db)
   _device_kind(l)
+  return _solve_jvp_kernel(l, dl, x, db,
+                           _check_solve_shapes(l, x)[0] > N_MAX)
+
+
+def chol_solve_jvp_large(l: torch.Tensor, dl: torch.Tensor | None,
+                         x: torch.Tensor,
+                         db: torch.Tensor | None) -> torch.Tensor:
+  """The solve JVP's block kernel whatever n (``chol_solve_jvp_ref`` on
+  the CPU), with ``chol_solve_jvp``'s contract."""
+  if all(t.device.type == "cpu" for t in (l, x, dl, db) if t is not None):
+    return chol_solve_jvp_ref(l, dl, x, db)
+  _device_kind(l)
+  return _solve_jvp_kernel(l, dl, x, db, True)
+
+
+def _solve_jvp_kernel(l: torch.Tensor, dl: torch.Tensor | None,
+                      x: torch.Tensor, db: torch.Tensor | None,
+                      block: bool) -> torch.Tensor:
   n, k = _check_solve_shapes(l, x)
   tl = 0 if dl is None else _check_tangent(l, dl, "tangent of the factor")
   tb = 0 if db is None else _check_tangent(x, db,
@@ -487,12 +623,14 @@ def chol_solve_jvp(l: torch.Tensor, dl: torch.Tensor | None, x: torch.Tensor,
     raise ValueError(f"{tl} tangents of the factor, {tb} of the rhs")
   tangents = max(tl, tb)
   nt = max(tangents, 1)
+  given = dl is not None or db is not None
   new = torch.empty if given else torch.zeros
   dx = new((nt, *x.shape), dtype=x.dtype, device=x.device)
   lanes = l.shape[0]
   if not given or lanes == 0 or k == 0:
     return dx if tangents else dx[0]
-  fn = _entry("chol_solve_jvp", l.dtype)
+  name = "chol_solve_jvp_large" if block else "chol_solve_jvp"
+  fn = _entry(name, l.dtype)
 
   # (T, B, n, k) views; an operand without T repeats by a stride of 0
   col = (lambda t: t) if x.ndim == 3 else (lambda t: t[..., None])
@@ -500,18 +638,22 @@ def chol_solve_jvp(l: torch.Tensor, dl: torch.Tensor | None, x: torch.Tensor,
   dl4 = None if dl is None else (dl if tl else dl[None]).expand(nt, *l.shape)
   db4 = None if db is None else col(db if tb else db[None]).expand(
       nt, *x3.shape)
-  g = jvp_launch_geometry(n, l.dtype, nt, k, dl is not None)
+  if block:
+    g = large_launch_geometry("chol_solve_jvp", n, l.dtype, lanes, nt, k)
+    shape = (g.threads, g.smem)
+  else:
+    g = jvp_launch_geometry(n, l.dtype, nt, k, dl is not None)
+    shape = (g.lanes, g.warps, g.buffers, g.smem)
   with torch.cuda.device(l.device):
     # an absent operand: a null pointer
     _check_launch(fn(
         l.data_ptr(), None if dl4 is None else dl4.data_ptr(), x3.data_ptr(),
         None if db4 is None else db4.data_ptr(), dx4.data_ptr(),
-        _strides(l, dl4, x3, db4, dx4), n, lanes, nt, k, g.lanes, g.warps,
-        g.buffers, g.smem, _stream(l)), "chol_solve_jvp")
-  _count(chol_solve_jvp, n, lanes, nt, k, l.dtype)
+        _strides(l, dl4, x3, db4, dx4), n, lanes, nt, k, *shape,
+        _stream(l)), name)
+  _count(chol_solve_jvp_large if block else chol_solve_jvp, n, lanes, nt, k,
+         l.dtype)
   return dx if tangents else dx[0]
-
-
 
 
 # ---------------------------------------------------------------------------
@@ -675,6 +817,8 @@ def chol_solve(l: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
 
 
 # launches, and launches by shape (see _count)
-for _fn in (chol_factor, chol_solve, chol_factor_jvp, chol_solve_jvp):
+for _fn in (chol_factor, chol_solve, chol_factor_jvp, chol_solve_jvp,
+            chol_factor_large, chol_solve_large, chol_factor_jvp_large,
+            chol_solve_jvp_large):
   _fn.launches = 0
   _fn.shapes = collections.Counter()

@@ -9,12 +9,16 @@ it.  The scenes are the MJCF strings of ``tests/test_flex.py``,
 ``tests/test_flex_trilinear.py``, copied here so that this script imports
 neither the tests nor JAX; ``tests/test_torch_flex.py`` holds the
 copies to the tests' strings and the committed files to what this writes.
-Needs ``mujoco`` and no card.  Import it with ``scripts/`` on
-``sys.path``.
+It also writes ``hammock.xml`` (``hammock_xml``) and its snapshot, with
+the model's names, and C's runs of it that ``chip_smoke.py``'s phase 29
+holds the port to on the card, which has no ``mujoco``
+(``hammock_c_reference``: ``hammock_c.npz``).  Needs ``mujoco`` and no card.  Import it with
+``scripts/`` on ``sys.path``.
 """
 
 from __future__ import annotations
 
+import copy
 import os
 import sys
 
@@ -233,6 +237,87 @@ SCENES = {
 }
 
 
+# the hammock's sheet: an 11 x 11 grid 0.1 apart (1 m square) at z = 0,
+# its two edges x = -0.5 (vertices 0-10) and x = 0.5 (110-120) pinned
+HAMMOCK_PINS = tuple(range(11)) + tuple(range(110, 121))
+HAMMOCK_SHEET = f"""
+    <flexcomp type="grid" count="11 11 1" spacing="0.1 0.1 0.1"
+              radius="0.01" name="hammock" dim="2" mass="2">
+      <contact selfcollide="none" internal="false"/>
+      <edge equality="true"/>
+      <pin id="{' '.join(map(str, HAMMOCK_PINS))}"/>
+    </flexcomp>
+"""
+
+
+def hammock_xml() -> str:
+  """The hammock: the package's ``assets/humanoid.xml`` (dm_control's
+  humanoid: Newton, pyramidal cone, EULER at 0.005 s) with its floor
+  lowered to z = -1 and ``HAMMOCK_SHEET`` (``sheet_xml``'s pinned
+  edge-equality sheet, grown to 11 x 11) under it.  nv = 27 + 99 free
+  vertices x 3 = 324, nu = 21.  Written for this repository on the pattern
+  of MuJoCo's ``model/hammock/hammock.xml`` (BASELINE config 5), which is
+  not in it."""
+  from mujoco_inversedynamicstest_tpu_torch import asset_path
+
+  text = asset_path("humanoid.xml").read_text()
+  body = text[text.index("<mujoco"):]
+  floor = '<geom name="floor" type="plane" conaffinity="1" size="100 100 .2"/>'
+  assert body.count(floor) == 1
+  body = body.replace('<mujoco model="humanoid">', '<mujoco model="hammock">')
+  body = body.replace(floor, floor[:-2] + ' pos="0 0 -1"/>\n'
+                      + HAMMOCK_SHEET.rstrip())
+  header = text[:text.index("-->")].rstrip()
+  return (header + "\n\nThe hammock: this file with its floor at z = -1 and "
+          "an 11 x 11 flexcomp sheet,\npinned along x = -0.5 and x = 0.5, "
+          "under the humanoid (scripts/flex_models.py:\nhammock_xml).  "
+          "Written for this repository on the pattern of MuJoCo's\n"
+          "model/hammock/hammock.xml (BASELINE config 5), which is not in "
+          "it, from\ntests/test_flex_elem.py's pinned sheet and dm_control's "
+          "humanoid.\n-->\n" + body)
+
+
+# C's steps from reset to the resting state of phase 29's fleet (2 s), and
+# the steps after first contact at which qpos is recorded
+HAMMOCK_REST_STEPS = 400
+HAMMOCK_CONTACT_STEPS = (10, 50)
+
+
+def hammock_c_reference(mjm) -> dict:
+  """C MuJoCo's runs of the hammock ``mjm`` (fp64), for the card: the
+  state after ``HAMMOCK_REST_STEPS`` steps from reset, the humanoid
+  resting in the sheet (``rest_*``); ``mj_forward`` at reset with contacts
+  disabled (``reset_qacc``, ``reset_flexvert_xpos``); the first state
+  with a contact, stepping from reset (``contact_*``), and qpos after
+  each of ``HAMMOCK_CONTACT_STEPS`` more steps (``contact_qpos<k>``)."""
+  import mujoco
+  import numpy as np
+
+  state = ("qpos", "qvel", "act", "qacc_warmstart")
+  out = {}
+  mjd = mujoco.MjData(mjm)
+  for _ in range(HAMMOCK_REST_STEPS):
+    mujoco.mj_step(mjm, mjd)
+  out.update({f"rest_{k}": getattr(mjd, k).copy() for k in state})
+  out["rest_ncon"] = np.array(mjd.ncon)
+  free = copy.copy(mjm)
+  free.opt.disableflags |= mujoco.mjtDisableBit.mjDSBL_CONTACT
+  mjd = mujoco.MjData(free)
+  mujoco.mj_forward(free, mjd)
+  out["reset_qacc"] = mjd.qacc.copy()
+  out["reset_flexvert_xpos"] = mjd.flexvert_xpos.copy()
+  mjd = mujoco.MjData(mjm)
+  while mjd.ncon == 0:
+    mujoco.mj_step(mjm, mjd)
+  out.update({f"contact_{k}": getattr(mjd, k).copy() for k in state})
+  out["contact_time"] = np.array(mjd.time)
+  for k in range(1, max(HAMMOCK_CONTACT_STEPS) + 1):
+    mujoco.mj_step(mjm, mjd)
+    if k in HAMMOCK_CONTACT_STEPS:
+      out[f"contact_qpos{k}"] = mjd.qpos.copy()
+  return out
+
+
 def vendored(name: str) -> str:
   """The text of the vendored ``assets/<name>.xml``."""
   source, xml = SCENES[name]
@@ -242,6 +327,7 @@ def vendored(name: str) -> str:
 
 def main() -> None:
   import mujoco
+  import numpy as np
 
   import mujoco_inversedynamicstest_tpu_torch as mt
 
@@ -251,6 +337,12 @@ def main() -> None:
     mt.save_model_snapshot(mujoco.MjModel.from_xml_path(str(path)),
                            mt.asset_path(f"{name}.npz"))
     print(f"wrote {path} and its snapshot")
+  path = mt.asset_path("hammock.xml")
+  path.write_text(hammock_xml())
+  mjm = mujoco.MjModel.from_xml_path(str(path))
+  mt.save_model_snapshot(mjm, mt.asset_path("hammock.npz"), names=True)
+  np.savez(mt.asset_path("hammock_c.npz"), **hammock_c_reference(mjm))
+  print(f"wrote {path}, its snapshot and hammock_c.npz")
 
 
 if __name__ == "__main__":

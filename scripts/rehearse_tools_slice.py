@@ -52,7 +52,7 @@ def main() -> None:
   cs.plain_cholesky = lambda _: contextlib.nullcontext()
 
   # the functions' shapes, as the card's wrappers count them
-  seen = {k: set() for k in cs.KERNELS}
+  seen = {k: set() for k in cs.WARP_KERNELS}
   factor, solve = linalg.chol_factor_ref, linalg.chol_solve_ref
   factor_jvp, solve_jvp = linalg.chol_factor_jvp, linalg.chol_solve_jvp
 

@@ -39,7 +39,7 @@ READERS = (
     "test_torch_quadruped_rangefinder.py", "test_torch_integrators.py",
     "test_torch_sensor.py", "test_torch_ilqr.py", "test_torch_step.py",
     "test_torch_sensor_derivative_jax.py",
-    "test_torch_integrators_inverse.py")
+    "test_torch_integrators_inverse.py", "test_torch_hammock.py")
 
 
 def model_bytes(mjm) -> bytes:

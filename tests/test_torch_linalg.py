@@ -176,11 +176,84 @@ def test_launch_geometry_fits_hopper(dtype):
     ((2, 3, 4), "expected"),
     ((3, 3), "expected"),
     ((2, 0, 0), "kernel takes"),
-    ((2, 129, 129), "kernel takes"),
+    ((2, 2, 3, 3), "expected"),
 ])
 def test_factor_shape_checks_raise(shape, match):
   with pytest.raises(ValueError, match=match):
     linalg._check_factor_shape(torch.zeros(shape))
+
+
+@pytest.mark.parametrize("n", [129, 324, 512])
+def test_factor_shape_check_takes_n_above_128(n):
+  """Above N_MAX the block kernels take the matrix: nothing raises."""
+  assert linalg._check_factor_shape(torch.zeros(2, n, n)) == n
+  assert linalg._check_solve_shapes(torch.zeros(2, n, n),
+                                    torch.zeros(2, n, 3)) == (n, 3)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_large_launch_geometry_fits_hopper(dtype):
+  """The n > 128 kernels: a block of LARGE_WARPS warps an item (a matrix,
+  a (matrix, column), a (lane, tangent[, column])), a few vectors of n in
+  shared memory, within what a Hopper block may use for every n in
+  129..512 and the JVPs at 1, 3, 75 and 669 tangents a lane."""
+  for n in range(129, 513):
+    for lanes in (1, 256):
+      g = linalg.large_launch_geometry("chol_factor", n, dtype, lanes)
+      assert g == (lanes, 256, 3 * n * dtype.itemsize)
+      for cols in (1, 3):
+        g = linalg.large_launch_geometry("chol_solve", n, dtype, lanes,
+                                         cols=cols)
+        assert g == (lanes * cols, 256, 2 * n * dtype.itemsize)
+      for t in (1, 3, 75, 669):
+        g = linalg.large_launch_geometry("chol_factor_jvp", n, dtype, lanes,
+                                         t)
+        assert g == (lanes * t, 256, 5 * n * dtype.itemsize)
+        g = linalg.large_launch_geometry("chol_solve_jvp", n, dtype, lanes,
+                                         t, 3)
+        assert g == (lanes * t * 3, 256, 5 * n * dtype.itemsize)
+        assert g.smem <= 232_448
+  # the hammock's linearization: 4 lanes x 669 tangents at n = 324, fp64
+  assert linalg.large_launch_geometry(
+      "chol_factor_jvp", 324, torch.float64, 4, 669) == (2676, 256, 12_960)
+  # where the vectors outgrow shared memory, the launch is refused
+  with pytest.raises(ValueError, match="shared memory"):
+    linalg.large_launch_geometry("chol_factor_jvp", 6000, torch.float64, 1)
+
+
+def _spd_np(rng, b, n):
+  """SPD matrices, G Gᵀ + n I: no pivot near the clamp."""
+  g = rng.randn(b, n, n)
+  return g @ g.transpose(0, 2, 1) + n * np.eye(n)
+
+
+@pytest.mark.parametrize("n", [129, 200, 324])
+def test_plain_versions_above_128_match_jax_linalg(n):
+  """Above n = 128 the JAX package's factor and solve are
+  ``jnp.linalg.cholesky`` and ``cho_solve`` (its Pallas dispatch stops at
+  128), differentiated by JAX; the plain versions, which the block
+  kernels follow to the bit, agree with them and with their ``jax.jvp``
+  to 1e-10 relative, fp64."""
+  rng = np.random.RandomState(n)
+  h = _spd_np(rng, 2, n)
+  dh = rng.randn(2, n, n)
+  dh = dh + dh.transpose(0, 2, 1)
+  b, db = rng.randn(2, n), rng.randn(2, n)
+  jfactor = jax.vmap(jlinalg.chol_factor)
+  jsolve = jax.vmap(jlinalg.chol_solve)
+  l_j, dl_j = jax.jvp(jfactor, (jnp.asarray(h),), (jnp.asarray(dh),))
+  x_j, dx_j = jax.jvp(lambda a, c: jsolve(jfactor(a), c),
+                      (jnp.asarray(h), jnp.asarray(b)),
+                      (jnp.asarray(dh), jnp.asarray(db)))
+  th = torch.as_tensor(h)
+  l = linalg.chol_factor_ref(th)
+  x = linalg.chol_solve_ref(l, torch.as_tensor(b))
+  dl = linalg.chol_factor_jvp_ref(l, torch.as_tensor(dh))
+  dx = linalg.chol_solve_jvp_ref(l, dl, x, torch.as_tensor(db))
+  for got, ref in ((l, l_j), (x, x_j), (dl, dl_j), (dx, dx_j)):
+    ref = np.asarray(ref)
+    err = np.abs(got.numpy() - ref).max() / np.abs(ref).max()
+    assert err <= 1e-10, err
 
 
 @pytest.mark.parametrize("rhs, match", [
@@ -706,6 +779,111 @@ def test_multi_tangent_jvp_kernels_match_plain_versions_on_card(
     before = linalg.chol_solve_jvp.launches
     got = linalg.chol_solve_jvp(l, dl_in, x, db_in)
     assert linalg.chol_solve_jvp.launches == before + 1
+    torch.testing.assert_close(got, linalg.chol_solve_jvp_ref(l, dl_in, x,
+                                                              db_in),
+                               rtol=0, atol=0)
+
+
+# ---------------------------------------------------------------------------
+# n > 128 on the card: the block kernels
+# ---------------------------------------------------------------------------
+
+
+def _large_launches():
+  return tuple(getattr(linalg, f"chol_{k}_large").launches
+               for k in ("factor", "solve", "factor_jvp", "solve_jvp"))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [129, 324])
+@pytest.mark.parametrize("b", [1, 256])
+def test_large_kernels_match_plain_versions_on_card(cuda, dtype, n, b):
+  """``test_kernels_match_plain_versions_on_card`` above n = 128: the
+  factor and the solve launch the block kernels, once a call, bit-equal to
+  the plain versions; the warp kernels are not launched."""
+  rng = np.random.RandomState(5)
+  h = torch.as_tensor(_spd_np(rng, b, n), device=cuda, dtype=dtype)
+  before, warp = _large_launches(), _launches()
+  l = linalg.chol_factor(h)
+  assert _large_launches()[:2] == (before[0] + 1, before[1])
+  torch.testing.assert_close(l, linalg.chol_factor_ref(h), rtol=0, atol=0)
+  for k in (1, 3):
+    rhs = torch.as_tensor(rng.randn(b, n, k), device=cuda, dtype=dtype)
+    if k == 1:
+      rhs = rhs[..., 0]
+    x = linalg.chol_solve(l, rhs)
+    assert x.shape == rhs.shape
+    torch.testing.assert_close(x, linalg.chol_solve_ref(l, rhs), rtol=0,
+                               atol=0)
+  assert _large_launches()[:2] == (before[0] + 1, before[1] + 2)
+  assert _launches() == warp
+  h_t = h.transpose(1, 2)
+  torch.testing.assert_close(linalg.chol_factor(h_t),
+                             linalg.chol_factor_ref(h_t), rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [129, 324])
+@pytest.mark.parametrize("b", [1, 8])
+def test_large_jvp_kernels_match_plain_versions_on_card(cuda, dtype, n, b):
+  """``test_jvp_kernels_match_plain_versions_on_card`` above n = 128: one
+  block-kernel launch a call, bit-equal, rhs (B, n) and (B, n, 3) and
+  transposed inputs."""
+  rng = np.random.RandomState(6)
+  h = torch.as_tensor(_spd_np(rng, b, n), device=cuda, dtype=dtype)
+  dh = torch.as_tensor(rng.randn(b, n, n), device=cuda, dtype=dtype)
+  l = linalg.chol_factor_ref(h)
+  before = _large_launches()
+  dl = linalg.chol_factor_jvp(l, dh)
+  assert _large_launches()[2] == before[2] + 1
+  torch.testing.assert_close(dl, linalg.chol_factor_jvp_ref(l, dh), rtol=0,
+                             atol=0)
+  torch.testing.assert_close(linalg.chol_factor_jvp(l, dh.transpose(1, 2)),
+                             linalg.chol_factor_jvp_ref(l, dh.transpose(1, 2)),
+                             rtol=0, atol=0)
+  for k in (1, 3):
+    x, db = (torch.as_tensor(rng.randn(b, n, k), device=cuda, dtype=dtype)
+             for _ in range(2))
+    if k == 1:
+      x, db = x[..., 0], db[..., 0]
+    before = _large_launches()
+    dx = linalg.chol_solve_jvp(l, dl, x, db)
+    assert _large_launches()[3] == before[3] + 1
+    torch.testing.assert_close(dx, linalg.chol_solve_jvp_ref(l, dl, x, db),
+                               rtol=0, atol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("layout", ["tangent-major", "lane-major"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n, lanes, tangents", [
+    (129, 1, 1), (129, 8, 75), (324, 1, 3), (324, 4, 75)])
+def test_large_multi_tangent_jvp_kernels_match_plain_versions_on_card(
+    cuda, n, lanes, tangents, dtype, layout):
+  """``test_multi_tangent_jvp_kernels_match_plain_versions_on_card`` above
+  n = 128: either layout, tangent strides of 0, absent tangents."""
+  rng = np.random.RandomState(7)
+  l = linalg.chol_factor_ref(torch.as_tensor(_spd_np(rng, lanes, n),
+                                             device=cuda, dtype=dtype))
+  dh = _tangent_layout(torch.as_tensor(rng.randn(tangents, lanes, n, n),
+                                       device=cuda, dtype=dtype), layout)
+  for dh_in in (dh, dh[:1].expand(tangents, lanes, n, n)):
+    before = _large_launches()
+    got = linalg.chol_factor_jvp(l, dh_in)
+    assert _large_launches()[2] == before[2] + 1
+    torch.testing.assert_close(got, linalg.chol_factor_jvp_ref(l, dh_in),
+                               rtol=0, atol=0)
+  dl = linalg.chol_factor_jvp_ref(l, dh)
+  x = torch.as_tensor(rng.randn(lanes, n), device=cuda, dtype=dtype)
+  db = _tangent_layout(torch.as_tensor(rng.randn(tangents, lanes, n),
+                                       device=cuda, dtype=dtype), layout)
+  for dl_in, db_in in ((dl, db), (None, db), (dl, None), (dl[0], db),
+                       (dl, db[0])):
+    before = _large_launches()
+    got = linalg.chol_solve_jvp(l, dl_in, x, db_in)
+    assert _large_launches()[3] == before[3] + 1
     torch.testing.assert_close(got, linalg.chol_solve_jvp_ref(l, dl_in, x,
                                                               db_in),
                                rtol=0, atol=0)
