@@ -11,7 +11,9 @@ and 17-29: kernels against plain versions, inverse_tests, transition_ad
 against transition_fd; phase 29's right after phase 10, so that its
 transition_fd does not meet the first process's hammock fleet).  The
 first process runs phases 3-4 and 8 above n = 128 last, after its timed
-work.  Phases 5, 6, 9, 11 and 12 run alone.  The second
+work, and then takes phase 16 and the checks of phases 25 and 26 from the
+second, which would otherwise end long after it.  Phases 5, 6, 9, 11 and
+12 run alone.  The second
 process's lines are printed as they come, after ``checks |``; a failure in
 either process fails the script.  Phase 6's loop is timed alone before the
 second process starts, twice while it runs and once more after it ends,
@@ -5580,9 +5582,10 @@ def hammock_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
   HAMMOCK_CHECK_STEPS steps with the kernels against the plain versions;
   the contact-free forward at reset against C's (stored); the fork's
   inverse_test under RK4 from the resting state; transition_ad of the
-  contact-free scene against the plain versions and transition_fd; and,
-  for the record, qpos against C after 10 and 50 steps from C's first
-  contact.  Returns the kernels' launches of these runs and the
+  contact-free scene against the plain versions and transition_fd (and
+  once under the profiler: the JVP kernels' launches and µs a launch);
+  and, for the record, qpos against C after 10 and 50 steps from C's
+  first contact.  Returns the kernels' launches of these runs and the
   timings."""
   from mujoco_inversedynamicstest_tpu_torch.opt import derivative
 
@@ -5622,6 +5625,8 @@ def hammock_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
     step_launches = sum(e.count for e in events)
     per = {k: sum(e.device_time_total for e in events
                   if f"{k}_kernel" in e.key) for k in LARGE_KERNELS}
+    count = {k: sum(e.count for e in events if f"{k}_kernel" in e.key)
+             for k in LARGE_KERNELS}
     large_ms = sum(per.values()) / 1e3
     top = sorted(events, key=lambda e: -e.device_time_total)[:6]
     log(phase,
@@ -5634,7 +5639,8 @@ def hammock_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
         f"a profiled step {step_ms:.3f} device ms / {step_launches} "
         f"launches, the block kernels {large_ms:.3f} ms = "
         f"{large_ms / step_ms:.1%} of it (" + ", ".join(
-            f"{k} {us / 1e3:.3f} ms" for k, us in per.items() if us)
+            f"{k} {us / 1e3:.3f} ms = {count[k]} x {us / count[k]:.1f} µs"
+            for k, us in per.items() if us)
         + "); its largest device items: " + "; ".join(
             f"{e.key[:70]} {e.count} x {e.device_time_total / e.count:.1f} µs"
             f" = {e.device_time_total / 1e3 / step_ms:.1%}" for e in top))
@@ -5711,6 +5717,15 @@ def hammock_slice(mt, linalg, dev, card: str) -> tuple[dict, dict]:
               for k in ("chol_factor_jvp_large", "chol_solve_jvp_large")}
     launches = read_launches(linalg)
     add(launches)
+    events = device_events(lambda: derivative.transition_ad(m, d))
+    ad_ms = sum(e.device_time_total for e in events) / 1e3
+    jvp_us = {k: (sum(e.device_time_total for e in events
+                      if f"{k}_kernel" in e.key),
+                  sum(e.count for e in events if f"{k}_kernel" in e.key))
+              for k in ("chol_factor_jvp_large", "chol_solve_jvp_large")}
+    log(phase, f"a profiled transition_ad: {ad_ms:.3f} device ms; "
+        + ", ".join(f"{k} {c} x {us / max(c, 1):.1f} µs = "
+                    f"{us / 1e3 / ad_ms:.1%}" for k, (us, c) in jvp_us.items()))
     with plain_cholesky(linalg):
       plain = derivative.transition_ad(m, d)
     torch.cuda.synchronize()
@@ -5807,10 +5822,29 @@ class ChecksProcess:
       self.proc.wait()
 
 
+def late_checks(mt, linalg, dev, smi, by_path: dict) -> None:
+  """The checks the timed process takes from the checks process once its
+  timed work is done, where it would wait for it: phase 16 and the fp64
+  checks of phases 25 and 26 (about 90 s of the checks process's 890 s).
+  Adds their launches to ``by_path``."""
+  global TIMED, CHECKS
+  by_path["inverse_test"] = inverse_test(mt, linalg, dev)
+  TIMED, CHECKS = False, True
+  try:
+    for path, run in (("flex", flex_slice), ("tail", tail_slice)):
+      mine = by_path.setdefault(path, {})
+      for k, v in run(mt, linalg, dev, smi)[0].items():
+        mine[k] = mine.get(k, 0) + v
+  finally:
+    TIMED, CHECKS = True, False
+
+
 def run_checks(mt, linalg, dev, smi, lap) -> None:
   """The checks process: the kernels against their plain versions (phases
-  3-4, 8, 9; above n = 128 the timed process runs them), phases 7, 10 and
-  16, and the fp64 checks of phases 6, 13, 15 and 17-29 (29 after 10).
+  3-4, 8, 9; above n = 128 the timed process runs them), phase 7 and 10,
+  and the fp64 checks of phases 6, 13, 15, 17-24 and 27-29 (29 after 10;
+  the timed process takes phase 16 and those of 25 and 26 at its end,
+  ``late_checks``).
   Prints one JSON line: its launches by path, the kernels'
   largest errors, and the launches at shapes phase 9 did not check."""
   slice_err = check_kernels(linalg, dev)
@@ -5837,8 +5871,6 @@ def run_checks(mt, linalg, dev, smi, lap) -> None:
   lap("13")
   by_path["integrators_fleet"] = integrators_fleet(mt, linalg, dev, smi)
   lap("15")
-  by_path["inverse_test"] = inverse_test(mt, linalg, dev)
-  lap("16")
   by_path["sensors"] = sensors(mt, linalg, dev, smi)
   lap("17")
   by_path["constraint_rows"] = constraint_rows(mt, linalg, dev, smi)[0]
@@ -5853,10 +5885,6 @@ def run_checks(mt, linalg, dev, smi, lap) -> None:
   lap("23")
   by_path["suite"] = suite_slice(mt, linalg, dev, smi)[0]
   lap("24")
-  by_path["flex"] = flex_slice(mt, linalg, dev, smi)[0]
-  lap("25")
-  by_path["tail"] = tail_slice(mt, linalg, dev, smi)[0]
-  lap("26")
   by_path["plugins"] = plugin_slice(mt, linalg, dev, smi)[0]
   lap("27")
   by_path["tools"] = tools_slice(mt, linalg, dev, smi)[0]
@@ -6034,7 +6062,7 @@ def timed_run(mt, linalg, dev, smi, lap, rates,
   process has started (appended to ``rates``).  Returns the launches by
   path, the kernels' timings, the JVP kernels' tangents a lane of phase 12
   and the block kernels' errors at the hammock's shapes (phases 3-4 and 8
-  above n = 128 run here, last)."""
+  above n = 128 run here after the timed work, then ``late_checks``)."""
   rates.append(fleet_rate(mt, dev))
   by_path = {"fleet_step": fleet_step(mt, linalg, dev, smi)}
   lap("6")
@@ -6093,6 +6121,8 @@ def timed_run(mt, linalg, dev, smi, lap, rates,
   for k, v in seen.items():
     SEEN_SHAPES[k] |= v
   lap("3-4, 8 above n = 128")
+  late_checks(mt, linalg, dev, smi, by_path)
+  lap("16, 25-26 (checks)")
   for more in (times_n2, times_convex, times_contact, times_shapes,
                times_suite, times_flex, times_tail, times_plugins,
                times_tools):

@@ -546,7 +546,7 @@ __global__ void chol_solve_jvp_kernel(
 }
 
 // ---------------------------------------------------------------------------
-// n > 128: one block of several warps a matrix, in place in device memory.
+// n > 128: a block a matrix (a solve column, a group of tangents).
 //
 // Replaces no Pallas kernel.  The JAX package's Pallas dispatch stops at
 // n = 128 (ops/linalg.py: _use_pallas); above it, it calls
@@ -563,113 +563,294 @@ __global__ void chol_solve_jvp_kernel(
 //
 // What bounds them.  A factor is n^3 / 3 operations (a multiply and a
 // subtract for each of n^3 / 6 updates) against (n (n + 1) / 2 + n^2)
-// elements moved: at n = 324 about 21 operations a byte in fp32, so the
-// card's fp32 rate outside the tensor cores bounds it, not its memory.  A
-// solve is 2 n^2 operations a column against L's triangle and two vectors,
-// under one operation a byte: the memory rate bounds it.  What stands
-// between either and its bound is the chain of n (2 n) dependent pivots,
-// each a pass over the trailing triangle (a column) in L2.
+// elements moved: at n = 324 in fp32, 11.3 M operations against 631 kB,
+// so the card's memory (0.048 ms for 256 matrices) and its fp32 rate
+// (0.043 ms at 67 TFLOP/s; twice that without fused multiply-adds) bound
+// it about equally.  The factor's tangent is 2 n^3 / 3 operations: 669
+// fp64 tangents of 4 lanes at n = 324 are 60.7 GFLOP, 1.8 ms at the fp64
+// rate (3.6 ms unfused), against 3.4 GB of compulsory traffic (1.0 ms).  A
+// solve is 2 n^2 operations a column against L's triangle and two
+// vectors, under one operation a byte: the memory rate bounds it.  What
+// stands between the factors and their bounds is the chain of n dependent
+// pivots.
 //
-// Design (simple and exact first; a tiled trailing update on the tensor
-// cores would change the summation order):
-//   * A block takes one matrix (the solve: one (matrix, column); the JVPs:
-//     one (lane, tangent[, column]) item).  The factor copies h's lower
-//     triangle into the output and factors there; the factor's JVP works
-//     in dL's own buffer the same way.  A (324, 324) matrix stays in the
-//     50 MB L2 while its block works on it.
-//   * The factor's warps take the trailing rows r = k + 1 + w, ... in turn,
-//     their lanes the columns of a row (coalesced).  The pivot column,
-//     scaled, and the running diagonal live in shared memory.  Each pass
-//     also finishes the next column (its last update, then its scaling by
-//     the next pivot, which every thread computes from the shared
-//     diagonal), so one __syncthreads() ends each pivot.
-//   * The substitutions keep the running right-hand side in shared memory,
-//     one __syncthreads() a pivot; the solve's JVP computes y = L^T x,
-//     t = dL^T x and u = db - dL y a row a thread, in the plain version's
-//     order, before its two substitutions.
+// The factor and its tangent: right-looking, blocked by panels of nb
+// columns (ops/linalg.py: large_launch_geometry picks nb = 32 where two
+// blocks still share an SM, narrower panels, down to nb = 1, for large n
+// or fp64 tangents: nb = 16 for the hammock's).  A block has 256 threads,
+// at most 128 registers each, two blocks an SM.  For each panel k0 ..
+// k0 + nb - 1:
+//   (a) its rows k0 .. n - 1 are copied into shared memory with cp.async
+//       (the JVP: L's panel, fixed, and each tangent's running panel) and
+//       factored there, one pass and one __syncthreads() a pivot: pass k
+//       applies pivot k to the panel's later columns and finishes column
+//       k + 1 (its last update, then its scaling), whose pivot every
+//       thread computes alike from the diagonal, which no thread writes
+//       in that pass (the finished pivots go to a vector of their own).
+//       Then the panel is written to L (dL).
+//   (b) the trailing triangle right of and below the panel is updated a
+//       tile at a time, each tile by one warp with no barrier: the warp
+//       loads the tile into registers (a lane holds RM rows by 4 columns
+//       8 apart, so that 8 lanes read neighbouring elements), applies the
+//       panel's nb updates in ascending k, reading the panel's entries of
+//       the tile's rows and columns from shared memory (broadcasts within
+//       a row group), and stores it once; the next tile's loads are
+//       issued before the current tile's updates, so they are in flight
+//       while it computes.  A barrier ends the panel.
+// So the trailing triangle goes through the SMs once a panel instead of
+// once a pivot: at n = 324 and nb = 32, 0.15 M element visits a matrix
+// instead of 5.7 M (312 MB instead of 11.6 GB at 256 fp32 matrices); the
+// JVP's 669 x 4 fp64 tangents at nb = 16 move 14 GB instead of 243 GB.
+// The matrix lives in place in the output, which the first panel reads
+// from the input.  The tiles are 4 RM rows by 32 columns, RM = 32 /
+// sizeof(T): 32 x 32 in fp32, 16 x 32 in fp64.  A JVP block takes a group
+// of tangents of one lane, which share L's panel, its warps spread over
+// the tangents' tiles (group 1 at the hammock's shape, where two blocks
+// of one tangent each fill the SM's shared memory).  Tensor cores are
+// not used: their products would sum in another order (and TF32 would
+// round the operands).
 //
-// Every element takes the plain versions' operations in their order:
-// rank-1 updates in ascending pivot order, one rounding for each product
-// and difference (-fmad=false), the pivot clamp sqrt(max(p, 1e-15)),
-// column-oriented substitutions (ascending, then descending); so the
-// kernels are bit-equal to chol_factor_ref, chol_solve_ref,
-// chol_factor_jvp_ref and chol_solve_jvp_ref.
+// The solves keep the running right-hand side in shared memory, one
+// __syncthreads() a pivot; the solve's JVP computes y = L^T x, t = dL^T x
+// and u = db - dL y a row a thread, in the plain version's order, before
+// its two substitutions.
+//
+// Every element takes the plain versions' operations in their order: the
+// rank-1 updates of each element in ascending pivot order (the panels and
+// tiles change only the order in which different elements are visited),
+// one rounding for each product, sum and difference (-fmad=false), the
+// pivot clamp sqrt(max(p, 1e-15)), column-oriented substitutions
+// (ascending, then descending); so the kernels are bit-equal to
+// chol_factor_ref, chol_solve_ref, chol_factor_jvp_ref and
+// chol_solve_jvp_ref.
 // ---------------------------------------------------------------------------
 
+// Threads a block of the factor and its JVP, two blocks an SM: 128
+// registers a thread.
+constexpr int kLargeThreads = 256;
+// A trailing tile's columns: 8 lanes of 4 (8 apart).  Its rows: 4 lanes
+// of kTileRows.
+constexpr int kTileCols = 32;
 template <typename T>
-__global__ void chol_factor_large_kernel(const T* __restrict__ h,
-                                         T* __restrict__ l, int n,
-                                         T minval) {
-  const size_t off = static_cast<size_t>(blockIdx.x) * n * n;
-  const T* src = h + off;
-  T* a = l + off;
-  T* diag = block_smem<T>();  // a[j][j] as updated so far, j past the pivot
-  T* col = diag + n;          // two buffers: a scaled pivot column, by row
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
-  const int warps = blockDim.x / kWarp;
+constexpr int kTileRows = 32 / sizeof(T);
+// Elements past each panel in shared memory: a ragged tile reads panel
+// rows up to 31 past the last (their results are never stored).
+constexpr int kPanelPad = 32;
+// The panel columns a pivot pass updates in a row at a time: 32 bytes
+// of each.
+template <typename T>
+constexpr int kBatch = 32 / sizeof(T);
 
-  // h's lower triangle into l (zeros above), its diagonal into shared
-  // memory, and column 0 scaled by the first pivot
-  {
-    T p = src[0];
-    p = p < minval ? minval : p;  // keeps NaN, unlike fmax
-    const T d = sqrt(p), inv = T(1) / d;
-    for (int r = warp; r < n; r += warps) {
-      const T* in = src + static_cast<size_t>(r) * n;
-      T* out = a + static_cast<size_t>(r) * n;
-      for (int c = lane; c < n; c += kWarp) {
-        T v = c <= r ? in[c] : T(0);
-        if (c == r) {
-          diag[r] = v;
-          if (r == 0) v = d;
-        } else if (c == 0 && r > 0) {
-          v = v * inv;
-          col[r] = v;
-        }
-        out[c] = v;
+// Tiles of TR rows by kTileCols columns over the trailing triangle, rows
+// and columns j0 .. n - 1: band i (rows j0 + TR i ...) holds the column
+// tiles that reach its lower triangle.  A warp visits tiles s, s + stride,
+// ... in band order.
+template <int TR>
+struct TileWalk {
+  int j0, n, band, col;  // band < 0: past the last tile
+
+  __device__ TileWalk(int j0_, int n_, int start)
+      : j0(j0_), n(n_), band(j0_ < n_ ? 0 : -1), col(0) {
+    advance(start);
+  }
+  __device__ int tiles(int i) const {
+    return (min(i * TR + TR, n - j0) - 1) / kTileCols + 1;
+  }
+  __device__ void advance(int steps) {
+    while (band >= 0) {
+      const int count = tiles(band);
+      if (col + steps < count) {
+        col += steps;
+        return;
+      }
+      steps -= count - col;
+      col = 0;
+      if (j0 + ++band * TR >= n) band = -1;
+    }
+  }
+  __device__ bool done() const { return band < 0; }
+  __device__ int row() const { return j0 + band * TR; }
+  __device__ int column() const { return j0 + col * kTileCols; }
+};
+
+// Start of row r of a row-major n x n matrix.
+__device__ __forceinline__ size_t row_start(int r, int n) {
+  return static_cast<size_t>(r) * n;
+}
+
+// This lane's RM x 4 part of a tile: rows r .. r + RM - 1, columns c,
+// c + 8, c + 16, c + 24 (the 8 lanes of a row group on neighbouring
+// columns), of the lower triangle of an n x n matrix with element strides
+// (sr, sc); zeros outside it.
+template <typename T, int RM>
+__device__ __forceinline__ void load_tile(const T* src, long long sr,
+                                          long long sc, int n, int r, int c,
+                                          T (&v)[RM][4]) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      v[i][j] = r + i < n && c + 8 * j <= r + i
+                    ? src[(r + i) * sr + (c + 8 * j) * sc]
+                    : T(0);
+    }
+  }
+}
+
+template <typename T, int RM>
+__device__ __forceinline__ void store_tile(T* dst, long long sr,
+                                           long long sc, int n, int r, int c,
+                                           const T (&v)[RM][4]) {
+#pragma unroll
+  for (int i = 0; i < RM; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      if (r + i < n && c + 8 * j <= r + i) {
+        dst[(r + i) * sr + (c + 8 * j) * sc] = v[i][j];
       }
     }
   }
-  __syncthreads();
+}
 
-  for (int k = 0; k + 1 < n; ++k) {
-    const T* c = col + (k & 1) * n;   // column k, scaled
-    T* cn = col + ((k + 1) & 1) * n;  // column k + 1, scaled in this pass
-    const int k1 = k + 1;
-    // the next pivot: its last update, by every thread alike
-    const T ck1 = c[k1];
-    T p = diag[k1] - ck1 * ck1;
-    p = p < minval ? minval : p;
-    const T d = sqrt(p), inv = T(1) / d;
-    for (int r = k1 + warp; r < n; r += warps) {
-      T* row = a + static_cast<size_t>(r) * n;
-      const T cr = c[r];
-      if (lane == 0) {
-        if (r == k1) {
-          row[k1] = d;
-        } else {
-          const T v = (row[k1] - cr * c[k1]) * inv;
-          row[k1] = v;
-          cn[r] = v;
-        }
-      }
-      if (r > k1 && lane == kWarp - 1) diag[r] -= cr * c[r];
-      // the rest of the row, k + 1 < j < r: four columns a lane at a time,
-      // loads ahead of stores
-      int j = k1 + 1 + lane;
-      for (; j + 3 * kWarp < r; j += 4 * kWarp) {
-        const T r0 = row[j], r1 = row[j + kWarp], r2 = row[j + 2 * kWarp],
-                r3 = row[j + 3 * kWarp];
-        const T c0 = c[j], c1 = c[j + kWarp], c2 = c[j + 2 * kWarp],
-                c3 = c[j + 3 * kWarp];
-        row[j] = r0 - cr * c0;
-        row[j + kWarp] = r1 - cr * c1;
-        row[j + 2 * kWarp] = r2 - cr * c2;
-        row[j + 3 * kWarp] = r3 - cr * c3;
-      }
-      for (; j < r; j += kWarp) row[j] -= cr * c[j];
+// (b) of both kernels: warp ``first`` of ``stride`` walks the tiles of the
+// trailing triangle, rows and columns j0 .. n - 1, of a matrix read from
+// src (element strides sr, sc: the input for the first panel, the output
+// after) and written to dst (tr, tc).  It loads a tile into registers,
+// update(r, c, v) applies the panel's updates to this lane's part of it,
+// and it is stored once; the next tile's loads are issued before the
+// current tile's updates, so they are in flight while it computes.
+template <typename T, typename Update>
+__device__ void trailing(const T* src, long long sr, long long sc, T* dst,
+                         long long tr, long long tc, int n, int j0,
+                         int first, int stride, Update update) {
+  constexpr int RM = kTileRows<T>, TR = 4 * RM;
+  const int lane = threadIdx.x % kWarp;
+  const int ry = lane / 8 * RM, cx = lane % 8;
+  TileWalk<TR> it(j0, n, first);
+  if (it.done()) return;
+  T v[RM][4], next[RM][4];
+  load_tile(src, sr, sc, n, it.row() + ry, it.column() + cx, v);
+  for (;;) {
+    TileWalk<TR> nx = it;
+    nx.advance(stride);
+    if (!nx.done()) {
+      load_tile(src, sr, sc, n, nx.row() + ry, nx.column() + cx, next);
     }
-    __syncthreads();  // column k + 1 and the trailing triangle are done
+    const int r = it.row() + ry, c = it.column() + cx;
+    update(r, c, v);
+    store_tile(dst, tr, tc, n, r, c, v);
+    if (nx.done()) return;
+    it = nx;
+#pragma unroll
+    for (int i = 0; i < RM; ++i) {
+#pragma unroll
+      for (int j = 0; j < 4; ++j) v[i][j] = next[i][j];
+    }
+  }
+}
+
+// A block a matrix; ``nb`` the panel width.  Shared memory: the panel,
+// nb columns of ldp = n | 1 rows (odd: the lanes that copy a row of the
+// panel hit different banks) and kPanelPad, then its nb pivots.
+template <typename T>
+__global__ void __launch_bounds__(kLargeThreads, 2)
+    chol_factor_large_kernel(const T* h, T* l, int n, int nb, T minval) {
+  const size_t off = static_cast<size_t>(blockIdx.x) * n * n;
+  T* a = l + off;
+  const int ldp = n | 1;
+  T* P = block_smem<T>();
+  T* dg = P + nb * ldp + kPanelPad;
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
+  const int warps = blockDim.x / kWarp;
+
+  // zeros above the diagonal
+  for (int r = warp; r < n; r += warps) {
+    for (int c = r + 1 + lane; c < n; c += kWarp) a[row_start(r, n) + c] = T(0);
+  }
+
+  for (int k0 = 0; k0 < n; k0 += nb) {
+    const int w = min(nb, n - k0), j0 = k0 + w;
+    const T* src = k0 == 0 ? h + off : a;
+    // (a) the panel, rows k0 .. n - 1, into shared memory: a warp a row,
+    // a lane a column (w <= 32), every copy in flight at once
+    const int c = k0 + lane;
+    for (int r = k0 + warp; r < n; r += warps) {
+      if (c < j0 && c <= r) {
+        __pipeline_memcpy_async(P + (c - k0) * ldp + r,
+                                src + row_start(r, n) + c, sizeof(T));
+      }
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    for (int k = k0 - 1; k + 1 < j0; ++k) {
+      const bool first = k < k0;  // nothing to apply: finish column k0
+      const int k1 = k + 1;
+      const T* pc = P + max(k - k0, 0) * ldp;  // column k
+      T* pn = P + (k1 - k0) * ldp;             // column k + 1
+      T p = pn[k1];
+      if (!first) p = p - pc[k1] * pc[k1];
+      p = p < minval ? minval : p;  // keeps NaN, unlike fmax
+      const T d = sqrt(p), inv = T(1) / d;
+      for (int r = k1 + tid; r < n; r += blockDim.x) {
+        if (r == k1) {
+          dg[k1 - k0] = d;
+          continue;
+        }
+        T v = pn[r];
+        if (!first) {
+          const T cr = pc[r];
+          v = v - cr * pc[k1];
+          // the panel's later columns, kBatch at a time, loads ahead of
+          // stores: the compiler cannot tell that they never alias
+          const int last = min(r, j0 - 1);
+          for (int j = k1 + 1; j <= last; j += kBatch<T>) {
+            T* pj = P + (j - k0) * ldp + r;
+            T x[kBatch<T>], cj[kBatch<T>];
+#pragma unroll
+            for (int q = 0; q < kBatch<T>; ++q) {
+              if (j + q <= last) {
+                x[q] = pj[q * ldp];
+                cj[q] = pc[j + q];
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < kBatch<T>; ++q) {
+              if (j + q <= last) pj[q * ldp] = x[q] - cr * cj[q];
+            }
+          }
+        }
+        pn[r] = v * inv;
+      }
+      __syncthreads();  // column k + 1 finished, the panel updated by k
+    }
+    // (b) the panel into L, then the trailing triangle
+    for (int r = k0 + warp; r < n; r += warps) {
+      if (c < j0 && c <= r) {
+        a[row_start(r, n) + c] = r == c ? dg[c - k0] : P[(c - k0) * ldp + r];
+      }
+    }
+    trailing(src, n, 1, a, n, 1, n, j0, warp, warps,
+             [&](int r, int c, T (&v)[kTileRows<T>][4]) {
+               // the panel's updates in ascending k, P's column kk holding
+               // L[.][k0 + kk] by row
+               for (int kk = 0; kk < w; ++kk) {
+                 const T* pk = P + kk * ldp;
+                 T cr[kTileRows<T>], cc[4];
+#pragma unroll
+                 for (int i = 0; i < kTileRows<T>; ++i) cr[i] = pk[r + i];
+#pragma unroll
+                 for (int j = 0; j < 4; ++j) cc[j] = pk[c + 8 * j];
+#pragma unroll
+                 for (int i = 0; i < kTileRows<T>; ++i) {
+#pragma unroll
+                   for (int j = 0; j < 4; ++j) {
+                     v[i][j] = v[i][j] - cr[i] * cc[j];
+                   }
+                 }
+               }
+             });
+    __syncthreads();  // the trailing triangle is up to date; P is free
   }
 }
 
@@ -726,80 +907,152 @@ __global__ void chol_solve_large_kernel(const T* __restrict__ l,
   }
 }
 
-// A block a (lane, tangent): blockIdx.x = lane T + tangent.  The running
-// tangent lives in dL's own buffer (through its strides); shared memory
-// holds its diagonal and two buffers each of L's pivot column and of dL's.
+// A block a group of ``group`` tangents of one lane: blockIdx.x = lane G +
+// group index, G = ceil(T / group); ``nb`` the panel width.  The running
+// tangent lives in dL's own buffer (through its strides).  Shared memory:
+// L's panel, then each tangent's panel (nb columns of ldp = n | 1 rows
+// and kPanelPad each), then each tangent's nb pivot tangents.  Warp w
+// takes the trailing tiles of tangent w % group; group divides the warps.
 template <typename T>
-__global__ void chol_factor_jvp_large_kernel(
-    const T* __restrict__ l, View sl, const T* __restrict__ dh, View sdh,
-    T* __restrict__ dl, View sdl, int n, int tangents, T minval) {
-  const int p = blockIdx.x / tangents, tg = blockIdx.x % tangents;
-  const T* a = l + p * sl.lane;  // L
-  const T* src = dh + p * sdh.lane + tg * sdh.tan;
-  T* t = dl + p * sdl.lane + tg * sdl.tan;  // the running tangent, then dL
-  const long long ar = sl.row, ac = sl.col, sr = sdh.row, sc = sdh.col,
-                  tr = sdl.row, tc = sdl.col;
-  T* diag = block_smem<T>();  // the running tangent's diagonal
-  T* dcol = diag + n;         // two buffers: dL's pivot column, by row
-  T* lcol = dcol + 2 * n;     // two buffers: L's pivot column, by row
-  const int lane = threadIdx.x % kWarp, warp = threadIdx.x / kWarp;
+__global__ void __launch_bounds__(kLargeThreads, 2)
+    chol_factor_jvp_large_kernel(const T* l, View sl, const T* dh, View sdh,
+                                 T* dl, View sdl, int n, int tangents,
+                                 int nb, int group, T minval) {
+  const int groups = (tangents + group - 1) / group;
+  const int p = blockIdx.x / groups, t0 = blockIdx.x % groups * group;
+  const int gn = min(group, tangents - t0);  // this block's tangents
+  const T* a = l + p * sl.lane;              // L
+  const T* s0 = dh + p * sdh.lane + t0 * sdh.tan;
+  T* t = dl + p * sdl.lane + t0 * sdl.tan;  // the running tangents, then dL
+  const int ldp = n | 1, span = nb * ldp + kPanelPad;
+  T* Lp = block_smem<T>();
+  T* D = Lp + span;         // tangent g's panel at D + g span
+  T* dg = D + group * span;  // tangent g's pivot tangents at dg + g nb
+  const int tid = threadIdx.x, lane = tid % kWarp, warp = tid / kWarp;
   const int warps = blockDim.x / kWarp;
   const T dmin = sqrt(minval);
 
-  // dH's lower triangle into dL (zeros above), its diagonal into shared
-  // memory, and tangent column 0
-  {
-    const T d = a[0];
-    const T dd = d <= dmin ? T(0) : T(0.5) * src[0] / d;
+  // zeros above the diagonal of each tangent
+  for (int g = 0; g < gn; ++g) {
     for (int r = warp; r < n; r += warps) {
-      for (int c = lane; c < n; c += kWarp) {
-        T v = c <= r ? src[r * sr + c * sc] : T(0);
-        if (c == r) {
-          diag[r] = v;
-          if (r == 0) v = dd;
-        } else if (c == 0 && r > 0) {
-          const T lv = a[r * ar];
-          v = (v - lv * dd) / d;
-          dcol[r] = v;
-          lcol[r] = lv;
-        }
-        t[r * tr + c * tc] = v;
+      for (int c = r + 1 + lane; c < n; c += kWarp) {
+        t[g * sdl.tan + r * sdl.row + c * sdl.col] = T(0);
       }
     }
   }
-  __syncthreads();
 
-  for (int k = 0; k + 1 < n; ++k) {
-    const T* dc = dcol + (k & 1) * n;  // dL's column k
-    const T* lc = lcol + (k & 1) * n;  // L's column k
-    T* dcn = dcol + ((k + 1) & 1) * n;
-    T* lcn = lcol + ((k + 1) & 1) * n;
-    const int k1 = k + 1;
-    // the next pivot's tangent: its last update, by every thread alike
-    const T d = a[k1 * ar + k1 * ac];
-    const T pk = diag[k1] - (dc[k1] * lc[k1] + lc[k1] * dc[k1]);
-    const T dd = d <= dmin ? T(0) : T(0.5) * pk / d;
-    for (int r = k1 + warp; r < n; r += warps) {
-      T* row = t + r * tr;
-      const T drk = dc[r], lrk = lc[r];
-      if (lane == 0) {
-        if (r == k1) {
-          row[k1 * tc] = dd;
-        } else {
-          const T v = row[k1 * tc] - (drk * lc[k1] + lrk * dc[k1]);
-          const T lv = a[r * ar + k1 * ac];
-          const T w = (v - lv * dd) / d;
-          row[k1 * tc] = w;
-          dcn[r] = w;
-          lcn[r] = lv;
+  for (int k0 = 0; k0 < n; k0 += nb) {
+    const int w = min(nb, n - k0), j0 = k0 + w;
+    // the running tangents: dH for the first panel, then dL
+    const T* src = k0 == 0 ? s0 : t;
+    const View ss = k0 == 0 ? sdh : sdl;
+    // (a) L's panel and each tangent's, rows k0 .. n - 1, into shared
+    // memory, a warp a row, a lane a column, every copy in flight at once
+    const int c = k0 + lane;
+    for (int r = k0 + warp; r < n; r += warps) {
+      if (c < j0 && c <= r) {
+        __pipeline_memcpy_async(Lp + (c - k0) * ldp + r,
+                                a + r * sl.row + c * sl.col, sizeof(T));
+        for (int g = 0; g < gn; ++g) {
+          __pipeline_memcpy_async(D + g * span + (c - k0) * ldp + r,
+                                  src + g * ss.tan + r * ss.row + c * ss.col,
+                                  sizeof(T));
         }
       }
-      if (r > k1 && lane == kWarp - 1) diag[r] -= drk * lc[r] + lrk * dc[r];
-      for (int j = k1 + 1 + lane; j < r; j += kWarp) {
-        row[j * tc] -= drk * lc[j] + lrk * dc[j];
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    for (int k = k0 - 1; k + 1 < j0; ++k) {
+      const bool first = k < k0;  // nothing to apply: finish column k0
+      const int k1 = k + 1, kc = max(k - k0, 0) * ldp, kn = (k1 - k0) * ldp;
+      const T* lc = Lp + kc;  // L's column k
+      const T* ln = Lp + kn;  // L's column k + 1
+      const T d = ln[k1];
+      const int left = n - k1;
+      int gd = -1;  // the tangent whose pivot tangent dd is
+      T dd = T(0);
+      for (int e = tid; e < gn * left; e += blockDim.x) {
+        const int g = e / left, r = k1 + e % left;
+        T* dc = D + g * span + kc;  // the tangent's column k
+        T* dn = D + g * span + kn;  // its column k + 1
+        if (g != gd) {
+          // the pivot's tangent: its last update, by every thread alike
+          T pk = dn[k1];
+          if (!first) pk = pk - (dc[k1] * lc[k1] + lc[k1] * dc[k1]);
+          dd = d <= dmin ? T(0) : T(0.5) * pk / d;
+          gd = g;
+        }
+        if (r == k1) {
+          dg[g * nb + k1 - k0] = dd;
+          continue;
+        }
+        T v = dn[r];
+        if (!first) {
+          const T drk = dc[r], lrk = lc[r];
+          v = v - (drk * lc[k1] + lrk * dc[k1]);
+          // the panel's later columns, as in the factor
+          const int last = min(r, j0 - 1);
+          for (int j = k1 + 1; j <= last; j += kBatch<T>) {
+            T* dj = D + g * span + (j - k0) * ldp + r;
+            T x[kBatch<T>], u[kBatch<T>];
+#pragma unroll
+            for (int q = 0; q < kBatch<T>; ++q) {
+              if (j + q <= last) {
+                x[q] = dj[q * ldp];
+                u[q] = drk * lc[j + q] + lrk * dc[j + q];
+              }
+            }
+#pragma unroll
+            for (int q = 0; q < kBatch<T>; ++q) {
+              if (j + q <= last) dj[q * ldp] = x[q] - u[q];
+            }
+          }
+        }
+        dn[r] = (v - ln[r] * dd) / d;
+      }
+      __syncthreads();  // column k + 1 finished, the panels updated by k
+    }
+    // (b) the panels into dL, then the trailing triangles
+    for (int r = k0 + warp; r < n; r += warps) {
+      if (c < j0 && c <= r) {
+        for (int g = 0; g < gn; ++g) {
+          t[g * sdl.tan + r * sdl.row + c * sdl.col] =
+              r == c ? dg[g * nb + c - k0] : D[g * span + (c - k0) * ldp + r];
+        }
       }
     }
-    __syncthreads();  // tangent column k + 1 and the trailing triangle
+    const int g = warp % group;
+    if (g < gn) {
+      const T* dp = D + g * span;
+      trailing(src + g * ss.tan, ss.row, ss.col, t + g * sdl.tan, sdl.row,
+               sdl.col, n, j0, warp / group, warps / group,
+               [&](int r, int c, T (&v)[kTileRows<T>][4]) {
+                 for (int kk = 0; kk < w; ++kk) {
+                   const T* lk = Lp + kk * ldp;
+                   const T* dk = dp + kk * ldp;
+                   T lr[kTileRows<T>], dr[kTileRows<T>], lc[4], dc[4];
+#pragma unroll
+                   for (int i = 0; i < kTileRows<T>; ++i) {
+                     lr[i] = lk[r + i];
+                     dr[i] = dk[r + i];
+                   }
+#pragma unroll
+                   for (int j = 0; j < 4; ++j) {
+                     lc[j] = lk[c + 8 * j];
+                     dc[j] = dk[c + 8 * j];
+                   }
+#pragma unroll
+                   for (int i = 0; i < kTileRows<T>; ++i) {
+#pragma unroll
+                     for (int j = 0; j < 4; ++j) {
+                       v[i][j] = v[i][j] - (dr[i] * lc[j] + lr[i] * dc[j]);
+                     }
+                   }
+                 }
+               });
+    }
+    __syncthreads();  // the trailing triangles are up to date
   }
 }
 
@@ -939,10 +1192,10 @@ int solve_jvp(const T* l, const T* dl, const T* x, const T* db, T* dx,
 
 // The n > 128 kernels: a block an item, ``blocks`` of them.
 template <typename T>
-int factor_large(const T* h, T* l, int n, int batch, int threads, int smem,
-                 cudaStream_t stream) {
+int factor_large(const T* h, T* l, int n, int batch, int threads, int panel,
+                 int smem, cudaStream_t stream) {
   return launch(chol_factor_large_kernel<T>, batch, 1, threads, smem, stream,
-                h, l, n, T(1e-15));
+                h, l, n, panel, T(1e-15));
 }
 
 template <typename T>
@@ -954,12 +1207,12 @@ int solve_large(const T* l, const T* rhs, T* x, int n, int batch, int k,
 
 template <typename T>
 int factor_jvp_large(const T* l, const T* dh, T* dl, const long long* s,
-                     int n, int lanes, int tangents, int threads, int smem,
-                     cudaStream_t stream) {
-  return launch(chol_factor_jvp_large_kernel<T>, lanes * tangents, 1,
-                threads, smem, stream, l, matrix_view(s), dh,
-                tangent_view(s + 3), dl, tangent_view(s + 7), n, tangents,
-                T(1e-15));
+                     int n, int lanes, int tangents, int threads, int panel,
+                     int group, int smem, cudaStream_t stream) {
+  const int groups = (tangents + group - 1) / group;
+  return launch(chol_factor_jvp_large_kernel<T>, lanes * groups, 1, threads,
+                smem, stream, l, matrix_view(s), dh, tangent_view(s + 3), dl,
+                tangent_view(s + 7), n, tangents, panel, group, T(1e-15));
 }
 
 template <typename T>
@@ -1036,13 +1289,15 @@ int mi_chol_solve_jvp_f64(const double* l, const double* dl,
 }
 
 int mi_chol_factor_large_f32(const float* h, float* l, int n, int batch,
-                             int threads, int smem, cudaStream_t stream) {
-  return factor_large(h, l, n, batch, threads, smem, stream);
+                             int threads, int panel, int smem,
+                             cudaStream_t stream) {
+  return factor_large(h, l, n, batch, threads, panel, smem, stream);
 }
 
 int mi_chol_factor_large_f64(const double* h, double* l, int n, int batch,
-                             int threads, int smem, cudaStream_t stream) {
-  return factor_large(h, l, n, batch, threads, smem, stream);
+                             int threads, int panel, int smem,
+                             cudaStream_t stream) {
+  return factor_large(h, l, n, batch, threads, panel, smem, stream);
 }
 
 int mi_chol_solve_large_f32(const float* l, const float* rhs, float* x, int n,
@@ -1059,18 +1314,19 @@ int mi_chol_solve_large_f64(const double* l, const double* rhs, double* x,
 
 int mi_chol_factor_jvp_large_f32(const float* l, const float* dh, float* dl,
                                  const long long* strides, int n, int lanes,
-                                 int tangents, int threads, int smem,
-                                 cudaStream_t stream) {
+                                 int tangents, int threads, int panel,
+                                 int group, int smem, cudaStream_t stream) {
   return factor_jvp_large(l, dh, dl, strides, n, lanes, tangents, threads,
-                          smem, stream);
+                          panel, group, smem, stream);
 }
 
 int mi_chol_factor_jvp_large_f64(const double* l, const double* dh,
                                  double* dl, const long long* strides, int n,
                                  int lanes, int tangents, int threads,
-                                 int smem, cudaStream_t stream) {
+                                 int panel, int group, int smem,
+                                 cudaStream_t stream) {
   return factor_jvp_large(l, dh, dl, strides, n, lanes, tangents, threads,
-                          smem, stream);
+                          panel, group, smem, stream);
 }
 
 int mi_chol_solve_jvp_large_f32(const float* l, const float* dl,

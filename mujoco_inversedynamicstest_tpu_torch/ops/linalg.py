@@ -26,14 +26,18 @@ first use, into ``build/torch_kernels/`` and bound through ``ctypes``.  They
 read and write PyTorch's own (B, n, n) layout.  Up to n = ``N_MAX`` each
 matrix is one warp's, in a shared-memory tile; the launch shape comes from
 ``launch_geometry`` (and ``jvp_launch_geometry``).  Above it four more
-kernels of the same file take the same functions, one block of several
-warps a matrix (a solve column, a tangent), in place in device memory:
-``chol_factor_large``, ``chol_solve_large``, ``chol_factor_jvp_large`` and
+kernels of the same file take the same functions, a block of 8 warps a
+matrix (a solve column, a group of tangents): ``chol_factor_large``,
+``chol_solve_large``, ``chol_factor_jvp_large`` and
 ``chol_solve_jvp_large``, whose launch shape comes from
-``large_launch_geometry``.  They replace no Pallas kernel: above n = 128
-the JAX package calls ``jnp.linalg.cholesky`` and ``cho_solve``.  Dispatch
-is by device and n alone; each of the four counts its own launches and
-shapes.
+``large_launch_geometry``.  The factor and its JVP are panel-blocked: a
+panel of up to 32 columns is factored in shared memory, then the trailing
+triangle is updated tile by tile in registers, each element taking the
+panel's updates in ascending pivot order, so they stay bit-equal to the
+plain versions; the solves work in place in device memory.  They replace
+no Pallas kernel: above n = 128 the JAX package calls
+``jnp.linalg.cholesky`` and ``cho_solve``.  Dispatch is by device and n
+alone; each of the four counts its own launches and shapes.
 """
 
 from __future__ import annotations
@@ -61,8 +65,7 @@ SMEM_MAX = 232_448
 MATS_PER_BLOCK = 4
 # the most warps a JVP block runs, each on its own (lane, tangent) items
 JVP_WARPS = 8
-# warps a block of the n > N_MAX kernels, one item (matrix, column,
-# tangent) a block
+# warps a block of the n > N_MAX kernels (csrc/cholesky.cu: kLargeThreads)
 LARGE_WARPS = 8
 
 _SRC = Path(__file__).resolve().parent.parent / "csrc" / "cholesky.cu"
@@ -252,9 +255,9 @@ def _entry(name: str, dtype: torch.dtype):
       "chol_solve": [p, p, p, i, i, i, i, i, i, p],
       "chol_factor_jvp": [p, p, p, s, i, i, i, i, i, i, i, p],
       "chol_solve_jvp": [p, p, p, p, p, s, i, i, i, i, i, i, i, i, p],
-      "chol_factor_large": [p, p, i, i, i, i, p],
+      "chol_factor_large": [p, p, i, i, i, i, i, p],
       "chol_solve_large": [p, p, p, i, i, i, i, i, p],
-      "chol_factor_jvp_large": [p, p, p, s, i, i, i, i, i, p],
+      "chol_factor_jvp_large": [p, p, p, s, i, i, i, i, i, i, i, p],
       "chol_solve_jvp_large": [p, p, p, p, p, s, i, i, i, i, i, i, p],
   }[name]
   fn.restype = i
@@ -336,18 +339,36 @@ def jvp_launch_geometry(n: int, dtype: torch.dtype, tangents: int,
 
 class LargeGeometry(NamedTuple):
   """Launch shape of an n > N_MAX kernel: blocks, threads a block, dynamic
-  shared memory bytes a block."""
+  shared memory bytes a block, and, for the factor and its JVP, the panel
+  width and the tangents a block (1 for the others)."""
   blocks: int
   threads: int
   smem: int
+  panel: int = 1
+  group: int = 1
 
 
-# vectors of n elements in a block's shared memory, by kernel: the
-# factor's running diagonal and two pivot columns; the solve's right-hand
-# side and solution; the factor JVP's tangent diagonal and two columns
-# each of L and dL; the solve JVP's x, y, t, u and v
-_LARGE_VECTORS = {"chol_factor": 3, "chol_solve": 2, "chol_factor_jvp": 5,
-                  "chol_solve_jvp": 5}
+# vectors of n in a solve block's shared memory: the solve's right-hand
+# side and solution; the solve JVP's x, y, t, u and v
+_LARGE_VECTORS = {"chol_solve": 2, "chol_solve_jvp": 5}
+# the factor's and its JVP's panel widths, widest first
+LARGE_PANELS = (32, 16, 8, 4, 2, 1)
+# elements past each panel in shared memory (csrc/cholesky.cu: kPanelPad)
+_PANEL_PAD = 32
+# shared memory a block may use so that two blocks share an SM: the SM's
+# 228 kB less 1 kB reserved a block, halved
+SMEM_HALF = (233_472 - 2 * 1024) // 2
+
+
+def _panel_smem(kernel: str, n: int, size: int, panel: int,
+                group: int) -> int:
+  """Shared memory of a factor (JVP) block: the panel (L's and each of the
+  group's tangents'), ``panel`` columns of n | 1 rows and the pad each, and
+  the panel's pivots (each tangent's)."""
+  span = panel * (n | 1) + _PANEL_PAD
+  if kernel == "chol_factor":
+    return (span + panel) * size
+  return ((1 + group) * span + group * panel) * size
 
 
 def large_launch_geometry(kernel: str, n: int, dtype: torch.dtype,
@@ -356,21 +377,50 @@ def large_launch_geometry(kernel: str, n: int, dtype: torch.dtype,
   """Launch shape of the n > N_MAX kernel of ``kernel`` ("chol_factor",
   "chol_solve", "chol_factor_jvp" or "chol_solve_jvp") for ``lanes``
   matrices, ``tangents`` tangents a lane and ``cols`` right-hand-side
-  columns: one block of ``LARGE_WARPS`` warps an item (a matrix; a
-  (matrix, column); a (lane, tangent); a (lane, tangent, column)), with a
-  few vectors of n in shared memory (``_LARGE_VECTORS``).  The matrices
-  stay in device memory, so nothing but those vectors bounds n: in fp64
-  the factor runs up to n = 9685 and the JVPs to 5811, and a launch
-  whose vectors outgrow ``SMEM_MAX`` is refused here."""
-  smem = _LARGE_VECTORS[kernel] * n * dtype.itemsize
-  if smem > SMEM_MAX:
-    raise ValueError(f"{kernel} at n={n} {dtype} needs {smem} bytes of "
-                     f"shared memory a block, over {SMEM_MAX}")
-  blocks = (lanes * (tangents if kernel.endswith("_jvp") else 1)
-            * (cols if kernel.startswith("chol_solve") else 1))
-  if blocks > 2**31 - 1:
-    raise ValueError(f"{kernel}: {blocks} blocks, over the grid's 2^31 - 1")
-  return LargeGeometry(blocks, LARGE_WARPS * 32, smem)
+  columns.
+
+  A block has ``LARGE_WARPS`` warps.  The factor: a block a matrix,
+  panel-blocked (csrc/cholesky.cu); its JVP: a block a group of tangents
+  of one lane, which share L's panel.  The panel width is the widest of
+  ``LARGE_PANELS``, and then the group the largest power of two up to
+  min(T, warps), with which two blocks share an SM (``SMEM_HALF``); where
+  even nb = 1 does not allow that, the widest that fits one block
+  (``SMEM_MAX``).  The factor takes nb = 32 up to n = 901 in fp32 and 449
+  in fp64 (the hammock's n = 324 in fp32: 42 kB), its JVP nb = 32 up to n
+  = 449 in fp32 and nb = 16 from n = 224 in fp64 (the hammock's (324, 669
+  tangents) fp64: nb = 16, one tangent a block, 84 kB).  In fp64 the
+  factor runs up to n = 29023 and the JVP to 14495 (fp32: 58079 and
+  29023).  The solves: a block an item (a (matrix, column); a (lane,
+  tangent, column)), with a few vectors of n in shared memory
+  (``_LARGE_VECTORS``).  A launch that does not fit ``SMEM_MAX`` (the
+  factor's at nb = 1) is refused here."""
+  size = dtype.itemsize
+  if kernel in _LARGE_VECTORS:
+    blocks = lanes * cols * (tangents if kernel.endswith("_jvp") else 1)
+    geometry = LargeGeometry(blocks, LARGE_WARPS * 32,
+                             _LARGE_VECTORS[kernel] * n * size)
+  else:
+    most = (SMEM_HALF if _panel_smem(kernel, n, size, 1, 1) <= SMEM_HALF
+            else SMEM_MAX)
+    panel = next((nb for nb in LARGE_PANELS
+                  if _panel_smem(kernel, n, size, nb, 1) <= most), 1)
+    group = 1
+    while (kernel == "chol_factor_jvp"
+           and 2 * group <= min(tangents, LARGE_WARPS)
+           and _panel_smem(kernel, n, size, panel, 2 * group) <= most):
+      group *= 2
+    blocks = lanes * (-(-tangents // group)
+                      if kernel == "chol_factor_jvp" else 1)
+    geometry = LargeGeometry(blocks, LARGE_WARPS * 32,
+                             _panel_smem(kernel, n, size, panel, group),
+                             panel, group)
+  if geometry.smem > SMEM_MAX:
+    raise ValueError(f"{kernel} at n={n} {dtype} needs {geometry.smem} "
+                     f"bytes of shared memory a block, over {SMEM_MAX}")
+  if geometry.blocks > 2**31 - 1:
+    raise ValueError(f"{kernel}: {geometry.blocks} blocks, over the grid's "
+                     "2^31 - 1")
+  return geometry
 
 
 def _suffix(dtype: torch.dtype) -> str:
@@ -450,7 +500,7 @@ def _factor_kernel(h: torch.Tensor, block: bool) -> torch.Tensor:
     return l
   if block:
     g = large_launch_geometry("chol_factor", n, h.dtype, bsz)
-    shape = (n, bsz, g.threads, g.smem)
+    shape = (n, bsz, g.threads, g.panel, g.smem)
   else:
     ld, per_block, smem = launch_geometry(n, h.dtype)
     shape = (n, ld, bsz, per_block, smem)
@@ -566,7 +616,7 @@ def _factor_jvp_kernel(l: torch.Tensor, dh: torch.Tensor,
   if lanes and nt:
     if block:
       g = large_launch_geometry("chol_factor_jvp", n, l.dtype, lanes, nt)
-      shape = (g.threads, g.smem)
+      shape = (g.threads, g.panel, g.group, g.smem)
     else:
       g = jvp_launch_geometry(n, l.dtype, nt)
       shape = (g.lanes, g.warps, g.buffers, g.smem)

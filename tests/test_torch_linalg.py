@@ -193,32 +193,68 @@ def test_factor_shape_check_takes_n_above_128(n):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_large_launch_geometry_fits_hopper(dtype):
-  """The n > 128 kernels: a block of LARGE_WARPS warps an item (a matrix,
-  a (matrix, column), a (lane, tangent[, column])), a few vectors of n in
-  shared memory, within what a Hopper block may use for every n in
-  129..512 and the JVPs at 1, 3, 75 and 669 tangents a lane."""
+  """The n > 128 kernels: a block of LARGE_WARPS warps an item, within
+  what a Hopper block may use, for every n in 129..512, the JVPs at 1, 3,
+  75 and 669 tangents a lane.  The solves: a (matrix, column) or a (lane,
+  tangent, column) a block, a few vectors of n in shared memory.  The
+  factor and its JVP, panel-blocked: a matrix, or a group of tangents of
+  one lane (a power of two up to min(T, warps)), a block, with a panel of
+  LARGE_PANELS columns (L's and each tangent's for the JVP) of n | 1 rows
+  and 32 more in shared memory; two blocks an SM up to n = 512.  Every n
+  that the kernels' first form took (whose shared memory held 3 (factor)
+  or 5 (JVP) vectors of n) is still taken, with a narrower panel."""
+  size = dtype.itemsize
+
+  def panels(nb, group):
+    return group * (nb * (n | 1) + 32 + nb)
+
   for n in range(129, 513):
     for lanes in (1, 256):
       g = linalg.large_launch_geometry("chol_factor", n, dtype, lanes)
-      assert g == (lanes, 256, 3 * n * dtype.itemsize)
+      assert g.panel in linalg.LARGE_PANELS and g.group == 1
+      assert g == (lanes, 256, panels(g.panel, 1) * size, g.panel, 1)
+      assert g.smem <= linalg.SMEM_HALF
       for cols in (1, 3):
         g = linalg.large_launch_geometry("chol_solve", n, dtype, lanes,
                                          cols=cols)
-        assert g == (lanes * cols, 256, 2 * n * dtype.itemsize)
+        assert g == (lanes * cols, 256, 2 * n * dtype.itemsize, 1, 1)
       for t in (1, 3, 75, 669):
         g = linalg.large_launch_geometry("chol_factor_jvp", n, dtype, lanes,
                                          t)
-        assert g == (lanes * t, 256, 5 * n * dtype.itemsize)
+        assert g.panel in linalg.LARGE_PANELS
+        assert g.group & (g.group - 1) == 0 and g.group <= min(t, 8)
+        assert g == (lanes * -(-t // g.group), 256,
+                     (g.panel * (n | 1) + 32 + panels(g.panel, g.group))
+                     * size, g.panel, g.group)
+        assert g.smem <= linalg.SMEM_HALF
         g = linalg.large_launch_geometry("chol_solve_jvp", n, dtype, lanes,
                                          t, 3)
-        assert g == (lanes * t * 3, 256, 5 * n * dtype.itemsize)
+        assert g == (lanes * t * 3, 256, 5 * n * dtype.itemsize, 1, 1)
         assert g.smem <= 232_448
-  # the hammock's linearization: 4 lanes x 669 tangents at n = 324, fp64
+  # the hammock's fleet factor, (256, 324) fp32, and its linearization, 4
+  # lanes x 669 tangents at n = 324, fp64
   assert linalg.large_launch_geometry(
-      "chol_factor_jvp", 324, torch.float64, 4, 669) == (2676, 256, 12_960)
-  # where the vectors outgrow shared memory, the launch is refused
+      "chol_factor", 324, torch.float32, 256) == (256, 256, 41_856, 32, 1)
+  assert linalg.large_launch_geometry(
+      "chol_factor_jvp", 324, torch.float64, 4, 669) == (2676, 256, 83_840,
+                                                         16, 1)
+  # every n the first form took, up to its limit, is taken: the panel
+  # narrows instead (to nb = 1 at the largest)
+  for kernel, vectors in (("chol_factor", 3), ("chol_factor_jvp", 5)):
+    old = 232_448 // (vectors * size)
+    for n in range(129, old + 1):
+      g = linalg.large_launch_geometry(kernel, n, dtype, 1, 3)
+      assert g.smem <= 232_448 and g.panel >= 1
+    assert linalg.large_launch_geometry(kernel, old, dtype, 1).panel < 32
+  # where even a panel of one column outgrows shared memory, the launch is
+  # refused
   with pytest.raises(ValueError, match="shared memory"):
-    linalg.large_launch_geometry("chol_factor_jvp", 6000, torch.float64, 1)
+    linalg.large_launch_geometry("chol_factor", 232_448 // size, dtype, 1)
+  with pytest.raises(ValueError, match="shared memory"):
+    linalg.large_launch_geometry("chol_factor_jvp", 232_448 // (2 * size),
+                                 dtype, 1)
+  with pytest.raises(ValueError, match="shared memory"):
+    linalg.large_launch_geometry("chol_solve_jvp", 6000, torch.float64, 1)
 
 
 def _spd_np(rng, b, n):
